@@ -1,0 +1,524 @@
+#!/usr/bin/env python3
+"""On-card smoke run of seldon_core_tpu_torch (one NVIDIA H100).
+
+    python3 chip_smoke.py
+
+Drives the port's main path on the card and fails (non-zero exit, no
+result line) if any phase fails:
+
+1. Device: the card's name and power limit (nvidia-smi) and torch's view.
+2. Build: compiles every CUDA kernel of the path from ``ops/csrc``.
+3. Kernel vs plain: each kernel against its plain PyTorch version on the
+   same inputs, at the shapes the serving path gives it, with times
+   (CUDA events), the PyTorch library call as a yardstick, and the bound.
+4. Small model on the card: the continuous batcher's greedy and seeded
+   tokens equal ``DecoderLM.generate`` on the same device and weights.
+5. Serve: the ``llm-1.26b`` configuration (full width, random weights from
+   seed 0) behind the REST microservice on CUDA; concurrent greedy and
+   seeded requests across the prefill buckets; checks response shapes,
+   repeatability, and that every prefill dispatch went through the flash
+   kernel (launch counters reset just before, read just after); prints
+   tokens/s, TTFT p50 and peak device memory; then compares full-width
+   prefill logits with the kernel against the plain attention.
+6. Model: full-width prefill time per bucket, and a decode step's wall
+   time beside its device-busy time (torch.profiler) and weight-read bound.
+7. The ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+
+Exits 2 when CUDA is unavailable, 1 on any failure.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import http.client
+import json
+import os
+import socket
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+import traceback
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 CUDA
+# cores, HBM3 bandwidth
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES_S = 3.35e12
+
+# llm-1.26b: the flagship generate configuration of the JAX package's
+# benchmark (seldon_core_tpu/modelbench.py, "llm-1.26b")
+LLM_1_26B = {
+    "vocab_size": 32000, "d_model": 2048, "n_layers": 24, "n_heads": 16,
+    "n_kv_heads": 8, "d_ff": 5632, "max_seq": 1024, "residual_scale": 0.05,
+    "dtype": "bfloat16", "seed": 0,
+}
+
+# Tolerances, kernel against its plain version on the same inputs:
+#  * float32: the two differ only in summation order and in exp/scale
+#    rounding, ~1e-6 relative over up to 1024 keys;
+#  * bfloat16: both round an f32 result to bf16 (a different summation
+#    order may flip the last bit: one ulp, 2**-6 at |o| < 4), and the
+#    kernel feeds the tensor cores bf16 probabilities (relative 2**-9 per
+#    weight, as FlashAttention does): two ulps at |o| < 4.
+TOL = {"float32": 5e-5, "bfloat16": 2.0 ** -5}
+# Full-width prefill logits, kernel vs plain attention in the same bf16
+# model: the attention outputs may differ by a bf16 ulp per layer, and
+# that noise compounds over 24 layers into unit-scale logits.
+LOGITS_TOL = 0.25
+TOP1_MIN_AGREEMENT = 0.75
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_device():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi unavailable"
+    log(card)  # the card's name and power limit, as nvidia-smi prints them
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device cuda:0 {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    # parity phases compare in true float32: no TF32 in matmuls or convs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("[device] allow_tf32 matmul=False cudnn=False")
+    return card
+
+
+def phase_build():
+    from seldon_core_tpu_torch.ops import _build, flash_attention
+
+    t0 = time.perf_counter()
+    flash_attention.build()
+    dt = time.perf_counter() - t0
+    lib = _build.library_path("flash_attention.cu")
+    log(f"[build] flash_attention.cu -> {os.path.relpath(lib, HERE)} in {dt:.2f} s")
+    ptxas = lib.with_name(lib.stem + ".ptxas.txt")
+    if ptxas.exists():
+        for line in ptxas.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {line.strip()}")
+
+
+def _prefill_like(b, h, kv, t, dh, dtype, gen):
+    """q/k/v laid out as DecoderLM.prefill hands them to attention():
+    head-transposed views of [B, T, heads*Dh] projections."""
+    import torch
+
+    q = torch.randn(b, t, h * dh, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, t, kv * dh, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, t, kv * dh, generator=gen, device="cuda").to(dtype)
+    return (q.view(b, t, h, dh).transpose(1, 2),
+            k.view(b, t, kv, dh).transpose(1, 2),
+            v.view(b, t, kv, dh).transpose(1, 2))
+
+
+def _bound(b, h, kv, t, dh, dtype_name, causal=True, kv_len=None):
+    """Least time for the work: max(FLOPs this input needs / peak for its
+    type, bytes of q, k, v read once and o written once / HBM rate)."""
+    limit = t if kv_len is None else min(t, kv_len)
+    keys = sum(min(i + 1, limit) for i in range(t)) if causal else t * limit
+    flops = 4.0 * b * h * dh * keys  # q.k and p.v, 2 FLOPs per multiply-add
+    item = 2 if dtype_name == "bfloat16" else 4
+    nbytes = item * dh * t * b * (2 * h + 2 * kv)
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_kernels():
+    import torch
+    import torch.nn.functional as F
+
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    # (label, B, H, KV, T, Dh, dtype, kv_len): the serving path's shapes
+    # (llm-1.26b heads, every prefill bucket, batched admissions m = 4
+    # and 8), plus ragged T with a key-length mask, head dim 64, and the
+    # float32 path
+    cases = [
+        ("b1_t32", 1, 16, 8, 32, 128, torch.bfloat16, None),
+        ("b1_t128", 1, 16, 8, 128, 128, torch.bfloat16, None),
+        ("b1_t512", 1, 16, 8, 512, 128, torch.bfloat16, None),
+        ("b1_t1024", 1, 16, 8, 1024, 128, torch.bfloat16, None),
+        ("b4_t128", 4, 16, 8, 128, 128, torch.bfloat16, None),
+        ("b8_t512", 8, 16, 8, 512, 128, torch.bfloat16, None),
+        ("bf16_ragged_t130_kvlen100", 1, 4, 2, 130, 128, torch.bfloat16, 100),
+        ("bf16_b2_t200_dh64", 2, 4, 1, 200, 64, torch.bfloat16, None),
+        ("f32_b2_t256_dh64", 2, 4, 4, 256, 64, torch.float32, None),
+        ("f32_ragged_t130_kvlen100", 1, 4, 2, 130, 128, torch.float32, 100),
+    ]
+    results = {}
+    for label, b, h, kv, t, dh, dt, kv_len in cases:
+        q, k, v = _prefill_like(b, h, kv, t, dh, dt, gen)
+        out = fa.flash_attention_cuda(q, k, v, kv_len=kv_len, causal=True)
+        torch.cuda.synchronize()
+        ref = fa.attention_plain(q, k, v, kv_len=kv_len, causal=True)
+        err = (out.float() - ref.float()).abs().max().item()
+        dname = "bfloat16" if dt == torch.bfloat16 else "float32"
+        tol = TOL[dname]
+        ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, kv_len=kv_len, causal=True))
+        plain_ms = time_ms(lambda: fa.attention_plain(q, k, v, kv_len=kv_len, causal=True), iters=5)
+        library_ms = None
+        if kv_len is None:
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+        bound_ms, bound_by = _bound(b, h, kv, t, dh, dname, kv_len=kv_len)
+        ok = err <= tol
+        log(f"[kernel] flash_attention {label} B={b} H={h} KV={kv} T={t} Dh={dh} {dname} "
+            f"kv_len={kv_len} max_abs_err={err:.3e} tol={tol:.3e} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={library_ms if library_ms is None else round(library_ms, 4)} "
+            f"bound_ms={bound_ms:.4f} ({bound_by}) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_attention {label}: max_abs_err {err} > {tol}")
+        results[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"[kernel] flash_attention launches in this phase: {fa.LAUNCHES['flash_attention']}")
+    return results
+
+
+def phase_small_model():
+    """The batcher's tokens equal DecoderLM.generate on the card (float32,
+    Dh 64 so the prefill runs the kernel), greedy and seeded."""
+    import torch
+
+    from seldon_core_tpu_torch.models.llm import DecoderLM
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+    from seldon_core_tpu_torch.serving.continuous import ContinuousBatcher
+
+    cfg = dict(vocab_size=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2,
+               d_ff=512, max_seq=128, dtype="float32")
+    model = DecoderLM(**cfg)
+    params = model.init_params(0, device="cuda")
+    before = fa.LAUNCHES["flash_attention"]
+    b = ContinuousBatcher(model, params, slots=4, prefill_buckets=(32, 64),
+                          steps_per_poll=4)
+    try:
+        prompts = [[3, 17, 42, 99, 7], list(range(1, 40)), [5] * 12]
+        for temp, seed in ((0.0, 0), (0.9, 11)):
+            futs = [b.submit(p, max_new_tokens=16, temperature=temp, seed=seed) for p in prompts]
+            got = [f.result(timeout=300) for f in futs]
+            for p, g in zip(prompts, got):
+                ref = model.generate(
+                    params, torch.tensor([p], device="cuda"), 16,
+                    temperature=temp, seed=seed,
+                )[0].tolist()
+                if temp == 0.0 and g != ref:
+                    raise AssertionError(f"batcher greedy {g} != generate {ref}")
+                if len(g) != len(p) + 16 or g[: len(p)] != p:
+                    raise AssertionError(f"malformed batcher output {g}")
+        again = b.submit(prompts[0], max_new_tokens=16, temperature=0.9, seed=11).result(timeout=300)
+        if again != got[0]:
+            raise AssertionError("seeded request not reproducible on the card")
+    finally:
+        b.close()
+    launched = fa.LAUNCHES["flash_attention"] - before
+    if launched <= 0:
+        raise AssertionError("small model prefill did not launch the flash kernel")
+    log(f"[small] batcher == generate (greedy), seeded repeat identical; "
+        f"flash launches {launched}")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _post(port: int, body: dict, timeout: float = 600.0):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", "/predict", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def phase_serve():
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch import microservice, wrapper
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as model_dir:
+        with open(os.path.join(model_dir, "jax_config.json"), "w") as f:
+            json.dump({"family": "llm", "config": LLM_1_26B}, f)
+        params = [
+            {"name": "model_uri", "value": model_dir, "type": "STRING"},
+            {"name": "device", "value": "cuda", "type": "STRING"},
+            {"name": "slots", "value": "8", "type": "INT"},
+            {"name": "steps_per_poll", "value": "16", "type": "INT"},
+            {"name": "pipeline_depth", "value": "3", "type": "INT"},
+            {"name": "warmup_prompt_lens", "value": "20,128,300,500,900", "type": "STRING"},
+            {"name": "warmup_max_new_tokens", "value": "64", "type": "INT"},
+        ]
+        t0 = time.perf_counter()
+        user = microservice.build_user_object(
+            "seldon_core_tpu_torch.servers.generateserver.GenerateServer", json.dumps(params)
+        )
+        user.load()  # what the CLI does before it listens: load + warm
+        log(f"[serve] llm-1.26b loaded and warmed in {time.perf_counter() - t0:.1f} s "
+            f"({user._model.n_params() / 1e9:.3f} B params, bf16)")
+        app = wrapper.get_rest_microservice(user)
+        port = _free_port()
+        loop = asyncio.new_event_loop()
+        listening = threading.Event()
+
+        def run_server():
+            asyncio.set_event_loop(loop)
+            loop.run_until_complete(app.start("127.0.0.1", port))
+            listening.set()
+            loop.run_forever()
+
+        server = threading.Thread(target=run_server, name="rest", daemon=True)
+        server.start()
+        if not listening.wait(60):
+            raise AssertionError("REST server did not start")
+        try:
+            rs = np.random.RandomState(0)
+            vocab = LLM_1_26B["vocab_size"]
+
+            def prompt(n):
+                return rs.randint(0, vocab, n).tolist()
+
+            g20, s20 = prompt(20), prompt(20)
+            # the same two requests alone, before and after a mixed wave:
+            # in the same batch composition bf16 decode is deterministic,
+            # so the repeat must give identical tokens
+            probe = [("greedy_20", g20, 0.0, 0), ("seeded_20", s20, 1.0, 3)]
+            mixed = [
+                ("mixed_greedy_20", g20, 0.0, 0),
+                ("greedy_128", prompt(128), 0.0, 0),
+                ("seeded_500", prompt(500), 0.8, 7),
+                ("greedy_900", prompt(900), 0.0, 0),
+                ("mixed_seeded_20", s20, 1.0, 3),
+                ("greedy_300", prompt(300), 0.0, 0),
+                ("greedy_24", prompt(24), 0.0, 0),
+                ("greedy_30", prompt(30), 0.0, 0),
+            ]
+            max_new = 64
+            b = user.batcher
+            stats0 = dict(b.stats)
+            b.slo_recent.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.LAUNCHES["flash_attention"] = 0  # count the main path only
+
+            def fire(wave):
+                out = {}
+
+                def one(item):
+                    label, toks, temp, seed = item
+                    out[label] = _post(port, {"jsonData": {
+                        "prompt_tokens": toks, "max_new_tokens": max_new,
+                        "temperature": temp, "seed": seed}})
+
+                threads = [threading.Thread(target=one, args=(it,)) for it in wave]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(600)
+                return out
+
+            t_serve = time.perf_counter()
+            results = [fire(probe), fire(mixed), fire(probe)]
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t_serve
+            launches = fa.LAUNCHES["flash_attention"]
+            peak = torch.cuda.max_memory_allocated()
+            prefills = b.stats["prefill_steps"] - stats0["prefill_steps"]
+            n_req = 0
+            gen_tokens = 0
+            for wave, res in zip((probe, mixed, probe), results):
+                for label, toks, _temp, _seed in wave:
+                    status, body = res[label]
+                    if status != 200:
+                        raise AssertionError(f"{label}: HTTP {status} {body}")
+                    out = body["jsonData"]["tokens"]
+                    if len(out) != 1 or len(out[0]) != len(toks) + max_new \
+                            or out[0][: len(toks)] != toks \
+                            or not all(0 <= t < vocab for t in out[0]):
+                        raise AssertionError(f"{label}: malformed tokens")
+                    n_req += 1
+                    gen_tokens += max_new
+            first, _mix, again = results
+            for label in ("greedy_20", "seeded_20"):
+                if first[label][1]["jsonData"]["tokens"] != again[label][1]["jsonData"]["tokens"]:
+                    raise AssertionError(f"{label}: repeated request gave other tokens")
+            log(f"[serve] {n_req} REST requests OK; repeated greedy and seeded requests identical")
+            for label in ("greedy_20", "seeded_20"):
+                a = first[label][1]["jsonData"]["tokens"][0][20:]
+                m = results[1]["mixed_" + label][1]["jsonData"]["tokens"][0][20:]
+                same = next((i for i, (x, y) in enumerate(zip(a, m)) if x != y), len(a))
+                log(f"[serve] {label} alone vs inside the mixed wave: first {same} of "
+                    f"{len(a)} tokens equal (bf16 rounding depends on batch composition)")
+            layers = LLM_1_26B["n_layers"]
+            log(f"[serve] prefill dispatches {prefills}, flash kernel launches {launches} "
+                f"(need >= {layers} x {prefills})")
+            if prefills <= 0 or launches < layers * prefills:
+                raise AssertionError("not every prefill went through the flash kernel")
+            ttfts = [r[1] for r in b.slo_recent]
+            tpots = [r[2] for r in b.slo_recent if r[2] is not None]
+            log(f"[serve] tokens/s {gen_tokens / serve_s:.1f} ({gen_tokens} generated tokens "
+                f"in {serve_s:.2f} s, {n_req} requests, 8 slots)")
+            log(f"[serve] TTFT p50 {np.percentile(ttfts, 50) * 1e3:.1f} ms, "
+                f"p99 {np.percentile(ttfts, 99) * 1e3:.1f} ms; TPOT p50 "
+                f"{np.percentile(tpots, 50) * 1e3:.2f} ms")
+            log(f"[serve] peak device memory {peak / 2**30:.2f} GiB "
+                "(torch.cuda.max_memory_allocated)")
+        finally:
+            loop.call_soon_threadsafe(loop.stop)
+            server.join(30)
+            app.close()
+            app._hook_pool.shutdown(wait=False)
+            user.close()
+
+        # full-width prefill: the kernel against the plain attention,
+        # called explicitly, in the same model on the same weights
+        from seldon_core_tpu_torch.models import llm as llm_mod
+
+        model, params_dev = user._model, user.batcher.params
+        rs = np.random.RandomState(1)
+        prompts = torch.tensor(rs.randint(0, LLM_1_26B["vocab_size"], (8, 128)), device="cuda")
+        logits_k, _ = model.prefill(params_dev, prompts, 128)
+        saved = llm_mod.prefill_attention
+        llm_mod.prefill_attention = fa.attention_plain
+        try:
+            logits_p, _ = model.prefill(params_dev, prompts, 128)
+        finally:
+            llm_mod.prefill_attention = saved
+        if not bool(torch.isfinite(logits_k).all()):
+            raise AssertionError("non-finite prefill logits")
+        diff = (logits_k - logits_p).abs().max().item()
+        top1 = (logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean().item()
+        log(f"[serve] prefill logits kernel vs plain at full width: max_abs {diff:.4e} "
+            f"(tol {LOGITS_TOL}), top-1 agreement {top1:.3f} (min {TOP1_MIN_AGREEMENT}), "
+            f"|logits| max {logits_p.abs().max().item():.3f}")
+        if diff > LOGITS_TOL or top1 < TOP1_MIN_AGREEMENT:
+            raise AssertionError("prefill logits disagree between kernel and plain attention")
+        return launches, model, params_dev
+
+
+def phase_model(model, params):
+    """Model-layer times at full width: prefill per bucket (B=1), and one
+    ragged decode step over 8 lanes — its wall time beside the device
+    time its kernels take (torch.profiler), whose gap is the host's
+    dispatch time, and the step's weight-read bound."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = model.cfg
+    rs = np.random.RandomState(2)
+    for t in (32, 128, 512, 1024):
+        toks = torch.tensor(rs.randint(0, cfg.vocab_size, (1, t)), device="cuda")
+        ms = time_ms(lambda: model.prefill(params, toks, t), iters=5, warmup=1)
+        log(f"[model] prefill B=1 T={t}: {ms:.2f} ms")
+    shape = (8, cfg.n_kv_heads, cfg.max_seq, cfg.head_dim)
+    ks = [torch.zeros(shape, dtype=model.dtype, device="cuda") for _ in range(cfg.n_layers)]
+    vs = [torch.zeros(shape, dtype=model.dtype, device="cuda") for _ in range(cfg.n_layers)]
+    tok = torch.zeros((8, 1), dtype=torch.long, device="cuda")
+    weight_ms = model.n_params() * 2 / PEAK_BYTES_S * 1e3
+    for attn_len in (128, 1024):
+        pos = torch.full((8,), attn_len - 1, dtype=torch.long, device="cuda")
+
+        def step():
+            model.decode_step_ragged_list(params, ks, vs, tok, pos, attn_len=attn_len)
+
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        n = 10
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
+        kernels = sum(e.count for e in events) / n
+        log(f"[model] decode step, 8 lanes, attn_len {attn_len}: wall {wall_ms:.2f} ms, "
+            f"device busy {device_ms:.2f} ms ({kernels:.0f} device ops), "
+            f"weight-read bound {weight_ms:.2f} ms")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    try:
+        import seldon_core_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the seldon_core_tpu_torch package is missing: {e}", file=sys.stderr)
+        return 1
+    try:
+        t0 = time.perf_counter()
+        phase_device()
+        phase_build()
+        kern = phase_kernels()
+        phase_small_model()
+        launches, model, params = phase_serve()
+        phase_model(model, params)
+        head = kern["b1_t1024"]
+        worst = max(r["max_abs_err"] for k, r in kern.items() if not k.startswith("f32"))
+        log(json.dumps({"kernels": [{
+            "name": "flash_attention",
+            "route": "cuda",
+            "source": "seldon_core_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": "seldon_core_tpu/ops/flash_attention.py:138",
+            "launches": launches,
+            "max_abs_err": worst,
+            "ms": head["ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+        }]}))
+        log(f"[done] {time.perf_counter() - t0:.1f} s")
+    except Exception:  # noqa: BLE001 - any failed phase fails the run
+        traceback.print_exc()
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

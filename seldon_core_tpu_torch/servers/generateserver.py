@@ -1,0 +1,290 @@
+"""Generate prepackaged server: LLM token generation with continuous
+batching behind the unary predict protocol, in PyTorch.
+
+Counterpart of ``seldon_core_tpu/servers/generateserver.py``
+(``GenerateServer``), core only. Model URI layout: the same
+``jax_config.json`` as ``servers/torchserver`` with ``"family": "llm"``.
+Server parameters (typed, e.g. from ``PREDICTIVE_UNIT_PARAMETERS``)::
+
+    device           "cuda" (default) or "cpu"; CUDA missing -> error
+    slots            decode lanes (default 8)
+    max_seq          cache length override
+    steps_per_poll   decode steps per burst (default 8; pow2-floored)
+    pipeline_depth   bursts in flight before the host reads the oldest
+                     (default 3; 1 = synchronous)
+    attn_bucket      attention-read bucket granularity (default 128)
+    restart_budget / restart_backoff_s
+                     scheduler supervision (defaults 3 / 0.5)
+    warmup_prompt_lens / warmup_max_new_tokens
+                     traffic shape ``warm()`` runs before the server
+                     listens (CSV string or list)
+
+The JAX server's other parameters (speculation, the prefix cache, depth
+groups, chunked prefill, fused decode, disaggregated roles, pressure,
+the KV tier, resume tokens, swap, tenants, the profiler, SLO burn, the
+flight recorder, meshes) are not ported yet: each raises when set to
+anything but its off value. Request deadlines in the message meta are
+not read yet.
+
+Request (jsonData)::
+
+    {"prompt_tokens": [1, 2, ...],        # or "prompt": "text" (byte-level)
+     "max_new_tokens": 32, "temperature": 0.0, "eos_id": null, "seed": 0}
+
+``prompt_tokens`` may be a list of lists: each prompt is submitted
+separately and rides the same in-flight decode batch.
+
+Response (jsonData): ``{"tokens": [[...]], "text": [...]}`` (``text``
+only for byte-level string prompts).
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Any, Dict, Iterable, List, Optional, Sequence
+
+from ..device import resolve_device
+from ..metrics import CounterDeltas
+from ..user_model import SeldonComponent
+from .torchserver import TorchServer
+
+logger = logging.getLogger(__name__)
+
+# parameters of the JAX GenerateServer whose feature is not ported yet,
+# with their off value (other JAX-server parameters, which only act
+# through one of these features, are accepted and ignored, as the JAX
+# server accepts unknown ones)
+_NOT_PORTED = {
+    "mesh": None, "mesh_shape": None, "shard_cache_seq": False,
+    "fused_steps_per_dispatch": 0, "speculate_tokens": 0, "draft_layers": 0,
+    "draft_uri": None, "prefix_cache_hbm_bytes": 0, "admit_queue_limit": 0,
+    "depth_groups": 0, "depth_group_split_bytes": None, "prefill_chunk": 0,
+    "flight_recorder": 0, "role": "unified", "peer": None, "kv_port": 0,
+    "hbm_ledger_bytes": 0, "host_kv_tier_bytes": 0, "resume_tokens": 0,
+    "swap_drain_ms": 0, "tenants": None, "weight_pager_host_bytes": 0,
+    "profiler": 0, "slo_objectives": None,
+}
+def _is_off(name: str, value, off) -> bool:
+    if value == off:
+        return True
+    if name == "depth_groups" and str(value).strip() in ("0", "1"):
+        return True
+    if isinstance(value, str):
+        v = value.strip().lower()
+        if isinstance(off, str):
+            return v == off
+        return v in ("", "0", "none", "null", "false")
+    return False
+
+
+class GenerateServer(SeldonComponent):
+    batcher = None
+
+    def __init__(
+        self,
+        model_uri: str,
+        device: str = "cuda",
+        slots: int = 8,
+        max_seq: Optional[int] = None,
+        steps_per_poll: int = 8,
+        pipeline_depth: int = 3,
+        attn_bucket: int = 128,
+        restart_budget: int = 3,
+        restart_backoff_s: float = 0.5,
+        warmup_prompt_lens: Optional[Sequence[int]] = None,
+        warmup_max_new_tokens: int = 0,
+        **kwargs,
+    ):
+        for name, value in kwargs.items():
+            if name in _NOT_PORTED and not _is_off(name, value, _NOT_PORTED[name]):
+                raise NotImplementedError(
+                    f"GenerateServer parameter {name}={value!r} is not ported to "
+                    "seldon_core_tpu_torch yet (only its off value "
+                    f"{_NOT_PORTED[name]!r} is supported)"
+                )
+        self.model_uri = model_uri
+        self.device = resolve_device(device)
+        self._slots = int(slots)
+        self._max_seq = int(max_seq) if max_seq else None
+        self._steps_per_poll = int(steps_per_poll)
+        self._pipeline_depth = int(pipeline_depth)
+        self._attn_bucket = int(attn_bucket)
+        self._restart_budget = int(restart_budget)
+        self._restart_backoff_s = float(restart_backoff_s)
+        if isinstance(warmup_prompt_lens, str):
+            warmup_prompt_lens = [
+                int(x) for x in warmup_prompt_lens.split(",") if x.strip()
+            ]
+        self._warmup_prompt_lens = list(warmup_prompt_lens or [])
+        self._warmup_max_new_tokens = int(warmup_max_new_tokens)
+        self._deltas = CounterDeltas()
+        self.batcher = None
+        self._model = None
+
+    @staticmethod
+    def _cast_params_freeing(tree, dt):
+        """Cast float32 leaves to ``dt`` in place through nested dicts,
+        dropping each float32 leaf as it is replaced, so the float32 and
+        the cast copy of the whole model are never resident together."""
+        import torch
+
+        for key in list(tree):
+            v = tree[key]
+            if isinstance(v, dict):
+                GenerateServer._cast_params_freeing(v, dt)
+            elif isinstance(v, torch.Tensor) and v.dtype == torch.float32:
+                tree[key] = v.to(dt)
+            del v
+        return tree
+
+    def load(self) -> None:
+        import torch
+
+        from ..serving.continuous import ContinuousBatcher
+
+        server = TorchServer(self.model_uri, device=self.device)
+        _apply, params = server.build()
+        self._model = server._model
+        if self._model is None or not hasattr(self._model, "decode_step_ragged_list"):
+            raise RuntimeError(
+                f"model family {getattr(self._model, '__class__', None)} "
+                "does not support generate(); use family 'llm'"
+            )
+        dt = self._model.dtype
+        if dt != torch.float32:
+            params = self._cast_params_freeing(params, dt)
+        self.batcher = ContinuousBatcher(
+            self._model,
+            params,
+            slots=self._slots,
+            max_seq=self._max_seq,
+            steps_per_poll=self._steps_per_poll,
+            pipeline_depth=self._pipeline_depth,
+            attn_bucket=self._attn_bucket,
+            restart_budget=self._restart_budget,
+            restart_backoff_s=self._restart_backoff_s,
+        )
+        if self._warmup_prompt_lens:
+            # warm before listen: the first admission wave must not pay
+            # the kernel build and the libraries' first-call setup
+            self.batcher.warm(
+                prompt_lens=self._warmup_prompt_lens,
+                max_new_tokens=self._warmup_max_new_tokens,
+            )
+        self.batcher.start()
+        logger.info(
+            "generateserver: %s ready on %s (slots=%d, max_seq=%d)",
+            self.model_uri, self.device, self._slots, self.batcher.max_seq,
+        )
+
+    def _encode(self, text: str) -> List[int]:
+        return list(text.encode("utf-8"))
+
+    def _decode(self, tokens: Iterable[int]) -> str:
+        return bytes(t for t in tokens if 0 <= t < 256).decode("utf-8", "replace")
+
+    def _parse_prompts(self, body: Dict[str, Any]):
+        """Wire-schema parser: returns (token_lists, text_mode, sampling
+        kwargs)."""
+        if "prompt" in body and "prompt_tokens" not in body:
+            prompts = body["prompt"]
+            prompts = [prompts] if isinstance(prompts, str) else list(prompts)
+            token_lists = [self._encode(p) for p in prompts]
+            text_mode = True
+        else:
+            pt = body.get("prompt_tokens")
+            if not pt:
+                raise ValueError("need prompt_tokens or prompt")
+            token_lists = (
+                [list(p) for p in pt] if isinstance(pt[0], (list, tuple)) else [list(pt)]
+            )
+            text_mode = False
+        kw = dict(
+            max_new_tokens=int(body.get("max_new_tokens", 32)),
+            temperature=float(body.get("temperature", 0.0)),
+            eos_id=body.get("eos_id"),
+            seed=int(body.get("seed", 0)),
+        )
+        return token_lists, text_mode, kw
+
+    def close(self) -> None:
+        if self.batcher is not None:
+            self.batcher.close()
+
+    def predict(self, X, names, meta=None):
+        if self.batcher is None:
+            self.load()
+        body = X if isinstance(X, dict) else None
+        if body is None:
+            if isinstance(X, str):
+                body = {"prompt": X}
+            else:
+                raise ValueError(
+                    "generate expects jsonData {prompt_tokens|prompt, ...} or strData"
+                )
+        token_lists, text_mode, kw = self._parse_prompts(body)
+        futures = []
+        try:
+            for toks in token_lists:
+                futures.append(self.batcher.submit(toks, **kw))
+            # all-or-nothing: a failed prompt cancels its siblings, which
+            # frees their queued slots and decode lanes
+            results = [f.result(timeout=600.0) for f in futures]
+        except BaseException:
+            for f in futures:
+                f.cancel()
+            raise
+        return self._build_response(results, token_lists, text_mode)
+
+    def _build_response(self, results, token_lists, text_mode):
+        out: Dict[str, Any] = {"tokens": results}
+        if text_mode:
+            out["text"] = [
+                self._decode(r[len(p):]) for r, p in zip(results, token_lists)
+            ]
+        return out
+
+    def tags(self) -> Dict:
+        return {"server": "generateserver"}
+
+    def health_status(self):
+        """A batcher mid-restart or latched dead makes the unit unready."""
+        b = self.batcher
+        if b is not None and b.health != "serving":
+            raise RuntimeError(f"continuous batcher is {b.health}")
+        return "ok"
+
+    def metrics(self) -> List[Dict]:
+        """Cumulative scheduler totals ship as COUNTER deltas, completed
+        requests' queue wait / TTFT / TPOT as TIMER samples (ms)."""
+        if self.batcher is None:
+            return []
+        s = self.batcher.stats
+        delta = self._deltas.counter
+        out = [
+            delta("gen_tokens", s["tokens"]),
+            delta("gen_steps", s["steps"]),
+            delta("gen_finished", s["finished"]),
+            delta("gen_admitted", s["admitted"]),
+            delta("gen_prefill_steps", s["prefill_steps"]),
+            delta("gen_prefill_tokens", s["prefill_tokens"]),
+            delta("gen_decode_steps", s["steps"]),
+            {"type": "GAUGE", "key": "gen_batcher_healthy",
+             "value": 1.0 if self.batcher.health == "serving" else 0.0},
+        ]
+        if s.get("batcher_restarts"):
+            out.append(delta("gen_batcher_restarts", s["batcher_restarts"]))
+        pending = self.batcher.slo_pending
+        while pending:
+            try:
+                queue_wait, ttft, tpot = pending.popleft()
+            except IndexError:  # raced another exporter thread
+                break
+            out.append({"type": "TIMER", "key": "gen_queue_wait_ms",
+                        "value": round(queue_wait * 1e3, 4)})
+            out.append({"type": "TIMER", "key": "gen_ttft_ms",
+                        "value": round(ttft * 1e3, 4)})
+            if tpot is not None:
+                out.append({"type": "TIMER", "key": "gen_tpot_ms",
+                            "value": round(tpot * 1e3, 4)})
+        return out
