@@ -9,8 +9,11 @@ result line) if any phase fails:
 1. Device: the card's name and power limit (nvidia-smi) and torch's view.
 2. Build: compiles every CUDA kernel of the path from ``ops/csrc``.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
-   same inputs, at the shapes the serving path gives it, with times
-   (CUDA events), the PyTorch library call as a yardstick, and the bound.
+   same inputs, at the shapes the serving path gives it (bf16 at both
+   block sizes), with times -- per call from the host (``call_ms``) and
+   on the device from a CUDA graph of 20 launches (``device_ms``) --
+   the PyTorch library call timed both ways as a yardstick, the bound,
+   TFLOP/s and the share of the bound.
 4. Small model on the card: the continuous batcher's greedy and seeded
    tokens equal ``DecoderLM.generate`` on the same device and weights.
 5. Serve: the ``llm-1.26b`` configuration (full width, random weights from
@@ -20,8 +23,9 @@ result line) if any phase fails:
    kernel (launch counters reset just before, read just after); prints
    tokens/s, TTFT p50 and peak device memory; then compares full-width
    prefill logits with the kernel against the plain attention.
-6. Model: full-width prefill time per bucket, and a decode step's wall
-   time beside its device-busy time (torch.profiler) and weight-read bound.
+6. Model: full-width prefill time per bucket with the flash kernel's
+   device time inside it (torch.profiler), and a decode step's wall time
+   beside its device-busy time and weight-read bound.
 7. The ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 
 Exits 2 when CUDA is unavailable, 1 on any failure.
@@ -30,6 +34,7 @@ Exits 2 when CUDA is unavailable, 1 on any failure.
 from __future__ import annotations
 
 import asyncio
+import collections
 import http.client
 import json
 import os
@@ -90,6 +95,36 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, launches: int = 20, reps: int = 5) -> float:
+    """Device time of one call: ``launches`` calls captured once in a CUDA
+    graph, the graph replayed ``reps`` times between CUDA events; the
+    median replay over ``launches``. The host's launch cost is left out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as torch asks
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return sorted(times)[len(times) // 2]
+
+
 def phase_device():
     import torch
 
@@ -118,9 +153,41 @@ def phase_build():
     log(f"[build] flash_attention.cu -> {os.path.relpath(lib, HERE)} in {dt:.2f} s")
     ptxas = lib.with_name(lib.stem + ".ptxas.txt")
     if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {line.strip()}")
+        for line in _ptxas_summary(ptxas.read_text()):
+            log(f"[build] {line}")
+
+
+def _kernel_name(mangled):
+    """flash_fwd_wgmma_kernel<128,2> from a mangled entry-function name."""
+    for short in ("flash_fwd_wgmma_kernel", "flash_fwd_f32_kernel"):
+        if short in mangled:
+            tmpl = mangled.split(short, 1)[1].split("EE", 1)[0]
+            return short + "<" + ",".join(tmpl.replace("ILi", "").split("ELi")) + ">"
+    return mangled
+
+
+def _ptxas_summary(text):
+    """One line per kernel from ``ptxas -v`` (registers, spills), plus the
+    compiler's notes that bear on wgmma: fences it had to inject before a
+    product, and any warning (a setmaxnreg it ignored)."""
+    out, name, spills = [], None, ""
+    injected = collections.Counter()
+    for raw in text.splitlines():
+        line = raw.strip()
+        if "Compiling entry function" in line:
+            name, spills = _kernel_name(line.split("'")[1]), ""
+        elif "spill stores" in line:
+            spills = line
+        elif name and line.startswith("ptxas info") and "registers" in line:
+            out.append(f"{name}: {line.split('Used', 1)[-1].strip()}; {spills}")
+            name = None
+        elif "warpgroup.arrive is injected" in line:
+            injected[_kernel_name(line.rsplit("'", 2)[-2])] += 1
+        elif "setmaxnreg" in line or "warning" in line.lower():
+            out.append("warning: " + line[:200])
+    out += [f"{n}: ptxas injected {c} warpgroup.arrive fences before wgmma"
+            for n, c in injected.items()]
+    return out
 
 
 def _prefill_like(b, h, kv, t, dh, dtype, gen):
@@ -136,12 +203,18 @@ def _prefill_like(b, h, kv, t, dh, dtype, gen):
             v.view(b, t, kv, dh).transpose(1, 2))
 
 
+def _flops(b, h, t, dh, causal=True, kv_len=None):
+    """FLOPs this input needs: q.k and p.v over the visible keys only, 2
+    FLOPs per multiply-add."""
+    limit = t if kv_len is None else min(t, kv_len)
+    keys = sum(min(i + 1, limit) for i in range(t)) if causal else t * limit
+    return 4.0 * b * h * dh * keys
+
+
 def _bound(b, h, kv, t, dh, dtype_name, causal=True, kv_len=None):
     """Least time for the work: max(FLOPs this input needs / peak for its
     type, bytes of q, k, v read once and o written once / HBM rate)."""
-    limit = t if kv_len is None else min(t, kv_len)
-    keys = sum(min(i + 1, limit) for i in range(t)) if causal else t * limit
-    flops = 4.0 * b * h * dh * keys  # q.k and p.v, 2 FLOPs per multiply-add
+    flops = _flops(b, h, t, dh, causal=causal, kv_len=kv_len)
     item = 2 if dtype_name == "bfloat16" else 4
     nbytes = item * dh * t * b * (2 * h + 2 * kv)
     t_ops = flops / PEAK_FLOPS[dtype_name]
@@ -149,7 +222,7 @@ def _bound(b, h, kv, t, dh, dtype_name, causal=True, kv_len=None):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_kernels():
+def phase_kernels(card):
     import torch
     import torch.nn.functional as F
 
@@ -157,6 +230,7 @@ def phase_kernels():
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     # (label, B, H, KV, T, Dh, dtype, kv_len): the serving path's shapes
     # (llm-1.26b heads, every prefill bucket, batched admissions m = 4
     # and 8), plus ragged T with a key-length mask, head dim 64, and the
@@ -168,6 +242,7 @@ def phase_kernels():
         ("b1_t1024", 1, 16, 8, 1024, 128, torch.bfloat16, None),
         ("b4_t128", 4, 16, 8, 128, 128, torch.bfloat16, None),
         ("b8_t512", 8, 16, 8, 512, 128, torch.bfloat16, None),
+        ("b8_t1024", 8, 16, 8, 1024, 128, torch.bfloat16, None),
         ("bf16_ragged_t130_kvlen100", 1, 4, 2, 130, 128, torch.bfloat16, 100),
         ("bf16_b2_t200_dh64", 2, 4, 1, 200, 64, torch.bfloat16, None),
         ("f32_b2_t256_dh64", 2, 4, 4, 256, 64, torch.float32, None),
@@ -176,30 +251,50 @@ def phase_kernels():
     results = {}
     for label, b, h, kv, t, dh, dt, kv_len in cases:
         q, k, v = _prefill_like(b, h, kv, t, dh, dt, gen)
-        out = fa.flash_attention_cuda(q, k, v, kv_len=kv_len, causal=True)
-        torch.cuda.synchronize()
-        ref = fa.attention_plain(q, k, v, kv_len=kv_len, causal=True)
-        err = (out.float() - ref.float()).abs().max().item()
         dname = "bfloat16" if dt == torch.bfloat16 else "float32"
         tol = TOL[dname]
-        ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, kv_len=kv_len, causal=True))
+        ref = fa.attention_plain(q, k, v, kv_len=kv_len, causal=True)
+        # bf16: both block sizes are checked and timed; the wrapper's own
+        # choice is what the main path runs
+        chosen = fa.choose_block_m(b, h, t, sms) if dt == torch.bfloat16 else 64
+        per_bm = {}
+        for bm in ((64, 128) if dt == torch.bfloat16 else (64,)):
+            out = fa.flash_attention_cuda(q, k, v, kv_len=kv_len, causal=True, block_m=bm)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            if err > tol:
+                raise AssertionError(f"flash_attention {label} block_m {bm}: "
+                                     f"max_abs_err {err} > {tol}")
+            per_bm[bm] = (err, device_ms(lambda: fa.flash_attention_cuda(
+                q, k, v, kv_len=kv_len, causal=True, block_m=bm)))
+        err, dev_ms = per_bm[chosen]
+        call_ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, kv_len=kv_len, causal=True))
         plain_ms = time_ms(lambda: fa.attention_plain(q, k, v, kv_len=kv_len, causal=True), iters=5)
-        library_ms = None
+        library_ms = library_dev_ms = None
         if kv_len is None:
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True))
+            def sdpa():
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+            library_ms = time_ms(sdpa)
+            library_dev_ms = device_ms(sdpa)
         bound_ms, bound_by = _bound(b, h, kv, t, dh, dname, kv_len=kv_len)
-        ok = err <= tol
+        flops = _flops(b, h, t, dh, kv_len=kv_len)
+        smem = fa.smem_bytes(dt, dh, chosen)
+        others = " ".join(f"device_ms[block_m={bm}]={ms:.4f}" for bm, (_e, ms) in per_bm.items())
         log(f"[kernel] flash_attention {label} B={b} H={h} KV={kv} T={t} Dh={dh} {dname} "
-            f"kv_len={kv_len} max_abs_err={err:.3e} tol={tol:.3e} ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms={library_ms if library_ms is None else round(library_ms, 4)} "
-            f"bound_ms={bound_ms:.4f} ({bound_by}) {'OK' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"flash_attention {label}: max_abs_err {err} > {tol}")
-        results[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            f"kv_len={kv_len} block_m={chosen} smem={smem} max_abs_err={err:.3e} tol={tol:.3e} "
+            f"device_ms={dev_ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={_r(library_ms)} library_device_ms={_r(library_dev_ms)} "
+            f"bound_ms={bound_ms:.4f} ({bound_by}) TFLOP/s={flops / dev_ms / 1e9:.1f} "
+            f"bound_share={bound_ms / dev_ms:.3f} {others} [{card}] OK")
+        results[label] = dict(max_abs_err=err, ms=call_ms, device_ms=dev_ms, plain_ms=plain_ms,
+                              library_ms=library_ms, library_device_ms=library_dev_ms,
+                              bound_ms=bound_ms, bound_by=bound_by, block_m=chosen)
     log(f"[kernel] flash_attention launches in this phase: {fa.LAUNCHES['flash_attention']}")
     return results
+
+
+def _r(x):
+    return None if x is None else round(x, 4)
 
 
 def phase_small_model():
@@ -438,10 +533,27 @@ def phase_model(model, params):
 
     cfg = model.cfg
     rs = np.random.RandomState(2)
-    for t in (32, 128, 512, 1024):
-        toks = torch.tensor(rs.randint(0, cfg.vocab_size, (1, t)), device="cuda")
-        ms = time_ms(lambda: model.prefill(params, toks, t), iters=5, warmup=1)
-        log(f"[model] prefill B=1 T={t}: {ms:.2f} ms")
+    prompts = {t: torch.tensor(rs.randint(0, cfg.vocab_size, (1, t)), device="cuda")
+               for t in (32, 128, 512, 1024)}
+    wall = {t: time_ms(lambda: model.prefill(params, toks, t), iters=5, warmup=1)
+            for t, toks in prompts.items()}
+    # then, under the profiler (after all the wall times: a profiler run
+    # can slow later launches), the flash kernel's device time inside a
+    # prefill, by its name in the per-kernel sums
+    for t, toks in prompts.items():
+        n = 3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                model.prefill(params, toks, t)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
+        flash = [e for e in events if "flash_fwd" in e.key]
+        flash_ms = sum(e.self_device_time_total for e in flash) / 1e3 / n
+        flash_calls = sum(e.count for e in flash) / n
+        log(f"[model] prefill B=1 T={t}: {wall[t]:.2f} ms; device busy {busy_ms:.3f} ms, of "
+            f"which the flash kernel {flash_ms:.4f} ms over {flash_calls:.0f} launches "
+            f"({100 * flash_ms / busy_ms:.1f}% of the device time)")
     shape = (8, cfg.n_kv_heads, cfg.max_seq, cfg.head_dim)
     ks = [torch.zeros(shape, dtype=model.dtype, device="cuda") for _ in range(cfg.n_layers)]
     vs = [torch.zeros(shape, dtype=model.dtype, device="cuda") for _ in range(cfg.n_layers)]
@@ -489,9 +601,9 @@ def main() -> int:
         return 1
     try:
         t0 = time.perf_counter()
-        phase_device()
+        card = phase_device()
         phase_build()
-        kern = phase_kernels()
+        kern = phase_kernels(card)
         phase_small_model()
         launches, model, params = phase_serve()
         phase_model(model, params)
@@ -505,10 +617,12 @@ def main() -> int:
             "launches": launches,
             "max_abs_err": worst,
             "ms": head["ms"],
+            "device_ms": head["device_ms"],
             "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
+            "library_device_ms": head["library_device_ms"],
         }]}))
         log(f"[done] {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - any failed phase fails the run

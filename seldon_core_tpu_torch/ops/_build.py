@@ -4,10 +4,13 @@ Each kernel source under ``ops/csrc/`` is compiled by ``nvcc`` into a
 shared library with a plain C interface, at first use, for ``sm_90a``
 (Hopper with its architecture-specific instructions). The library lands
 in ``build/kernels/`` at the repository root, named by a hash of the
-source and the compiler flags, so an edited source rebuilds and an
-unchanged one loads the cached library. Concurrent first uses (a server
-process beside the script that built it) serialise on a lock file, and
-the finished library appears by atomic rename.
+source, every header beside it (``csrc/*.cuh``) and the compiler flags,
+so an edited source or header rebuilds and an unchanged one loads the
+cached library. The libraries link libcuda (``-lcuda``, after
+the source) for ``cuTensorMapEncodeTiled``, which builds TMA
+descriptors on the host. Concurrent first uses (a server process
+beside the script that built it) serialise on a lock file, and the
+finished library appears by atomic rename.
 
 The library is loaded with ``ctypes``; the caller declares argument
 types. Nothing here runs at import time: the CPU tests import every
@@ -33,6 +36,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-lcuda",)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -57,9 +61,13 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
-    text = (CSRC / source).read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where the library built from ``csrc/<source>`` lives: named by a
+    hash of the source, the bytes of every ``csrc/*.cuh`` and the flags."""
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 
@@ -76,7 +84,7 @@ def build(source: str) -> Path:
         if out.exists():  # another process finished the build meanwhile
             return out
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source), *LINK_FLAGS]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(

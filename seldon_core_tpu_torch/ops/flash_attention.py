@@ -8,9 +8,10 @@ kernel (``_flash_kernel``) computes prefill attention on the TPU. Here:
   optional ``kv_len`` mask, both at ``NEG_INF = -1e30``, softmax, f32
   weighted sum, cast back to q's dtype).
 * :func:`flash_attention_cuda` — the wrapper of the hand-written CUDA
-  kernel in ``csrc/flash_attention.cu``: it checks its inputs, allocates
-  the output, launches on the current CUDA stream, raises if the launch
-  failed, and counts its launches in :data:`LAUNCHES`.
+  kernel in ``csrc/flash_attention.cu``: it checks its inputs
+  (:func:`check_kernel_inputs`), allocates the output, launches on the
+  current CUDA stream, raises if the launch failed, and counts its
+  launches in :data:`LAUNCHES`.
 * :func:`attention` — the entry point, with the JAX package's signature.
   A CPU tensor goes to the plain version; a CUDA tensor goes to the
   kernel, which masks ragged edges and ``kv_len`` itself, so there is no
@@ -26,6 +27,7 @@ without the repeated copy.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Optional
 
@@ -87,6 +89,50 @@ def attention_plain(q, k, v, kv_len: Optional[int] = None, causal: bool = True):
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def check_kernel_inputs(q, k, v, kv_len: Optional[int] = None) -> None:
+    """Raise ValueError unless the CUDA kernel takes these inputs (device
+    aside, so CPU and meta tensors can be checked too): q [B,H,Tq,Dh],
+    k/v [B,KV,Tk,Dh] with KV dividing H, one dtype (float32 or bfloat16),
+    Dh 64 or 128, the head dim contiguous, T >= 1. The bfloat16 kernel
+    loads through TMA, which needs every base 16-byte aligned and every
+    byte stride a multiple of 16; a view that breaks this raises (no copy
+    is made)."""
+    _check_shapes(q, k, v, kv_len)
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash attention kernel takes float32/bfloat16, got {q.dtype}")
+    dh = q.shape[3]
+    if dh not in _HEAD_DIMS:
+        raise ValueError(f"flash attention kernel takes head dim 64 or 128, got {dh}")
+    if q.shape[2] < 1 or k.shape[2] < 1:
+        raise ValueError("flash attention kernel needs at least one query and one key")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} must be contiguous in its head dim")
+        if q.dtype != torch.bfloat16:
+            continue
+        if t.data_ptr() % 16:
+            raise ValueError(f"bfloat16 {name} must start 16-byte aligned for TMA")
+        for dim in range(3):
+            if (t.stride(dim) * t.element_size()) % 16:
+                raise ValueError(
+                    f"bfloat16 {name} stride {t.stride(dim)} of dim {dim} is not a "
+                    "multiple of 16 bytes, as TMA needs"
+                )
+
+
+def choose_block_m(b: int, h: int, t_q: int, sm_count: int) -> int:
+    """q rows per block of the bfloat16 kernel: 128 (two consumer
+    warpgroups) when that grid still gives every SM a block, else 64."""
+    return 128 if b * h * (-(-t_q // 128)) >= sm_count else 64
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _library():
     from ._build import load
 
@@ -97,10 +143,12 @@ def _library():
             [ctypes.c_void_p] * 4
             + [ctypes.c_int] * 9
             + [ctypes.c_longlong] * 12
-            + [ctypes.c_void_p]
+            + [ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
-    return fn
+        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.flash_attention_smem_bytes.restype = ctypes.c_int
+    return lib
 
 
 def build() -> None:
@@ -108,39 +156,34 @@ def build() -> None:
     _library()
 
 
+def smem_bytes(dtype: torch.dtype, dh: int, block_m: int) -> int:
+    """Dynamic shared memory of the kernel launched for these settings."""
+    return _library().flash_attention_smem_bytes(_DTYPES[dtype], dh, block_m)
+
+
 def flash_attention_cuda(q, k, v, kv_len: Optional[int] = None,
-                         causal: bool = True):
-    """Launch the CUDA kernel: q [B,H,Tq,Dh], k/v [B,KV,Tk,Dh] on one CUDA
-    device, one dtype (float32 or bfloat16), Dh in (64, 128), head dim
-    contiguous (other strides are free, so head-transposed views pass
-    without a copy). Returns a new [B,H,Tq,Dh] tensor in q's dtype, laid
-    out [B,Tq,H,Dh] in memory so the caller's merge of the heads is a
-    free reshape."""
-    _check_shapes(q, k, v, kv_len)
+                         causal: bool = True, block_m: Optional[int] = None):
+    """Launch the CUDA kernel on inputs :func:`check_kernel_inputs` takes,
+    all on one CUDA device (other strides are free, so head-transposed
+    views pass without a copy). ``block_m`` (64 or 128) sets the bfloat16
+    kernel's q rows per block; by default :func:`choose_block_m` picks it.
+    Returns a new [B,H,Tq,Dh] tensor in q's dtype, laid out [B,Tq,H,Dh] in
+    memory so the caller's merge of the heads is a free reshape."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != q.dtype:
-            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
-        if t.stride(3) != 1:
-            raise ValueError(f"{name} must be contiguous in its head dim")
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"flash attention kernel takes float32/bfloat16, got {q.dtype}")
+    check_kernel_inputs(q, k, v, kv_len)
     b, h, t_q, dh = q.shape
     kv, t_k = k.shape[1], k.shape[2]
-    if dh not in _HEAD_DIMS:
-        raise ValueError(f"flash attention kernel takes head dim 64 or 128, got {dh}")
-    if q.dtype == torch.bfloat16:
-        # the tensor-core path moves bf16 pairs as 32-bit words
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 4 or any(st % 2 for st in t.stride()[:3]):
-                raise ValueError(f"bfloat16 {name} rows must start 4-byte aligned")
+    if block_m is None:
+        block_m = choose_block_m(b, h, t_q, _sm_count(q.device.index or 0))
+    if block_m not in (64, 128):
+        raise ValueError(f"block_m must be 64 or 128, got {block_m}")
     out = torch.empty((b, t_q, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
-    fn = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(
+    err = _library().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _DTYPES[q.dtype], b, h, kv, t_q, t_k, dh, int(bool(causal)),
         -1 if kv_len is None else int(kv_len),
@@ -148,8 +191,10 @@ def flash_attention_cuda(q, k, v, kv_len: Optional[int] = None,
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         out.stride(0), out.stride(1), out.stride(2),
-        stream,
+        block_m, stream,
     )
+    if err < 0:
+        raise RuntimeError(f"flash attention tensor map encoding failed: CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err}")
     with _count_lock:

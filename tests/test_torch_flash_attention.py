@@ -129,3 +129,87 @@ def test_rejects_bad_inputs():
     q, k, v = _t(*_qkv(7, 1, 2, 8, 8, 16))
     with pytest.raises(ValueError, match="kv_len"):
         tfa.attention(q, k, v, kv_len=0)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's input contract, checked on CPU tensors (no card needed)
+# ---------------------------------------------------------------------------
+
+
+def _prefill_views(b, h, kv, t, dh, dtype=torch.bfloat16):
+    """q/k/v as DecoderLM.prefill hands them over: head-transposed views
+    of [B, T, heads * Dh] projections."""
+    q = torch.zeros(b, t, h * dh, dtype=dtype).view(b, t, h, dh).transpose(1, 2)
+    k = torch.zeros(b, t, kv * dh, dtype=dtype).view(b, t, kv, dh).transpose(1, 2)
+    v = torch.zeros(b, t, kv * dh, dtype=dtype).view(b, t, kv, dh).transpose(1, 2)
+    return q, k, v
+
+
+@pytest.mark.parametrize("b,t,dh", [(1, 32, 128), (1, 1024, 128), (8, 512, 128), (2, 200, 64),
+                                    (1, 1, 64)])
+def test_kernel_check_accepts_main_path_views(b, t, dh):
+    q, k, v = _prefill_views(b, 16, 8, t, dh)
+    tfa.check_kernel_inputs(q, k, v)
+    tfa.check_kernel_inputs(q, k, v, kv_len=t)
+
+
+def test_kernel_check_rejects_misaligned_base():
+    flat = torch.zeros(4 + 1 * 64 * 2 * 64, dtype=torch.bfloat16)
+    x = flat[4:].view(1, 64, 2, 64).transpose(1, 2)  # base 8 bytes past 16-byte alignment
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.check_kernel_inputs(x, x, x)
+
+
+def test_kernel_check_rejects_stride_off_16_bytes():
+    # rows of 2 * 64 + 4 bf16: a T stride of 264 bytes, base aligned
+    x = torch.zeros(1, 64, 2 * 64 + 4, dtype=torch.bfloat16)[:, :, : 2 * 64]
+    x = x.unflatten(2, (2, 64)).transpose(1, 2)
+    assert x.stride(2) * 2 == 264
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        tfa.check_kernel_inputs(x, x, x)
+
+
+def test_kernel_check_rejects_other_head_dims_and_dtypes():
+    q, k, v = _prefill_views(1, 4, 2, 16, 96)
+    with pytest.raises(ValueError, match="head dim 64 or 128"):
+        tfa.check_kernel_inputs(q, k, v)
+    q, k, v = _prefill_views(1, 4, 2, 16, 64, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        tfa.check_kernel_inputs(q, k, v)
+    q, k, v = _prefill_views(1, 4, 2, 16, 64)
+    with pytest.raises(ValueError, match="q is torch.bfloat16"):
+        tfa.check_kernel_inputs(q, k.float(), v)
+    with pytest.raises(ValueError, match="contiguous in its head dim"):  # d strided
+        tfa.check_kernel_inputs(q, k.transpose(2, 3).contiguous().transpose(2, 3), v)
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        tfa.check_kernel_inputs(q, *(_prefill_views(1, 4, 3, 16, 64)[1:]))
+
+
+def _odd_views(dtype):
+    """q/k/v views whose base is one element past an aligned allocation and
+    whose T stride is 2 * 64 + 1 elements."""
+    flat = torch.zeros(1 + 64 * (2 * 64 + 1), dtype=dtype)
+    x = flat[1:].view(64, 2 * 64 + 1)[:, : 2 * 64].unflatten(1, (2, 64))
+    return x.unsqueeze(0).transpose(1, 2)
+
+
+def test_kernel_check_float32_needs_no_tma_alignment():
+    """The float32 kernel reads through plain loads: an odd base or stride
+    is fine there, only the bfloat16 (TMA) kernel refuses it."""
+    x = _odd_views(torch.float32)
+    tfa.check_kernel_inputs(x, x, x)
+    y = _odd_views(torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned|multiple of 16 bytes"):
+        tfa.check_kernel_inputs(y, y, y)
+
+
+@pytest.mark.parametrize("b,h,t,sms,want", [
+    (1, 16, 32, 132, 64),     # 16 blocks of 128 rows: too few for the card
+    (1, 16, 1024, 132, 64),   # 128 blocks of 128 rows < 132 SMs
+    (4, 16, 128, 132, 64),
+    (8, 16, 512, 132, 128),   # 256 blocks of 128 rows
+    (8, 16, 1024, 132, 128),
+    (1, 16, 1024, 128, 128),  # a card with 128 SMs is filled at 128 rows
+])
+def test_choose_block_m(b, h, t, sms, want):
+    assert tfa.choose_block_m(b, h, t, sms) == want
