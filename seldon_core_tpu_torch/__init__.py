@@ -6,9 +6,13 @@ it is held against. It imports ``torch`` and never ``jax``, and nothing of
 ``seldon_core_tpu``. Module paths mirror the JAX package's:
 
   * wire contract                      (`proto/`, `payload`)
-  * microservice runtime (REST)        (`user_model`, `seldon_methods`,
+  * microservice runtime (REST, gRPC)  (`user_model`, `seldon_methods`,
                                         `wrapper`, `http_server`,
                                         `microservice`)
+  * inference-graph engine             (`graph/`, `engine_main`)
+  * deadlines, retries, breakers,
+    fault injection                    (`resilience/`)
+  * spans and device ranges            (`tracing`)
   * prepackaged servers                (`servers/torchserver`,
                                         `servers/generateserver`)
   * continuous-batching generate       (`serving/continuous`)

@@ -1,4 +1,5 @@
-"""Custom-metrics helpers shipped in ``Meta.metrics``.
+"""Custom-metrics helpers shipped in ``Meta.metrics``, and the engine's
+service-time :class:`Ewma`.
 
 Counterpart of ``seldon_core_tpu/metrics.py`` (COUNTER/GAUGE/TIMER dicts
 validated, then merged into the response meta by ``seldon_methods``).
@@ -89,6 +90,36 @@ class CounterDeltas:
             last = self._last.get(ledger_key, 0.0)
             self._last[ledger_key] = float(total)
         return create_counter(key, max(0.0, float(total) - last), tags)
+
+
+class Ewma:
+    """Exponentially weighted moving average of a scalar, thread-safe.
+
+    ``value`` stays 0.0 until the first update; callers treat 0 as "no
+    estimate yet". The engine's admission gate feeds it successful
+    request durations — the observed-service-time estimate that drives
+    deadline-aware load shedding (shed-before-work: reject when the
+    expected completion time already exceeds the request's remaining
+    budget). The continuous batcher's admit queue sheds on a different
+    estimator suited to its shape — a completion-rate window over recent
+    finishes (serving/continuous.py observed_rate)."""
+
+    def __init__(self, alpha: float = 0.1):
+        import threading
+
+        self.alpha = float(alpha)
+        self.value = 0.0
+        self._seen = False
+        self._lock = threading.Lock()
+
+    def update(self, x: float) -> float:
+        with self._lock:
+            if not self._seen:
+                self.value = float(x)
+                self._seen = True
+            else:
+                self.value += self.alpha * (float(x) - self.value)
+            return self.value
 
 
 def validate_metrics(metrics: List[Dict]) -> bool:

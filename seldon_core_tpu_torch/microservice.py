@@ -1,16 +1,16 @@
-"""Microservice CLI: serve a user component over REST.
+"""Microservice CLI: serve a user component over REST, gRPC or both.
 
-Counterpart of ``seldon_core_tpu/microservice.py``, REST only, one
-worker::
+Counterpart of ``seldon_core_tpu/microservice.py``, one worker::
 
     python -m seldon_core_tpu_torch.microservice \
-        seldon_core_tpu_torch.servers.generateserver.GenerateServer REST
+        seldon_core_tpu_torch.servers.generateserver.GenerateServer [REST|GRPC|BOTH]
 
 imports the class, instantiates it with typed parameters from the
 ``PREDICTIVE_UNIT_PARAMETERS`` env JSON (``[{"name", "value", "type"}]``;
 e.g. ``{"name": "device", "value": "cuda", "type": "STRING"}``), calls
 ``load()`` — which for the generate server warms every executable the
-declared traffic needs — and only then opens the port.
+declared traffic needs — and only then opens the ports. REST is the
+default: gRPC needs ``grpcio`` and the protobuf runtime.
 """
 
 from __future__ import annotations
@@ -24,11 +24,12 @@ import os
 import sys
 from typing import Any, Dict, List
 
-from .wrapper import ServerState, get_rest_microservice
+from .wrapper import ServerState, get_grpc_server, get_rest_microservice
 
 logger = logging.getLogger(__name__)
 
 DEFAULT_PORT = int(os.environ.get("PREDICTIVE_UNIT_SERVICE_PORT", 9000))
+DEFAULT_GRPC_PORT = int(os.environ.get("PREDICTIVE_UNIT_GRPC_PORT", 9500))
 
 _TYPE_CASTS = {
     "STRING": str,
@@ -78,8 +79,15 @@ async def serve_rest(user_object, host: str, port: int,
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser("seldon_core_tpu_torch.microservice")
     parser.add_argument("interface_name", help="module.Class of the user component")
-    parser.add_argument("api_type", nargs="?", default="REST", choices=["REST"])
+    parser.add_argument("api_type", nargs="?", default="REST",
+                        choices=["REST", "GRPC", "BOTH"])
     parser.add_argument("--service-port", type=int, default=DEFAULT_PORT)
+    parser.add_argument("--grpc-port", type=int, default=DEFAULT_GRPC_PORT)
+    parser.add_argument(
+        "--grpc-max-message-bytes",
+        type=int,
+        default=int(os.environ.get("GRPC_MAX_MESSAGE_BYTES", 0)) or None,
+    )
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--parameters", default=None, help="JSON list of typed parameters")
     parser.add_argument("--no-warmup", action="store_true", help="skip load() before listen")
@@ -95,11 +103,24 @@ def main(argv=None) -> None:
     if not args.no_warmup and hasattr(user_object, "load"):
         logger.info("warmup: load()")
         user_object.load()
+    grpc_server = None
     try:
-        asyncio.run(serve_rest(user_object, args.host, args.service_port, ServerState()))
+        if args.api_type in ("GRPC", "BOTH"):
+            grpc_server = get_grpc_server(
+                user_object, max_message_bytes=args.grpc_max_message_bytes
+            )
+            grpc_server.add_insecure_port(f"{args.host}:{args.grpc_port}")
+            grpc_server.start()
+            logger.info("gRPC listening on %s:%d", args.host, args.grpc_port)
+        if args.api_type in ("REST", "BOTH"):
+            asyncio.run(serve_rest(user_object, args.host, args.service_port, ServerState()))
+        else:
+            grpc_server.wait_for_termination()
     except KeyboardInterrupt:
         pass
     finally:
+        if grpc_server is not None:
+            grpc_server.stop(grace=5)
         if hasattr(user_object, "close"):
             user_object.close()
 

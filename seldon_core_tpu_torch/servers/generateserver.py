@@ -15,6 +15,9 @@ Server parameters (typed, e.g. from ``PREDICTIVE_UNIT_PARAMETERS``)::
     attn_bucket      attention-read bucket granularity (default 128)
     restart_budget / restart_backoff_s
                      scheduler supervision (defaults 3 / 0.5)
+    admit_queue_limit
+                     admit-queue cap; a submit past it is shed with
+                     ShedError (429 at the engine); 0 = no cap
     warmup_prompt_lens / warmup_max_new_tokens
                      traffic shape ``warm()`` runs before the server
                      listens (CSV string or list)
@@ -23,8 +26,21 @@ The JAX server's other parameters (speculation, the prefix cache, depth
 groups, chunked prefill, fused decode, disaggregated roles, pressure,
 the KV tier, resume tokens, swap, tenants, the profiler, SLO burn, the
 flight recorder, meshes) are not ported yet: each raises when set to
-anything but its off value. Request deadlines in the message meta are
-not read yet.
+anything but its off value, as does a request's ``resume_token`` or
+``tenant``.
+
+The remaining deadline budget in the message meta (``deadlineMs``,
+stamped per in-process hop by the engine) bounds each request: the
+batcher sheds a submit whose expected queue wait outlives it, and a
+request still running at its deadline is cancelled (lane freed) and
+answered with ``DeadlineExceeded`` (504 at the engine).
+
+:meth:`GenerateServer.stream` is the streaming twin of ``predict``: one
+prompt, validated and submitted before any byte goes out, its tokens
+delivered span by span through a :class:`StreamHandle`.
+
+Requests are parsed and queued on the caller's thread as host lists;
+every device operation runs on the batcher's scheduler thread.
 
 Request (jsonData)::
 
@@ -40,11 +56,16 @@ only for byte-level string prompts).
 
 from __future__ import annotations
 
+import dataclasses
 import logging
-from typing import Any, Dict, Iterable, List, Optional, Sequence
+import time
+from concurrent.futures import CancelledError
+from concurrent.futures import TimeoutError as FuturesTimeout
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 
 from ..device import resolve_device
 from ..metrics import CounterDeltas
+from ..resilience import DeadlineExceeded, FaultInjector, deadline_s_from_meta
 from ..user_model import SeldonComponent
 from .torchserver import TorchServer
 
@@ -57,7 +78,7 @@ logger = logging.getLogger(__name__)
 _NOT_PORTED = {
     "mesh": None, "mesh_shape": None, "shard_cache_seq": False,
     "fused_steps_per_dispatch": 0, "speculate_tokens": 0, "draft_layers": 0,
-    "draft_uri": None, "prefix_cache_hbm_bytes": 0, "admit_queue_limit": 0,
+    "draft_uri": None, "prefix_cache_hbm_bytes": 0,
     "depth_groups": 0, "depth_group_split_bytes": None, "prefill_chunk": 0,
     "flight_recorder": 0, "role": "unified", "peer": None, "kv_port": 0,
     "hbm_ledger_bytes": 0, "host_kv_tier_bytes": 0, "resume_tokens": 0,
@@ -77,6 +98,15 @@ def _is_off(name: str, value, off) -> bool:
     return False
 
 
+@dataclasses.dataclass
+class StreamHandle:
+    """A live token stream: iterate ``chunks``; call ``cancel()`` when the
+    consumer goes away so the decode lane is reclaimed."""
+
+    chunks: Iterable
+    cancel: Callable[[], bool]
+
+
 class GenerateServer(SeldonComponent):
     batcher = None
 
@@ -91,6 +121,7 @@ class GenerateServer(SeldonComponent):
         attn_bucket: int = 128,
         restart_budget: int = 3,
         restart_backoff_s: float = 0.5,
+        admit_queue_limit: int = 0,
         warmup_prompt_lens: Optional[Sequence[int]] = None,
         warmup_max_new_tokens: int = 0,
         **kwargs,
@@ -111,6 +142,7 @@ class GenerateServer(SeldonComponent):
         self._attn_bucket = int(attn_bucket)
         self._restart_budget = int(restart_budget)
         self._restart_backoff_s = float(restart_backoff_s)
+        self._admit_queue_limit = int(admit_queue_limit)
         if isinstance(warmup_prompt_lens, str):
             warmup_prompt_lens = [
                 int(x) for x in warmup_prompt_lens.split(",") if x.strip()
@@ -163,7 +195,13 @@ class GenerateServer(SeldonComponent):
             attn_bucket=self._attn_bucket,
             restart_budget=self._restart_budget,
             restart_backoff_s=self._restart_backoff_s,
+            admit_queue_limit=self._admit_queue_limit,
         )
+        # chaos harness (off without SELDON_FAULTS): the scheduler section
+        # wires induced poll death onto the batcher's fault hook
+        faults = FaultInjector.from_env()
+        if faults is not None:
+            self.batcher.fault_hook = faults.scheduler_hook()
         if self._warmup_prompt_lens:
             # warm before listen: the first admission wave must not pay
             # the kernel build and the libraries' first-call setup
@@ -186,6 +224,14 @@ class GenerateServer(SeldonComponent):
     def _parse_prompts(self, body: Dict[str, Any]):
         """Wire-schema parser: returns (token_lists, text_mode, sampling
         kwargs)."""
+        for key in ("resume_token", "tenant"):
+            if body.get(key):
+                err = NotImplementedError(
+                    f"generate request field {key!r} is not ported to "
+                    "seldon_core_tpu_torch yet"
+                )
+                err.status = 501  # the engine answers 501, not 500
+                raise err
         if "prompt" in body and "prompt_tokens" not in body:
             prompts = body["prompt"]
             prompts = [prompts] if isinstance(prompts, str) else list(prompts)
@@ -222,19 +268,90 @@ class GenerateServer(SeldonComponent):
                 raise ValueError(
                     "generate expects jsonData {prompt_tokens|prompt, ...} or strData"
                 )
+        # remaining deadline budget rides the request meta (stamped per
+        # hop by the graph executor): the batcher sheds the submit when
+        # its admit queue cannot meet it (ShedError -> engine 429)
+        deadline_s = deadline_s_from_meta(meta)
+        expires_at = time.monotonic() + deadline_s if deadline_s is not None else None
         token_lists, text_mode, kw = self._parse_prompts(body)
         futures = []
         try:
             for toks in token_lists:
-                futures.append(self.batcher.submit(toks, **kw))
+                futures.append(self.batcher.submit(toks, deadline_s=deadline_s, **kw))
+        except Exception:
             # all-or-nothing: a failed prompt cancels its siblings, which
             # frees their queued slots and decode lanes
-            results = [f.result(timeout=600.0) for f in futures]
+            for f in futures:
+                f.cancel()
+            raise
+        results = self._collect_results(futures, deadline_s, expires_at)
+        return self._build_response(results, token_lists, text_mode)
+
+    @staticmethod
+    def _collect_results(futures, deadline_s, expires_at):
+        """Await every request future under the remaining deadline budget
+        (600 s without one). All-or-nothing: any failure or budget
+        exhaustion cancels the sibling futures, reclaiming queued slots
+        and mid-decode lanes, before the error surfaces."""
+
+        def remaining() -> float:
+            if expires_at is None:
+                return 600.0
+            return max(0.001, expires_at - time.monotonic())
+
+        try:
+            return [f.result(timeout=remaining()) for f in futures]
+        except (FuturesTimeout, CancelledError):
+            for f in futures:
+                f.cancel()
+            if deadline_s is None:
+                raise  # the 600 s safety fallback fired, not a budget
+            # the batcher cancels a request at its deadline, the wait
+            # times out at the same instant: either way the budget is gone
+            raise DeadlineExceeded(
+                f"generate ran past its {deadline_s * 1000:.0f}ms budget"
+            ) from None
         except BaseException:
             for f in futures:
                 f.cancel()
             raise
-        return self._build_response(results, token_lists, text_mode)
+
+    def stream(self, body: Dict[str, Any]) -> StreamHandle:
+        """Streaming generate: validates and SUBMITS eagerly (malformed
+        bodies and closed batchers raise HERE, before any response bytes
+        exist), then returns a :class:`StreamHandle` whose ``chunks``
+        iterator yields ``{"tokens": [...]}`` per credited span and a
+        final ``{"done": true, "tokens": [prompt+generated]}``.
+        ``handle.cancel()`` (client disconnect) releases the decode lane.
+        One prompt per stream; batch prompts belong to unary predict."""
+        import queue as _queue
+
+        if self.batcher is None:
+            self.load()
+        token_lists, text_mode, kw = self._parse_prompts(body)
+        if len(token_lists) != 1:
+            raise ValueError("stream takes ONE prompt")
+        toks = token_lists[0]
+        q: "_queue.Queue" = _queue.Queue()
+        fut = self.batcher.submit(toks, on_tokens=q.put, **kw)
+        fut.add_done_callback(lambda _f: q.put(None))
+
+        def chunks():
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                chunk: Dict[str, Any] = {"tokens": item}
+                if text_mode:
+                    chunk["text"] = self._decode(item)
+                yield chunk
+            result = fut.result(timeout=600.0)
+            final: Dict[str, Any] = {"done": True, "tokens": result}
+            if text_mode:
+                final["text"] = self._decode(result[len(toks):])
+            yield final
+
+        return StreamHandle(chunks=chunks(), cancel=fut.cancel)
 
     def _build_response(self, results, token_lists, text_mode):
         out: Dict[str, Any] = {"tokens": results}
@@ -272,6 +389,8 @@ class GenerateServer(SeldonComponent):
             {"type": "GAUGE", "key": "gen_batcher_healthy",
              "value": 1.0 if self.batcher.health == "serving" else 0.0},
         ]
+        if s.get("shed"):
+            out.append(delta("gen_shed_total", s["shed"]))
         if s.get("batcher_restarts"):
             out.append(delta("gen_batcher_restarts", s["batcher_restarts"]))
         pending = self.batcher.slo_pending

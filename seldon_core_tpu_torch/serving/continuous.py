@@ -26,6 +26,14 @@ Counterpart of ``seldon_core_tpu/serving/continuous.py``
 * eos / ``max_new_tokens`` stop, cancellation, typed refusals
   (``PromptTooLong``, ``BudgetExceeded``, ``BatcherDead``), supervised
   restart after a loop death, and ``warm()`` before listening.
+* Shed before work: ``submit`` refuses with ``ShedError`` (429 at the
+  engine) when the admit queue is at ``admit_queue_limit`` or its
+  expected wait (depth over the observed completion rate) outlives the
+  request's ``deadline_s``; a request still queued or decoding past its
+  deadline is cancelled and its lane freed.
+* Prefill and lane insert run inside ``tracing.device_trace`` ranges
+  (``gen.prefill``, ``gen.lane_insert``), named in ``torch.profiler``
+  traces.
 
 Every other scheduler feature of the JAX batcher (speculation, the
 prefix cache, depth groups, chunked prefill, the fused stop-aware burst,
@@ -49,6 +57,8 @@ import numpy as np
 import torch
 
 from .. import rng
+from ..resilience import ShedError
+from ..tracing import device_trace
 
 logger = logging.getLogger(__name__)
 
@@ -61,7 +71,6 @@ NOT_PORTED_KNOBS: Dict[str, Any] = {
     "draft_model": None,
     "draft_params": None,
     "prefix_cache_hbm_bytes": 0,
-    "admit_queue_limit": 0,
     "depth_groups": 0,
     "depth_group_split_bytes": None,
     "prefill_chunk": 0,
@@ -138,6 +147,9 @@ class GenRequest:
     submit_t: float = 0.0
     admit_t: float = 0.0
     first_tok_t: float = 0.0
+    # absolute deadline (monotonic seconds) when the submit carried a
+    # budget: past it the scheduler cancels the request and frees its lane
+    deadline_t: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -201,6 +213,7 @@ class ContinuousBatcher:
         attn_bucket: int = 128,
         restart_budget: int = 3,
         restart_backoff_s: float = 0.5,
+        admit_queue_limit: int = 0,
         **knobs,
     ):
         check_not_ported(knobs, "ContinuousBatcher")
@@ -225,6 +238,10 @@ class ContinuousBatcher:
         ) or (self.max_seq,)
 
         self._queue: "queue.Queue[GenRequest]" = queue.Queue()
+        # shed before work: an explicit admit-queue cap (0 = none), and
+        # recent completion times for the observed service rate
+        self.admit_queue_limit = max(0, int(admit_queue_limit))
+        self._finish_times: "collections.deque" = collections.deque(maxlen=32)
         self._active: Dict[int, _Slot] = {}
         self._masks_dirty = True
         self._active_dev = None
@@ -254,7 +271,7 @@ class ContinuousBatcher:
             "admitted": 0, "finished": 0, "cancelled": 0, "steps": 0,
             "lane_steps": 0, "tokens": 0,
             "prefill_steps": 0, "prefill_tokens": 0,
-            "batcher_restarts": 0,
+            "batcher_restarts": 0, "shed": 0,
             "steps_per_poll_effective": k,
             "slo_samples": 0, "queue_wait_s_sum": 0.0,
             "ttft_s_sum": 0.0, "tpot_s_sum": 0.0,
@@ -392,6 +409,7 @@ class ContinuousBatcher:
         eos_id: Optional[int] = None,
         seed: int = 0,
         on_tokens=None,
+        deadline_s: Optional[float] = None,
     ) -> Future:
         self._check_alive()
         if not len(tokens):
@@ -401,6 +419,7 @@ class ContinuousBatcher:
                 f"prompt of {len(tokens)} exceeds max_seq {self.max_seq}"
             )
         self._check_budget(len(tokens), max_new_tokens)
+        self._shed_check(deadline_s)
         seed = int(seed)
         if not -(1 << 31) <= seed < (1 << 31):
             raise ValueError(f"seed {seed} does not fit in 32 bits")
@@ -413,6 +432,8 @@ class ContinuousBatcher:
             on_tokens=on_tokens,
         )
         req.submit_t = time.monotonic()
+        if deadline_s is not None:
+            req.deadline_t = req.submit_t + float(deadline_s)
         req.future.gen_request = req
         self._queue.put(req)
         if self._stop.is_set():
@@ -422,6 +443,44 @@ class ContinuousBatcher:
             return req.future
         self.start()
         return req.future
+
+    def observed_rate(self) -> Optional[float]:
+        """Finished requests per second over the recent completion window
+        (None until two completions exist — never shed blind)."""
+        times = list(self._finish_times)
+        if len(times) < 2:
+            return None
+        span = times[-1] - times[0]
+        if span <= 0:
+            return None
+        return (len(times) - 1) / span
+
+    def _shed_check(self, deadline_s: Optional[float]) -> None:
+        """Admit-queue shedding, BEFORE the request costs any device work:
+        an explicit queue cap, and the deadline-aware rule (expected queue
+        wait = depth / observed completion rate > remaining budget)."""
+        depth = self._queue.qsize()
+        if self.admit_queue_limit and depth >= self.admit_queue_limit:
+            rate = self.observed_rate()
+            self.stats["shed"] += 1
+            raise ShedError(
+                f"admit queue full ({depth} >= {self.admit_queue_limit})",
+                retry_after_s=(depth / rate) if rate else 1.0,
+            )
+        if deadline_s is None or depth == 0:
+            return
+        rate = self.observed_rate()
+        if rate is None:
+            return
+        est_wait = depth / rate
+        if est_wait > deadline_s:
+            self.stats["shed"] += 1
+            raise ShedError(
+                f"deadline {deadline_s * 1000:.0f}ms below estimated queue "
+                f"wait {est_wait * 1000:.0f}ms ({depth} queued at "
+                f"{rate:.2f} req/s) — shed before work",
+                retry_after_s=est_wait,
+            )
 
     def generate(self, tokens, **kw) -> List[int]:
         """Blocking convenience: submit and wait for the generated ids."""
@@ -572,10 +631,12 @@ class ContinuousBatcher:
             n = len(req.tokens)
             prompts[i, :n] = req.tokens
             last[i] = n - 1
-        firsts, slab, lane_keys = self._prefill(
-            prompts, last, [r.seed for r in reqs], [r.temperature for r in reqs]
-        )
-        self._insert(slab, slots, firsts, last + 1, lane_keys)
+        with device_trace("gen.prefill"):
+            firsts, slab, lane_keys = self._prefill(
+                prompts, last, [r.seed for r in reqs], [r.temperature for r in reqs]
+            )
+        with device_trace("gen.lane_insert"):
+            self._insert(slab, slots, firsts, last + 1, lane_keys)
         for slot, req in zip(slots, reqs):
             req.admit_t = t_admit
             self._active[slot] = _Slot(request=req)
@@ -610,6 +671,9 @@ class ContinuousBatcher:
         if not req.future.done():
             req.future.set_result(req.tokens + s.emitted)
         self.stats["finished"] += 1
+        # completion timestamp feeds the observed service rate that the
+        # admit-queue shed uses for its expected-wait estimate
+        self._finish_times.append(now)
 
     def _finish(self, slot: int) -> None:
         s = self._active.pop(slot)
@@ -618,9 +682,12 @@ class ContinuousBatcher:
         self._resolve(s)
 
     def _check_done(self) -> None:
+        now = time.monotonic()
         for slot in list(self._active):
             s = self._active[slot]
             req = s.request
+            if req.deadline_t is not None and now >= req.deadline_t:
+                req.future.cancel()  # past its budget: nobody is waiting
             if req.future.cancelled():
                 # the caller gave up: reclaim the lane
                 self._finish(slot)
@@ -824,6 +891,8 @@ class ContinuousBatcher:
                         req = self._queue.get_nowait()
                     except queue.Empty:
                         break
+                    if req.deadline_t is not None and time.monotonic() >= req.deadline_t:
+                        req.future.cancel()  # its budget ran out in the queue
                     if req.future.cancelled():
                         self.stats["cancelled"] += 1
                         continue  # the caller gave up while queued

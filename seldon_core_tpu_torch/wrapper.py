@@ -1,12 +1,15 @@
-"""REST front around a user component.
+"""REST and gRPC fronts around a user component.
 
-Counterpart of ``seldon_core_tpu/wrapper.py``, REST only (the gRPC server
-is not ported yet). Routes: ``/predict`` (and ``/api/v1.0/predictions``,
+Counterpart of ``seldon_core_tpu/wrapper.py``. REST routes: ``/predict`` (and ``/api/v1.0/predictions``,
 ``/api/v0.1/predictions``), ``/transform-input``, ``/transform-output``,
 ``/route``, ``/aggregate``, ``/send-feedback``, ``/explain``, plus
 ``/health/status``, ``/ready``, ``/live``, ``/pause``, ``/unpause``.
 JSON bodies take the protobuf-free path; a binary ``SeldonMessage`` body
 (``application/x-protobuf``) is transcoded at the edge.
+
+:func:`get_grpc_server` serves the seven component services of
+``proto/services.py`` (imports ``grpc`` and protobuf when called);
+:func:`grpc_stub` builds a client callable in place of generated stubs.
 """
 
 from __future__ import annotations
@@ -129,3 +132,83 @@ def get_rest_microservice(
     app.add_route("/pause", pause)
     app.add_route("/unpause", unpause)
     return app
+
+
+# ---------------------------------------------------------------------------
+# gRPC
+# ---------------------------------------------------------------------------
+
+_METHOD_IMPL = {
+    "Predict": seldon_methods.predict,
+    "TransformInput": seldon_methods.transform_input,
+    "TransformOutput": seldon_methods.transform_output,
+    "Route": seldon_methods.route,
+    "Aggregate": seldon_methods.aggregate,
+    "SendFeedback": seldon_methods.send_feedback,
+}
+
+
+def _make_handler(user_object, method: str, req_cls, grpc, pb):
+    impl = _METHOD_IMPL[method]
+
+    def run(request, context):
+        try:
+            return impl(user_object, request)
+        except Exception as e:  # noqa: BLE001 - wire errors back to caller
+            logger.error("grpc %s failed: %s", method, e, exc_info=True)
+            context.set_code(grpc.StatusCode.INTERNAL)
+            context.set_details(f"{type(e).__name__}: {e}")
+            return pb.SeldonMessage()
+
+    return grpc.unary_unary_rpc_method_handler(
+        run,
+        request_deserializer=req_cls.FromString,
+        response_serializer=lambda m: m.SerializeToString(),
+    )
+
+
+def get_grpc_server(
+    user_object,
+    max_workers: int = 4,
+    max_message_bytes: Optional[int] = None,
+    service_names=None,
+):
+    """A ``grpc.server`` with a handler per method of every component
+    service (or of ``service_names``); the caller adds a port and
+    starts it. Each handler runs the same ``seldon_methods`` dispatch as
+    the REST routes, on protobuf messages."""
+    import grpc
+
+    from .proto import prediction_pb2 as pb
+    from .proto import services as svc
+
+    options = []
+    if max_message_bytes:
+        options += [
+            ("grpc.max_send_message_length", max_message_bytes),
+            ("grpc.max_receive_message_length", max_message_bytes),
+        ]
+    server = grpc.server(futures.ThreadPoolExecutor(max_workers=max_workers), options=options)
+    for service, methods in svc.SERVICES.items():
+        if service_names and service not in service_names:
+            continue
+        handlers = {
+            m: _make_handler(user_object, m, req_cls, grpc, pb)
+            for m, (req_cls, _resp_cls) in methods.items()
+        }
+        server.add_generic_rpc_handlers(
+            (grpc.method_handlers_generic_handler(svc.full_service_name(service), handlers),)
+        )
+    return server
+
+
+def grpc_stub(channel, service: str, method: str):
+    """Client callable for a component method (replaces generated stubs)."""
+    from .proto import services as svc
+
+    _req_cls, resp_cls = svc.SERVICES[service][method]
+    return channel.unary_unary(
+        svc.method_path(service, method),
+        request_serializer=lambda m: m.SerializeToString(),
+        response_deserializer=resp_cls.FromString,
+    )

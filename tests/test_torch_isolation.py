@@ -56,6 +56,45 @@ def test_package_imports_no_jax_and_serves():
     assert out["bad"] == []
 
 
+# the engine's modules with no protobuf and no grpc runtime: a stub of
+# None in sys.modules makes every import of them fail
+_NO_PROTO_CHILD = r'''
+import asyncio, json, sys
+sys.modules["google.protobuf"] = None
+sys.modules["grpc"] = None
+import seldon_core_tpu_torch.engine_main
+import seldon_core_tpu_torch.graph.client
+import seldon_core_tpu_torch.graph.executor
+import seldon_core_tpu_torch.graph.service as service
+import seldon_core_tpu_torch.resilience
+import seldon_core_tpu_torch.tracing
+from seldon_core_tpu_torch.graph.spec import PredictorSpec, default_predictor
+from seldon_core_tpu_torch.http_server import Request
+try:
+    import google.protobuf
+    blocked = False
+except ImportError:
+    blocked = True
+spec = default_predictor(PredictorSpec.from_dict(
+    {"name": "p", "graph": {"name": "m", "implementation": "SIMPLE_MODEL"}}))
+rest = service.EngineApp(spec).rest_app()
+body = json.dumps({"data": {"ndarray": [[1.0, 2.0]]}}).encode()
+resp = asyncio.run(rest._dispatch(Request(
+    "POST", "/api/v0.1/predictions", "", {"content-type": "application/json"}, body)))
+print(json.dumps({"blocked": blocked, "status": resp.status,
+                  "data": json.loads(resp.body)["data"]["ndarray"]}))
+'''
+
+
+def test_engine_imports_and_serves_without_protobuf_or_grpc():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", _NO_PROTO_CHILD], capture_output=True,
+                          text=True, timeout=300, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"blocked": True, "status": 200, "data": [[0.9, 0.05, 0.05]]}
+
+
 _IMPORT_JAX = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
 _IMPORT_REF = re.compile(r"^\s*(import|from)\s+seldon_core_tpu(\.|\s|$)", re.M)
 _RELATIVE_OUT = re.compile(r"^\s*from\s+\.\.\.", re.M)  # would leave the package
