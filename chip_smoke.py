@@ -38,12 +38,39 @@ result line) if any phase fails:
    a SIMPLE_MODEL request (host only), median of 200; then the serve
    waves through the engine and through that microservice alternated
    (ABBA twice), their tokens/s, TTFT and TPOT side by side.
-7. Model (on the engine phase's copy, after every serving phase: a
+7. Small scheduler (float32, the small model of phase 4): the batcher's
+   configurations A-E (as in phase 8, ``MIN_ATTN_BUCKET`` lowered so
+   that depth groups split) give the same tokens, greedy and seeded, one
+   request at a time and all together; no decode graph is captured after
+   ``warm()``.
+8. Scheduler (llm-1.26b at full width and depth, bf16, on the engine
+   phase's weights; 8 slots, steps_per_poll 16, pipeline_depth 3,
+   attn_bucket 128): configurations A (every knob off, CUDA graphs off:
+   the eager path, kept as the comparison), B (graphs on), C (fused
+   decode K 64), D (C + depth groups 4 with a forced split), E (C +
+   prefill_chunk 256) and F (depth groups 4, default cost model), each
+   warmed for the serve phase's prompt lengths and driven with the serve
+   waves, every wave queued whole so that each run has one batch
+   composition; A/B and A/C alternated in one process (ABBA twice), D-F
+   twice each; four requests of the mixed wave stop at the token their
+   knobs-off run emitted at steps 3, 17, 40 and 63. Fails unless B and C
+   equal A token for token, every configuration repeats itself, every
+   stop fires where A's does, no graph is captured after ``warm()``,
+   every whole-prompt prefill launches the flash kernel, D splits and E
+   chunks. Reports per configuration tokens/s, TTFT p50/p99, TPOT p50,
+   peak memory, the graph pool's growth, graphs and capture seconds,
+   graph launches per decode step, realized K, group bursts and
+   occupancy, prefill chunks, and how many of D's, E's and F's streams
+   equal A's (bf16 over another read may round otherwise: reported, not
+   gated).
+9. Model (on the engine phase's copy, after every serving phase: a
    profiler run may slow later launches): full-width prefill time per
    bucket with the flash kernel's device time inside it
-   (torch.profiler), and a decode step's wall time beside its
-   device-busy time and weight-read bound.
-8. The ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+   (torch.profiler), a decode step's wall time beside its device-busy
+   time and weight-read bound, and a 16-step decode burst through the
+   batcher, eager against CUDA-graph replay: wall, device span and busy
+   time per step, device operations, host launches and busy share.
+10. The ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 
 Exits 2 when CUDA is unavailable, 1 on any failure.
 """
@@ -948,6 +975,331 @@ def phase_engine(card, alone_ref):
         return launches, gen._model, b.params
 
 
+# the scheduler phase's configurations (llm-1.26b, 8 slots, steps_per_poll
+# 16, pipeline_depth 3, attn_bucket 128): A is today's eager path, kept
+# behind the batcher's cuda_graphs argument as the comparison
+SCHED_BASE = dict(slots=8, steps_per_poll=16, pipeline_depth=3, attn_bucket=128)
+SCHED_CONFIGS = {
+    "A": ("every knob off, graphs off", dict(cuda_graphs=False)),
+    "B": ("every knob off, graphs on", {}),
+    "C": ("fused_steps_per_dispatch 64", dict(fused_steps_per_dispatch=64)),
+    "D": ("C + depth_groups 4, split forced (depth_group_split_bytes 0)",
+          dict(fused_steps_per_dispatch=64, depth_groups=4, depth_group_split_bytes=0)),
+    "E": ("C + prefill_chunk 256", dict(fused_steps_per_dispatch=64, prefill_chunk=256)),
+    "F": ("depth_groups 4, default cost model", dict(depth_groups=4)),
+}
+WARM_LENS = (20, 128, 300, 500, 900)
+# mid-burst stops: steps of a request's knobs-off run whose token becomes
+# its eos_id (see _pick_stops)
+STOP_STEPS = (3, 17, 40, 63)
+
+
+class _Gate:
+    """A poll hook that parks the batcher's loop, so that a whole wave is
+    queued before the loop takes any of it: the wave is admitted in one
+    poll and every run of it has the same batch composition."""
+
+    def __init__(self):
+        self.hold, self.parked, self.go = threading.Event(), threading.Event(), threading.Event()
+
+    def __call__(self, _poll):
+        if self.hold.is_set():
+            self.parked.set()
+            self.go.wait(60)
+
+    def submit_together(self, batcher, items):
+        self.go.clear()
+        self.parked.clear()
+        self.hold.set()
+        if not self.parked.wait(30):
+            raise AssertionError("the batcher loop did not reach its poll hook")
+        try:
+            return [batcher.submit(toks, max_new_tokens=MAX_NEW, temperature=temp,
+                                   seed=seed, eos_id=eos)
+                    for toks, temp, seed, eos in items]
+        finally:
+            self.hold.clear()
+            self.go.set()
+
+
+def _sched_batcher(model, params, cfg_kw, gate=None):
+    from seldon_core_tpu_torch.serving.continuous import ContinuousBatcher
+
+    b = ContinuousBatcher(model, params, **SCHED_BASE, **cfg_kw)
+    b.fault_hook = gate
+    return b
+
+
+def _wave_tokens(gate, batcher, wave, eos=None):
+    futs = gate.submit_together(batcher, [
+        (toks, temp, seed, (eos or {}).get(label)) for label, toks, temp, seed in wave])
+    return {label: f.result(timeout=600) for (label, *_r), f in zip(wave, futs)}
+
+
+def _sched_run(gate, b, probe, mixed):
+    """One run of the serve waves (probe, mixed, probe), each queued
+    whole: tokens by label, tokens/s, the SLO percentiles, the flash
+    launches, the scheduler counters' deltas and the peak memory."""
+    import torch
+
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+
+    b.slo_recent.clear()
+    stats0 = dict(b.stats)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES["flash_attention"] = 0
+    t = time.perf_counter()
+    out = {}
+    for i, wave in enumerate((probe, mixed, probe)):
+        got = _wave_tokens(gate, b, wave)
+        out.update({(lab if i < 2 else lab + "#2"): v for lab, v in got.items()})
+    wall = time.perf_counter() - t
+    delta = {k: v - stats0[k] for k, v in b.stats.items() if isinstance(v, (int, float))}
+    return {"tokens": out, "tok_s": MAX_NEW * (2 * len(probe) + len(mixed)) / wall,
+            "slo": _slo(b), "launches": fa.LAUNCHES["flash_attention"], "delta": delta,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def _first_diff(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def _check_sched_run(name, run, probe, mixed):
+    """Shape, flash-launch and repeat checks of one run."""
+    vocab = LLM_1_26B["vocab_size"]
+    for key, out in run["tokens"].items():
+        toks = _p(key, probe, mixed)
+        if len(out) != len(toks) + MAX_NEW or out[: len(toks)] != toks \
+                or not all(0 <= x < vocab for x in out):
+            raise AssertionError(f"[sched] {name} {key}: malformed tokens")
+    for label, *_r in probe:
+        if run["tokens"][label] != run["tokens"][label + "#2"]:
+            raise AssertionError(f"[sched] {name} {label}: repeated request gave other tokens")
+    d = run["delta"]
+    whole = d["prefill_steps"] - d["prefill_chunks"]
+    layers = LLM_1_26B["n_layers"]
+    if whole <= 0 or run["launches"] < layers * whole:
+        raise AssertionError(f"[sched] {name}: {whole} whole-prompt prefills but "
+                             f"{run['launches']} flash launches (need >= {layers} each)")
+
+
+def phase_scheduler(card, model, params):
+    """The scheduler knobs at llm-1.26b full width (bf16, 8 slots):
+    configurations A-F of SCHED_CONFIGS driven with the serve waves, A/B
+    and A/C alternated in one process (ABBA twice); the gated checks and
+    the reported numbers are in the module docstring."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    probe, mixed = serve_waves()
+    prompts = {label: toks for label, toks, _t, _s in mixed}
+    gate = _Gate()
+    runs = {name: [] for name in SCHED_CONFIGS}
+    info = {}
+
+    def build(name):
+        b = _sched_batcher(model, params, SCHED_CONFIGS[name][1], gate)
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        t = time.perf_counter()
+        b.warm(prompt_lens=WARM_LENS, max_new_tokens=MAX_NEW)
+        info[name] = {"warm_s": time.perf_counter() - t,
+                      "warm_reserved": torch.cuda.memory_reserved() - reserved,
+                      "graphs": b.stats["graphs_captured"],
+                      "capture_s": b.stats["graph_capture_s"],
+                      "pool": b.stats["graph_pool_bytes"]}
+        b.start()
+        return b
+
+    live = {name: build(name) for name in ("A", "B", "C")}
+    for other in ("B", "C"):
+        for name in (("A", other, other, "A") * 2):
+            runs[name].append(_sched_run(gate, live[name], probe, mixed))
+    # the stops ride the mixed wave itself (same batch composition as the
+    # knobs-off run they are read from)
+    eos, expect = _pick_stops(runs["A"][0]["tokens"], prompts)
+    stops = {}
+    for name in ("A", "B", "C"):
+        stops[name] = _wave_tokens(gate, live[name], mixed, eos)
+    inline = {}
+    for name in ("A", "B", "C"):
+        inline[name] = live[name].stats["graph_captures_inline"]
+        live[name].close()
+    live.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in ("D", "E", "F"):
+        b = build(name)
+        for _ in range(2):
+            runs[name].append(_sched_run(gate, b, probe, mixed))
+        stops[name] = _wave_tokens(gate, b, mixed, eos)
+        inline[name] = b.stats["graph_captures_inline"]
+        b.close()
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    a0 = runs["A"][0]["tokens"]
+    for name, rs in runs.items():
+        for run in rs:
+            _check_sched_run(name, run, probe, mixed)
+            if run["tokens"] != rs[0]["tokens"]:
+                raise AssertionError(f"[sched] {name}: the same waves gave other tokens")
+        if name in ("A", "B", "C") and rs[0]["tokens"] != a0:
+            bad = [k for k in a0 if rs[0]["tokens"][k] != a0[k]]
+            raise AssertionError(f"[sched] {name} != A at full width: {bad}")
+        if name != "A" and inline[name]:
+            raise AssertionError(f"[sched] {name}: {inline[name]} graphs captured after warm()")
+        for label, e in eos.items():
+            out = stops[name][label]
+            gen = out[len(prompts[label]):]
+            if e in gen[:-1] or (gen[-1] != e and len(gen) < MAX_NEW):
+                raise AssertionError(f"[sched] {name} {label}: did not stop at its eos {e}")
+            if name in ("A", "B", "C") and out != expect[label]:
+                raise AssertionError(f"[sched] {name} {label}: stop differs from the "
+                                     f"knobs-off run ({len(out)} vs {len(expect[label])} tokens)")
+        if name in ("A", "B", "C"):
+            rest = [k for k in prompts if k not in eos and stops[name][k] != a0[k]]
+            if rest:
+                raise AssertionError(f"[sched] {name}: streams beside the stops changed: {rest}")
+    d_groups = sum(r["delta"]["group_bursts"] for r in runs["D"])
+    if d_groups <= 0:
+        raise AssertionError("[sched] D: the forced split dispatched no group burst")
+    if sum(r["delta"]["prefill_chunks"] for r in runs["E"]) <= 0:
+        raise AssertionError("[sched] E: no prompt was chunked")
+    log(f"[sched] B == A and C == A token for token (greedy and seeded, {len(a0)} "
+        "streams per run); every configuration repeatable; every stop fired at its "
+        "step; no graph captured after warm()")
+
+    for name, (label, _kw) in SCHED_CONFIGS.items():
+        rs = runs[name]
+        d = {k: sum(r["delta"][k] for r in rs) for k in rs[0]["delta"]}
+        same = [k for k in a0 if rs[0]["tokens"][k] == a0[k]]
+        diffs = {k: _first_diff(rs[0]["tokens"][k][len(_p(k, probe, mixed)):],
+                                a0[k][len(_p(k, probe, mixed)):])
+                 for k in a0 if k not in same}
+        stop_same = sum(stops[name][lab] == expect[lab] for lab in eos)
+        k_real = d["fused_steps"] / d["fused_dispatches"] if d["fused_dispatches"] else None
+        occ = (d["group_lanes"] / (d["group_lanes"] + d["group_pad_lanes"])
+               if d["group_bursts"] else None)
+        launches_step = d["graph_replays"] / d["steps"] if d["steps"] else 0.0
+        med = {m: float(np.median([r["slo"][m] for r in rs]))
+               for m in ("ttft_p50", "ttft_p99", "tpot_p50")}
+        info[name].update(runs=len(rs), launches=[r["launches"] for r in rs])
+        log(f"[sched] {name} ({label}), {len(rs)} runs: tokens/s median "
+            f"{np.median([r['tok_s'] for r in rs]):.1f} {[round(r['tok_s'], 1) for r in rs]}; "
+            f"TTFT p50 {med['ttft_p50']:.1f} p99 {med['ttft_p99']:.1f} ms; TPOT p50 "
+            f"{med['tpot_p50']:.2f} ms {[round(r['slo']['tpot_p50'], 2) for r in rs]} "
+            f"[{card}]")
+        log(f"[sched] {name}: peak device memory {max(r['peak'] for r in rs) / 2**30:.2f} GiB "
+            f"(all live batchers); graph pool grew {info[name]['pool'] / 2**20:.1f} MiB over "
+            f"{info[name]['graphs']} graphs captured in {info[name]['capture_s']:.2f} s "
+            f"(warm {info[name]['warm_s']:.1f} s); host launches per decode step "
+            f"{'eager (see [model])' if name == 'A' else f'{launches_step:.3f} graph replays'}; "
+            f"realized K {k_real if k_real is None else round(k_real, 2)}; group bursts "
+            f"{d['group_bursts']} occupancy {occ if occ is None else round(occ, 3)}; prefill "
+            f"chunks {d['prefill_chunks']}; flash launches {info[name]['launches']}")
+        log(f"[sched] {name}: {len(same)} of {len(a0)} streams equal A's"
+            + (f"; first differing generated step {diffs}" if diffs else "")
+            + f"; stops equal to A's {stop_same} of {len(eos)}")
+    return {name: info[name]["launches"][0] for name in SCHED_CONFIGS}
+
+
+def _pick_stops(tokens, prompts):
+    """For each of STOP_STEPS, a request of the mixed wave (never the
+    deepest, greedy_900, whose lane sets every burst's attention bucket)
+    whose knobs-off token at that step is its first occurrence there, so
+    the stop can only fire at that step: ``({label: eos}, {label:
+    expected stream})``. Where no request qualifies, the next free one
+    is taken and its stop fires at the token's first occurrence."""
+    eos, expect, notes = {}, {}, []
+    free = [lab for lab in prompts if lab != "greedy_900"]
+    for step in STOP_STEPS:
+        def first_at(lab):
+            gen = tokens[lab][len(prompts[lab]):]
+            return gen.index(gen[step])
+
+        label = next((lab for lab in free if first_at(lab) == step), free[0])
+        free.remove(label)
+        n = len(prompts[label])
+        eos[label] = tokens[label][n + step]
+        fires = first_at(label)
+        expect[label] = tokens[label][: n + fires + 1]
+        notes.append(f"{label} eos {eos[label]} (its step-{step} token) fires at step {fires}")
+    log("[sched] mid-burst stops on the mixed wave: " + "; ".join(notes))
+    return eos, expect
+
+
+def _p(key, probe, mixed):
+    label = key.split("#")[0]
+    return next(toks for lab, toks, _t, _s in list(probe) + list(mixed) if lab == label)
+
+
+SMALL_CFG = dict(vocab_size=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                 d_ff=512, max_seq=128, dtype="float32")
+
+
+def phase_small_scheduler():
+    """f32 small model on the card: configurations A-E (the full-width
+    phase's knobs at this size, MIN_ATTN_BUCKET lowered to 16 so that
+    depth groups really split) give the same tokens, greedy and seeded,
+    and no graph is captured after warm()."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models.llm import DecoderLM
+    from seldon_core_tpu_torch.serving.continuous import ContinuousBatcher
+
+    model = DecoderLM(**SMALL_CFG)
+    params = model.init_params(0, device="cuda")
+    rs = np.random.RandomState(5)
+    lens = (5, 39, 12, 50, 20, 3, 60, 33)
+    reqs = [(rs.randint(0, SMALL_CFG["vocab_size"], n).tolist(),
+             dict(max_new_tokens=24 + i % 5, **({"temperature": 0.9, "seed": i} if i % 2 else {})))
+            for i, n in enumerate(lens)]
+    base = dict(slots=4, prefill_buckets=(32, 64), steps_per_poll=4, attn_bucket=16)
+    fused = dict(fused_steps_per_dispatch=16)
+    configs = {"A": dict(cuda_graphs=False), "B": {}, "C": fused,
+               "D": dict(fused, depth_groups=4, depth_group_split_bytes=0),
+               "E": dict(fused, prefill_chunk=32)}
+    old = ContinuousBatcher.MIN_ATTN_BUCKET
+    ContinuousBatcher.MIN_ATTN_BUCKET = 16
+    outs, notes = {}, []
+    try:
+        for name, kw in configs.items():
+            b = ContinuousBatcher(model, params, **base, **kw)
+            try:
+                b.warm(prompt_lens=lens, max_new_tokens=28)
+                got = [[b.submit(p, **r).result(timeout=300) for p, r in reqs]]
+                futs = [b.submit(p, **r) for p, r in reqs]
+                got.append([f.result(timeout=300) for f in futs])
+                s = b.stats
+                if name != "A" and s["graph_captures_inline"]:
+                    raise AssertionError(f"[small-sched] {name}: graphs captured after warm()")
+            finally:
+                b.close()
+            if got[0] != got[1]:
+                raise AssertionError(f"[small-sched] {name}: one at a time != together")
+            outs[name] = got[0]
+            notes.append(f"{name} graphs {s['graphs_captured']} fused {s['fused_dispatches']} "
+                         f"group bursts {s['group_bursts']} chunks {s['prefill_chunks']}")
+            if name == "D" and not s["group_bursts"]:
+                raise AssertionError("[small-sched] D: groups never split")
+            if name == "E" and not s["prefill_chunks"]:
+                raise AssertionError("[small-sched] E: nothing was chunked")
+    finally:
+        ContinuousBatcher.MIN_ATTN_BUCKET = old
+    for name, got in outs.items():
+        if got != outs["A"]:
+            bad = [i for i, (x, y) in enumerate(zip(got, outs["A"])) if x != y]
+            raise AssertionError(f"[small-sched] {name} != A at f32 (requests {bad})")
+    log(f"[small-sched] f32 on the card: A == B == C == D == E token for token, greedy and "
+        f"seeded, {len(reqs)} requests one at a time and together; " + "; ".join(notes))
+
+
 def phase_model(model, params):
     """Model-layer times at full width: prefill per bucket (B=1), and one
     ragged decode step over 8 lanes — its wall time beside the device
@@ -1007,6 +1359,60 @@ def phase_model(model, params):
         log(f"[model] decode step, 8 lanes, attn_len {attn_len}: wall {wall_ms:.2f} ms, "
             f"device busy {device_ms:.2f} ms ({kernels:.0f} device ops), "
             f"weight-read bound {weight_ms:.2f} ms")
+    phase_burst(model, params, weight_ms)
+
+
+def phase_burst(model, params, weight_ms, k=16, n=6):
+    """A whole decode burst through the batcher (8 lanes, k steps), eager
+    (graphs off) against CUDA-graph replay: per step, the host's wall
+    time (uninstrumented, host clock), the device span (CUDA events),
+    the device-busy time and device operations (``torch.profiler``), the
+    launches the host made (``cudaLaunchKernel`` / ``cudaGraphLaunch``)
+    and the busy share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from seldon_core_tpu_torch.serving.continuous import ContinuousBatcher
+
+    for graphs in (False, True):
+        b = ContinuousBatcher(model, params, **SCHED_BASE, cuda_graphs=graphs)
+        try:
+            b.warm(prompt_lens=(100, 900), max_new_tokens=0)
+            b._whole.act.fill_(True)
+            for attn_len in (128, 1024):
+                def burst():
+                    b._whole_burst(k, attn_len, False, False)
+                    b._whole.pos.zero_()
+
+                burst()
+                torch.cuda.synchronize()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                for _ in range(n):
+                    burst()
+                end.record()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / (n * k)
+                span = start.elapsed_time(end) / (n * k)
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(n):
+                        burst()
+                    torch.cuda.synchronize()
+                events = prof.key_averages()
+                dev = [e for e in events if e.device_type.name == "CUDA"]
+                busy = sum(e.self_device_time_total for e in dev) / 1e3 / (n * k)
+                ops = sum(e.count for e in dev) / (n * k)
+                calls = {name: sum(e.count for e in events if e.key == name) / (n * k)
+                         for name in ("cudaLaunchKernel", "cudaGraphLaunch")}
+                log(f"[burst] {'graph replay' if graphs else 'eager'}, 8 lanes, k {k}, attn_len "
+                    f"{attn_len}, per step: wall {wall:.3f} ms, device span {span:.3f} ms, "
+                    f"device busy {busy:.3f} ms ({ops:.0f} device ops), host launches "
+                    f"cudaLaunchKernel {calls['cudaLaunchKernel']:.1f} cudaGraphLaunch "
+                    f"{calls['cudaGraphLaunch']:.2f}, busy share of wall {busy / wall:.3f}; "
+                    f"weight-read bound {weight_ms:.2f} ms")
+        finally:
+            b.close()
 
 
 def main() -> int:
@@ -1037,6 +1443,10 @@ def main() -> int:
         gc.collect()  # the serve phase's copy of the model goes
         torch.cuda.empty_cache()
         engine_launches, model, params = phase_engine(card, alone)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_small_scheduler()
+        sched_launches = phase_scheduler(card, model, params)
         # the profiler runs last: once it has traced the card, later
         # launches may carry its overhead
         phase_model(model, params)
@@ -1049,6 +1459,7 @@ def main() -> int:
             "replaces": "seldon_core_tpu/ops/flash_attention.py:138",
             "launches": launches,
             "engine_launches": engine_launches,
+            "scheduler_launches": sched_launches,
             "max_abs_err": worst,
             "ms": head["ms"],
             "device_ms": head["device_ms"],

@@ -79,6 +79,14 @@ class MetricsRegistry:
     # series, the scheduler's health in a first-class gauge (1 = serving,
     # 0 = restarting/dead; readiness mirrors it)
     _RECOVERY = {"gen_batcher_restarts": "seldon_engine_batcher_restarts"}
+
+    # fused stop-aware decode: device steps run inside fused bursts and
+    # the dispatches that carried them; steps / dispatches is the
+    # realized burst length
+    _FUSED = {
+        "gen_fused_steps": "seldon_engine_fused_steps",
+        "gen_fused_dispatches": "seldon_engine_fused_dispatches",
+    }
     _RECOVERY_GAUGES = {"gen_batcher_healthy": "seldon_engine_batcher_healthy"}
 
     # generate SLO TIMERs (per completed request, shipped by the generate
@@ -108,6 +116,9 @@ class MetricsRegistry:
                 recovery = self._RECOVERY.get(key)
                 if recovery is not None:
                     self.counter_inc(recovery, tags, val)
+                fused = self._FUSED.get(key)
+                if fused is not None:
+                    self.counter_inc(fused, tags, val)
             elif mtype == "GAUGE":
                 self.gauge_set(f"seldon_custom_{key}", val, tags)
                 rg = self._RECOVERY_GAUGES.get(key)

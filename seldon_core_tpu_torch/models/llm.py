@@ -8,10 +8,12 @@ a leading axis), so weights carry across one-to-one.
 Ported: the dense forward (``apply``), batched ``prefill`` (its
 attention runs the hand-written CUDA flash kernel on the card), the
 ragged one-position decode over a per-layer cache
-(``decode_step_ragged_list``), ``generate``, ``init_params`` and the
-analytic counts. Not ported yet: MoE, the tp/sp/ep parallel paths,
-``prefill_chunk``, ``prefill_with_prefix``, ``decode_chunk_ragged_list``
-and the training loss.
+(``decode_step_ragged_list``, with a separate write position for the
+fused stop-aware burst), ``prefill_chunk`` (one chunk of a long prompt
+into a staging slab), ``generate``, ``init_params`` and the analytic
+counts. Not ported yet: MoE, the tp/sp/ep parallel paths,
+``prefill_with_prefix``, ``decode_chunk_ragged_list`` and the training
+loss.
 
 Layouts match the JAX package exactly: per-layer caches
 ``[B, KV, T, Dh]``, the prefill slab ``[L, B, KV, Tb, Dh]``, and q/k/v
@@ -70,7 +72,9 @@ def _rope(x, positions, theta: float):
     dh = x.shape[-1]
     half = dh // 2
     exponent = torch.arange(half, dtype=torch.float32, device=x.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exponent)
+    # a Python-scalar base: no host-to-device copy, so the decode step
+    # captures into a CUDA graph (same float32 pow as a 0-dim tensor base)
+    freqs = 1.0 / torch.pow(float(theta), exponent)
     pos = positions.to(torch.float32)
     if positions.dim() == 1:
         angles = (pos[:, None] * freqs[None, :])[None, None]  # [1,1,T,half]
@@ -215,12 +219,17 @@ class DecoderLM(ServedModel):
         viewed as [B, KV, rep, T, Dh] and both products batch over
         (B, KV). Scores in f32, masked at -1e30, softmax weights cast to
         the compute dtype before the weighted sum (as the JAX package).
-        ``bound``: [B] (one-position decode)."""
+        ``bound``: [B] (one-position decode: every query row masks to its
+        own prefix) or [B, T] (a chunk: prefix plus in-window causality)."""
         B, Hl, T, Dh = q.shape
         KVl, Ta = kc.shape[1], kc.shape[2]
         rep = Hl // KVl
         key_pos = torch.arange(Ta, device=q.device)
-        mask = key_pos[None, None, None, :] <= bound[:, None, None, None]
+        if bound.dim() == 2:
+            # rows of qg run (rep, T): tile the [B, T] bound rep times
+            mask = key_pos[None, None, None, :] <= bound.repeat(1, rep)[:, None, :, None]
+        else:
+            mask = key_pos[None, None, None, :] <= bound[:, None, None, None]
         # the rep query heads of a group ride the row axis of one product
         qg = q.reshape(B, KVl, rep * T, Dh).float()
         s = torch.matmul(qg, kc.float().transpose(-1, -2)) / math.sqrt(Dh)
@@ -256,18 +265,19 @@ class DecoderLM(ServedModel):
         x = _rms_norm(x, params["ln_f"].to(dt), self.cfg.norm_eps)
         return (x[:, 0] @ params["unembed"].to(dt)).float()
 
-    def _decode_layer(self, p, x, pos, ck, cv, attn_len):
+    def _decode_layer(self, p, x, pos, ck, cv, attn_len, write_pos):
         """One decoder layer with KV-cache attention at per-row positions
         ``pos`` [B]. This step's K/V land in ``ck``/``cv`` [B, KV, T, Dh]
-        in place; a row whose position lies past the cache writes nothing
-        (the JAX package's out-of-bounds scatter is a no-op), so a lane
-        decoding past its budget never touches another position."""
+        in place at ``write_pos`` [B]; a row whose write position lies at
+        or past the cache length writes nothing (the JAX package's
+        out-of-bounds scatter is a no-op), so a parked or finished lane
+        never touches its cache."""
         B = x.shape[0]
         T = ck.shape[2]
         q, k, v = self._qkv(p, x, pos[:, None])
         rows = torch.arange(B, device=x.device)
-        inb = (pos < T)[:, None, None]
-        wp = pos.clamp(max=T - 1)
+        inb = (write_pos < T)[:, None, None]
+        wp = write_pos.clamp(max=T - 1)
         ck[rows, :, wp] = torch.where(inb, k[:, :, 0], ck[rows, :, wp])
         cv[rows, :, wp] = torch.where(inb, v[:, :, 0], cv[rows, :, wp])
         kc, vc = ck, cv
@@ -282,18 +292,23 @@ class DecoderLM(ServedModel):
     @torch.inference_mode()
     def decode_step_ragged_list(self, params, ks: List[torch.Tensor],
                                 vs: List[torch.Tensor], tokens, pos,
-                                attn_len: Optional[int] = None):
+                                attn_len: Optional[int] = None, write_pos=None):
         """Ragged decode step over an UNSTACKED cache: ``ks``/``vs`` are
         per-layer lists of [B, KV, T, Dh] tensors, written in place (the
         JAX package donates them). ``tokens`` [B, 1], ``pos`` [B]: every
         row sits at its own position. ``attn_len`` (int) bounds the
-        attention read. Returns ``(logits [B, V], ks, vs)``."""
+        attention read. ``write_pos`` ([B], optional) is where each row's
+        K/V land when that differs from ``pos``: the fused stop-aware
+        burst parks finished lanes at the cache length, which writes
+        nothing. Returns ``(logits [B, V], ks, vs)``."""
         dt = self.dtype
         pos = pos.long()
+        wp = pos if write_pos is None else write_pos.long()
         x = params["embed"][tokens.long()].to(dt)  # [B,1,D]
         blocks = params["blocks"]
         for l in range(len(ks)):
-            x = self._decode_layer(self._layer(blocks, l), x, pos, ks[l], vs[l], attn_len)
+            x = self._decode_layer(self._layer(blocks, l), x, pos, ks[l], vs[l],
+                                   attn_len, wp)
         return self._decode_head(params, x), ks, vs
 
     @torch.inference_mode()
@@ -332,6 +347,57 @@ class DecoderLM(ServedModel):
         x_last = _rms_norm(x_last, params["ln_f"].to(dt), cfg.norm_eps)
         logits = (x_last @ params["unembed"].to(dt)).float()
         return logits, {"k": slab_k, "v": slab_v}
+
+    @torch.inference_mode()
+    def prefill_chunk(self, params, slab, tokens, start_pos: int, attn_len: int,
+                      last_index=None, want_logits: bool = True):
+        """Extend a STAGING prompt slab with one chunk, reading (not
+        recomputing) the chunks before it: the model half of the
+        batcher's chunked-prefill interleave (the JAX package's
+        ``DecoderLM.prefill_chunk``).
+
+        ``slab``: ``{"k","v"}`` of ``[L, B, KV, Tb, Dh]`` (the prefill
+        slab layout the lane insert takes), valid for ``[0, start_pos)``
+        and written here in place. ``tokens`` ``[B, C]``: token j sits at
+        position ``start_pos + j``; ``start_pos + C`` must fit the slab
+        (the JAX package's update clamps there; the batcher slides a last
+        chunk back instead). Per layer the chunk's K/V land at
+        ``start_pos`` and attention reads the slab up to ``attn_len``
+        (``>= start_pos + C``) under the ``key_pos <= start_pos + j``
+        bound, through the grouped cache attention (no flash kernel, as
+        in the JAX package). Returns ``(logits [B, V] at last_index, or
+        None when want_logits is False, slab)``: a mid-prompt chunk skips
+        the final norm and the unembed."""
+        cfg = self.cfg
+        dt = self.dtype
+        B, C = tokens.shape
+        Tb = slab["k"].shape[3]
+        start = int(start_pos)
+        if start < 0 or start + C > Tb:
+            raise ValueError(f"chunk [{start}, {start + C}) does not fit a slab of {Tb}")
+        if not start + C <= attn_len <= Tb:
+            raise ValueError(f"attn_len {attn_len} outside [{start + C}, {Tb}]")
+        dev = tokens.device
+        positions = (start + torch.arange(C, device=dev))[None, :].expand(B, C)
+        x = params["embed"][tokens.long()].to(dt)
+        blocks = params["blocks"]
+        for l in range(cfg.n_layers):
+            p = self._layer(blocks, l)
+            q, k, v = self._qkv(p, x, positions)
+            slab["k"][l, :, :, start:start + C] = k
+            slab["v"][l, :, :, start:start + C] = v
+            o = self._cache_attention(q, slab["k"][l, :, :, :attn_len],
+                                      slab["v"][l, :, :, :attn_len], positions, dt)
+            x = x + self._merge_heads(p, o)
+            x = x + self._ffn(p, x)
+        if not want_logits:
+            return None, slab
+        if last_index is None:
+            x_last = x[:, -1]
+        else:
+            x_last = x[torch.arange(B, device=dev), last_index.long()]
+        x_last = _rms_norm(x_last, params["ln_f"].to(dt), cfg.norm_eps)
+        return (x_last @ params["unembed"].to(dt)).float(), slab
 
     @torch.inference_mode()
     def generate(self, params, prompt, max_new_tokens: int,

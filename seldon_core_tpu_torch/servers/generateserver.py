@@ -13,6 +13,16 @@ Server parameters (typed, e.g. from ``PREDICTIVE_UNIT_PARAMETERS``)::
     pipeline_depth   bursts in flight before the host reads the oldest
                      (default 3; 1 = synchronous)
     attn_bucket      attention-read bucket granularity (default 128)
+    fused_steps_per_dispatch
+                     fused stop-aware decode: up to this many steps per
+                     dispatch with on-device stop detection (0 = off)
+    depth_groups     depth-aware decode: at most this many sub-bursts per
+                     poll, lanes grouped by attention bucket (0/1 = off)
+    depth_group_split_bytes
+                     the modelled price of one more sub-burst (default:
+                     the params' bytes; 0 = always split)
+    prefill_chunk    chunked prefill: prompts whose bucket exceeds this
+                     many tokens prefill one chunk per poll (0 = off)
     restart_budget / restart_backoff_s
                      scheduler supervision (defaults 3 / 0.5)
     admit_queue_limit
@@ -22,8 +32,8 @@ Server parameters (typed, e.g. from ``PREDICTIVE_UNIT_PARAMETERS``)::
                      traffic shape ``warm()`` runs before the server
                      listens (CSV string or list)
 
-The JAX server's other parameters (speculation, the prefix cache, depth
-groups, chunked prefill, fused decode, disaggregated roles, pressure,
+The JAX server's other parameters (speculation, the prefix cache,
+disaggregated roles, pressure,
 the KV tier, resume tokens, swap, tenants, the profiler, SLO burn, the
 flight recorder, meshes) are not ported yet: each raises when set to
 anything but its off value, as does a request's ``resume_token`` or
@@ -77,9 +87,8 @@ logger = logging.getLogger(__name__)
 # server accepts unknown ones)
 _NOT_PORTED = {
     "mesh": None, "mesh_shape": None, "shard_cache_seq": False,
-    "fused_steps_per_dispatch": 0, "speculate_tokens": 0, "draft_layers": 0,
+    "speculate_tokens": 0, "draft_layers": 0,
     "draft_uri": None, "prefix_cache_hbm_bytes": 0,
-    "depth_groups": 0, "depth_group_split_bytes": None, "prefill_chunk": 0,
     "flight_recorder": 0, "role": "unified", "peer": None, "kv_port": 0,
     "hbm_ledger_bytes": 0, "host_kv_tier_bytes": 0, "resume_tokens": 0,
     "swap_drain_ms": 0, "tenants": None, "weight_pager_host_bytes": 0,
@@ -87,8 +96,6 @@ _NOT_PORTED = {
 }
 def _is_off(name: str, value, off) -> bool:
     if value == off:
-        return True
-    if name == "depth_groups" and str(value).strip() in ("0", "1"):
         return True
     if isinstance(value, str):
         v = value.strip().lower()
@@ -119,6 +126,10 @@ class GenerateServer(SeldonComponent):
         steps_per_poll: int = 8,
         pipeline_depth: int = 3,
         attn_bucket: int = 128,
+        fused_steps_per_dispatch: int = 0,
+        depth_groups: int = 0,
+        depth_group_split_bytes: Optional[int] = None,
+        prefill_chunk: int = 0,
         restart_budget: int = 3,
         restart_backoff_s: float = 0.5,
         admit_queue_limit: int = 0,
@@ -140,6 +151,13 @@ class GenerateServer(SeldonComponent):
         self._steps_per_poll = int(steps_per_poll)
         self._pipeline_depth = int(pipeline_depth)
         self._attn_bucket = int(attn_bucket)
+        self._fused_steps_per_dispatch = int(fused_steps_per_dispatch)
+        self._depth_groups = int(depth_groups)
+        split = depth_group_split_bytes
+        if isinstance(split, str) and split.strip().lower() in ("", "none", "null"):
+            split = None
+        self._depth_group_split_bytes = int(split) if split is not None else None
+        self._prefill_chunk = int(prefill_chunk)
         self._restart_budget = int(restart_budget)
         self._restart_backoff_s = float(restart_backoff_s)
         self._admit_queue_limit = int(admit_queue_limit)
@@ -193,6 +211,10 @@ class GenerateServer(SeldonComponent):
             steps_per_poll=self._steps_per_poll,
             pipeline_depth=self._pipeline_depth,
             attn_bucket=self._attn_bucket,
+            fused_steps_per_dispatch=self._fused_steps_per_dispatch,
+            depth_groups=self._depth_groups,
+            depth_group_split_bytes=self._depth_group_split_bytes,
+            prefill_chunk=self._prefill_chunk,
             restart_budget=self._restart_budget,
             restart_backoff_s=self._restart_backoff_s,
             admit_queue_limit=self._admit_queue_limit,
@@ -204,7 +226,8 @@ class GenerateServer(SeldonComponent):
             self.batcher.fault_hook = faults.scheduler_hook()
         if self._warmup_prompt_lens:
             # warm before listen: the first admission wave must not pay
-            # the kernel build and the libraries' first-call setup
+            # the kernel build, the libraries' first-call setup or the
+            # capture of the decode-burst CUDA graphs
             self.batcher.warm(
                 prompt_lens=self._warmup_prompt_lens,
                 max_new_tokens=self._warmup_max_new_tokens,
@@ -386,9 +409,30 @@ class GenerateServer(SeldonComponent):
             delta("gen_prefill_steps", s["prefill_steps"]),
             delta("gen_prefill_tokens", s["prefill_tokens"]),
             delta("gen_decode_steps", s["steps"]),
+            # modelled device reads of the dispatched decode (sub)bursts:
+            # depth groups show as read bytes per token dropping
+            delta("gen_burst_reads", s["burst_reads"]),
+            delta("gen_burst_read_bytes", s["burst_read_bytes"]),
             {"type": "GAUGE", "key": "gen_batcher_healthy",
              "value": 1.0 if self.batcher.health == "serving" else 0.0},
         ]
+        if s.get("prefill_chunks"):
+            out.append(delta("gen_prefill_chunks", s["prefill_chunks"]))
+        if s.get("fused_dispatches"):
+            # their ratio is the realized fused burst length K
+            out.extend([
+                delta("gen_fused_steps", s["fused_steps"]),
+                delta("gen_fused_dispatches", s["fused_dispatches"]),
+            ])
+        if s.get("group_bursts"):
+            out.extend([
+                delta("gen_group_bursts", s["group_bursts"]),
+                delta("gen_group_lanes", s["group_lanes"]),
+                {"type": "GAUGE", "key": "gen_group_occupancy",
+                 # real lanes over gathered rows: the pow2 pad overhead
+                 "value": round(s["group_lanes"] / max(
+                     1, s["group_lanes"] + s["group_pad_lanes"]), 4)},
+            ])
         if s.get("shed"):
             out.append(delta("gen_shed_total", s["shed"]))
         if s.get("batcher_restarts"):

@@ -31,15 +31,37 @@ Counterpart of ``seldon_core_tpu/serving/continuous.py``
   expected wait (depth over the observed completion rate) outlives the
   request's ``deadline_s``; a request still queued or decoding past its
   deadline is cancelled and its lane freed.
-* Prefill and lane insert run inside ``tracing.device_trace`` ranges
-  (``gen.prefill``, ``gen.lane_insert``), named in ``torch.profiler``
+* Fused stop-aware decode (``fused_steps_per_dispatch``): one dispatch
+  runs up to K steps with on-device stop detection and per-lane done
+  masks; K is the pow2 floor of the knob, shrunk toward the nearest
+  lane's remaining budget but never below the poll burst.
+* Depth groups (``depth_groups``): lanes split into sub-bursts by
+  attention-read bucket when the modelled KV-read saving beats an extra
+  param read (``depth_group_split_bytes`` overrides that price); a group
+  gathers its lanes' cache prefix into a slab, decodes over it and
+  scatters it back. One group is the whole-batch burst exactly.
+* Chunked prefill (``prefill_chunk``): a prompt whose bucket is longer
+  than one chunk reserves its lane and is prefilled one chunk per poll
+  into a staging slab, interleaved with the decode bursts; the last
+  chunk samples the first token and the slab goes through the ordinary
+  lane insert.
+* On CUDA every decode burst replays CUDA graphs: one graph per phase
+  and key (the burst's start, ONE decode step replayed k times, and a
+  group's gather and scatter), keyed by step kind, rows, attention
+  bucket and sampling. ``warm()`` captures every key the declared
+  traffic reaches; a key it missed is captured at first use and counted
+  (``graph_captures_inline``). Every tensor a graph touches is a
+  persistent buffer updated in place. On the CPU the same phase
+  functions run eagerly.
+* Prefill, chunk and lane insert run inside ``tracing.device_trace``
+  ranges (``gen.prefill``, ``gen.prefill_chunk``, ``gen.lane_insert``),
+  decode bursts inside ``gen.decode_burst``, named in ``torch.profiler``
   traces.
 
 Every other scheduler feature of the JAX batcher (speculation, the
-prefix cache, depth groups, chunked prefill, the fused stop-aware burst,
-HBM pressure, the host KV tier, weight swap, drain, retune, the flight
-recorder, the device-time profiler, the mesh) is not ported yet: its
-knob raises when set to anything but its off value.
+prefix cache, HBM pressure, the host KV tier, weight swap, drain,
+retune, the flight recorder, the device-time profiler, the mesh) is not
+ported yet: its knob raises when set to anything but its off value.
 """
 
 from __future__ import annotations
@@ -67,13 +89,9 @@ logger = logging.getLogger(__name__)
 NOT_PORTED_KNOBS: Dict[str, Any] = {
     "mesh": None,
     "shard_cache_seq": False,
-    "fused_steps_per_dispatch": 0,
     "draft_model": None,
     "draft_params": None,
     "prefix_cache_hbm_bytes": 0,
-    "depth_groups": 0,
-    "depth_group_split_bytes": None,
-    "prefill_chunk": 0,
     "flight_recorder_capacity": 0,
     "hbm_ledger_bytes": 0,
     "host_kv_tier_bytes": 0,
@@ -98,7 +116,7 @@ def check_not_ported(knobs: Dict[str, Any], owner: str) -> None:
         if name not in NOT_PORTED_KNOBS:
             raise TypeError(f"{owner} got an unknown knob {name!r}")
         off = NOT_PORTED_KNOBS[name]
-        if value == off or (name == "depth_groups" and value in (0, 1)):
+        if value == off:
             continue
         raise NotImplementedError(
             f"{owner}: {name}={value!r} is not ported to seldon_core_tpu_torch "
@@ -167,26 +185,176 @@ class _Slot:
     credit_done: bool = False
 
 
-class _Burst:
-    """One dispatched burst's tokens on their way to the host."""
+@dataclasses.dataclass
+class _ChunkJob:
+    """A long-prompt admission mid-chunked-prefill: its lane is reserved
+    but not decoding; one chunk advances per poll into a staging slab
+    outside the decode cache, inserted into the lane when complete."""
 
-    def __init__(self, toks: torch.Tensor):
-        if toks.device.type == "cuda":
-            self.host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
-            self.host.copy_(toks, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host = toks
-            self.event = None
+    request: GenRequest
+    slot: int
+    next_start: int  # position of the next chunk's first token
+    slab: Any  # {"k","v"}: [L, 1, KV, bucket, Dh]
+    bucket: int
+
+
+class _PinnedPool:
+    """Pinned host buffers for the bursts' token copies: a buffer goes
+    back to the pool only after the host has read the burst it carried
+    (its copy event fired), so an in-flight copy never lands in a buffer
+    being read. Starts with ``pipeline_depth + 1``; grows when a poll's
+    sub-bursts need more."""
+
+    def __init__(self, numel: int, count: int):
+        self.numel = numel
+        self._free = [self._new() for _ in range(count)]
+
+    def _new(self) -> torch.Tensor:
+        return torch.empty((self.numel,), dtype=torch.long, pin_memory=True)
+
+    def take(self) -> torch.Tensor:
+        return self._free.pop() if self._free else self._new()
+
+    def give(self, buf: torch.Tensor) -> None:
+        self._free.append(buf)
+
+
+class _Burst:
+    """One dispatched (sub)burst on its way to the host: its tokens
+    ``[k + 1, rows]`` (row 0 = the tokens it started from), for a fused
+    burst each column's emitted count, and the lane snapshot its columns
+    are credited against (``snapshot[slot] = (slot state, start row,
+    column)``)."""
+
+    def __init__(self, toks: torch.Tensor, counts: Optional[torch.Tensor],
+                 snapshot, k: int, pool: Optional[_PinnedPool]):
+        self.snapshot = snapshot
+        self.k = k
+        self.fused = counts is not None
+        self._pool, self._buf, self.event = pool, None, None
+        if toks.device.type != "cuda":
+            # the device buffers are reused by the next burst: keep a copy
+            self.host = toks.clone()
+            self.counts = counts.clone() if self.fused else None
+            return
+        self._buf = buf = pool.take()
+        n = toks.numel()
+        self.host = buf[:n].view(toks.shape)
+        self.host.copy_(toks, non_blocking=True)
+        self.counts = None
+        if self.fused:
+            self.counts = buf[n:n + counts.numel()]
+            self.counts.copy_(counts, non_blocking=True)
+        # stream order: the copies run after the burst and before any
+        # later burst rewrites the device buffers
+        self.event = torch.cuda.Event()
+        self.event.record()
 
     def ready(self) -> bool:
         return self.event is None or self.event.query()
 
-    def numpy(self) -> np.ndarray:
+    def numpy(self):
+        """``(tokens, counts or None)`` on the host (the burst's one read)."""
         if self.event is not None:
             self.event.synchronize()
-        return self.host.numpy()
+        toks = self.host.numpy().copy()
+        counts = self.counts.numpy().copy() if self.fused else None
+        if self._buf is not None:
+            self._pool.give(self._buf)
+            self._buf = None
+        return toks, counts
+
+
+@dataclasses.dataclass
+class _LaneState:
+    """The persistent buffers one decode (sub)burst reads and writes: the
+    whole batch's lane registers, or a depth group's gathered copy. CUDA
+    graphs capture their addresses, so they are only ever updated in
+    place (``copy_``, indexed writes), never rebound."""
+
+    cur: torch.Tensor  # [R] token each row decodes from
+    pos: torch.Tensor  # [R] its position
+    keys: torch.Tensor  # [R, 2] threefry key
+    temps: torch.Tensor  # [R] float32
+    act: torch.Tensor  # [R] bool: rows that decode (a group's pads are not)
+    stops: torch.Tensor  # [R] stop token, -1 = none
+    budget: torch.Tensor  # [R] tokens left after the current one
+    done: torch.Tensor  # [R] bool, fused bursts
+    counts: torch.Tensor  # [R] tokens emitted this burst, fused bursts
+    toks: torch.Tensor  # [K + 1, R] this burst's tokens
+    row: torch.Tensor  # [1] next row of toks
+    lane_ix: Optional[torch.Tensor] = None  # [R] a group's lanes (pads last)
+
+    @classmethod
+    def alloc(cls, rows: int, kmax: int, device, group: bool) -> "_LaneState":
+        def z(*shape, dtype=torch.long):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return cls(
+            cur=z(rows), pos=z(rows), keys=z(rows, 2),
+            temps=z(rows, dtype=torch.float32), act=z(rows, dtype=torch.bool),
+            stops=torch.full((rows,), -1, dtype=torch.long, device=device),
+            budget=z(rows), done=z(rows, dtype=torch.bool), counts=z(rows),
+            toks=z(kmax + 1, rows), row=z(1), lane_ix=z(rows) if group else None,
+        )
+
+
+class _StepGraphs:
+    """CUDA graphs of the decode-burst phases, one per key, all in one
+    memory pool. A phase reads and writes persistent buffers only and
+    keeps nothing it allocates, so the graphs can share the pool: they
+    replay one at a time on the batcher's stream. Capture runs on a side
+    stream that the batcher's stream then waits on."""
+
+    def __init__(self, device, stats: Dict[str, Any]):
+        self.device = device
+        self.stats = stats
+        self.graphs: Dict[tuple, Any] = {}
+        self._pool = None
+        self._side = None
+
+    def clear(self) -> None:
+        self.graphs.clear()
+        self._pool = None
+
+    def capture(self, key: tuple, fn, warm_first: bool) -> None:
+        """Capture ``fn`` under ``key``. ``warm_first`` runs it eagerly
+        once on the capture stream first (library handles and workspaces
+        come up outside the capture); only ``warm()`` may, since the
+        eager run moves live state."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._side = torch.cuda.Stream(self.device)
+        t0 = time.perf_counter()
+        cur = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self._side), torch.inference_mode():
+            if warm_first:
+                fn()
+            reserved = torch.cuda.memory_reserved(self.device)
+            graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+            try:
+                fn()
+            finally:
+                graph.capture_end()
+        cur.wait_stream(self._side)
+        self.graphs[key] = graph
+        self.stats["graph_pool_bytes"] += torch.cuda.memory_reserved(self.device) - reserved
+        self.stats["graphs_captured"] += 1
+        self.stats["graph_capture_s"] += time.perf_counter() - t0
+
+    def run(self, key: tuple, fn) -> None:
+        graph = self.graphs.get(key)
+        if graph is None:
+            # a key warm() did not reach: capture it now (the JAX
+            # package's inline compile), never run the burst eagerly
+            logger.warning("decode-burst graph %s captured after warm()", key)
+            self.stats["graph_captures_inline"] += 1
+            self.capture(key, fn, warm_first=False)
+            graph = self.graphs[key]
+        graph.replay()
+        self.stats["graph_replays"] += 1
 
 
 class ContinuousBatcher:
@@ -198,7 +366,8 @@ class ContinuousBatcher:
     """
 
     # floor for attn_bucket (kept as the JAX package's value: it changes
-    # which cache prefix is read, never what is computed)
+    # which cache prefix is read, never what is computed). Tests lower it
+    # to exercise depth groups at tiny cache lengths.
     MIN_ATTN_BUCKET = 64
 
     def __init__(
@@ -211,9 +380,14 @@ class ContinuousBatcher:
         steps_per_poll: int = 8,
         pipeline_depth: int = 3,
         attn_bucket: int = 128,
+        fused_steps_per_dispatch: int = 0,
+        depth_groups: int = 0,
+        depth_group_split_bytes: Optional[int] = None,
+        prefill_chunk: int = 0,
         restart_budget: int = 3,
         restart_backoff_s: float = 0.5,
         admit_queue_limit: int = 0,
+        cuda_graphs: bool = True,
         **knobs,
     ):
         check_not_ported(knobs, "ContinuousBatcher")
@@ -222,17 +396,27 @@ class ContinuousBatcher:
         self.max_seq = int(max_seq or model.cfg.max_seq)
         self.steps_per_poll = int(steps_per_poll)
         # burst length actually dispatched: pow2 floor of steps_per_poll
-        k = max(1, self.steps_per_poll)
-        while k & (k - 1):
-            k &= k - 1
+        k = _pow2_floor(max(1, self.steps_per_poll))
         self._k = k
         if k != self.steps_per_poll:
             logger.info(
                 "steps_per_poll=%d rounded down to the pow2 burst length %d",
                 self.steps_per_poll, k,
             )
+        # fused stop-aware decode: up to this many steps per dispatch
+        # (pow2-floored; 0 = off, the step-at-a-time burst)
+        self.fused_steps_per_dispatch = max(0, int(fused_steps_per_dispatch))
+        self._fused_k = _pow2_floor(self.fused_steps_per_dispatch)
+        # True while the device's stop/budget registers match the host's
+        # view; a membership change clears it and the next fused dispatch
+        # uploads them (never per burst)
+        self._fused_sync = False
         self.pipeline_depth = max(1, int(pipeline_depth))
         self.attn_bucket = max(type(self).MIN_ATTN_BUCKET, int(attn_bucket))
+        # depth groups: at most this many sub-bursts per poll (0/1 = off)
+        self.depth_groups = max(0, int(depth_groups))
+        # chunked prefill: prompt tokens per chunk (0 = off)
+        self.prefill_chunk = max(0, int(prefill_chunk))
         self.prefill_buckets = tuple(
             sorted(b for b in prefill_buckets if b <= self.max_seq)
         ) or (self.max_seq,)
@@ -243,9 +427,9 @@ class ContinuousBatcher:
         self.admit_queue_limit = max(0, int(admit_queue_limit))
         self._finish_times: "collections.deque" = collections.deque(maxlen=32)
         self._active: Dict[int, _Slot] = {}
+        # chunked-prefill jobs in flight, keyed by reserved slot
+        self._chunked: Dict[int, _ChunkJob] = {}
         self._masks_dirty = True
-        self._active_dev = None
-        self._temps_dev = None
         self._any_stoch = False
         # host mirror of each lane's device position (prompt length at
         # admit, +k per dispatched burst): picks the attention-read bucket
@@ -265,13 +449,29 @@ class ContinuousBatcher:
         # chaos hook: called at the top of every poll with the poll count;
         # raising kills the loop and exercises the supervision path
         self.fault_hook: Optional[Any] = None
+        # test hook: set to a list and every dispatched decode (sub)burst
+        # appends {"lanes", "attn_len", "need", "grouped", "k"}, the
+        # proof that no lane reads past its own group's bucket
+        self.trace_groups: Optional[List[Dict[str, Any]]] = None
         self._poll_count = 0
         self._warm_args: Optional[Dict[str, Any]] = None
+        # burst_reads/burst_read_bytes: modelled device reads of the
+        # dispatched decode (sub)bursts, params once per step plus each
+        # row's bucketed KV; group_*: real and pad rows of grouped
+        # sub-bursts; lane_steps: k x rows summed over (sub)bursts
         self.stats: Dict[str, Any] = {
             "admitted": 0, "finished": 0, "cancelled": 0, "steps": 0,
             "lane_steps": 0, "tokens": 0,
-            "prefill_steps": 0, "prefill_tokens": 0,
+            "prefill_steps": 0, "prefill_tokens": 0, "prefill_chunks": 0,
             "batcher_restarts": 0, "shed": 0,
+            "burst_reads": 0, "burst_read_bytes": 0,
+            "group_bursts": 0, "group_lanes": 0, "group_pad_lanes": 0,
+            "fused_steps": 0, "fused_dispatches": 0,
+            # decode-burst CUDA graphs: captures, their seconds, the device
+            # memory the graph pool reserved while capturing, captures
+            # after warm(), and replays
+            "graphs_captured": 0, "graph_capture_s": 0.0, "graph_pool_bytes": 0,
+            "graph_captures_inline": 0, "graph_replays": 0,
             "steps_per_poll_effective": k,
             "slo_samples": 0, "queue_wait_s_sum": 0.0,
             "ttft_s_sum": 0.0, "tpot_s_sum": 0.0,
@@ -288,14 +488,40 @@ class ContinuousBatcher:
         # so pre-casting is numerically identical and halves the bytes
         # every decode step reads
         self.params = _cast_tree(params, dt)
+        cfg = model.cfg
+        # depth-group cost model: K+V bytes per cached position over all
+        # layers, and the param read a separate sub-burst adds per step
+        self._kv_key_bytes = (
+            2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
+            * torch.empty((), dtype=dt).element_size()
+        )
+        self._param_bytes = _tree_bytes(self.params)
+        self._group_split_bytes = (
+            int(depth_group_split_bytes)
+            if depth_group_split_bytes is not None
+            else self._param_bytes
+        )
+        # decode bursts replay CUDA graphs on the card; ``cuda_graphs=False``
+        # keeps them eager (the comparison the on-card smoke run makes)
+        self._graphs = (
+            _StepGraphs(self.device, self.stats)
+            if cuda_graphs and self.device.type == "cuda" else None
+        )
+        kmax = max(self._k, self._fused_k)
+        self._pinned = (
+            _PinnedPool((kmax + 2) * self.slots, self.pipeline_depth + 1)
+            if self.device.type == "cuda" else None
+        )
         self._alloc_device_state()
 
     # -- device state ------------------------------------------------------
 
     def _alloc_device_state(self) -> None:
         """(Re)allocate everything the loop mutates: the per-layer KV
-        cache, the lane token/position registers and the lane key
-        streams (``PRNGKey(lane)``, as the JAX package)."""
+        cache, the lane registers and burst buffers (the whole batch's,
+        and each depth-group size's with one shared gather buffer), and
+        the lane key streams (``PRNGKey(lane)``, as the JAX package).
+        Graphs captured over the old buffers are dropped."""
         cfg = self.model.cfg
         shape = (self.slots, cfg.n_kv_heads, self.max_seq, cfg.head_dim)
         dt, dev = self.model.dtype, self.device
@@ -303,41 +529,74 @@ class ContinuousBatcher:
             "k": [torch.zeros(shape, dtype=dt, device=dev) for _ in range(cfg.n_layers)],
             "v": [torch.zeros(shape, dtype=dt, device=dev) for _ in range(cfg.n_layers)],
         }
+        kmax = max(self._k, self._fused_k)
+        self._whole = _LaneState.alloc(self.slots, kmax, dev, group=False)
+        self._groups: Dict[int, _LaneState] = {}
+        self._gather_buf = None
+        if self.depth_groups > 1:
+            for gb in self._warm_group_sizes():
+                self._groups[gb] = _LaneState.alloc(gb, kmax, dev, group=True)
+            # one flat buffer serves every (group size, bucket): a group's
+            # gathered K and V for all layers are contiguous views of it
+            # (a buffer per key would cost up to the cache per key)
+            self._gather_buf = torch.empty(
+                (2 * cfg.n_layers * self.slots * cfg.n_kv_heads * self.max_seq
+                 * cfg.head_dim,), dtype=dt, device=dev,
+            )
+        if self._graphs is not None:
+            self._graphs.clear()
         self._reset_lanes()
 
+    def _upload(self, dst: torch.Tensor, arr) -> None:
+        """Host array -> persistent device buffer, in place and without a
+        host sync: from pinned memory the copy queues behind the
+        in-flight bursts instead of waiting for them."""
+        t = torch.as_tensor(arr)
+        if self.device.type == "cuda":
+            dst.copy_(t.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(t)
+
     def _to_dev(self, arr) -> torch.Tensor:
-        """Host array -> device tensor without a host sync: from pinned
-        memory the copy queues behind the in-flight bursts instead of
-        waiting for them (a pageable copy would synchronise the stream)."""
+        """Host array -> new device tensor without a host sync."""
         t = torch.as_tensor(arr)
         if self.device.type != "cuda":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def _reset_lanes(self) -> None:
-        dev = self.device
-        self._cur_tok = torch.zeros((self.slots,), dtype=torch.long, device=dev)
-        self._pos = torch.zeros((self.slots,), dtype=torch.long, device=dev)
-        self._keys = rng.prng_key(torch.arange(self.slots), device=dev)
+        w = self._whole
+        w.cur.zero_()
+        w.pos.zero_()
+        w.keys.copy_(rng.prng_key(torch.arange(self.slots), device=self.device))
+        w.stops.fill_(-1)
+        w.budget.zero_()
+        self._fused_sync = False
+        self._masks_dirty = True
 
     # -- device steps (scheduler thread) ------------------------------------
 
-    @torch.no_grad()
-    def _prefill(self, prompts: np.ndarray, last: np.ndarray, seeds, temps):
-        """Batched prefill of m right-padded prompts ``[m, bucket]`` plus
-        each row's first token: ``(firsts [m], slab, lane_keys [m, 2])``.
-        The first draw splits ``PRNGKey(seed)`` exactly as every later
-        decode step splits the lane key (the JAX package's prefill_many;
-        for m = 1 its prefill_one draws the same numbers)."""
-        logits, slab = self.model.prefill(
-            self.params, self._to_dev(prompts), prompts.shape[1],
-            last_index=self._to_dev(last),
-        )
+    def _sample_first(self, logits, seeds, temps):
+        """Each row's first token from its prefill logits, and its lane
+        key: ``PRNGKey(seed)`` split exactly as every later decode step
+        splits the lane key (the JAX package's prefill_many; for one row
+        its prefill_one draws the same numbers)."""
         keys = self._to_dev(rng.prng_key(np.asarray(seeds, np.int64)))
         temps_t = self._to_dev(np.asarray(temps, np.float32))
         keys, firsts = rng.sample_next(
             keys, logits, temps_t, stochastic=bool(np.any(np.asarray(temps) > 0))
         )
+        return firsts, keys
+
+    @torch.no_grad()
+    def _prefill(self, prompts: np.ndarray, last: np.ndarray, seeds, temps):
+        """Batched prefill of m right-padded prompts ``[m, bucket]`` plus
+        each row's first token: ``(firsts [m], slab, lane_keys [m, 2])``."""
+        logits, slab = self.model.prefill(
+            self.params, self._to_dev(prompts), prompts.shape[1],
+            last_index=self._to_dev(last),
+        )
+        firsts, keys = self._sample_first(logits, seeds, temps)
         return firsts, slab, keys
 
     @torch.no_grad()
@@ -353,28 +612,166 @@ class ContinuousBatcher:
         for name in ("k", "v"):
             for l, layer in enumerate(self._cache[name]):
                 layer[idx, :, :bucket] = slab[name][l]
-        self._cur_tok[idx] = firsts
-        self._pos[idx] = self._to_dev(np.asarray(first_pos, np.int64))
-        self._keys[idx] = lane_keys
+        w = self._whole
+        w.cur[idx] = firsts
+        w.pos[idx] = self._to_dev(np.asarray(first_pos, np.int64))
+        w.keys[idx] = lane_keys
+
+    def _new_slab(self, bucket: int):
+        """A zeroed staging slab ``{"k","v"}`` of ``[L, 1, KV, bucket, Dh]``
+        in the layout the lane insert takes."""
+        cfg = self.model.cfg
+        shape = (cfg.n_layers, 1, cfg.n_kv_heads, bucket, cfg.head_dim)
+        dt = self.model.dtype
+        return {"k": torch.zeros(shape, dtype=dt, device=self.device),
+                "v": torch.zeros(shape, dtype=dt, device=self.device)}
 
     @torch.no_grad()
-    def _burst(self, active, temps, k: int, attn_len: int, stochastic: bool):
-        """k ragged decode steps over every lane; returns ``[k + 1, slots]``
-        tokens (row 0 = the tokens the burst started from, so a deferred
-        prefill first token reaches the host with the burst's one read)."""
-        toks = [self._cur_tok]
-        cur, pos, keys = self._cur_tok, self._pos, self._keys
+    def _chunk_step(self, slab, tokens: np.ndarray, start: int, last: int,
+                    seed: int, temp: float, attn_len: int, is_last: bool):
+        """One prompt chunk ``[1, C]`` into a staging slab; the last chunk
+        also samples the first token exactly as the whole-prompt prefill
+        does, so chunked and whole-prompt admissions emit the same
+        streams. Returns ``(first [1], lane_key [1, 2])`` or None."""
+        logits, _ = self.model.prefill_chunk(
+            self.params, slab, self._to_dev(tokens), start, attn_len,
+            last_index=self._to_dev(np.asarray([last], np.int64)),
+            want_logits=is_last,
+        )
+        if not is_last:
+            return None
+        return self._sample_first(logits, [seed], [temp])
+
+    # Decode-burst phases. Each reads and writes only persistent buffers
+    # (a _LaneState, the cache, the gather buffer), so on the card each
+    # is captured once per key and replayed; on the CPU each runs as is.
+
+    def _phase(self, key: tuple, fn) -> None:
+        if self._graphs is not None:
+            self._graphs.run(key, fn)
+        else:
+            with torch.inference_mode():
+                fn()
+
+    @staticmethod
+    def _begin(st: _LaneState, masked: bool) -> None:
+        """Row 0 = the tokens the burst starts from (a deferred prefill
+        first token rides home with the burst's one read). A fused burst
+        also arms its done mask: a lane arrives done when it is idle, its
+        budget is spent, or its stop token was emitted by a burst the
+        host has not read yet; it then runs zero steps."""
+        st.toks[0].copy_(st.cur)
+        st.row.fill_(1)
+        if masked:
+            st.done.copy_(~st.act | (st.budget <= 0) | (st.cur == st.stops))
+            st.counts.zero_()
+
+    def _step(self, st: _LaneState, ks, vs, attn_len: Optional[int],
+              stochastic: bool, masked: bool, park: int) -> None:
+        """ONE ragged decode step over ``st``'s rows. Plain: active rows
+        advance, the others emit 0 and stand still. Masked (fused): rows
+        alive under the done mask advance exactly as plain ones; a done
+        row parks its K/V write at ``park`` (past the cache: nothing is
+        written), keeps its token and position, and emits 0; a row that
+        emits its stop token or spends its budget becomes done. Every
+        row's key splits every step, alive or not, as in the JAX
+        package, so seeded streams stay its streams."""
+        alive = (st.act & ~st.done) if masked else st.act
+        wpos = torch.where(alive, st.pos, park) if masked else None
+        logits, _, _ = self.model.decode_step_ragged_list(
+            self.params, ks, vs, st.cur[:, None], st.pos, attn_len=attn_len,
+            write_pos=wpos,
+        )
+        keys, nxt = rng.sample_next(st.keys, logits, st.temps, stochastic=stochastic)
+        st.keys.copy_(keys)
+        step = alive.long()
+        if masked:
+            st.cur.copy_(torch.where(alive, nxt, st.cur))
+            st.budget.sub_(step)
+            st.done.logical_or_(alive & ((st.cur == st.stops) | (st.budget <= 0)))
+            st.counts.add_(step)
+            out = torch.where(alive, st.cur, 0)
+        else:
+            st.cur.copy_(torch.where(alive, nxt, 0))
+            out = st.cur
+        st.pos.add_(step)
+        st.toks.index_copy_(0, st.row, out[None])
+        st.row.add_(1)
+
+    def _group_slabs(self, gb: int, attn_len: int):
+        """A group's gathered K and V per layer, ``[gb, KV, attn_len,
+        Dh]`` contiguous views of the one gather buffer."""
+        cfg = self.model.cfg
+        n = gb * cfg.n_kv_heads * attn_len * cfg.head_dim
+        shape = (gb, cfg.n_kv_heads, attn_len, cfg.head_dim)
+        views = self._gather_buf[: 2 * cfg.n_layers * n].view(2, cfg.n_layers, *shape)
+        return list(views[0]), list(views[1])
+
+    def _gather(self, g: _LaneState, attn_len: int, masked: bool) -> None:
+        """Gather a group's lane registers and cache prefix ``[0,
+        attn_len)``. Pads sit at position ``attn_len``: their K/V writes
+        fall past the gathered slab, so their rows round-trip unchanged."""
+        w, ix = self._whole, g.lane_ix
+        torch.index_select(w.cur, 0, ix, out=g.cur)
+        g.pos.copy_(torch.where(g.act, w.pos[ix], attn_len))
+        torch.index_select(w.temps, 0, ix, out=g.temps)
+        torch.index_select(w.keys, 0, ix, out=g.keys)
+        torch.index_select(w.budget, 0, ix, out=g.budget)
+        g.stops.copy_(torch.where(g.act, w.stops[ix], -1))
+        gks, gvs = self._group_slabs(g.act.shape[0], attn_len)
+        for layer, gk in zip(self._cache["k"], gks):
+            torch.index_select(layer[:, :, :attn_len], 0, ix, out=gk)
+        for layer, gv in zip(self._cache["v"], gvs):
+            torch.index_select(layer[:, :, :attn_len], 0, ix, out=gv)
+        self._begin(g, masked)
+
+    def _scatter(self, g: _LaneState, attn_len: int, masked: bool) -> None:
+        """Scatter a group back: the gathered cache prefix (pads'
+        unchanged), and the registers of its real rows only, so a pad's
+        burst-local state never leaks into its lane."""
+        w, ix = self._whole, g.lane_ix
+        gks, gvs = self._group_slabs(g.act.shape[0], attn_len)
+        for layer, gk in zip(self._cache["k"], gks):
+            layer[:, :, :attn_len].index_copy_(0, ix, gk)
+        for layer, gv in zip(self._cache["v"], gvs):
+            layer[:, :, :attn_len].index_copy_(0, ix, gv)
+        regs = [(w.cur, g.cur), (w.pos, g.pos)] + ([(w.budget, g.budget)] if masked else [])
+        for dst, src in regs:
+            dst.index_copy_(0, ix, torch.where(g.act, src, dst[ix]))
+        w.keys.index_copy_(0, ix, torch.where(g.act[:, None], g.keys, w.keys[ix]))
+
+    def _whole_burst(self, k: int, attn_len: int, stochastic: bool, masked: bool):
+        """k steps over every lane: ``(tokens [k+1, slots], counts or
+        None)``, device buffers read by the burst's host copy."""
+        w = self._whole
+        ks, vs = self._cache["k"], self._cache["v"]
+        self._phase(("begin", masked), lambda: self._begin(w, masked))
+        key = ("step", masked, "whole", attn_len, stochastic)
         for _ in range(k):
-            logits, _, _ = self.model.decode_step_ragged_list(
-                self.params, self._cache["k"], self._cache["v"],
-                cur[:, None], pos, attn_len=attn_len,
-            )
-            keys, nxt = rng.sample_next(keys, logits, temps, stochastic=stochastic)
-            cur = torch.where(active, nxt, 0)
-            pos = torch.where(active, pos + 1, pos)
-            toks.append(cur)
-        self._cur_tok, self._pos, self._keys = cur, pos, keys
-        return torch.stack(toks)
+            self._phase(key, lambda: self._step(
+                w, ks, vs, attn_len, stochastic, masked, self.max_seq))
+        return w.toks[: k + 1], (w.counts if masked else None)
+
+    def _group_burst(self, lane_ix: List[int], n_real: int, k: int, attn_len: int,
+                     stochastic: bool, masked: bool):
+        """k steps over a gathered group (``lane_ix``: its lanes, then
+        pads of other lanes up to the pow2 size): ``(tokens [k+1, gb],
+        counts or None)``, columns in ``lane_ix`` order."""
+        gb = len(lane_ix)
+        g = self._groups[gb]
+        self._upload(g.lane_ix, np.asarray(lane_ix, np.int64))
+        self._upload(g.act, np.arange(gb) < n_real)
+        gks, gvs = self._group_slabs(gb, attn_len)
+        self._phase(("gather", masked, gb, attn_len),
+                    lambda: self._gather(g, attn_len, masked))
+        key = ("step", masked, gb, attn_len, stochastic)
+        for _ in range(k):
+            # the gathered slab is exactly attn_len long: no read bound
+            self._phase(key, lambda: self._step(
+                g, gks, gvs, None, stochastic, masked, attn_len))
+        self._phase(("scatter", masked, gb, attn_len),
+                    lambda: self._scatter(g, attn_len, masked))
+        return g.toks[: k + 1], (g.counts if masked else None)
 
     # -- caller side ---------------------------------------------------------
 
@@ -528,13 +925,15 @@ class ContinuousBatcher:
         max_new_tokens: int = 0,
         batch_sizes: Sequence[int] = (1, 4, 8),
     ) -> None:
-        """Run every prefill/insert/burst variant the declared traffic
-        shape will use once, before traffic: on CUDA this builds the flash
-        kernel, initialises the matmul libraries and grows the memory
-        pool, so the first admission wave does not stall. Call before the
-        first submit (the server's warmup-before-listen phase). Warm
-        writes into the live cache; lanes tolerate residue because every
-        position a lane reads is rewritten by its occupant first."""
+        """Run every prefill, chunk and insert variant the declared traffic
+        shape will use once, and capture every decode-burst phase it can
+        reach, before traffic: on CUDA this builds the flash kernel,
+        initialises the matmul libraries, grows the memory pool and
+        records the decode graphs, so the first admission wave neither
+        stalls nor captures. Call before the first submit (the server's
+        warmup-before-listen phase). Warm writes into the live cache;
+        lanes tolerate residue because every position a lane reads is
+        rewritten by its occupant first."""
         self._warm_args = {
             "prompt_lens": tuple(prompt_lens),
             "max_new_tokens": int(max_new_tokens),
@@ -543,17 +942,24 @@ class ContinuousBatcher:
         buckets = sorted({self._bucket(min(p, self.max_seq)) for p in prompt_lens})
         if not buckets:
             buckets = [self.prefill_buckets[0]]
-        k = self._k
+        # per-poll advance: a fused dispatch advances up to fused_steps,
+        # and its adaptive K shrinks to the poll burst at the least
+        adv = max(self._k, self._fused_k)
+        least = min(self._k, self._fused_k) if self._fused_k else self._k
+        # attention buckets a run at these prompt lengths can touch, from
+        # the shallowest lane's first burst (alone, or in a depth group of
+        # its own) to the deepest end of budget; an eos lane outlives its
+        # budget until the host reads its stop, up to pipeline_depth - 1
+        # bursts of extra _pos_host advance
         lo = min(prompt_lens) if prompt_lens else 1
         hi = (
             (max(prompt_lens) if prompt_lens else 1)
             + max_new_tokens
-            + k * (1 + max(0, self.pipeline_depth - 1))
+            + adv * (1 + max(0, self.pipeline_depth - 1))
         )
-        ab = self.attn_bucket
         attn_lens = sorted(
-            {min(self.max_seq, -(-p // ab) * ab) for p in range(lo + k, hi + 1, ab)}
-            | {min(self.max_seq, -(-hi // ab) * ab)}
+            {self._attn_need(p) for p in range(lo + least, hi + 1, self.attn_bucket)}
+            | {self._attn_need(hi)}
         )
         for bucket in buckets:
             for m in batch_sizes:
@@ -565,16 +971,77 @@ class ContinuousBatcher:
                 last = np.zeros((m,), np.int64)
                 firsts, slab, keys = self._prefill(prompts, last, [0] * m, [0.0] * m)
                 self._insert(slab, list(range(m)), firsts, last + 1, keys)
-        active = torch.zeros((self.slots,), dtype=torch.bool, device=self.device)
-        temps = torch.zeros((self.slots,), dtype=torch.float32, device=self.device)
-        for attn_len in attn_lens:
-            self._burst(active, temps, k, attn_len, stochastic=False)
-            # one sampled variant too: temperature lanes draw Gumbel noise
-            self._burst(active, temps, 1, attn_len, stochastic=True)
+        C = self.prefill_chunk
+        for bucket in buckets:
+            if not C or bucket <= C:
+                continue
+            # one run per (chunk offset, last or not) the declared buckets
+            # reach: a shorter prompt of the bucket ends at an earlier offset
+            slab = self._new_slab(bucket)
+            for start in range(0, bucket, C):
+                start = min(start, bucket - C)
+                attn_len = min(bucket, self._attn_need(start + C))
+                for is_last in (False, True):
+                    self._chunk_step(slab, np.zeros((1, C), np.int64), start,
+                                     C - 1, 0, 0.0, attn_len, is_last)
+        self._warm_bursts(attn_lens)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         # warm left garbage in the lane registers: reset them
         self._reset_lanes()
+
+    def _warm_bursts(self, attn_lens: Sequence[int]) -> None:
+        """Every decode-burst phase key reachable at these attention
+        buckets: the one step kind this configuration dispatches (masked
+        when fused decode is on), greedy and sampled, over the whole
+        batch and, with depth groups, every group size. On the card each
+        key is run once and captured; on the CPU each phase runs once."""
+        masked = self._fused_k > 0
+        w = self._whole
+        w.act.zero_()
+        w.temps.zero_()
+        for g in self._groups.values():
+            g.lane_ix.copy_(torch.arange(g.act.shape[0], device=self.device))
+            g.act.zero_()
+        ks, vs = self._cache["k"], self._cache["v"]
+        phases = [(("begin", masked), lambda: self._begin(w, masked))]
+        for attn_len in attn_lens:
+            for stochastic in (False, True):
+                phases.append((
+                    ("step", masked, "whole", attn_len, stochastic),
+                    lambda a=attn_len, st=stochastic: self._step(
+                        w, ks, vs, a, st, masked, self.max_seq),
+                ))
+                for gb, g in sorted(self._groups.items()):
+                    gks, gvs = self._group_slabs(gb, attn_len)
+                    if not stochastic:
+                        phases += [
+                            (("gather", masked, gb, attn_len),
+                             lambda g=g, a=attn_len: self._gather(g, a, masked)),
+                            (("scatter", masked, gb, attn_len),
+                             lambda g=g, a=attn_len: self._scatter(g, a, masked)),
+                        ]
+                    phases.append((
+                        ("step", masked, gb, attn_len, stochastic),
+                        lambda g=g, a=attn_len, st=stochastic, gks=gks, gvs=gvs:
+                            self._step(g, gks, gvs, None, st, masked, a),
+                    ))
+        for key, fn in phases:
+            # each step phase runs once here: keep its token row in bounds
+            for st in [w, *self._groups.values()]:
+                st.row.fill_(1)
+            if self._graphs is None:
+                with torch.inference_mode():
+                    fn()
+            elif key not in self._graphs.graphs:
+                self._graphs.capture(key, fn, warm_first=True)
+        logger.info(
+            "warm: %d decode-burst phase keys (attn buckets %s, group sizes %s, "
+            "%s); %d graphs captured in %.2f s",
+            len(phases), list(attn_lens), sorted(self._groups) or [self.slots],
+            "fused" if masked else "plain", self.stats["graphs_captured"],
+            self.stats["graph_capture_s"],
+        )
 
     def close(self) -> None:
         if self.health != "dead":
@@ -583,6 +1050,11 @@ class ContinuousBatcher:
         if self._thread is not None:
             self._thread.join(timeout=10.0)
         self._drain_queue(self._dead_error())
+        # chunked admissions still holding a reserved lane
+        for job in self._chunked.values():
+            if not job.request.future.done():
+                job.request.future.set_exception(self._dead_error())
+        self._chunked.clear()
 
     def _drain_queue(self, err: Exception) -> None:
         while True:
@@ -719,15 +1191,26 @@ class ContinuousBatcher:
                 logger.exception("on_tokens callback failed")
         return done
 
-    def _process_burst(self, burst: _Burst, snapshot) -> None:
-        """Credit one burst's tokens to the requests that occupied each
-        lane AT DISPATCH TIME (``snapshot[slot] = (slot state, start row)``);
-        the lane may have been pre-freed and re-admitted since."""
-        host_toks = burst.numpy()  # the burst's one host read
-        for slot, (s, start) in snapshot.items():
-            if s.credit_done:
+    def _process_burst(self, burst: _Burst) -> None:
+        """Credit one (sub)burst's tokens to the requests that occupied
+        each lane AT DISPATCH TIME; the lane may have been pre-freed and
+        re-admitted since. A plain burst's rows past a request's stop are
+        overshoot and dropped. A fused burst emitted exactly
+        ``counts[col]`` tokens per column before its done mask froze the
+        lane, so that span is credited, and the lane's host position
+        bound tightens from the k advance to its real one."""
+        host_toks, counts = burst.numpy()  # the burst's one host read
+        for slot, (s, start, col) in burst.snapshot.items():
+            if burst.fused:
+                n = int(counts[col])
+                if self._active.get(slot) is s and slot in self._pos_host:
+                    self._pos_host[slot] -= burst.k - n
+                span = host_toks[start: 1 + n, col]
+            else:
+                span = host_toks[start:, col]
+            if s.credit_done or not len(span):
                 continue
-            if self._credit(s, host_toks[start:, slot]):
+            if self._credit(s, span):
                 if self._active.get(slot) is s:
                     self._finish(slot)
                 else:
@@ -746,10 +1229,14 @@ class ContinuousBatcher:
             s = self._active.pop(slot)
             if not s.request.future.done():
                 s.request.future.set_exception(err)
-        for _burst, snap in pending:
-            for s, _start in snap.values():
+        for burst in pending:
+            for s, _start, _col in burst.snapshot.values():
                 if not s.request.future.done():
                     s.request.future.set_exception(err)
+        for job in self._chunked.values():
+            if not job.request.future.done():
+                job.request.future.set_exception(err)
+        self._chunked.clear()
 
     def _crash_recover(self, pending) -> bool:
         """Supervise one loop death: fail in-flight work with a typed
@@ -790,6 +1277,7 @@ class ContinuousBatcher:
                 return False
             try:
                 self._active.clear()
+                self._chunked.clear()
                 self._pos_host.clear()
                 self._masks_dirty = True
                 self._alloc_device_state()
@@ -806,12 +1294,20 @@ class ContinuousBatcher:
             return True
 
     def _admit_wave(self, wave: List[GenRequest]) -> None:
-        """Admit queued requests into free lanes: same-bucket requests
-        share a batched prefill of m = 8 (where the slab fits), 4, or 1."""
-        free_iter = iter(i for i in range(self.slots) if i not in self._active)
+        """Admit queued requests into free lanes. A prompt whose bucket is
+        longer than one prefill chunk reserves its lane for chunked
+        prefill; the others group by bucket and share a batched prefill
+        of m = 8 (where the slab fits), 4, or 1."""
+        free_iter = iter(
+            i for i in range(self.slots) if i not in self._active and i not in self._chunked
+        )
         by_bucket: Dict[int, List[GenRequest]] = {}
         for req in wave:
-            by_bucket.setdefault(self._bucket(len(req.tokens)), []).append(req)
+            bucket = self._bucket(len(req.tokens))
+            if self.prefill_chunk and bucket > self.prefill_chunk:
+                self._start_chunked(next(free_iter), req, bucket)
+                continue
+            by_bucket.setdefault(bucket, []).append(req)
         for bucket, reqs in by_bucket.items():
             while reqs:
                 m = 1
@@ -829,39 +1325,239 @@ class ContinuousBatcher:
                         if not req.future.done():
                             req.future.set_exception(e)
 
-    def _dispatch(self, temps: np.ndarray, pending) -> None:
-        """Dispatch one decode burst over every lane and queue its tokens."""
-        if self._masks_dirty:
-            for i in range(self.slots):
-                temps[i] = (
-                    self._active[i].request.temperature if i in self._active else 0.0
-                )
-            active = np.zeros((self.slots,), bool)
-            for i in self._active:
-                active[i] = True
-            self._active_dev = self._to_dev(active)
-            self._temps_dev = self._to_dev(temps.copy())
-            self._any_stoch = bool((temps > 0).any())
-            self._masks_dirty = False
-        k = self._k
-        # attention-read bucket: the smallest attn_bucket multiple covering
-        # every active lane's end-of-burst position
-        attn_len = self._attn_need(max(self._pos_host[i] for i in self._active) + k)
-        # snapshot BEFORE dispatch: this burst's tokens belong to these
-        # occupants, whatever the host learns later
-        snapshot = {}
-        for slot, s in self._active.items():
-            first = s.first_pending
-            snapshot[slot] = (s, 0 if first else 1)
-            s.first_pending = False
-            s.dispatched += k + (1 if first else 0)
-            self._pos_host[slot] += k
-        toks = self._burst(
-            self._active_dev, self._temps_dev, k, attn_len, self._any_stoch
+    # -- chunked prefill -----------------------------------------------------
+
+    def _start_chunked(self, slot: int, req: GenRequest, bucket: int) -> None:
+        """Reserve ``slot`` and queue the prompt for chunked prefill into a
+        fresh staging slab (the JAX package's ``_start_chunked`` without a
+        prefix-cache hit)."""
+        req.admit_t = time.monotonic()
+        self._chunked[slot] = _ChunkJob(
+            request=req, slot=slot, next_start=0, slab=self._new_slab(bucket),
+            bucket=bucket,
         )
-        self.stats["steps"] += k
-        self.stats["lane_steps"] += k * self.slots
-        pending.append((_Burst(toks), snapshot))
+
+    def _advance_chunks(self) -> None:
+        """Run ONE prefill chunk for every pending chunked admission (the
+        interleave: a chunk per job per poll). A last chunk that would
+        run past the slab slides back inside it, rewriting identical K/V
+        at the same positions. The last chunk samples the first token and
+        its slab goes through the ordinary lane insert, so from there the
+        lane decodes exactly as a whole-prompt admission."""
+        C = self.prefill_chunk
+        now = time.monotonic()
+        for slot in list(self._chunked):
+            job = self._chunked[slot]
+            req = job.request
+            if req.deadline_t is not None and now >= req.deadline_t:
+                req.future.cancel()
+            if req.future.cancelled():
+                del self._chunked[slot]  # the reserved lane is free again
+                self.stats["cancelled"] += 1
+                continue
+            n = len(req.tokens)
+            start = job.next_start
+            is_last = start + C >= n
+            if is_last:
+                start = max(0, min(start, job.bucket - C))
+            end = min(start + C, n)
+            buf = np.zeros((1, C), np.int64)
+            buf[0, : end - start] = req.tokens[start:end]
+            attn_len = min(job.bucket, self._attn_need(start + C))
+            try:
+                with device_trace("gen.prefill_chunk"):
+                    first = self._chunk_step(job.slab, buf, start, n - 1 - start,
+                                             req.seed, req.temperature, attn_len, is_last)
+                if is_last:
+                    with device_trace("gen.lane_insert"):
+                        self._insert(job.slab, [slot], first[0], [n], first[1])
+            except Exception as e:  # noqa: BLE001 - bad request/device state
+                logger.exception("chunked prefill failed")
+                del self._chunked[slot]
+                if not req.future.done():
+                    req.future.set_exception(e)
+                continue
+            self.stats["prefill_steps"] += 1
+            # positions computed, pad and slide-back overlap included (the
+            # bucketed whole prefill counts its whole bucket the same way)
+            self.stats["prefill_tokens"] += C
+            self.stats["prefill_chunks"] += 1
+            if is_last:
+                del self._chunked[slot]
+                self._active[slot] = _Slot(request=req)
+                self._pos_host[slot] = n
+                self._masks_dirty = True
+                self.stats["admitted"] += 1
+            else:
+                job.next_start = end
+
+    # -- decode dispatch -----------------------------------------------------
+
+    def _plan_groups(self, adv: int):
+        """Partition live lanes into <= depth_groups sub-bursts by
+        attention-read bucket: ``([(lanes, bucket)], need)``, groups
+        shallow-first; ``need[slot]`` is the lane's own bucket. One
+        candidate group per distinct bucket, then adjacent groups merge
+        shallow-into-deep, cheapest first, while the modelled per-step
+        cost of keeping them split (one more param read) exceeds the KV
+        read the split saves (lanes x bucket gap x K+V bytes per
+        position), or while there are more groups than the cap."""
+        need = {
+            slot: self._attn_need(self._pos_host[slot] + adv)
+            for slot in self._active
+        }
+        groups = [
+            ([s for s in sorted(need) if need[s] == b], b)
+            for b in sorted(set(need.values()))
+        ]
+        if self.depth_groups <= 1 or len(groups) == 1:
+            if len(groups) > 1:
+                groups = [(sorted(need), max(need.values()))]
+            return groups, need
+        while len(groups) > 1:
+            best_i, best_delta = None, None
+            for i in range(len(groups) - 1):
+                lanes_s, b_s = groups[i]
+                _, b_d = groups[i + 1]
+                delta = (
+                    len(lanes_s) * (b_d - b_s) * self._kv_key_bytes
+                    - self._group_split_bytes
+                )
+                if best_delta is None or delta < best_delta:
+                    best_i, best_delta = i, delta
+            if len(groups) > self.depth_groups or best_delta < 0:
+                lanes_s, _ = groups.pop(best_i)
+                lanes_d, b_d = groups[best_i]
+                groups[best_i] = (sorted(lanes_d + lanes_s), b_d)
+            else:
+                break
+        return groups, need
+
+    def _group_size_bucket(self, n: int) -> int:
+        """pow2 group-size bucket (one set of graphs per size)."""
+        g = 1
+        while g < n:
+            g <<= 1
+        return min(g, self.slots)
+
+    def _warm_group_sizes(self) -> List[int]:
+        """Every pow2 group-size bucket a mixed-depth poll can dispatch,
+        plus the whole batch: the one enumeration the group buffers and
+        warm()'s captures both follow."""
+        gb = 1
+        gbs = [self.slots]
+        while gb < self.slots:
+            gbs.append(gb)
+            gb <<= 1
+        return sorted(set(gbs))
+
+    def _fused_plan(self, k_max: int):
+        """Adaptive K for the stop-aware fused burst: ``(k, reason)``.
+        Start from the pow2-floored ``fused_steps_per_dispatch`` and
+        shrink to the nearest lane's remaining budget (pow2-floored;
+        reason ``"stop_budget"``), never below the ``steps_per_poll``
+        burst. The JAX batcher's other reasons (``pressure``,
+        ``poll_boundary``) belong to features not ported yet and never
+        apply here."""
+        k, reason = k_max, None
+        floor = min(self._k, k_max)
+        rem = [
+            r for r in (
+                s.request.max_new_tokens - s.dispatched - (1 if s.first_pending else 0)
+                for s in self._active.values()
+            ) if r > 0
+        ]
+        if rem:
+            tight = max(_pow2_floor(min(rem)), floor)
+            if tight < k:
+                k, reason = tight, "stop_budget"
+        return max(1, min(k, k_max)), reason
+
+    def _sync_masks(self) -> None:
+        """Upload the lanes' active mask and temperatures after a
+        membership change (never per burst)."""
+        temps = np.zeros((self.slots,), np.float32)
+        active = np.zeros((self.slots,), bool)
+        for i, s in self._active.items():
+            temps[i] = s.request.temperature
+            active[i] = True
+        self._upload(self._whole.act, active)
+        self._upload(self._whole.temps, temps)
+        self._any_stoch = bool((temps > 0).any())
+        self._masks_dirty = False
+        self._fused_sync = False
+
+    def _sync_stops(self) -> None:
+        """Upload each lane's stop token (-1: none) and remaining budget
+        for the fused burst; the device then decrements its own copy."""
+        stops = np.full((self.slots,), -1, np.int64)
+        budget = np.zeros((self.slots,), np.int64)
+        for i, s in self._active.items():
+            if s.request.eos_id is not None:
+                stops[i] = int(s.request.eos_id)
+            budget[i] = (
+                s.request.max_new_tokens - s.dispatched - (1 if s.first_pending else 0)
+            )
+        self._upload(self._whole.stops, stops)
+        self._upload(self._whole.budget, budget)
+        self._fused_sync = True
+
+    def _dispatch(self, pending) -> None:
+        """Dispatch one poll's decode: a whole-batch burst, or one
+        sub-burst per depth group; each queues its tokens for the host."""
+        if self._masks_dirty:
+            self._sync_masks()
+        masked = self._fused_k > 0
+        if masked:
+            k, _reason = self._fused_plan(self._fused_k)
+            if not self._fused_sync:
+                self._sync_stops()
+        else:
+            k = self._k
+        groups, need = self._plan_groups(k)
+        for lanes, g_bucket in groups:
+            whole = len(groups) == 1
+            # snapshot BEFORE dispatch: this burst's tokens belong to these
+            # occupants, whatever the host learns later; a lane's column is
+            # its slot in a whole-batch burst, its row in a group's
+            snapshot = {}
+            for col, slot in enumerate(lanes):
+                s = self._active[slot]
+                first = s.first_pending
+                snapshot[slot] = (s, 0 if first else 1, slot if whole else col)
+                s.first_pending = False
+                s.dispatched += k + (1 if first else 0)
+                self._pos_host[slot] += k
+            with device_trace("gen.decode_burst"):
+                if whole:
+                    rows = self.slots
+                    toks, counts = self._whole_burst(k, g_bucket, self._any_stoch, masked)
+                else:
+                    rows = self._group_size_bucket(len(lanes))
+                    pads = [i for i in range(self.slots) if i not in snapshot]
+                    toks, counts = self._group_burst(
+                        lanes + pads[: rows - len(lanes)], len(lanes), k, g_bucket,
+                        self._any_stoch, masked,
+                    )
+                    self.stats["group_bursts"] += 1
+                    self.stats["group_lanes"] += len(lanes)
+                    self.stats["group_pad_lanes"] += rows - len(lanes)
+                pending.append(_Burst(toks, counts, snapshot, k, self._pinned))
+            self.stats["steps"] += k
+            self.stats["lane_steps"] += k * rows
+            self.stats["burst_reads"] += 1
+            self.stats["burst_read_bytes"] += k * (
+                self._param_bytes + rows * g_bucket * self._kv_key_bytes
+            )
+            if masked:
+                self.stats["fused_dispatches"] += 1
+                self.stats["fused_steps"] += k
+            if self.trace_groups is not None:
+                self.trace_groups.append({
+                    "lanes": tuple(lanes), "attn_len": g_bucket,
+                    "need": {i: need[i] for i in lanes}, "grouped": not whole,
+                    "k": k,
+                })
         # PREDICTIVE FREE: an eos-less lane whose budget the dispatched
         # bursts already cover is done; free it now so the next admission
         # queues behind the in-flight bursts instead of waiting for them
@@ -878,7 +1574,6 @@ class ContinuousBatcher:
     def _loop(self) -> bool:
         """One supervised run of the poll loop. False on a clean close(),
         else :meth:`_crash_recover`'s verdict after a loop death."""
-        temps = np.zeros((self.slots,), np.float32)
         pending: "collections.deque" = collections.deque()
         try:
             while not self._stop.is_set():
@@ -886,7 +1581,8 @@ class ContinuousBatcher:
                 if self.fault_hook is not None:
                     self.fault_hook(self._poll_count)
                 wave: List[GenRequest] = []
-                while len(self._active) + len(wave) < self.slots:
+                busy = len(self._active) + len(self._chunked)
+                while busy + len(wave) < self.slots:
                     try:
                         req = self._queue.get_nowait()
                     except queue.Empty:
@@ -899,28 +1595,45 @@ class ContinuousBatcher:
                     wave.append(req)
                 if wave:
                     self._admit_wave(wave)
-                if not self._active and not pending:
+                if not self._active and not pending and not self._chunked:
                     try:
                         req = self._queue.get(timeout=0.05)
                     except queue.Empty:
                         continue
                     self._queue.put(req)
                     continue
+                if self._chunked:
+                    # the interleave: one prefill chunk per long admission,
+                    # then the decode burst, so decode lanes keep their pace
+                    self._advance_chunks()
                 if self._active:
-                    self._dispatch(temps, pending)
+                    self._dispatch(pending)
                 # read bursts oldest-first: always when the pipeline is
                 # full (or nothing is left to dispatch), and early when a
                 # burst's copy has already landed
                 while pending:
                     if not (len(pending) >= self.pipeline_depth or not self._active):
-                        if not pending[0][0].ready():
+                        if not pending[0].ready():
                             break
-                    burst, snapshot = pending.popleft()
-                    self._process_burst(burst, snapshot)
+                    self._process_burst(pending.popleft())
         except Exception:  # noqa: BLE001 - every loop death is supervised
             logger.exception("continuous batcher loop died")
             return self._crash_recover(pending)
         return False  # clean stop via close()
+
+
+def _pow2_floor(n: int) -> int:
+    while n & (n - 1):
+        n &= n - 1
+    return n
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
 
 
 def _cast_tree(tree, dt: torch.dtype):

@@ -152,8 +152,7 @@ def test_prometheus_series_equal_jax_builtin():
 def test_prometheus_series_generate_graph(engines):
     """The engine's own series and the generate SLO histograms are the
     JAX engine's; of the generate server's custom series the port ships
-    a subset (no modelled burst-read bytes: that model belongs to the
-    JAX batcher's depth groups, not ported)."""
+    a subset, the modelled burst reads and read bytes among them."""
     names = {}
     for app in engines:
         rest = app.rest_app()
@@ -165,6 +164,8 @@ def test_prometheus_series_generate_graph(engines):
     assert own(port_names) == own(jax_names)
     assert port_names - own(port_names) <= jax_names - own(jax_names)
     assert "seldon_engine_generate_ttft_seconds_bucket" in port_names
+    assert {"seldon_custom_gen_burst_reads", "seldon_custom_gen_burst_read_bytes"} \
+        <= port_names & jax_names
 
 
 @pytest.mark.parametrize("shed", [False, True])

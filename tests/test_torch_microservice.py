@@ -142,9 +142,9 @@ def test_health_routes_and_errors(port_app):
 
 
 def test_unported_parameter_raises(model_dir):
-    with pytest.raises(NotImplementedError, match="prefill_chunk"):
+    with pytest.raises(NotImplementedError, match="prefix_cache_hbm_bytes"):
         microservice.build_user_object(CLS, _typed(
-            model_uri=model_dir, device="cpu", prefill_chunk=64))
+            model_uri=model_dir, device="cpu", prefix_cache_hbm_bytes=1 << 20))
     # off values, as strings from the typed-params env, are accepted
-    GenerateServer(model_uri=model_dir, device="cpu", prefill_chunk="0",
+    GenerateServer(model_uri=model_dir, device="cpu", prefix_cache_hbm_bytes="0",
                    role="unified", flight_recorder=0)
