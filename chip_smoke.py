@@ -40,9 +40,11 @@ result line) if any phase fails:
    (ABBA twice), their tokens/s, TTFT and TPOT side by side.
 7. Small scheduler (float32, the small model of phase 4): the batcher's
    configurations A-E (as in phase 8, ``MIN_ATTN_BUCKET`` lowered so
-   that depth groups split) give the same tokens, greedy and seeded, one
-   request at a time and all together; no decode graph is captured after
-   ``warm()``.
+   that depth groups split), P (the prefix cache on: the second pass
+   hits every prompt the first published) and Q (the HBM ledger shrunk
+   to one lane during the second pass: lanes preempted and resumed) give
+   the same tokens, greedy and seeded, one request at a time and all
+   together; no decode graph is captured after ``warm()``.
 8. Scheduler (llm-1.26b at full width and depth, bf16, on the engine
    phase's weights; 8 slots, steps_per_poll 16, pipeline_depth 3,
    attn_bucket 128): configurations A (every knob off, CUDA graphs off:
@@ -51,8 +53,8 @@ result line) if any phase fails:
    prefill_chunk 256) and F (depth groups 4, default cost model), each
    warmed for the serve phase's prompt lengths and driven with the serve
    waves, every wave queued whole so that each run has one batch
-   composition; A/B and A/C alternated in one process (ABBA twice), D-F
-   twice each; four requests of the mixed wave stop at the token their
+   composition; A/B and A/C alternated in one process (ABBA once), D-F
+   once each; four requests of the mixed wave stop at the token their
    knobs-off run emitted at steps 3, 17, 40 and 63. Fails unless B and C
    equal A token for token, every configuration repeats itself, every
    stop fires where A's does, no graph is captured after ``warm()``,
@@ -63,14 +65,36 @@ result line) if any phase fails:
    occupancy, prefill chunks, and how many of D's, E's and F's streams
    equal A's (bf16 over another read may round otherwise: reported, not
    gated).
-9. Model (on the engine phase's copy, after every serving phase: a
+9. Prefix cache (llm-1.26b, bf16, the JAX package's shared-prefix
+   scenario: 4 system prompts of 384 tokens, 32 prompts of a system
+   prompt + 64 user tokens, 64 new tokens, 16 slots, cache length 640,
+   2 GiB of cache): cache on against off, alternated on, off, off, on in
+   one process, each run priming one request per system prompt and then
+   queuing the 32 whole. Fails unless every request answers 64 tokens,
+   each cache-on wave makes 32 hits and no miss, the on-runs repeat,
+   every whole prefill launched the flash kernel and no graph is
+   captured after ``warm()``. Reports tokens/s, TTFT p50/p99, TPOT p50,
+   the prefix counters, the cache's bytes, peak allocated and reserved
+   memory and the bf16 on-vs-off equality count; then a hit under
+   prefill_chunk 128 (a 300-token suffix chunked from the splice).
+10. HBM pressure (llm-1.26b, the scheduler's B plus the ledger): the
+   mixed wave queued whole and streamed while the fault config's
+   pressure section shrinks the ledger to two lanes at the deepest
+   bucket for 24 polls, then four requests under a 64-byte budget never
+   restored. Fails unless lanes are preempted and all resume, every
+   request answers 64 tokens, every stream's spans equal its tokens, the
+   tiny-budget run ends and no graph is captured after ``warm()``;
+   reports the bf16 equality with the pressure-free B run.
+11. Model (on the engine phase's copy, after every serving phase: a
    profiler run may slow later launches): full-width prefill time per
    bucket with the flash kernel's device time inside it
-   (torch.profiler), a decode step's wall time beside its device-busy
-   time and weight-read bound, and a 16-step decode burst through the
-   batcher, eager against CUDA-graph replay: wall, device span and busy
-   time per step, device operations, host launches and busy share.
-10. The ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+   (torch.profiler), a prefix hit's suffix prefill against the full
+   512-bucket prefill (wall and device-busy time), a decode step's wall
+   time beside its device-busy time and weight-read bound, and a
+   16-step decode burst through the batcher, eager against CUDA-graph
+   replay: wall, device span and busy time per step, device operations,
+   host launches and busy share.
+12. The ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 
 Exits 2 when CUDA is unavailable, 1 on any failure.
 """
@@ -1007,7 +1031,9 @@ class _Gate:
             self.parked.set()
             self.go.wait(60)
 
-    def submit_together(self, batcher, items):
+    def submit_together(self, batcher, items, on_tokens=None):
+        """Submit ``items`` ``(tokens, temperature, seed, eos)`` while the
+        loop is parked; ``on_tokens[i]`` (optional) streams item i."""
         self.go.clear()
         self.parked.clear()
         self.hold.set()
@@ -1015,8 +1041,9 @@ class _Gate:
             raise AssertionError("the batcher loop did not reach its poll hook")
         try:
             return [batcher.submit(toks, max_new_tokens=MAX_NEW, temperature=temp,
-                                   seed=seed, eos_id=eos)
-                    for toks, temp, seed, eos in items]
+                                   seed=seed, eos_id=eos,
+                                   on_tokens=on_tokens[i] if on_tokens else None)
+                    for i, (toks, temp, seed, eos) in enumerate(items)]
         finally:
             self.hold.clear()
             self.go.set()
@@ -1087,7 +1114,7 @@ def _check_sched_run(name, run, probe, mixed):
 def phase_scheduler(card, model, params):
     """The scheduler knobs at llm-1.26b full width (bf16, 8 slots):
     configurations A-F of SCHED_CONFIGS driven with the serve waves, A/B
-    and A/C alternated in one process (ABBA twice); the gated checks and
+    and A/C alternated in one process (ABBA once); the gated checks and
     the reported numbers are in the module docstring."""
     import gc
 
@@ -1116,7 +1143,7 @@ def phase_scheduler(card, model, params):
 
     live = {name: build(name) for name in ("A", "B", "C")}
     for other in ("B", "C"):
-        for name in (("A", other, other, "A") * 2):
+        for name in ("A", other, other, "A"):
             runs[name].append(_sched_run(gate, live[name], probe, mixed))
     # the stops ride the mixed wave itself (same batch composition as the
     # knobs-off run they are read from)
@@ -1132,9 +1159,10 @@ def phase_scheduler(card, model, params):
     gc.collect()
     torch.cuda.empty_cache()
     for name in ("D", "E", "F"):
+        # one run each, to keep the whole script inside its time limit (a
+        # run repeats itself all the same: the probe wave goes twice)
         b = build(name)
-        for _ in range(2):
-            runs[name].append(_sched_run(gate, b, probe, mixed))
+        runs[name].append(_sched_run(gate, b, probe, mixed))
         stops[name] = _wave_tokens(gate, b, mixed, eos)
         inline[name] = b.stats["graph_captures_inline"]
         b.close()
@@ -1205,7 +1233,7 @@ def phase_scheduler(card, model, params):
         log(f"[sched] {name}: {len(same)} of {len(a0)} streams equal A's"
             + (f"; first differing generated step {diffs}" if diffs else "")
             + f"; stops equal to A's {stop_same} of {len(eos)}")
-    return {name: info[name]["launches"][0] for name in SCHED_CONFIGS}
+    return {name: info[name]["launches"][0] for name in SCHED_CONFIGS}, a0
 
 
 def _pick_stops(tokens, prompts):
@@ -1238,6 +1266,257 @@ def _p(key, probe, mixed):
     return next(toks for lab, toks, _t, _s in list(probe) + list(mixed) if lab == label)
 
 
+# the prefix phase (the JAX package's shared-prefix flagship scenario,
+# seldon_core_tpu/modelbench.py bench_generate_shared_prefix, at
+# llm-1.26b): 4 system prompts of 384 tokens, 32 prompts of a system
+# prompt + a 64-token user suffix, 64 new tokens, 16 slots, cache length
+# 640 (prompt 448 + 64 new + the burst's overhang, as that scenario)
+PREFIX_BASE = dict(slots=16, steps_per_poll=16, pipeline_depth=3, attn_bucket=128,
+                   max_seq=640)
+PREFIX_BYTES = 2 << 30
+SYSTEM_LEN, USER_LEN, N_SYSTEM, N_PROMPTS = 384, 64, 4, 32
+
+
+def prefix_traffic():
+    """``(systems, prompts)`` from RandomState(0), as the JAX scenario."""
+    import numpy as np
+
+    rs = np.random.RandomState(0)
+    vocab = LLM_1_26B["vocab_size"]
+    systems = [rs.randint(1, vocab, SYSTEM_LEN).tolist() for _ in range(N_SYSTEM)]
+    prompts = [systems[i % N_SYSTEM] + rs.randint(1, vocab, USER_LEN).tolist()
+               for i in range(N_PROMPTS)]
+    return systems, prompts
+
+
+def _prefix_run(gate, b, systems, prompts):
+    """One run: the cache emptied, one priming request per system prompt
+    (queued whole), then the 32 prompts queued whole. Tokens, the wave's
+    tokens/s and SLO percentiles, the counters' deltas over priming and
+    over the wave, the flash launches and the memory."""
+    import torch
+
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+
+    if b._prefix_index is not None:
+        b._prefix_index.evict_to(0)  # every on-run primes and hits alike
+    fa.LAUNCHES["flash_attention"] = 0
+    s0 = dict(b.stats)
+    for f in gate.submit_together(b, [(p, 0.0, 0, None) for p in systems]):
+        f.result(timeout=600)
+    s1 = dict(b.stats)
+    b.slo_recent.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = [f.result(timeout=600)
+           for f in gate.submit_together(b, [(p, 0.0, 0, None) for p in prompts])]
+    wall = time.perf_counter() - t
+    keys = [k for k, v in b.stats.items() if isinstance(v, (int, float))]
+    return {"tokens": out, "tok_s": MAX_NEW * len(prompts) / wall, "slo": _slo(b),
+            "prime": {k: s1[k] - s0[k] for k in keys},
+            "wave": {k: b.stats[k] - s1[k] for k in keys},
+            "launches": fa.LAUNCHES["flash_attention"],
+            "peak": torch.cuda.max_memory_allocated(),
+            "reserved": torch.cuda.memory_reserved(),
+            "cache_bytes": b.stats["prefix_cache_bytes"]}
+
+
+def phase_prefix(card, model, params):
+    """The radix prefix cache at llm-1.26b (bf16, full width and depth):
+    the shared-prefix traffic with the cache on (2 GiB) and off,
+    alternated on, off, off, on in one process. Fails unless every
+    request answers 64 tokens, each on-run's wave makes 32 hits and no
+    miss after priming, the two on-runs give the same tokens, every
+    priming miss launched the flash kernel and no decode graph is
+    captured after warm(). Reports tokens/s, TTFT p50/p99, TPOT p50, the
+    counters, the cache's bytes and the memory, and how many streams the
+    cache leaves equal at bf16. Then one request composes a hit with
+    prefill_chunk 128: a 300-token suffix chunked from the splice."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.serving.continuous import ContinuousBatcher
+
+    systems, prompts = prefix_traffic()
+    # a gate each: a batcher parked at another's gate would let this one's
+    # wave in over two polls
+    gates = {"on": _Gate(), "off": _Gate()}
+    layers = LLM_1_26B["n_layers"]
+    live = {}
+    for name, extra in (("on", dict(prefix_cache_hbm_bytes=PREFIX_BYTES)), ("off", {})):
+        b = ContinuousBatcher(model, params, **PREFIX_BASE, **extra)
+        b.fault_hook = gates[name]
+        b.warm(prompt_lens=(SYSTEM_LEN, SYSTEM_LEN + USER_LEN), max_new_tokens=MAX_NEW)
+        b.start()
+        live[name] = b
+    runs = {"on": [], "off": []}
+    for name in ("on", "off", "off", "on"):
+        runs[name].append(_prefix_run(gates[name], live[name], systems, prompts))
+    inline = {name: b.stats["graph_captures_inline"] for name, b in live.items()}
+    for b in live.values():
+        b.close()
+    live.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    vocab = LLM_1_26B["vocab_size"]
+    for name, rs in runs.items():
+        for run in rs:
+            for p, out in zip(prompts, run["tokens"]):
+                if len(out) != len(p) + MAX_NEW or out[: len(p)] != p \
+                        or not all(0 <= x < vocab for x in out):
+                    raise AssertionError(f"[prefix] cache {name}: malformed tokens")
+            whole = run["prime"]["prefill_steps"] + run["wave"]["prefill_steps"] \
+                - run["wave"]["prefix_hits"]
+            if run["launches"] < layers * whole:
+                raise AssertionError(f"[prefix] cache {name}: {whole} whole-prompt prefills "
+                                     f"but {run['launches']} flash launches")
+        if inline[name]:
+            raise AssertionError(f"[prefix] cache {name}: {inline[name]} graphs captured "
+                                 "after warm()")
+    for run in runs["on"]:
+        w = run["wave"]
+        if w["prefix_hits"] != N_PROMPTS or w["prefix_misses"] != 0:
+            raise AssertionError(f"[prefix] {w['prefix_hits']} hits and {w['prefix_misses']} "
+                                 f"misses after priming (want {N_PROMPTS} and 0)")
+    if runs["on"][0]["tokens"] != runs["on"][1]["tokens"]:
+        raise AssertionError("[prefix] the two cache-on runs gave other tokens")
+    same = sum(a == b for a, b in zip(runs["on"][0]["tokens"], runs["off"][0]["tokens"]))
+    firsts = [_first_diff(a[len(p):], b[len(p):]) for p, a, b in
+              zip(prompts, runs["on"][0]["tokens"], runs["off"][0]["tokens"]) if a != b]
+    for name, rs in runs.items():
+        med = {m: float(np.median([r["slo"][m] for r in rs]))
+               for m in ("ttft_p50", "ttft_p99", "tpot_p50")}
+        w = rs[0]["wave"]
+        log(f"[prefix] cache {name} ({len(rs)} runs, 32 prompts after {N_SYSTEM} priming "
+            f"requests): tokens/s median {np.median([r['tok_s'] for r in rs]):.1f} "
+            f"{[round(r['tok_s'], 1) for r in rs]}; TTFT p50 {med['ttft_p50']:.1f} p99 "
+            f"{med['ttft_p99']:.1f} ms {[round(r['slo']['ttft_p50'], 1) for r in rs]}; TPOT "
+            f"p50 {med['tpot_p50']:.2f} ms; wave: prefix_hits {w['prefix_hits']} "
+            f"prefix_misses {w['prefix_misses']} prefix_tokens_saved "
+            f"{w['prefix_tokens_saved']} prefill_tokens {w['prefill_tokens']} prefill "
+            f"dispatches {w['prefill_steps']}; prefix_cache_bytes {rs[0]['cache_bytes']}; "
+            f"flash launches {[r['launches'] for r in rs]}; peak allocated "
+            f"{max(r['peak'] for r in rs) / 2**30:.2f} GiB, reserved "
+            f"{max(r['reserved'] for r in rs) / 2**30:.2f} GiB (both batchers live) [{card}]")
+    log(f"[prefix] checks: {N_PROMPTS} hits and 0 misses per cache-on wave, on-runs "
+        f"repeat, no graph captured after warm(); bf16: {same} of {N_PROMPTS} streams "
+        f"equal cache on vs off (first differing generated steps {sorted(firsts)})")
+
+    # a hit composed with chunked prefill: the donor spliced into the
+    # staging slab up to the chunk grid, the 300-token rest chunked
+    b = ContinuousBatcher(model, params, **dict(PREFIX_BASE, max_seq=1024),
+                          prefill_chunk=128, prefix_cache_hbm_bytes=PREFIX_BYTES)
+    try:
+        long_prompt = systems[0] + np.random.RandomState(1).randint(1, vocab, 300).tolist()
+        b.warm(prompt_lens=(SYSTEM_LEN, len(long_prompt)), max_new_tokens=MAX_NEW)
+        b.generate(systems[0], max_new_tokens=MAX_NEW)
+        c0 = b.stats["prefill_chunks"]
+        fut = b.submit(long_prompt, max_new_tokens=MAX_NEW)
+        hit = fut.result(timeout=600)
+        chunks = b.stats["prefill_chunks"] - c0
+        if (b.stats["prefix_hits"] != 1 or fut.gen_request.cache_hit_tokens != SYSTEM_LEN
+                or chunks <= 0 or len(hit) != len(long_prompt) + MAX_NEW):
+            raise AssertionError(f"[prefix] chunked hit: hits {b.stats['prefix_hits']}, "
+                                 f"cache_hit_tokens {fut.gen_request.cache_hit_tokens}, "
+                                 f"chunks {chunks}, {len(hit)} tokens")
+        b._prefix_index.evict_to(0)
+        miss = b.generate(long_prompt, max_new_tokens=MAX_NEW)
+        if b.stats["graph_captures_inline"]:
+            raise AssertionError("[prefix] chunked hit: graphs captured after warm()")
+        log(f"[prefix] a {len(long_prompt)}-token prompt with prefill_chunk 128: hit of "
+            f"{SYSTEM_LEN} spliced, {chunks} chunks from position {SYSTEM_LEN}, 64 tokens; "
+            f"bf16 against the same prompt chunked whole: "
+            f"{'equal' if hit == miss else f'first differing step {_first_diff(hit[len(long_prompt):], miss[len(long_prompt):])}'}")
+    finally:
+        b.close()
+    return {name: [r["launches"] for r in rs] for name, rs in runs.items()}
+
+
+def phase_pressure(card, model, params, ref_tokens):
+    """HBM pressure at llm-1.26b (bf16, the scheduler phase's B: graphs
+    on, every other knob off, plus the ledger): the mixed wave queued
+    whole while the fault config's pressure section shrinks the ledger
+    to two lanes at the deepest bucket for 24 working polls, every
+    request streamed through ``on_tokens``; then four of its requests
+    under a budget of 64 bytes that is never restored. Fails unless
+    lanes are preempted, every preemption resumes, every request answers
+    64 tokens, every stream's spans concatenate to its tokens (nothing
+    sent twice), the tiny-budget run ends, every whole prefill launched
+    the flash kernel and no graph is captured after warm(). Reports how
+    many streams equal the pressure-free B run's at bf16."""
+    import torch
+
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+    from seldon_core_tpu_torch.resilience import FaultInjector
+
+    _probe, mixed = serve_waves()
+    gate = _Gate()
+    b = _sched_batcher(model, params, dict(hbm_ledger_bytes=1 << 40), gate)
+    kv = b._kv_key_bytes
+    b.pressure_hook = FaultInjector([], pressure={
+        "shrink_to_bytes": 2 * b.max_seq * kv, "after_polls": 3,
+        "restore_after_polls": 24}).pressure_hook()
+    try:
+        b.warm(prompt_lens=WARM_LENS, max_new_tokens=MAX_NEW)
+        b.start()
+        spans = {label: [] for label, *_r in mixed}
+        fa.LAUNCHES["flash_attention"] = 0
+        s0 = dict(b.stats)
+        t = time.perf_counter()
+        futs = gate.submit_together(b, [(toks, temp, seed, None) for _l, toks, temp, seed in mixed],
+                                    on_tokens=[spans[label].append for label, *_r in mixed])
+        out = {label: f.result(timeout=600) for (label, *_r), f in zip(mixed, futs)}
+        wall = time.perf_counter() - t
+        d = {k: b.stats[k] - s0[k] for k in ("preemptions", "preempt_resumes", "replayed_tokens",
+                                             "prefill_steps", "prefill_chunks")}
+        launches = fa.LAUNCHES["flash_attention"]
+        for label, toks, _t, _s in mixed:
+            gen = out[label][len(toks):]
+            if len(gen) != MAX_NEW or out[label][: len(toks)] != toks:
+                raise AssertionError(f"[pressure] {label}: {len(gen)} tokens")
+            if [x for span in spans[label] for x in span] != gen:
+                raise AssertionError(f"[pressure] {label}: its streamed spans are not its tokens")
+        if d["preemptions"] <= 0 or d["preempt_resumes"] != d["preemptions"]:
+            raise AssertionError(f"[pressure] {d['preemptions']} preemptions, "
+                                 f"{d['preempt_resumes']} resumes")
+        whole = d["prefill_steps"] - d["prefill_chunks"]
+        if launches < LLM_1_26B["n_layers"] * whole:
+            raise AssertionError(f"[pressure] {whole} whole prefills, {launches} flash launches")
+        same = [label for label, *_r in mixed if out[label] == ref_tokens[label]]
+        firsts = {label: _first_diff(out[label][len(toks):], ref_tokens[label][len(toks):])
+                  for label, toks, _t, _s in mixed if label not in same}
+        log(f"[pressure] mixed wave under a 24-poll shrink to {2 * b.max_seq * kv} B: "
+            f"preemptions {d['preemptions']}, resumes {d['preempt_resumes']}, replayed tokens "
+            f"{d['replayed_tokens']}, every request 64 tokens, streamed spans equal to the "
+            f"tokens; {MAX_NEW * len(mixed) / wall:.1f} tokens/s; flash launches {launches} "
+            f"[{card}]")
+        log(f"[pressure] bf16: {len(same)} of {len(mixed)} streams equal the pressure-free B "
+            f"run's" + (f"; first differing generated steps {firsts}" if firsts else ""))
+        # a budget below one lane, never restored, from the second poll
+        # (all four admitted): three are preempted, then one lane at a time
+        b.pressure_hook = FaultInjector([], pressure={
+            "shrink_to_bytes": 64, "after_polls": b._work_poll_count + 2}).pressure_hook()
+        p0 = b.stats["preemptions"]
+        t = time.perf_counter()
+        tiny = [f.result(timeout=300) for f in gate.submit_together(
+            b, [(toks, temp, seed, None) for _l, toks, temp, seed in mixed[:4]])]
+        if any(len(o) != len(m[1]) + MAX_NEW for o, m in zip(tiny, mixed[:4])):
+            raise AssertionError("[pressure] tiny budget: a request came back short")
+        if b.stats["graph_captures_inline"]:
+            raise AssertionError(f"[pressure] {b.stats['graph_captures_inline']} graphs "
+                                 "captured after warm()")
+        log(f"[pressure] budget 64 B never restored: 4 requests ended in "
+            f"{time.perf_counter() - t:.1f} s, {b.stats['preemptions'] - p0} preemptions; "
+            f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    finally:
+        b.close()
+    return launches
+
+
 SMALL_CFG = dict(vocab_size=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2,
                  d_ff=512, max_seq=128, dtype="float32")
 
@@ -1245,12 +1524,17 @@ SMALL_CFG = dict(vocab_size=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads=
 def phase_small_scheduler():
     """f32 small model on the card: configurations A-E (the full-width
     phase's knobs at this size, MIN_ATTN_BUCKET lowered to 16 so that
-    depth groups really split) give the same tokens, greedy and seeded,
-    and no graph is captured after warm()."""
+    depth groups really split), P (the prefix cache: the second pass
+    hits what the first published) and Q (the ledger shrunk to one lane
+    at the deepest bucket during the second pass: lanes are preempted
+    and resume) give
+    the same tokens, greedy and seeded, and no graph is captured after
+    warm()."""
     import numpy as np
     import torch
 
     from seldon_core_tpu_torch.models.llm import DecoderLM
+    from seldon_core_tpu_torch.resilience import FaultInjector
     from seldon_core_tpu_torch.serving.continuous import ContinuousBatcher
 
     model = DecoderLM(**SMALL_CFG)
@@ -1264,7 +1548,9 @@ def phase_small_scheduler():
     fused = dict(fused_steps_per_dispatch=16)
     configs = {"A": dict(cuda_graphs=False), "B": {}, "C": fused,
                "D": dict(fused, depth_groups=4, depth_group_split_bytes=0),
-               "E": dict(fused, prefill_chunk=32)}
+               "E": dict(fused, prefill_chunk=32),
+               "P": dict(prefix_cache_hbm_bytes=1 << 30, prefix_cache_min_tokens=4),
+               "Q": dict(hbm_ledger_bytes=1 << 40)}
     old = ContinuousBatcher.MIN_ATTN_BUCKET
     ContinuousBatcher.MIN_ATTN_BUCKET = 16
     outs, notes = {}, []
@@ -1272,8 +1558,20 @@ def phase_small_scheduler():
         for name, kw in configs.items():
             b = ContinuousBatcher(model, params, **base, **kw)
             try:
+                if name == "Q":
+                    # armed before warm(), which then captures the replay
+                    # step; the shrink lands during the second pass
+                    lane = b._attn_need(b.max_seq) * b._kv_key_bytes
+                    b.pressure_hook = FaultInjector([], pressure={
+                        "shrink_to_bytes": lane, "after_polls": 1 << 30,
+                        "restore_after_polls": 12}).pressure_hook()
                 b.warm(prompt_lens=lens, max_new_tokens=28)
                 got = [[b.submit(p, **r).result(timeout=300) for p, r in reqs]]
+                if name == "Q":
+                    b.pressure_hook = FaultInjector([], pressure={
+                        "shrink_to_bytes": lane,
+                        "after_polls": b._work_poll_count + 3,
+                        "restore_after_polls": 12}).pressure_hook()
                 futs = [b.submit(p, **r) for p, r in reqs]
                 got.append([f.result(timeout=300) for f in futs])
                 s = b.stats
@@ -1285,19 +1583,28 @@ def phase_small_scheduler():
                 raise AssertionError(f"[small-sched] {name}: one at a time != together")
             outs[name] = got[0]
             notes.append(f"{name} graphs {s['graphs_captured']} fused {s['fused_dispatches']} "
-                         f"group bursts {s['group_bursts']} chunks {s['prefill_chunks']}")
+                         f"group bursts {s['group_bursts']} chunks {s['prefill_chunks']} "
+                         f"prefix hits {s['prefix_hits']} preemptions {s['preemptions']}")
             if name == "D" and not s["group_bursts"]:
                 raise AssertionError("[small-sched] D: groups never split")
             if name == "E" and not s["prefill_chunks"]:
                 raise AssertionError("[small-sched] E: nothing was chunked")
+            # the second pass hits every prompt the first one published
+            # (a match leaves one token to compute: n - 1 >= 4 needed)
+            if name == "P" and s["prefix_hits"] != sum(len(p) > 4 for p, _r in reqs):
+                raise AssertionError(f"[small-sched] P: {s['prefix_hits']} prefix hits")
+            if name == "Q" and not (0 < s["preemptions"] == s["preempt_resumes"]):
+                raise AssertionError(f"[small-sched] Q: {s['preemptions']} preemptions, "
+                                     f"{s['preempt_resumes']} resumes")
     finally:
         ContinuousBatcher.MIN_ATTN_BUCKET = old
     for name, got in outs.items():
         if got != outs["A"]:
             bad = [i for i, (x, y) in enumerate(zip(got, outs["A"])) if x != y]
             raise AssertionError(f"[small-sched] {name} != A at f32 (requests {bad})")
-    log(f"[small-sched] f32 on the card: A == B == C == D == E token for token, greedy and "
-        f"seeded, {len(reqs)} requests one at a time and together; " + "; ".join(notes))
+    log(f"[small-sched] f32 on the card: A == B == C == D == E == P == Q token for token, "
+        f"greedy and seeded, {len(reqs)} requests one at a time and together (P: prefix cache "
+        f"on = off; Q: preempted = not); " + "; ".join(notes))
 
 
 def phase_model(model, params):
@@ -1332,6 +1639,35 @@ def phase_model(model, params):
         log(f"[model] prefill B=1 T={t}: {wall[t]:.2f} ms; device busy {busy_ms:.3f} ms, of "
             f"which the flash kernel {flash_ms:.4f} ms over {flash_calls:.0f} launches "
             f"({100 * flash_ms / busy_ms:.1f}% of the device time)")
+    # a prefix hit's suffix prefill (the prefix phase's shape: a 384-token
+    # match in a 512-position donor slab, the 64-token suffix padded to
+    # its 128 bucket) against the full prefill of the 512 bucket it skips
+    # (and the batched m=8 full prefill the cache-off run admits with)
+    toks = prompts[512]
+    _logits, donor = model.prefill(params, toks, 512)
+    suffix = toks[:, :128].clone()
+    last = torch.tensor([USER_LEN - 1], device="cuda")
+    toks8 = toks.expand(8, -1).contiguous()
+    cases = {"hit suffix prefill (W 128 over a 512 donor at 384)":
+             lambda: model.prefill_with_prefix(params, donor, suffix, SYSTEM_LEN, last_index=last),
+             "full prefill (T 512)": lambda: model.prefill(params, toks, 512),
+             "full prefill m=8 (T 512)": lambda: model.prefill(params, toks8, 512)}
+    busy = {}
+    for name, fn in cases.items():
+        wall_ms = time_ms(fn, iters=5, warmup=1)
+        n = 3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        busy[name] = sum(e.self_device_time_total for e in events) / 1e3 / n
+        ops = sum(e.count for e in events) / n
+        log(f"[prefix] {name}: wall {wall_ms:.2f} ms, device busy {busy[name]:.3f} ms "
+            f"({ops:.0f} device ops)")
+    hit_ms, full_ms, _m8 = busy.values()
+    log(f"[prefix] a hit's suffix prefill takes {hit_ms / full_ms:.3f} of the full "
+        f"prefill's device time")
     shape = (8, cfg.n_kv_heads, cfg.max_seq, cfg.head_dim)
     ks = [torch.zeros(shape, dtype=model.dtype, device="cuda") for _ in range(cfg.n_layers)]
     vs = [torch.zeros(shape, dtype=model.dtype, device="cuda") for _ in range(cfg.n_layers)]
@@ -1446,7 +1782,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_small_scheduler()
-        sched_launches = phase_scheduler(card, model, params)
+        sched_launches, sched_tokens = phase_scheduler(card, model, params)
+        gc.collect()
+        torch.cuda.empty_cache()
+        prefix_launches = phase_prefix(card, model, params)
+        gc.collect()
+        torch.cuda.empty_cache()
+        pressure_launches = phase_pressure(card, model, params, sched_tokens)
         # the profiler runs last: once it has traced the card, later
         # launches may carry its overhead
         phase_model(model, params)
@@ -1460,6 +1802,8 @@ def main() -> int:
             "launches": launches,
             "engine_launches": engine_launches,
             "scheduler_launches": sched_launches,
+            "prefix_launches": prefix_launches,
+            "pressure_launches": pressure_launches,
             "max_abs_err": worst,
             "ms": head["ms"],
             "device_ms": head["device_ms"],

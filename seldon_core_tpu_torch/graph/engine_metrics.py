@@ -78,7 +78,18 @@ class MetricsRegistry:
     # fault tolerance: supervised batcher restarts land in a first-class
     # series, the scheduler's health in a first-class gauge (1 = serving,
     # 0 = restarting/dead; readiness mirrors it)
-    _RECOVERY = {"gen_batcher_restarts": "seldon_engine_batcher_restarts"}
+    _RECOVERY = {
+        "gen_batcher_restarts": "seldon_engine_batcher_restarts",
+        # HBM pressure: decode-lane preemptions and their resumes, the
+        # admission sheds while the ledger is latched, and the reclaim
+        # ladder's prefix evictions (refusals come with disaggregated
+        # serving, not ported yet)
+        "gen_preemptions": "seldon_engine_preemptions",
+        "gen_preempt_resumes": "seldon_engine_preemption_resumes",
+        "gen_pressure_sheds": "seldon_engine_pressure_sheds",
+        "gen_pressure_refused": "seldon_engine_pressure_refused",
+        "gen_pressure_prefix_evictions": "seldon_engine_pressure_prefix_evictions",
+    }
 
     # fused stop-aware decode: device steps run inside fused bursts and
     # the dispatches that carried them; steps / dispatches is the
@@ -87,7 +98,14 @@ class MetricsRegistry:
         "gen_fused_steps": "seldon_engine_fused_steps",
         "gen_fused_dispatches": "seldon_engine_fused_dispatches",
     }
-    _RECOVERY_GAUGES = {"gen_batcher_healthy": "seldon_engine_batcher_healthy"}
+    _RECOVERY_GAUGES = {
+        "gen_batcher_healthy": "seldon_engine_batcher_healthy",
+        # the HBM-pressure ledger: used vs budget, and whether the high
+        # watermark is latched (1 = admissions held and shed)
+        "gen_pressure_used_bytes": "seldon_engine_pressure_used_bytes",
+        "gen_pressure_budget_bytes": "seldon_engine_pressure_budget_bytes",
+        "gen_pressure_active": "seldon_engine_pressure_active",
+    }
 
     # generate SLO TIMERs (per completed request, shipped by the generate
     # server's metrics() hook) additionally land in first-class latency

@@ -10,10 +10,10 @@ attention runs the hand-written CUDA flash kernel on the card), the
 ragged one-position decode over a per-layer cache
 (``decode_step_ragged_list``, with a separate write position for the
 fused stop-aware burst), ``prefill_chunk`` (one chunk of a long prompt
-into a staging slab), ``generate``, ``init_params`` and the analytic
+into a staging slab), ``prefill_with_prefix`` (a suffix prefill over a
+cached prefix slab), ``generate``, ``init_params`` and the analytic
 counts. Not ported yet: MoE, the tp/sp/ep parallel paths,
-``prefill_with_prefix``, ``decode_chunk_ragged_list`` and the training
-loss.
+``decode_chunk_ragged_list`` and the training loss.
 
 Layouts match the JAX package exactly: per-layer caches
 ``[B, KV, T, Dh]``, the prefill slab ``[L, B, KV, Tb, Dh]``, and q/k/v
@@ -398,6 +398,60 @@ class DecoderLM(ServedModel):
             x_last = x[torch.arange(B, device=dev), last_index.long()]
         x_last = _rms_norm(x_last, params["ln_f"].to(dt), cfg.norm_eps)
         return (x_last @ params["unembed"].to(dt)).float(), slab
+
+    @torch.inference_mode()
+    def prefill_with_prefix(self, params, prefix_kv, tokens, start_pos: int,
+                            last_index=None):
+        """Suffix prefill over a CACHED prefix: the model half of the
+        batcher's radix prefix cache (the JAX package's
+        ``DecoderLM.prefill_with_prefix``).
+
+        ``prefix_kv``: ``{"k","v"}`` of ``[L, 1, KV, Tp, Dh]`` (the
+        ``cache_one`` layout) holding valid K/V for positions ``[0,
+        start_pos)`` of this sequence; ``start_pos <= Tp``. ``tokens``
+        ``[1, W]``: the rest of the prompt padded to a bucket; token j
+        sits at absolute position ``start_pos + j``. Per layer the
+        window's K/V are spliced into a W-extended copy of the prefix
+        slab at ``start_pos`` and attention reads the combined ``Tp + W``
+        positions under the ``key_pos <= start_pos + j`` bound, through
+        the grouped cache attention (no flash kernel, as in the JAX
+        package): the bound covers the cached prefix and in-window
+        causality and masks the donor's residue past the match. The
+        prefix slab is read, never written. Returns ``(logits [1, V] at
+        last_index, suffix slab {"k","v"}: [L, 1, KV, W, Dh])``."""
+        cfg = self.cfg
+        dt = self.dtype
+        B, W = tokens.shape
+        Tp = prefix_kv["k"].shape[3]
+        start = int(start_pos)
+        if not 0 <= start <= Tp:
+            raise ValueError(f"start_pos {start} outside a prefix slab of {Tp}")
+        dev = tokens.device
+        positions = (start + torch.arange(W, device=dev))[None, :].expand(B, W)
+        x = params["embed"][tokens.long()].to(dt)
+        shape = (cfg.n_layers, B, cfg.n_kv_heads, W, cfg.head_dim)
+        suffix = {"k": torch.empty(shape, dtype=dt, device=dev),
+                  "v": torch.empty(shape, dtype=dt, device=dev)}
+        pad = torch.zeros((B, cfg.n_kv_heads, W, cfg.head_dim), dtype=dt, device=dev)
+        blocks = params["blocks"]
+        for l in range(cfg.n_layers):
+            p = self._layer(blocks, l)
+            q, k, v = self._qkv(p, x, positions)
+            suffix["k"][l] = k
+            suffix["v"][l] = v
+            ck = torch.cat([prefix_kv["k"][l].to(dt), pad], dim=2)
+            cv = torch.cat([prefix_kv["v"][l].to(dt), pad], dim=2)
+            ck[:, :, start:start + W] = k
+            cv[:, :, start:start + W] = v
+            o = self._cache_attention(q, ck, cv, positions, dt)
+            x = x + self._merge_heads(p, o)
+            x = x + self._ffn(p, x)
+        if last_index is None:
+            x_last = x[:, -1]
+        else:
+            x_last = x[torch.arange(B, device=dev), last_index.long()]
+        x_last = _rms_norm(x_last, params["ln_f"].to(dt), cfg.norm_eps)
+        return (x_last @ params["unembed"].to(dt)).float(), suffix
 
     @torch.inference_mode()
     def generate(self, params, prompt, max_new_tokens: int,

@@ -27,9 +27,17 @@ Scheduler faults: a top-level ``scheduler`` section induces poll death
 in the continuous batcher's loop (the supervised crash-restart path):
 ``{"scheduler": {"die_after_polls": 50, "times": 1}}``.
 
+Pressure faults: a top-level ``pressure`` section shrinks the continuous
+batcher's HBM ledger budget mid-run, driving the real reclaim ladder
+(prefix eviction, lane preemption and recompute-resume, admission
+sheds): ``{"pressure": {"shrink_to_bytes": 65536, "after_polls": 20,
+"restore_after_polls": 100}}`` -- on the Nth *working* poll (polls with
+live lanes or queued work, so the shrink lands relative to traffic) the
+budget drops to ``shrink_to_bytes``; ``restore_after_polls`` working
+polls later (optional) the boot budget is restored.
+
 Not ported yet: the KV-transport rule fields (``kv_*``, the
-disaggregated path's chaos harness) and the ``pressure`` section (the
-HBM ledger); each raises when set.
+disaggregated path's chaos harness); each raises when set.
 
 Env wiring: ``SELDON_FAULTS`` holds the JSON config
 (``{"seed": 7, "rules": [{...}], "scheduler": {...}}``) or
@@ -92,16 +100,15 @@ def _rule(r) -> FaultRule:
 
 class FaultInjector:
     def __init__(self, rules, seed: int = 0, scheduler=None, pressure=None):
-        if pressure:
-            raise NotImplementedError(
-                "the fault config's 'pressure' section (HBM-ledger shrink) "
-                "is not ported to seldon_core_tpu_torch yet"
-            )
         self.seed = int(seed)
         self.rules: List[FaultRule] = [_rule(r) for r in rules]
         # scheduler-level induced poll death: {"die_after_polls": N,
         # "times": M} — wired onto ContinuousBatcher.fault_hook
         self.scheduler = dict(scheduler or {})
+        # HBM-ledger shrink window: {"shrink_to_bytes": B, "after_polls":
+        # N, "restore_after_polls": M} — wired onto
+        # ContinuousBatcher.pressure_hook
+        self.pressure = dict(pressure or {})
         self._rngs: Dict[Tuple[str, str], random.Random] = {}
         self._calls: Dict[Tuple[str, str], int] = {}
         # observability for tests/bench: what actually got injected
@@ -198,6 +205,33 @@ class FaultInjector:
                     f"injected scheduler poll death "
                     f"{state['deaths']}/{times} at poll {poll_count}",
                 )
+
+        return hook
+
+    def pressure_hook(self):
+        """Ledger re-budget hook for ContinuousBatcher.pressure_hook, or
+        None when no pressure section is configured. Returns the new
+        budget (``shrink_to_bytes``) on the configured working poll,
+        ``-1`` (restore the boot budget) ``restore_after_polls`` polls
+        later, and None in between."""
+        shrink = int(self.pressure.get("shrink_to_bytes", 0) or 0)
+        after = int(self.pressure.get("after_polls", 0) or 0)
+        if shrink <= 0 or after <= 0:
+            return None
+        restore = self.pressure.get("restore_after_polls")
+        state = {"fired_at": None, "restored": False}
+
+        def hook(poll_count: int):
+            if state["fired_at"] is None:
+                if poll_count >= after:
+                    state["fired_at"] = poll_count
+                    return shrink
+                return None
+            if (restore is not None and not state["restored"]
+                    and poll_count - state["fired_at"] >= int(restore)):
+                state["restored"] = True
+                return -1
+            return None
 
         return hook
 

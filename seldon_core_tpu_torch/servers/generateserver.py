@@ -28,16 +28,33 @@ Server parameters (typed, e.g. from ``PREDICTIVE_UNIT_PARAMETERS``)::
     admit_queue_limit
                      admit-queue cap; a submit past it is shed with
                      ShedError (429 at the engine); 0 = no cap
+    prefix_cache_hbm_bytes
+                     radix prefix KV-cache budget in device bytes (0 =
+                     off): finished requests publish their prompt's K/V,
+                     later prompts sharing a prefix splice it and prefill
+                     only the suffix; responses then carry per-request
+                     ``cache_hit_tokens``
+    prefix_cache_min_tokens
+                     shortest prefix worth caching or reusing (default 16)
+    hbm_ledger_bytes HBM-pressure budget of the scheduler's ledger (live
+                     decode footprint + staging slabs + prefix cache; 0 =
+                     off). Over the high watermark the reclaim ladder
+                     evicts prefixes, preempts decode lanes (checkpoint on
+                     the host, recompute-resume, same tokens) and sheds
+                     admissions (429 at the engine)
+    pressure_high / pressure_low
+                     the watermarks as fractions of the budget (defaults
+                     0.90 / 0.75)
     warmup_prompt_lens / warmup_max_new_tokens
                      traffic shape ``warm()`` runs before the server
                      listens (CSV string or list)
 
-The JAX server's other parameters (speculation, the prefix cache,
-disaggregated roles, pressure,
-the KV tier, resume tokens, swap, tenants, the profiler, SLO burn, the
-flight recorder, meshes) are not ported yet: each raises when set to
+The JAX server's other parameters (speculation, disaggregated roles,
+the host KV tier, resume tokens, swap, tenants, the profiler, SLO burn,
+the flight recorder, meshes) are not ported yet: each raises when set to
 anything but its off value, as does a request's ``resume_token`` or
-``tenant``.
+``tenant``. The fault config's ``pressure`` section (``SELDON_FAULTS``)
+drives the ledger's budget mid-run.
 
 The remaining deadline budget in the message meta (``deadlineMs``,
 stamped per in-process hop by the engine) bounds each request: the
@@ -60,8 +77,9 @@ Request (jsonData)::
 ``prompt_tokens`` may be a list of lists: each prompt is submitted
 separately and rides the same in-flight decode batch.
 
-Response (jsonData): ``{"tokens": [[...]], "text": [...]}`` (``text``
-only for byte-level string prompts).
+Response (jsonData): ``{"tokens": [[...]], "text": [...],
+"cache_hit_tokens": [...]}`` (``text`` only for byte-level string
+prompts, ``cache_hit_tokens`` only with the prefix cache on).
 """
 
 from __future__ import annotations
@@ -88,9 +106,9 @@ logger = logging.getLogger(__name__)
 _NOT_PORTED = {
     "mesh": None, "mesh_shape": None, "shard_cache_seq": False,
     "speculate_tokens": 0, "draft_layers": 0,
-    "draft_uri": None, "prefix_cache_hbm_bytes": 0,
+    "draft_uri": None,
     "flight_recorder": 0, "role": "unified", "peer": None, "kv_port": 0,
-    "hbm_ledger_bytes": 0, "host_kv_tier_bytes": 0, "resume_tokens": 0,
+    "host_kv_tier_bytes": 0, "resume_tokens": 0,
     "swap_drain_ms": 0, "tenants": None, "weight_pager_host_bytes": 0,
     "profiler": 0, "slo_objectives": None,
 }
@@ -133,6 +151,11 @@ class GenerateServer(SeldonComponent):
         restart_budget: int = 3,
         restart_backoff_s: float = 0.5,
         admit_queue_limit: int = 0,
+        prefix_cache_hbm_bytes: int = 0,
+        prefix_cache_min_tokens: int = 16,
+        hbm_ledger_bytes: int = 0,
+        pressure_high: float = 0.90,
+        pressure_low: float = 0.75,
         warmup_prompt_lens: Optional[Sequence[int]] = None,
         warmup_max_new_tokens: int = 0,
         **kwargs,
@@ -161,6 +184,11 @@ class GenerateServer(SeldonComponent):
         self._restart_budget = int(restart_budget)
         self._restart_backoff_s = float(restart_backoff_s)
         self._admit_queue_limit = int(admit_queue_limit)
+        self._prefix_cache_hbm_bytes = int(prefix_cache_hbm_bytes)
+        self._prefix_cache_min_tokens = int(prefix_cache_min_tokens)
+        self._hbm_ledger_bytes = int(hbm_ledger_bytes)
+        self._pressure_high = float(pressure_high)
+        self._pressure_low = float(pressure_low)
         if isinstance(warmup_prompt_lens, str):
             warmup_prompt_lens = [
                 int(x) for x in warmup_prompt_lens.split(",") if x.strip()
@@ -218,12 +246,20 @@ class GenerateServer(SeldonComponent):
             restart_budget=self._restart_budget,
             restart_backoff_s=self._restart_backoff_s,
             admit_queue_limit=self._admit_queue_limit,
+            prefix_cache_hbm_bytes=self._prefix_cache_hbm_bytes,
+            prefix_cache_min_tokens=self._prefix_cache_min_tokens,
+            hbm_ledger_bytes=self._hbm_ledger_bytes,
+            pressure_high=self._pressure_high,
+            pressure_low=self._pressure_low,
         )
         # chaos harness (off without SELDON_FAULTS): the scheduler section
-        # wires induced poll death onto the batcher's fault hook
+        # wires induced poll death onto the batcher's fault hook, the
+        # pressure section a mid-run ledger re-budget (before warm(), so
+        # that it captures the resume's replay step)
         faults = FaultInjector.from_env()
         if faults is not None:
             self.batcher.fault_hook = faults.scheduler_hook()
+            self.batcher.pressure_hook = faults.pressure_hook()
         if self._warmup_prompt_lens:
             # warm before listen: the first admission wave must not pay
             # the kernel build, the libraries' first-call setup or the
@@ -308,7 +344,7 @@ class GenerateServer(SeldonComponent):
                 f.cancel()
             raise
         results = self._collect_results(futures, deadline_s, expires_at)
-        return self._build_response(results, token_lists, text_mode)
+        return self._build_response(futures, results, token_lists, text_mode)
 
     @staticmethod
     def _collect_results(futures, deadline_s, expires_at):
@@ -372,16 +408,21 @@ class GenerateServer(SeldonComponent):
             final: Dict[str, Any] = {"done": True, "tokens": result}
             if text_mode:
                 final["text"] = self._decode(result[len(toks):])
+            if self.batcher._prefix_index is not None:
+                final["cache_hit_tokens"] = fut.gen_request.cache_hit_tokens
             yield final
 
         return StreamHandle(chunks=chunks(), cancel=fut.cancel)
 
-    def _build_response(self, results, token_lists, text_mode):
+    def _build_response(self, futures, results, token_lists, text_mode):
         out: Dict[str, Any] = {"tokens": results}
         if text_mode:
             out["text"] = [
                 self._decode(r[len(p):]) for r, p in zip(results, token_lists)
             ]
+        if self.batcher._prefix_index is not None:
+            # prompt tokens each request took from the prefix cache
+            out["cache_hit_tokens"] = [f.gen_request.cache_hit_tokens for f in futures]
         return out
 
     def tags(self) -> Dict:
@@ -437,6 +478,34 @@ class GenerateServer(SeldonComponent):
             out.append(delta("gen_shed_total", s["shed"]))
         if s.get("batcher_restarts"):
             out.append(delta("gen_batcher_restarts", s["batcher_restarts"]))
+        # HBM pressure: preemptions, resumes, sheds and the ladder's prefix
+        # evictions, plus the ledger's gauges (the engine exports them as
+        # seldon_engine_preemptions and friends)
+        for stat, key in (("preemptions", "gen_preemptions"),
+                          ("preempt_resumes", "gen_preempt_resumes"),
+                          ("pressure_sheds", "gen_pressure_sheds"),
+                          ("pressure_prefix_evictions", "gen_pressure_prefix_evictions")):
+            if s.get(stat):
+                out.append(delta(key, s[stat]))
+        pressure = self.batcher.pressure_summary()
+        if pressure is not None:
+            out.extend([
+                {"type": "GAUGE", "key": "gen_pressure_used_bytes",
+                 "value": float(pressure["used_bytes"])},
+                {"type": "GAUGE", "key": "gen_pressure_budget_bytes",
+                 "value": float(pressure["budget_bytes"])},
+                {"type": "GAUGE", "key": "gen_pressure_active",
+                 "value": 1.0 if pressure["active"] else 0.0},
+            ])
+        if self.batcher._prefix_index is not None:
+            out.extend([
+                delta("prefix_cache_hits", s["prefix_hits"]),
+                delta("prefix_cache_misses", s["prefix_misses"]),
+                delta("prefix_cache_evictions", s["prefix_evicted"]),
+                delta("prefix_tokens_saved", s["prefix_tokens_saved"]),
+                {"type": "GAUGE", "key": "prefix_cache_bytes",
+                 "value": float(s["prefix_cache_bytes"])},
+            ])
         pending = self.batcher.slo_pending
         while pending:
             try:

@@ -53,15 +53,33 @@ Counterpart of ``seldon_core_tpu/serving/continuous.py``
   (``graph_captures_inline``). Every tensor a graph touches is a
   persistent buffer updated in place. On the CPU the same phase
   functions run eagerly.
+* Radix prefix KV cache (``prefix_cache_hbm_bytes``): a finished
+  request publishes its prompt's K/V (``[L, 1, KV, bucket, Dh]``, copied
+  out of its lane) into a radix index over token IDs under an LRU byte
+  budget; an admission whose prompt shares a cached prefix of at least
+  ``prefix_cache_min_tokens`` splices the donor slab into its lane and
+  prefills only the suffix (``DecoderLM.prefill_with_prefix``). A hit
+  whose suffix is longer than one prefill chunk goes to chunking, its
+  staging slab seeded with the donor up to the chunk grid.
+* HBM pressure (``hbm_ledger_bytes``): a ledger of the live decode
+  footprint, the staging slabs and the prefix cache against
+  ``pressure_high``/``pressure_low`` watermarks. Over the high one the
+  reclaim ladder runs at the poll boundary: evict prefix slabs, then
+  preempt lanes (never the last one): a victim's emitted tokens and lane
+  key are checkpointed on the host and it is requeued; its resume
+  recomputes the prompt's K/V (a prefix hit splices as on admission),
+  replays the emitted tokens' K/V teacher-forced through the decode step
+  and continues the same sampling stream. While latched, admissions
+  hold and submits are shed (``ShedError``, 429 at the engine).
 * Prefill, chunk and lane insert run inside ``tracing.device_trace``
   ranges (``gen.prefill``, ``gen.prefill_chunk``, ``gen.lane_insert``),
   decode bursts inside ``gen.decode_burst``, named in ``torch.profiler``
   traces.
 
-Every other scheduler feature of the JAX batcher (speculation, the
-prefix cache, HBM pressure, the host KV tier, weight swap, drain,
-retune, the flight recorder, the device-time profiler, the mesh) is not
-ported yet: its knob raises when set to anything but its off value.
+Every other scheduler feature of the JAX batcher (speculation, the host
+KV tier, weight swap, drain, retune, the flight recorder, the
+device-time profiler, tenants, the mesh) is not ported yet: its knob
+raises when set to anything but its off value.
 """
 
 from __future__ import annotations
@@ -81,28 +99,31 @@ import torch
 from .. import rng
 from ..resilience import ShedError
 from ..tracing import device_trace
+from .prefix_cache import RadixPrefixIndex
+from .pressure import PressureController
 
 logger = logging.getLogger(__name__)
 
 # Scheduler knobs of the JAX batcher that this port does not implement
-# yet, with the value that turns each off. Any other value raises.
+# yet, with the value that turns each off; any other value raises. They
+# are the mesh (multi-device serving), speculation (a draft model), the
+# flight recorder, the host KV tier, weight swap and the device-time
+# profiler.
 NOT_PORTED_KNOBS: Dict[str, Any] = {
     "mesh": None,
     "shard_cache_seq": False,
     "draft_model": None,
     "draft_params": None,
-    "prefix_cache_hbm_bytes": 0,
     "flight_recorder_capacity": 0,
-    "hbm_ledger_bytes": 0,
     "host_kv_tier_bytes": 0,
     "swap_drain_ms": 0,
     "profiler": None,
 }
-# knobs that only act when one of the features above is on; accepted at
-# any value so JAX-package configs carry over
+# knobs that only act through one of the features above (speculation's
+# length, the host tier's thresholds, the swap's resume policy); accepted
+# at any value so JAX-package configs carry over
 INERT_KNOBS = (
-    "speculate_tokens", "prefix_cache_min_tokens", "pressure_high",
-    "pressure_low", "kv_tier_min_tokens", "kv_tier_promote_min_tokens",
+    "speculate_tokens", "kv_tier_min_tokens", "kv_tier_promote_min_tokens",
     "swap_resume_policy",
 )
 
@@ -161,13 +182,23 @@ class GenRequest:
     # span of tokens (must be cheap; exceptions are logged, never raised
     # into the decode loop)
     on_tokens: Optional[object] = None
+    # prompt tokens served from the radix prefix cache at admit (0 = a
+    # full prefill); responses report it per request
+    cache_hit_tokens: int = 0
     # lifecycle timeline (monotonic seconds; 0.0 = not reached)
     submit_t: float = 0.0
     admit_t: float = 0.0
     first_tok_t: float = 0.0
     # absolute deadline (monotonic seconds) when the submit carried a
     # budget: past it the scheduler cancels the request and frees its lane
+    # (the preemption victim choice spares such lanes longest)
     deadline_t: Optional[float] = None
+    # preemption checkpoint ``{"emitted": [...], "key": [hi, lo]}``, set
+    # when the pressure ladder took the lane mid-decode: the emitted
+    # tokens and the lane's post-split key, never its K/V (the resume
+    # recomputes it). None = never preempted, or preempted before any
+    # token was credited (a plain re-admit then reproduces the stream)
+    resume: Optional[Dict[str, Any]] = None
 
 
 @dataclasses.dataclass
@@ -196,6 +227,10 @@ class _ChunkJob:
     next_start: int  # position of the next chunk's first token
     slab: Any  # {"k","v"}: [L, 1, KV, bucket, Dh]
     bucket: int
+    # a preempted request's resume: (emitted tokens, checkpointed lane
+    # key); the last chunk then inserts that state instead of its own
+    # sample and replays the emitted tokens' K/V
+    resume: Optional[tuple] = None
 
 
 class _PinnedPool:
@@ -387,6 +422,11 @@ class ContinuousBatcher:
         restart_budget: int = 3,
         restart_backoff_s: float = 0.5,
         admit_queue_limit: int = 0,
+        prefix_cache_hbm_bytes: int = 0,
+        prefix_cache_min_tokens: int = 16,
+        hbm_ledger_bytes: int = 0,
+        pressure_high: float = 0.90,
+        pressure_low: float = 0.75,
         cuda_graphs: bool = True,
         **knobs,
     ):
@@ -454,7 +494,28 @@ class ContinuousBatcher:
         # proof that no lane reads past its own group's bucket
         self.trace_groups: Optional[List[Dict[str, Any]]] = None
         self._poll_count = 0
+        # polls with work (lanes, chunk jobs, bursts in flight or queued
+        # requests): the pressure hook's clock, so a fault-injected
+        # shrink lands relative to traffic, not to idle polls
+        self._work_poll_count = 0
         self._warm_args: Optional[Dict[str, Any]] = None
+        # radix prefix KV cache (0 bytes = off): prompt slabs of finished
+        # requests, LRU-evicted at radix-node granularity
+        self.prefix_cache_min_tokens = max(1, int(prefix_cache_min_tokens))
+        self._prefix_cache_budget = int(prefix_cache_hbm_bytes)
+        self._prefix_index = (
+            RadixPrefixIndex(self._prefix_cache_budget)
+            if self._prefix_cache_budget > 0 else None
+        )
+        # HBM pressure: the unified ledger (0 bytes = off: the loop never
+        # consults it), the chaos hook (called each working poll; an int
+        # re-budgets the ledger, -1 restores the boot budget), and the
+        # preempted requests awaiting resume, admitted ahead of the queue
+        self._pressure = PressureController(
+            hbm_ledger_bytes, high=pressure_high, low=pressure_low
+        )
+        self.pressure_hook: Optional[Any] = None
+        self._resume_queue: "collections.deque" = collections.deque()
         # burst_reads/burst_read_bytes: modelled device reads of the
         # dispatched decode (sub)bursts, params once per step plus each
         # row's bucketed KV; group_*: real and pad rows of grouped
@@ -464,6 +525,17 @@ class ContinuousBatcher:
             "lane_steps": 0, "tokens": 0,
             "prefill_steps": 0, "prefill_tokens": 0, "prefill_chunks": 0,
             "batcher_restarts": 0, "shed": 0,
+            # prefix cache: admissions that spliced a cached prefix or
+            # missed, slabs evicted (budget or pressure), prompt tokens
+            # not prefilled, and the cache's bytes
+            "prefix_hits": 0, "prefix_misses": 0, "prefix_evicted": 0,
+            "prefix_tokens_saved": 0, "prefix_cache_bytes": 0,
+            # HBM pressure: lanes (and chunk jobs) preempted, resumes that
+            # landed, emitted tokens replayed into resumed lanes, submits
+            # shed while latched, prefix slabs the ladder evicted (a
+            # share of prefix_evicted)
+            "preemptions": 0, "preempt_resumes": 0, "replayed_tokens": 0,
+            "pressure_sheds": 0, "pressure_prefix_evictions": 0,
             "burst_reads": 0, "burst_read_bytes": 0,
             "group_bursts": 0, "group_lanes": 0, "group_pad_lanes": 0,
             "fused_steps": 0, "fused_dispatches": 0,
@@ -531,6 +603,13 @@ class ContinuousBatcher:
         }
         kmax = max(self._k, self._fused_k)
         self._whole = _LaneState.alloc(self.slots, kmax, dev, group=False)
+        # the teacher-forced replay step's registers: each row's token,
+        # position and K/V write position (past the cache = no write)
+        self._replay = {
+            "cur": torch.zeros((self.slots,), dtype=torch.long, device=dev),
+            "pos": torch.zeros((self.slots,), dtype=torch.long, device=dev),
+            "wpos": torch.full((self.slots,), self.max_seq, dtype=torch.long, device=dev),
+        }
         self._groups: Dict[int, _LaneState] = {}
         self._gather_buf = None
         if self.depth_groups > 1:
@@ -617,6 +696,53 @@ class ContinuousBatcher:
         w.pos[idx] = self._to_dev(np.asarray(first_pos, np.int64))
         w.keys[idx] = lane_keys
 
+    @torch.no_grad()
+    def _prefix_prefill(self, slab, suffix: np.ndarray, start: int, last: int,
+                        seed: int, temp: float):
+        """Suffix-only prefill ``[1, W]`` over a cached prefix slab plus
+        the first token, sampled exactly as the whole-prompt prefill
+        samples it: ``(first [1], suffix slab [L, 1, KV, W, Dh],
+        lane_key [1, 2])``."""
+        logits, suffix_slab = self.model.prefill_with_prefix(
+            self.params, slab, self._to_dev(suffix), start,
+            last_index=self._to_dev(np.asarray([last], np.int64)),
+        )
+        first, key = self._sample_first(logits, [seed], [temp])
+        return first, suffix_slab, key
+
+    @torch.no_grad()
+    def _insert_prefix(self, slab, suffix_slab, slot: int, start: int,
+                       first, first_pos: int, lane_key) -> None:
+        """A prefix hit into lane ``slot`` (in place): the donor slab at
+        position 0, then the suffix slab at ``start`` over the donor's
+        residue, and the lane's token, position and key registers
+        armed as ``_insert`` arms them. Donor positions past the end of
+        the suffix lie past the prompt, where decode writes before any
+        read."""
+        tb, w = slab["k"].shape[3], suffix_slab["k"].shape[3]
+        if max(tb, start + w) > self.max_seq:
+            raise ValueError(f"prefix splice [0, {max(tb, start + w)}) exceeds "
+                             f"max_seq {self.max_seq}")
+        for name in ("k", "v"):
+            for l, layer in enumerate(self._cache[name]):
+                layer[slot, :, :tb] = slab[name][l, 0]
+                layer[slot, :, start:start + w] = suffix_slab[name][l, 0]
+        ws = self._whole
+        ws.cur[slot: slot + 1] = first
+        ws.pos[slot].fill_(first_pos)
+        ws.keys[slot: slot + 1] = lane_key
+
+    @torch.no_grad()
+    def _extract_prefix(self, slot: int, bucket: int):
+        """A copy of lane ``slot``'s first ``bucket`` positions as a
+        ``{"k","v"}`` slab ``[L, 1, KV, bucket, Dh]``: the unit the prefix
+        cache publishes (a copy, so the lane's next occupant cannot
+        change it)."""
+        return {
+            name: torch.stack([layer[slot: slot + 1, :, :bucket] for layer in self._cache[name]])
+            for name in ("k", "v")
+        }
+
     def _new_slab(self, bucket: int):
         """A zeroed staging slab ``{"k","v"}`` of ``[L, 1, KV, bucket, Dh]``
         in the layout the lane insert takes."""
@@ -641,6 +767,17 @@ class ContinuousBatcher:
         if not is_last:
             return None
         return self._sample_first(logits, [seed], [temp])
+
+    def _replay_step(self, attn_len: int) -> None:
+        """ONE teacher-forced decode step over the whole batch from the
+        replay registers: rows parked at the cache length write nothing,
+        the resumed row writes its token's K/V at its position. No
+        sampling, and no lane register is touched."""
+        r = self._replay
+        self.model.decode_step_ragged_list(
+            self.params, self._cache["k"], self._cache["v"], r["cur"][:, None],
+            r["pos"], attn_len=attn_len, write_pos=r["wpos"],
+        )
 
     # Decode-burst phases. Each reads and writes only persistent buffers
     # (a _LaneState, the cache, the gather buffer), so on the card each
@@ -854,8 +991,20 @@ class ContinuousBatcher:
 
     def _shed_check(self, deadline_s: Optional[float]) -> None:
         """Admit-queue shedding, BEFORE the request costs any device work:
-        an explicit queue cap, and the deadline-aware rule (expected queue
-        wait = depth / observed completion rate > remaining budget)."""
+        the HBM-pressure watermark (while the ledger is latched over its
+        high watermark: the reclaim ladder's last rung), an explicit queue
+        cap, and the deadline-aware rule (expected queue wait = depth /
+        observed completion rate > remaining budget)."""
+        pc = self._pressure
+        if pc.budget_bytes > 0 and pc.active:
+            self.stats["shed"] += 1
+            self.stats["pressure_sheds"] += 1
+            raise ShedError(
+                f"HBM ledger over its high watermark ({pc.used} of "
+                f"{pc.budget_bytes} bytes) — admissions shed until the "
+                "reclaim ladder reaches the low watermark",
+                retry_after_s=pc.retry_after_s(),
+            )
         depth = self._queue.qsize()
         if self.admit_queue_limit and depth >= self.admit_queue_limit:
             rate = self.observed_rate()
@@ -985,6 +1134,10 @@ class ContinuousBatcher:
                     self._chunk_step(slab, np.zeros((1, C), np.int64), start,
                                      C - 1, 0, 0.0, attn_len, is_last)
         self._warm_bursts(attn_lens)
+        if self._pressure.budget_bytes > 0 or self.pressure_hook is not None:
+            # a resume replays at the bucket of its lane's end position,
+            # which can lie at any bucket from the shallowest prompt up
+            self._warm_replay(sorted(set(attn_lens) | {self._attn_need(lo)}))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         # warm left garbage in the lane registers: reset them
@@ -1043,6 +1196,20 @@ class ContinuousBatcher:
             self.stats["graph_capture_s"],
         )
 
+    def _warm_replay(self, attn_lens: Sequence[int]) -> None:
+        """Capture (on the card) or run once (on the CPU) the replay
+        step at every attention bucket, with every row parked: nothing
+        is written."""
+        self._replay["wpos"].fill_(self.max_seq)
+        for attn_len in attn_lens:
+            key = ("replay", attn_len)
+            fn = lambda a=attn_len: self._replay_step(a)  # noqa: E731
+            if self._graphs is None:
+                with torch.inference_mode():
+                    fn()
+            elif key not in self._graphs.graphs:
+                self._graphs.capture(key, fn, warm_first=True)
+
     def close(self) -> None:
         if self.health != "dead":
             self.health = "closed"
@@ -1057,6 +1224,10 @@ class ContinuousBatcher:
         self._chunked.clear()
 
     def _drain_queue(self, err: Exception) -> None:
+        while self._resume_queue:
+            req = self._resume_queue.popleft()
+            if not req.future.done():
+                req.future.set_exception(err)
         while True:
             try:
                 req = self._queue.get_nowait()
@@ -1117,6 +1288,57 @@ class ContinuousBatcher:
         self.stats["admitted"] += m
         self.stats["prefill_steps"] += 1
         self.stats["prefill_tokens"] += m * bucket
+        if self._prefix_index is not None:
+            self.stats["prefix_misses"] += m
+
+    def _admit_hit(self, slot: int, req: GenRequest, hit) -> None:
+        """Admit one request whose prompt shares a cached prefix ``hit =
+        (m, slab)``: splice the donor slab and prefill only the suffix.
+        Like every admission, nothing is read back."""
+        req.admit_t = time.monotonic()
+        self._prompt_into_lane(slot, req, hit)
+        self._active[slot] = _Slot(request=req)
+        self._pos_host[slot] = len(req.tokens)
+        self._masks_dirty = True
+        self.stats["admitted"] += 1
+
+    def _prompt_into_lane(self, slot: int, req: GenRequest, hit, cont=None) -> None:
+        """One request's prompt K/V into lane ``slot``: on a prefix hit
+        ``(m, slab)`` the donor spliced and the suffix ``tokens[m:]``
+        prefilled at its own bucket, else the whole prompt prefilled
+        (m = 1). The lane is armed with the prefill's first token and
+        key, or with a resume's continuation ``cont = (token [1], key
+        [1, 2], position)``."""
+        n = len(req.tokens)
+        if hit is not None:
+            m, slab = hit
+            wb = self._bucket(n - m)
+            suffix = np.zeros((1, wb), np.int64)
+            suffix[0, : n - m] = req.tokens[m:]
+            with device_trace("gen.prefill"):
+                first, suffix_slab, key = self._prefix_prefill(
+                    slab, suffix, m, n - 1 - m, req.seed, req.temperature)
+            first, key, pos = cont or (first, key, n)
+            with device_trace("gen.lane_insert"):
+                self._insert_prefix(slab, suffix_slab, slot, m, first, pos, key)
+            req.cache_hit_tokens = m
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_tokens_saved"] += m
+            self.stats["prefill_tokens"] += wb
+        else:
+            bucket = self._bucket(n)
+            prompt = np.zeros((1, bucket), np.int64)
+            prompt[0, :n] = req.tokens
+            with device_trace("gen.prefill"):
+                first, slab, key = self._prefill(prompt, np.asarray([n - 1], np.int64),
+                                                 [req.seed], [req.temperature])
+            first, key, pos = cont or (first, key, n)
+            with device_trace("gen.lane_insert"):
+                self._insert(slab, [slot], first, [pos], key)
+            if self._prefix_index is not None:
+                self.stats["prefix_misses"] += 1
+            self.stats["prefill_tokens"] += bucket
+        self.stats["prefill_steps"] += 1
 
     def _resolve(self, s: _Slot) -> None:
         # a trailing eos token is kept in the output. `finished` counts
@@ -1149,6 +1371,9 @@ class ContinuousBatcher:
 
     def _finish(self, slot: int) -> None:
         s = self._active.pop(slot)
+        # publish while the lane still holds this request's prompt K/V:
+        # the next occupant's insert is queued after the copy
+        self._maybe_publish(slot, s)
         self._pos_host.pop(slot, None)
         self._masks_dirty = True
         self._resolve(s)
@@ -1281,6 +1506,13 @@ class ContinuousBatcher:
                 self._pos_host.clear()
                 self._masks_dirty = True
                 self._alloc_device_state()
+                if self._prefix_index is not None:
+                    # its slabs were copied out of the dead loop's cache:
+                    # start empty (correctness never rests on the cache);
+                    # preempted requests in the resume queue survive,
+                    # their checkpoints live on the host
+                    self._prefix_index = RadixPrefixIndex(self._prefix_cache_budget)
+                    self.stats["prefix_cache_bytes"] = 0
                 if self._warm_args is not None:
                     self.warm(**self._warm_args)
             except Exception:  # noqa: BLE001 - rebuild on a sick device
@@ -1294,20 +1526,30 @@ class ContinuousBatcher:
             return True
 
     def _admit_wave(self, wave: List[GenRequest]) -> None:
-        """Admit queued requests into free lanes. A prompt whose bucket is
-        longer than one prefill chunk reserves its lane for chunked
-        prefill; the others group by bucket and share a batched prefill
-        of m = 8 (where the slab fits), 4, or 1."""
+        """Admit queued requests into free lanes. A preempted request
+        resumes (:meth:`_admit_resume`). A prompt sharing a cached prefix
+        takes the suffix-only admit; one whose remaining prefill (the
+        suffix of a hit, else its bucket) is longer than one prefill
+        chunk reserves its lane for chunked prefill; the others group by
+        bucket and share a batched prefill of m = 8 (where the slab
+        fits), 4, or 1."""
         free_iter = iter(
             i for i in range(self.slots) if i not in self._active and i not in self._chunked
         )
         by_bucket: Dict[int, List[GenRequest]] = {}
         for req in wave:
-            bucket = self._bucket(len(req.tokens))
-            if self.prefill_chunk and bucket > self.prefill_chunk:
-                self._start_chunked(next(free_iter), req, bucket)
+            if req.resume is not None:
+                self._admit_one(self._admit_resume, next(free_iter), req)
                 continue
-            by_bucket.setdefault(bucket, []).append(req)
+            n = len(req.tokens)
+            hit = self._prefix_match(req.tokens)
+            if self._needs_chunks(n, hit):
+                self._admit_one(self._start_chunked, next(free_iter), req, hit)
+                continue
+            if hit is not None:
+                self._admit_one(self._admit_hit, next(free_iter), req, hit)
+                continue
+            by_bucket.setdefault(self._bucket(n), []).append(req)
         for bucket, reqs in by_bucket.items():
             while reqs:
                 m = 1
@@ -1325,16 +1567,56 @@ class ContinuousBatcher:
                         if not req.future.done():
                             req.future.set_exception(e)
 
+    def _needs_chunks(self, n: int, hit) -> bool:
+        """Whether a prompt of ``n`` tokens prefills in chunks: the suffix
+        a prefix hit leaves, else the prompt's bucket, is longer than one
+        chunk."""
+        C = self.prefill_chunk
+        return bool(C) and (n - hit[0] > C if hit else self._bucket(n) > C)
+
+    def _admit_one(self, admit, slot: int, req: GenRequest, *args) -> None:
+        """``admit(slot, req, *args)``; a failure fails the request alone
+        and frees the lane it reserved."""
+        try:
+            admit(slot, req, *args)
+        except Exception as e:  # noqa: BLE001 - bad request/device state
+            logger.exception("admit failed")
+            self._chunked.pop(slot, None)
+            if not req.future.done():
+                req.future.set_exception(e)
+
     # -- chunked prefill -----------------------------------------------------
 
-    def _start_chunked(self, slot: int, req: GenRequest, bucket: int) -> None:
+    def _start_chunked(self, slot: int, req: GenRequest, hit=None,
+                       resume=None) -> None:
         """Reserve ``slot`` and queue the prompt for chunked prefill into a
-        fresh staging slab (the JAX package's ``_start_chunked`` without a
-        prefix-cache hit)."""
+        fresh staging slab. On a prefix hit ``(m, donor)`` the donor lands
+        at the head of the slab and chunking starts at ``m`` rounded DOWN
+        to the chunk grid, so every chunk runs at an offset ``warm()``
+        reached; the overlap is recomputed over the donor with the same
+        tokens at the same positions. ``resume``: see :class:`_ChunkJob`."""
+        bucket = self._bucket(len(req.tokens))
         req.admit_t = time.monotonic()
+        slab = self._new_slab(bucket)
+        start = 0
+        if hit is not None:
+            # a hit even when the grid leaves nothing to splice (match
+            # shorter than one chunk), counted with its real savings
+            m, donor = hit
+            start = (m // self.prefill_chunk) * self.prefill_chunk
+            if start > 0:
+                with torch.no_grad():
+                    tb = donor["k"].shape[3]
+                    for name in ("k", "v"):
+                        slab[name][:, :, :, :tb] = donor[name]
+            req.cache_hit_tokens = start
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_tokens_saved"] += start
+        elif self._prefix_index is not None:
+            self.stats["prefix_misses"] += 1
         self._chunked[slot] = _ChunkJob(
-            request=req, slot=slot, next_start=0, slab=self._new_slab(bucket),
-            bucket=bucket,
+            request=req, slot=slot, next_start=start, slab=slab, bucket=bucket,
+            resume=resume,
         )
 
     def _advance_chunks(self) -> None:
@@ -1369,8 +1651,16 @@ class ContinuousBatcher:
                     first = self._chunk_step(job.slab, buf, start, n - 1 - start,
                                              req.seed, req.temperature, attn_len, is_last)
                 if is_last:
+                    first_tok, lane_key, first_pos = first[0], first[1], n
+                    if job.resume is not None:
+                        # the checkpointed continuation replaces the
+                        # chunk's own sample
+                        emitted, ckey = job.resume
+                        first_tok = self._to_dev(np.asarray([emitted[-1]], np.int64))
+                        lane_key = self._to_dev(np.asarray([ckey], np.int64))
+                        first_pos = n + len(emitted) - 1
                     with device_trace("gen.lane_insert"):
-                        self._insert(job.slab, [slot], first[0], [n], first[1])
+                        self._insert(job.slab, [slot], first_tok, [first_pos], lane_key)
             except Exception as e:  # noqa: BLE001 - bad request/device state
                 logger.exception("chunked prefill failed")
                 del self._chunked[slot]
@@ -1384,12 +1674,262 @@ class ContinuousBatcher:
             self.stats["prefill_chunks"] += 1
             if is_last:
                 del self._chunked[slot]
+                if job.resume is not None:
+                    self._activate_resumed(slot, req, job.resume[0])
+                    continue
                 self._active[slot] = _Slot(request=req)
                 self._pos_host[slot] = n
                 self._masks_dirty = True
                 self.stats["admitted"] += 1
             else:
                 job.next_start = end
+
+    # -- prefix cache --------------------------------------------------------
+
+    def _prefix_match(self, tokens: List[int]):
+        """Longest usable cached prefix of ``tokens``: ``(m, slab)`` or
+        None. Capped at n - 1 (the last prompt token is always computed:
+        its logits sample the first new token); declined below
+        ``prefix_cache_min_tokens``, when the suffix's bucket would not
+        fit past the match, and when the donor's bucket exceeds the
+        prompt's (the splice and the suffix attention scale with the
+        donor: a short prompt matching into a long cached one would pay
+        more than the prefill it skips). Takes a raw token list, so a
+        resume splices cached prompt prefixes as an admission does."""
+        if self._prefix_index is None:
+            return None
+        n = len(tokens)
+        m, slab = self._prefix_index.match(tokens)
+        m = min(m, n - 1)
+        if slab is None or m < self.prefix_cache_min_tokens:
+            return None
+        if m + self._bucket(n - m) > self.max_seq:
+            return None
+        if slab["k"].shape[3] > self._bucket(n):
+            return None
+        return m, slab
+
+    def _maybe_publish(self, slot: int, s: _Slot) -> None:
+        """Publish a request's prompt K/V into the prefix cache: the
+        prompt's positions are written from admission on and decode only
+        appends, so the copy is valid at any free point. Skipped for
+        prompts below ``prefix_cache_min_tokens`` and when a stored slab
+        already covers the whole prompt (each distinct prompt publishes
+        once)."""
+        idx = self._prefix_index
+        if idx is None:
+            return
+        toks = s.request.tokens
+        n = len(toks)
+        if n < self.prefix_cache_min_tokens or idx.covered_len(toks) >= n:
+            return
+        slab = self._extract_prefix(slot, self._bucket(n))
+        nbytes = sum(t.numel() * t.element_size() for t in slab.values())
+        self.stats["prefix_evicted"] += idx.insert(toks, slab, nbytes)
+        self.stats["prefix_cache_bytes"] = idx.total_bytes
+
+    # -- HBM pressure ----------------------------------------------------------
+
+    def pressure_summary(self) -> Optional[Dict[str, Any]]:
+        """The ledger's snapshot for metrics; None while the subsystem is
+        off (budget 0, never re-budgeted)."""
+        pc = self._pressure
+        if pc.budget_bytes <= 0 and not pc.stats["budget_changes"]:
+            return None
+        return pc.summary()
+
+    def _ledger_components(self) -> Dict[str, int]:
+        """The unified HBM ledger, priced the way the reclaim ladder can
+        free it: each live lane at its attention-read bucket times the
+        K/V bytes per position, the chunked-prefill staging slabs, and the
+        prefix cache's bytes. Host arithmetic over at most ``slots``
+        entries."""
+        per_tok = self._kv_key_bytes
+        return {
+            "decode": sum(self._attn_need(p) for p in self._pos_host.values()) * per_tok,
+            "staging": sum(job.bucket for job in self._chunked.values()) * per_tok,
+            "prefix": self._prefix_index.total_bytes if self._prefix_index is not None else 0,
+        }
+
+    def _pressure_poll(self, pending) -> None:
+        """Per-poll pressure work: apply the chaos hook's re-budget,
+        refresh the ledger and, while it is latched over the high
+        watermark, run the reclaim ladder."""
+        pc = self._pressure
+        if self.pressure_hook is not None:
+            nb = self.pressure_hook(self._work_poll_count)
+            if nb is not None:
+                if int(nb) < 0:
+                    pc.restore_budget()
+                else:
+                    pc.set_budget(int(nb))
+        if pc.budget_bytes <= 0:
+            if pc.active:
+                pc.update(self._ledger_components())
+            return
+        if pc.update(self._ledger_components()):
+            self._reclaim(pending, pc)
+
+    def _drain_pending(self, pending) -> None:
+        """Read every in-flight burst now, oldest first: a checkpoint must
+        see its lane's exact host state (emitted tokens, and the device
+        position they imply)."""
+        while pending:
+            self._process_burst(pending.popleft())
+
+    def _reclaim(self, pending, pc: PressureController) -> None:
+        """The reclaim ladder, cheapest rung first, until the ledger is
+        back under its low watermark:
+
+        1. evict prefix slabs (LRU): pure cache, no work lost;
+        2. cancel speculation: nothing to do until speculation is ported;
+        3. preempt lanes: checkpoint a victim on the host and requeue it
+           for resume, freeing its lane at this poll boundary; never the
+           last lane, so one lane always progresses and pressure cannot
+           livelock;
+        4. shed admissions: while latched the loop holds admissions and
+           :meth:`_shed_check` refuses submits."""
+        idx = self._prefix_index
+        if idx is not None and idx.total_bytes > 0:
+            evicted = idx.evict_to(max(0, idx.total_bytes - pc.overshoot_bytes()))
+            if evicted:
+                self.stats["prefix_evicted"] += evicted
+                self.stats["pressure_prefix_evictions"] += evicted
+                self.stats["prefix_cache_bytes"] = idx.total_bytes
+                pc.update(self._ledger_components())
+        if pc.active and len(self._active) + len(self._chunked) > 1:
+            self._drain_pending(pending)
+            # the drain may have finished lanes outright
+            pc.update(self._ledger_components())
+            while pc.active and len(self._active) + len(self._chunked) > 1:
+                victim = self._pick_victim()
+                if victim is None:
+                    break
+                kind, slot = victim
+                if kind == "chunked":
+                    self._preempt_chunked(slot)
+                else:
+                    self._preempt_lane(slot)
+                pc.update(self._ledger_components())
+
+    def _admit_cost_bytes(self, req: GenRequest) -> int:
+        """Ledger footprint of ``req`` at the end of its generation: the
+        attention bucket of its last position times the K/V bytes per
+        position (the watermark-aware admission's price)."""
+        end = min(self.max_seq, len(req.tokens) + req.max_new_tokens)
+        return self._attn_need(end) * self._kv_key_bytes
+
+    def _pick_victim(self):
+        """``("chunked", slot)``, ``("lane", slot)`` or None. Chunked
+        admissions first (nothing emitted yet: preempting one loses no
+        work and frees a staging slab; the largest first), then decode
+        lanes: deadline-free ones before those with a deadline (a lane
+        that must answer soon is spared while anything else can yield;
+        among those, the most slack first), and within each the most
+        remaining budget first (the lane that would hold its slot
+        longest yields it)."""
+        if self._chunked:
+            return "chunked", max(self._chunked, key=lambda s: self._chunked[s].bucket)
+        if len(self._active) <= 1:
+            return None
+        now = time.monotonic()
+
+        def order(slot: int):
+            s = self._active[slot]
+            req = s.request
+            slack = req.deadline_t - now if req.deadline_t is not None else None
+            return (
+                0 if slack is None else 1,
+                -(slack if slack is not None else 0.0),
+                -(req.max_new_tokens - len(s.emitted)),
+            )
+
+        return "lane", min(self._active, key=order)
+
+    def _preempt_chunked(self, slot: int) -> None:
+        """Preempt a chunked admission: drop its staging slab and requeue
+        the request whole (a resume's checkpoint rides along on it)."""
+        job = self._chunked.pop(slot)
+        self.stats["preemptions"] += 1
+        self._resume_queue.append(job.request)
+
+    def _preempt_lane(self, slot: int) -> None:
+        """Preempt one decode lane (rung 3): checkpoint its emitted tokens
+        and its lane key on the host (never its K/V), free the lane and
+        requeue the request for resume. The pipeline has been drained, so
+        ``emitted`` and the device state agree; the key's one 16-byte read
+        is the whole cost."""
+        s = self._active.pop(slot)
+        req = s.request
+        self._pos_host.pop(slot, None)
+        self._masks_dirty = True
+        if s.emitted:
+            req.resume = {"emitted": list(s.emitted),
+                          "key": self._whole.keys[slot].tolist()}
+        self.stats["preemptions"] += 1
+        self._resume_queue.append(req)
+
+    def _admit_resume(self, slot: int, req: GenRequest) -> None:
+        """Recompute-resume a preempted request into ``slot``: rebuild its
+        PROMPT K/V the way an admission would (a prefix hit splicing, a
+        long remainder chunking, else a whole prefill), insert the
+        checkpointed continuation in place of the prefill's own sample --
+        the last emitted token, the position the lane held, the
+        checkpointed key -- then replay the emitted tokens' K/V through
+        the decode step (:meth:`_replay_emitted`). Decode from there runs
+        the uninterrupted lane's computation, so greedy and seeded
+        streams continue unchanged."""
+        emitted = list(req.resume["emitted"])
+        key = req.resume["key"]
+        n = len(req.tokens)
+        hit = self._prefix_match(req.tokens)
+        if self._needs_chunks(n, hit):
+            self._start_chunked(slot, req, hit, (emitted, key))
+            return
+        cont = (self._to_dev(np.asarray([emitted[-1]], np.int64)),
+                self._to_dev(np.asarray([key], np.int64)), n + len(emitted) - 1)
+        self._prompt_into_lane(slot, req, hit, cont)
+        self._activate_resumed(slot, req, emitted)
+
+    def _activate_resumed(self, slot: int, req: GenRequest, emitted: List[int]) -> None:
+        """The resume paths' shared tail: replay the emitted tokens' K/V,
+        then re-activate the lane with crediting continuing after the
+        checkpoint (spans already streamed are never sent again, and the
+        inserted token -- ``emitted[-1]`` -- is not credited twice)."""
+        n = len(req.tokens)
+        self._replay_emitted(slot, n, emitted[:-1])
+        s = _Slot(request=req, emitted=list(emitted), first_pending=False,
+                  dispatched=len(emitted))
+        self._active[slot] = s
+        self._pos_host[slot] = n + len(emitted) - 1
+        self._masks_dirty = True
+        req.resume = None
+        self.stats["preempt_resumes"] += 1
+
+    def _replay_emitted(self, slot: int, start_pos: int, toks: List[int]) -> None:
+        """Teacher-forced replay: rebuild positions ``[start_pos,
+        start_pos + len(toks))`` of lane ``slot``'s cache from the tokens
+        it already emitted, one decode step per token -- a prefill over
+        prompt and generated tokens would compute those positions with
+        other matmul shapes, which can part the streams at bf16. Each
+        step runs over the whole batch, the shape the lane decoded in
+        (every other row parked: it writes nothing, and no lane register
+        moves), at the attention bucket of the replay's end; on the card
+        it replays a graph ``warm()`` captured when pressure is on."""
+        if not toks:
+            return
+        attn_len = self._attn_need(start_pos + len(toks))
+        cur = np.zeros((self.slots,), np.int64)
+        pos = np.zeros((self.slots,), np.int64)
+        wpos = np.full((self.slots,), self.max_seq, np.int64)
+        r = self._replay
+        for j, tok in enumerate(toks):
+            cur[slot], pos[slot], wpos[slot] = tok, start_pos + j, start_pos + j
+            self._upload(r["cur"], cur)
+            self._upload(r["pos"], pos)
+            self._upload(r["wpos"], wpos)
+            self._phase(("replay", attn_len), lambda: self._replay_step(attn_len))
+        self.stats["replayed_tokens"] += len(toks)
 
     # -- decode dispatch -----------------------------------------------------
 
@@ -1456,9 +1996,10 @@ class ContinuousBatcher:
         Start from the pow2-floored ``fused_steps_per_dispatch`` and
         shrink to the nearest lane's remaining budget (pow2-floored;
         reason ``"stop_budget"``), never below the ``steps_per_poll``
-        burst. The JAX batcher's other reasons (``pressure``,
-        ``poll_boundary``) belong to features not ported yet and never
-        apply here."""
+        burst; while the HBM ledger is latched, to ``steps_per_poll``
+        (reason ``"pressure"``: the reclaim ladder runs only between
+        dispatches). The JAX batcher's ``poll_boundary`` reason belongs
+        to weight swap and drain, not ported yet."""
         k, reason = k_max, None
         floor = min(self._k, k_max)
         rem = [
@@ -1471,6 +2012,8 @@ class ContinuousBatcher:
             tight = max(_pow2_floor(min(rem)), floor)
             if tight < k:
                 k, reason = tight, "stop_budget"
+        if self._pressure.budget_bytes > 0 and self._pressure.active and floor < k:
+            k, reason = floor, "pressure"
         return max(1, min(k, k_max)), reason
 
     def _sync_masks(self) -> None:
@@ -1566,7 +2109,9 @@ class ContinuousBatcher:
             if s.request.eos_id is None and s.dispatched >= s.request.max_new_tokens
         ]
         for slot in freed:
-            self._active.pop(slot)
+            # a pre-freed lane never reaches _finish: publish its prompt
+            # now, before its next occupant's insert
+            self._maybe_publish(slot, self._active.pop(slot))
             self._pos_host.pop(slot, None)
         if freed:
             self._masks_dirty = True
@@ -1580,22 +2125,49 @@ class ContinuousBatcher:
                 self._poll_count += 1
                 if self.fault_hook is not None:
                     self.fault_hook(self._poll_count)
+                if (self._active or self._chunked or pending or self._resume_queue
+                        or not self._queue.empty()):
+                    self._work_poll_count += 1
+                if self.pressure_hook is not None or self._pressure.budget_bytes > 0:
+                    # refresh the ledger; over the high watermark, run the
+                    # reclaim ladder at this poll boundary
+                    self._pressure_poll(pending)
+                hold = self._pressure.budget_bytes > 0 and self._pressure.active
                 wave: List[GenRequest] = []
                 busy = len(self._active) + len(self._chunked)
-                while busy + len(wave) < self.slots:
-                    try:
-                        req = self._queue.get_nowait()
-                    except queue.Empty:
-                        break
+                wave_cost = 0
+                while not hold and busy + len(wave) < self.slots:
+                    # preempted requests resume ahead of newer work
+                    if self._resume_queue:
+                        req = self._resume_queue.popleft()
+                    else:
+                        try:
+                            req = self._queue.get_nowait()
+                        except queue.Empty:
+                            break
                     if req.deadline_t is not None and time.monotonic() >= req.deadline_t:
                         req.future.cancel()  # its budget ran out in the queue
                     if req.future.cancelled():
                         self.stats["cancelled"] += 1
                         continue  # the caller gave up while queued
+                    if self._pressure.budget_bytes > 0:
+                        # watermark-aware admission: a request whose end of
+                        # generation would trip the high watermark waits at
+                        # the head of the line (admitted now it would only
+                        # be preempted); alone it always admits
+                        cost = self._admit_cost_bytes(req)
+                        if (busy + len(wave)) and (
+                            self._pressure.used + wave_cost + cost
+                            >= self._pressure.high_bytes
+                        ):
+                            self._resume_queue.appendleft(req)
+                            break
+                        wave_cost += cost
                     wave.append(req)
                 if wave:
                     self._admit_wave(wave)
-                if not self._active and not pending and not self._chunked:
+                if not self._active and not pending and not self._chunked and not (
+                        self._resume_queue and not hold):
                     try:
                         req = self._queue.get(timeout=0.05)
                     except queue.Empty:

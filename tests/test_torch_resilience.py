@@ -189,8 +189,13 @@ def test_faults_from_env_and_not_ported_fields(tmp_path):
     assert deaths[0] == deaths[1] == [3, 6]
     with pytest.raises(NotImplementedError, match="KV-transport"):
         port_res.FaultInjector([{"unit": "*", "kv_corrupt_rate": 0.5}])
-    with pytest.raises(NotImplementedError, match="pressure"):
-        port_res.FaultInjector([], pressure={"shrink_to_bytes": 1, "after_polls": 1})
+    # the pressure section (ported now): both packages' hooks re-budget
+    # the ledger on the same working polls
+    pressure = {"shrink_to_bytes": 4096, "after_polls": 3, "restore_after_polls": 5}
+    phooks = [res.FaultInjector([], pressure=pressure).pressure_hook() for res in BOTH]
+    seqs = [[hook(poll) for poll in range(1, 12)] for hook in phooks]
+    assert seqs[0] == seqs[1]
+    assert [v for v in seqs[1] if v is not None] == [4096, -1]
 
 
 def test_ewma_equals_jax():

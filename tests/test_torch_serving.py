@@ -258,8 +258,8 @@ def test_warm_then_serve_equal(models, reference):
 
 
 @pytest.mark.parametrize("knob,on,off", [
-    ("hbm_ledger_bytes", 1 << 30, 0), ("host_kv_tier_bytes", 1 << 20, 0),
-    ("prefix_cache_hbm_bytes", 1 << 20, 0), ("swap_drain_ms", 100, 0),
+    ("shard_cache_seq", True, False), ("host_kv_tier_bytes", 1 << 20, 0),
+    ("profiler", "device_time", None), ("swap_drain_ms", 100, 0),
     ("flight_recorder_capacity", 512, 0),
 ])
 def test_unported_knobs_raise(models, knob, on, off):
