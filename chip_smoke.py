@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """On-card smoke run of seldon_core_tpu_torch (one NVIDIA H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernels,spec,...]
 
 Drives the port's main path on the card and fails (non-zero exit, no
-result line) if any phase fails:
+result line) if any phase fails. ``--phases`` runs a subset of
+``kernels, small, serve, engine, small-sched, sched, prefix, pressure,
+spec, model`` (device and build always run; the result lines print only
+when every phase ran, as with no argument):
 
 1. Device: the card's name and power limit (nvidia-smi) and torch's view.
 2. Build: compiles every CUDA kernel of the path from ``ops/csrc``.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
-   same inputs, at the shapes the serving path gives it (bf16 at both
-   block sizes), with times -- per call from the host (``call_ms``) and
+   same inputs, at the shapes the serving path gives it (the wgmma route
+   at both block sizes; the SIMT route at head dims 8, 32 and 256, f32
+   and bf16, ragged T and a key-length mask), with times -- per call from the host (``call_ms``) and
    on the device from a CUDA graph of 20 launches (``device_ms``) --
    the PyTorch library call timed both ways as a yardstick, the bound,
    TFLOP/s and the share of the bound.
@@ -44,7 +48,12 @@ result line) if any phase fails:
    hits every prompt the first published) and Q (the HBM ledger shrunk
    to one lane during the second pass: lanes preempted and resumed) give
    the same tokens, greedy and seeded, one request at a time and all
-   together; no decode graph is captured after ``warm()``.
+   together; S1-S6 (speculation: a separate Dh 8 draft, an early-exit
+   self-draft alone, with fused 64, with forced depth groups and
+   prefill_chunk, with the prefix cache, and under a shrink that fires
+   reclaim rungs 2 and 3) give A's tokens for every greedy request and
+   repeat their seeded ones; no decode graph is captured after
+   ``warm()``.
 8. Scheduler (llm-1.26b at full width and depth, bf16, on the engine
    phase's weights; 8 slots, steps_per_poll 16, pipeline_depth 3,
    attn_bucket 128): configurations A (every knob off, CUDA graphs off:
@@ -85,7 +94,17 @@ result line) if any phase fails:
    request answers 64 tokens, every stream's spans equal its tokens, the
    tiny-budget run ends and no graph is captured after ``warm()``;
    reports the bf16 equality with the pressure-free B run.
-11. Model (on the engine phase's copy, after every serving phase: a
+11. Speculation (llm-1.26b, bf16, 4 slots, cache 512, built through
+   GenerateServer's parameters): four 128-token greedy prompts with 256
+   new tokens and one seeded request, off (steps_per_poll 8) against on
+   (steps_per_poll 4, speculate_tokens 4, draft_layers 6), off, on, on,
+   off. Fails unless every request answers 256 tokens, the on-runs are
+   token-identical, no graph is captured after ``warm()``, a round emits
+   1..5 tokens and every prefill (target and draft) launched the flash
+   kernel; reports tokens/s, TTFT p50/p99, TPOT p50, tokens per round,
+   rounds, graph replays per round, peak memory and the bf16 greedy
+   equality count on vs off.
+12. Model (on the engine phase's copy, after every serving phase: a
    profiler run may slow later launches): full-width prefill time per
    bucket with the flash kernel's device time inside it
    (torch.profiler), a prefix hit's suffix prefill against the full
@@ -93,8 +112,11 @@ result line) if any phase fails:
    time beside its device-busy time and weight-read bound, and a
    16-step decode burst through the batcher, eager against CUDA-graph
    replay: wall, device span and busy time per step, device operations,
-   host launches and busy share.
-12. The ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+   host launches and busy share; then one speculation round (4 steps of
+   a 6-layer early-exit draft, the W = 5 verify chunk, acceptance)
+   against 5 decode steps at B = 4, attention 512, in device-busy time
+   and device operations.
+13. The ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 
 Exits 2 when CUDA is unavailable, 1 on any failure.
 """
@@ -226,11 +248,17 @@ def phase_build():
 
 
 def _kernel_name(mangled):
-    """flash_fwd_wgmma_kernel<128,2> from a mangled entry-function name."""
-    for short in ("flash_fwd_wgmma_kernel", "flash_fwd_f32_kernel"):
-        if short in mangled:
-            tmpl = mangled.split(short, 1)[1].split("EE", 1)[0]
-            return short + "<" + ",".join(tmpl.replace("ILi", "").split("ELi")) + ">"
+    """flash_fwd_wgmma_kernel<128,2> or flash_fwd_simt_kernel<bf16,256>
+    from a mangled entry-function name."""
+    short = "flash_fwd_wgmma_kernel"
+    if short in mangled:
+        tmpl = mangled.split(short, 1)[1].split("EE", 1)[0]
+        return short + "<" + ",".join(tmpl.replace("ILi", "").split("ELi")) + ">"
+    short = "flash_fwd_simt_kernel"
+    if short in mangled:
+        tmpl = mangled.split(short + "I", 1)[1].split("EE", 1)[0]
+        dtype = "bf16" if "bfloat16" in tmpl else "f32"
+        return f"{short}<{dtype},{tmpl.rsplit('Li', 1)[-1]}>"
     return mangled
 
 
@@ -301,8 +329,10 @@ def phase_kernels(card):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     # (label, B, H, KV, T, Dh, dtype, kv_len): the serving path's shapes
     # (llm-1.26b heads, every prefill bucket, batched admissions m = 4
-    # and 8), plus ragged T with a key-length mask, head dim 64, and the
-    # float32 path
+    # and 8), plus ragged T with a key-length mask, head dim 64, the
+    # float32 path, and the SIMT route at head dims 8 (the separate
+    # draft of the speculation configurations: d_model 16, 2 heads, 1 kv
+    # head), 32 and 256, float32 and bfloat16
     cases = [
         ("b1_t32", 1, 16, 8, 32, 128, torch.bfloat16, None),
         ("b1_t128", 1, 16, 8, 128, 128, torch.bfloat16, None),
@@ -315,6 +345,15 @@ def phase_kernels(card):
         ("bf16_b2_t200_dh64", 2, 4, 1, 200, 64, torch.bfloat16, None),
         ("f32_b2_t256_dh64", 2, 4, 4, 256, 64, torch.float32, None),
         ("f32_ragged_t130_kvlen100", 1, 4, 2, 130, 128, torch.float32, 100),
+        ("simt_f32_dh8_b1_t128", 1, 2, 1, 128, 8, torch.float32, None),
+        ("simt_bf16_dh8_b4_t130_kvlen100", 4, 2, 1, 130, 8, torch.bfloat16, 100),
+        ("simt_bf16_dh8_b1_t512", 1, 2, 1, 512, 8, torch.bfloat16, None),
+        ("simt_f32_dh32_b2_t300", 2, 8, 2, 300, 32, torch.float32, None),
+        ("simt_bf16_dh32_b2_t257_kvlen200", 2, 8, 2, 257, 32, torch.bfloat16, 200),
+        ("simt_bf16_dh32_b1_t1024", 1, 8, 2, 1024, 32, torch.bfloat16, None),
+        ("simt_f32_dh256_b1_t512", 1, 8, 4, 512, 256, torch.float32, None),
+        ("simt_bf16_dh256_b2_t130_kvlen100", 2, 4, 2, 130, 256, torch.bfloat16, 100),
+        ("simt_bf16_dh256_b1_t1024", 1, 8, 8, 1024, 256, torch.bfloat16, None),
     ]
     results = {}
     for label, b, h, kv, t, dh, dt, kv_len in cases:
@@ -322,11 +361,12 @@ def phase_kernels(card):
         dname = "bfloat16" if dt == torch.bfloat16 else "float32"
         tol = TOL[dname]
         ref = fa.attention_plain(q, k, v, kv_len=kv_len, causal=True)
-        # bf16: both block sizes are checked and timed; the wrapper's own
-        # choice is what the main path runs
-        chosen = fa.choose_block_m(b, h, t, sms) if dt == torch.bfloat16 else 64
+        # wgmma route: both block sizes are checked and timed; the
+        # wrapper's own choice is what the main path runs
+        route = fa.kernel_route(dt, dh)
+        chosen = fa.choose_block_m(b, h, t, sms) if route == "wgmma" else 64
         per_bm = {}
-        for bm in ((64, 128) if dt == torch.bfloat16 else (64,)):
+        for bm in ((64, 128) if route == "wgmma" else (64,)):
             out = fa.flash_attention_cuda(q, k, v, kv_len=kv_len, causal=True, block_m=bm)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
@@ -349,14 +389,15 @@ def phase_kernels(card):
         smem = fa.smem_bytes(dt, dh, chosen)
         others = " ".join(f"device_ms[block_m={bm}]={ms:.4f}" for bm, (_e, ms) in per_bm.items())
         log(f"[kernel] flash_attention {label} B={b} H={h} KV={kv} T={t} Dh={dh} {dname} "
-            f"kv_len={kv_len} block_m={chosen} smem={smem} max_abs_err={err:.3e} tol={tol:.3e} "
+            f"route={route} kv_len={kv_len} block_m={chosen} smem={smem} max_abs_err={err:.3e} tol={tol:.3e} "
             f"device_ms={dev_ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={_r(library_ms)} library_device_ms={_r(library_dev_ms)} "
             f"bound_ms={bound_ms:.4f} ({bound_by}) TFLOP/s={flops / dev_ms / 1e9:.1f} "
             f"bound_share={bound_ms / dev_ms:.3f} {others} [{card}] OK")
         results[label] = dict(max_abs_err=err, ms=call_ms, device_ms=dev_ms, plain_ms=plain_ms,
                               library_ms=library_ms, library_device_ms=library_dev_ms,
-                              bound_ms=bound_ms, bound_by=bound_by, block_m=chosen)
+                              bound_ms=bound_ms, bound_by=bound_by, block_m=chosen,
+                              route=route)
     log(f"[kernel] flash_attention launches in this phase: {fa.LAUNCHES['flash_attention']}")
     return results
 
@@ -871,13 +912,15 @@ def phase_engine(card, alone_ref):
             if status != 200:
                 raise AssertionError(f"greedy_20 alone: HTTP {status} {out}")
             alone = out["jsonData"]["tokens"]
-            if alone != alone_ref:
+            if alone_ref is not None and alone != alone_ref:
                 raise AssertionError("greedy_20 alone: engine tokens differ from the microservice's")
             status, out = post(_gen_body(s20, 1.0, 3))
             if status != 200:
                 raise AssertionError(f"seeded_20 alone: HTTP {status} {out}")
             seeded_alone = out["jsonData"]["tokens"]
-            log("[engine] greedy_20 alone: engine tokens == microservice tokens (serve phase)")
+            log("[engine] greedy_20 alone: engine tokens == microservice tokens (serve phase)"
+                if alone_ref is not None else
+                "[engine] greedy_20 alone: not compared (the serve phase did not run)")
 
             # SSE: spans concatenate to the unary result of the same request
             for label, toks, temp, seed, unary in (
@@ -1031,7 +1074,7 @@ class _Gate:
             self.parked.set()
             self.go.wait(60)
 
-    def submit_together(self, batcher, items, on_tokens=None):
+    def submit_together(self, batcher, items, on_tokens=None, max_new=MAX_NEW):
         """Submit ``items`` ``(tokens, temperature, seed, eos)`` while the
         loop is parked; ``on_tokens[i]`` (optional) streams item i."""
         self.go.clear()
@@ -1040,7 +1083,7 @@ class _Gate:
         if not self.parked.wait(30):
             raise AssertionError("the batcher loop did not reach its poll hook")
         try:
-            return [batcher.submit(toks, max_new_tokens=MAX_NEW, temperature=temp,
+            return [batcher.submit(toks, max_new_tokens=max_new, temperature=temp,
                                    seed=seed, eos_id=eos,
                                    on_tokens=on_tokens[i] if on_tokens else None)
                     for i, (toks, temp, seed, eos) in enumerate(items)]
@@ -1486,9 +1529,10 @@ def phase_pressure(card, model, params, ref_tokens):
         whole = d["prefill_steps"] - d["prefill_chunks"]
         if launches < LLM_1_26B["n_layers"] * whole:
             raise AssertionError(f"[pressure] {whole} whole prefills, {launches} flash launches")
-        same = [label for label, *_r in mixed if out[label] == ref_tokens[label]]
+        ref_tokens = ref_tokens or {}
+        same = [label for label, *_r in mixed if out[label] == ref_tokens.get(label)]
         firsts = {label: _first_diff(out[label][len(toks):], ref_tokens[label][len(toks):])
-                  for label, toks, _t, _s in mixed if label not in same}
+                  for label, toks, _t, _s in mixed if label not in same and label in ref_tokens}
         log(f"[pressure] mixed wave under a 24-poll shrink to {2 * b.max_seq * kv} B: "
             f"preemptions {d['preemptions']}, resumes {d['preempt_resumes']}, replayed tokens "
             f"{d['replayed_tokens']}, every request 64 tokens, streamed spans equal to the "
@@ -1521,62 +1565,143 @@ SMALL_CFG = dict(vocab_size=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads=
                  d_ff=512, max_seq=128, dtype="float32")
 
 
+# the separate draft of S1: a model that shares nothing with the target
+# (tests/test_generate_serving.py's bad draft at this vocab), head dim 8
+SMALL_DRAFT_CFG = dict(vocab_size=512, d_model=16, n_layers=1, n_heads=2, n_kv_heads=1,
+                       d_ff=32, max_seq=128, dtype="float32")
+
+
+def _take_freed_draft_block(b):
+    """While rung 2 keeps speculation off, hold the block the draft cache
+    was freed from, so that the resume allocates it elsewhere and must
+    capture the spec graphs again."""
+    import torch
+
+    suppress, taken = b._suppress_speculation, []
+
+    def suppress_and_take():
+        ptr, nbytes = b._draft_buf.data_ptr(), b._draft_buf.nbytes
+        suppress()
+        for _ in range(64):
+            taken.append(torch.empty(nbytes, dtype=torch.uint8, device=b.device))
+            if taken[-1].data_ptr() == ptr:
+                break
+
+    b._suppress_speculation = suppress_and_take
+
+
 def phase_small_scheduler():
     """f32 small model on the card: configurations A-E (the full-width
     phase's knobs at this size, MIN_ATTN_BUCKET lowered to 16 so that
     depth groups really split), P (the prefix cache: the second pass
     hits what the first published) and Q (the ledger shrunk to one lane
     at the deepest bucket during the second pass: lanes are preempted
-    and resume) give
-    the same tokens, greedy and seeded, and no graph is captured after
-    warm()."""
+    and resume) give the same tokens, greedy and seeded; the
+    speculation configurations S1 (a separate draft, head dim 8: its
+    prefill runs the SIMT flash route), S2 (an early-exit self-draft of
+    one layer), S3 (S2 + fused 64, which degrades to spec bursts), S4
+    (S2 + forced depth groups + prefill_chunk), S5 (S2 + the prefix
+    cache), S6 (S2, its second pass greedy-only under a ledger shrink
+    that fires rung 2 and then rung 3, then the restore) and S7 (S6
+    without warm(), so that every spec graph is captured at its first
+    dispatch, and with the freed draft block taken while speculation is
+    off, so that the resume finds the draft cache at a new address) give
+    A's tokens for every greedy request, and their seeded requests repeat
+    (one at a time = together; S3-S7 = S2). No graph is captured after
+    warm() but the spec graphs a resume captures again when the draft
+    cache moved (S6, S7: reported, and in S7 each of them at least once).
+    Prints the flash kernel's launches by route, dtype and head dim over
+    the phase."""
     import numpy as np
     import torch
 
     from seldon_core_tpu_torch.models.llm import DecoderLM
+    from seldon_core_tpu_torch.ops import flash_attention as fa
     from seldon_core_tpu_torch.resilience import FaultInjector
     from seldon_core_tpu_torch.serving.continuous import ContinuousBatcher
 
-    model = DecoderLM(**SMALL_CFG)
+    model = DecoderLM(device="cuda", **SMALL_CFG)
     params = model.init_params(0, device="cuda")
+    bad = DecoderLM(device="cuda", **SMALL_DRAFT_CFG)
+    self_draft = DecoderLM(device="cuda", **{**SMALL_CFG, "n_layers": 1})
+    drafts = {
+        "bad": dict(draft_model=bad, draft_params=bad.init_params(99, device="cuda"),
+                    speculate_tokens=4),
+        "self": dict(draft_model=self_draft, speculate_tokens=4, draft_params={
+            **params, "blocks": {k: w[:1] for k, w in params["blocks"].items()}}),
+    }
     rs = np.random.RandomState(5)
     lens = (5, 39, 12, 50, 20, 3, 60, 33)
     reqs = [(rs.randint(0, SMALL_CFG["vocab_size"], n).tolist(),
              dict(max_new_tokens=24 + i % 5, **({"temperature": 0.9, "seed": i} if i % 2 else {})))
             for i, n in enumerate(lens)]
+    greedy = [i for i, (_p, r) in enumerate(reqs) if "temperature" not in r]
     base = dict(slots=4, prefill_buckets=(32, 64), steps_per_poll=4, attn_bucket=16)
     fused = dict(fused_steps_per_dispatch=16)
     configs = {"A": dict(cuda_graphs=False), "B": {}, "C": fused,
                "D": dict(fused, depth_groups=4, depth_group_split_bytes=0),
                "E": dict(fused, prefill_chunk=32),
                "P": dict(prefix_cache_hbm_bytes=1 << 30, prefix_cache_min_tokens=4),
-               "Q": dict(hbm_ledger_bytes=1 << 40)}
+               "Q": dict(hbm_ledger_bytes=1 << 40),
+               "S1": drafts["bad"], "S2": drafts["self"],
+               "S3": dict(drafts["self"], fused_steps_per_dispatch=64),
+               "S4": dict(drafts["self"], depth_groups=4, depth_group_split_bytes=0,
+                          prefill_chunk=32),
+               "S5": dict(drafts["self"], prefix_cache_hbm_bytes=1 << 30,
+                          prefix_cache_min_tokens=4),
+               "S6": dict(drafts["self"], hbm_ledger_bytes=1 << 40),
+               "S7": dict(drafts["self"], hbm_ledger_bytes=1 << 40)}
     old = ContinuousBatcher.MIN_ATTN_BUCKET
     ContinuousBatcher.MIN_ATTN_BUCKET = 16
     outs, notes = {}, []
+    fa.ROUTE_LAUNCHES.clear()
     try:
         for name, kw in configs.items():
             b = ContinuousBatcher(model, params, **base, **kw)
             try:
-                if name == "Q":
+                lane = b._attn_need(b.max_seq) * b._kv_key_bytes
+                if name in ("Q", "S6"):
                     # armed before warm(), which then captures the replay
-                    # step; the shrink lands during the second pass
-                    lane = b._attn_need(b.max_seq) * b._kv_key_bytes
+                    # step (and with a draft the plain bursts); the shrink
+                    # lands during the second pass
                     b.pressure_hook = FaultInjector([], pressure={
                         "shrink_to_bytes": lane, "after_polls": 1 << 30,
                         "restore_after_polls": 12}).pressure_hook()
-                b.warm(prompt_lens=lens, max_new_tokens=28)
+                if name == "S7":
+                    _take_freed_draft_block(b)
+                else:
+                    b.warm(prompt_lens=lens, max_new_tokens=28)
                 got = [[b.submit(p, **r).result(timeout=300) for p, r in reqs]]
-                if name == "Q":
+                second = reqs
+                if name in ("Q", "S6", "S7"):
                     b.pressure_hook = FaultInjector([], pressure={
-                        "shrink_to_bytes": lane,
+                        "shrink_to_bytes": int((1.0 if name == "Q" else 1.1) * lane),
                         "after_polls": b._work_poll_count + 3,
                         "restore_after_polls": 12}).pressure_hook()
-                futs = [b.submit(p, **r) for p, r in reqs]
+                if name in ("S6", "S7"):
+                    # rung 2 waits while a lane samples: a greedy-only pass
+                    second = [reqs[i] for i in greedy]
+                futs = [b.submit(p, **r) for p, r in second]
                 got.append([f.result(timeout=300) for f in futs])
+                if name in ("S6", "S7"):
+                    actions = {e["action"] for e in b.pressure_events}
+                    if not {"cancel_speculation", "resume_speculation"} <= actions:
+                        raise AssertionError(f"[small-sched] {name}: reclaim actions {actions}")
+                    _wait_for(lambda: not b._spec_suppressed,
+                              f"{name}: speculation back after the window")
+                    got[1] = [got[1][greedy.index(i)] if i in greedy else got[0][i]
+                              for i in range(len(reqs))]
                 s = b.stats
-                if name != "A" and s["graph_captures_inline"]:
-                    raise AssertionError(f"[small-sched] {name}: graphs captured after warm()")
+                # after warm() the only captures allowed are the spec graphs
+                # a resume captures again over a moved draft cache
+                after_warm = s["graph_captures_inline"] - s["spec_graph_recaptures"]
+                if name not in ("A", "S7") and after_warm:
+                    raise AssertionError(f"[small-sched] {name}: {after_warm} graphs captured "
+                                         "after warm()")
+                if name == "S7" and not (s["spec_graph_recaptures"] and not s["spec_graph_reuses"]):
+                    raise AssertionError(f"[small-sched] S7: the draft cache did not move "
+                                         f"({s['spec_graph_recaptures']} re-captures, "
+                                         f"{s['spec_graph_reuses']} reuses)")
             finally:
                 b.close()
             if got[0] != got[1]:
@@ -1584,27 +1709,51 @@ def phase_small_scheduler():
             outs[name] = got[0]
             notes.append(f"{name} graphs {s['graphs_captured']} fused {s['fused_dispatches']} "
                          f"group bursts {s['group_bursts']} chunks {s['prefill_chunks']} "
-                         f"prefix hits {s['prefix_hits']} preemptions {s['preemptions']}")
+                         f"prefix hits {s['prefix_hits']} preemptions {s['preemptions']}"
+                         + (f" spec rounds {s['spec_rounds']} tokens/round "
+                            f"{s['spec_emitted'] / max(1, s['spec_rounds']):.2f} spec graphs "
+                            f"re-captured {s['spec_graph_recaptures']} reused "
+                            f"{s['spec_graph_reuses']}, graphs captured after warm() "
+                            f"{s['graph_captures_inline']}"
+                            + (" (no warm())" if name == "S7" else "")
+                            if name.startswith("S") else ""))
             if name == "D" and not s["group_bursts"]:
                 raise AssertionError("[small-sched] D: groups never split")
-            if name == "E" and not s["prefill_chunks"]:
-                raise AssertionError("[small-sched] E: nothing was chunked")
+            if name == "S4" and s["group_bursts"]:
+                raise AssertionError("[small-sched] S4: a spec burst split into groups")
+            if name in ("E", "S4") and not s["prefill_chunks"]:
+                raise AssertionError(f"[small-sched] {name}: nothing was chunked")
             # the second pass hits every prompt the first one published
             # (a match leaves one token to compute: n - 1 >= 4 needed)
-            if name == "P" and s["prefix_hits"] != sum(len(p) > 4 for p, _r in reqs):
-                raise AssertionError(f"[small-sched] P: {s['prefix_hits']} prefix hits")
-            if name == "Q" and not (0 < s["preemptions"] == s["preempt_resumes"]):
-                raise AssertionError(f"[small-sched] Q: {s['preemptions']} preemptions, "
+            if name in ("P", "S5") and s["prefix_hits"] != sum(len(p) > 4 for p, _r in reqs):
+                raise AssertionError(f"[small-sched] {name}: {s['prefix_hits']} prefix hits")
+            if name in ("Q", "S6") and not (0 < s["preemptions"] == s["preempt_resumes"]):
+                raise AssertionError(f"[small-sched] {name}: {s['preemptions']} preemptions, "
                                      f"{s['preempt_resumes']} resumes")
+            if name.startswith("S") and not s["spec_rounds"]:
+                raise AssertionError(f"[small-sched] {name}: no speculation round ran")
+            if name == "S3" and s["fused_dispatches"]:
+                raise AssertionError("[small-sched] S3: the fused plan ran under speculation")
     finally:
         ContinuousBatcher.MIN_ATTN_BUCKET = old
     for name, got in outs.items():
-        if got != outs["A"]:
-            bad = [i for i, (x, y) in enumerate(zip(got, outs["A"])) if x != y]
-            raise AssertionError(f"[small-sched] {name} != A at f32 (requests {bad})")
+        # speculation changes seeded streams (its draws differ), never
+        # greedy ones; within speculation every knob is on = off
+        ref, idx = ("A", range(len(reqs))) if not name.startswith("S") else (
+            ("A", greedy) if name in ("S1", "S2") else ("S2", range(len(reqs))))
+        bad_ix = [i for i in idx if got[i] != outs[ref][i]]
+        if name.startswith("S") and ref == "S2":
+            bad_ix += [i for i in greedy if got[i] != outs["A"][i]]
+        if bad_ix:
+            raise AssertionError(f"[small-sched] {name} != {ref} at f32 (requests {bad_ix})")
     log(f"[small-sched] f32 on the card: A == B == C == D == E == P == Q token for token, "
         f"greedy and seeded, {len(reqs)} requests one at a time and together (P: prefix cache "
-        f"on = off; Q: preempted = not); " + "; ".join(notes))
+        f"on = off; Q: preempted = not); S1 (separate draft, Dh 8) and S2-S7 (self-draft; "
+        f"fused, depth groups + chunk, prefix cache, rungs 2 and 3, rungs 2 and 3 with no "
+        f"warm() and a moved draft cache) == A for every greedy request, S3-S7 == S2 seeded "
+        f"too; " + "; ".join(notes))
+    log(f"[small-sched] flash launches over the phase by route: "
+        f"{dict(sorted(fa.ROUTE_LAUNCHES.items()))}")
 
 
 def phase_model(model, params):
@@ -1616,6 +1765,7 @@ def phase_model(model, params):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    t_phase = time.perf_counter()
     cfg = model.cfg
     rs = np.random.RandomState(2)
     prompts = {t: torch.tensor(rs.randint(0, cfg.vocab_size, (1, t)), device="cuda")
@@ -1695,6 +1845,8 @@ def phase_model(model, params):
         log(f"[model] decode step, 8 lanes, attn_len {attn_len}: wall {wall_ms:.2f} ms, "
             f"device busy {device_ms:.2f} ms ({kernels:.0f} device ops), "
             f"weight-read bound {weight_ms:.2f} ms")
+    log(f"[time] model: prefill, suffix prefill and decode step profiles "
+        f"{time.perf_counter() - t_phase:.1f} s")
     phase_burst(model, params, weight_ms)
 
 
@@ -1731,18 +1883,25 @@ def phase_burst(model, params, weight_ms, k=16, n=6):
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3 / (n * k)
                 span = start.elapsed_time(end) / (n * k)
+                # the profiler's host-side processing of a traced burst
+                # (~36,000 device operations) takes seconds: one eager
+                # burst, two replayed, are enough for per-step averages
+                n_prof = 2 if graphs else 1
+                t_prof = time.perf_counter()
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    for _ in range(n):
+                    for _ in range(n_prof):
                         burst()
                     torch.cuda.synchronize()
                 events = prof.key_averages()
                 dev = [e for e in events if e.device_type.name == "CUDA"]
-                busy = sum(e.self_device_time_total for e in dev) / 1e3 / (n * k)
-                ops = sum(e.count for e in dev) / (n * k)
-                calls = {name: sum(e.count for e in events if e.key == name) / (n * k)
+                busy = sum(e.self_device_time_total for e in dev) / 1e3 / (n_prof * k)
+                ops = sum(e.count for e in dev) / (n_prof * k)
+                calls = {name: sum(e.count for e in events if e.key == name) / (n_prof * k)
                          for name in ("cudaLaunchKernel", "cudaGraphLaunch")}
                 log(f"[burst] {'graph replay' if graphs else 'eager'}, 8 lanes, k {k}, attn_len "
-                    f"{attn_len}, per step: wall {wall:.3f} ms, device span {span:.3f} ms, "
+                    f"{attn_len}, per step ({n_prof} burst(s) profiled in "
+                    f"{time.perf_counter() - t_prof:.1f} s): wall {wall:.3f} ms, device span "
+                    f"{span:.3f} ms, "
                     f"device busy {busy:.3f} ms ({ops:.0f} device ops), host launches "
                     f"cudaLaunchKernel {calls['cudaLaunchKernel']:.1f} cudaGraphLaunch "
                     f"{calls['cudaGraphLaunch']:.2f}, busy share of wall {busy / wall:.3f}; "
@@ -1751,7 +1910,362 @@ def phase_burst(model, params, weight_ms, k=16, n=6):
             b.close()
 
 
-def main() -> int:
+# the speculation phase: the JAX package's "llm-1.26b-latency" /
+# "llm-1.26b-specdecode" pair (seldon_core_tpu/modelbench.py), built
+# through GenerateServer's parameters
+SPEC_SLOTS, SPEC_MAX_SEQ, SPEC_PROMPT, SPEC_NEW = 4, 512, 128, 256
+SPEC_SIDES = {
+    "off": [{"name": "steps_per_poll", "value": "8", "type": "INT"}],
+    "on": [{"name": "steps_per_poll", "value": "4", "type": "INT"},
+           {"name": "speculate_tokens", "value": "4", "type": "INT"},
+           {"name": "draft_layers", "value": "6", "type": "INT"}],
+}
+# the pressure window's server: speculation on, with the HBM ledger (its
+# warm() then also captures the plain bursts rung 2 falls back to)
+SPEC_SIDES["ledger"] = SPEC_SIDES["on"] + [
+    {"name": "hbm_ledger_bytes", "value": str(1 << 40), "type": "INT"}]
+SPEC_WINDOW_POLLS = 48
+
+
+def _spec_server(model_dir, side):
+    from seldon_core_tpu_torch import microservice
+
+    params = [{"name": "model_uri", "value": model_dir, "type": "STRING"},
+              {"name": "device", "value": "cuda", "type": "STRING"},
+              {"name": "slots", "value": str(SPEC_SLOTS), "type": "INT"},
+              {"name": "max_seq", "value": str(SPEC_MAX_SEQ), "type": "INT"},
+              {"name": "pipeline_depth", "value": "3", "type": "INT"},
+              {"name": "warmup_prompt_lens", "value": str(SPEC_PROMPT), "type": "STRING"},
+              {"name": "warmup_max_new_tokens", "value": str(SPEC_NEW), "type": "INT"},
+              ] + SPEC_SIDES[side]
+    user = microservice.build_user_object(
+        "seldon_core_tpu_torch.servers.generateserver.GenerateServer", json.dumps(params))
+    user.load()  # load, the self-draft, and warm() with its graph captures
+    return user
+
+
+def _spec_run(gate, user, wave, seeded):
+    """One run: the four greedy prompts queued whole, then the seeded
+    request alone. Tokens, tokens/s over the wave, the SLO percentiles,
+    the counters' deltas, flash launches and peak memory."""
+    import torch
+
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+
+    b = user.batcher
+    b.slo_recent.clear()
+    s0 = dict(b.stats)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES["flash_attention"] = 0
+    t = time.perf_counter()
+    futs = gate.submit_together(b, [(toks, 0.0, 0, None) for toks in wave], max_new=SPEC_NEW)
+    out = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t
+    slo = _slo(b)
+    toks, temp, seed = seeded
+    out.append(b.submit(toks, max_new_tokens=SPEC_NEW, temperature=temp, seed=seed)
+               .result(timeout=600))
+    d = {k: v - s0[k] for k, v in b.stats.items() if isinstance(v, (int, float))}
+    return {"tokens": out, "tok_s": SPEC_NEW * len(wave) / wall, "slo": slo, "delta": d,
+            "launches": fa.LAUNCHES["flash_attention"],
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def _window_run(gate, b, prompts, hook):
+    """One run of the pressure window's traffic, queued whole, with
+    ``hook`` as the batcher's pressure hook (None: no window); waits for
+    speculation to be back before it returns."""
+    import torch
+
+    b.pressure_hook = hook
+    b.slo_recent.clear()
+    b.pressure_events.clear()
+    s0 = dict(b.stats)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    futs = gate.submit_together(b, [(p, 0.0, 0, None) for p in prompts], max_new=SPEC_NEW)
+    out = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t
+    _wait_for(lambda: not b._spec_suppressed, "[spec-pressure] speculation back after the window")
+    b.pressure_hook = None
+    actions = [e["action"] for e in list(b.pressure_events) if e.get("type") == "pressure_reclaim"]
+    return dict(out=out, wall=wall, slo=_slo(b),
+                d={k: v - s0[k] for k, v in b.stats.items() if isinstance(v, (int, float))},
+                actions={a: actions.count(a) for a in sorted(set(actions))})
+
+
+def phase_spec_pressure(card):
+    """Rung 2 at llm-1.26b, the spec phase's configuration: a server with
+    speculation and the HBM ledger serves eight concurrent greedy 128-token
+    prompts (twice its slots), 256 new tokens each, twice: free,
+    then under a window that, four working polls in, shrinks the ledger
+    to 1.36x the live lanes' target K/V (over the high watermark with the
+    draft cache, under the low one without it) for SPEC_WINDOW_POLLS
+    polls. Rung 2 cancels speculation; as the lanes deepen, rung 3
+    preempts; greedy requests are admitted while speculation is off.
+    Fails unless every request answers 256 tokens, speculation is
+    cancelled and comes back, every preemption resumes, and no graph is
+    captured after warm() but the spec graphs a resume captures again
+    over a moved draft cache. Prints TTFT, TPOT and tokens/s of both
+    runs."""
+    import numpy as np
+
+    rs = np.random.RandomState(11)
+    prompts = [rs.randint(0, LLM_1_26B["vocab_size"], SPEC_PROMPT).tolist()
+               for _ in range(2 * SPEC_SLOTS)]
+    gate = _Gate()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-spec-pressure-") as model_dir:
+        with open(os.path.join(model_dir, "jax_config.json"), "w") as f:
+            json.dump({"family": "llm", "config": LLM_1_26B}, f)
+        t0 = time.perf_counter()
+        user = _spec_server(model_dir, "ledger")
+        b = user.batcher
+        b.fault_hook = gate
+        log(f"[spec-pressure] server with the ledger loaded and warmed in "
+            f"{time.perf_counter() - t0:.1f} s ({b.stats['graphs_captured']} graphs)")
+        try:
+            runs = {"free": _window_run(gate, b, prompts, None)}
+            state = {}
+            start = b._work_poll_count + 4
+
+            def hook(poll):
+                if poll == start:
+                    live = sum(b._attn_need(p) for p in b._pos_host.values())
+                    state["budget"] = int(1.36 * live * b._kv_key_bytes)
+                    return state["budget"]
+                return -1 if poll == start + SPEC_WINDOW_POLLS else None
+
+            runs["window"] = _window_run(gate, b, prompts, hook)
+        finally:
+            user.close()
+    for name, r in runs.items():
+        for toks, o in zip(prompts, r["out"]):
+            if len(o) != len(toks) + SPEC_NEW or o[: len(toks)] != toks:
+                raise AssertionError(f"[spec-pressure] {name}: a request did not answer "
+                                     f"{SPEC_NEW} tokens")
+    same = sum(a == f for a, f in zip(runs["window"]["out"], runs["free"]["out"]))
+    for name, r in runs.items():
+        slo, dd = r["slo"], r["d"]
+        log(f"[spec-pressure] {name}: {len(prompts)} greedy requests on {SPEC_SLOTS} slots, "
+            f"tokens/s {SPEC_NEW * len(prompts) / r['wall']:.1f}, TTFT p50 {slo['ttft_p50']:.1f} "
+            f"ms p99 {slo['ttft_p99']:.1f} ms, TPOT p50 {slo['tpot_p50']:.2f} ms, tokens per "
+            f"round {dd['spec_emitted'] / max(1, dd['spec_rounds']):.3f}, reclaim actions "
+            f"{r['actions']}, preemptions {dd['preemptions']}, spec graphs re-captured "
+            f"{dd['spec_graph_recaptures']} (captures after warm()) reused "
+            f"{dd['spec_graph_reuses']}"
+            + (f", budget {state['budget']} B for {SPEC_WINDOW_POLLS} polls"
+               if name == "window" else "") + f" [{card}]")
+    log(f"[spec-pressure] bf16: {same} of {len(prompts)} greedy streams of the window equal "
+        f"the free run's")
+    d, acts = runs["window"]["d"], runs["window"]["actions"]
+    if not acts.get("cancel_speculation") or not acts.get("resume_speculation"):
+        raise AssertionError(f"[spec-pressure] reclaim actions {acts}")
+    if d["preempt_resumes"] != d["preemptions"]:
+        raise AssertionError(f"[spec-pressure] {d['preemptions']} preemptions, "
+                             f"{d['preempt_resumes']} resumes")
+    for name, r in runs.items():
+        after_warm = r["d"]["graph_captures_inline"] - r["d"]["spec_graph_recaptures"]
+        if after_warm:
+            raise AssertionError(f"[spec-pressure] {name}: {after_warm} graphs captured "
+                                 "after warm()")
+
+
+def phase_spec(card):
+    """Speculative decoding at llm-1.26b, full width and depth (bf16,
+    random weights from seed 0), 4 slots, cache length 512: four
+    concurrent 128-token greedy prompts with 256 new tokens each, then a
+    seeded request alone. Off: steps_per_poll 8. On: steps_per_poll 4,
+    speculate_tokens 4, draft_layers 6 (an early-exit self-draft). Runs
+    off, on, on, off in one process. Fails unless every request answers
+    256 tokens, the two on-runs are token-identical (the seeded request
+    too), no graph is captured after warm(), a round emits 1..5 tokens
+    on average and every prefill (target and draft) launched the flash
+    kernel. Returns the flash launches of the first on-run."""
+    import numpy as np
+
+    rs = np.random.RandomState(11)
+    vocab = LLM_1_26B["vocab_size"]
+    wave = [rs.randint(0, vocab, SPEC_PROMPT).tolist() for _ in range(SPEC_SLOTS)]
+    seeded = (rs.randint(0, vocab, SPEC_PROMPT).tolist(), 0.8, 5)
+    gate = _Gate()
+    users = {}
+    runs = {"off": [], "on": []}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-spec-") as model_dir:
+        with open(os.path.join(model_dir, "jax_config.json"), "w") as f:
+            json.dump({"family": "llm", "config": LLM_1_26B}, f)
+        try:
+            for side in ("off", "on"):
+                t0 = time.perf_counter()
+                users[side] = _spec_server(model_dir, side)
+                users[side].batcher.fault_hook = gate
+                st = users[side].batcher.stats
+                log(f"[spec] {side}: GenerateServer loaded and warmed in "
+                    f"{time.perf_counter() - t0:.1f} s ({st['graphs_captured']} graphs, "
+                    f"{st['graph_capture_s']:.2f} s of capture)")
+            for side in ("off", "on", "on", "off"):
+                runs[side].append(_spec_run(gate, users[side], wave, seeded))
+            metrics = {side: {m["key"]: m["value"] for m in users[side].metrics()
+                              if m["type"] == "GAUGE"} for side in users}
+            inline = {side: u.batcher.stats["graph_captures_inline"] for side, u in users.items()}
+        finally:
+            for u in users.values():
+                u.close()
+    for side, rr in runs.items():
+        for r in rr:
+            for toks, out in zip(wave + [seeded[0]], r["tokens"]):
+                if len(out) != len(toks) + SPEC_NEW or out[: len(toks)] != toks \
+                        or not all(0 <= x < vocab for x in out):
+                    raise AssertionError(f"[spec] {side}: a request did not answer "
+                                         f"{SPEC_NEW} tokens")
+            d = r["delta"]
+            # every prefill runs the flash kernel per layer: the target's,
+            # and with speculation the 6-layer draft's of the same prompt
+            per_prefill = LLM_1_26B["n_layers"] + (6 if side == "on" else 0)
+            if r["launches"] < per_prefill * d["prefill_steps"]:
+                raise AssertionError(f"[spec] {side}: {d['prefill_steps']} prefills, "
+                                     f"{r['launches']} flash launches")
+    if runs["on"][0]["tokens"] != runs["on"][1]["tokens"]:
+        raise AssertionError("[spec] the two on-runs gave other tokens")
+    if any(inline.values()):
+        raise AssertionError(f"[spec] graphs captured after warm(): {inline}")
+    for i, r in enumerate(runs["on"]):
+        d = r["delta"]
+        per_round = d["spec_emitted"] / max(1, d["spec_rounds"])
+        if not 1.0 <= per_round <= 5.0:
+            raise AssertionError(f"[spec] on-run {i}: {per_round} tokens per round")
+    for side in ("off", "on"):
+        for i, r in enumerate(runs[side]):
+            d, slo = r["delta"], r["slo"]
+            extra = ""
+            if side == "on":
+                extra = (f", spec rounds {d['spec_rounds']} (lane-rounds), tokens per round "
+                         f"{d['spec_emitted'] / max(1, d['spec_rounds']):.3f}, bursts "
+                         f"{d['steps'] // 4}, graph replays per round "
+                         f"{d['graph_replays'] / max(1, d['steps']):.3f}, draft+target flash "
+                         f"launches {r['launches']}")
+            log(f"[spec] {side} run {i + 1}: tokens/s {r['tok_s']:.1f}, TTFT p50 "
+                f"{slo['ttft_p50']:.1f} ms p99 {slo['ttft_p99']:.1f} ms, TPOT p50 "
+                f"{slo['tpot_p50']:.2f} ms, graph replays {d['graph_replays']}, peak allocated "
+                f"{r['peak'] / 2**30:.2f} GiB{extra} [{card}]")
+    same = sum(a == b for a, b in zip(runs["on"][0]["tokens"][:SPEC_SLOTS],
+                                      runs["off"][0]["tokens"][:SPEC_SLOTS]))
+    firsts = [_first_diff(a[SPEC_PROMPT:], b[SPEC_PROMPT:])
+              for a, b in zip(runs["on"][0]["tokens"][:SPEC_SLOTS],
+                              runs["off"][0]["tokens"][:SPEC_SLOTS]) if a != b]
+    ratio = {k: np.median([r[k] for r in runs["on"]]) / np.median([r[k] for r in runs["off"]])
+             for k in ("tok_s",)}
+    tpot = (np.median([r["slo"]["tpot_p50"] for r in runs["on"]])
+            / np.median([r["slo"]["tpot_p50"] for r in runs["off"]]))
+    log(f"[spec] on/off: tokens/s x{ratio['tok_s']:.3f}, TPOT p50 x{tpot:.3f}; the two on-runs "
+        f"token-identical (seeded included); bf16 greedy streams equal on vs off: {same} of "
+        f"{SPEC_SLOTS}" + (f" (first differing generated steps {firsts})" if firsts else "")
+        + f"; gen_spec_tokens_per_round {metrics['on'].get('gen_spec_tokens_per_round')}; "
+        f"graph_captures_inline {inline} [{card}]")
+    return runs["on"][0]["launches"]
+
+
+def phase_spec_round(model, params):
+    """One speculation round against gamma + 1 = 5 plain decode steps at
+    llm-1.26b, B = 4, attention length 512: device-busy time and device
+    operations (torch.profiler) of the 4 draft steps of a 6-layer
+    early-exit draft, of the W = 5 verify chunk, of the whole round
+    through the batcher (sampling and acceptance included, eager) and of
+    5 one-position decode steps of the target."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from seldon_core_tpu_torch.models.llm import DecoderLM
+    from seldon_core_tpu_torch.serving.continuous import ContinuousBatcher
+
+    cfg = model.cfg
+    B, A, g = 4, 512, 4
+    draft = DecoderLM(device="cuda", **{**dataclasses.asdict(cfg), "n_layers": 6})
+    dparams = {**params, "blocks": {k: w[:6] for k, w in params["blocks"].items()}}
+
+    def cache(n_layers):
+        shape = (B, cfg.n_kv_heads, A, cfg.head_dim)
+        return ([torch.zeros(shape, dtype=model.dtype, device="cuda") for _ in range(n_layers)],
+                [torch.zeros(shape, dtype=model.dtype, device="cuda") for _ in range(n_layers)])
+
+    ks, vs = cache(cfg.n_layers)
+    dks, dvs = cache(6)
+    tok = torch.zeros((B, 1), dtype=torch.long, device="cuda")
+    win = torch.zeros((B, g + 1), dtype=torch.long, device="cuda")
+    pos = torch.full((B,), 400, dtype=torch.long, device="cuda")
+    b = ContinuousBatcher(model, params, slots=B, max_seq=A, steps_per_poll=4,
+                          draft_model=draft, draft_params=dparams, speculate_tokens=g,
+                          cuda_graphs=False)
+    b._whole.act.fill_(True)
+    b._whole.pos.fill_(400)
+
+    def round_():
+        b._spec_round(A, False)
+        b._whole.pos.fill_(400)
+
+    cases = {
+        "4 draft steps (6 layers)": lambda: [draft.decode_step_ragged_list(
+            dparams, dks, dvs, tok, pos, attn_len=A) for _ in range(g)],
+        "verify chunk W=5 (24 layers)": lambda: model.decode_chunk_ragged_list(
+            params, ks, vs, win, pos, attn_len=A),
+        "whole round via the batcher (greedy)": round_,
+        "5 decode steps (24 layers)": lambda: [model.decode_step_ragged_list(
+            params, ks, vs, tok, pos, attn_len=A) for _ in range(g + 1)],
+    }
+    busy = {}
+    try:
+        for name, fn in cases.items():
+            with torch.inference_mode():
+                wall_ms = time_ms(fn, iters=5, warmup=2)
+                n = 3
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(n):
+                        fn()
+                    torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+            busy[name] = sum(e.self_device_time_total for e in events) / 1e3 / n
+            ops = sum(e.count for e in events) / n
+            log(f"[spec-model] {name}, B={B}, attn_len {A}: wall {wall_ms:.2f} ms, device busy "
+                f"{busy[name]:.3f} ms ({ops:.0f} device ops)")
+    finally:
+        b.close()
+    draft_ms, verify_ms, round_ms, steps_ms = busy.values()
+    log(f"[spec-model] the verify chunk takes {verify_ms / steps_ms:.3f} of 5 decode steps' "
+        f"device time ({verify_ms / steps_ms * 5:.2f} steps' worth); the draft "
+        f"{draft_ms / round_ms:.3f} of the round's")
+
+
+PHASES = ("kernels", "small", "serve", "engine", "small-sched", "sched", "prefix",
+          "pressure", "spec", "spec-pressure", "model")
+
+
+def _llm_model():
+    """llm-1.26b on the card, as the engine phase's generate unit builds
+    it (random weights from seed 0, cast to bf16): for a run of
+    ``--phases`` that leaves the engine phase out."""
+    from seldon_core_tpu_torch.models.llm import DecoderLM
+    from seldon_core_tpu_torch.servers.generateserver import GenerateServer
+
+    model = DecoderLM(device="cuda", **LLM_1_26B)
+    params = model.init_params(LLM_1_26B["seed"], device="cuda")
+    return model, GenerateServer._cast_params_freeing(params, model.dtype)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="On-card smoke run of seldon_core_tpu_torch.")
+    parser.add_argument(
+        "--phases", default=",".join(PHASES),
+        help="comma-separated phases to run (device and build always run; default: all "
+             f"of {','.join(PHASES)}); the result lines print only when every phase ran")
+    args = parser.parse_args(argv)
+    phases = [x.strip() for x in args.phases.split(",") if x.strip()]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        parser.error(f"unknown phases {unknown}; have {list(PHASES)}")
     try:
         import torch
     except ImportError:
@@ -1767,33 +2281,78 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the seldon_core_tpu_torch package is missing: {e}", file=sys.stderr)
         return 1
+    import gc
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    clock = {"t": time.perf_counter()}
+
+    def lap(name):
+        now = time.perf_counter()
+        log(f"[time] {name}: {now - clock['t']:.1f} s")
+        clock["t"] = now
+
     try:
         t0 = time.perf_counter()
         card = phase_device()
         phase_build()
-        kern = phase_kernels(card)
-        phase_small_model()
-        launches, alone = phase_serve(card)
-        import gc
-
-        gc.collect()  # the serve phase's copy of the model goes
-        torch.cuda.empty_cache()
-        engine_launches, model, params = phase_engine(card, alone)
-        gc.collect()
-        torch.cuda.empty_cache()
-        phase_small_scheduler()
-        sched_launches, sched_tokens = phase_scheduler(card, model, params)
-        gc.collect()
-        torch.cuda.empty_cache()
-        prefix_launches = phase_prefix(card, model, params)
-        gc.collect()
-        torch.cuda.empty_cache()
-        pressure_launches = phase_pressure(card, model, params, sched_tokens)
+        lap("device and build")
+        kern = phase_kernels(card) if "kernels" in phases else None
+        lap("kernels")
+        if "small" in phases:
+            phase_small_model()
+            lap("small")
+        launches = alone = engine_launches = model = params = None
+        sched_launches = sched_tokens = prefix_launches = pressure_launches = None
+        spec_launches = None
+        if "serve" in phases:
+            launches, alone = phase_serve(card)
+            free()  # the serve phase's copy of the model goes
+            lap("serve")
+        if "engine" in phases:
+            engine_launches, model, params = phase_engine(card, alone)
+            free()
+            lap("engine")
+        if "small-sched" in phases:
+            phase_small_scheduler()
+            lap("small-sched")
+        if model is None and {"sched", "prefix", "pressure", "model"} & set(phases):
+            model, params = _llm_model()
+        if "sched" in phases:
+            sched_launches, sched_tokens = phase_scheduler(card, model, params)
+            free()
+            lap("sched")
+        if "prefix" in phases:
+            prefix_launches = phase_prefix(card, model, params)
+            free()
+            lap("prefix")
+        if "pressure" in phases:
+            pressure_launches = phase_pressure(card, model, params, sched_tokens)
+            free()
+            lap("pressure")
+        if "spec" in phases:
+            spec_launches = phase_spec(card)
+            free()
+            lap("spec")
+        if "spec-pressure" in phases:
+            phase_spec_pressure(card)
+            free()
+            lap("spec-pressure")
         # the profiler runs last: once it has traced the card, later
         # launches may carry its overhead
-        phase_model(model, params)
+        if "model" in phases:
+            phase_model(model, params)
+            phase_spec_round(model, params)
+            lap("model")
+        if set(phases) != set(PHASES):
+            log(f"[done] phases {','.join(phases)} in {time.perf_counter() - t0:.1f} s; "
+                "no result lines (not every phase ran)")
+            return 0
         head = kern["b1_t1024"]
         worst = max(r["max_abs_err"] for k, r in kern.items() if not k.startswith("f32"))
+        simt = max(r["max_abs_err"] for r in kern.values() if r["route"] == "simt")
         log(json.dumps({"kernels": [{
             "name": "flash_attention",
             "route": "cuda",
@@ -1804,7 +2363,9 @@ def main() -> int:
             "scheduler_launches": sched_launches,
             "prefix_launches": prefix_launches,
             "pressure_launches": pressure_launches,
+            "spec_launches": spec_launches,
             "max_abs_err": worst,
+            "simt_max_abs_err": simt,
             "ms": head["ms"],
             "device_ms": head["device_ms"],
             "plain_ms": head["plain_ms"],

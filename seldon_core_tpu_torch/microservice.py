@@ -9,8 +9,10 @@ imports the class, instantiates it with typed parameters from the
 ``PREDICTIVE_UNIT_PARAMETERS`` env JSON (``[{"name", "value", "type"}]``;
 e.g. ``{"name": "device", "value": "cuda", "type": "STRING"}``), calls
 ``load()`` — which for the generate server warms every executable the
-declared traffic needs — and only then opens the ports. REST is the
-default: gRPC needs ``grpcio`` and the protobuf runtime.
+declared traffic needs — and only then opens the ports. ``BOTH`` is the
+default, as in the JAX package: gRPC needs ``grpcio`` and the protobuf
+runtime, and where they do not import, ``BOTH`` and ``GRPC`` fail at
+start with the ImportError (pass ``REST`` to serve without them).
 """
 
 from __future__ import annotations
@@ -79,7 +81,7 @@ async def serve_rest(user_object, host: str, port: int,
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser("seldon_core_tpu_torch.microservice")
     parser.add_argument("interface_name", help="module.Class of the user component")
-    parser.add_argument("api_type", nargs="?", default="REST",
+    parser.add_argument("api_type", nargs="?", default="BOTH",
                         choices=["REST", "GRPC", "BOTH"])
     parser.add_argument("--service-port", type=int, default=DEFAULT_PORT)
     parser.add_argument("--grpc-port", type=int, default=DEFAULT_GRPC_PORT)

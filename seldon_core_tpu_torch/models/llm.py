@@ -9,11 +9,12 @@ Ported: the dense forward (``apply``), batched ``prefill`` (its
 attention runs the hand-written CUDA flash kernel on the card), the
 ragged one-position decode over a per-layer cache
 (``decode_step_ragged_list``, with a separate write position for the
-fused stop-aware burst), ``prefill_chunk`` (one chunk of a long prompt
-into a staging slab), ``prefill_with_prefix`` (a suffix prefill over a
-cached prefix slab), ``generate``, ``init_params`` and the analytic
-counts. Not ported yet: MoE, the tp/sp/ep parallel paths,
-``decode_chunk_ragged_list`` and the training loss.
+fused stop-aware burst), ``decode_chunk_ragged_list`` (a window of
+tokens per row in one forward: speculative decoding's verify step),
+``prefill_chunk`` (one chunk of a long prompt into a staging slab),
+``prefill_with_prefix`` (a suffix prefill over a cached prefix slab),
+``generate``, ``init_params`` and the analytic counts. Not ported yet:
+MoE, the tp/sp/ep parallel paths and the training loss.
 
 Layouts match the JAX package exactly: per-layer caches
 ``[B, KV, T, Dh]``, the prefill slab ``[L, B, KV, Tb, Dh]``, and q/k/v
@@ -32,6 +33,7 @@ import torch
 from .. import rng
 from ..device import resolve_device
 from ..ops.flash_attention import attention as prefill_attention
+from ..ops.flash_attention import check_kernel_config
 from .base import ServedModel, torch_dtype
 
 NEG_INF = -1e30
@@ -86,7 +88,12 @@ def _rope(x, positions, theta: float):
 
 
 class DecoderLM(ServedModel):
-    def __init__(self, **config):
+    def __init__(self, device=None, **config):
+        """``config``: the JAX package's model config keys. ``device``
+        (optional): where the model will run; on CUDA the config is held
+        against the prefill attention kernel here (:meth:`check_device`),
+        so a model the card cannot serve is refused before any weight is
+        loaded."""
         cfg_fields = {f.name for f in dataclasses.fields(LLMConfig)}
         extra = {k: v for k, v in config.items() if k not in cfg_fields}
         self.cfg = LLMConfig(**{k: v for k, v in config.items() if k in cfg_fields})
@@ -98,6 +105,16 @@ class DecoderLM(ServedModel):
         self._extra = extra
         self.example_input_shape = (16,)  # token ids
         self.compute_dtype = self.cfg.dtype
+        if device is not None:
+            self.check_device(device)
+
+    def check_device(self, device) -> None:
+        """Raise ValueError, naming the cause, when this model's prefill
+        cannot run on ``device``: on CUDA every prefill goes through the
+        flash attention kernel, which takes float32/bfloat16 at head dims
+        up to 256. Nothing to check on the CPU."""
+        if torch.device(device).type == "cuda":
+            check_kernel_config(self.dtype, self.cfg.head_dim)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -310,6 +327,60 @@ class DecoderLM(ServedModel):
             x = self._decode_layer(self._layer(blocks, l), x, pos, ks[l], vs[l],
                                    attn_len, wp)
         return self._decode_head(params, x), ks, vs
+
+    @torch.inference_mode()
+    def decode_chunk_ragged_list(self, params, ks: List[torch.Tensor],
+                                 vs: List[torch.Tensor], tokens, pos,
+                                 attn_len: Optional[int] = None):
+        """Decode a WINDOW of tokens per row in ONE forward over the
+        unstacked cache (the JAX package's ``decode_chunk_ragged_list``):
+        ``tokens`` [B, W], ``pos`` [B] start positions, token j of row b
+        at position ``pos[b] + j``. Returns ``(logits [B, W, V] float32,
+        ks, vs)``; ``logits[:, j]`` is the next-token distribution after
+        ``tokens[:, j]``. Speculative decoding's verify step: the drafted
+        tokens and the entry token are scored in one target forward.
+
+        Per layer the window's K/V land in ``ks``/``vs`` in place, then
+        attention reads the cache up to ``attn_len`` under the
+        ``key_pos <= pos + j`` bound (prefix plus in-window causality)
+        through the grouped cache attention. Positions past a row's
+        accepted prefix are overwritten by later writes and masked until
+        then, so rejected drafts need no rollback. A position at or past
+        the cache length writes nothing (the JAX scatter drops it)."""
+        cfg = self.cfg
+        dt = self.dtype
+        B, W = tokens.shape
+        dev = tokens.device
+        pos = pos.long()
+        positions = pos[:, None] + torch.arange(W, device=dev)[None, :]  # [B, W]
+        x = params["embed"][tokens.long()].to(dt)
+        blocks = params["blocks"]
+        T = ks[0].shape[2]
+        rows = torch.arange(B, device=dev)
+        wp = positions.clamp(max=T - 1)
+        # out-of-bounds positions clamp onto T-1; every write aimed there
+        # carries what T-1 ends up holding (the window's own token at T-1
+        # when it reaches that far, else the old value), so duplicate
+        # indices agree and the scatter is deterministic
+        at_end = wp == T - 1  # [B, W]
+        j_end = (T - 1 - pos).clamp(0, W - 1)
+        reaches = (pos <= T - 1) & (pos + W - 1 >= T - 1)
+        for l in range(len(ks)):
+            p = self._layer(blocks, l)
+            q, k, v = self._qkv(p, x, positions)
+            for cache, new in ((ks[l], k), (vs[l], v)):
+                nt = new.transpose(1, 2)  # [B, W, KV, Dh]
+                end = torch.where(reaches[:, None, None], nt[rows, j_end], cache[:, :, T - 1])
+                cache[rows[:, None], :, wp] = torch.where(at_end[:, :, None, None],
+                                                          end[:, None], nt)
+            kc, vc = ks[l], vs[l]
+            if attn_len is not None and attn_len < T:
+                kc, vc = kc[:, :, :attn_len], vc[:, :, :attn_len]
+            o = self._cache_attention(q, kc, vc, positions, dt)
+            x = x + self._merge_heads(p, o)
+            x = x + self._ffn(p, x)
+        x = _rms_norm(x, params["ln_f"].to(dt), cfg.norm_eps)
+        return (x @ params["unembed"].to(dt)).float(), ks, vs
 
     @torch.inference_mode()
     def prefill(self, params, prompt, max_seq: int, last_index=None):

@@ -44,12 +44,19 @@
 //    warpgroup's own (now unused) Q stage in the swizzled layout and store
 //    it with TMA, which clips the ragged Tq edge.
 //  * Not yet (PERF.md): softmax of one tile overlapped with the products
-//    of the next inside a warpgroup (ping-pong), a persistent grid, Dh 256.
+//    of the next inside a warpgroup (ping-pong), a persistent grid.
 //
-// float32 (exact parity runs, not on the serving path): one block of 128
-// threads per (64-row q tile, b*h) on the CUDA cores, f32 FMAs, each thread
-// owning a 4 x 8 score patch and a 4 x (Dh/8) output patch; Q and K rows
-// are padded one word against bank conflicts.
+// SIMT (float32 at every head dim, bfloat16 at head dims other than 64 and
+// 128, so every head dim up to 256 the JAX package serves): one block of
+// 128 threads per (64-row q tile, b*h) on the CUDA cores, f32 FMAs, each
+// thread owning a 4 x 8 score patch and a 4 x (DHP/8) output patch, where
+// the tile width DHP is the head dim rounded up to 64, 128 or 256 and the
+// columns past the head dim are zero on load and skipped on store; Q and
+// K rows are padded one word against bank conflicts. bfloat16 inputs are
+// widened to f32 at the shared-memory load and the output rounded back at
+// the store. At DHP 256 the tiles take 213,760 bytes of shared memory, one
+// block per SM. A simple kernel, right first: these head dims serve small
+// models and drafts, whose prefill is dominated by other operations.
 //
 // Launch contract: the caller (ops/flash_attention.py) checks shapes,
 // dtypes, strides and alignment (TMA needs a 16-byte aligned base and byte
@@ -70,7 +77,7 @@
 
 namespace {
 
-// float32 path tiles
+// SIMT path tiles
 constexpr int BLOCK_M = 64;   // q rows per block
 constexpr int BLOCK_N = 64;   // k/v rows per loop step
 constexpr int THREADS = 128;  // 16 row groups x 8 column groups
@@ -97,29 +104,41 @@ cudaError_t allow_smem(Kernel kernel, int bytes, std::atomic<unsigned long long>
 
 
 // ---------------------------------------------------------------------------
-// float32 path: CUDA-core FMAs
+// SIMT path: CUDA-core FMAs, every head dim up to 256, float32 or bfloat16
 // ---------------------------------------------------------------------------
 
-// Q, K (rows padded one word), V and P tiles
-constexpr int f32_smem_bytes(int dh) {
-  return (BLOCK_M * (dh + 1) + BLOCK_N * (dh + 1) + BLOCK_N * dh + BLOCK_M * (BLOCK_N + 1)) *
+// Q, K (rows padded one word), V and P tiles for a tile width of DHP
+// columns (the head dim rounded up to 64, 128 or 256)
+constexpr int f32_smem_bytes(int dhp) {
+  return (BLOCK_M * (dhp + 1) + BLOCK_N * (dhp + 1) + BLOCK_N * dhp + BLOCK_M * (BLOCK_N + 1)) *
          static_cast<int>(sizeof(float));
 }
 
-template <int DH>
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// T is the element type of q, k, v and o (float or __nv_bfloat16): values
+// are converted to float32 at the shared-memory load, every product and
+// the softmax run in float32, and the output is rounded to T at the store.
+// DHP (64, 128 or 256) is the tile width; the head dim `dh` (<= DHP) is a
+// run-time argument: columns dh..DHP-1 load as zeros, add nothing to the
+// scores and are never stored.
+template <typename T, int DHP>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                 int H, int rep, int Tq, int Tk, int kv_limit, int causal,
-                 float scale, Strides qs, Strides ks, Strides vs, Strides os) {
-  constexpr int QK_LD = DH + 1;       // padded row length for Q and K
+flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
+                      int H, int rep, int Tq, int Tk, int kv_limit, int causal, int dh,
+                      float scale, Strides qs, Strides ks, Strides vs, Strides os) {
+  constexpr int QK_LD = DHP + 1;      // padded row length for Q and K
   constexpr int P_LD = BLOCK_N + 1;   // padded row length for P
-  constexpr int DJ = DH / 8;          // output columns per thread
+  constexpr int DJ = DHP / 8;         // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;                       // [BLOCK_M][QK_LD]
   float* Ks = Qs + BLOCK_M * QK_LD;       // [BLOCK_N][QK_LD]
-  float* Vs = Ks + BLOCK_N * QK_LD;       // [BLOCK_N][DH]
-  float* Ps = Vs + BLOCK_N * DH;          // [BLOCK_M][P_LD]
+  float* Vs = Ks + BLOCK_N * QK_LD;       // [BLOCK_N][DHP]
+  float* Ps = Vs + BLOCK_N * DHP;         // [BLOCK_M][P_LD]
 
   const int tid = threadIdx.x;
   const int tr = tid >> 3;  // row group: rows tr*4 .. tr*4+3
@@ -132,16 +151,17 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int h = bh - b * H;
   const int hk = h / rep;
 
-  const float* qp = q + b * qs.b + h * qs.h;
-  const float* kp = k + b * ks.b + hk * ks.h;
-  const float* vp = v + b * vs.b + hk * vs.h;
-  float* op = o + b * os.b + h * os.h;
+  const T* qp = q + b * qs.b + h * qs.h;
+  const T* kp = k + b * ks.b + hk * ks.h;
+  const T* vp = v + b * vs.b + hk * vs.h;
+  T* op = o + b * os.b + h * os.h;
 
-  // Q tile, pre-scaled by 1/sqrt(Dh); rows past Tq load as zeros
-  for (int idx = tid; idx < BLOCK_M * DH; idx += THREADS) {
-    const int r = idx / DH, d = idx - r * DH;
+  // Q tile, pre-scaled by 1/sqrt(dh); rows past Tq and columns past dh
+  // load as zeros
+  for (int idx = tid; idx < BLOCK_M * DHP; idx += THREADS) {
+    const int r = idx / DHP, d = idx - r * DHP;
     const int row = q0 + r;
-    Qs[r * QK_LD + d] = row < Tq ? qp[row * qs.t + d] * scale : 0.f;
+    Qs[r * QK_LD + d] = (row < Tq && d < dh) ? load_f32(qp + row * qs.t + d) * scale : 0.f;
   }
 
   float acc[4][DJ];
@@ -161,12 +181,12 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int n0 = t * BLOCK_N;
     __syncthreads();  // previous tile's K/V/P reads are done
-    for (int idx = tid; idx < BLOCK_N * DH; idx += THREADS) {
-      const int r = idx / DH, d = idx - r * DH;
+    for (int idx = tid; idx < BLOCK_N * DHP; idx += THREADS) {
+      const int r = idx / DHP, d = idx - r * DHP;
       const int col = n0 + r;
-      const bool ok = col < Tk;
-      Ks[r * QK_LD + d] = ok ? kp[col * ks.t + d] : 0.f;
-      Vs[r * DH + d] = ok ? vp[col * vs.t + d] : 0.f;
+      const bool ok = col < Tk && d < dh;
+      Ks[r * QK_LD + d] = ok ? load_f32(kp + col * ks.t + d) : 0.f;
+      Vs[r * DHP + d] = ok ? load_f32(vp + col * vs.t + d) : 0.f;
     }
     __syncthreads();
 
@@ -175,8 +195,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    // the zero columns past dh add nothing: the product stops at dh
 #pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
+    for (int d = 0; d < dh; ++d) {
       float qv[4], kv[8];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = Qs[(tr * 4 + i) * QK_LD + d];
@@ -227,7 +248,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 4; ++i) pv[i] = Ps[(tr * 4 + i) * P_LD + n];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
-        const float vv = Vs[n * DH + tc + 8 * j];
+        const float vv = Vs[n * DHP + tc + 8 * j];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
       }
@@ -241,7 +262,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // a row with no visible key keeps l == 0: write zeros, not 0/0
     const float inv = l_i[i] > 0.f ? 1.f / l_i[i] : 0.f;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) op[row * os.t + tc + 8 * j] = acc[i][j] * inv;
+    for (int j = 0; j < DJ; ++j) {
+      const int d = tc + 8 * j;
+      if (d < dh) store_out(op + row * os.t + d, acc[i][j] * inv);
+    }
   }
 }
 
@@ -510,21 +534,40 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int DH>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int KV, int Tq, int Tk, int kv_limit,
-                   int causal, Strides qs, Strides ks, Strides vs, Strides os,
-                   cudaStream_t stream) {
-  constexpr int smem = f32_smem_bytes(DH);
+template <typename T, int DHP>
+cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o,
+                        int B, int H, int KV, int Tq, int Tk, int kv_limit, int causal, int dh,
+                        Strides qs, Strides ks, Strides vs, Strides os, cudaStream_t stream) {
+  constexpr int smem = f32_smem_bytes(DHP);
   static std::atomic<unsigned long long> opted_in{0};
-  cudaError_t err = allow_smem(flash_fwd_f32_kernel<DH>, smem, opted_in);
+  cudaError_t err = allow_smem(flash_fwd_simt_kernel<T, DHP>, smem, opted_in);
   if (err != cudaSuccess) return err;
   dim3 grid((Tq + BLOCK_M - 1) / BLOCK_M, B * H);
-  flash_fwd_f32_kernel<DH><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, H / KV, Tq, Tk, kv_limit, causal,
-      static_cast<float>(1.0 / sqrt(static_cast<double>(DH))), qs, ks, vs, os);
+  flash_fwd_simt_kernel<T, DHP><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), H, H / KV, Tq, Tk, kv_limit, causal, dh,
+      static_cast<float>(1.0 / sqrt(static_cast<double>(dh))), qs, ks, vs, os);
   return cudaGetLastError();
+}
+
+// The SIMT tile width for a head dim: 64, 128 or 256 (0 above 256).
+constexpr int simt_tile(int dh) { return dh <= 64 ? 64 : dh <= 128 ? 128 : dh <= 256 ? 256 : 0; }
+
+template <typename T>
+cudaError_t launch_simt_any(const void* q, const void* k, const void* v, void* o,
+                            int B, int H, int KV, int Tq, int Tk, int kv_limit, int causal,
+                            int dh, Strides qs, Strides ks, Strides vs, Strides os,
+                            cudaStream_t stream) {
+  switch (simt_tile(dh)) {
+    case 64:
+      return launch_simt<T, 64>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, dh, qs, ks, vs, os, stream);
+    case 128:
+      return launch_simt<T, 128>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, dh, qs, ks, vs, os, stream);
+    case 256:
+      return launch_simt<T, 256>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, dh, qs, ks, vs, os, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // A 4-D tensor map over [Dh, T, heads, B] (innermost first) with the view's
@@ -570,7 +613,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
 
 // dtype: 0 = float32, 1 = bfloat16. kv_len < 0 means "no key-length mask".
 // Strides are in elements: [b, h, t] for each of q, k, v, o. block_m (64 or
-// 128) is the bfloat16 kernel's q rows per block; the float32 kernel always
+// 128) is the wgmma kernel's q rows per block; the SIMT kernel always
 // takes 64. Returns 0, a cudaError_t, or minus a CUresult.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype,
@@ -584,10 +627,7 @@ extern "C" int flash_attention_fwd(
   const Strides qs{qsb, qsh, qst}, ks{ksb, ksh, kst}, vs{vsb, vsh, vst}, os{osb, osh, ost};
   const int kv_limit = kv_len < 0 ? Tk : (kv_len < Tk ? kv_len : Tk);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && Dh == 64)
-    return launch_f32<64>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, qs, ks, vs, os, s);
-  if (dtype == 0 && Dh == 128)
-    return launch_f32<128>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, qs, ks, vs, os, s);
+  if (Dh < 1 || Dh > 256) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1 && Dh == 64 && block_m == 64)
     return launch_wgmma<64, 1>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, qs, ks, vs, os, s);
   if (dtype == 1 && Dh == 64 && block_m == 128)
@@ -596,16 +636,20 @@ extern "C" int flash_attention_fwd(
     return launch_wgmma<128, 1>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, qs, ks, vs, os, s);
   if (dtype == 1 && Dh == 128 && block_m == 128)
     return launch_wgmma<128, 2>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, qs, ks, vs, os, s);
+  if (dtype == 1 && (Dh == 64 || Dh == 128)) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return launch_simt_any<float>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, Dh, qs, ks, vs, os, s);
+  if (dtype == 1)
+    return launch_simt_any<__nv_bfloat16>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, Dh, qs, ks, vs, os, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Dynamic shared memory of the kernel instance flash_attention_fwd picks
 // (-1 if none).
 extern "C" int flash_attention_smem_bytes(int dtype, int Dh, int block_m) {
-  if (dtype == 0 && (Dh == 64 || Dh == 128))
-    return f32_smem_bytes(Dh);
-  if (dtype != 1 || (block_m != 64 && block_m != 128)) return -1;
+  if (Dh < 1 || Dh > 256 || (dtype != 0 && dtype != 1)) return -1;
+  if (dtype == 0 || (Dh != 64 && Dh != 128)) return f32_smem_bytes(simt_tile(Dh));
+  if (block_m != 64 && block_m != 128) return -1;
   if (Dh == 64) return block_m == 64 ? WgmmaTile<64, 1>::SMEM : WgmmaTile<64, 2>::SMEM;
-  if (Dh == 128) return block_m == 64 ? WgmmaTile<128, 1>::SMEM : WgmmaTile<128, 2>::SMEM;
-  return -1;
+  return block_m == 64 ? WgmmaTile<128, 1>::SMEM : WgmmaTile<128, 2>::SMEM;
 }

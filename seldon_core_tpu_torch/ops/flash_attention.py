@@ -15,8 +15,13 @@ kernel (``_flash_kernel``) computes prefill attention on the TPU. Here:
 * :func:`attention` — the entry point, with the JAX package's signature.
   A CPU tensor goes to the plain version; a CUDA tensor goes to the
   kernel, which masks ragged edges and ``kv_len`` itself, so there is no
-  shape on the card that falls back to the plain version. What the kernel
-  does not take (a head dim other than 64 or 128, another dtype) raises.
+  shape on the card that falls back to the plain version. The kernel
+  takes every head dim up to 256 (the JAX package's ``attention()``
+  serves them all): bfloat16 at head dim 64 or 128 runs the wgmma/TMA
+  route, every other (dtype, head dim) the SIMT route (:func:`kernel_route`).
+  What it does not take (a head dim above 256, another dtype) raises;
+  :func:`check_kernel_config` says so for a model before any weight is
+  loaded.
 
 Both versions take grouped K/V: ``k``/``v`` may carry ``KV`` heads with
 ``H % KV == 0``, and q head ``h`` attends with kv head ``h // (H // KV)``
@@ -29,7 +34,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -39,11 +44,16 @@ NEG_INF = -1e30
 # (and nowhere else). Reset and read by the on-card smoke run to show the
 # serving path went through the kernel.
 LAUNCHES = {"flash_attention": 0}
+# the same launches by route, dtype and head dim ("simt float32 Dh 8")
+ROUTE_LAUNCHES: Dict[str, int] = {}
 _count_lock = threading.Lock()
 
 _SOURCE = "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+# head dims of the bfloat16 wgmma/TMA route; every other head dim up to
+# MAX_HEAD_DIM, and float32 at every head dim, takes the SIMT route
+_WGMMA_HEAD_DIMS = (64, 128)
+MAX_HEAD_DIM = 256
 
 
 def _check_shapes(q, k, v, kv_len):
@@ -89,28 +99,50 @@ def attention_plain(q, k, v, kv_len: Optional[int] = None, causal: bool = True):
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def kernel_route(dtype: torch.dtype, dh: int) -> str:
+    """The kernel route these inputs take: ``"wgmma"`` (bfloat16 at head
+    dim 64 or 128: TMA loads, tensor-core products) or ``"simt"`` (every
+    other head dim up to 256, and float32: CUDA-core FMAs)."""
+    return "wgmma" if dtype == torch.bfloat16 and dh in _WGMMA_HEAD_DIMS else "simt"
+
+
+def check_kernel_config(dtype, head_dim: int) -> None:
+    """Raise ValueError, naming the cause, unless the kernel takes
+    attention at this dtype and head dim: a model whose prefill the card
+    cannot run is refused when it is built, not at its first request."""
+    if dtype not in _DTYPES:
+        raise ValueError(
+            f"the flash attention kernel takes float32/bfloat16, not {dtype}: "
+            "this model's prefill cannot run on CUDA"
+        )
+    if not 1 <= int(head_dim) <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"the flash attention kernel takes head dims 1..{MAX_HEAD_DIM}, not "
+            f"{head_dim}: this model's prefill cannot run on CUDA"
+        )
+
+
 def check_kernel_inputs(q, k, v, kv_len: Optional[int] = None) -> None:
     """Raise ValueError unless the CUDA kernel takes these inputs (device
     aside, so CPU and meta tensors can be checked too): q [B,H,Tq,Dh],
     k/v [B,KV,Tk,Dh] with KV dividing H, one dtype (float32 or bfloat16),
-    Dh 64 or 128, the head dim contiguous, T >= 1. The bfloat16 kernel
-    loads through TMA, which needs every base 16-byte aligned and every
-    byte stride a multiple of 16; a view that breaks this raises (no copy
-    is made)."""
+    Dh up to 256, the head dim contiguous, T >= 1. The wgmma route
+    (bfloat16 at Dh 64 or 128) loads through TMA, which needs every base
+    16-byte aligned and every byte stride a multiple of 16; a view that
+    breaks this raises (no copy is made). The SIMT route reads through
+    plain loads and takes any stride."""
     _check_shapes(q, k, v, kv_len)
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"flash attention kernel takes float32/bfloat16, got {q.dtype}")
     dh = q.shape[3]
-    if dh not in _HEAD_DIMS:
-        raise ValueError(f"flash attention kernel takes head dim 64 or 128, got {dh}")
+    check_kernel_config(q.dtype, dh)
     if q.shape[2] < 1 or k.shape[2] < 1:
         raise ValueError("flash attention kernel needs at least one query and one key")
+    tma = kernel_route(q.dtype, dh) == "wgmma"
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous in its head dim")
-        if q.dtype != torch.bfloat16:
+        if not tma:
             continue
         if t.data_ptr() % 16:
             raise ValueError(f"bfloat16 {name} must start 16-byte aligned for TMA")
@@ -123,7 +155,7 @@ def check_kernel_inputs(q, k, v, kv_len: Optional[int] = None) -> None:
 
 
 def choose_block_m(b: int, h: int, t_q: int, sm_count: int) -> int:
-    """q rows per block of the bfloat16 kernel: 128 (two consumer
+    """q rows per block of the wgmma kernel: 128 (two consumer
     warpgroups) when that grid still gives every SM a block, else 64."""
     return 128 if b * h * (-(-t_q // 128)) >= sm_count else 64
 
@@ -165,8 +197,9 @@ def flash_attention_cuda(q, k, v, kv_len: Optional[int] = None,
                          causal: bool = True, block_m: Optional[int] = None):
     """Launch the CUDA kernel on inputs :func:`check_kernel_inputs` takes,
     all on one CUDA device (other strides are free, so head-transposed
-    views pass without a copy). ``block_m`` (64 or 128) sets the bfloat16
-    kernel's q rows per block; by default :func:`choose_block_m` picks it.
+    views pass without a copy). ``block_m`` (64 or 128) sets the wgmma
+    route's q rows per block; by default :func:`choose_block_m` picks it
+    (the SIMT route always takes 64 rows).
     Returns a new [B,H,Tq,Dh] tensor in q's dtype, laid out [B,Tq,H,Dh] in
     memory so the caller's merge of the heads is a free reshape."""
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -177,7 +210,9 @@ def flash_attention_cuda(q, k, v, kv_len: Optional[int] = None,
     check_kernel_inputs(q, k, v, kv_len)
     b, h, t_q, dh = q.shape
     kv, t_k = k.shape[1], k.shape[2]
-    if block_m is None:
+    if kernel_route(q.dtype, dh) == "simt":
+        block_m = 64
+    elif block_m is None:
         block_m = choose_block_m(b, h, t_q, _sm_count(q.device.index or 0))
     if block_m not in (64, 128):
         raise ValueError(f"block_m must be 64 or 128, got {block_m}")
@@ -197,8 +232,10 @@ def flash_attention_cuda(q, k, v, kv_len: Optional[int] = None,
         raise RuntimeError(f"flash attention tensor map encoding failed: CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err}")
+    route = f"{kernel_route(q.dtype, dh)} {str(q.dtype).split('.')[-1]} Dh {dh}"
     with _count_lock:
         LAUNCHES["flash_attention"] += 1
+        ROUTE_LAUNCHES[route] = ROUTE_LAUNCHES.get(route, 0) + 1
     return out
 
 

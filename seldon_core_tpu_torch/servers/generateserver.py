@@ -45,13 +45,23 @@ Server parameters (typed, e.g. from ``PREDICTIVE_UNIT_PARAMETERS``)::
     pressure_high / pressure_low
                      the watermarks as fractions of the budget (defaults
                      0.90 / 0.75)
+    speculate_tokens speculative decoding: a draft proposes this many
+                     tokens per round, one target forward verifies them
+                     (0 = off). Exact for any draft: greedy lanes emit the
+                     target's argmax decode, temperature lanes use
+                     speculative sampling. Needs a draft:
+    draft_layers     early-exit self-draft: the first N layers of the
+                     served model (embed, unembed and final norm shared,
+                     the blocks sliced as views: no second copy)
+    draft_uri        a separate draft model directory (same layout, same
+                     vocab), loaded like the served model
     warmup_prompt_lens / warmup_max_new_tokens
                      traffic shape ``warm()`` runs before the server
                      listens (CSV string or list)
 
-The JAX server's other parameters (speculation, disaggregated roles,
-the host KV tier, resume tokens, swap, tenants, the profiler, SLO burn,
-the flight recorder, meshes) are not ported yet: each raises when set to
+The JAX server's other parameters (disaggregated roles, the host KV
+tier, resume tokens, swap, tenants, the profiler, SLO burn, the flight
+recorder, meshes) are not ported yet: each raises when set to
 anything but its off value, as does a request's ``resume_token`` or
 ``tenant``. The fault config's ``pressure`` section (``SELDON_FAULTS``)
 drives the ledger's budget mid-run.
@@ -105,8 +115,6 @@ logger = logging.getLogger(__name__)
 # server accepts unknown ones)
 _NOT_PORTED = {
     "mesh": None, "mesh_shape": None, "shard_cache_seq": False,
-    "speculate_tokens": 0, "draft_layers": 0,
-    "draft_uri": None,
     "flight_recorder": 0, "role": "unified", "peer": None, "kv_port": 0,
     "host_kv_tier_bytes": 0, "resume_tokens": 0,
     "swap_drain_ms": 0, "tenants": None, "weight_pager_host_bytes": 0,
@@ -156,6 +164,9 @@ class GenerateServer(SeldonComponent):
         hbm_ledger_bytes: int = 0,
         pressure_high: float = 0.90,
         pressure_low: float = 0.75,
+        speculate_tokens: int = 0,
+        draft_layers: int = 0,
+        draft_uri: Optional[str] = None,
         warmup_prompt_lens: Optional[Sequence[int]] = None,
         warmup_max_new_tokens: int = 0,
         **kwargs,
@@ -189,6 +200,9 @@ class GenerateServer(SeldonComponent):
         self._hbm_ledger_bytes = int(hbm_ledger_bytes)
         self._pressure_high = float(pressure_high)
         self._pressure_low = float(pressure_low)
+        self._speculate_tokens = int(speculate_tokens)
+        self._draft_layers = int(draft_layers)
+        self._draft_uri = None if _is_off("draft_uri", draft_uri, None) else str(draft_uri)
         if isinstance(warmup_prompt_lens, str):
             warmup_prompt_lens = [
                 int(x) for x in warmup_prompt_lens.split(",") if x.strip()
@@ -231,6 +245,7 @@ class GenerateServer(SeldonComponent):
         dt = self._model.dtype
         if dt != torch.float32:
             params = self._cast_params_freeing(params, dt)
+        draft_model, draft_params = self._build_draft(params)
         self.batcher = ContinuousBatcher(
             self._model,
             params,
@@ -251,6 +266,9 @@ class GenerateServer(SeldonComponent):
             hbm_ledger_bytes=self._hbm_ledger_bytes,
             pressure_high=self._pressure_high,
             pressure_low=self._pressure_low,
+            draft_model=draft_model,
+            draft_params=draft_params,
+            speculate_tokens=self._speculate_tokens,
         )
         # chaos harness (off without SELDON_FAULTS): the scheduler section
         # wires induced poll death onto the batcher's fault hook, the
@@ -273,6 +291,38 @@ class GenerateServer(SeldonComponent):
             "generateserver: %s ready on %s (slots=%d, max_seq=%d)",
             self.model_uri, self.device, self._slots, self.batcher.max_seq,
         )
+
+    def _build_draft(self, params):
+        """``(draft_model, draft_params)`` for speculation, or ``(None,
+        None)`` when ``speculate_tokens`` is 0. ``draft_uri`` loads a
+        separate draft like the served model; ``draft_layers`` N builds
+        the early-exit self-draft: the served model's first N layers,
+        sharing its embed, unembed and final norm, its blocks sliced as
+        views of the served (already cast) tensors."""
+        import dataclasses as _dc
+
+        from ..models.llm import DecoderLM
+
+        if self._speculate_tokens <= 0:
+            return None, None
+        if self._draft_uri:
+            dserver = TorchServer(self._draft_uri, device=self.device)
+            _apply, dparams = dserver.build()
+            dmodel = dserver._model
+            return dmodel, self._cast_params_freeing(dparams, dmodel.dtype)
+        if self._draft_layers > 0:
+            n_layers = self._model.cfg.n_layers
+            if self._draft_layers >= n_layers:
+                raise ValueError(
+                    f"draft_layers ({self._draft_layers}) must be < the served "
+                    f"model's n_layers ({n_layers})"
+                )
+            cfg = _dc.asdict(self._model.cfg)
+            cfg["n_layers"] = self._draft_layers
+            dmodel = DecoderLM(device=self.device, **cfg)
+            blocks = {name: w[: self._draft_layers] for name, w in params["blocks"].items()}
+            return dmodel, {**params, "blocks": blocks}
+        raise ValueError("speculate_tokens needs draft_layers or draft_uri")
 
     def _encode(self, text: str) -> List[int]:
         return list(text.encode("utf-8"))
@@ -506,6 +556,10 @@ class GenerateServer(SeldonComponent):
                 {"type": "GAUGE", "key": "prefix_cache_bytes",
                  "value": float(s["prefix_cache_bytes"])},
             ])
+        if s.get("spec_rounds"):
+            # 1.0 = no draft accepted, gamma + 1 = every draft accepted
+            out.append({"type": "GAUGE", "key": "gen_spec_tokens_per_round",
+                        "value": round(s["spec_emitted"] / s["spec_rounds"], 4)})
         pending = self.batcher.slo_pending
         while pending:
             try:

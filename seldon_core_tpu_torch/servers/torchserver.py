@@ -49,7 +49,9 @@ class TorchServer(TorchComponent):
             cfg = json.load(f)
         self._family = cfg["family"]
         self._config = cfg.get("config", {})
-        self._model = model_zoo.build(self._family, **self._config)
+        # the model is held against the card's kernels before any weight
+        # is loaded (a head dim or dtype the card cannot serve raises here)
+        self._model = model_zoo.build(self._family, device=self.device, **self._config)
         params = None
         ckpt_rel = cfg.get("checkpoint")
         if ckpt_rel:

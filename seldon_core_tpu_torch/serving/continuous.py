@@ -50,9 +50,10 @@ Counterpart of ``seldon_core_tpu/serving/continuous.py``
   group's gather and scatter), keyed by step kind, rows, attention
   bucket and sampling. ``warm()`` captures every key the declared
   traffic reaches; a key it missed is captured at first use and counted
-  (``graph_captures_inline``). Every tensor a graph touches is a
-  persistent buffer updated in place. On the CPU the same phase
-  functions run eagerly.
+  (``graph_captures_inline``, which also counts the spec graphs a
+  rung-2 resume captures again over a moved draft cache). Every tensor
+  a graph touches is a persistent buffer updated in place. On the CPU
+  the same phase functions run eagerly.
 * Radix prefix KV cache (``prefix_cache_hbm_bytes``): a finished
   request publishes its prompt's K/V (``[L, 1, KV, bucket, Dh]``, copied
   out of its lane) into a radix index over token IDs under an LRU byte
@@ -71,15 +72,31 @@ Counterpart of ``seldon_core_tpu/serving/continuous.py``
   replays the emitted tokens' K/V teacher-forced through the decode step
   and continues the same sampling stream. While latched, admissions
   hold and submits are shed (``ShedError``, 429 at the engine).
+* Speculative decoding (``draft_model``/``draft_params``,
+  ``speculate_tokens`` = gamma): each round the draft proposes gamma
+  tokens with gamma one-position steps over its own cache, and ONE
+  target forward over the window (``decode_chunk_ragged_list``)
+  verifies them; greedy lanes accept while the draft's argmax equals the
+  target's, temperature lanes use speculative sampling (accept with
+  ``min(1, p/q)``, resample the residual on rejection), so the output is
+  the target's for any draft. A burst is ``steps_per_poll`` rounds over
+  the whole batch (one CUDA graph per attention bucket and sampling
+  variant on the card), admissions are single-request, and each lane's
+  draft prefix is re-derived from its tokens (never cached or chunked).
+  The fused plan degrades to the spec burst. Under HBM pressure, rung 2
+  of the reclaim ladder cancels speculation (the draft cache is freed,
+  lanes decode with the plain burst graphs) while every lane is greedy,
+  holds sampled requests (greedy ones are still admitted), and restores
+  it when the draft cache fits back under the high watermark.
 * Prefill, chunk and lane insert run inside ``tracing.device_trace``
   ranges (``gen.prefill``, ``gen.prefill_chunk``, ``gen.lane_insert``),
   decode bursts inside ``gen.decode_burst``, named in ``torch.profiler``
   traces.
 
-Every other scheduler feature of the JAX batcher (speculation, the host
-KV tier, weight swap, drain, retune, the flight recorder, the
-device-time profiler, tenants, the mesh) is not ported yet: its knob
-raises when set to anything but its off value.
+Every other scheduler feature of the JAX batcher (the host KV tier,
+weight swap, drain, retune, the flight recorder, the device-time
+profiler, tenants, the mesh) is not ported yet: its knob raises when set
+to anything but its off value.
 """
 
 from __future__ import annotations
@@ -106,25 +123,21 @@ logger = logging.getLogger(__name__)
 
 # Scheduler knobs of the JAX batcher that this port does not implement
 # yet, with the value that turns each off; any other value raises. They
-# are the mesh (multi-device serving), speculation (a draft model), the
-# flight recorder, the host KV tier, weight swap and the device-time
-# profiler.
+# are the mesh (multi-device serving), the flight recorder, the host KV
+# tier, weight swap and the device-time profiler.
 NOT_PORTED_KNOBS: Dict[str, Any] = {
     "mesh": None,
     "shard_cache_seq": False,
-    "draft_model": None,
-    "draft_params": None,
     "flight_recorder_capacity": 0,
     "host_kv_tier_bytes": 0,
     "swap_drain_ms": 0,
     "profiler": None,
 }
-# knobs that only act through one of the features above (speculation's
-# length, the host tier's thresholds, the swap's resume policy); accepted
-# at any value so JAX-package configs carry over
+# knobs that only act through one of the features above (the host
+# tier's thresholds, the swap's resume policy); accepted at any value so
+# JAX-package configs carry over
 INERT_KNOBS = (
-    "speculate_tokens", "kv_tier_min_tokens", "kv_tier_promote_min_tokens",
-    "swap_resume_policy",
+    "kv_tier_min_tokens", "kv_tier_promote_min_tokens", "swap_resume_policy",
 )
 
 
@@ -259,12 +272,15 @@ class _Burst:
     ``[k + 1, rows]`` (row 0 = the tokens it started from), for a fused
     burst each column's emitted count, and the lane snapshot its columns
     are credited against (``snapshot[slot] = (slot state, start row,
-    column)``)."""
+    column)``). A speculation burst (``spec``) carries the packed
+    ``[1 + k * (gamma + 2), slots]`` block :meth:`ContinuousBatcher.
+    _spec_burst` writes as its tokens."""
 
     def __init__(self, toks: torch.Tensor, counts: Optional[torch.Tensor],
-                 snapshot, k: int, pool: Optional[_PinnedPool]):
+                 snapshot, k: int, pool: Optional[_PinnedPool], spec: bool = False):
         self.snapshot = snapshot
         self.k = k
+        self.spec = spec
         self.fused = counts is not None
         self._pool, self._buf, self.event = pool, None, None
         if toks.device.type != "cuda":
@@ -427,6 +443,9 @@ class ContinuousBatcher:
         hbm_ledger_bytes: int = 0,
         pressure_high: float = 0.90,
         pressure_low: float = 0.75,
+        draft_model=None,
+        draft_params=None,
+        speculate_tokens: int = 4,
         cuda_graphs: bool = True,
         **knobs,
     ):
@@ -460,6 +479,19 @@ class ContinuousBatcher:
         self.prefill_buckets = tuple(
             sorted(b for b in prefill_buckets if b <= self.max_seq)
         ) or (self.max_seq,)
+        # speculative decoding: the draft proposes speculate_tokens tokens
+        # per round and one target window forward verifies them (0 = off:
+        # no draft given)
+        self.draft_model = draft_model
+        self.speculate_tokens = max(0, int(speculate_tokens)) if draft_model is not None else 0
+        if self.speculate_tokens:
+            if draft_params is None:
+                raise ValueError("draft_model needs draft_params")
+            if draft_model.cfg.vocab_size != model.cfg.vocab_size:
+                raise ValueError(
+                    f"the draft's vocab ({draft_model.cfg.vocab_size}) differs from "
+                    f"the target's ({model.cfg.vocab_size})"
+                )
 
         self._queue: "queue.Queue[GenRequest]" = queue.Queue()
         # shed before work: an explicit admit-queue cap (0 = none), and
@@ -516,6 +548,10 @@ class ContinuousBatcher:
         )
         self.pressure_hook: Optional[Any] = None
         self._resume_queue: "collections.deque" = collections.deque()
+        # the reclaim ladder's actions, newest last: {"type":
+        # "pressure_reclaim", "action": "evict_prefix" | "cancel_speculation"
+        # | "resume_speculation", ...}
+        self.pressure_events: "collections.deque" = collections.deque(maxlen=256)
         # burst_reads/burst_read_bytes: modelled device reads of the
         # dispatched decode (sub)bursts, params once per step plus each
         # row's bucketed KV; group_*: real and pad rows of grouped
@@ -539,6 +575,13 @@ class ContinuousBatcher:
             "burst_reads": 0, "burst_read_bytes": 0,
             "group_bursts": 0, "group_lanes": 0, "group_pad_lanes": 0,
             "fused_steps": 0, "fused_dispatches": 0,
+            # speculation: lane-rounds run and tokens they emitted (their
+            # ratio is the tokens per round, 1 .. gamma + 1), and the spec
+            # graphs re-captured (or set aside and reused: the new draft
+            # cache at the old address) when rung 2 gives the draft cache
+            # back
+            "spec_rounds": 0, "spec_emitted": 0, "spec_graph_recaptures": 0,
+            "spec_graph_reuses": 0,
             # decode-burst CUDA graphs: captures, their seconds, the device
             # memory the graph pool reserved while capturing, captures
             # after warm(), and replays
@@ -556,10 +599,23 @@ class ContinuousBatcher:
 
         dt = model.dtype
         self.device = params["embed"].device
+        model.check_device(self.device)
         # params are stored in the compute dtype: the forward casts at use,
         # so pre-casting is numerically identical and halves the bytes
         # every decode step reads
         self.params = _cast_tree(params, dt)
+        self._draft_params = None
+        self._draft_kv_key_bytes = 0
+        if self.speculate_tokens:
+            draft_model.check_device(self.device)
+            # an early-exit self-draft shares the target's tensors: leaves
+            # already in the draft's dtype are kept as they are
+            self._draft_params = _cast_tree(draft_params, draft_model.dtype)
+            dcfg = draft_model.cfg
+            self._draft_kv_key_bytes = (
+                2 * dcfg.n_layers * dcfg.n_kv_heads * dcfg.head_dim
+                * torch.empty((), dtype=draft_model.dtype).element_size()
+            )
         cfg = model.cfg
         # depth-group cost model: K+V bytes per cached position over all
         # layers, and the param read a separate sub-burst adds per step
@@ -580,8 +636,9 @@ class ContinuousBatcher:
             if cuda_graphs and self.device.type == "cuda" else None
         )
         kmax = max(self._k, self._fused_k)
+        rows = max(kmax + 2, self._spec_rows())
         self._pinned = (
-            _PinnedPool((kmax + 2) * self.slots, self.pipeline_depth + 1)
+            _PinnedPool(rows * self.slots, self.pipeline_depth + 1)
             if self.device.type == "cuda" else None
         )
         self._alloc_device_state()
@@ -610,6 +667,20 @@ class ContinuousBatcher:
             "pos": torch.zeros((self.slots,), dtype=torch.long, device=dev),
             "wpos": torch.full((self.slots,), self.max_seq, dtype=torch.long, device=dev),
         }
+        self._draft_cache = self._draft_buf = None
+        # rung 2's suspended spec graphs: (draft buffer address, graphs)
+        self._spec_suspended = None
+        self._spec_out = None
+        if self.speculate_tokens:
+            self._draft_cache = self._new_draft_cache()
+            # one spec burst's output: the start tokens, then per round
+            # each lane's gamma + 1 window tokens, then per round each
+            # lane's emitted count
+            self._spec_out = torch.zeros((self._spec_rows(), self.slots),
+                                         dtype=torch.long, device=dev)
+        # reclaim rung 2 cancelled speculation (draft cache freed, plain
+        # bursts) until the ledger clears
+        self._spec_suppressed = False
         self._groups: Dict[int, _LaneState] = {}
         self._gather_buf = None
         if self.depth_groups > 1:
@@ -625,6 +696,26 @@ class ContinuousBatcher:
         if self._graphs is not None:
             self._graphs.clear()
         self._reset_lanes()
+
+    def _spec_rows(self) -> int:
+        """Rows of a spec burst's packed output: ``1 + k * (gamma + 2)``
+        (0 without speculation)."""
+        g = self.speculate_tokens
+        return 1 + self._k * (g + 2) if g else 0
+
+    def _new_draft_cache(self):
+        """A zeroed draft cache: per draft layer ``[slots, KV_d, max_seq,
+        Dh_d]``, as the target's, all views of ONE buffer
+        (``_draft_buf``), so that rung 2's free and re-allocation is one
+        block the caching allocator can hand back at the same address."""
+        dcfg = self.draft_model.cfg
+        shape = (2, dcfg.n_layers, self.slots, dcfg.n_kv_heads, self.max_seq, dcfg.head_dim)
+        self._draft_buf = torch.zeros(shape, dtype=self.draft_model.dtype, device=self.device)
+        return {"k": list(self._draft_buf[0]), "v": list(self._draft_buf[1])}
+
+    def _spec_active(self) -> bool:
+        """Speculation is configured and rung 2 has not cancelled it."""
+        return self.speculate_tokens > 0 and not self._spec_suppressed
 
     def _upload(self, dst: torch.Tensor, arr) -> None:
         """Host array -> persistent device buffer, in place and without a
@@ -778,6 +869,132 @@ class ContinuousBatcher:
             self.params, self._cache["k"], self._cache["v"], r["cur"][:, None],
             r["pos"], attn_len=attn_len, write_pos=r["wpos"],
         )
+
+    @torch.no_grad()
+    def _draft_admit_tokens(self, slot: int, tokens: List[int]) -> None:
+        """The draft's K/V prefix of ``tokens`` into lane ``slot`` of the
+        draft cache: a draft prefill over the tokens right-padded to their
+        bucket (the prompt at admission, prompt + generated-so-far when a
+        lane resumes or speculation comes back). The draft's K/V is a
+        function of the tokens alone, so re-deriving it lands the lane
+        where incremental drafting would have left it; it is never cached
+        or chunked (the draft is cheap by construction, and the prefix
+        cache holds only the target's K/V).
+
+        The rest of the lane's draft row is cleared: a round that accepts
+        all gamma drafts leaves the last draft's position unwritten, and
+        the next round's draft attends over it. Cleared, that position
+        holds what a fresh cache holds, whatever the lane served before
+        and however many rounds ran past an earlier request's end (the
+        JAX batcher keeps the leftover, so its seeded streams with
+        speculation depend on the lane's history)."""
+        n = len(tokens)
+        bucket = self._bucket(n)
+        prompt = np.zeros((1, bucket), np.int64)
+        prompt[0, :n] = tokens
+        with device_trace("gen.draft_prefill"):
+            _logits, slab = self.draft_model.prefill(
+                self._draft_params, self._to_dev(prompt), bucket,
+                last_index=self._to_dev(np.asarray([n - 1], np.int64)),
+            )
+            for name in ("k", "v"):
+                for l, layer in enumerate(self._draft_cache[name]):
+                    layer[slot, :, :bucket] = slab[name][l, 0]
+                    layer[slot, :, bucket:].zero_()
+
+    def _spec_round(self, attn_len: int, any_stoch: bool):
+        """ONE speculation round over every lane (the JAX package's
+        ``spec_round``): gamma draft steps, one target verify over the
+        window, acceptance, and the correction or bonus token. Greedy
+        lanes take the draft's argmax and accept while it equals the
+        target's; temperature lanes draft by sampling ``q`` and accept
+        draft i with probability ``min(1, p_i(d_i) / q_i(d_i))``, then
+        sample the correction from ``norm(max(p - q, 0))`` (or the bonus
+        from ``p`` when all gamma were accepted), so every lane emits the
+        target's distribution. ``any_stoch`` False is the greedy-only
+        variant: no lane key splits in it, as in the JAX package. Every
+        shape is static and nothing reads back to the host, so a burst
+        of rounds is one CUDA graph. Updates the lane registers in place
+        and returns ``(out [S, gamma + 1], count [S])``."""
+        w = self._whole
+        g = self.speculate_tokens
+        act, temps = w.act, w.temps
+        safe_t = torch.clamp(temps, min=1e-6)[:, None]
+        stoch = temps > 0
+        keys = w.keys
+        dks, dvs = self._draft_cache["k"], self._draft_cache["v"]
+        dtok, dpos = w.cur, w.pos
+        drafts, q_rows = [], []
+        for _ in range(g):
+            dlogits, _, _ = self.draft_model.decode_step_ragged_list(
+                self._draft_params, dks, dvs, dtok[:, None], dpos, attn_len=attn_len)
+            greedy = torch.argmax(dlogits, dim=-1)
+            if any_stoch:
+                pair = rng.split(keys)
+                keys, subs = pair[:, 0], pair[:, 1]
+                scaled = dlogits / safe_t
+                q_rows.append(torch.softmax(scaled, dim=-1))
+                dtok = torch.where(stoch, rng.categorical_rows(subs, scaled), greedy)
+            else:
+                dtok = greedy
+            dtok = torch.where(act, dtok, 0)
+            drafts.append(dtok)
+            dpos = torch.where(act, dpos + 1, dpos)
+        drafts_arr = torch.stack(drafts, dim=1)  # [S, g]
+        window = torch.cat([w.cur[:, None], drafts_arr], dim=1)
+        tlogits, _, _ = self.model.decode_chunk_ragged_list(
+            self.params, self._cache["k"], self._cache["v"], window, w.pos, attn_len=attn_len)
+        t_greedy = torch.argmax(tlogits, dim=-1)  # [S, g + 1]
+        acc = drafts_arr == t_greedy[:, :g]
+        if any_stoch:
+            q_full = torch.stack(q_rows, dim=1)  # [S, g, V]
+            p = torch.softmax(tlogits / safe_t[..., None], dim=-1)
+            p_sel = torch.gather(p[:, :g], 2, drafts_arr[..., None])[..., 0]
+            q_sel = torch.gather(q_full, 2, drafts_arr[..., None])[..., 0]
+            pair = rng.split(keys)
+            keys, subs = pair[:, 0], pair[:, 1]
+            u = rng.uniform(subs, (g,))  # [S, g]
+            acc_stoch = u < torch.clamp(p_sel / torch.clamp(q_sel, min=1e-20), max=1.0)
+            acc = torch.where(stoch[:, None], acc_stoch, acc)
+        accepted = torch.cumprod(acc.long(), dim=1).sum(dim=1)  # [S]
+        correction = torch.gather(t_greedy, 1, accepted[:, None])[:, 0]
+        if any_stoch:
+            V = p.shape[-1]
+            p_at_a = torch.gather(p, 1, accepted[:, None, None].expand(-1, 1, V))[:, 0]
+            a_clamp = torch.clamp(accepted, max=g - 1)
+            q_at_a = torch.gather(q_full, 1, a_clamp[:, None, None].expand(-1, 1, V))[:, 0]
+            resid = torch.clamp(p_at_a - q_at_a, min=0.0)
+            # a numerically empty residual (p <= q everywhere) falls back to p
+            resid = torch.where(resid.sum(-1, keepdim=True) > 1e-12, resid, p_at_a)
+            dist = torch.where((accepted == g)[:, None], p_at_a, resid)
+            pair = rng.split(keys)
+            keys, subs = pair[:, 0], pair[:, 1]
+            sampled = rng.categorical_rows(subs, torch.log(dist + 1e-30))
+            correction = torch.where(stoch, sampled, correction)
+        cols = torch.arange(g + 1, device=w.cur.device)[None, :]
+        out = torch.where(cols < accepted[:, None], torch.nn.functional.pad(drafts_arr, (0, 1)), 0)
+        out = torch.where(cols == accepted[:, None], correction[:, None], out)
+        out = torch.where(act[:, None], out, 0)
+        count = torch.where(act, accepted + 1, 0)
+        w.cur.copy_(torch.where(act, correction, w.cur))
+        w.pos.copy_(torch.where(act, w.pos + accepted + 1, w.pos))
+        if any_stoch:
+            w.keys.copy_(keys)
+        return out, count
+
+    def _spec_burst(self, attn_len: int, any_stoch: bool) -> None:
+        """``k`` speculation rounds (the JAX package's ``spec_burst``) into
+        the packed output ``_spec_out``: row 0 the tokens the burst
+        started from (a deferred prefill first token rides home with the
+        burst's one read), then each round's ``[gamma + 1, slots]``
+        window tokens, then each round's per-lane emitted count."""
+        g, k = self.speculate_tokens, self._k
+        out = self._spec_out
+        out[0].copy_(self._whole.cur)
+        for r in range(k):
+            toks, count = self._spec_round(attn_len, any_stoch)
+            out[1 + r * (g + 1): 1 + (r + 1) * (g + 1)].copy_(toks.t())
+            out[1 + k * (g + 1) + r].copy_(count)
 
     # Decode-burst phases. Each reads and writes only persistent buffers
     # (a _LaneState, the cache, the gather buffer), so on the card each
@@ -1092,34 +1309,27 @@ class ContinuousBatcher:
         if not buckets:
             buckets = [self.prefill_buckets[0]]
         # per-poll advance: a fused dispatch advances up to fused_steps,
-        # and its adaptive K shrinks to the poll burst at the least
-        adv = max(self._k, self._fused_k)
-        least = min(self._k, self._fused_k) if self._fused_k else self._k
-        # attention buckets a run at these prompt lengths can touch, from
-        # the shallowest lane's first burst (alone, or in a depth group of
-        # its own) to the deepest end of budget; an eos lane outlives its
-        # budget until the host reads its stop, up to pipeline_depth - 1
-        # bursts of extra _pos_host advance
+        # and its adaptive K shrinks to the poll burst at the least (a
+        # configured draft keeps the fused plan off)
+        fused_k = 0 if self.speculate_tokens else self._fused_k
+        adv = max(self._k, fused_k)
+        least = min(self._k, fused_k) if fused_k else self._k
+        attn_lens = self._warm_attn_lens(prompt_lens, max_new_tokens, adv, least)
         lo = min(prompt_lens) if prompt_lens else 1
-        hi = (
-            (max(prompt_lens) if prompt_lens else 1)
-            + max_new_tokens
-            + adv * (1 + max(0, self.pipeline_depth - 1))
-        )
-        attn_lens = sorted(
-            {self._attn_need(p) for p in range(lo + least, hi + 1, self.attn_bucket)}
-            | {self._attn_need(hi)}
-        )
         for bucket in buckets:
             for m in batch_sizes:
                 if m > self.slots:
                     continue  # a wave can never exceed the lane pool
                 if m == 8 and not self._chunk8_ok(bucket):
                     continue
+                if m > 1 and self.speculate_tokens:
+                    continue  # speculation admits one request at a time
                 prompts = np.zeros((m, bucket), np.int64)
                 last = np.zeros((m,), np.int64)
                 firsts, slab, keys = self._prefill(prompts, last, [0] * m, [0.0] * m)
                 self._insert(slab, list(range(m)), firsts, last + 1, keys)
+                if self.speculate_tokens:
+                    self._draft_admit_tokens(0, [0] * bucket)
         C = self.prefill_chunk
         for bucket in buckets:
             if not C or bucket <= C:
@@ -1133,8 +1343,18 @@ class ContinuousBatcher:
                 for is_last in (False, True):
                     self._chunk_step(slab, np.zeros((1, C), np.int64), start,
                                      C - 1, 0, 0.0, attn_len, is_last)
-        self._warm_bursts(attn_lens)
-        if self._pressure.budget_bytes > 0 or self.pressure_hook is not None:
+        pressure = self._pressure.budget_bytes > 0 or self.pressure_hook is not None
+        if self.speculate_tokens:
+            # a spec burst reads the bucket of the deepest lane's end of
+            # burst, k * (gamma + 1) positions on, whole-batch
+            spec_adv = self._k * (self.speculate_tokens + 1)
+            self._warm_spec(self._warm_attn_lens(prompt_lens, max_new_tokens,
+                                                 spec_adv, spec_adv))
+        if not self.speculate_tokens or pressure:
+            # with a draft, the plain bursts are what lanes decode with
+            # while rung 2 has cancelled speculation
+            self._warm_bursts(attn_lens)
+        if pressure:
             # a resume replays at the bucket of its lane's end position,
             # which can lie at any bucket from the shallowest prompt up
             self._warm_replay(sorted(set(attn_lens) | {self._attn_need(lo)}))
@@ -1143,13 +1363,50 @@ class ContinuousBatcher:
         # warm left garbage in the lane registers: reset them
         self._reset_lanes()
 
+    def _warm_attn_lens(self, prompt_lens: Sequence[int], max_new_tokens: int,
+                        adv: int, least: int) -> List[int]:
+        """Attention buckets a run at these prompt lengths can touch when
+        each poll advances a lane by up to ``adv`` positions (at least
+        ``least``): from the shallowest lane's first burst (alone, or in
+        a depth group of its own) to the deepest end of budget; an eos
+        lane outlives its budget until the host reads its stop, up to
+        pipeline_depth - 1 bursts of extra ``_pos_host`` advance."""
+        lo = min(prompt_lens) if prompt_lens else 1
+        hi = (
+            (max(prompt_lens) if prompt_lens else 1)
+            + int(max_new_tokens)
+            + adv * (1 + max(0, self.pipeline_depth - 1))
+        )
+        return sorted(
+            {self._attn_need(p) for p in range(lo + least, hi + 1, self.attn_bucket)}
+            | {self._attn_need(hi)}
+        )
+
+    def _warm_spec(self, attn_lens: Sequence[int]) -> None:
+        """Capture (on the card) or run once (on the CPU) the spec burst at
+        every attention bucket, greedy-only and stochastic: the JAX
+        package compiles its stochastic variant at first use, here both
+        exist before traffic. Every lane idle."""
+        w = self._whole
+        w.act.zero_()
+        w.temps.zero_()
+        for attn_len in attn_lens:
+            for stoch in (False, True):
+                key = ("spec", attn_len, stoch)
+                fn = lambda a=attn_len, st=stoch: self._spec_burst(a, st)  # noqa: E731
+                if self._graphs is None:
+                    with torch.inference_mode():
+                        fn()
+                elif key not in self._graphs.graphs:
+                    self._graphs.capture(key, fn, warm_first=True)
+
     def _warm_bursts(self, attn_lens: Sequence[int]) -> None:
         """Every decode-burst phase key reachable at these attention
         buckets: the one step kind this configuration dispatches (masked
         when fused decode is on), greedy and sampled, over the whole
         batch and, with depth groups, every group size. On the card each
         key is run once and captured; on the CPU each phase runs once."""
-        masked = self._fused_k > 0
+        masked = self._fused_k > 0 and not self.speculate_tokens
         w = self._whole
         w.act.zero_()
         w.temps.zero_()
@@ -1281,6 +1538,11 @@ class ContinuousBatcher:
         with device_trace("gen.lane_insert"):
             self._insert(slab, slots, firsts, last + 1, lane_keys)
         for slot, req in zip(slots, reqs):
+            if self._spec_active():
+                # the draft's prompt prefix, so its proposals attend over
+                # the real context (a rung-2 suppression skips it: the lane
+                # gets its prefix when speculation comes back)
+                self._draft_admit_tokens(slot, req.tokens)
             req.admit_t = t_admit
             self._active[slot] = _Slot(request=req)
             self._pos_host[slot] = len(req.tokens)
@@ -1297,6 +1559,10 @@ class ContinuousBatcher:
         Like every admission, nothing is read back."""
         req.admit_t = time.monotonic()
         self._prompt_into_lane(slot, req, hit)
+        if self._spec_active():
+            # re-derived from the whole prompt: the radix pool holds only
+            # the target's K/V
+            self._draft_admit_tokens(slot, req.tokens)
         self._active[slot] = _Slot(request=req)
         self._pos_host[slot] = len(req.tokens)
         self._masks_dirty = True
@@ -1424,6 +1690,9 @@ class ContinuousBatcher:
         ``counts[col]`` tokens per column before its done mask froze the
         lane, so that span is credited, and the lane's host position
         bound tightens from the k advance to its real one."""
+        if burst.spec:
+            self._process_spec_burst(burst)
+            return
         host_toks, counts = burst.numpy()  # the burst's one host read
         for slot, (s, start, col) in burst.snapshot.items():
             if burst.fused:
@@ -1532,7 +1801,7 @@ class ContinuousBatcher:
         suffix of a hit, else its bucket) is longer than one prefill
         chunk reserves its lane for chunked prefill; the others group by
         bucket and share a batched prefill of m = 8 (where the slab
-        fits), 4, or 1."""
+        fits), 4, or 1 (always 1 with a draft configured)."""
         free_iter = iter(
             i for i in range(self.slots) if i not in self._active and i not in self._chunked
         )
@@ -1552,11 +1821,14 @@ class ContinuousBatcher:
             by_bucket.setdefault(self._bucket(n), []).append(req)
         for bucket, reqs in by_bucket.items():
             while reqs:
+                # speculation admits one request at a time (its draft
+                # prefix is a per-request prefill)
                 m = 1
-                if len(reqs) >= 8 and self._chunk8_ok(bucket):
-                    m = 8
-                elif len(reqs) >= 4:
-                    m = 4
+                if not self.speculate_tokens:
+                    if len(reqs) >= 8 and self._chunk8_ok(bucket):
+                        m = 8
+                    elif len(reqs) >= 4:
+                        m = 4
                 chunk, reqs = reqs[:m], reqs[m:]
                 slots_ = [next(free_iter) for _ in chunk]
                 try:
@@ -1677,6 +1949,8 @@ class ContinuousBatcher:
                 if job.resume is not None:
                     self._activate_resumed(slot, req, job.resume[0])
                     continue
+                if self._spec_active():
+                    self._draft_admit_tokens(slot, req.tokens)
                 self._active[slot] = _Slot(request=req)
                 self._pos_host[slot] = n
                 self._masks_dirty = True
@@ -1741,10 +2015,10 @@ class ContinuousBatcher:
     def _ledger_components(self) -> Dict[str, int]:
         """The unified HBM ledger, priced the way the reclaim ladder can
         free it: each live lane at its attention-read bucket times the
-        K/V bytes per position, the chunked-prefill staging slabs, and the
-        prefix cache's bytes. Host arithmetic over at most ``slots``
-        entries."""
-        per_tok = self._kv_key_bytes
+        K/V bytes per position (the draft cache's included while it is
+        resident), the chunked-prefill staging slabs, and the prefix
+        cache's bytes. Host arithmetic over at most ``slots`` entries."""
+        per_tok = self._lane_kv_bytes()
         return {
             "decode": sum(self._attn_need(p) for p in self._pos_host.values()) * per_tok,
             "staging": sum(job.bucket for job in self._chunked.values()) * per_tok,
@@ -1764,11 +2038,20 @@ class ContinuousBatcher:
                 else:
                     pc.set_budget(int(nb))
         if pc.budget_bytes <= 0:
+            # a restore can land on a zero boot budget (pressure driven by
+            # the hook alone): cancelled speculation must still come back
+            if self._spec_suppressed:
+                self._resume_speculation()
             if pc.active:
                 pc.update(self._ledger_components())
             return
         if pc.update(self._ledger_components()):
             self._reclaim(pending, pc)
+        elif self._spec_suppressed and pc.used + self._draft_ledger_bytes() < pc.high_bytes:
+            # back only when the draft cache fits under the high watermark:
+            # otherwise the next poll would cancel it again (the JAX
+            # batcher resumes as soon as the latch clears, and oscillates)
+            self._resume_speculation()
 
     def _drain_pending(self, pending) -> None:
         """Read every in-flight burst now, oldest first: a checkpoint must
@@ -1782,7 +2065,11 @@ class ContinuousBatcher:
         back under its low watermark:
 
         1. evict prefix slabs (LRU): pure cache, no work lost;
-        2. cancel speculation: nothing to do until speculation is ported;
+        2. cancel speculation: free the draft cache and decode with the
+           plain bursts (:meth:`_suppress_speculation`); greedy streams
+           are unchanged, since greedy speculation emits the target's
+           argmax decode; skipped while any lane samples (a seeded
+           stream with speculation differs from one without);
         3. preempt lanes: checkpoint a victim on the host and requeue it
            for resume, freeing its lane at this poll boundary; never the
            last lane, so one lane always progresses and pressure cannot
@@ -1796,7 +2083,16 @@ class ContinuousBatcher:
                 self.stats["prefix_evicted"] += evicted
                 self.stats["pressure_prefix_evictions"] += evicted
                 self.stats["prefix_cache_bytes"] = idx.total_bytes
+                self.pressure_events.append({
+                    "type": "pressure_reclaim", "action": "evict_prefix",
+                    "evicted": evicted, "used_bytes": pc.used})
                 pc.update(self._ledger_components())
+        if (pc.active and self._spec_active()
+                and all(s.request.temperature == 0.0 for s in self._active.values())
+                and all(j.request.temperature == 0.0 for j in self._chunked.values())):
+            self._drain_pending(pending)
+            self._suppress_speculation()
+            pc.update(self._ledger_components())
         if pc.active and len(self._active) + len(self._chunked) > 1:
             self._drain_pending(pending)
             # the drain may have finished lanes outright
@@ -1812,12 +2108,74 @@ class ContinuousBatcher:
                     self._preempt_lane(slot)
                 pc.update(self._ledger_components())
 
+    def _suppress_speculation(self) -> None:
+        """Rung 2: free the draft cache and decode with the plain bursts.
+        Every spec graph (tagged ``"spec"``, whether warm() or a dispatch
+        captured it) addresses the freed buffer: they are set aside,
+        never replayed, until :meth:`_resume_speculation` finds the new
+        buffer at the same address (else it captures them again). The
+        pipeline has been drained, so no spec burst is in flight."""
+        self._spec_suppressed = True
+        if self._graphs is not None:
+            graphs = self._graphs.graphs
+            spec = [key for key in graphs if key[0] == "spec"]
+            self._spec_suspended = (self._draft_buf.data_ptr(),
+                                    {key: graphs.pop(key) for key in spec})
+        self._draft_cache = self._draft_buf = None
+        self._masks_dirty = True
+        self.pressure_events.append({"type": "pressure_reclaim",
+                                     "action": "cancel_speculation"})
+        logger.warning("HBM pressure: speculation cancelled (draft cache freed); "
+                       "plain decode bursts until the ledger clears")
+
+    def _resume_speculation(self) -> None:
+        """The ledger cleared: reallocate the draft cache and re-derive
+        every live lane's draft prefix from its prompt and the tokens the
+        host has credited (the JAX package's order: before admissions,
+        so no lane is admitted into a half-restored draft cache). On the
+        card the set-aside spec graphs come back when the new cache lies
+        at the old address, else they are captured again over it
+        (captured, not run: the lanes are live), each counted as a
+        capture after warm()."""
+        self._draft_cache = self._new_draft_cache()
+        self._spec_suppressed = False
+        for slot, s in self._active.items():
+            full = s.request.tokens + s.emitted[:-1] if s.emitted else s.request.tokens
+            self._draft_admit_tokens(slot, full)
+        ptr, graphs = self._spec_suspended or (None, {})
+        self._spec_suspended = None
+        if self._graphs is not None and ptr == self._draft_buf.data_ptr():
+            self._graphs.graphs.update(graphs)
+            self.stats["spec_graph_reuses"] += len(graphs)
+        elif self._graphs is not None:
+            for key in graphs:
+                _tag, attn_len, stoch = key
+                self._graphs.capture(
+                    key, lambda a=attn_len, st=stoch: self._spec_burst(a, st),
+                    warm_first=False)
+                self.stats["spec_graph_recaptures"] += 1
+                self.stats["graph_captures_inline"] += 1
+        self._masks_dirty = True
+        self.pressure_events.append({"type": "pressure_reclaim",
+                                     "action": "resume_speculation",
+                                     "lanes": len(self._active)})
+
     def _admit_cost_bytes(self, req: GenRequest) -> int:
         """Ledger footprint of ``req`` at the end of its generation: the
         attention bucket of its last position times the K/V bytes per
         position (the watermark-aware admission's price)."""
         end = min(self.max_seq, len(req.tokens) + req.max_new_tokens)
-        return self._attn_need(end) * self._kv_key_bytes
+        return self._attn_need(end) * self._lane_kv_bytes()
+
+    def _draft_ledger_bytes(self) -> int:
+        """What the live lanes' draft cache adds to the ledger's decode
+        component while speculation is on."""
+        return sum(self._attn_need(p) for p in self._pos_host.values()) * self._draft_kv_key_bytes
+
+    def _lane_kv_bytes(self) -> int:
+        """K/V bytes a live lane holds per position: the target's, plus
+        the draft's while speculation is on (rung 2 frees it)."""
+        return self._kv_key_bytes + (self._draft_kv_key_bytes if self._spec_active() else 0)
 
     def _pick_victim(self):
         """``("chunked", slot)``, ``("lane", slot)`` or None. Chunked
@@ -1898,6 +2256,8 @@ class ContinuousBatcher:
         inserted token -- ``emitted[-1]`` -- is not credited twice)."""
         n = len(req.tokens)
         self._replay_emitted(slot, n, emitted[:-1])
+        if self._spec_active():
+            self._draft_admit_tokens(slot, req.tokens + emitted[:-1])
         s = _Slot(request=req, emitted=list(emitted), first_pending=False,
                   dispatched=len(emitted))
         self._active[slot] = s
@@ -2050,7 +2410,12 @@ class ContinuousBatcher:
         sub-burst per depth group; each queues its tokens for the host."""
         if self._masks_dirty:
             self._sync_masks()
-        masked = self._fused_k > 0
+        if self._spec_active():
+            self._dispatch_spec(pending)
+            return
+        # a configured draft keeps the fused plan off, also while rung 2
+        # suppresses speculation: the plain burst is what warm() captured
+        masked = self._fused_k > 0 and not self.speculate_tokens
         if masked:
             k, _reason = self._fused_plan(self._fused_k)
             if not self._fused_sync:
@@ -2116,6 +2481,60 @@ class ContinuousBatcher:
         if freed:
             self._masks_dirty = True
 
+    def _dispatch_spec(self, pending) -> None:
+        """Dispatch one spec burst: ``k`` rounds over the whole batch
+        (spec bursts stay whole-batch under depth groups: their advance
+        is data-dependent and the verify already shares the param read),
+        at the attention bucket covering every lane's worst-case end of
+        burst, ``k * (gamma + 1)`` positions on. No lane is pre-freed:
+        how many tokens a round emits is known only once it is read."""
+        k = self._k
+        adv = k * (self.speculate_tokens + 1)
+        attn_len = self._attn_need(max(self._pos_host[i] for i in self._active) + adv)
+        snapshot = {}
+        for slot, s in self._active.items():
+            first = s.first_pending
+            snapshot[slot] = (s, 0 if first else 1, slot)
+            s.first_pending = False
+            s.dispatched += k + (1 if first else 0)
+            self._pos_host[slot] += adv
+        stoch = self._any_stoch
+        with device_trace("gen.decode_burst"):
+            self._phase(("spec", attn_len, stoch), lambda: self._spec_burst(attn_len, stoch))
+            pending.append(_Burst(self._spec_out, None, snapshot, k, self._pinned, spec=True))
+        self.stats["steps"] += k
+        self.stats["lane_steps"] += k * self.slots
+
+    def _process_spec_burst(self, burst: _Burst) -> None:
+        """Credit one spec burst: per round a lane emitted ``count`` tokens
+        (accepted drafts, then the target's correction or bonus token),
+        credited round by round up to its stop; the lane's host position
+        bound tightens from the worst case ``k * (gamma + 1)`` to what
+        its rounds emitted."""
+        host, _ = burst.numpy()  # the burst's one host read
+        k, g = burst.k, self.speculate_tokens
+        start_tok = host[0]
+        toks = host[1: 1 + k * (g + 1)].reshape(k, g + 1, -1)
+        counts = host[1 + k * (g + 1):]  # [k, slots]
+        # acceptance over every lane that ran rounds, whatever the host
+        # credits of them
+        self.stats["spec_rounds"] += int((counts > 0).sum())
+        self.stats["spec_emitted"] += int(counts.sum())
+        worst = k * (g + 1)
+        for slot, (s, start, _col) in burst.snapshot.items():
+            if self._active.get(slot) is not s:
+                continue
+            if slot in self._pos_host:
+                self._pos_host[slot] -= worst - int(counts[:, slot].sum())
+            done = False
+            if start == 0:
+                done = self._credit(s, [int(start_tok[slot])])
+            for r in range(k):
+                if done:
+                    break
+                done = self._credit(s, toks[r, : int(counts[r, slot]), slot])
+        self._check_done()
+
     def _loop(self) -> bool:
         """One supervised run of the poll loop. False on a clean close(),
         else :meth:`_crash_recover`'s verdict after a loop death."""
@@ -2132,6 +2551,7 @@ class ContinuousBatcher:
                     # refresh the ledger; over the high watermark, run the
                     # reclaim ladder at this poll boundary
                     self._pressure_poll(pending)
+                # admissions wait while the ledger is latched
                 hold = self._pressure.budget_bytes > 0 and self._pressure.active
                 wave: List[GenRequest] = []
                 busy = len(self._active) + len(self._chunked)
@@ -2150,6 +2570,14 @@ class ContinuousBatcher:
                     if req.future.cancelled():
                         self.stats["cancelled"] += 1
                         continue  # the caller gave up while queued
+                    if self._spec_suppressed and req.temperature != 0.0:
+                        # while rung 2 keeps speculation off, a sampled
+                        # request waits at the head of the line: admitted
+                        # now it would switch to speculation mid-stream,
+                        # and its stream depends on that (a greedy one
+                        # does not)
+                        self._resume_queue.appendleft(req)
+                        break
                     if self._pressure.budget_bytes > 0:
                         # watermark-aware admission: a request whose end of
                         # generation would trip the high watermark waits at

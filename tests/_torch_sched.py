@@ -14,7 +14,7 @@ from seldon_core_tpu.models.llm import DecoderLM as JaxLM
 from seldon_core_tpu.serving.continuous import ContinuousBatcher as JaxBatcher
 from seldon_core_tpu_torch.convert import params_from_numpy
 from seldon_core_tpu_torch.models.llm import DecoderLM as TorchLM
-from seldon_core_tpu_torch.serving.continuous import ContinuousBatcher
+from seldon_core_tpu_torch.serving.continuous import ContinuousBatcher, _StepGraphs
 
 torch.set_num_threads(1)
 
@@ -59,6 +59,40 @@ class JaxReference:
     def close(self):
         for b in self._batchers.values():
             b.close()
+
+
+class _EagerGraph:
+    def __init__(self, owner, key, fn, draft_buf):
+        self.owner, self.key, self.fn, self.draft_buf = owner, key, fn, draft_buf
+
+    def replay(self):
+        if self.key[0] == "spec" and self.draft_buf is not self.owner.batcher._draft_buf:
+            self.owner.stale.append(self.key)
+        with torch.inference_mode():
+            self.fn()
+
+
+class EagerGraphs(_StepGraphs):
+    """The batcher's graph set on the CPU: a capture records the phase
+    (and, for a spec burst, the draft buffer it addresses), a replay runs
+    it eagerly. A spec graph replayed over another draft buffer than its
+    own is listed in ``stale``: on the card it would read and write freed
+    memory. Holding every captured buffer, it makes a re-allocated draft
+    cache land at a new address. Install with ``b._graphs = EagerGraphs(b)``
+    before ``warm()`` or the first submit."""
+
+    def __init__(self, batcher):
+        super().__init__(batcher.device, batcher.stats)
+        self.batcher = batcher
+        self.stale = []
+
+    def capture(self, key, fn, warm_first):
+        if warm_first:
+            with torch.inference_mode():
+                fn()
+        buf = self.batcher._draft_buf if key[0] == "spec" else None
+        self.graphs[key] = _EagerGraph(self, key, fn, buf)
+        self.stats["graphs_captured"] += 1
 
 
 def port(models, **kw):

@@ -170,8 +170,8 @@ def test_kernel_check_rejects_stride_off_16_bytes():
 
 
 def test_kernel_check_rejects_other_head_dims_and_dtypes():
-    q, k, v = _prefill_views(1, 4, 2, 16, 96)
-    with pytest.raises(ValueError, match="head dim 64 or 128"):
+    q, k, v = _prefill_views(1, 4, 2, 16, 320)
+    with pytest.raises(ValueError, match="head dims 1..256"):
         tfa.check_kernel_inputs(q, k, v)
     q, k, v = _prefill_views(1, 4, 2, 16, 64, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32/bfloat16"):
@@ -183,6 +183,73 @@ def test_kernel_check_rejects_other_head_dims_and_dtypes():
         tfa.check_kernel_inputs(q, k.transpose(2, 3).contiguous().transpose(2, 3), v)
     with pytest.raises(ValueError, match="multiple of kv heads"):
         tfa.check_kernel_inputs(q, *(_prefill_views(1, 4, 3, 16, 64)[1:]))
+
+
+@pytest.mark.parametrize("dh", [8, 16, 32, 96, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_check_accepts_every_head_dim_up_to_256(dh, dtype):
+    """Every head dim up to 256 goes to the kernel: bfloat16 at 64/128 to
+    the wgmma route, everything else to the SIMT route, which takes any
+    stride (no TMA alignment)."""
+    q, k, v = _prefill_views(2, 4, 2, 33, dh, dtype)
+    tfa.check_kernel_inputs(q, k, v)
+    tfa.check_kernel_inputs(q, k, v, kv_len=20)
+    assert tfa.kernel_route(dtype, dh) == "simt"
+    flat = torch.zeros(1 + 33 * 4 * dh, dtype=dtype)  # base one element off
+    x = flat[1:].view(1, 33, 4, dh).transpose(1, 2)
+    tfa.check_kernel_inputs(x, x, x)
+
+
+def test_kernel_route():
+    assert tfa.kernel_route(torch.bfloat16, 64) == "wgmma"
+    assert tfa.kernel_route(torch.bfloat16, 128) == "wgmma"
+    assert tfa.kernel_route(torch.float32, 128) == "simt"
+    assert tfa.kernel_route(torch.bfloat16, 256) == "simt"
+
+
+@pytest.mark.parametrize("dh,dtype,cause", [
+    (320, "bfloat16", "head dims 1..256"), (512, "float32", "head dims 1..256"),
+    (64, "float16", "float32/bfloat16"),
+])
+def test_model_the_kernel_cannot_serve_is_refused_when_built(dh, dtype, cause):
+    """A DecoderLM whose prefill the card cannot run raises, naming the
+    cause, when it is built for CUDA (checked here with the config check
+    and on meta tensors of its prefill shape: no card needed)."""
+    from seldon_core_tpu_torch.models.llm import DecoderLM
+
+    model = DecoderLM(vocab_size=64, d_model=2 * dh, n_layers=1, n_heads=2, n_kv_heads=1,
+                      d_ff=32, max_seq=32, dtype=dtype)
+    with pytest.raises(ValueError, match=cause):
+        model.check_device("cuda")
+    q = torch.empty((1, 2, 16, dh), dtype=model.dtype, device="meta")
+    kv = torch.empty((1, 1, 16, dh), dtype=model.dtype, device="meta")
+    with pytest.raises(ValueError, match=cause):
+        tfa.check_kernel_inputs(q, kv, kv)
+    model.check_device("cpu")  # the CPU runs the plain version: nothing to refuse
+    ok = DecoderLM(vocab_size=64, d_model=16, n_layers=1, n_heads=2, n_kv_heads=1,
+                   d_ff=32, max_seq=32, dtype="float32")
+    ok.check_device("cuda")  # head dim 8 at float32: the SIMT route takes it
+
+
+@pytest.mark.parametrize("dh", [8, 16, 32, 256])
+def test_plain_matches_jax_at_small_and_wide_head_dims(dh):
+    """The head dims the SIMT route serves (the JAX package runs them
+    through XLA; 256 also through its Pallas kernel, here in interpret
+    mode), ragged T and a key-length mask included."""
+    q, k, v = _qkv(9, 2, 4, 130, 130, dh, kv=2)
+    rep = 2
+    jk = jnp.repeat(jnp.asarray(k), rep, axis=1)
+    jv = jnp.repeat(jnp.asarray(v), rep, axis=1)
+    for kv_len in (None, 100):
+        got = tfa.attention(*_t(q, k, v), kv_len=kv_len, causal=True).numpy()
+        ref = np.asarray(_xla_attention(jnp.asarray(q), jk, jv, causal=True, kv_len=kv_len))
+        assert np.abs(got - ref).max() <= TOL
+    if dh == 256:
+        q, k, v = _qkv(10, 1, 2, 256, 256, dh)
+        got = tfa.attention(*_t(q, k, v), causal=True).numpy()
+        kernel = np.asarray(flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True, interpret=True))
+        assert np.abs(got - kernel).max() <= TOL
 
 
 def _odd_views(dtype):

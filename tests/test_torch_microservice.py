@@ -148,3 +148,31 @@ def test_unported_parameter_raises(model_dir):
     # off values, as strings from the typed-params env, are accepted
     GenerateServer(model_uri=model_dir, device="cpu", host_kv_tier_bytes="0",
                    role="unified", flight_recorder=0)
+
+
+def test_default_api_type_is_both(tmp_path, monkeypatch):
+    """With no api_type the microservice serves REST and gRPC, as the JAX
+    package's does (``seldon_core_tpu/microservice.py``). Where grpc does
+    not import, that default fails at start with the ImportError, as the
+    JAX package's does, and never drops quietly to REST alone."""
+    import sys
+
+    (tmp_path / "Comp.py").write_text(
+        "class Comp:\n"
+        "    def predict(self, X, names, meta=None):\n"
+        "        return X\n")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setitem(sys.modules, "grpc", None)  # `import grpc` raises
+    served = []
+
+    async def serve_rest(*args, **kwargs):
+        served.append(args)
+
+    monkeypatch.setattr(microservice, "serve_rest", serve_rest)
+    with pytest.raises(ImportError):
+        microservice.main(["Comp", "--no-warmup"])
+    with pytest.raises(ImportError):
+        microservice.main(["Comp", "BOTH", "--no-warmup"])
+    assert not served
+    microservice.main(["Comp", "REST", "--no-warmup"])  # REST alone needs no grpc
+    assert len(served) == 1

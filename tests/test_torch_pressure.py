@@ -10,16 +10,17 @@ greedy and seeded, streamed spans included.
 
 import time
 
+import numpy as np
 import pytest
 
 from seldon_core_tpu.resilience.faults import FaultInjector as JaxInjector
 from seldon_core_tpu.serving.pressure import PressureController as JaxController
 from seldon_core_tpu_torch.resilience import FaultInjector, ShedError
-from seldon_core_tpu_torch.serving.continuous import GenRequest
+from seldon_core_tpu_torch.serving.continuous import ContinuousBatcher, GenRequest
 from seldon_core_tpu_torch.serving.pressure import PressureController
 
 from _torch_engine import build_app, close_app, dispatch, gen_unit, generator_of, make_model_dir
-from _torch_sched import JaxReference, PROMPTS, make_models, port
+from _torch_sched import EagerGraphs, JaxReference, PROMPTS, make_models, port
 
 GREEDY = [(p, dict(max_new_tokens=40)) for p in PROMPTS]
 SAMPLED = [(p, dict(max_new_tokens=30, temperature=0.8, seed=11 + i))
@@ -389,3 +390,308 @@ def test_pressure_off_is_byte_identical_and_unconsulted(models, references):
         assert b.pressure_summary() is None
     finally:
         b.close()
+
+
+# -- rung 2: cancel speculation ---------------------------------------------------
+
+
+DRAFT_CFG = dict(vocab_size=256, d_model=16, n_layers=1, n_heads=2, n_kv_heads=1,
+                 d_ff=32, max_seq=64, dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def spec_kw():
+    """A draft that shares nothing with the target (tests/test_pressure.py's),
+    on the JAX package's seed-99 weights."""
+    import jax
+    import numpy as np
+
+    from seldon_core_tpu.models.llm import DecoderLM as JaxLM
+    from seldon_core_tpu_torch.convert import params_from_numpy
+    from seldon_core_tpu_torch.models.llm import DecoderLM as TorchLM
+
+    jp = jax.jit(JaxLM(**DRAFT_CFG).init_params)(99)
+    return dict(draft_model=TorchLM(**DRAFT_CFG),
+                draft_params=params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu"),
+                speculate_tokens=3)
+
+
+def _actions(b):
+    return [e["action"] for e in b.pressure_events if e["type"] == "pressure_reclaim"]
+
+
+def _wait_spec_back(b, timeout=30.0):
+    deadline = time.monotonic() + timeout
+    while b._spec_suppressed and time.monotonic() < deadline:
+        time.sleep(0.02)
+    return not b._spec_suppressed
+
+
+def test_preemption_under_speculation(models, references, spec_kw):
+    """Preempt/resume with a draft live (tests/test_pressure.py): the
+    draft prefix is re-derived from prompt + generated at resume and,
+    once rung 2 has cancelled speculation, restored when pressure
+    clears. Greedy output equals the unpressured spec run's and the
+    plain run's (which equals the JAX batcher's)."""
+    ref = port(models, slots=2, **spec_kw)
+    try:
+        refs = [ref.generate(p, max_new_tokens=40) for p in PROMPTS[:2]]
+    finally:
+        ref.close()
+    assert refs == references["greedy"][:2]
+    b = port(models, slots=2, **ON, **spec_kw)
+    try:
+        futs = [b.submit(p, max_new_tokens=40) for p in PROMPTS[:2]]
+        assert wait_lanes(b, 2)
+        arm_shrink(b, lanes=1.1, after=1, restore=16)
+        assert [f.result(timeout=120) for f in futs] == refs
+        assert b.stats["preemptions"] >= 1
+        assert b.stats["preempt_resumes"] == b.stats["preemptions"]
+        assert "cancel_speculation" in _actions(b)
+        assert _wait_spec_back(b)
+        s0 = b.stats["spec_rounds"]
+        assert b.generate(PROMPTS[0], max_new_tokens=40) == refs[0]
+        assert b.stats["spec_rounds"] > s0  # a fresh request speculates again
+    finally:
+        b.close()
+
+
+def test_spec_resumes_after_restore_to_zero_boot_budget(models, spec_kw):
+    """A chaos window on a batcher whose boot ledger budget is 0 (pressure
+    from the hook alone) restores cancelled speculation when the budget
+    returns to 0; rung 2 fired both ways."""
+    b = port(models, slots=2, hbm_ledger_bytes=0, **spec_kw)
+    try:
+        ref = b.generate(PROMPTS[0], max_new_tokens=40)
+        futs = [b.submit(p, max_new_tokens=40) for p in PROMPTS[:2]]
+        assert wait_lanes(b, 2)
+        arm_shrink(b, lanes=1.1, after=1, restore=16)
+        [f.result(timeout=120) for f in futs]
+        assert _wait_spec_back(b)
+        assert b._pressure.budget_bytes == 0  # back at the boot value
+        actions = set(_actions(b))
+        assert {"cancel_speculation", "resume_speculation"} <= actions, actions
+        assert b.generate(PROMPTS[0], max_new_tokens=40) == ref
+    finally:
+        b.close()
+
+
+def test_rung2_frees_the_draft_cache_and_alone_clears_pressure(models, references, spec_kw):
+    """A budget the two lanes fit without the draft cache but not with
+    it: rung 2 cancels speculation (the draft cache freed, the ledger's
+    decode component priced without it), no lane is preempted, greedy
+    streams are unchanged, and speculation comes back after the window
+    with every live lane's draft prefix re-derived."""
+    b = port(models, slots=2, **ON, **spec_kw)
+    try:
+        per_lane = b._attn_need(b.max_seq)
+        with_draft = 2 * per_lane * (b._kv_key_bytes + b._draft_kv_key_bytes)
+        without = 2 * per_lane * b._kv_key_bytes
+        budget = int((with_draft / 0.9 + without / 0.75) / 2)
+        assert with_draft >= 0.9 * budget and without <= 0.75 * budget
+        seen = {}
+        futs = [b.submit(p, max_new_tokens=40) for p in PROMPTS[:2]]
+        assert wait_lanes(b, 2)
+        inner = FaultInjector([], pressure={
+            "shrink_to_bytes": budget, "after_polls": b._work_poll_count + 1,
+            "restore_after_polls": 12}).pressure_hook()
+
+        def watch(poll):
+            if b._spec_suppressed:
+                seen["draft_cache"] = b._draft_cache
+                seen["decode"] = b._ledger_components()["decode"]
+            return inner(poll)
+
+        b.pressure_hook = watch
+        assert [f.result(timeout=120) for f in futs] == references["greedy"][:2]
+        assert b.stats["preemptions"] == 0
+        assert "cancel_speculation" in _actions(b)
+        assert seen["draft_cache"] is None
+        assert seen["decode"] <= without
+        assert _wait_spec_back(b)
+        assert b._draft_cache is not None
+        assert b.generate(PROMPTS[1], max_new_tokens=40) == references["greedy"][1]
+    finally:
+        b.close()
+
+
+def test_rung2_waits_while_a_lane_samples(models, spec_kw):
+    """Rung 2 is skipped while any lane samples (a seeded stream with
+    speculation differs from one without): the ladder preempts instead,
+    and the seeded streams equal their pressure-free spec-on runs'."""
+    reqs = [(p, dict(max_new_tokens=40, temperature=0.8, seed=11 + i))
+            for i, p in enumerate(PROMPTS[:2])]
+    ref = port(models, slots=2, **spec_kw)
+    try:
+        want = [ref.generate(p, **r) for p, r in reqs]
+    finally:
+        ref.close()
+    b = port(models, slots=2, **ON, **spec_kw)
+    try:
+        futs = [b.submit(p, **r) for p, r in reqs]
+        assert wait_lanes(b, 2)
+        arm_shrink(b, lanes=1.1, after=1, restore=16)
+        assert [f.result(timeout=120) for f in futs] == want
+        assert "cancel_speculation" not in _actions(b)
+        assert b.stats["preemptions"] >= 1
+    finally:
+        b.close()
+
+
+def test_admissions_wait_while_speculation_is_cancelled(models, spec_kw):
+    """While rung 2 keeps speculation off, a sampled request waits (a
+    lane admitted then would decode without speculation and switch to it
+    mid-stream, and a seeded stream depends on that): one submitted
+    during the window starts once speculation is back and equals its
+    pressure-free spec-on run."""
+    req = dict(max_new_tokens=20, temperature=0.9, seed=5)
+    ref = port(models, slots=3, **spec_kw)
+    try:
+        want = ref.generate(PROMPTS[2], **req)
+    finally:
+        ref.close()
+    b = port(models, slots=3, **ON, **spec_kw)
+    try:
+        per_lane = b._attn_need(b.max_seq)
+        with_draft = 2 * per_lane * (b._kv_key_bytes + b._draft_kv_key_bytes)
+        without = 2 * per_lane * b._kv_key_bytes
+        budget = int((with_draft / 0.9 + without / 0.75) / 2)
+        futs = [b.submit(p, max_new_tokens=40) for p in PROMPTS[:2]]
+        assert wait_lanes(b, 2)
+        b.pressure_hook = FaultInjector([], pressure={
+            "shrink_to_bytes": budget, "after_polls": b._work_poll_count + 1,
+            "restore_after_polls": 12}).pressure_hook()
+        deadline = time.monotonic() + 60
+        while not b._spec_suppressed and time.monotonic() < deadline:
+            time.sleep(0.002)
+        assert b._spec_suppressed
+        late = b.submit(PROMPTS[2], **req)
+        time.sleep(0.05)
+        assert late.gen_request.admit_t == 0.0 or not b._spec_suppressed
+        [f.result(timeout=120) for f in futs]
+        assert late.result(timeout=120) == want
+        assert b.stats["preemptions"] == 0
+    finally:
+        b.close()
+
+
+def _rung2_budget(b, lanes=2):
+    """A budget ``lanes`` lanes at the deepest bucket fit without the
+    draft cache but not with it: rung 2 alone clears it."""
+    per_lane = lanes * b._attn_need(b.max_seq)
+    with_draft = per_lane * (b._kv_key_bytes + b._draft_kv_key_bytes)
+    without = per_lane * b._kv_key_bytes
+    budget = int((with_draft / 0.9 + without / 0.75) / 2)
+    assert with_draft >= 0.9 * budget and without <= 0.75 * budget
+    return budget
+
+
+def test_rung2_sets_aside_spec_graphs_captured_after_warm(models, references, spec_kw):
+    """Spec graphs a dispatch captured (no warm()) are set aside by rung 2
+    as warm()'s are: the resume finds the draft cache at a new address
+    and captures every one of them again, each counted as a capture after
+    warm(), and no spec graph is ever replayed over a freed draft cache.
+    Greedy streams are unchanged."""
+    b = port(models, slots=2, **ON, **spec_kw)
+    b._graphs = graphs = EagerGraphs(b)
+    try:
+        budget = _rung2_budget(b)
+        futs = [b.submit(p, max_new_tokens=40) for p in PROMPTS[:2]]
+        assert wait_lanes(b, 2)
+        deadline = time.monotonic() + 60
+        while not b.stats["graph_captures_inline"] and time.monotonic() < deadline:
+            time.sleep(0.002)  # the first spec burst captures its graph
+        assert b.stats["graph_captures_inline"]
+        b.pressure_hook = FaultInjector([], pressure={
+            "shrink_to_bytes": budget, "after_polls": b._work_poll_count + 1,
+            "restore_after_polls": 12}).pressure_hook()
+        assert [f.result(timeout=120) for f in futs] == references["greedy"][:2]
+        assert "cancel_speculation" in _actions(b)
+        assert _wait_spec_back(b)
+        assert b.generate(PROMPTS[1], max_new_tokens=40) == references["greedy"][1]
+        assert graphs.stale == []
+        assert b.stats["spec_graph_recaptures"] >= 1
+        assert b.stats["spec_graph_reuses"] == 0
+        assert b.stats["graph_captures_inline"] > b.stats["spec_graph_recaptures"]
+    finally:
+        b.close()
+
+
+def test_greedy_admissions_go_on_while_speculation_is_cancelled(models, spec_kw, monkeypatch):
+    """Rung 2 holds only sampled requests: with three deep lanes live and
+    speculation cancelled (their draft bytes do not fit back under the
+    high watermark), a greedy request submitted in the window is admitted
+    at once into the free lane, decodes with the plain bursts, and every
+    greedy stream equals the JAX batcher's."""
+    monkeypatch.setattr(ContinuousBatcher, "MIN_ATTN_BUCKET", 16)
+    rs = np.random.RandomState(23)
+    deep = [(rs.randint(0, 256, 49).tolist(), dict(max_new_tokens=15)) for _ in range(3)]
+    short = (PROMPTS[1], dict(max_new_tokens=8))
+    ref = JaxReference(models)
+    try:
+        want = ref(deep + [short])
+    finally:
+        ref.close()
+    b = port(models, slots=4, attn_bucket=16, **ON, **spec_kw)
+    try:
+        futs = [b.submit(p, **r) for p, r in deep]
+        assert wait_lanes(b, 3)
+        live = sum(b._attn_need(p) for p in b._pos_host.values())
+        assert live == 3 * b.max_seq  # every deep lane at the last bucket
+        budget = _rung2_budget(b, lanes=3)
+        # the short request's whole bucket fits beside them
+        assert live * b._kv_key_bytes + b._admit_cost_bytes(
+            GenRequest(tokens=list(short[0]), max_new_tokens=8)) < 0.9 * budget
+        inner = FaultInjector([], pressure={
+            "shrink_to_bytes": budget, "after_polls": b._work_poll_count + 1,
+            "restore_after_polls": 1 << 20}).pressure_hook()
+        late = {}
+
+        def hook(poll):
+            fut = late.get("fut")
+            if fut is None and b._spec_suppressed:
+                late["fut"] = b.submit(short[0], **short[1])
+            elif fut is not None and "suppressed" not in late and fut.gen_request.admit_t:
+                late["suppressed"] = b._spec_suppressed
+            return inner(poll)
+
+        b.pressure_hook = hook
+        got = [f.result(timeout=120) for f in futs]
+        deadline = time.monotonic() + 60
+        while "fut" not in late and time.monotonic() < deadline:
+            time.sleep(0.01)
+        got.append(late["fut"].result(timeout=120))
+        assert got == want
+        assert late.get("suppressed") is True
+        assert "cancel_speculation" in _actions(b)
+        assert b.stats["preemptions"] == 0
+    finally:
+        b.close()
+
+
+def test_ledger_prices_the_draft_cache_as_jax(models, spec_kw):
+    """The draft cache's K/V bytes per position, which the ledger adds to
+    every live lane while speculation is on, equal the JAX batcher's."""
+    import jax
+
+    from seldon_core_tpu.models.llm import DecoderLM as JaxLM
+    from seldon_core_tpu.serving.continuous import ContinuousBatcher as JaxBatcher
+
+    jd = JaxLM(**DRAFT_CFG)
+    jb = JaxBatcher(models[0], models[1], slots=2, max_seq=64, draft_model=jd,
+                    draft_params=jax.jit(jd.init_params)(99), speculate_tokens=3,
+                    hbm_ledger_bytes=1 << 40)
+    b = port(models, slots=2, **ON, **spec_kw)
+    try:
+        assert b._draft_kv_key_bytes == jb._draft_kv_key_bytes
+        assert b._kv_key_bytes == jb._kv_key_bytes
+        b._pos_host.update({0: 10, 1: 40})
+        per_tok = b._kv_key_bytes + b._draft_kv_key_bytes
+        assert b._ledger_components()["decode"] == (64 + 64) * per_tok
+        b._spec_suppressed = True
+        assert b._ledger_components()["decode"] == (64 + 64) * b._kv_key_bytes
+        b._spec_suppressed = False
+        b._pos_host.clear()
+    finally:
+        b.close()
+        jb.close()
