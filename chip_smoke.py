@@ -6,15 +6,16 @@
 Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails. ``--phases`` runs a subset of
 ``kernels, small, serve, engine, small-sched, sched, prefix, pressure,
-spec, model`` (device and build always run; the result lines print only
-when every phase ran, as with no argument):
+spec, spec-pressure, dh256, model`` (device and build always run; the
+result lines print only when every phase ran, as with no argument):
 
 1. Device: the card's name and power limit (nvidia-smi) and torch's view.
 2. Build: compiles every CUDA kernel of the path from ``ops/csrc``.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    same inputs, at the shapes the serving path gives it (the wgmma route
-   at both block sizes; the SIMT route at head dims 8, 32 and 256, f32
-   and bf16, ragged T and a key-length mask), with times -- per call from the host (``call_ms``) and
+   at both block sizes: bf16 at head dims 8-256, those off 64/128/256
+   padded by TMA; the SIMT route at f32 and at bf16 Dh 12; ragged T and
+   a key-length mask), with times -- per call from the host (``call_ms``) and
    on the device from a CUDA graph of 20 launches (``device_ms``) --
    the PyTorch library call timed both ways as a yardstick, the bound,
    TFLOP/s and the share of the bound.
@@ -104,7 +105,18 @@ when every phase ran, as with no argument):
    kernel; reports tokens/s, TTFT p50/p99, TPOT p50, tokens per round,
    rounds, graph replays per round, peak memory and the bf16 greedy
    equality count on vs off.
-12. Model (on the engine phase's copy, after every serving phase: a
+12. Dh 256 (``llm-1.26b-dh256``: llm-1.26b with Gemma-2B's attention
+   shape, 8 heads / 1 kv head, Dh 256, bf16, random weights from seed
+   0), built through GenerateServer's typed parameters as the serve
+   phase's server and driven twice with the serve waves, each queued
+   whole. Fails unless the two runs are token-identical, every greedy
+   stream equals ``generate()`` on the card or parts from it at a
+   near-tie of the logits, every prefill launched the flash kernel and
+   only on ``wgmma bfloat16 Dh 256``, no graph is captured after
+   ``warm()``, and full-width prefill logits agree with the plain
+   attention's. Reports tokens/s, TTFT and TPOT beside the serve phase's,
+   and a B=1, T=1024 prefill's time with the flash kernel's share.
+13. Model (on the engine phase's copy, after every serving phase: a
    profiler run may slow later launches): full-width prefill time per
    bucket with the flash kernel's device time inside it
    (torch.profiler), a prefix hit's suffix prefill against the full
@@ -116,7 +128,9 @@ when every phase ran, as with no argument):
    a 6-layer early-exit draft, the W = 5 verify chunk, acceptance)
    against 5 decode steps at B = 4, attention 512, in device-busy time
    and device operations.
-13. The ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+14. The ``kernels`` JSON line (the flash kernel on the main path, and its
+   Dh 256 instance on the dh256 phase's), then the final
+   ``{"ok": true, ...}`` line.
 
 Exits 2 when CUDA is unavailable, 1 on any failure.
 """
@@ -330,9 +344,13 @@ def phase_kernels(card):
     # (label, B, H, KV, T, Dh, dtype, kv_len): the serving path's shapes
     # (llm-1.26b heads, every prefill bucket, batched admissions m = 4
     # and 8), plus ragged T with a key-length mask, head dim 64, the
-    # float32 path, and the SIMT route at head dims 8 (the separate
-    # draft of the speculation configurations: d_model 16, 2 heads, 1 kv
-    # head), 32 and 256, float32 and bfloat16
+    # float32 path, and head dims 8 (the separate draft of the
+    # speculation configurations: d_model 16, 2 heads, 1 kv head), 32 and
+    # 256 at float32 (SIMT) and bfloat16 (wgmma, padded by TMA below 64);
+    # llm-1.26b-dh256's shapes (Gemma-2B's attention: 8 heads, 1 kv head,
+    # Dh 256) and the same at 8 kv heads; Dh 96 and 200 (padded inside
+    # the 128 and 256 instances) and Dh 12 (bfloat16 off the multiple of
+    # 8: SIMT)
     cases = [
         ("b1_t32", 1, 16, 8, 32, 128, torch.bfloat16, None),
         ("b1_t128", 1, 16, 8, 128, 128, torch.bfloat16, None),
@@ -345,15 +363,22 @@ def phase_kernels(card):
         ("bf16_b2_t200_dh64", 2, 4, 1, 200, 64, torch.bfloat16, None),
         ("f32_b2_t256_dh64", 2, 4, 4, 256, 64, torch.float32, None),
         ("f32_ragged_t130_kvlen100", 1, 4, 2, 130, 128, torch.float32, 100),
-        ("simt_f32_dh8_b1_t128", 1, 2, 1, 128, 8, torch.float32, None),
-        ("simt_bf16_dh8_b4_t130_kvlen100", 4, 2, 1, 130, 8, torch.bfloat16, 100),
-        ("simt_bf16_dh8_b1_t512", 1, 2, 1, 512, 8, torch.bfloat16, None),
-        ("simt_f32_dh32_b2_t300", 2, 8, 2, 300, 32, torch.float32, None),
-        ("simt_bf16_dh32_b2_t257_kvlen200", 2, 8, 2, 257, 32, torch.bfloat16, 200),
-        ("simt_bf16_dh32_b1_t1024", 1, 8, 2, 1024, 32, torch.bfloat16, None),
-        ("simt_f32_dh256_b1_t512", 1, 8, 4, 512, 256, torch.float32, None),
-        ("simt_bf16_dh256_b2_t130_kvlen100", 2, 4, 2, 130, 256, torch.bfloat16, 100),
-        ("simt_bf16_dh256_b1_t1024", 1, 8, 8, 1024, 256, torch.bfloat16, None),
+        ("f32_dh8_b1_t128", 1, 2, 1, 128, 8, torch.float32, None),
+        ("bf16_dh8_b4_t130_kvlen100", 4, 2, 1, 130, 8, torch.bfloat16, 100),
+        ("bf16_dh8_b1_t512", 1, 2, 1, 512, 8, torch.bfloat16, None),
+        ("f32_dh32_b2_t300", 2, 8, 2, 300, 32, torch.float32, None),
+        ("bf16_dh32_b2_t257_kvlen200", 2, 8, 2, 257, 32, torch.bfloat16, 200),
+        ("bf16_dh32_b1_t1024", 1, 8, 2, 1024, 32, torch.bfloat16, None),
+        ("bf16_dh12_b1_t512", 1, 4, 2, 512, 12, torch.bfloat16, None),
+        ("bf16_dh96_b2_t300", 2, 8, 2, 300, 96, torch.bfloat16, None),
+        ("bf16_dh200_b2_t257_kvlen200", 2, 8, 1, 257, 200, torch.bfloat16, 200),
+        ("bf16_dh200_b1_t1024", 1, 8, 1, 1024, 200, torch.bfloat16, None),
+        ("f32_dh256_b1_t512", 1, 8, 4, 512, 256, torch.float32, None),
+        ("bf16_dh256_b2_t130_kvlen100", 2, 4, 2, 130, 256, torch.bfloat16, 100),
+        ("bf16_dh256_kv8_b1_t1024", 1, 8, 8, 1024, 256, torch.bfloat16, None),
+        ("bf16_dh256_b1_t1024", 1, 8, 1, 1024, 256, torch.bfloat16, None),
+        ("bf16_dh256_b8_t512", 8, 8, 1, 512, 256, torch.bfloat16, None),
+        ("bf16_dh256_t130_kvlen100", 1, 8, 1, 130, 256, torch.bfloat16, 100),
     ]
     results = {}
     for label, b, h, kv, t, dh, dt, kv_len in cases:
@@ -392,12 +417,12 @@ def phase_kernels(card):
             f"route={route} kv_len={kv_len} block_m={chosen} smem={smem} max_abs_err={err:.3e} tol={tol:.3e} "
             f"device_ms={dev_ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={_r(library_ms)} library_device_ms={_r(library_dev_ms)} "
-            f"bound_ms={bound_ms:.4f} ({bound_by}) TFLOP/s={flops / dev_ms / 1e9:.1f} "
+            f"bound_ms={bound_ms:.4f} bound_us={bound_ms * 1e3:.3g} ({bound_by}) TFLOP/s={flops / dev_ms / 1e9:.1f} "
             f"bound_share={bound_ms / dev_ms:.3f} {others} [{card}] OK")
         results[label] = dict(max_abs_err=err, ms=call_ms, device_ms=dev_ms, plain_ms=plain_ms,
                               library_ms=library_ms, library_device_ms=library_dev_ms,
                               bound_ms=bound_ms, bound_by=bound_by, block_m=chosen,
-                              route=route)
+                              route=route, dh=dh, dtype=dname)
     log(f"[kernel] flash_attention launches in this phase: {fa.LAUNCHES['flash_attention']}")
     return results
 
@@ -546,8 +571,8 @@ def run_waves(tag, post, batcher, probe, mixed, card):
     """Drive probe, mixed, probe through ``post`` with the flash kernel's
     launch count and the batcher's SLO reservoir reset just before; check
     every response and the repeats; print the end-to-end numbers. Returns
-    the flash launches, the prefill dispatches, and the first probe
-    wave's results."""
+    the flash launches, the prefill dispatches, the first probe wave's
+    results, and tokens/s with the SLO percentiles."""
     import numpy as np
     import torch
 
@@ -603,7 +628,7 @@ def run_waves(tag, post, batcher, probe, mixed, card):
         f"TPOT p50 {slo['tpot_p50']:.2f} ms [{card}]")
     log(f"[{tag}] peak device memory {peak / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated) [{card}]")
-    return launches, prefills, first
+    return launches, prefills, first, {"tok_s": gen_tokens / serve_s, **slo}
 
 
 def serve_in_thread(start):
@@ -668,7 +693,7 @@ def phase_serve(card):
         stop = serve_in_thread(start)
         try:
             probe, mixed = serve_waves()
-            launches, _prefills, _first = run_waves(
+            launches, _prefills, _first, numbers = run_waves(
                 "serve", lambda body: _post(port, body), user.batcher, probe, mixed, card)
             # one greedy request alone: the engine phase must give the
             # same tokens through the engine (same batch composition)
@@ -704,7 +729,7 @@ def phase_serve(card):
             f"|logits| max {logits_p.abs().max().item():.3f}")
         if diff > LOGITS_TOL or top1 < TOP1_MIN_AGREEMENT:
             raise AssertionError("prefill logits disagree between kernel and plain attention")
-        return launches, alone
+        return launches, alone, numbers
 
 
 def _grpc_available() -> bool:
@@ -2237,8 +2262,175 @@ def phase_spec_round(model, params):
         f"{draft_ms / round_ms:.3f} of the round's")
 
 
+# llm-1.26b with Gemma-2B's attention shape (the published google/gemma-2b
+# config.json: hidden_size 2048, num_attention_heads 8,
+# num_key_value_heads 1, head_dim 256), everything else llm-1.26b's: Dh =
+# 2048 / 8 = 256 puts every prefill on the wgmma route's DH 256 instance
+LLM_1_26B_DH256 = {**LLM_1_26B, "n_heads": 8, "n_kv_heads": 1}
+# A greedy stream may part from generate() (other matmul shapes, so other
+# bf16 rounding) only at a near-tie of the two candidate tokens' logits.
+# The logits come out of a bf16 product: at |logit| < 8 one bf16 ulp is
+# 2**-5, and each of three paths (the batcher's, generate()'s, and the
+# prefill that reads the margin) may round a logit by one, so a tie reads
+# as at most ~3 ulps apart; 4 are allowed.
+GREEDY_TIE_TOL = 2.0 ** -3
+
+
+def _greedy_vs_generate(model, params, prompt, stream, ref):
+    """The batcher's greedy ``stream`` against ``ref``, ``generate()`` on
+    the same prompt: ``None`` where they are equal, else ``(first
+    differing generated step, logit margin)`` with the margin between
+    the two candidate tokens in the logits of a prefill over the common
+    prefix."""
+    import torch
+
+    n = len(prompt)
+    i = _first_diff(stream[n:], ref[n:])
+    if i is None:
+        return None
+    logits, _ = model.prefill(params, torch.tensor([ref[: n + i]], device="cuda"), n + i)
+    return i, (logits[0, ref[n + i]] - logits[0, stream[n + i]]).abs().item()
+
+
+def phase_dh256(card, serve_numbers):
+    """llm-1.26b-dh256 (bf16, random weights from seed 0) built through
+    GenerateServer's typed parameters (the serve phase's: 8 slots,
+    steps_per_poll 16, pipeline_depth 3, warmed for the waves' prompt
+    lengths, the knobs off), driven twice with the serve waves, each
+    wave queued whole. Fails unless every request answers 64 tokens,
+    the second run repeats the first token for token, every prefill
+    launched the flash kernel, the launches over the phase are all
+    ``wgmma bfloat16 Dh 256`` (no SIMT), no graph is captured after
+    warm(), every greedy stream equals ``generate()`` on the card or
+    parts from it at a near-tie (GREEDY_TIE_TOL), and full-width prefill
+    logits with the kernel agree with the plain attention's. Prints
+    tokens/s, TTFT and TPOT beside the serve phase's llm-1.26b numbers,
+    and a B=1, T=1024 prefill's time with the flash kernel's share.
+    Returns the Dh 256 launches of the two runs."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch import microservice
+    from seldon_core_tpu_torch.models import llm as llm_mod
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+
+    route = "wgmma bfloat16 Dh 256"
+    probe, mixed = serve_waves()
+    gate = _Gate()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-dh256-") as model_dir:
+        with open(os.path.join(model_dir, "jax_config.json"), "w") as f:
+            json.dump({"family": "llm", "config": LLM_1_26B_DH256}, f)
+        server_params = [{"name": "model_uri", "value": model_dir, "type": "STRING"}] + SERVE_PARAMS
+        t0 = time.perf_counter()
+        user = microservice.build_user_object(
+            "seldon_core_tpu_torch.servers.generateserver.GenerateServer",
+            json.dumps(server_params))
+        user.load()  # load, then warm() with its graph captures
+        b, model = user.batcher, user._model
+        cfg = model.cfg
+        b.fault_hook = gate
+        log(f"[dh256] llm-1.26b-dh256 loaded and warmed in {time.perf_counter() - t0:.1f} s "
+            f"({model.n_params() / 1e9:.3f} B params, {cfg.dtype}, {cfg.n_heads} heads / "
+            f"{cfg.n_kv_heads} kv head, Dh {cfg.head_dim}; {b.stats['graphs_captured']} graphs)")
+        try:
+            fa.ROUTE_LAUNCHES.clear()  # count this path only
+            runs = [_sched_run(gate, b, probe, mixed) for _ in range(2)]
+            routes = dict(fa.ROUTE_LAUNCHES)
+            inline = b.stats["graph_captures_inline"]
+        finally:
+            user.close()
+    params = b.params
+    del user, b
+
+    vocab = cfg.vocab_size
+    for n, run in enumerate(runs):
+        for key, out in run["tokens"].items():
+            toks = _p(key, probe, mixed)
+            if len(out) != len(toks) + MAX_NEW or out[: len(toks)] != toks \
+                    or not all(0 <= x < vocab for x in out):
+                raise AssertionError(f"[dh256] run {n + 1} {key}: malformed tokens")
+        prefills = run["delta"]["prefill_steps"]
+        if prefills <= 0 or run["launches"] < cfg.n_layers * prefills:
+            raise AssertionError(f"[dh256] run {n + 1}: {prefills} prefills but "
+                                 f"{run['launches']} flash launches")
+    bad = [k for k in runs[0]["tokens"] if runs[1]["tokens"][k] != runs[0]["tokens"][k]]
+    if bad:
+        raise AssertionError(f"[dh256] the second run gave other tokens: {bad}")
+    if routes.get(route, 0) <= 0 or any(k.startswith("simt") for k in routes):
+        raise AssertionError(f"[dh256] flash launches by route {routes}: want only {route}")
+    if inline:
+        raise AssertionError(f"[dh256] {inline} graphs captured after warm()")
+
+    # every greedy stream against generate() on the same card and weights
+    refs, parted = {}, {}
+    greedy = [(lab, toks) for lab, toks, temp, _s in list(probe) + list(mixed) if temp == 0.0]
+    t0 = time.perf_counter()
+    for label, toks in greedy:
+        if tuple(toks) not in refs:
+            refs[tuple(toks)] = model.generate(
+                params, torch.tensor([toks], device="cuda"), MAX_NEW)[0].tolist()
+        diff = _greedy_vs_generate(model, params, toks, runs[0]["tokens"][label],
+                                   refs[tuple(toks)])
+        if diff is not None:
+            parted[label] = (diff[0], round(diff[1], 4))
+    log(f"[dh256] greedy streams vs generate() on the card: {len(greedy) - len(parted)} of "
+        f"{len(greedy)} equal token for token"
+        + (f"; parted (generated step, |logit margin| of the two candidates) {parted}, "
+           f"tie tolerance {GREEDY_TIE_TOL}" if parted else "")
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    if any(margin > GREEDY_TIE_TOL for _i, margin in parted.values()):
+        raise AssertionError(f"[dh256] greedy streams part from generate() off a tie: {parted}")
+
+    for n, run in enumerate(runs):
+        slo = run["slo"]
+        log(f"[dh256] run {n + 1}: tokens/s {run['tok_s']:.1f}, TTFT p50 {slo['ttft_p50']:.1f} ms "
+            f"p99 {slo['ttft_p99']:.1f} ms, TPOT p50 {slo['tpot_p50']:.2f} ms, peak allocated "
+            f"{run['peak'] / 2**30:.2f} GiB, flash launches {run['launches']} [{card}]")
+    if serve_numbers:
+        log(f"[dh256] beside llm-1.26b (Dh 128) in the serve phase (the same waves over REST): "
+            f"tokens/s {serve_numbers['tok_s']:.1f}, TTFT p50 {serve_numbers['ttft_p50']:.1f} ms "
+            f"p99 {serve_numbers['ttft_p99']:.1f} ms, TPOT p50 {serve_numbers['tpot_p50']:.2f} ms")
+    log(f"[dh256] both runs token-identical ({len(runs[0]['tokens'])} streams each); flash "
+        f"launches over the phase by route {routes}; graph_captures_inline {inline}")
+
+    # one B=1, T=1024 prefill: eager (CUDA events around the calls, host
+    # gaps included) and replayed from a CUDA graph (device time), with
+    # the flash kernel's device time at its shapes, once per layer
+    rs = np.random.RandomState(3)
+    toks = torch.tensor(rs.randint(0, vocab, (1, 1024)), device="cuda")
+    eager_ms = time_ms(lambda: model.prefill(params, toks, 1024), iters=5, warmup=1)
+    graph_ms = device_ms(lambda: model.prefill(params, toks, 1024), launches=3, reps=3)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    q, k, v = _prefill_like(1, cfg.n_heads, cfg.n_kv_heads, 1024, cfg.head_dim, model.dtype, gen)
+    flash_ms = device_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True))
+    log(f"[dh256] prefill B=1 T=1024: eager {eager_ms:.2f} ms (CUDA events), device "
+        f"{graph_ms:.3f} ms (CUDA graph replay); flash kernel {flash_ms:.4f} ms x "
+        f"{cfg.n_layers} layers = {cfg.n_layers * flash_ms:.3f} ms, "
+        f"{100 * cfg.n_layers * flash_ms / graph_ms:.1f}% of the device time [{card}]")
+
+    # full-width prefill logits: the kernel against the plain attention
+    prompts = torch.tensor(rs.randint(0, vocab, (8, 128)), device="cuda")
+    logits_k, _ = model.prefill(params, prompts, 128)
+    saved = llm_mod.prefill_attention
+    llm_mod.prefill_attention = fa.attention_plain
+    try:
+        logits_p, _ = model.prefill(params, prompts, 128)
+    finally:
+        llm_mod.prefill_attention = saved
+    if not bool(torch.isfinite(logits_k).all()):
+        raise AssertionError("[dh256] non-finite prefill logits")
+    diff = (logits_k - logits_p).abs().max().item()
+    top1 = (logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean().item()
+    log(f"[dh256] prefill logits kernel vs plain at full width: max_abs {diff:.4e} "
+        f"(tol {LOGITS_TOL}), top-1 agreement {top1:.3f} (min {TOP1_MIN_AGREEMENT})")
+    if diff > LOGITS_TOL or top1 < TOP1_MIN_AGREEMENT:
+        raise AssertionError("[dh256] prefill logits disagree between kernel and plain attention")
+    return routes[route]
+
+
 PHASES = ("kernels", "small", "serve", "engine", "small-sched", "sched", "prefix",
-          "pressure", "spec", "spec-pressure", "model")
+          "pressure", "spec", "spec-pressure", "dh256", "model")
 
 
 def _llm_model():
@@ -2304,11 +2496,11 @@ def main(argv=None) -> int:
         if "small" in phases:
             phase_small_model()
             lap("small")
-        launches = alone = engine_launches = model = params = None
+        launches = alone = engine_launches = model = params = serve_numbers = None
         sched_launches = sched_tokens = prefix_launches = pressure_launches = None
-        spec_launches = None
+        spec_launches = dh256_launches = None
         if "serve" in phases:
-            launches, alone = phase_serve(card)
+            launches, alone, serve_numbers = phase_serve(card)
             free()  # the serve phase's copy of the model goes
             lap("serve")
         if "engine" in phases:
@@ -2340,6 +2532,10 @@ def main(argv=None) -> int:
             phase_spec_pressure(card)
             free()
             lap("spec-pressure")
+        if "dh256" in phases:
+            dh256_launches = phase_dh256(card, serve_numbers)
+            free()
+            lap("dh256")
         # the profiler runs last: once it has traced the card, later
         # launches may carry its overhead
         if "model" in phases:
@@ -2350,22 +2546,28 @@ def main(argv=None) -> int:
             log(f"[done] phases {','.join(phases)} in {time.perf_counter() - t0:.1f} s; "
                 "no result lines (not every phase ran)")
             return 0
-        head = kern["b1_t1024"]
-        worst = max(r["max_abs_err"] for k, r in kern.items() if not k.startswith("f32"))
-        simt = max(r["max_abs_err"] for r in kern.values() if r["route"] == "simt")
+        head, wide = kern["b1_t1024"], kern["bf16_dh256_b1_t1024"]
+
+        def worst(pick):
+            return max(r["max_abs_err"] for r in kern.values() if pick(r))
+
+        source = "seldon_core_tpu_torch/ops/csrc/flash_attention.cu"
+        replaces = "seldon_core_tpu/ops/flash_attention.py:138"
         log(json.dumps({"kernels": [{
             "name": "flash_attention",
             "route": "cuda",
-            "source": "seldon_core_tpu_torch/ops/csrc/flash_attention.cu",
-            "replaces": "seldon_core_tpu/ops/flash_attention.py:138",
+            "source": source,
+            "replaces": replaces,
             "launches": launches,
             "engine_launches": engine_launches,
             "scheduler_launches": sched_launches,
             "prefix_launches": prefix_launches,
             "pressure_launches": pressure_launches,
             "spec_launches": spec_launches,
-            "max_abs_err": worst,
-            "simt_max_abs_err": simt,
+            "dh256_launches": dh256_launches,
+            "max_abs_err": worst(lambda r: r["dtype"] == "bfloat16"),
+            "wgmma_max_abs_err": worst(lambda r: r["route"] == "wgmma"),
+            "simt_max_abs_err": worst(lambda r: r["route"] == "simt"),
             "ms": head["ms"],
             "device_ms": head["device_ms"],
             "plain_ms": head["plain_ms"],
@@ -2373,6 +2575,21 @@ def main(argv=None) -> int:
             "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "library_device_ms": head["library_device_ms"],
+        }, {
+            # the DH 256 instance on the dh256 phase's path (llm-1.26b-dh256)
+            "name": "flash_attention_dh256",
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": dh256_launches,
+            "max_abs_err": worst(lambda r: r["dtype"] == "bfloat16" and r["dh"] == 256),
+            "ms": wide["ms"],
+            "device_ms": wide["device_ms"],
+            "plain_ms": wide["plain_ms"],
+            "bound_ms": wide["bound_ms"],
+            "bound_by": wide["bound_by"],
+            "library_ms": wide["library_ms"],
+            "library_device_ms": wide["library_device_ms"],
         }]}))
         log(f"[done] {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - any failed phase fails the run

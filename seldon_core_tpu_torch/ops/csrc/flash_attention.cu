@@ -7,56 +7,78 @@
 // mask (keys j >= kv_len hidden), f32 online-softmax state, masking by the
 // finite NEG_INF = -1e30, and an l == 0 guard on the final divide.
 //
-// What bounds it on the H100: at the prefill shapes (Dh = 128, T up to
-// 1024) the work is 4 * T^2 * Dh FLOPs per (b, h) against 4 * T * Dh
-// elements of q/k/v/o traffic, ~T/2 FLOPs per byte in bf16 -- above the
-// card's ~295 FLOP/byte balance point from T ~ 600, so the long prompts are
-// bound by the tensor cores (989 TFLOP/s bf16, reached only through
-// wgmma) and the short ones by memory and by the latency of one block's
-// chain of loads and products.
+// Routes, by (dtype, head dim):
+//   bfloat16, Dh % 8 == 0, Dh <= 256  -> wgmma (tensor cores, TMA loads):
+//       Dh 8..64 on the DH 64 instance, 72..128 on DH 128, 136..256 on
+//       DH 256; a head dim below its instance's width is padded by TMA
+//   bfloat16, Dh % 8 != 0             -> SIMT (a head stride of Dh * 2
+//       bytes is no multiple of 16, which TMA needs)
+//   float32, every Dh <= 256          -> SIMT (f32 is the exactness dtype:
+//       no TF32)
 //
-// bfloat16 (the serving path), a warp-specialised wgmma kernel:
+// What bounds it on the H100: the work is 4 * T^2 * Dh FLOPs per (b, h)
+// (halved by the causal mask) against 4 * T * Dh elements of q/k/v/o
+// traffic, ~T/2 FLOPs per byte in bf16 -- above the card's ~295 FLOP/byte
+// balance point from T ~ 600, so long prompts are bound by the tensor
+// cores (989 TFLOP/s bf16, reached only through wgmma) and short ones by
+// memory and by the latency of one block's chain of loads and products.
+// Narrow heads (Dh 8-32) are latency-bound tiny grids at any T: their
+// padded products cost 2x-8x the FLOPs they need, on tensor cores.
+//
+// bfloat16, a warp-specialised wgmma kernel (WgmmaTile<DH, NC>):
 //  * One block per (b*h, q tile of BLOCK_M = 64 or 128 rows), the longest
 //    causal q tiles launched first. The block is one producer warpgroup and
 //    BLOCK_M / 64 consumer warpgroups; the producer gives up registers
 //    (setmaxnreg.dec), the consumers take them (setmaxnreg.inc) for their
-//    64 x 128 score and 64 x Dh output accumulators.
+//    64 x TILE_N score and 64 x DH output accumulators.
 //  * One producer thread starts every load with TMA: the Q tile once, then
-//    128-key K and V tiles through a ring of KV_STAGES shared-memory stages,
-//    each with a "full" mbarrier per operand (expect_tx carries the bytes)
-//    and an "empty" mbarrier the consumer warps arrive on once the P.V
-//    product that read the stage has completed. The tensor maps are 4-D
+//    TILE_N-key K and V tiles through a ring of STAGES shared-memory
+//    stages, each with a "full" mbarrier per operand (expect_tx carries the
+//    bytes) and an "empty" mbarrier the consumer warps arrive on once the
+//    P.V product that read the stage has completed. The tensor maps are 4-D
 //    ([Dh, T, heads, B] with the views' own strides), so the ragged T edge
 //    of each (b, h) loads as zeros, grouped K/V is read in place (kv head
 //    h / rep) and head-transposed q/k/v views need no copy. Rows are 128
-//    bytes (64 bf16) with the 128-byte swizzle, so Dh = 128 is two panels.
-//  * S = Q K^T: wgmma m64n128k16 with both operands read from the swizzled
-//    tiles through matrix descriptors (K-major), f32 accumulators.
+//    bytes (64 bf16) with the 128-byte swizzle, so DH is DH / 64 panels.
+//  * Padded head dims: the maps' innermost extent is the real Dh while the
+//    box stays 64 columns, so TMA fills the columns past Dh with zeros on
+//    load (Q K^T is unchanged; expect_tx counts the whole box) and clips
+//    them on the store of O; panels wholly past Dh are not stored. The
+//    softmax scale is 1/sqrt(real Dh).
+//  * Tiles per instance: DH 64 and 128 take 128-key tiles in 3 stages
+//    (225 KB at DH 128, BLOCK_M 128). At DH 256 a 128-key K tile alone is
+//    64 KB, so the instance takes 64-key tiles: 3 stages beside one
+//    warpgroup's Q (225 KB), 2 beside two (193 KB).
+//  * S = Q K^T: wgmma m64nTILE_Nk16 with both operands read from the
+//    swizzled tiles through matrix descriptors (K-major), f32 accumulators,
+//    DH / 16 k16 steps.
 //  * Online softmax in registers: one FFMA per score folds 1/sqrt(Dh),
 //    log2(e) and the row max, exponents are one ex2.approx each; only tiles
 //    that cross the causal diagonal or the kv_len edge are masked; row max
 //    reduces over the 4 threads of a quad, the row sum only once at the end.
-//  * O += P V: wgmma m64nDhk16 with P packed to bf16 straight from the S
+//  * O += P V: wgmma m64nDHk16 with P packed to bf16 straight from the S
 //    accumulators (their layout is wgmma's register-A layout, k16 slice by
 //    k16 slice) and V read in its natural [key][d] layout as a transposed
-//    (MN-major) B operand: no copy of V is made.
+//    (MN-major) B operand whose leading-byte offset steps over the DH / 64
+//    panels: no copy of V is made. At DH 256 a consumer thread holds 128
+//    O, 32 S and 16 packed-P registers.
 //  * Epilogue: divide by the row sum, round to bf16, write the tile into the
 //    warpgroup's own (now unused) Q stage in the swizzled layout and store
-//    it with TMA, which clips the ragged Tq edge.
+//    it with TMA, which clips the ragged Tq edge and the padded columns.
 //  * Not yet (PERF.md): softmax of one tile overlapped with the products
 //    of the next inside a warpgroup (ping-pong), a persistent grid.
 //
-// SIMT (float32 at every head dim, bfloat16 at head dims other than 64 and
-// 128, so every head dim up to 256 the JAX package serves): one block of
-// 128 threads per (64-row q tile, b*h) on the CUDA cores, f32 FMAs, each
-// thread owning a 4 x 8 score patch and a 4 x (DHP/8) output patch, where
-// the tile width DHP is the head dim rounded up to 64, 128 or 256 and the
-// columns past the head dim are zero on load and skipped on store; Q and
-// K rows are padded one word against bank conflicts. bfloat16 inputs are
-// widened to f32 at the shared-memory load and the output rounded back at
-// the store. At DHP 256 the tiles take 213,760 bytes of shared memory, one
-// block per SM. A simple kernel, right first: these head dims serve small
-// models and drafts, whose prefill is dominated by other operations.
+// SIMT (float32 at every head dim, bfloat16 at head dims that are not a
+// multiple of 8): one block of 128 threads per (64-row q tile, b*h) on the
+// CUDA cores, f32 FMAs, each thread owning a 4 x 8 score patch and a
+// 4 x (DHP/8) output patch, where the tile width DHP is the head dim
+// rounded up to 64, 128 or 256 and the columns past the head dim are zero
+// on load and skipped on store; Q and K rows are padded one word against
+// bank conflicts. bfloat16 inputs are widened to f32 at the shared-memory
+// load and the output rounded back at the store. At DHP 256 the tiles take
+// 213,760 bytes of shared memory, one block per SM. A simple kernel, right
+// first: bound by the CUDA cores' f32 rate (67 TFLOP/s) at best, and in
+// practice by one 4-warp block per SM.
 //
 // Launch contract: the caller (ops/flash_attention.py) checks shapes,
 // dtypes, strides and alignment (TMA needs a 16-byte aligned base and byte
@@ -274,25 +296,26 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 constexpr int WG = 128;          // threads per warpgroup
-constexpr int TILE_N = 128;      // keys per K/V tile (the S product's N)
-// K/V ring depth: 3 stages fill 225 KB of the 227 KB a block may take at
-// Dh 128, BLOCK_M 128
-constexpr int KV_STAGES = 3;
 constexpr int ROW_BYTES = 128;   // one swizzled row: 64 bf16
 constexpr int PANEL_COLS = 64;
 
-template <int DH, int NC>  // head dim, consumer warpgroups (BLOCK_M / 64)
+template <int DH, int NC>  // instance width (64, 128, 256), consumer warpgroups (BLOCK_M / 64)
 struct WgmmaTile {
   static constexpr int BLOCK_M = 64 * NC;
   static constexpr int PANELS = DH / PANEL_COLS;
+  // keys per K/V tile (the S product's N) and K/V ring depth: at DH 256 a
+  // 128-key K tile is 64 KB, so 64 keys, 3 stages beside one warpgroup's
+  // Q, 2 beside two; 128 keys in 3 stages below
+  static constexpr int TILE_N = DH == 256 ? 64 : 128;
+  static constexpr int STAGES = DH == 256 && NC == 2 ? 2 : 3;
   static constexpr int Q_PANEL = 64 * ROW_BYTES;       // one warpgroup's rows, one panel
   static constexpr int KV_PANEL = TILE_N * ROW_BYTES;
   static constexpr int Q_BYTES = NC * PANELS * Q_PANEL;
   static constexpr int KV_BYTES = PANELS * KV_PANEL;   // one K (or V) tile
   static constexpr int K_OFF = Q_BYTES;
-  static constexpr int V_OFF = K_OFF + KV_STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = V_OFF + KV_STAGES * KV_BYTES;
-  static constexpr int N_BARS = 1 + 3 * KV_STAGES;     // q_full, k_full[], v_full[], kv_empty[]
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int N_BARS = 1 + 3 * STAGES;        // q_full, k_full[], v_full[], kv_empty[]
   static constexpr int SMEM = BAR_OFF + 8 * N_BARS + 1024;  // + slack to align to 1024
   static constexpr int THREADS = (NC + 1) * WG;
   static_assert(SMEM <= 232448, "a block may take at most 227 KB of shared memory");
@@ -315,8 +338,28 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+// S (+)= Q K^T over one k16 step, N = the instance's TILE_N keys
+template <int N>
+__device__ __forceinline__ void wgmma_qk(float (&s)[N / 2], uint64_t desc_q, uint64_t desc_k, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_qk<128>(float (&s)[64], uint64_t desc_q, uint64_t desc_k, int scale_d) {
+  hopper::wgmma_m64n128k16_ss(s, desc_q, desc_k, scale_d);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_qk<64>(float (&s)[32], uint64_t desc_q, uint64_t desc_k, int scale_d) {
+  hopper::wgmma_m64n64k16_ss(s, desc_q, desc_k, scale_d);
+}
+
+// O += P V over one k16 step, N = the instance's DH columns
 template <int DH>
 __device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2], const uint32_t (&a)[4], uint64_t desc_v);
+
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float (&o)[128], const uint32_t (&a)[4], uint64_t desc_v) {
+  hopper::wgmma_m64n256k16_rs_tb(o, a, desc_v);
+}
 
 template <>
 __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t desc_v) {
@@ -328,22 +371,26 @@ __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)
   hopper::wgmma_m64n64k16_rs_tb(o, a, desc_v);
 }
 
+// `dh` is the real head dim (<= DH): the maps zero-fill the columns past it
+// and the epilogue stores only the panels that hold some of it.
 template <int DH, int NC>
 __global__ void __launch_bounds__((NC + 1) * WG, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        const __grid_constant__ CUtensorMap tm_o,
-                       int H, int rep, int Tq, int kv_limit, int causal, float scale_log2) {
+                       int H, int rep, int Tq, int kv_limit, int causal, int dh, float scale_log2) {
   using T = WgmmaTile<DH, NC>;
   using namespace hopper;
+  constexpr int TILE_N = T::TILE_N;
+  constexpr int STAGES = T::STAGES;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_full = base + T::BAR_OFF;
   const uint32_t k_full0 = q_full + 8;
-  const uint32_t v_full0 = k_full0 + 8 * KV_STAGES;
-  const uint32_t kv_empty0 = v_full0 + 8 * KV_STAGES;
+  const uint32_t v_full0 = k_full0 + 8 * STAGES;
+  const uint32_t kv_empty0 = v_full0 + 8 * STAGES;
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -357,7 +404,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < KV_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(k_full0 + 8 * s, 1);
       mbar_init(v_full0 + 8 * s, 1);
       mbar_init(kv_empty0 + 8 * s, NC * 4);  // one arrival per consumer warp
@@ -374,14 +421,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       prefetch_tensormap(&tm_k);
       prefetch_tensormap(&tm_v);
       prefetch_tensormap(&tm_o);
+      // every panel loads, those past dh as zeros: the products read all
       mbar_arrive_expect_tx(q_full, T::Q_BYTES);
       for (int w = 0; w < NC; ++w)
         for (int p = 0; p < T::PANELS; ++p)
           tma_load_4d(base + (w * T::PANELS + p) * T::Q_PANEL, &tm_q, q_full,
                       p * PANEL_COLS, q0 + 64 * w, h, b);
       for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % KV_STAGES;
-        const uint32_t phase = (i / KV_STAGES) & 1;
+        const int s = i % STAGES;
+        const uint32_t phase = (i / STAGES) & 1;
         mbar_wait(kv_empty0 + 8 * s, phase ^ 1);  // the first round passes at once
         const uint32_t ks = base + T::K_OFF + s * T::KV_BYTES;
         const uint32_t vs = base + T::V_OFF + s * T::KV_BYTES;
@@ -410,12 +458,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     mbar_wait(q_full, 0);
     for (int i = 0; i < n_tiles; ++i) {
-      const int s = i % KV_STAGES;
-      const uint32_t phase = (i / KV_STAGES) & 1;
+      const int s = i % STAGES;
+      const uint32_t phase = (i / STAGES) & 1;
       const uint32_t ks = base + T::K_OFF + s * T::KV_BYTES;
       const uint32_t vs = base + T::V_OFF + s * T::KV_BYTES;
 
-      // S = Q K^T over Dh in k16 steps; a step inside a 128-byte row adds
+      // S = Q K^T over DH in k16 steps; a step inside a 128-byte row adds
       // 32 bytes to both start addresses
       float sc[TILE_N / 2];
       mbar_wait(k_full0 + 8 * s, phase);
@@ -424,7 +472,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int kk = 0; kk < DH / 16; ++kk) {
         const uint32_t qa = q_smem + (kk / 4) * T::Q_PANEL + (kk % 4) * 32;
         const uint32_t kb = ks + (kk / 4) * T::KV_PANEL + (kk % 4) * 32;
-        wgmma_m64n128k16_ss(sc, sw128_desc(qa, 16, 1024), sw128_desc(kb, 16, 1024), kk > 0);
+        wgmma_qk<TILE_N>(sc, sw128_desc(qa, 16, 1024), sw128_desc(kb, 16, 1024), kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -493,7 +541,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
 
       // O += P V: V[key][d] is the MN-major B operand; a k16 step is 16 key
-      // rows (2048 bytes); LBO steps between the 64-column d panels
+      // rows (2048 bytes); LBO steps between the DH / 64 column panels
       mbar_wait(v_full0 + 8 * s, phase);
       fence_regs(o);
       wgmma_fence();
@@ -527,7 +575,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_async_smem();
     named_barrier_sync(1 + wg, WG);
     if (tid == 0 && qw0 < Tq) {
-      for (int p = 0; p < T::PANELS; ++p)
+      for (int p = 0; p * PANEL_COLS < dh; ++p)  // the map clips columns past dh
         tma_store_4d(&tm_o, q_smem + p * T::Q_PANEL, p * PANEL_COLS, qw0, h, b);
       tma_store_wait_all();
     }
@@ -570,9 +618,11 @@ cudaError_t launch_simt_any(const void* q, const void* k, const void* v, void* o
   }
 }
 
-// A 4-D tensor map over [Dh, T, heads, B] (innermost first) with the view's
-// own byte strides, boxes of 64 columns x `rows` rows of one (b, head), and
-// the 128-byte swizzle the wgmma descriptors expect.
+// A 4-D tensor map over [dh, T, heads, B] (innermost first, dh the real
+// head dim) with the view's own byte strides, boxes of 64 columns x `rows`
+// rows of one (b, head), and the 128-byte swizzle the wgmma descriptors
+// expect. A box reaching past dh (a head dim below 64, or the last panel
+// of a padded one) loads zeros there and stores nothing there.
 CUresult encode_map(CUtensorMap* map, const void* ptr, int dh, int t, int heads, int b,
                     Strides s, int rows) {
   cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(t),
@@ -589,24 +639,48 @@ CUresult encode_map(CUtensorMap* map, const void* ptr, int dh, int t, int heads,
 
 template <int DH, int NC>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 int B, int H, int KV, int Tq, int Tk, int kv_limit, int causal,
+                 int B, int H, int KV, int Tq, int Tk, int kv_limit, int causal, int dh,
                  Strides qs, Strides ks, Strides vs, Strides os, cudaStream_t stream) {
   using T = WgmmaTile<DH, NC>;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
-  CUresult res = encode_map(&tm_q, q, DH, Tq, H, B, qs, 64);
-  if (res == CUDA_SUCCESS) res = encode_map(&tm_k, k, DH, Tk, KV, B, ks, TILE_N);
-  if (res == CUDA_SUCCESS) res = encode_map(&tm_v, v, DH, Tk, KV, B, vs, TILE_N);
-  if (res == CUDA_SUCCESS) res = encode_map(&tm_o, o, DH, Tq, H, B, os, 64);
+  CUresult res = encode_map(&tm_q, q, dh, Tq, H, B, qs, 64);
+  if (res == CUDA_SUCCESS) res = encode_map(&tm_k, k, dh, Tk, KV, B, ks, T::TILE_N);
+  if (res == CUDA_SUCCESS) res = encode_map(&tm_v, v, dh, Tk, KV, B, vs, T::TILE_N);
+  if (res == CUDA_SUCCESS) res = encode_map(&tm_o, o, dh, Tq, H, B, os, 64);
   if (res != CUDA_SUCCESS) return -static_cast<int>(res);
   static std::atomic<unsigned long long> opted_in{0};
   cudaError_t err = allow_smem(flash_fwd_wgmma_kernel<DH, NC>, T::SMEM, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(B * H, (Tq + T::BLOCK_M - 1) / T::BLOCK_M);
+  // 1/sqrt of the real head dim, not of the instance's padded width
   const float scale_log2 =
-      static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(DH)));
+      static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(dh)));
   flash_fwd_wgmma_kernel<DH, NC><<<grid, T::THREADS, T::SMEM, stream>>>(
-      tm_q, tm_k, tm_v, tm_o, H, H / KV, Tq, kv_limit, causal, scale_log2);
+      tm_q, tm_k, tm_v, tm_o, H, H / KV, Tq, kv_limit, causal, dh, scale_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The wgmma instance for a bfloat16 head dim: the next of 64, 128 and 256
+// up for a multiple of 8, else 0 (the SIMT route).
+constexpr int wgmma_tile(int dh) {
+  return dh % 8 != 0 ? 0 : dh <= 64 ? 64 : dh <= 128 ? 128 : dh <= 256 ? 256 : 0;
+}
+
+template <int DH>
+int launch_wgmma_bm(const void* q, const void* k, const void* v, void* o,
+                    int B, int H, int KV, int Tq, int Tk, int kv_limit, int causal, int dh,
+                    Strides qs, Strides ks, Strides vs, Strides os, int block_m,
+                    cudaStream_t stream) {
+  if (block_m == 64)
+    return launch_wgmma<DH, 1>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, dh, qs, ks, vs, os, stream);
+  if (block_m == 128)
+    return launch_wgmma<DH, 2>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, dh, qs, ks, vs, os, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int DH>
+int wgmma_smem(int block_m) {
+  return block_m == 64 ? WgmmaTile<DH, 1>::SMEM : block_m == 128 ? WgmmaTile<DH, 2>::SMEM : -1;
 }
 
 }  // namespace
@@ -628,19 +702,20 @@ extern "C" int flash_attention_fwd(
   const int kv_limit = kv_len < 0 ? Tk : (kv_len < Tk ? kv_len : Tk);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dh < 1 || Dh > 256) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1 && Dh == 64 && block_m == 64)
-    return launch_wgmma<64, 1>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, qs, ks, vs, os, s);
-  if (dtype == 1 && Dh == 64 && block_m == 128)
-    return launch_wgmma<64, 2>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, qs, ks, vs, os, s);
-  if (dtype == 1 && Dh == 128 && block_m == 64)
-    return launch_wgmma<128, 1>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, qs, ks, vs, os, s);
-  if (dtype == 1 && Dh == 128 && block_m == 128)
-    return launch_wgmma<128, 2>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, qs, ks, vs, os, s);
-  if (dtype == 1 && (Dh == 64 || Dh == 128)) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1) {
+    switch (wgmma_tile(Dh)) {
+      case 64:
+        return launch_wgmma_bm<64>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, Dh, qs, ks, vs, os, block_m, s);
+      case 128:
+        return launch_wgmma_bm<128>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, Dh, qs, ks, vs, os, block_m, s);
+      case 256:
+        return launch_wgmma_bm<256>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, Dh, qs, ks, vs, os, block_m, s);
+      default:
+        return launch_simt_any<__nv_bfloat16>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, Dh, qs, ks, vs, os, s);
+    }
+  }
   if (dtype == 0)
     return launch_simt_any<float>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, Dh, qs, ks, vs, os, s);
-  if (dtype == 1)
-    return launch_simt_any<__nv_bfloat16>(q, k, v, o, B, H, KV, Tq, Tk, kv_limit, causal, Dh, qs, ks, vs, os, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -648,8 +723,14 @@ extern "C" int flash_attention_fwd(
 // (-1 if none).
 extern "C" int flash_attention_smem_bytes(int dtype, int Dh, int block_m) {
   if (Dh < 1 || Dh > 256 || (dtype != 0 && dtype != 1)) return -1;
-  if (dtype == 0 || (Dh != 64 && Dh != 128)) return f32_smem_bytes(simt_tile(Dh));
-  if (block_m != 64 && block_m != 128) return -1;
-  if (Dh == 64) return block_m == 64 ? WgmmaTile<64, 1>::SMEM : WgmmaTile<64, 2>::SMEM;
-  return block_m == 64 ? WgmmaTile<128, 1>::SMEM : WgmmaTile<128, 2>::SMEM;
+  switch (dtype == 1 ? wgmma_tile(Dh) : 0) {
+    case 64:
+      return wgmma_smem<64>(block_m);
+    case 128:
+      return wgmma_smem<128>(block_m);
+    case 256:
+      return wgmma_smem<256>(block_m);
+    default:
+      return f32_smem_bytes(simt_tile(Dh));
+  }
 }

@@ -17,8 +17,10 @@ kernel (``_flash_kernel``) computes prefill attention on the TPU. Here:
   kernel, which masks ragged edges and ``kv_len`` itself, so there is no
   shape on the card that falls back to the plain version. The kernel
   takes every head dim up to 256 (the JAX package's ``attention()``
-  serves them all): bfloat16 at head dim 64 or 128 runs the wgmma/TMA
-  route, every other (dtype, head dim) the SIMT route (:func:`kernel_route`).
+  serves them all): bfloat16 at a head dim that is a multiple of 8 runs
+  the wgmma/TMA route (on the instance of width 64, 128 or 256 next up,
+  the columns past the head dim padded by TMA), float32 and bfloat16 at
+  any other head dim the SIMT route (:func:`kernel_route`).
   What it does not take (a head dim above 256, another dtype) raises;
   :func:`check_kernel_config` says so for a model before any weight is
   loaded.
@@ -50,9 +52,12 @@ _count_lock = threading.Lock()
 
 _SOURCE = "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims of the bfloat16 wgmma/TMA route; every other head dim up to
-# MAX_HEAD_DIM, and float32 at every head dim, takes the SIMT route
-_WGMMA_HEAD_DIMS = (64, 128)
+# widths of the bfloat16 wgmma/TMA route's kernel instances: a bfloat16
+# head dim that is a multiple of 8 runs the next one up, TMA filling the
+# columns past it with zeros; a bfloat16 head dim that is not (its head
+# stride, Dh * 2 bytes, is no multiple of 16 as TMA needs), and float32 at
+# every head dim up to MAX_HEAD_DIM, take the SIMT route
+_WGMMA_HEAD_DIMS = (64, 128, 256)
 MAX_HEAD_DIM = 256
 
 
@@ -100,10 +105,14 @@ def attention_plain(q, k, v, kv_len: Optional[int] = None, causal: bool = True):
 
 
 def kernel_route(dtype: torch.dtype, dh: int) -> str:
-    """The kernel route these inputs take: ``"wgmma"`` (bfloat16 at head
-    dim 64 or 128: TMA loads, tensor-core products) or ``"simt"`` (every
-    other head dim up to 256, and float32: CUDA-core FMAs)."""
-    return "wgmma" if dtype == torch.bfloat16 and dh in _WGMMA_HEAD_DIMS else "simt"
+    """The kernel route these inputs take, from dtype and head dim alone:
+    ``"wgmma"`` (bfloat16 at a head dim that is a multiple of 8 up to 256:
+    TMA loads, tensor-core products on the instance of width 64, 128 or
+    256 next up) or ``"simt"`` (bfloat16 at any other head dim, float32
+    at every head dim: CUDA-core FMAs)."""
+    if dtype == torch.bfloat16 and dh % 8 == 0 and dh <= _WGMMA_HEAD_DIMS[-1]:
+        return "wgmma"
+    return "simt"
 
 
 def check_kernel_config(dtype, head_dim: int) -> None:
@@ -127,10 +136,12 @@ def check_kernel_inputs(q, k, v, kv_len: Optional[int] = None) -> None:
     aside, so CPU and meta tensors can be checked too): q [B,H,Tq,Dh],
     k/v [B,KV,Tk,Dh] with KV dividing H, one dtype (float32 or bfloat16),
     Dh up to 256, the head dim contiguous, T >= 1. The wgmma route
-    (bfloat16 at Dh 64 or 128) loads through TMA, which needs every base
-    16-byte aligned and every byte stride a multiple of 16; a view that
-    breaks this raises (no copy is made). The SIMT route reads through
-    plain loads and takes any stride."""
+    (bfloat16 at a Dh that is a multiple of 8) loads through TMA, which
+    needs every base 16-byte aligned and every byte stride a multiple of
+    16; a view that breaks this raises (no copy is made, and no other
+    route is taken). The SIMT route (float32, and bfloat16 at a Dh that
+    is not a multiple of 8) reads through plain loads and takes any
+    stride."""
     _check_shapes(q, k, v, kv_len)
     dh = q.shape[3]
     check_kernel_config(q.dtype, dh)

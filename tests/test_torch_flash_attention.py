@@ -185,26 +185,96 @@ def test_kernel_check_rejects_other_head_dims_and_dtypes():
         tfa.check_kernel_inputs(q, *(_prefill_views(1, 4, 3, 16, 64)[1:]))
 
 
-@pytest.mark.parametrize("dh", [8, 16, 32, 96, 256])
+@pytest.mark.parametrize("dh", [8, 12, 16, 32, 96, 200, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_check_accepts_every_head_dim_up_to_256(dh, dtype):
-    """Every head dim up to 256 goes to the kernel: bfloat16 at 64/128 to
-    the wgmma route, everything else to the SIMT route, which takes any
-    stride (no TMA alignment)."""
+    """Every head dim up to 256 goes to the kernel: bfloat16 at a multiple
+    of 8 to the wgmma route, which loads through TMA (a base one element
+    off 16-byte alignment raises), everything else to the SIMT route,
+    which takes any stride."""
     q, k, v = _prefill_views(2, 4, 2, 33, dh, dtype)
     tfa.check_kernel_inputs(q, k, v)
     tfa.check_kernel_inputs(q, k, v, kv_len=20)
-    assert tfa.kernel_route(dtype, dh) == "simt"
+    tma = dtype == torch.bfloat16 and dh % 8 == 0
+    assert tfa.kernel_route(dtype, dh) == ("wgmma" if tma else "simt")
     flat = torch.zeros(1 + 33 * 4 * dh, dtype=dtype)  # base one element off
     x = flat[1:].view(1, 33, 4, dh).transpose(1, 2)
-    tfa.check_kernel_inputs(x, x, x)
+    if tma:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tfa.check_kernel_inputs(x, x, x)
+    else:
+        tfa.check_kernel_inputs(x, x, x)
 
 
 def test_kernel_route():
     assert tfa.kernel_route(torch.bfloat16, 64) == "wgmma"
     assert tfa.kernel_route(torch.bfloat16, 128) == "wgmma"
     assert tfa.kernel_route(torch.float32, 128) == "simt"
-    assert tfa.kernel_route(torch.bfloat16, 256) == "simt"
+    assert tfa.kernel_route(torch.bfloat16, 256) == "wgmma"
+    assert tfa.kernel_route(torch.bfloat16, 8) == "wgmma"
+    assert tfa.kernel_route(torch.bfloat16, 12) == "simt"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_route_every_head_dim(dtype):
+    """The route follows from dtype and head dim alone, before any launch:
+    bfloat16 at a multiple of 8 up to 256 takes the wgmma route (on the
+    instance of width 64, 128 or 256 next up), every other head dim up to
+    256 and float32 at all of them the SIMT route."""
+    for dh in range(1, tfa.MAX_HEAD_DIM + 1):
+        want = "wgmma" if dtype == torch.bfloat16 and dh % 8 == 0 else "simt"
+        assert tfa.kernel_route(dtype, dh) == want, dh
+    assert tfa._WGMMA_HEAD_DIMS[-1] == tfa.MAX_HEAD_DIM
+
+
+@pytest.mark.parametrize("dh", [8, 32, 200, 256])
+def test_kernel_check_accepts_prefill_views_of_the_model(dh):
+    """q/k/v exactly as DecoderLM.prefill hands them to attention() (RoPE'd
+    q/k, head-transposed v) at narrow, padded and wide head dims: the
+    wgmma route's TMA contract holds for all three, so a bf16 model at
+    these head dims prefills on the tensor cores."""
+    from seldon_core_tpu_torch.models import llm as llm_mod
+
+    model = llm_mod.DecoderLM(vocab_size=64, d_model=2 * dh, n_layers=1, n_heads=2,
+                              n_kv_heads=1, d_ff=32, max_seq=32, dtype="bfloat16")
+    params = model.init_params(0, device="cpu")
+    params = {key: ({n: w.to(torch.bfloat16) for n, w in val.items()}
+                    if isinstance(val, dict) else val.to(torch.bfloat16))
+              for key, val in params.items()}
+    seen = []
+
+    def record(q, k, v, kv_len=None, causal=True):
+        seen.append((q, k, v))
+        return tfa.attention_plain(q, k, v, kv_len=kv_len, causal=causal)
+
+    saved = llm_mod.prefill_attention
+    llm_mod.prefill_attention = record
+    try:
+        model.prefill(params, torch.tensor([[1, 2, 3, 4, 5, 6, 7]]), 16)
+    finally:
+        llm_mod.prefill_attention = saved
+    assert len(seen) == 1
+    q, k, v = seen[0]
+    assert q.shape == (1, 2, 7, dh) and k.shape == v.shape == (1, 1, 7, dh)
+    assert tfa.kernel_route(q.dtype, dh) == "wgmma"
+    tfa.check_kernel_inputs(q, k, v)
+
+
+@pytest.mark.parametrize("dh", [8, 32, 200, 256])
+def test_kernel_check_rejects_tma_illegal_strides_on_the_wgmma_route(dh):
+    """A bf16 view whose T stride is 4 elements (8 bytes) off a multiple
+    of 16 bytes raises on the wgmma route, naming the cause: no copy is
+    made and no other route is taken. At a head dim off the multiple of 8
+    the same layout is the SIMT route's, which reads any stride."""
+    x = torch.zeros(1, 16, 2 * dh + 4, dtype=torch.bfloat16)[:, :, : 2 * dh]
+    x = x.unflatten(2, (2, dh)).transpose(1, 2)
+    assert (x.stride(2) * 2) % 16 == 8
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        tfa.check_kernel_inputs(x, x, x)
+    y = torch.zeros(1, 16, 2 * (dh - 1) + 4, dtype=torch.bfloat16)[:, :, : 2 * (dh - 1)]
+    y = y.unflatten(2, (2, dh - 1)).transpose(1, 2)
+    assert tfa.kernel_route(y.dtype, dh - 1) == "simt"
+    tfa.check_kernel_inputs(y, y, y)
 
 
 @pytest.mark.parametrize("dh,dtype,cause", [
