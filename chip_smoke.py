@@ -6,16 +6,17 @@
 Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails. ``--phases`` runs a subset of
 ``kernels, small, serve, engine, small-sched, sched, prefix, pressure,
-spec, spec-pressure, dh256, model`` (device and build always run; the
+spec, spec-pressure, dh256, f32, model`` (device and build always run; the
 result lines print only when every phase ran, as with no argument):
 
 1. Device: the card's name and power limit (nvidia-smi) and torch's view.
 2. Build: compiles every CUDA kernel of the path from ``ops/csrc``.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
-   same inputs, at the shapes the serving path gives it (the wgmma route
-   at both block sizes: bf16 at head dims 8-256, those off 64/128/256
-   padded by TMA; the SIMT route at f32 and at bf16 Dh 12; ragged T and
-   a key-length mask), with times -- per call from the host (``call_ms``) and
+   same inputs, at the shapes the serving path gives it (each route at
+   both its block sizes: wgmma at bf16 head dims 8-256, those off
+   64/128/256 padded by TMA; mma at f32, llm-1.26b-f32's prefill
+   included, at bf16 Dh 12 and 7 and through an odd T stride; ragged T
+   and a key-length mask), with times -- per call from the host (``call_ms``) and
    on the device from a CUDA graph of 20 launches (``device_ms``) --
    the PyTorch library call timed both ways as a yardstick, the bound,
    TFLOP/s and the share of the bound.
@@ -116,7 +117,16 @@ result lines print only when every phase ran, as with no argument):
    ``warm()``, and full-width prefill logits agree with the plain
    attention's. Reports tokens/s, TTFT and TPOT beside the serve phase's,
    and a B=1, T=1024 prefill's time with the flash kernel's share.
-13. Model (on the engine phase's copy, after every serving phase: a
+13. Float32 (``llm-1.26b-f32``: llm-1.26b at float32, random weights
+   from seed 0), served as phase 12 serves Dh 256: fails unless the two
+   runs are token-identical, every greedy stream equals ``generate()``
+   or parts from it where the candidates' logits are within 1e-3, every
+   prefill launched the flash kernel and only on ``mma float32 Dh 128``
+   (3xTF32), no graph is captured after ``warm()``, and the B=1, T=1024
+   prefill logits are within 1e-3 of the plain attention's. Reports
+   tokens/s, TTFT, TPOT, peak memory, and a B=1, T=1024 prefill's device
+   time with the flash kernel's share.
+14. Model (on the engine phase's copy, after every serving phase: a
    profiler run may slow later launches): full-width prefill time per
    bucket with the flash kernel's device time inside it
    (torch.profiler), a prefix hit's suffix prefill against the full
@@ -128,9 +138,9 @@ result lines print only when every phase ran, as with no argument):
    a 6-layer early-exit draft, the W = 5 verify chunk, acceptance)
    against 5 decode steps at B = 4, attention 512, in device-busy time
    and device operations.
-14. The ``kernels`` JSON line (the flash kernel on the main path, and its
-   Dh 256 instance on the dh256 phase's), then the final
-   ``{"ok": true, ...}`` line.
+15. The ``kernels`` JSON line (the flash kernel on the main path, its
+   Dh 256 instance on the dh256 phase's and its float32 instance on the
+   f32 phase's), then the final ``{"ok": true, ...}`` line.
 
 Exits 2 when CUDA is unavailable, 1 on any failure.
 """
@@ -152,9 +162,12 @@ import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 CUDA
-# cores, HBM3 bandwidth
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
+# bandwidth; float32 runs on the tensor cores as 3xTF32, three TF32
+# products (495 TFLOP/s) per float32 product
+PEAK_FLOPS = {"bfloat16": 989e12}
+PEAK_TF32_FLOPS = 495e12
+TF32_PASSES = 3
 PEAK_BYTES_S = 3.35e12
 
 # llm-1.26b: the flagship generate configuration of the JAX package's
@@ -262,17 +275,18 @@ def phase_build():
 
 
 def _kernel_name(mangled):
-    """flash_fwd_wgmma_kernel<128,2> or flash_fwd_simt_kernel<bf16,256>
+    """flash_fwd_wgmma_kernel<128,2> or flash_fwd_mma_kernel<bf16,256,2>
     from a mangled entry-function name."""
     short = "flash_fwd_wgmma_kernel"
     if short in mangled:
         tmpl = mangled.split(short, 1)[1].split("EE", 1)[0]
         return short + "<" + ",".join(tmpl.replace("ILi", "").split("ELi")) + ">"
-    short = "flash_fwd_simt_kernel"
+    short = "flash_fwd_mma_kernel"
     if short in mangled:
         tmpl = mangled.split(short + "I", 1)[1].split("EE", 1)[0]
         dtype = "bf16" if "bfloat16" in tmpl else "f32"
-        return f"{short}<{dtype},{tmpl.rsplit('Li', 1)[-1]}>"
+        ints = [x.rstrip("E") for x in tmpl.split("Li")[1:]]
+        return f"{short}<{dtype},{','.join(ints)}>"
     return mangled
 
 
@@ -300,17 +314,17 @@ def _ptxas_summary(text):
     return out
 
 
-def _prefill_like(b, h, kv, t, dh, dtype, gen):
+def _prefill_like(b, h, kv, t, dh, dtype, gen, extra=0):
     """q/k/v laid out as DecoderLM.prefill hands them to attention():
-    head-transposed views of [B, T, heads*Dh] projections."""
+    head-transposed views of [B, T, heads*Dh] projections; ``extra``
+    unused elements after each row of T make the T stride odd."""
     import torch
 
-    q = torch.randn(b, t, h * dh, generator=gen, device="cuda").to(dtype)
-    k = torch.randn(b, t, kv * dh, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(b, t, kv * dh, generator=gen, device="cuda").to(dtype)
-    return (q.view(b, t, h, dh).transpose(1, 2),
-            k.view(b, t, kv, dh).transpose(1, 2),
-            v.view(b, t, kv, dh).transpose(1, 2))
+    def view(heads):
+        x = torch.randn(b, t, heads * dh + extra, generator=gen, device="cuda").to(dtype)
+        return x[:, :, : heads * dh].unflatten(2, (heads, dh)).transpose(1, 2)
+
+    return view(h), view(kv), view(kv)
 
 
 def _flops(b, h, t, dh, causal=True, kv_len=None):
@@ -323,11 +337,15 @@ def _flops(b, h, t, dh, causal=True, kv_len=None):
 
 def _bound(b, h, kv, t, dh, dtype_name, causal=True, kv_len=None):
     """Least time for the work: max(FLOPs this input needs / peak for its
-    type, bytes of q, k, v read once and o written once / HBM rate)."""
+    type, bytes of q, k, v read once and o written once / HBM rate); at
+    float32 the FLOPs are 3xTF32's, three TF32 products each."""
     flops = _flops(b, h, t, dh, causal=causal, kv_len=kv_len)
     item = 2 if dtype_name == "bfloat16" else 4
     nbytes = item * dh * t * b * (2 * h + 2 * kv)
-    t_ops = flops / PEAK_FLOPS[dtype_name]
+    if dtype_name == "float32":
+        t_ops = TF32_PASSES * flops / PEAK_TF32_FLOPS
+    else:
+        t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / PEAK_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -341,16 +359,18 @@ def phase_kernels(card):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    # (label, B, H, KV, T, Dh, dtype, kv_len): the serving path's shapes
-    # (llm-1.26b heads, every prefill bucket, batched admissions m = 4
-    # and 8), plus ragged T with a key-length mask, head dim 64, the
-    # float32 path, and head dims 8 (the separate draft of the
-    # speculation configurations: d_model 16, 2 heads, 1 kv head), 32 and
-    # 256 at float32 (SIMT) and bfloat16 (wgmma, padded by TMA below 64);
-    # llm-1.26b-dh256's shapes (Gemma-2B's attention: 8 heads, 1 kv head,
-    # Dh 256) and the same at 8 kv heads; Dh 96 and 200 (padded inside
-    # the 128 and 256 instances) and Dh 12 (bfloat16 off the multiple of
-    # 8: SIMT)
+    # (label, B, H, KV, T, Dh, dtype, kv_len[, extra]): the serving path's
+    # shapes (llm-1.26b heads, every prefill bucket, batched admissions
+    # m = 4 and 8), plus ragged T with a key-length mask, head dim 64, the
+    # float32 path (mma, 3xTF32) with llm-1.26b-f32's prefill, and head
+    # dims 8 (the separate draft of the speculation configurations:
+    # d_model 16, 2 heads, 1 kv head), 32 and 256 at float32 (mma) and
+    # bfloat16 (wgmma, padded by TMA below 64); llm-1.26b-dh256's shapes
+    # (Gemma-2B's attention: 8 heads, 1 kv head, Dh 256) and the same at 8
+    # kv heads; Dh 96 and 200 (padded inside the 128 and 256 instances),
+    # Dh 12 and 7 (bfloat16 off the multiple of 8: mma, with 8- and
+    # 2-byte copies) and a float32 view whose T stride is odd (`extra` 1:
+    # 4-byte copies)
     cases = [
         ("b1_t32", 1, 16, 8, 32, 128, torch.bfloat16, None),
         ("b1_t128", 1, 16, 8, 128, 128, torch.bfloat16, None),
@@ -363,6 +383,8 @@ def phase_kernels(card):
         ("bf16_b2_t200_dh64", 2, 4, 1, 200, 64, torch.bfloat16, None),
         ("f32_b2_t256_dh64", 2, 4, 4, 256, 64, torch.float32, None),
         ("f32_ragged_t130_kvlen100", 1, 4, 2, 130, 128, torch.float32, 100),
+        ("f32_dh128_b1_t1024", 1, 16, 8, 1024, 128, torch.float32, None),
+        ("f32_dh64_b2_t256_odd_stride", 2, 4, 2, 256, 64, torch.float32, None, 1),
         ("f32_dh8_b1_t128", 1, 2, 1, 128, 8, torch.float32, None),
         ("bf16_dh8_b4_t130_kvlen100", 4, 2, 1, 130, 8, torch.bfloat16, 100),
         ("bf16_dh8_b1_t512", 1, 2, 1, 512, 8, torch.bfloat16, None),
@@ -370,6 +392,7 @@ def phase_kernels(card):
         ("bf16_dh32_b2_t257_kvlen200", 2, 8, 2, 257, 32, torch.bfloat16, 200),
         ("bf16_dh32_b1_t1024", 1, 8, 2, 1024, 32, torch.bfloat16, None),
         ("bf16_dh12_b1_t512", 1, 4, 2, 512, 12, torch.bfloat16, None),
+        ("bf16_dh7_b1_t256", 1, 4, 2, 256, 7, torch.bfloat16, None),
         ("bf16_dh96_b2_t300", 2, 8, 2, 300, 96, torch.bfloat16, None),
         ("bf16_dh200_b2_t257_kvlen200", 2, 8, 1, 257, 200, torch.bfloat16, 200),
         ("bf16_dh200_b1_t1024", 1, 8, 1, 1024, 200, torch.bfloat16, None),
@@ -379,19 +402,29 @@ def phase_kernels(card):
         ("bf16_dh256_b1_t1024", 1, 8, 1, 1024, 256, torch.bfloat16, None),
         ("bf16_dh256_b8_t512", 8, 8, 1, 512, 256, torch.bfloat16, None),
         ("bf16_dh256_t130_kvlen100", 1, 8, 1, 130, 256, torch.bfloat16, 100),
+    ] + [
+        # every mma instance (DMAX 8-256) at a head dim it pads, ragged T
+        # and a key-length mask: copies of 4-16 bytes, and 2 at bf16 Dh 15
+        (f"{name}_dh{dh}_b2_t130_kvlen100", 2, 4, 2, 130, dh, dt, 100)
+        for name, dt, dims in (("f32", torch.float32, (5, 13, 24, 40, 100, 200)),
+                               ("bf16", torch.bfloat16, (15, 20, 50, 100, 250)))
+        for dh in dims
     ]
     results = {}
-    for label, b, h, kv, t, dh, dt, kv_len in cases:
-        q, k, v = _prefill_like(b, h, kv, t, dh, dt, gen)
+    for label, b, h, kv, t, dh, dt, kv_len, *extra in cases:
+        q, k, v = _prefill_like(b, h, kv, t, dh, dt, gen, *extra)
         dname = "bfloat16" if dt == torch.bfloat16 else "float32"
         tol = TOL[dname]
         ref = fa.attention_plain(q, k, v, kv_len=kv_len, causal=True)
-        # wgmma route: both block sizes are checked and timed; the
+        # both block sizes of the route are checked and timed; the
         # wrapper's own choice is what the main path runs
         route = fa.kernel_route(dt, dh)
-        chosen = fa.choose_block_m(b, h, t, sms) if route == "wgmma" else 64
+        if route == "wgmma":
+            chosen, sizes, copy = fa.choose_block_m(b, h, t, sms), (64, 128), "tma"
+        else:
+            chosen, sizes, copy = fa.choose_mma_block_m(b, h, t, sms), (32, 64), fa.copy_bytes(q, k, v)
         per_bm = {}
-        for bm in ((64, 128) if route == "wgmma" else (64,)):
+        for bm in sizes:
             out = fa.flash_attention_cuda(q, k, v, kv_len=kv_len, causal=True, block_m=bm)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
@@ -414,7 +447,8 @@ def phase_kernels(card):
         smem = fa.smem_bytes(dt, dh, chosen)
         others = " ".join(f"device_ms[block_m={bm}]={ms:.4f}" for bm, (_e, ms) in per_bm.items())
         log(f"[kernel] flash_attention {label} B={b} H={h} KV={kv} T={t} Dh={dh} {dname} "
-            f"route={route} kv_len={kv_len} block_m={chosen} smem={smem} max_abs_err={err:.3e} tol={tol:.3e} "
+            f"route={route} kv_len={kv_len} block_m={chosen} smem={smem} copy={copy} "
+            f"T_stride={q.stride(2)} max_abs_err={err:.3e} tol={tol:.3e} "
             f"device_ms={dev_ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={_r(library_ms)} library_device_ms={_r(library_dev_ms)} "
             f"bound_ms={bound_ms:.4f} bound_us={bound_ms * 1e3:.3g} ({bound_by}) TFLOP/s={flops / dev_ms / 1e9:.1f} "
@@ -1623,7 +1657,7 @@ def phase_small_scheduler():
     at the deepest bucket during the second pass: lanes are preempted
     and resume) give the same tokens, greedy and seeded; the
     speculation configurations S1 (a separate draft, head dim 8: its
-    prefill runs the SIMT flash route), S2 (an early-exit self-draft of
+    prefill runs the flash kernel's mma route), S2 (an early-exit self-draft of
     one layer), S3 (S2 + fused 64, which degrades to spec bursts), S4
     (S2 + forced depth groups + prefill_chunk), S5 (S2 + the prefix
     cache), S6 (S2, its second pass greedy-only under a ledger shrink
@@ -2292,34 +2326,47 @@ def _greedy_vs_generate(model, params, prompt, stream, ref):
     return i, (logits[0, ref[n + i]] - logits[0, stream[n + i]]).abs().item()
 
 
-def phase_dh256(card, serve_numbers):
-    """llm-1.26b-dh256 (bf16, random weights from seed 0) built through
+# llm-1.26b at float32 (the JAX package serves a config with "dtype":
+# "float32", LMConfig.dtype): every prefill runs the mma route's 3xTF32
+# instance at Dh 128; 5.0 GB of weights, 1.6 GB of K/V at 8 x 1024
+LLM_1_26B_F32 = {**LLM_1_26B, "dtype": "float32"}
+# At float32 the batcher and generate() run their matmuls at other shapes,
+# so cuBLAS sums in other orders: unit-scale logits differ by ~1e-5 after
+# 24 layers. A greedy stream may part from generate() only where the two
+# candidates' logits are within 1e-3 of each other (a tie at that noise).
+F32_TIE_TOL = 1e-3
+# Full-width float32 prefill logits, kernel vs plain attention: the
+# attention outputs differ by ~1e-6 (3xTF32 products and an exp2 against
+# einsum and softmax), which 24 layers grow ~10x (the bf16 model's 2**-8
+# per layer became 0.03); 1e-3 leaves a margin of ~100x. A top-1 choice
+# may differ only where the plain logits of the two tokens are within
+# twice that.
+F32_LOGITS_TOL = 1e-3
+
+
+def _served_config(card, tag, config, route, tie_tol):
+    """``config`` (random weights from seed 0) built through
     GenerateServer's typed parameters (the serve phase's: 8 slots,
     steps_per_poll 16, pipeline_depth 3, warmed for the waves' prompt
-    lengths, the knobs off), driven twice with the serve waves, each
-    wave queued whole. Fails unless every request answers 64 tokens,
-    the second run repeats the first token for token, every prefill
-    launched the flash kernel, the launches over the phase are all
-    ``wgmma bfloat16 Dh 256`` (no SIMT), no graph is captured after
-    warm(), every greedy stream equals ``generate()`` on the card or
-    parts from it at a near-tie (GREEDY_TIE_TOL), and full-width prefill
-    logits with the kernel agree with the plain attention's. Prints
-    tokens/s, TTFT and TPOT beside the serve phase's llm-1.26b numbers,
-    and a B=1, T=1024 prefill's time with the flash kernel's share.
-    Returns the Dh 256 launches of the two runs."""
-    import numpy as np
+    lengths, the knobs off), driven twice with the serve waves, each wave
+    queued whole. Fails unless every request answers 64 tokens, the
+    second run repeats the first token for token, every prefill launched
+    the flash kernel, the launches over both runs are all ``route`` and
+    nothing else, no graph is captured after warm(), and every greedy
+    stream equals ``generate()`` on the card or parts from it where the
+    two candidates' logits are within ``tie_tol``. Prints tokens/s, TTFT,
+    TPOT and peak memory per run. Returns the model, its weights and the
+    launches by route."""
     import torch
 
     from seldon_core_tpu_torch import microservice
-    from seldon_core_tpu_torch.models import llm as llm_mod
     from seldon_core_tpu_torch.ops import flash_attention as fa
 
-    route = "wgmma bfloat16 Dh 256"
     probe, mixed = serve_waves()
     gate = _Gate()
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-dh256-") as model_dir:
+    with tempfile.TemporaryDirectory(prefix=f"chip-smoke-{tag}-") as model_dir:
         with open(os.path.join(model_dir, "jax_config.json"), "w") as f:
-            json.dump({"family": "llm", "config": LLM_1_26B_DH256}, f)
+            json.dump({"family": "llm", "config": config}, f)
         server_params = [{"name": "model_uri", "value": model_dir, "type": "STRING"}] + SERVE_PARAMS
         t0 = time.perf_counter()
         user = microservice.build_user_object(
@@ -2329,9 +2376,9 @@ def phase_dh256(card, serve_numbers):
         b, model = user.batcher, user._model
         cfg = model.cfg
         b.fault_hook = gate
-        log(f"[dh256] llm-1.26b-dh256 loaded and warmed in {time.perf_counter() - t0:.1f} s "
+        log(f"[{tag}] loaded and warmed in {time.perf_counter() - t0:.1f} s "
             f"({model.n_params() / 1e9:.3f} B params, {cfg.dtype}, {cfg.n_heads} heads / "
-            f"{cfg.n_kv_heads} kv head, Dh {cfg.head_dim}; {b.stats['graphs_captured']} graphs)")
+            f"{cfg.n_kv_heads} kv heads, Dh {cfg.head_dim}; {b.stats['graphs_captured']} graphs)")
         try:
             fa.ROUTE_LAUNCHES.clear()  # count this path only
             runs = [_sched_run(gate, b, probe, mixed) for _ in range(2)]
@@ -2348,18 +2395,18 @@ def phase_dh256(card, serve_numbers):
             toks = _p(key, probe, mixed)
             if len(out) != len(toks) + MAX_NEW or out[: len(toks)] != toks \
                     or not all(0 <= x < vocab for x in out):
-                raise AssertionError(f"[dh256] run {n + 1} {key}: malformed tokens")
+                raise AssertionError(f"[{tag}] run {n + 1} {key}: malformed tokens")
         prefills = run["delta"]["prefill_steps"]
         if prefills <= 0 or run["launches"] < cfg.n_layers * prefills:
-            raise AssertionError(f"[dh256] run {n + 1}: {prefills} prefills but "
+            raise AssertionError(f"[{tag}] run {n + 1}: {prefills} prefills but "
                                  f"{run['launches']} flash launches")
     bad = [k for k in runs[0]["tokens"] if runs[1]["tokens"][k] != runs[0]["tokens"][k]]
     if bad:
-        raise AssertionError(f"[dh256] the second run gave other tokens: {bad}")
-    if routes.get(route, 0) <= 0 or any(k.startswith("simt") for k in routes):
-        raise AssertionError(f"[dh256] flash launches by route {routes}: want only {route}")
+        raise AssertionError(f"[{tag}] the second run gave other tokens: {bad}")
+    if set(routes) != {route}:
+        raise AssertionError(f"[{tag}] flash launches by route {routes}: want only {route}")
     if inline:
-        raise AssertionError(f"[dh256] {inline} graphs captured after warm()")
+        raise AssertionError(f"[{tag}] {inline} graphs captured after warm()")
 
     # every greedy stream against generate() on the same card and weights
     refs, parted = {}, {}
@@ -2372,52 +2419,92 @@ def phase_dh256(card, serve_numbers):
         diff = _greedy_vs_generate(model, params, toks, runs[0]["tokens"][label],
                                    refs[tuple(toks)])
         if diff is not None:
-            parted[label] = (diff[0], round(diff[1], 4))
-    log(f"[dh256] greedy streams vs generate() on the card: {len(greedy) - len(parted)} of "
+            parted[label] = (diff[0], round(diff[1], 6))
+    log(f"[{tag}] greedy streams vs generate() on the card: {len(greedy) - len(parted)} of "
         f"{len(greedy)} equal token for token"
         + (f"; parted (generated step, |logit margin| of the two candidates) {parted}, "
-           f"tie tolerance {GREEDY_TIE_TOL}" if parted else "")
+           f"tie tolerance {tie_tol}" if parted else "")
         + f" ({time.perf_counter() - t0:.1f} s)")
-    if any(margin > GREEDY_TIE_TOL for _i, margin in parted.values()):
-        raise AssertionError(f"[dh256] greedy streams part from generate() off a tie: {parted}")
+    if any(margin > tie_tol for _i, margin in parted.values()):
+        raise AssertionError(f"[{tag}] greedy streams part from generate() off a tie: {parted}")
 
     for n, run in enumerate(runs):
         slo = run["slo"]
-        log(f"[dh256] run {n + 1}: tokens/s {run['tok_s']:.1f}, TTFT p50 {slo['ttft_p50']:.1f} ms "
+        log(f"[{tag}] run {n + 1}: tokens/s {run['tok_s']:.1f}, TTFT p50 {slo['ttft_p50']:.1f} ms "
             f"p99 {slo['ttft_p99']:.1f} ms, TPOT p50 {slo['tpot_p50']:.2f} ms, peak allocated "
             f"{run['peak'] / 2**30:.2f} GiB, flash launches {run['launches']} [{card}]")
-    if serve_numbers:
-        log(f"[dh256] beside llm-1.26b (Dh 128) in the serve phase (the same waves over REST): "
-            f"tokens/s {serve_numbers['tok_s']:.1f}, TTFT p50 {serve_numbers['ttft_p50']:.1f} ms "
-            f"p99 {serve_numbers['ttft_p99']:.1f} ms, TPOT p50 {serve_numbers['tpot_p50']:.2f} ms")
-    log(f"[dh256] both runs token-identical ({len(runs[0]['tokens'])} streams each); flash "
+    log(f"[{tag}] both runs token-identical ({len(runs[0]['tokens'])} streams each); flash "
         f"launches over the phase by route {routes}; graph_captures_inline {inline}")
+    return model, params, routes
 
-    # one B=1, T=1024 prefill: eager (CUDA events around the calls, host
-    # gaps included) and replayed from a CUDA graph (device time), with
-    # the flash kernel's device time at its shapes, once per layer
+
+def _prefill_flash_share(card, tag, model, params):
+    """One B=1, T=1024 prefill: eager (CUDA events around the calls, host
+    gaps included) and replayed from a CUDA graph (device time), with the
+    flash kernel's device time at its shapes, once per layer. Returns the
+    graph's and the kernel's share of it."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+
+    cfg = model.cfg
     rs = np.random.RandomState(3)
-    toks = torch.tensor(rs.randint(0, vocab, (1, 1024)), device="cuda")
+    toks = torch.tensor(rs.randint(0, cfg.vocab_size, (1, 1024)), device="cuda")
     eager_ms = time_ms(lambda: model.prefill(params, toks, 1024), iters=5, warmup=1)
     graph_ms = device_ms(lambda: model.prefill(params, toks, 1024), launches=3, reps=3)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     q, k, v = _prefill_like(1, cfg.n_heads, cfg.n_kv_heads, 1024, cfg.head_dim, model.dtype, gen)
     flash_ms = device_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True))
-    log(f"[dh256] prefill B=1 T=1024: eager {eager_ms:.2f} ms (CUDA events), device "
+    share = cfg.n_layers * flash_ms / graph_ms
+    log(f"[{tag}] prefill B=1 T=1024: eager {eager_ms:.2f} ms (CUDA events), device "
         f"{graph_ms:.3f} ms (CUDA graph replay); flash kernel {flash_ms:.4f} ms x "
         f"{cfg.n_layers} layers = {cfg.n_layers * flash_ms:.3f} ms, "
-        f"{100 * cfg.n_layers * flash_ms / graph_ms:.1f}% of the device time [{card}]")
+        f"{100 * share:.1f}% of the device time [{card}]")
+    return graph_ms, share
 
-    # full-width prefill logits: the kernel against the plain attention
-    prompts = torch.tensor(rs.randint(0, vocab, (8, 128)), device="cuda")
-    logits_k, _ = model.prefill(params, prompts, 128)
+
+def _logits_kernel_vs_plain(model, params, prompts):
+    """Prefill logits of ``prompts`` with the kernel and with the plain
+    attention in its place, on the same model and weights."""
+    from seldon_core_tpu_torch.models import llm as llm_mod
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+
+    t = prompts.shape[1]
+    logits_k, _ = model.prefill(params, prompts, t)
     saved = llm_mod.prefill_attention
     llm_mod.prefill_attention = fa.attention_plain
     try:
-        logits_p, _ = model.prefill(params, prompts, 128)
+        logits_p, _ = model.prefill(params, prompts, t)
     finally:
         llm_mod.prefill_attention = saved
+    return logits_k, logits_p
+
+
+def phase_dh256(card, serve_numbers):
+    """llm-1.26b-dh256 (bf16, random weights from seed 0) served as
+    ``_served_config`` drives it, every flash launch on ``wgmma bfloat16
+    Dh 256`` (GREEDY_TIE_TOL); prints its numbers beside the serve
+    phase's llm-1.26b numbers, a B=1, T=1024 prefill's time with the
+    flash kernel's share, and fails unless full-width prefill logits with
+    the kernel agree with the plain attention's. Returns the Dh 256
+    launches of the two runs."""
+    import numpy as np
+    import torch
+
+    route = "wgmma bfloat16 Dh 256"
+    model, params, routes = _served_config(card, "dh256", LLM_1_26B_DH256, route, GREEDY_TIE_TOL)
+    if serve_numbers:
+        log(f"[dh256] beside llm-1.26b (Dh 128) in the serve phase (the same waves over REST): "
+            f"tokens/s {serve_numbers['tok_s']:.1f}, TTFT p50 {serve_numbers['ttft_p50']:.1f} ms "
+            f"p99 {serve_numbers['ttft_p99']:.1f} ms, TPOT p50 {serve_numbers['tpot_p50']:.2f} ms")
+    _prefill_flash_share(card, "dh256", model, params)
+
+    # full-width prefill logits: the kernel against the plain attention
+    rs = np.random.RandomState(3)
+    prompts = torch.tensor(rs.randint(0, model.cfg.vocab_size, (8, 128)), device="cuda")
+    logits_k, logits_p = _logits_kernel_vs_plain(model, params, prompts)
     if not bool(torch.isfinite(logits_k).all()):
         raise AssertionError("[dh256] non-finite prefill logits")
     diff = (logits_k - logits_p).abs().max().item()
@@ -2429,8 +2516,45 @@ def phase_dh256(card, serve_numbers):
     return routes[route]
 
 
+def phase_f32(card):
+    """llm-1.26b-f32 (llm-1.26b at float32, random weights from seed 0)
+    served as ``_served_config`` drives it, every flash launch on ``mma
+    float32 Dh 128`` (F32_TIE_TOL); prints a B=1, T=1024 prefill's device
+    time with the flash kernel's share, and fails unless the full-width
+    B=1, T=1024 prefill logits with the kernel are within F32_LOGITS_TOL
+    of the plain attention's, every top-1 choice agreeing but at a tie.
+    Returns the Dh 128 launches of the two runs."""
+    import numpy as np
+    import torch
+
+    route = "mma float32 Dh 128"
+    model, params, routes = _served_config(card, "f32", LLM_1_26B_F32, route, F32_TIE_TOL)
+    graph_ms, share = _prefill_flash_share(card, "f32", model, params)
+    log(f"[f32] the rest of the prefill's device time, {graph_ms * (1 - share):.3f} ms "
+        f"({100 * (1 - share):.1f}%), is the float32 matmuls and the other layers' operations"
+        + (": the matmuls, not the flash kernel, dominate" if share < 0.5 else ""))
+
+    rs = np.random.RandomState(4)
+    prompts = torch.tensor(rs.randint(0, model.cfg.vocab_size, (1, 1024)), device="cuda")
+    logits_k, logits_p = _logits_kernel_vs_plain(model, params, prompts)
+    if not bool(torch.isfinite(logits_k).all()):
+        raise AssertionError("[f32] non-finite prefill logits")
+    diff = (logits_k - logits_p).abs().max().item()
+    pick_k, pick_p = logits_k.argmax(-1), logits_p.argmax(-1)
+    top1 = (pick_k == pick_p).float().mean().item()
+    # a differing pick must be a tie in the plain logits
+    margins = (logits_p.gather(-1, pick_p[..., None]) - logits_p.gather(-1, pick_k[..., None])).abs()
+    worst_margin = margins.max().item()
+    log(f"[f32] prefill logits kernel vs plain at full width, B=1 T=1024: max_abs {diff:.4e} "
+        f"(tol {F32_LOGITS_TOL}), top-1 agreement {top1:.3f} (a differing pick's plain margin "
+        f"at most {worst_margin:.3e}, tie tol {2 * F32_LOGITS_TOL})")
+    if diff > F32_LOGITS_TOL or worst_margin > 2 * F32_LOGITS_TOL:
+        raise AssertionError("[f32] prefill logits disagree between kernel and plain attention")
+    return routes[route]
+
+
 PHASES = ("kernels", "small", "serve", "engine", "small-sched", "sched", "prefix",
-          "pressure", "spec", "spec-pressure", "dh256", "model")
+          "pressure", "spec", "spec-pressure", "dh256", "f32", "model")
 
 
 def _llm_model():
@@ -2498,7 +2622,7 @@ def main(argv=None) -> int:
             lap("small")
         launches = alone = engine_launches = model = params = serve_numbers = None
         sched_launches = sched_tokens = prefix_launches = pressure_launches = None
-        spec_launches = dh256_launches = None
+        spec_launches = dh256_launches = f32_launches = None
         if "serve" in phases:
             launches, alone, serve_numbers = phase_serve(card)
             free()  # the serve phase's copy of the model goes
@@ -2536,6 +2660,10 @@ def main(argv=None) -> int:
             dh256_launches = phase_dh256(card, serve_numbers)
             free()
             lap("dh256")
+        if "f32" in phases:
+            f32_launches = phase_f32(card)
+            free()
+            lap("f32")
         # the profiler runs last: once it has traced the card, later
         # launches may carry its overhead
         if "model" in phases:
@@ -2546,7 +2674,7 @@ def main(argv=None) -> int:
             log(f"[done] phases {','.join(phases)} in {time.perf_counter() - t0:.1f} s; "
                 "no result lines (not every phase ran)")
             return 0
-        head, wide = kern["b1_t1024"], kern["bf16_dh256_b1_t1024"]
+        head, wide, f32 = kern["b1_t1024"], kern["bf16_dh256_b1_t1024"], kern["f32_dh128_b1_t1024"]
 
         def worst(pick):
             return max(r["max_abs_err"] for r in kern.values() if pick(r))
@@ -2567,7 +2695,7 @@ def main(argv=None) -> int:
             "dh256_launches": dh256_launches,
             "max_abs_err": worst(lambda r: r["dtype"] == "bfloat16"),
             "wgmma_max_abs_err": worst(lambda r: r["route"] == "wgmma"),
-            "simt_max_abs_err": worst(lambda r: r["route"] == "simt"),
+            "mma_max_abs_err": worst(lambda r: r["route"] == "mma"),
             "ms": head["ms"],
             "device_ms": head["device_ms"],
             "plain_ms": head["plain_ms"],
@@ -2590,6 +2718,22 @@ def main(argv=None) -> int:
             "bound_by": wide["bound_by"],
             "library_ms": wide["library_ms"],
             "library_device_ms": wide["library_device_ms"],
+        }, {
+            # the mma route's 3xTF32 Dh 128 instance on the f32 phase's
+            # path (llm-1.26b-f32)
+            "name": "flash_attention_f32",
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": f32_launches,
+            "max_abs_err": worst(lambda r: r["dtype"] == "float32"),
+            "ms": f32["ms"],
+            "device_ms": f32["device_ms"],
+            "plain_ms": f32["plain_ms"],
+            "bound_ms": f32["bound_ms"],
+            "bound_by": f32["bound_by"],
+            "library_ms": f32["library_ms"],
+            "library_device_ms": f32["library_device_ms"],
         }]}))
         log(f"[done] {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - any failed phase fails the run

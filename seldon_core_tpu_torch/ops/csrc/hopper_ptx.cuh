@@ -1,10 +1,11 @@
 // Thin PTX wrappers for the Hopper (sm_90a) features the port's kernels
 // are built from: mbarriers, TMA tensor loads and stores, wgmma (matrix
 // descriptors, fences, commit and wait), named barriers and register
-// reallocation between warpgroups. Each wrapper is one instruction (or
-// one polling loop); the protocol -- which thread arrives, which phase it
-// waits on, which registers an asynchronous product owns -- is the
-// caller's.
+// reallocation between warpgroups; and the warp-level tools of the mma
+// route: cp.async copies, ldmatrix, mma.sync and the TF32 rounding.
+// Each wrapper is one instruction (or one polling loop); the protocol --
+// which thread arrives, which phase it waits on, which registers an
+// asynchronous product owns -- is the caller's.
 #pragma once
 
 #include <cuda.h>
@@ -280,6 +281,96 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// cp.async: one thread copies 16, 8 or 4 bytes from global to shared memory
+// without passing through registers. With `ok` false nothing is read and
+// the bytes are zero-filled (src-size 0); `src` must still be a valid
+// global address.
+// ---------------------------------------------------------------------------
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool ok);
+
+template <>
+__device__ __forceinline__ void cp_async<16>(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+template <>
+__device__ __forceinline__ void cp_async<8>(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               ::"r"(dst), "l"(src), "r"(ok ? 8 : 0) : "memory");
+}
+
+template <>
+__device__ __forceinline__ void cp_async<4>(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(dst), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync: a warp's synchronous 16 x 8 product. Fragments, lane l of the
+// warp, g = l / 4, t = l % 4:
+//   C/D (f32, 16 x 8): c0 (row g, col 2t), c1 (row g, col 2t + 1),
+//     c2 (row g + 8, col 2t), c3 (row g + 8, col 2t + 1).
+//   m16n8k8 tf32: A a0 (row g, k t), a1 (row g + 8, k t), a2 (row g,
+//     k t + 4), a3 (row g + 8, k t + 4); B b0 (k t, col g), b1 (k t + 4,
+//     col g).
+//   m16n8k16 bf16 (two values a register, the lower k in the low half):
+//     A a0 (row g, k 2t..2t+1), a1 (row g + 8, same k), a2 (row g,
+//     k 2t+8..2t+9), a3 (row g + 8, same k); B b0 (k 2t..2t+1, col g),
+//     b1 (k 2t+8..2t+9, col g).
+// ---------------------------------------------------------------------------
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero),
+// as a 32-bit pattern whose low 13 bits are zero: bit for bit what
+// cvt.rna.tf32.f32 gives for a finite x, in two integer operations
+// (adding half of the dropped bits to the sign-magnitude pattern rounds
+// the magnitude) where the conversion unit takes longer
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// D += A B, m16n8k8, TF32 operands, f32 accumulators
+__device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                                 const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// D += A B, m16n8k16, bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                                  const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two transposed 8 x 8 b16 matrices from shared memory: lanes 0-7 give the
+// row addresses (16 bytes each) of matrix 0, lanes 8-15 those of matrix 1.
+// Lane l receives, of matrix i, rows 2t and 2t + 1 of column g in r[i]:
+// for a row-major [k][n] tile that is the B fragment of m16n8k16.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
 }
 
 }  // namespace hopper

@@ -19,8 +19,9 @@ kernel (``_flash_kernel``) computes prefill attention on the TPU. Here:
   takes every head dim up to 256 (the JAX package's ``attention()``
   serves them all): bfloat16 at a head dim that is a multiple of 8 runs
   the wgmma/TMA route (on the instance of width 64, 128 or 256 next up,
-  the columns past the head dim padded by TMA), float32 and bfloat16 at
-  any other head dim the SIMT route (:func:`kernel_route`).
+  the columns past the head dim padded by TMA), float32 (as 3xTF32) and
+  bfloat16 at any other head dim the mma route (``mma.sync`` warp by
+  warp, :func:`kernel_route`).
   What it does not take (a head dim above 256, another dtype) raises;
   :func:`check_kernel_config` says so for a model before any weight is
   loaded.
@@ -46,7 +47,7 @@ NEG_INF = -1e30
 # (and nowhere else). Reset and read by the on-card smoke run to show the
 # serving path went through the kernel.
 LAUNCHES = {"flash_attention": 0}
-# the same launches by route, dtype and head dim ("simt float32 Dh 8")
+# the same launches by route, dtype and head dim ("mma float32 Dh 8")
 ROUTE_LAUNCHES: Dict[str, int] = {}
 _count_lock = threading.Lock()
 
@@ -56,7 +57,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dim that is a multiple of 8 runs the next one up, TMA filling the
 # columns past it with zeros; a bfloat16 head dim that is not (its head
 # stride, Dh * 2 bytes, is no multiple of 16 as TMA needs), and float32 at
-# every head dim up to MAX_HEAD_DIM, take the SIMT route
+# every head dim up to MAX_HEAD_DIM, take the mma route
 _WGMMA_HEAD_DIMS = (64, 128, 256)
 MAX_HEAD_DIM = 256
 
@@ -108,11 +109,12 @@ def kernel_route(dtype: torch.dtype, dh: int) -> str:
     """The kernel route these inputs take, from dtype and head dim alone:
     ``"wgmma"`` (bfloat16 at a head dim that is a multiple of 8 up to 256:
     TMA loads, tensor-core products on the instance of width 64, 128 or
-    256 next up) or ``"simt"`` (bfloat16 at any other head dim, float32
-    at every head dim: CUDA-core FMAs)."""
+    256 next up) or ``"mma"`` (bfloat16 at any other head dim, float32 at
+    every head dim: ``mma.sync`` warp by warp, float32 as 3xTF32,
+    ``cp.async`` loads)."""
     if dtype == torch.bfloat16 and dh % 8 == 0 and dh <= _WGMMA_HEAD_DIMS[-1]:
         return "wgmma"
-    return "simt"
+    return "mma"
 
 
 def check_kernel_config(dtype, head_dim: int) -> None:
@@ -139,9 +141,9 @@ def check_kernel_inputs(q, k, v, kv_len: Optional[int] = None) -> None:
     (bfloat16 at a Dh that is a multiple of 8) loads through TMA, which
     needs every base 16-byte aligned and every byte stride a multiple of
     16; a view that breaks this raises (no copy is made, and no other
-    route is taken). The SIMT route (float32, and bfloat16 at a Dh that
-    is not a multiple of 8) reads through plain loads and takes any
-    stride."""
+    route is taken). The mma route (float32, and bfloat16 at a Dh that
+    is not a multiple of 8) takes any stride: it copies as wide as the
+    views' alignment allows (:func:`copy_bytes`)."""
     _check_shapes(q, k, v, kv_len)
     dh = q.shape[3]
     check_kernel_config(q.dtype, dh)
@@ -171,6 +173,31 @@ def choose_block_m(b: int, h: int, t_q: int, sm_count: int) -> int:
     return 128 if b * h * (-(-t_q // 128)) >= sm_count else 64
 
 
+def choose_mma_block_m(b: int, h: int, t_q: int, sm_count: int) -> int:
+    """q rows per block of the mma kernel's four warps: 64 (each warp 16
+    rows over every key) when the grid is three waves or more of the
+    card's SMs, else 32 (two warps a row group, each taking half of every
+    key tile: twice the blocks and half the chain of products a warp).
+    On the H100 (float32, Dh 128) the split is 23% faster at 256 blocks
+    of 64 rows and 18-23% slower at 512."""
+    return 64 if b * h * (-(-t_q // 64)) >= 3 * sm_count else 32
+
+
+def copy_bytes(q, k, v) -> int:
+    """Width of the mma route's global-to-shared copies for these views:
+    the widest of 16, 8 and 4 bytes (2 for bfloat16) that divides a row
+    of the head dim, every base address and every stride in bytes of
+    q, k and v, so that no copy starts misaligned."""
+    es = q.element_size()
+    for width in (16, 8, 4):
+        if (q.shape[3] * es) % width == 0 and all(
+                t.data_ptr() % width == 0
+                and all((t.stride(d) * es) % width == 0 for d in range(3))
+                for t in (q, k, v)):
+            return width
+    return es  # bfloat16 rows 2 bytes apart
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -179,14 +206,19 @@ def _sm_count(index: int) -> int:
 def _library():
     from ._build import load
 
-    lib = load(_SOURCE)
+    return bind(load(_SOURCE))
+
+
+def bind(lib):
+    """Declare the C signatures of a library built from the kernel source
+    (ctypes would pass every argument as a 32-bit int)."""
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_void_p] * 4
             + [ctypes.c_int] * 9
             + [ctypes.c_longlong] * 12
-            + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
@@ -208,9 +240,9 @@ def flash_attention_cuda(q, k, v, kv_len: Optional[int] = None,
                          causal: bool = True, block_m: Optional[int] = None):
     """Launch the CUDA kernel on inputs :func:`check_kernel_inputs` takes,
     all on one CUDA device (other strides are free, so head-transposed
-    views pass without a copy). ``block_m`` (64 or 128) sets the wgmma
-    route's q rows per block; by default :func:`choose_block_m` picks it
-    (the SIMT route always takes 64 rows).
+    views pass without a copy). ``block_m`` sets the q rows per block:
+    64 or 128 on the wgmma route, 32 or 64 on the mma route; by default
+    :func:`choose_block_m` or :func:`choose_mma_block_m` picks it.
     Returns a new [B,H,Tq,Dh] tensor in q's dtype, laid out [B,Tq,H,Dh] in
     memory so the caller's merge of the heads is a free reshape."""
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -221,12 +253,13 @@ def flash_attention_cuda(q, k, v, kv_len: Optional[int] = None,
     check_kernel_inputs(q, k, v, kv_len)
     b, h, t_q, dh = q.shape
     kv, t_k = k.shape[1], k.shape[2]
-    if kernel_route(q.dtype, dh) == "simt":
-        block_m = 64
-    elif block_m is None:
-        block_m = choose_block_m(b, h, t_q, _sm_count(q.device.index or 0))
-    if block_m not in (64, 128):
-        raise ValueError(f"block_m must be 64 or 128, got {block_m}")
+    route = kernel_route(q.dtype, dh)
+    mma = route == "mma"
+    if block_m is None:
+        choose = choose_mma_block_m if mma else choose_block_m
+        block_m = choose(b, h, t_q, _sm_count(q.device.index or 0))
+    if block_m not in ((32, 64) if mma else (64, 128)):
+        raise ValueError(f"block_m {block_m} is not one the {route} route takes")
     out = torch.empty((b, t_q, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _library().flash_attention_fwd(
@@ -237,13 +270,13 @@ def flash_attention_cuda(q, k, v, kv_len: Optional[int] = None,
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         out.stride(0), out.stride(1), out.stride(2),
-        block_m, stream,
+        block_m, copy_bytes(q, k, v) if mma else 0, stream,  # TMA needs no copy width
     )
     if err < 0:
         raise RuntimeError(f"flash attention tensor map encoding failed: CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err}")
-    route = f"{kernel_route(q.dtype, dh)} {str(q.dtype).split('.')[-1]} Dh {dh}"
+    route = f"{route} {str(q.dtype).split('.')[-1]} Dh {dh}"
     with _count_lock:
         LAUNCHES["flash_attention"] += 1
         ROUTE_LAUNCHES[route] = ROUTE_LAUNCHES.get(route, 0) + 1

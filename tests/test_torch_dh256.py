@@ -53,11 +53,11 @@ def _maxdiff(a, b):
 def test_head_dim_256_and_its_kernel_routes(pair):
     """Both packages derive Dh = d_model / n_heads = 256 from the config
     as it is; on the card the bf16 model runs the wgmma route's Dh 256
-    instance, the f32 one the SIMT route, and both are admitted."""
+    instance, the f32 one the mma route, and both are admitted."""
     jm, _jp, tm, _tp = pair
     assert jm.cfg.head_dim == tm.cfg.head_dim == 256
     assert tfa.kernel_route(torch.bfloat16, 256) == "wgmma"
-    assert tfa.kernel_route(torch.float32, 256) == "simt"
+    assert tfa.kernel_route(torch.float32, 256) == "mma"
     TorchLM(**{**CFG, "dtype": "bfloat16"}).check_device("cuda")
     tm.check_device("cuda")
 

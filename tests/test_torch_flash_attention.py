@@ -190,13 +190,13 @@ def test_kernel_check_rejects_other_head_dims_and_dtypes():
 def test_kernel_check_accepts_every_head_dim_up_to_256(dh, dtype):
     """Every head dim up to 256 goes to the kernel: bfloat16 at a multiple
     of 8 to the wgmma route, which loads through TMA (a base one element
-    off 16-byte alignment raises), everything else to the SIMT route,
+    off 16-byte alignment raises), everything else to the mma route,
     which takes any stride."""
     q, k, v = _prefill_views(2, 4, 2, 33, dh, dtype)
     tfa.check_kernel_inputs(q, k, v)
     tfa.check_kernel_inputs(q, k, v, kv_len=20)
     tma = dtype == torch.bfloat16 and dh % 8 == 0
-    assert tfa.kernel_route(dtype, dh) == ("wgmma" if tma else "simt")
+    assert tfa.kernel_route(dtype, dh) == ("wgmma" if tma else "mma")
     flat = torch.zeros(1 + 33 * 4 * dh, dtype=dtype)  # base one element off
     x = flat[1:].view(1, 33, 4, dh).transpose(1, 2)
     if tma:
@@ -209,10 +209,10 @@ def test_kernel_check_accepts_every_head_dim_up_to_256(dh, dtype):
 def test_kernel_route():
     assert tfa.kernel_route(torch.bfloat16, 64) == "wgmma"
     assert tfa.kernel_route(torch.bfloat16, 128) == "wgmma"
-    assert tfa.kernel_route(torch.float32, 128) == "simt"
+    assert tfa.kernel_route(torch.float32, 128) == "mma"
     assert tfa.kernel_route(torch.bfloat16, 256) == "wgmma"
     assert tfa.kernel_route(torch.bfloat16, 8) == "wgmma"
-    assert tfa.kernel_route(torch.bfloat16, 12) == "simt"
+    assert tfa.kernel_route(torch.bfloat16, 12) == "mma"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -220,9 +220,9 @@ def test_kernel_route_every_head_dim(dtype):
     """The route follows from dtype and head dim alone, before any launch:
     bfloat16 at a multiple of 8 up to 256 takes the wgmma route (on the
     instance of width 64, 128 or 256 next up), every other head dim up to
-    256 and float32 at all of them the SIMT route."""
+    256 and float32 at all of them the mma route."""
     for dh in range(1, tfa.MAX_HEAD_DIM + 1):
-        want = "wgmma" if dtype == torch.bfloat16 and dh % 8 == 0 else "simt"
+        want = "wgmma" if dtype == torch.bfloat16 and dh % 8 == 0 else "mma"
         assert tfa.kernel_route(dtype, dh) == want, dh
     assert tfa._WGMMA_HEAD_DIMS[-1] == tfa.MAX_HEAD_DIM
 
@@ -265,7 +265,7 @@ def test_kernel_check_rejects_tma_illegal_strides_on_the_wgmma_route(dh):
     """A bf16 view whose T stride is 4 elements (8 bytes) off a multiple
     of 16 bytes raises on the wgmma route, naming the cause: no copy is
     made and no other route is taken. At a head dim off the multiple of 8
-    the same layout is the SIMT route's, which reads any stride."""
+    the same layout is the mma route's, which reads any stride."""
     x = torch.zeros(1, 16, 2 * dh + 4, dtype=torch.bfloat16)[:, :, : 2 * dh]
     x = x.unflatten(2, (2, dh)).transpose(1, 2)
     assert (x.stride(2) * 2) % 16 == 8
@@ -273,7 +273,7 @@ def test_kernel_check_rejects_tma_illegal_strides_on_the_wgmma_route(dh):
         tfa.check_kernel_inputs(x, x, x)
     y = torch.zeros(1, 16, 2 * (dh - 1) + 4, dtype=torch.bfloat16)[:, :, : 2 * (dh - 1)]
     y = y.unflatten(2, (2, dh - 1)).transpose(1, 2)
-    assert tfa.kernel_route(y.dtype, dh - 1) == "simt"
+    assert tfa.kernel_route(y.dtype, dh - 1) == "mma"
     tfa.check_kernel_inputs(y, y, y)
 
 
@@ -298,12 +298,12 @@ def test_model_the_kernel_cannot_serve_is_refused_when_built(dh, dtype, cause):
     model.check_device("cpu")  # the CPU runs the plain version: nothing to refuse
     ok = DecoderLM(vocab_size=64, d_model=16, n_layers=1, n_heads=2, n_kv_heads=1,
                    d_ff=32, max_seq=32, dtype="float32")
-    ok.check_device("cuda")  # head dim 8 at float32: the SIMT route takes it
+    ok.check_device("cuda")  # head dim 8 at float32: the mma route takes it
 
 
 @pytest.mark.parametrize("dh", [8, 16, 32, 256])
 def test_plain_matches_jax_at_small_and_wide_head_dims(dh):
-    """The head dims the SIMT route serves (the JAX package runs them
+    """The head dims the mma route serves (the JAX package runs them
     through XLA; 256 also through its Pallas kernel, here in interpret
     mode), ragged T and a key-length mask included."""
     q, k, v = _qkv(9, 2, 4, 130, 130, dh, kv=2)
