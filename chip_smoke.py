@@ -6,7 +6,8 @@
 Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails. ``--phases`` runs a subset of
 ``kernels, small, serve, engine, small-sched, sched, prefix, pressure,
-spec, spec-pressure, dh256, f32, model`` (device and build always run; the
+spec, spec-pressure, dh256, f32, disagg, kvtier, model`` (device and build
+always run; the
 result lines print only when every phase ran, as with no argument):
 
 1. Device: the card's name and power limit (nvidia-smi) and torch's view.
@@ -18,8 +19,10 @@ result lines print only when every phase ran, as with no argument):
    included, at bf16 Dh 12 and 7 and through an odd T stride; ragged T
    and a key-length mask), with times -- per call from the host (``call_ms``) and
    on the device from a CUDA graph of 20 launches (``device_ms``) --
-   the PyTorch library call timed both ways as a yardstick, the bound,
-   TFLOP/s and the share of the bound.
+   the PyTorch library call (SDPA; with a key-length mask, SDPA with the
+   causal and key-length mask as an explicit boolean ``attn_mask``) timed
+   both ways as a yardstick, the bound, TFLOP/s and the share of the
+   bound.
 4. Small model on the card: the continuous batcher's greedy and seeded
    tokens equal ``DecoderLM.generate`` on the same device and weights.
 5. Serve: the ``llm-1.26b`` configuration (full width, random weights from
@@ -126,7 +129,36 @@ result lines print only when every phase ran, as with no argument):
    prefill logits are within 1e-3 of the plain attention's. Reports
    tokens/s, TTFT, TPOT, peak memory, and a B=1, T=1024 prefill's device
    time with the flash kernel's share.
-14. Model (on the engine phase's copy, after every serving phase: a
+14. Disaggregated prefill/decode (llm-1.26b, bf16, seed-0 weights,
+   GenerateServers built from typed parameters, 8 slots): a unified, a
+   prefill-role and a decode-role server (prefix cache on) in this
+   process over the loopback transport, then a decode role over TCP to
+   a prefill role started as a second process (the microservice CLI,
+   ``role=prefill``, ``kv_port``), which must reuse the kernel library
+   this process built. Fails unless every request of the mixed wave,
+   each alone, gives the unified server's tokens over both transports,
+   seeded requests repeat, the shared-prefix traffic ships suffix-only
+   slabs (``kv_transfer_bytes_saved`` > 0), a transfer corrupted by a
+   ``SELDON_FAULTS`` peer rule is refused typed and retried on the next
+   peer with the same tokens, killing the prefill process degrades to
+   local prefill with the same tokens (``degraded_local_prefill``) and
+   every prefill in this process launched the flash kernel. Reports the
+   export of a 1024-position slab (time, bytes, codec rates), TCP
+   request-to-slab times full and suffix-only, admit_remote to first
+   credit, the mixed wave streamed over loopback, TCP and unified
+   (tokens/s, client-side TTFT p50/p99, TPOT p50) and the peak memory.
+15. Host KV tier (llm-1.26b, the scheduler phase's B with the ledger and
+   a 2 GiB prefix cache): a 384-token system prompt primes the cache,
+   the pressure phase's mixed wave runs under its 24-poll shrink, then
+   a prompt sharing the system prompt comes alone; tier off, on (4 GiB)
+   and too small for any checkpoint (one attention bucket's slab). Fails unless every stream
+   and the warm request equal the tier-off run's, the tier-on run
+   demoted a prefix and promoted it for the warm hit, resumed lanes by
+   copy-back with no replay fallback, the small tier resumed by replay
+   only, and no graph is captured after ``warm()``. Reports ms per
+   copy-back resume against a replay resume, and per promote against a
+   re-prefill of the same prompt.
+16. Model (on the engine phase's copy, after every serving phase: a
    profiler run may slow later launches): full-width prefill time per
    bucket with the flash kernel's device time inside it
    (torch.profiler), a prefix hit's suffix prefill against the full
@@ -138,7 +170,7 @@ result lines print only when every phase ran, as with no argument):
    a 6-layer early-exit draft, the W = 5 verify chunk, acceptance)
    against 5 decode steps at B = 4, attention 512, in device-busy time
    and device operations.
-15. The ``kernels`` JSON line (the flash kernel on the main path, its
+17. The ``kernels`` JSON line (the flash kernel on the main path, its
    Dh 256 instance on the dh256 phase's and its float32 instance on the
    f32 phase's), then the final ``{"ok": true, ...}`` line.
 
@@ -436,12 +468,20 @@ def phase_kernels(card):
         err, dev_ms = per_bm[chosen]
         call_ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, kv_len=kv_len, causal=True))
         plain_ms = time_ms(lambda: fa.attention_plain(q, k, v, kv_len=kv_len, causal=True), iters=5)
-        library_ms = library_dev_ms = None
         if kv_len is None:
             def sdpa():
                 return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
-            library_ms = time_ms(sdpa)
-            library_dev_ms = device_ms(sdpa)
+        else:
+            # the same function with the mask spelt out: causal, and no
+            # key at or past kv_len
+            pos = torch.arange(t, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] < kv_len)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+        library_err = (sdpa().float() - ref.float()).abs().max().item()
+        library_ms = time_ms(sdpa)
+        library_dev_ms = device_ms(sdpa)
         bound_ms, bound_by = _bound(b, h, kv, t, dh, dname, kv_len=kv_len)
         flops = _flops(b, h, t, dh, kv_len=kv_len)
         smem = fa.smem_bytes(dt, dh, chosen)
@@ -451,6 +491,7 @@ def phase_kernels(card):
             f"T_stride={q.stride(2)} max_abs_err={err:.3e} tol={tol:.3e} "
             f"device_ms={dev_ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={_r(library_ms)} library_device_ms={_r(library_dev_ms)} "
+            f"library_max_abs_err={library_err:.3e} "
             f"bound_ms={bound_ms:.4f} bound_us={bound_ms * 1e3:.3g} ({bound_by}) TFLOP/s={flops / dev_ms / 1e9:.1f} "
             f"bound_share={bound_ms / dev_ms:.3f} {others} [{card}] OK")
         results[label] = dict(max_abs_err=err, ms=call_ms, device_ms=dev_ms, plain_ms=plain_ms,
@@ -2553,8 +2594,591 @@ def phase_f32(card):
     return routes[route]
 
 
+# -- disaggregated prefill/decode and the host KV tier ---------------------------------
+
+FULL_SLAB_BYTES = 24 * 2 * 8 * 1024 * 128 * 2  # llm-1.26b, a 1024-position slab
+
+
+def _gen_server(model_dir, **extra):
+    """A GenerateServer over llm-1.26b built from typed parameters (the
+    serve phase's, plus ``extra``), loaded and warmed."""
+    from seldon_core_tpu_torch import microservice
+
+    params = [{"name": "model_uri", "value": model_dir, "type": "STRING"}] + SERVE_PARAMS + [
+        {"name": k, "value": str(v), "type": "INT" if isinstance(v, int) else "STRING"}
+        for k, v in extra.items()]
+    user = microservice.build_user_object(
+        "seldon_core_tpu_torch.servers.generateserver.GenerateServer", json.dumps(params))
+    user.load()
+    return user
+
+
+def _alone(server, items):
+    """Each ``(label, toks, temp, seed)`` through ``predict`` alone:
+    tokens by label."""
+    return {label: server.predict({"prompt_tokens": toks, "max_new_tokens": MAX_NEW,
+                                   "temperature": temp, "seed": seed}, [])["tokens"][0]
+            for label, toks, temp, seed in items}
+
+
+def _stream_wave(server, wave):
+    """The wave's requests streamed concurrently through ``server.stream``
+    (a decode role's handoff happens inside the call): tokens by label,
+    client-side TTFT (call to first chunk) by label, and the wall time."""
+    out, ttft, errors = {}, {}, []
+
+    def one(item):
+        label, toks, temp, seed = item
+        try:
+            t0 = time.perf_counter()
+            handle = server.stream({"prompt_tokens": toks, "max_new_tokens": MAX_NEW,
+                                    "temperature": temp, "seed": seed})
+            spans = []
+            for chunk in handle.chunks:
+                if chunk.get("done"):
+                    out[label] = chunk["tokens"]
+                else:
+                    ttft.setdefault(label, time.perf_counter() - t0)
+                    spans.extend(chunk["tokens"])
+            if out[label][len(toks):] != spans:
+                raise AssertionError(f"{label}: streamed spans are not its tokens")
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(f"{label}: {type(e).__name__}: {e}")
+
+    t = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(it,)) for it in wave]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    wall = time.perf_counter() - t
+    if errors or len(out) != len(wave):
+        raise AssertionError(f"stream wave failed: {errors or 'a request did not finish'}")
+    for label, toks, _t, _s in wave:
+        if len(out[label]) != len(toks) + MAX_NEW or out[label][: len(toks)] != toks:
+            raise AssertionError(f"{label}: {len(out[label]) - len(toks)} tokens")
+    return out, ttft, wall
+
+
+def _wave_numbers(tag, server, wave, card):
+    import numpy as np
+
+    server.batcher.slo_recent.clear()
+    out, ttft, wall = _stream_wave(server, wave)
+    t = np.asarray(list(ttft.values())) * 1e3
+    tpot = _slo(server.batcher)["tpot_p50"]
+    num = {"tok_s": MAX_NEW * len(wave) / wall, "ttft_p50": float(np.percentile(t, 50)),
+           "ttft_p99": float(np.percentile(t, 99)), "tpot_p50": tpot}
+    log(f"[disagg] {tag}: mixed wave of {len(wave)} streamed: {num['tok_s']:.1f} tokens/s, "
+        f"TTFT p50 {num['ttft_p50']:.1f} ms p99 {num['ttft_p99']:.1f} ms (client side, call "
+        f"to first chunk), TPOT p50 {tpot:.2f} ms [{card}]")
+    return out, num
+
+
+def _check_equal(tag, got, want):
+    bad = [label for label in got if got[label] != want[label]]
+    if bad:
+        raise AssertionError(f"[disagg] {tag}: {bad} differ from the unified server's "
+                             f"(first differing steps "
+                             f"{ {x: _first_diff(got[x], want[x]) for x in bad} })")
+
+
+def _prefix_wave(tag, dec, card):
+    """The shared-prefix traffic through a decode role with its cache on:
+    the 4 system prompts, then the 32 prompts, each set from 8 client
+    threads (the prefill listener's capacity: a ninth concurrent
+    transfer would be shed with PeerBusy)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    systems, prompts = prefix_traffic()
+    s0 = dict(dec.batcher.stats)
+
+    def fire_all(items):
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            futs = [pool.submit(dec.predict, {"prompt_tokens": toks,
+                                              "max_new_tokens": MAX_NEW}, [])
+                    for toks in items]
+            return [f.result(timeout=600) for f in futs]
+
+    fire_all(systems)
+    t = time.perf_counter()
+    res = fire_all(prompts)
+    wall = time.perf_counter() - t
+    d = {k: dec.batcher.stats[k] - s0[k] for k in
+         ("kv_imports", "kv_import_bytes", "kv_transfer_bytes_saved", "prefix_hits")}
+    hits = [r["cache_hit_tokens"][0] for r in res]
+    for r, toks in zip(res, prompts):
+        out = r["tokens"][0]
+        if len(out) != len(toks) + MAX_NEW or out[: len(toks)] != toks:
+            raise AssertionError(f"[disagg] {tag}: a shared-prefix request came back malformed")
+    if min(hits) < SYSTEM_LEN or d["kv_transfer_bytes_saved"] <= 0:
+        raise AssertionError(f"[disagg] {tag}: cache_hit_tokens {sorted(set(hits))}, "
+                             f"kv_transfer_bytes_saved {d['kv_transfer_bytes_saved']}")
+    log(f"[disagg] {tag}: shared-prefix traffic (4 systems, then 32 prompts of 384 + 64 "
+        f"tokens): every prompt shipped suffix-only over a {min(hits)}-token radix hit; "
+        f"kv_imports {d['kv_imports']}, import bytes {d['kv_import_bytes']}, "
+        f"kv_transfer_bytes_saved {d['kv_transfer_bytes_saved']}; 32 prompts "
+        f"{MAX_NEW * len(prompts) / wall:.1f} tokens/s [{card}]")
+    return d
+
+
+def _prefill_process(model_dir, kv_port, rest_port, log_path):
+    """The prefill role as a process of its own: the microservice CLI
+    with typed parameters (role prefill, kv_port), its output in
+    ``log_path``."""
+    params = [{"name": "model_uri", "value": model_dir, "type": "STRING"}] + SERVE_PARAMS + [
+        {"name": "role", "value": "prefill", "type": "STRING"},
+        {"name": "kv_port", "value": str(kv_port), "type": "INT"}]
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               PREDICTIVE_UNIT_PARAMETERS=json.dumps(params))
+    logf = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seldon_core_tpu_torch.microservice",
+         "seldon_core_tpu_torch.servers.generateserver.GenerateServer", "REST",
+         "--service-port", str(rest_port), "--host", "127.0.0.1"],
+        cwd=HERE, env=env, stdout=logf, stderr=subprocess.STDOUT)
+    return proc, logf
+
+
+def _stop_process(proc, logf):
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+    logf.close()
+
+
+def phase_disagg(card):
+    """Disaggregated prefill/decode at llm-1.26b (bf16, seed-0 weights):
+    a prefill-role and a decode-role GenerateServer on the one card over
+    the loopback transport, then over TCP with the prefill role as a
+    second process (the microservice CLI, role=prefill, kv_port). Fails
+    unless every greedy request of the mixed wave, each alone, gives the
+    unified server's tokens over both transports, seeded requests
+    repeat, the shared-prefix traffic ships suffix-only slabs
+    (kv_transfer_bytes_saved > 0), a transfer corrupted by a
+    SELDON_FAULTS peer rule is refused typed and retried on the next
+    peer with the same tokens, killing the prefill process degrades to
+    local prefill with the same tokens, and every prefill in this
+    process launched the flash kernel. Reports the export's time for a
+    1024-token prompt, slab bytes, the codec's rates, TCP transfer times
+    (full and suffix-only), admit_remote to first credit, the wave's
+    TTFT/TPOT/tokens/s over loopback, TCP and unified, and the peak
+    memory."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.ops import _build
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+    from seldon_core_tpu_torch.serving.disagg import TcpKVClient, decode_slab, encode_slab
+
+    probe, mixed = serve_waves()
+    greedy = [it for it in mixed if it[2] == 0.0]
+    seeded = [it for it in mixed if it[2] != 0.0]
+    # prompts no server has seen before the prefill process is killed: a
+    # degraded request then prefills whole, as the unified server does
+    rs = np.random.RandomState(6)
+    fresh = [(f"fresh_greedy_{n}", rs.randint(0, LLM_1_26B["vocab_size"], n).tolist(), 0.0, 0)
+             for n in (64, 200)]
+    servers, proc, logf = [], None, None
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-disagg-") as model_dir:
+        with open(os.path.join(model_dir, "jax_config.json"), "w") as f:
+            json.dump({"family": "llm", "config": LLM_1_26B}, f)
+        kv_port, rest_port = _free_port(), _free_port()
+        log_path = os.path.join(model_dir, "prefill-process.log")
+        lib = _build.library_path("flash_attention.cu")
+        lib_mtime = lib.stat().st_mtime
+        try:
+            # the second process loads while this one serves loopback
+            proc, logf = _prefill_process(model_dir, kv_port, rest_port, log_path)
+            t0 = time.perf_counter()
+            unified = _gen_server(model_dir)
+            pf = _gen_server(model_dir, role="prefill")
+            dec = _gen_server(model_dir, role="decode", prefix_cache_hbm_bytes=2 << 30)
+            servers += [unified, pf, dec]
+            dec.set_peer(pf)
+            log(f"[disagg] unified, prefill-role (1 lane, no scheduler loop) and decode-role "
+                f"GenerateServers loaded and warmed in {time.perf_counter() - t0:.1f} s")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.LAUNCHES["flash_attention"] = 0
+            steps0 = {id(s): s.batcher.stats["prefill_steps"] for s in servers}
+            # launches that are not the driven path: warm() of a server
+            # loaded mid-phase and the prefill timed on its own
+            aside = {"n": 0}
+
+            def not_counted(fn, *a, **k):
+                n0 = fa.LAUNCHES["flash_attention"]
+                out = fn(*a, **k)
+                aside["n"] += fa.LAUNCHES["flash_attention"] - n0
+                return out
+
+            # token for token: each greedy request alone
+            want = _alone(unified, greedy + seeded + fresh)
+            lo = _alone(dec, greedy + seeded)
+            _check_equal("loopback, each request alone", lo, want)
+            again = _alone(dec, seeded)
+            if any(again[label] != lo[label] for label, *_r in seeded):
+                raise AssertionError("[disagg] loopback: a seeded request did not repeat")
+            log(f"[disagg] loopback: {len(greedy)} greedy and {len(seeded)} seeded requests "
+                f"of the mixed wave, each alone, equal the unified server's token for token; "
+                f"seeded repeat identical (the repeat shipped suffix-only)")
+
+            # the wave streamed concurrently: unified against loopback
+            uni_wave, uni_num = _wave_numbers("unified", unified, mixed, card)
+            lo_wave, lo_num = _wave_numbers("loopback", dec, mixed, card)
+            same = sum(lo_wave[label] == uni_wave[label] for label, *_r in mixed)
+            log(f"[disagg] loopback wave: {same} of {len(mixed)} streams equal the unified "
+                f"wave's (the unified server batches same-bucket prefills, m = 4: other "
+                f"matmul shapes at bf16)")
+
+            # the export, the slab and the codec at 1024 tokens
+            rs = np.random.RandomState(5)
+            p1000 = rs.randint(0, LLM_1_26B["vocab_size"], 1000).tolist()
+            b = pf.batcher
+            pf.prefill_export({"tokens": p1000, "max_new_tokens": 16})  # warm the pull
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            meta, slab = b.export_prefill(p1000, max_new_tokens=16)
+            export_ms = (time.perf_counter() - t) * 1e3
+            prompt = np.zeros((1, 1024), np.int64)
+            prompt[0, :1000] = p1000
+            prefill_ms = not_counted(time_ms, lambda: b._prefill(
+                prompt, np.asarray([999]), [0], [0.0]), iters=5, warmup=1)
+            toks_dev = torch.tensor(prompt, device=b.device)
+            prefill_dev_ms = not_counted(device_ms, lambda: b.model.prefill(
+                b.params, toks_dev, 1024), launches=3, reps=3)
+            _logits, slab_dev = not_counted(b.model.prefill, b.params, toks_dev, 1024)
+            pulls = []
+            for _ in range(3):  # the first allocates its pinned blocks
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                pulled = [b._to_host(slab_dev[name]) for name in ("k", "v")]
+                pulls.append((time.perf_counter() - t) * 1e3)
+                del pulled
+            pull_ms = min(pulls)
+            del slab_dev
+            nbytes = sum(x.numel() * x.element_size() for x in slab.values())
+            if nbytes != FULL_SLAB_BYTES:
+                raise AssertionError(f"[disagg] a 1024-position slab is {nbytes} B, want "
+                                     f"{FULL_SLAB_BYTES}")
+            t = time.perf_counter()
+            raw = b"".join(encode_slab(meta, slab))
+            enc_s = time.perf_counter() - t
+            t = time.perf_counter()
+            _m2, back = decode_slab(io.BytesIO(raw).read)
+            dec_s = time.perf_counter() - t
+            if not all(torch.equal(back[n], slab[n]) for n in ("k", "v")):
+                raise AssertionError("[disagg] the codec changed a slab")
+            log(f"[disagg] export of a 1000-token prompt (bucket 1024): {export_ms:.2f} ms; "
+                f"its prefill {prefill_ms:.2f} ms eager (CUDA events, host gaps included), "
+                f"{prefill_dev_ms:.3f} ms of device time (CUDA graph replay); the pull of the "
+                f"slab into pinned memory {pull_ms:.2f} ms ({nbytes / pull_ms / 1e6:.1f} GB/s, "
+                f"best of 3); "
+                f"slab {nbytes} B = {nbytes // 1024} B per position "
+                f"({len(raw)} B on the wire); encode {nbytes / enc_s / 1e6:.0f} MB/s, decode "
+                f"{nbytes / dec_s / 1e6:.0f} MB/s (one thread, CRC and copies) [{card}]")
+            first = {}
+            req = {"tokens": p1000, "max_new_tokens": 16, "covered_len": 0}
+            meta, slab = dec._kv_client.prefill(req)
+            t = time.perf_counter()
+            fut = dec.batcher.admit_remote(
+                slab, meta, on_tokens=lambda _s: first.setdefault("t", time.perf_counter()))
+            fut.result(timeout=600)
+            admit_ms = (first["t"] - t) * 1e3
+            log(f"[disagg] admit_remote to first credit (upload, lane insert, one 16-step "
+                f"burst, its host read): {admit_ms:.2f} ms [{card}]")
+            d_lo = _prefix_wave("loopback", dec, card)
+
+            # TCP: the prefill role in its own process
+            client = TcpKVClient(f"127.0.0.1:{kv_port}")
+            deadline = time.monotonic() + 600
+            while not client.probe():
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    logf.flush()
+                    raise AssertionError("[disagg] the prefill process did not come up:\n"
+                                         + open(log_path).read()[-4000:])
+                time.sleep(0.5)
+            reused = lib.stat().st_mtime == lib_mtime
+            log(f"[disagg] prefill process up on KV port {kv_port} (pid {proc.pid}); the "
+                f"flash kernel's library {'reused' if reused else 'REBUILT'} from build/kernels")
+            if not reused:
+                raise AssertionError("[disagg] the second process rebuilt the kernel library")
+            dec_tcp = not_counted(_gen_server, model_dir, role="decode",
+                                  peer=f"127.0.0.1:{kv_port}", prefix_cache_hbm_bytes=2 << 30)
+            servers.append(dec_tcp)
+            steps0[id(dec_tcp)] = dec_tcp.batcher.stats["prefill_steps"]
+            tcp = _alone(dec_tcp, greedy + seeded)
+            _check_equal("TCP, each request alone", tcp, want)
+            log(f"[disagg] TCP: {len(greedy)} greedy and {len(seeded)} seeded requests, each "
+                f"alone, equal the unified server's token for token")
+            tcp_wave, tcp_num = _wave_numbers("TCP", dec_tcp, mixed, card)
+            full_ms, suf_ms = [], []
+            for _ in range(3):
+                t = time.perf_counter()
+                _m, s_full = client.prefill({"tokens": p1000, "max_new_tokens": 16})
+                full_ms.append((time.perf_counter() - t) * 1e3)
+                t = time.perf_counter()
+                _m, s_suf = client.prefill({"tokens": p1000, "max_new_tokens": 16,
+                                            "covered_len": 896})
+                suf_ms.append((time.perf_counter() - t) * 1e3)
+            suf_bytes = sum(x.numel() * x.element_size() for x in s_suf.values())
+            log(f"[disagg] TCP request to slab in hand, 1000-token prompt (the other process's "
+                f"prefill included), median of 3: full slab {sorted(full_ms)[1]:.1f} ms "
+                f"({FULL_SLAB_BYTES} B), suffix-only past 896 cached tokens "
+                f"{sorted(suf_ms)[1]:.1f} ms ({suf_bytes} B); in-process export "
+                f"{export_ms:.2f} ms [{card}]")
+            d_tcp = _prefix_wave("TCP", dec_tcp, card)
+
+            # a corrupting peer rule: refused typed, retried on the next peer
+            os.environ["SELDON_FAULTS"] = json.dumps({"seed": 3, "rules": [
+                {"unit": f"kv:loopback:{id(pf):x}", "kv_corrupt_rate": 1.0}]})
+            try:
+                dec_f = not_counted(_gen_server, model_dir, role="decode",
+                                    peer_eject_backoff_s=60)
+            finally:
+                del os.environ["SELDON_FAULTS"]
+            servers.append(dec_f)
+            steps0[id(dec_f)] = dec_f.batcher.stats["prefill_steps"]
+            dec_f.set_peer([pf, f"127.0.0.1:{kv_port}"])
+            reasons = []
+            fc = dec_f._kv_client
+            hook = fc._on_eject
+            fc._on_eject = lambda addr, why: (reasons.append(why), hook(addr, why))
+            got = _alone(dec_f, greedy[:2])
+            _check_equal("a corrupted transfer retried on the next peer", got,
+                         {label: want[label] for label, *_r in greedy[:2]})
+            fault = fc.peers[0].transport._fault
+            typed = reasons and reasons[0].split(":")[0] in (
+                "ChecksumError", "TruncatedStream", "DisaggError")
+            if fault.injected["corrupt"] != 1 or dec_f.batcher.stats["peer_ejections"] != 1 \
+                    or not typed:
+                raise AssertionError(f"[disagg] fault rule: injected {fault.injected}, "
+                                     f"ejections {dec_f.batcher.stats['peer_ejections']}, "
+                                     f"reasons {reasons}")
+            log(f"[disagg] SELDON_FAULTS kv_corrupt_rate 1.0 on the loopback peer: its transfer "
+                f"refused as {reasons[0][:90]!r}, the peer ejected, the request retried on the "
+                f"TCP peer with the unified tokens")
+
+            # kill the prefill process: local prefill, the same tokens
+            _stop_process(proc, logf)
+            got = _alone(dec_tcp, fresh)
+            _check_equal("the prefill process killed", got,
+                         {label: want[label] for label, *_r in fresh})
+            st = dec_tcp.batcher.stats
+            if st["degraded_local_prefill"] < 1 or st["peer_ejections"] < 1:
+                raise AssertionError(f"[disagg] after the kill: degraded_local_prefill "
+                                     f"{st['degraded_local_prefill']}, ejections "
+                                     f"{st['peer_ejections']}")
+            log(f"[disagg] prefill process killed: degraded_local_prefill "
+                f"{st['degraded_local_prefill']}, peer_ejections {st['peer_ejections']}, "
+                f"tokens equal the unified server's")
+
+            launches = fa.LAUNCHES["flash_attention"] - aside["n"]
+            prefills = sum(s.batcher.stats["prefill_steps"] - steps0[id(s)] for s in servers)
+            if launches < LLM_1_26B["n_layers"] * prefills:
+                raise AssertionError(f"[disagg] {prefills} prefills in this process, "
+                                     f"{launches} flash launches")
+            inline = sum(s.batcher.stats["graph_captures_inline"] for s in servers)
+            if inline:
+                raise AssertionError(f"[disagg] {inline} graphs captured after warm()")
+            peak = torch.cuda.max_memory_allocated()
+            log(f"[disagg] flash launches {launches} over {prefills} prefills in this process "
+                f"(exports {pf.batcher.stats['kv_exports']}); peak allocated "
+                f"{peak / 2**30:.2f} GiB with {len(servers)} servers resident [{card}]")
+            tcp_same = sum(tcp_wave[label] == uni_wave[label] for label, *_r in mixed)
+            log(f"[disagg] numbers: export 1024 {export_ms:.2f} ms (prefill {prefill_ms:.2f} "
+                f"eager, {prefill_dev_ms:.3f} device; pull {pull_ms:.2f}); "
+                f"slab {nbytes} B; encode {nbytes / enc_s / 1e6:.0f} MB/s, decode "
+                f"{nbytes / dec_s / 1e6:.0f} MB/s; TCP full {sorted(full_ms)[1]:.1f} ms, "
+                f"suffix {sorted(suf_ms)[1]:.1f} ms; admit to first credit {admit_ms:.2f} ms; "
+                f"tokens/s unified {uni_num['tok_s']:.1f} loopback {lo_num['tok_s']:.1f} TCP "
+                f"{tcp_num['tok_s']:.1f}; TTFT p50 unified {uni_num['ttft_p50']:.1f} loopback "
+                f"{lo_num['ttft_p50']:.1f} TCP {tcp_num['ttft_p50']:.1f} ms; TPOT p50 unified "
+                f"{uni_num['tpot_p50']:.2f} loopback {lo_num['tpot_p50']:.2f} TCP "
+                f"{tcp_num['tpot_p50']:.2f} ms; wave streams equal to unified: loopback "
+                f"{same}/{len(mixed)}, TCP {tcp_same}/{len(mixed)}; saved bytes loopback "
+                f"{d_lo['kv_transfer_bytes_saved']} TCP {d_tcp['kv_transfer_bytes_saved']}; "
+                f"peak {peak / 2**30:.2f} GiB [{card}]")
+        finally:
+            if proc is not None:
+                _stop_process(proc, logf)
+            for s in servers:
+                s.close()
+    return launches
+
+
+def phase_kvtier(card, model, params):
+    """The host KV tier at llm-1.26b (bf16, the scheduler phase's B plus
+    the ledger and a 2 GiB prefix cache): a 384-token system prompt
+    primes the cache, the pressure phase's mixed wave is queued whole
+    under the same 24-poll shrink to two lanes, then a prompt sharing
+    the system prompt comes alone. Three runs: the tier off (the system
+    prompt re-primed before the warm request, so it hits on the device),
+    the tier on at 4 GiB (the rung-1 demotion is promoted back by the
+    warm request; preempted lanes resume by copy-back), and a tier under
+    two checkpoints of one attention bucket, too small for any
+    checkpoint (every resume replays; re-primed as the tier-off run). Fails unless every stream, greedy and seeded,
+    and the warm request equal the tier-off run's, the tier-on run
+    demoted a prefix and promoted it for a warm hit, resumed at least one
+    lane by copy-back and fell back to replay none, the small tier
+    resumed by replay only, every whole prefill launched the flash
+    kernel and no graph is captured after warm(). Reports ms per
+    copy-back resume against ms per replay resume, and ms per promote
+    against a re-prefill of the same prompt."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+    from seldon_core_tpu_torch.resilience import FaultInjector
+
+    _probe, mixed = serve_waves()
+    systems, prompts = prefix_traffic()
+    system, warm_prompt = systems[0], prompts[0]
+    launches = 0
+
+    def timed(b, name, sink):
+        orig = getattr(b, name)
+
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig(*a, **k)
+            torch.cuda.synchronize()
+            sink.append(((time.perf_counter() - t) * 1e3, out))
+            return out
+
+        setattr(b, name, wrapper)
+
+    def run(tag, tier_bytes, reprime):
+        nonlocal launches
+        gate = _Gate()
+        kw = dict(hbm_ledger_bytes=1 << 40, prefix_cache_hbm_bytes=2 << 30)
+        if tier_bytes:
+            kw["host_kv_tier_bytes"] = tier_bytes
+        b = _sched_batcher(model, params, kw, gate)
+        resumes, copybacks, promotes = [], [], []
+        timed(b, "_admit_resume", resumes)
+        if tier_bytes:
+            timed(b, "_resume_from_tier", copybacks)
+            timed(b, "_promote_tier_prefix", promotes)
+        try:
+            b.warm(prompt_lens=WARM_LENS + (SYSTEM_LEN, SYSTEM_LEN + USER_LEN),
+                   max_new_tokens=MAX_NEW)
+            b.start()
+            fa.LAUNCHES["flash_attention"] = 0
+            s0 = dict(b.stats)
+            b.generate(system, max_new_tokens=MAX_NEW)
+            b.pressure_hook = FaultInjector([], pressure={
+                "shrink_to_bytes": 2 * b.max_seq * b._kv_key_bytes,
+                "after_polls": b._work_poll_count + 3, "restore_after_polls": 24}).pressure_hook()
+            futs = gate.submit_together(b, [(toks, temp, seed, None)
+                                            for _l, toks, temp, seed in mixed])
+            out = {label: f.result(timeout=600) for (label, *_r), f in zip(mixed, futs)}
+            b.pressure_hook = None
+            if reprime:
+                b.generate(system, max_new_tokens=MAX_NEW)
+            h0 = b.stats["prefix_hits"]
+            out["warm"] = b.generate(warm_prompt, max_new_tokens=MAX_NEW)
+            warm_hit = b.stats["prefix_hits"] - h0
+            b.sync_kv_tier_stats()
+            d = {k: b.stats[k] - s0[k] for k in (
+                "preemptions", "preempt_resumes", "replayed_tokens", "prefill_steps",
+                "prefill_chunks", "prefix_hits", "kv_tier_demotions", "kv_tier_promotions",
+                "kv_tier_replay_fallbacks", "pressure_prefix_evictions")}
+            n = fa.LAUNCHES["flash_attention"]
+            whole = d["prefill_steps"] - d["prefill_chunks"] - d["prefix_hits"]
+            if n < LLM_1_26B["n_layers"] * whole:
+                raise AssertionError(f"[kvtier] {tag}: {whole} whole prefills, {n} launches")
+            launches += n
+            for label, toks, _t, _s in mixed:
+                if len(out[label]) != len(toks) + MAX_NEW:
+                    raise AssertionError(f"[kvtier] {tag} {label}: came back short")
+            if d["preemptions"] < 1 or d["preempt_resumes"] != d["preemptions"]:
+                raise AssertionError(f"[kvtier] {tag}: {d['preemptions']} preemptions, "
+                                     f"{d['preempt_resumes']} resumes")
+            if b.stats["graph_captures_inline"]:
+                raise AssertionError(f"[kvtier] {tag}: {b.stats['graph_captures_inline']} graphs "
+                                     "captured after warm()")
+            demoted = sum(e.get("demoted", 0) for e in b.pressure_events
+                          if e.get("action") == "evict_prefix")
+            cb = [ms for ms, ok in copybacks if ok]
+            pm = [ms for ms, hit in promotes if hit is not None]
+            widths = getattr(b, "_warm_tier_widths", [])
+            log(f"[kvtier] {tag}: preemptions {d['preemptions']}, resumes "
+                f"{d['preempt_resumes']} ({len(cb)} copy-back, replayed tokens "
+                f"{d['replayed_tokens']}), replay fallbacks {d['kv_tier_replay_fallbacks']}, "
+                f"prefix evictions {d['pressure_prefix_evictions']} ({demoted} handed to the tier), tier "
+                f"demotions {d['kv_tier_demotions']}, promotions {d['kv_tier_promotions']} "
+                f"({len(pm)} prefix), warm request a prefix hit: {bool(warm_hit)}; tier "
+                f"{b.stats['kv_tier_bytes']} B used of {tier_bytes}; warm() tier widths "
+                f"{widths}; flash launches {n} [{card}]")
+            return {"tokens": out, "d": d, "demoted": demoted, "copyback_ms": cb,
+                    "resume_ms": [ms for ms, _ in resumes], "promote_ms": pm,
+                    "warm_hit": warm_hit, "b": b}
+        except BaseException:
+            b.close()
+            raise
+
+    off = run("tier off", 0, reprime=True)
+    off["b"].close()
+    on = run("tier on, 4 GiB", 4 << 30, reprime=False)
+    try:
+        b = on["b"]
+        prompt = np.zeros((1, 512), np.int64)
+        prompt[0, :SYSTEM_LEN] = system
+        reprefill_ms = time_ms(lambda: b._prefill(prompt, np.asarray([SYSTEM_LEN - 1]), [0],
+                                                  [0.0]), iters=5, warmup=1)
+    finally:
+        on["b"].close()
+    # captured with the scheduler thread stopped: nothing else touches
+    # the device during the capture
+    toks_dev = torch.tensor(prompt, device=b.device)
+    reprefill_dev_ms = device_ms(lambda: b.model.prefill(b.params, toks_dev, 512),
+                                 launches=3, reps=3)
+    # a tier under two checkpoints of the narrowest width a lane spills
+    # at (one attention bucket): the half-budget rule refuses every one
+    cfg = model.cfg
+    small_bytes = (SCHED_BASE["attn_bucket"] * 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
+                   * torch.empty((), dtype=model.dtype).element_size())
+    small = run(f"tier {small_bytes} B", small_bytes, reprime=True)
+    small["b"].close()
+    for tag, r in (("tier on", on), ("small tier", small)):
+        bad = [label for label in off["tokens"] if r["tokens"][label] != off["tokens"][label]]
+        if bad:
+            raise AssertionError(f"[kvtier] {tag}: {bad} differ from the tier-off run's")
+    d = on["d"]
+    if not (d["kv_tier_demotions"] >= 1 and on["demoted"] >= 1 and on["promote_ms"]
+            and on["warm_hit"] and on["copyback_ms"] and d["kv_tier_replay_fallbacks"] == 0):
+        raise AssertionError(f"[kvtier] tier on: {d}, demoted {on['demoted']}, prefix "
+                             f"promotions {len(on['promote_ms'])}, copy-backs "
+                             f"{len(on['copyback_ms'])}")
+    ds = small["d"]
+    if ds["kv_tier_promotions"] != 0 or ds["replayed_tokens"] <= 0:
+        raise AssertionError(f"[kvtier] tier of {small_bytes} B: {ds}")
+    med = lambda xs: float(np.median(xs)) if xs else float("nan")  # noqa: E731
+    log(f"[kvtier] every stream (6 greedy, 2 seeded) and the warm request equal the tier-off "
+        f"run's, tier on and at {small_bytes} B; ms per resume (scheduler thread, "
+        f"synchronised): "
+        f"copy-back median {med(on['copyback_ms']):.2f} (n {len(on['copyback_ms'])}) against "
+        f"recompute + replay median {med(off['resume_ms']):.2f} (n {len(off['resume_ms'])}, "
+        f"tier off) and {med(small['resume_ms']):.2f} (small tier); a promote of the 384-token "
+        f"system prompt's 512-position slab {med(on['promote_ms']):.2f} ms against its "
+        f"re-prefill {reprefill_ms:.2f} ms eager (CUDA events), {reprefill_dev_ms:.3f} ms of "
+        f"device time (CUDA graph replay) [{card}]")
+    log(f"[kvtier] ms per copy-back resume {[round(x, 2) for x in on['copyback_ms']]}; per "
+        f"replay resume (tier off) {[round(x, 2) for x in off['resume_ms']]}; per promote "
+        f"{[round(x, 2) for x in on['promote_ms']]} [{card}]")
+    return launches
+
+
 PHASES = ("kernels", "small", "serve", "engine", "small-sched", "sched", "prefix",
-          "pressure", "spec", "spec-pressure", "dh256", "f32", "model")
+          "pressure", "spec", "spec-pressure", "dh256", "f32", "disagg", "kvtier", "model")
 
 
 def _llm_model():
@@ -2623,6 +3247,7 @@ def main(argv=None) -> int:
         launches = alone = engine_launches = model = params = serve_numbers = None
         sched_launches = sched_tokens = prefix_launches = pressure_launches = None
         spec_launches = dh256_launches = f32_launches = None
+        disagg_launches = kvtier_launches = None
         if "serve" in phases:
             launches, alone, serve_numbers = phase_serve(card)
             free()  # the serve phase's copy of the model goes
@@ -2634,7 +3259,7 @@ def main(argv=None) -> int:
         if "small-sched" in phases:
             phase_small_scheduler()
             lap("small-sched")
-        if model is None and {"sched", "prefix", "pressure", "model"} & set(phases):
+        if model is None and {"sched", "prefix", "pressure", "kvtier", "model"} & set(phases):
             model, params = _llm_model()
         if "sched" in phases:
             sched_launches, sched_tokens = phase_scheduler(card, model, params)
@@ -2664,6 +3289,14 @@ def main(argv=None) -> int:
             f32_launches = phase_f32(card)
             free()
             lap("f32")
+        if "disagg" in phases:
+            disagg_launches = phase_disagg(card)
+            free()
+            lap("disagg")
+        if "kvtier" in phases:
+            kvtier_launches = phase_kvtier(card, model, params)
+            free()
+            lap("kvtier")
         # the profiler runs last: once it has traced the card, later
         # launches may carry its overhead
         if "model" in phases:
@@ -2692,6 +3325,8 @@ def main(argv=None) -> int:
             "prefix_launches": prefix_launches,
             "pressure_launches": pressure_launches,
             "spec_launches": spec_launches,
+            "disagg_launches": disagg_launches,
+            "kvtier_launches": kvtier_launches,
             "dh256_launches": dh256_launches,
             "max_abs_err": worst(lambda r: r["dtype"] == "bfloat16"),
             "wgmma_max_abs_err": worst(lambda r: r["route"] == "wgmma"),

@@ -75,20 +75,44 @@ class MetricsRegistry:
         "gen_prefill_tokens": ("seldon_engine_generate_step_tokens", "prefill"),
     }
 
-    # fault tolerance: supervised batcher restarts land in a first-class
-    # series, the scheduler's health in a first-class gauge (1 = serving,
-    # 0 = restarting/dead; readiness mirrors it)
+    # disaggregated serving: KV-slab handoff counters land in first-class
+    # seldon_engine_kv_transfer_* series with a direction label (export =
+    # a prefill pool shipping slabs out, import = a decode pool splicing
+    # them in), plus the transfer-dedup savings counter
+    _KV_TRANSFER = {
+        "gen_kv_export_slabs": ("seldon_engine_kv_transfer_slabs", "export"),
+        "gen_kv_import_slabs": ("seldon_engine_kv_transfer_slabs", "import"),
+        "gen_kv_export_bytes": ("seldon_engine_kv_transfer_bytes", "export"),
+        "gen_kv_import_bytes": ("seldon_engine_kv_transfer_bytes", "import"),
+        "gen_kv_transfer_bytes_saved": ("seldon_engine_kv_transfer_bytes_saved", None),
+    }
+
+    # fault tolerance: supervised batcher restarts, prefill-peer
+    # ejections/readmissions and local-prefill degradation land in
+    # first-class series, the scheduler's health in a first-class gauge
+    # (1 = serving, 0 = restarting/dead; readiness mirrors it)
     _RECOVERY = {
         "gen_batcher_restarts": "seldon_engine_batcher_restarts",
+        "gen_peer_ejections": "seldon_engine_peer_ejections",
+        "gen_peer_readmissions": "seldon_engine_peer_readmissions",
+        "gen_degraded_local_prefill": "seldon_engine_degraded_local_prefill",
         # HBM pressure: decode-lane preemptions and their resumes, the
-        # admission sheds while the ledger is latched, and the reclaim
-        # ladder's prefix evictions (refusals come with disaggregated
-        # serving, not ported yet)
+        # admission sheds and remote-admit refusals while the ledger is
+        # latched, and the reclaim ladder's prefix evictions
         "gen_preemptions": "seldon_engine_preemptions",
         "gen_preempt_resumes": "seldon_engine_preemption_resumes",
         "gen_pressure_sheds": "seldon_engine_pressure_sheds",
         "gen_pressure_refused": "seldon_engine_pressure_refused",
         "gen_pressure_prefix_evictions": "seldon_engine_pressure_prefix_evictions",
+        # host KV tier: slabs demoted to host RAM, lookups that found an
+        # entry, entries promoted back to the device (prefix match, peer
+        # pull, checkpoint copy-back), entries evicted or dropped as
+        # corrupt, and resumes that fell back to recompute + replay
+        "gen_kv_tier_demotions": "seldon_engine_kv_tier_demotions",
+        "gen_kv_tier_promotions": "seldon_engine_kv_tier_promotions",
+        "gen_kv_tier_hits": "seldon_engine_kv_tier_hits",
+        "gen_kv_tier_evictions": "seldon_engine_kv_tier_evictions",
+        "gen_kv_tier_replay_fallbacks": "seldon_engine_kv_tier_replay_fallbacks",
     }
 
     # fused stop-aware decode: device steps run inside fused bursts and
@@ -105,6 +129,9 @@ class MetricsRegistry:
         "gen_pressure_used_bytes": "seldon_engine_pressure_used_bytes",
         "gen_pressure_budget_bytes": "seldon_engine_pressure_budget_bytes",
         "gen_pressure_active": "seldon_engine_pressure_active",
+        # host KV tier occupancy: host RAM, deliberately not one of the
+        # HBM pressure gauges (the ledger never counts tier bytes)
+        "gen_kv_tier_bytes": "seldon_engine_kv_tier_bytes",
     }
 
     # generate SLO TIMERs (per completed request, shipped by the generate
@@ -131,6 +158,11 @@ class MetricsRegistry:
                 if step is not None:
                     name, phase = step
                     self.counter_inc(name, {**tags, "phase": phase}, val)
+                kv = self._KV_TRANSFER.get(key)
+                if kv is not None:
+                    name, direction = kv
+                    self.counter_inc(
+                        name, {**tags, "direction": direction} if direction else tags, val)
                 recovery = self._RECOVERY.get(key)
                 if recovery is not None:
                     self.counter_inc(recovery, tags, val)

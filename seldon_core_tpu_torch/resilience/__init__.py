@@ -32,6 +32,7 @@ from .faults import (  # noqa: F401
     FaultRule,
     FaultyClient,
     InjectedFault,
+    KVFaults,
 )
 from .policy import (  # noqa: F401
     HedgePolicy,

@@ -36,8 +36,14 @@ live lanes or queued work, so the shrink lands relative to traffic) the
 budget drops to ``shrink_to_bytes``; ``restore_after_polls`` working
 polls later (optional) the boot budget is restored.
 
-Not ported yet: the KV-transport rule fields (``kv_*``, the
-disaggregated path's chaos harness); each raises when set.
+KV-transport faults (the disaggregated path's chaos harness): a rule
+whose ``unit`` is ``"*"``, ``"kv:*"``, ``"kv:<addr>"`` or ``<addr>`` (a
+prefill peer's ``host:port`` or loopback label) perturbs that peer's
+transfers: ``kv_connect_refused_rate``, ``kv_stall_rate`` with
+``kv_stall_ms`` (before the dial), and ``kv_corrupt_rate``,
+``kv_truncate_rate``, ``kv_drop_rate`` (in the raw byte stream, so the
+codec's own typed refusal is what recovery sees). Each peer draws from
+its own seeded stream, the JAX package's draw for draw.
 
 Env wiring: ``SELDON_FAULTS`` holds the JSON config
 (``{"seed": 7, "rules": [{...}], "scheduler": {...}}``) or
@@ -51,12 +57,9 @@ import dataclasses
 import json
 import os
 import random
+import threading
+import time
 from typing import Dict, List, Optional, Tuple
-
-_KV_FIELDS = (
-    "kv_connect_refused_rate", "kv_corrupt_rate", "kv_truncate_rate",
-    "kv_drop_rate", "kv_stall_rate", "kv_stall_ms",
-)
 
 
 class InjectedFault(RuntimeError):
@@ -81,27 +84,35 @@ class FaultRule:
     jitter_ms: float = 0.0
     hang_rate: float = 0.0
     hang_s: float = 3600.0
+    # KV-transport faults (see the module docstring)
+    kv_connect_refused_rate: float = 0.0
+    kv_corrupt_rate: float = 0.0
+    kv_truncate_rate: float = 0.0
+    kv_drop_rate: float = 0.0
+    kv_stall_rate: float = 0.0
+    kv_stall_ms: float = 0.0
+
+    KV_FIELDS = (
+        "kv_connect_refused_rate", "kv_corrupt_rate", "kv_truncate_rate",
+        "kv_drop_rate", "kv_stall_rate",
+    )
 
     def matches(self, unit: str, method: str) -> bool:
         return self.unit in ("*", unit) and self.method in ("*", method)
 
+    def has_kv_faults(self) -> bool:
+        return any(getattr(self, f) for f in self.KV_FIELDS)
 
-def _rule(r) -> FaultRule:
-    if isinstance(r, FaultRule):
-        return r
-    kv = sorted(k for k in r if k in _KV_FIELDS and r[k])
-    if kv:
-        raise NotImplementedError(
-            f"fault rule fields {kv} (KV-transport faults) are not ported "
-            "to seldon_core_tpu_torch yet"
-        )
-    return FaultRule(**{k: v for k, v in r.items() if k not in _KV_FIELDS})
+    def matches_peer(self, addr: str) -> bool:
+        return self.unit in ("*", "kv:*", f"kv:{addr}", addr)
 
 
 class FaultInjector:
     def __init__(self, rules, seed: int = 0, scheduler=None, pressure=None):
         self.seed = int(seed)
-        self.rules: List[FaultRule] = [_rule(r) for r in rules]
+        self.rules: List[FaultRule] = [
+            r if isinstance(r, FaultRule) else FaultRule(**r) for r in rules
+        ]
         # scheduler-level induced poll death: {"die_after_polls": N,
         # "times": M} — wired onto ContinuousBatcher.fault_hook
         self.scheduler = dict(scheduler or {})
@@ -180,6 +191,16 @@ class FaultInjector:
                     f"(error_rate={rule.error_rate})",
                 )
 
+    def kv_faults_for(self, addr: str) -> Optional["KVFaults"]:
+        """Per-peer KV-transport fault hook for ``addr`` (``host:port``
+        or a loopback label), or None when no kv rule targets it. Each
+        peer gets its own seeded stream so a schedule is reproducible
+        regardless of which peers a decode pool dials."""
+        rules = [r for r in self.rules if r.has_kv_faults() and r.matches_peer(addr)]
+        if not rules:
+            return None
+        return KVFaults(rules, self.seed, addr)
+
     def scheduler_hook(self):
         """Poll-death hook for ContinuousBatcher.fault_hook, or None
         when no scheduler section is configured. Raises InjectedFault on
@@ -234,6 +255,104 @@ class FaultInjector:
             return None
 
         return hook
+
+
+class KVFaults:
+    """Deterministic byte-level faults for ONE KV-transport peer.
+
+    The transports call :meth:`before_connect` ahead of dialing (refuse /
+    stall live here) and wrap their ``recv``-style reader with
+    :meth:`wrap_read`, which draws a per-transfer fault plan (corrupt /
+    truncate / drop at a drawn byte offset) from the peer's seeded
+    stream. Faults land in the RAW byte stream, so what recovery
+    exercises is the genuine codec refusal -- ChecksumError,
+    TruncatedStream, a framing-shift DisaggError -- not a synthetic
+    exception."""
+
+    def __init__(self, rules: List[FaultRule], seed: int, addr: str):
+        self.rules = rules
+        self.addr = addr
+        self._rng = random.Random(f"{seed}/kv/{addr}")
+        self._lock = threading.Lock()
+        self.injected = {
+            "connect_refused": 0, "corrupt": 0, "truncate": 0,
+            "drop": 0, "stalls": 0,
+        }
+
+    def _draw(self) -> float:
+        with self._lock:
+            return self._rng.random()
+
+    def _offset(self, lo: int, hi: int) -> int:
+        with self._lock:
+            return self._rng.randrange(lo, hi)
+
+    def connectable(self) -> bool:
+        """Probe-path view of connect faults: a peer whose connections
+        are being refused must also probe unhealthy, or the failover
+        layer would readmit it just to eject it again."""
+        for r in self.rules:
+            if r.kv_connect_refused_rate and self._draw() < r.kv_connect_refused_rate:
+                return False
+        return True
+
+    def before_connect(self) -> None:
+        for r in self.rules:
+            if r.kv_connect_refused_rate and self._draw() < r.kv_connect_refused_rate:
+                self.injected["connect_refused"] += 1
+                raise ConnectionRefusedError(f"injected: kv connect refused ({self.addr})")
+            if r.kv_stall_rate and self._draw() < r.kv_stall_rate:
+                self.injected["stalls"] += 1
+                time.sleep(max(0.0, r.kv_stall_ms) / 1000.0)
+
+    def wrap_read(self, read):
+        """Wrap a ``recv``-style reader with this transfer's drawn fault
+        plan; returns ``read`` unchanged when no byte fault fires (zero
+        overhead off the fault path). Offsets are drawn small enough to
+        land inside any real slab stream (the header alone is ~300
+        bytes)."""
+        corrupt_at = truncate_at = drop_at = None
+        for r in self.rules:
+            if corrupt_at is None and r.kv_corrupt_rate and self._draw() < r.kv_corrupt_rate:
+                corrupt_at = self._offset(32, 2048)
+            if truncate_at is None and r.kv_truncate_rate and self._draw() < r.kv_truncate_rate:
+                truncate_at = self._offset(32, 4096)
+            if drop_at is None and r.kv_drop_rate and self._draw() < r.kv_drop_rate:
+                drop_at = self._offset(32, 2048)
+        if corrupt_at is None and truncate_at is None and drop_at is None:
+            return read
+        state = {"seen": 0, "corrupted": False, "dropped": False, "truncated": False}
+
+        def faulty(n: int) -> bytes:
+            if truncate_at is not None and state["seen"] >= truncate_at:
+                if not state["truncated"]:
+                    state["truncated"] = True
+                    self.injected["truncate"] += 1
+                return b""
+            b = read(n)
+            if not b:
+                return b
+            start = state["seen"]
+            state["seen"] += len(b)
+            if (corrupt_at is not None and not state["corrupted"]
+                    and start <= corrupt_at < state["seen"]):
+                state["corrupted"] = True
+                self.injected["corrupt"] += 1
+                buf = bytearray(b)
+                buf[corrupt_at - start] ^= 0xFF
+                b = bytes(buf)
+            if (drop_at is not None and not state["dropped"]
+                    and start <= drop_at < state["seen"]):
+                # drop up to 64 bytes mid-stream: every later frame
+                # misaligns, so the codec refuses on length/CRC
+                state["dropped"] = True
+                self.injected["drop"] += 1
+                at = drop_at - start
+                b = b[:at] + b[at + 64:]
+                state["seen"] = start + len(b)
+            return b
+
+        return faulty
 
 
 class FaultyClient:

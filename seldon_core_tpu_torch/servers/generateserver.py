@@ -58,13 +58,48 @@ Server parameters (typed, e.g. from ``PREDICTIVE_UNIT_PARAMETERS``)::
     warmup_prompt_lens / warmup_max_new_tokens
                      traffic shape ``warm()`` runs before the server
                      listens (CSV string or list)
+    role             ``unified`` (default: prefill and decode here) |
+                     ``prefill`` (prompt prefill only, the K/V slab
+                     exported over the KV transport: one lane, no
+                     scheduler loop, no generate traffic) | ``decode``
+                     (prefill at the ``peer`` pool, the slab spliced into
+                     decode lanes here). Refused with speculation
+    peer             decode role: the prefill pool's KV endpoints, a
+                     comma-separated ``host:port`` list; peers are probed,
+                     ejected with backoff on a failed transfer and
+                     readmitted on a good probe, a failed transfer retries
+                     once on the next peer, and with the whole pool
+                     ejected the prompt is prefilled here
+                     (``degraded_local_prefill``). ``set_peer()`` wires
+                     live prefill servers instead (loopback transport,
+                     same codec, in memory)
+    kv_port          prefill role: TCP port of the KV export listener
+                     (0 = none, loopback only)
+    kv_chunk_bytes   KV transport write size (default 1 MiB)
+    peer_eject_backoff_s
+                     decode role: first re-probe backoff of an ejected
+                     peer (exponential, capped at 30 s; default 1.0)
+    host_kv_tier_bytes
+                     host-RAM KV tier budget (0 = off): reclaim demotes
+                     prefix slabs there instead of dropping them (a later
+                     match promotes them back), preempted lanes
+                     checkpoint their K/V for a copy-back resume, prefill
+                     exports publish their slabs for peers, and the KV
+                     port answers peer prefix lookups from it
+    kv_tier_min_tokens / kv_tier_promote_min_tokens
+                     the tier's demote and promote thresholds (0 =
+                     prefix_cache_min_tokens / the demote threshold)
+    kv_tier_peer_lookup
+                     decode role: ask the prefill peers' tiers for a
+                     shared prefix before a full prefill (-1 = on exactly
+                     when host_kv_tier_bytes is set, 0 = off, 1 = on)
 
-The JAX server's other parameters (disaggregated roles, the host KV
-tier, resume tokens, swap, tenants, the profiler, SLO burn, the flight
-recorder, meshes) are not ported yet: each raises when set to
-anything but its off value, as does a request's ``resume_token`` or
-``tenant``. The fault config's ``pressure`` section (``SELDON_FAULTS``)
-drives the ledger's budget mid-run.
+The JAX server's other parameters (resume tokens, swap, tenants, the
+profiler, SLO burn, the flight recorder, meshes) are not ported yet:
+each raises when set to anything but its off value, as does a request's
+``resume_token`` or ``tenant``. The fault config's ``pressure`` section
+(``SELDON_FAULTS``) drives the ledger's budget mid-run, its ``kv_*``
+rules perturb the decode role's transfers per peer.
 
 The remaining deadline budget in the message meta (``deadlineMs``,
 stamped per in-process hop by the engine) bounds each request: the
@@ -89,7 +124,8 @@ separately and rides the same in-flight decode batch.
 
 Response (jsonData): ``{"tokens": [[...]], "text": [...],
 "cache_hit_tokens": [...]}`` (``text`` only for byte-level string
-prompts, ``cache_hit_tokens`` only with the prefix cache on).
+prompts, ``cache_hit_tokens`` only with the prefix cache on; for a
+decode role these tokens' K/V never crossed the wire).
 """
 
 from __future__ import annotations
@@ -115,11 +151,12 @@ logger = logging.getLogger(__name__)
 # server accepts unknown ones)
 _NOT_PORTED = {
     "mesh": None, "mesh_shape": None, "shard_cache_seq": False,
-    "flight_recorder": 0, "role": "unified", "peer": None, "kv_port": 0,
-    "host_kv_tier_bytes": 0, "resume_tokens": 0,
+    "flight_recorder": 0, "resume_tokens": 0,
     "swap_drain_ms": 0, "tenants": None, "weight_pager_host_bytes": 0,
     "profiler": 0, "slo_objectives": None,
 }
+
+
 def _is_off(name: str, value, off) -> bool:
     if value == off:
         return True
@@ -141,6 +178,11 @@ class StreamHandle:
 
 
 class GenerateServer(SeldonComponent):
+    # class-level defaults: a partly built instance behaves as the
+    # unified role with no transport endpoints
+    _role = "unified"
+    _kv_server = None
+    _kv_client = None
     batcher = None
 
     def __init__(
@@ -169,6 +211,15 @@ class GenerateServer(SeldonComponent):
         draft_uri: Optional[str] = None,
         warmup_prompt_lens: Optional[Sequence[int]] = None,
         warmup_max_new_tokens: int = 0,
+        role: str = "unified",
+        peer: Optional[str] = None,
+        kv_port: int = 0,
+        kv_chunk_bytes: int = 1 << 20,
+        peer_eject_backoff_s: float = 1.0,
+        host_kv_tier_bytes: int = 0,
+        kv_tier_min_tokens: int = 0,
+        kv_tier_promote_min_tokens: int = 0,
+        kv_tier_peer_lookup: int = -1,
         **kwargs,
     ):
         for name, value in kwargs.items():
@@ -178,6 +229,30 @@ class GenerateServer(SeldonComponent):
                     "seldon_core_tpu_torch yet (only its off value "
                     f"{_NOT_PORTED[name]!r} is supported)"
                 )
+        role = str(role or "unified").strip().lower()
+        if role not in ("unified", "prefill", "decode"):
+            raise ValueError(f"role must be unified|prefill|decode, got {role!r}")
+        if role != "unified" and int(speculate_tokens) > 0:
+            raise ValueError(
+                "disaggregated roles do not support speculative decoding "
+                "(the draft cache cannot cross the KV transport)"
+            )
+        self._role = role
+        self._peer = None if _is_off("peer", peer, None) else peer
+        self._kv_port = int(kv_port)
+        self._kv_chunk_bytes = int(kv_chunk_bytes)
+        self._peer_eject_backoff_s = float(peer_eject_backoff_s)
+        self._host_kv_tier_bytes = int(host_kv_tier_bytes)
+        self._kv_tier_min_tokens = int(kv_tier_min_tokens)
+        self._kv_tier_promote_min_tokens = int(kv_tier_promote_min_tokens)
+        # -1 = auto: peer prefix lookups ride exactly the tier knob
+        self._kv_tier_peer_lookup = (
+            self._host_kv_tier_bytes > 0
+            if int(kv_tier_peer_lookup) < 0 else bool(int(kv_tier_peer_lookup))
+        )
+        self._kv_server = None  # PrefillTransportServer (prefill role)
+        self._kv_client = None  # FailoverKVClient over the peers (decode role)
+        self._faults = None
         self.model_uri = model_uri
         self.device = resolve_device(device)
         self._slots = int(slots)
@@ -249,7 +324,10 @@ class GenerateServer(SeldonComponent):
         self.batcher = ContinuousBatcher(
             self._model,
             params,
-            slots=self._slots,
+            # a prefill-role server runs no decode lanes: its slabs are
+            # exported, never inserted here -- one lane keeps the cache
+            # allocation minimal
+            slots=1 if self._role == "prefill" else self._slots,
             max_seq=self._max_seq,
             steps_per_poll=self._steps_per_poll,
             pipeline_depth=self._pipeline_depth,
@@ -269,12 +347,16 @@ class GenerateServer(SeldonComponent):
             draft_model=draft_model,
             draft_params=draft_params,
             speculate_tokens=self._speculate_tokens,
+            host_kv_tier_bytes=self._host_kv_tier_bytes,
+            kv_tier_min_tokens=self._kv_tier_min_tokens,
+            kv_tier_promote_min_tokens=self._kv_tier_promote_min_tokens,
         )
         # chaos harness (off without SELDON_FAULTS): the scheduler section
         # wires induced poll death onto the batcher's fault hook, the
         # pressure section a mid-run ledger re-budget (before warm(), so
-        # that it captures the resume's replay step)
-        faults = FaultInjector.from_env()
+        # that it captures the resume's replay step); kv rules are
+        # resolved per peer when the transports are built
+        self._faults = faults = FaultInjector.from_env()
         if faults is not None:
             self.batcher.fault_hook = faults.scheduler_hook()
             self.batcher.pressure_hook = faults.pressure_hook()
@@ -286,10 +368,23 @@ class GenerateServer(SeldonComponent):
                 prompt_lens=self._warmup_prompt_lens,
                 max_new_tokens=self._warmup_max_new_tokens,
             )
-        self.batcher.start()
+        if self._role == "prefill":
+            # no scheduler loop: export_prefill runs on the transport's
+            # handler threads, decode lanes never activate
+            if self._kv_port:
+                from ..serving.disagg import PrefillTransportServer
+
+                self._kv_server = PrefillTransportServer(
+                    self, port=self._kv_port, chunk_bytes=self._kv_chunk_bytes)
+                logger.info("generateserver: prefill role exporting KV on :%d",
+                            self._kv_server.port)
+        else:
+            self.batcher.start()
+        if self._role == "decode" and self._peer is not None:
+            self._kv_client = self._build_failover(self._peer)
         logger.info(
-            "generateserver: %s ready on %s (slots=%d, max_seq=%d)",
-            self.model_uri, self.device, self._slots, self.batcher.max_seq,
+            "generateserver: %s ready on %s (role=%s, slots=%d, max_seq=%d)",
+            self.model_uri, self.device, self._role, self._slots, self.batcher.max_seq,
         )
 
     def _build_draft(self, params):
@@ -362,13 +457,223 @@ class GenerateServer(SeldonComponent):
         )
         return token_lists, text_mode, kw
 
+    # -- disaggregated serving (prefill/decode pools) ------------------------
+
+    def _note_peer_event(self, kind: str) -> None:
+        """Counter hook of the failover transport's eject/readmit
+        decisions (``peer_ejections`` / ``peer_readmissions``)."""
+        b = self.batcher
+        if b is None:
+            return
+        with b._export_lock:
+            b.stats[kind] += 1
+
+    def _build_failover(self, peers):
+        """Decode role: the peer list (a comma-separated ``host:port``
+        string, a live server object, or a sequence of either) becomes
+        one FailoverKVClient with this server's ejection counters and
+        per-peer chaos faults wired in."""
+        from ..serving.disagg import make_failover
+
+        injector = self._faults
+        return make_failover(
+            peers,
+            chunk_bytes=self._kv_chunk_bytes,
+            fault_for=injector.kv_faults_for if injector is not None else None,
+            eject_backoff_s=self._peer_eject_backoff_s,
+            on_eject=lambda addr, reason: self._note_peer_event("peer_ejections"),
+            on_readmit=lambda addr: self._note_peer_event("peer_readmissions"),
+        )
+
+    def set_peer(self, prefill_server) -> None:
+        """Wire a decode-role server to its prefill peer(s): a live
+        prefill GenerateServer (loopback transport: the slab still
+        round-trips the full codec in memory), a ``host:port`` string
+        (TCP; comma-separated for a list), or a sequence of either."""
+        if self._role != "decode":
+            raise RuntimeError(f"set_peer on a {self._role}-role server")
+        self._kv_client = self._build_failover(prefill_server)
+
+    def kv_ping(self) -> bool:
+        """Loopback health probe target: True while this server's batcher
+        can still serve prefill exports."""
+        return self.batcher is not None and self.batcher.health == "serving"
+
+    def prefill_export(self, request: Dict[str, Any]):
+        """PREFILL-side transport handler: run the prompt forward and
+        return ``(meta, slab)`` for the wire codec (the loopback transport
+        calls it directly, PrefillTransportServer per TCP connection). A
+        ``prefix_lookup`` request is answered from the host KV tier
+        instead, with no device work."""
+        if self.batcher is None:
+            self.load()
+        if request.get("prefix_lookup"):
+            return self._tier_lookup(request)
+        toks = request.get("tokens")
+        if not toks:
+            raise ValueError("prefill request needs tokens")
+        return self.batcher.export_prefill(
+            [int(t) for t in toks],
+            max_new_tokens=int(request.get("max_new_tokens", 32)),
+            temperature=float(request.get("temperature", 0.0)),
+            eos_id=request.get("eos_id"),
+            seed=int(request.get("seed", 0)),
+            covered_len=int(request.get("covered_len", 0)),
+        )
+
+    def _tier_lookup(self, request: Dict[str, Any]):
+        """Answer a peer's prefix lookup from the local host tier: the
+        stored entry covering the prompt's longest prefix, whole (the
+        puller re-inserts it and lets its own radix match serve the
+        common depth), or a typed TierMiss the failover layer passes
+        without ejecting. Host bytes only: never the device."""
+        from ..serving.disagg import TierMiss
+
+        b = self.batcher
+        tier = b._kv_tier
+        toks = [int(t) for t in request.get("tokens") or []]
+        if tier is None or not toks:
+            raise TierMiss("no host KV tier on this member")
+        if request.get("weight_version") != b.weight_version:
+            raise TierMiss(
+                f"tier serves weight_version {b.weight_version!r}, peer asked for "
+                f"{request.get('weight_version')!r}"
+            )
+        # the shared usable-hit probe: the puller's own gate and caps run
+        # here, before the transfer is paid
+        hit = b.tier_prefix_lookup(toks, min_tokens=int(request.get("min_tokens", 0)))
+        if hit is None:
+            raise TierMiss("no usable stored prefix for this prompt (miss, below the "
+                           "promote gate, or not a win at this prompt's bucket)")
+        depth, meta, slab = hit
+        with b._export_lock:
+            b.stats["kv_tier_hits"] = tier.stats["hits"]
+        out_meta = {
+            "kind": "tier_prefix",
+            "tokens": meta.get("tokens"),
+            "weight_version": b.weight_version,
+            "tier_depth": depth,
+        }
+        return out_meta, slab
+
+    def _peer_prefix_pull(self, toks, deadline_s) -> int:
+        """Decode-role tier sharing: on a local radix miss, ask the
+        prefill peers' host tiers for a shared prefix and promote the
+        answer into the local radix index. Returns the new
+        ``remote_covered_len`` (0 when nothing was pulled); misses and
+        transport trouble are non-events."""
+        from ..serving.disagg import DisaggError
+
+        b = self.batcher
+        try:
+            meta, slab = self._kv_client.prefill({
+                "prefix_lookup": True,
+                "tokens": [int(t) for t in toks],
+                "weight_version": b.weight_version,
+                "min_tokens": b.tier_promote_gate,
+            }, deadline_s=deadline_s)
+        except DisaggError:
+            # a miss, or peer trouble the failover layer has handled
+            return 0
+        if meta.get("weight_version") != b.weight_version:
+            return 0
+        b.promote_peer_prefix(meta, slab)
+        return b.remote_covered_len(toks)
+
+    def _remote_submit(self, toks, kw, deadline_s, covered=None, on_tokens=None):
+        """Decode-role submit: bounds-check and shed BEFORE the handoff,
+        find the transfer-dedup base (the local radix cache, then this
+        member's own tier, then the peers' tiers), pull the slab
+        (suffix-only when possible) from the prefill pool and queue it as
+        a remote lane insert. With the whole prefill pool ejected, serve
+        the prompt with a local prefill instead."""
+        from ..serving.continuous import PromptTooLong
+        from ..serving.disagg import AllPeersDown
+
+        if self._kv_client is None:
+            raise RuntimeError("decode role has no prefill peer (set `peer` or call set_peer())")
+        b = self.batcher
+        # a prefill-side PromptTooLong would come back over TCP as a
+        # generic error frame the failover layer reads as peer death:
+        # check here, so one unservable request never ejects a peer
+        n = len(toks)
+        if n >= b.max_seq:
+            raise PromptTooLong(f"prompt of {n} exceeds max_seq {b.max_seq}")
+        b._check_budget(n, kw.get("max_new_tokens", 32))
+        # an overloaded decode pool refuses before the prefill pool and
+        # the wire pay for a slab it would refuse on arrival
+        b._shed_check(deadline_s, remote=True)
+        if covered is None:
+            covered = b.remote_covered_len(toks)
+            if covered == 0 and b._kv_tier is not None:
+                covered = b.consult_tier_covered_len(toks)
+            if (covered == 0 and self._kv_tier_peer_lookup and b._prefix_index is not None
+                    and n >= b.tier_promote_gate):
+                covered = self._peer_prefix_pull(toks, deadline_s)
+        request = {"tokens": [int(t) for t in toks], "covered_len": int(covered), **kw}
+        try:
+            meta, slab = self._kv_client.prefill(request, deadline_s=deadline_s)
+        except AllPeersDown as e:
+            return self._local_prefill_fallback(toks, kw, deadline_s, on_tokens, str(e))
+        return b.admit_remote(slab, meta, on_tokens=on_tokens, deadline_s=deadline_s)
+
+    def _local_prefill_fallback(self, toks, kw, deadline_s, on_tokens, reason: str):
+        """The whole prefill pool is ejected: serve the prompt with a
+        local unified prefill instead of failing it, counted in
+        ``degraded_local_prefill`` while the failover layer keeps probing
+        the pool back in."""
+        b = self.batcher
+        with b._export_lock:
+            b.stats["degraded_local_prefill"] += 1
+        logger.warning("prefill pool fully ejected (%s); serving %d-token prompt with "
+                       "local unified prefill", reason, len(toks))
+        return b.submit(toks, deadline_s=deadline_s, on_tokens=on_tokens, **kw)
+
+    def _predict_disagg(self, token_lists, kw, deadline_s, expires_at):
+        """Decode-role submit loop: prefill at the peer pool, the slab
+        over the KV transport, then the all-or-nothing collection (a
+        PrefixGone re-requests the full slab once). A multi-prompt
+        request runs its transfers concurrently."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        if len(token_lists) == 1:
+            futures = [self._remote_submit(token_lists[0], kw, deadline_s)]
+        else:
+            with ThreadPoolExecutor(max_workers=min(8, len(token_lists)),
+                                    thread_name_prefix="kv-transfer") as pool:
+                submits = [pool.submit(self._remote_submit, toks, kw, deadline_s)
+                           for toks in token_lists]
+            err = next((sf.exception() for sf in submits if sf.exception()), None)
+            if err is not None:
+                # all-or-nothing: cancel every sibling whose slab landed
+                for sf in submits:
+                    if sf.exception() is None:
+                        sf.result().cancel()
+                raise err
+            futures = [sf.result() for sf in submits]
+        retry = lambda i: self._remote_submit(token_lists[i], kw, deadline_s, covered=0)  # noqa: E731
+        results = self._collect_results(futures, deadline_s, expires_at, retry=retry)
+        return futures, results
+
     def close(self) -> None:
+        """Stop the KV transport endpoints and the scheduler."""
+        if self._kv_server is not None:
+            self._kv_server.close()
+            self._kv_server = None
+        if self._kv_client is not None:
+            self._kv_client.close()
+            self._kv_client = None
         if self.batcher is not None:
             self.batcher.close()
 
     def predict(self, X, names, meta=None):
         if self.batcher is None:
             self.load()
+        if self._role == "prefill":
+            raise RuntimeError(
+                "this unit is a prefill-role pool member: it serves the KV transport "
+                "only — route generate requests at the decode pool"
+            )
         body = X if isinstance(X, dict) else None
         if body is None:
             if isinstance(X, str):
@@ -383,6 +688,11 @@ class GenerateServer(SeldonComponent):
         deadline_s = deadline_s_from_meta(meta)
         expires_at = time.monotonic() + deadline_s if deadline_s is not None else None
         token_lists, text_mode, kw = self._parse_prompts(body)
+        if self._role == "decode":
+            # prefill at the peer pool, the slab over the KV transport,
+            # decode here
+            futures, results = self._predict_disagg(token_lists, kw, deadline_s, expires_at)
+            return self._build_response(futures, results, token_lists, text_mode)
         futures = []
         try:
             for toks in token_lists:
@@ -397,11 +707,14 @@ class GenerateServer(SeldonComponent):
         return self._build_response(futures, results, token_lists, text_mode)
 
     @staticmethod
-    def _collect_results(futures, deadline_s, expires_at):
+    def _collect_results(futures, deadline_s, expires_at, retry=None):
         """Await every request future under the remaining deadline budget
         (600 s without one). All-or-nothing: any failure or budget
         exhaustion cancels the sibling futures, reclaiming queued slots
-        and mid-decode lanes, before the error surfaces."""
+        and mid-decode lanes, before the error surfaces. ``retry(i)``
+        (the decode role) re-submits request ``i`` once when its
+        suffix-only handoff lost its radix donor (``PrefixGone``)."""
+        from ..serving.disagg import PrefixGone
 
         def remaining() -> float:
             if expires_at is None:
@@ -409,7 +722,16 @@ class GenerateServer(SeldonComponent):
             return max(0.001, expires_at - time.monotonic())
 
         try:
-            return [f.result(timeout=remaining()) for f in futures]
+            results = []
+            for i, f in enumerate(futures):
+                try:
+                    results.append(f.result(timeout=remaining()))
+                except PrefixGone:
+                    if retry is None:
+                        raise
+                    futures[i] = retry(i)
+                    results.append(futures[i].result(timeout=remaining()))
+            return results
         except (FuturesTimeout, CancelledError):
             for f in futures:
                 f.cancel()
@@ -437,12 +759,20 @@ class GenerateServer(SeldonComponent):
 
         if self.batcher is None:
             self.load()
+        if self._role == "prefill":
+            raise RuntimeError("prefill-role pool members serve the KV transport only")
         token_lists, text_mode, kw = self._parse_prompts(body)
         if len(token_lists) != 1:
             raise ValueError("stream takes ONE prompt")
         toks = token_lists[0]
         q: "_queue.Queue" = _queue.Queue()
-        fut = self.batcher.submit(toks, on_tokens=q.put, **kw)
+        if self._role == "decode":
+            # the handoff happens before the first byte goes out, always
+            # with the FULL slab: a PrefixGone retry cannot be replayed
+            # once response bytes exist
+            fut = self._remote_submit(toks, kw, None, covered=0, on_tokens=q.put)
+        else:
+            fut = self.batcher.submit(toks, on_tokens=q.put, **kw)
         fut.add_done_callback(lambda _f: q.put(None))
 
         def chunks():
@@ -555,6 +885,34 @@ class GenerateServer(SeldonComponent):
                 delta("prefix_tokens_saved", s["prefix_tokens_saved"]),
                 {"type": "GAUGE", "key": "prefix_cache_bytes",
                  "value": float(s["prefix_cache_bytes"])},
+            ])
+        for stat, key in (("pressure_refused", "gen_pressure_refused"),
+                          ("peer_ejections", "gen_peer_ejections"),
+                          ("peer_readmissions", "gen_peer_readmissions"),
+                          ("degraded_local_prefill", "gen_degraded_local_prefill")):
+            if s.get(stat):
+                out.append(delta(key, s[stat]))
+        if s.get("kv_exports") or s.get("kv_imports"):
+            # the engine exports them as seldon_engine_kv_transfer_*
+            # {direction} and the dedup savings counter
+            out.extend([
+                delta("gen_kv_export_slabs", s["kv_exports"]),
+                delta("gen_kv_export_bytes", s["kv_export_bytes"]),
+                delta("gen_kv_import_slabs", s["kv_imports"]),
+                delta("gen_kv_import_bytes", s["kv_import_bytes"]),
+                delta("gen_kv_transfer_bytes_saved", s["kv_transfer_bytes_saved"]),
+            ])
+        if self.batcher._kv_tier is not None:
+            # host RAM, not one of the device-pressure gauges
+            self.batcher.sync_kv_tier_stats()
+            out.extend([
+                delta("gen_kv_tier_demotions", s["kv_tier_demotions"]),
+                delta("gen_kv_tier_promotions", s["kv_tier_promotions"]),
+                delta("gen_kv_tier_hits", s["kv_tier_hits"]),
+                delta("gen_kv_tier_evictions", s["kv_tier_evictions"]),
+                delta("gen_kv_tier_replay_fallbacks", s["kv_tier_replay_fallbacks"]),
+                {"type": "GAUGE", "key": "gen_kv_tier_bytes",
+                 "value": float(s["kv_tier_bytes"])},
             ])
         if s.get("spec_rounds"):
             # 1.0 = no draft accepted, gamma + 1 = every draft accepted

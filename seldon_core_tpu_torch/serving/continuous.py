@@ -88,15 +88,31 @@ Counterpart of ``seldon_core_tpu/serving/continuous.py``
   lanes decode with the plain burst graphs) while every lane is greedy,
   holds sampled requests (greedy ones are still admitted), and restores
   it when the draft cache fits back under the high watermark.
+* Disaggregated prefill/decode (``serving/disagg.py`` is the wire
+  half): :meth:`ContinuousBatcher.export_prefill` runs a prompt's
+  prefill (whole-prompt bucketed, or chunked through the staging slab)
+  without the scheduler loop and returns the host slab plus the first
+  token and lane key; :meth:`ContinuousBatcher.admit_remote` validates a
+  shipped slab before any lane state exists and queues it as a remote
+  lane insert (a full slab through the ordinary insert, a suffix-only
+  slab over the local radix donor), so decode after a remote admit is
+  the unified path's. Under pressure a remote admit is refused with
+  ``PressureRefused`` (503 + Retry-After).
+* Host KV tier (``host_kv_tier_bytes``, ``serving/kvtier.py``): reclaim
+  rung 1 demotes prefix slabs to host RAM instead of dropping them, a
+  device radix miss promotes a demoted prefix back, an export publishes
+  its slab there for peers, and a preempted lane checkpoints its exact
+  K/V columns so its resume is a copy-back insert (recompute and replay
+  stay the fallback, counted in ``kv_tier_replay_fallbacks``).
 * Prefill, chunk and lane insert run inside ``tracing.device_trace``
   ranges (``gen.prefill``, ``gen.prefill_chunk``, ``gen.lane_insert``),
   decode bursts inside ``gen.decode_burst``, named in ``torch.profiler``
   traces.
 
-Every other scheduler feature of the JAX batcher (the host KV tier,
-weight swap, drain, retune, the flight recorder, the device-time
-profiler, tenants, the mesh) is not ported yet: its knob raises when set
-to anything but its off value.
+Every other scheduler feature of the JAX batcher (weight swap, drain,
+retune, the flight recorder, the device-time profiler, tenants, the
+mesh) is not ported yet: its knob raises when set to anything but its
+off value. ``weight_version`` stays 0 until weight swap is ported.
 """
 
 from __future__ import annotations
@@ -116,29 +132,27 @@ import torch
 from .. import rng
 from ..resilience import ShedError
 from ..tracing import device_trace
+from .disagg import DisaggError, PrefixGone, WeightVersionMismatch, prompt_hash
+from .kvtier import HostKVTier
 from .prefix_cache import RadixPrefixIndex
-from .pressure import PressureController
+from .pressure import PressureController, PressureRefused
 
 logger = logging.getLogger(__name__)
 
 # Scheduler knobs of the JAX batcher that this port does not implement
 # yet, with the value that turns each off; any other value raises. They
-# are the mesh (multi-device serving), the flight recorder, the host KV
-# tier, weight swap and the device-time profiler.
+# are the mesh (multi-device serving), the flight recorder, weight swap
+# and the device-time profiler.
 NOT_PORTED_KNOBS: Dict[str, Any] = {
     "mesh": None,
     "shard_cache_seq": False,
     "flight_recorder_capacity": 0,
-    "host_kv_tier_bytes": 0,
     "swap_drain_ms": 0,
     "profiler": None,
 }
-# knobs that only act through one of the features above (the host
-# tier's thresholds, the swap's resume policy); accepted at any value so
-# JAX-package configs carry over
-INERT_KNOBS = (
-    "kv_tier_min_tokens", "kv_tier_promote_min_tokens", "swap_resume_policy",
-)
+# knobs that only act through one of the features above (the swap's
+# resume policy); accepted at any value so JAX-package configs carry over
+INERT_KNOBS = ("swap_resume_policy",)
 
 
 def check_not_ported(knobs: Dict[str, Any], owner: str) -> None:
@@ -208,10 +222,16 @@ class GenRequest:
     deadline_t: Optional[float] = None
     # preemption checkpoint ``{"emitted": [...], "key": [hi, lo]}``, set
     # when the pressure ladder took the lane mid-decode: the emitted
-    # tokens and the lane's post-split key, never its K/V (the resume
-    # recomputes it). None = never preempted, or preempted before any
-    # token was credited (a plain re-admit then reproduces the stream)
+    # tokens and the lane's post-split key; with the host KV tier on,
+    # also ``"tier"``: the key of the lane's K/V checkpoint there (else
+    # the resume recomputes it). None = never preempted, or preempted
+    # before any token was credited (a plain re-admit then reproduces
+    # the stream)
     resume: Optional[Dict[str, Any]] = None
+    # a remote admit's shipped slab (host tensors) and its first token,
+    # lane key, covered prefix length, byte count and weight version:
+    # the scheduler splices it instead of prefilling (admit_remote)
+    remote: Optional[Dict[str, Any]] = None
 
 
 @dataclasses.dataclass
@@ -446,11 +466,17 @@ class ContinuousBatcher:
         draft_model=None,
         draft_params=None,
         speculate_tokens: int = 4,
+        host_kv_tier_bytes: int = 0,
+        kv_tier_min_tokens: int = 0,
+        kv_tier_promote_min_tokens: int = 0,
         cuda_graphs: bool = True,
         **knobs,
     ):
         check_not_ported(knobs, "ContinuousBatcher")
         self.model = model
+        # the weights' version: slabs, prefix entries and tier entries
+        # are keyed by it (0 until weight swap is ported)
+        self.weight_version: Any = 0
         self.slots = int(slots)
         self.max_seq = int(max_seq or model.cfg.max_seq)
         self.steps_per_poll = int(steps_per_poll)
@@ -539,6 +565,27 @@ class ContinuousBatcher:
             RadixPrefixIndex(self._prefix_cache_budget)
             if self._prefix_cache_budget > 0 else None
         )
+        # host KV tier (0 bytes = off): demoted prefix slabs, export
+        # publishes and preempted lanes' K/V checkpoints, SKV1-encoded in
+        # host RAM. Demote threshold defaults to prefix_cache_min_tokens,
+        # the promote threshold to the demote threshold
+        self.host_kv_tier_bytes = max(0, int(host_kv_tier_bytes))
+        self.kv_tier_min_tokens = int(kv_tier_min_tokens) or self.prefix_cache_min_tokens
+        self.kv_tier_promote_min_tokens = (
+            int(kv_tier_promote_min_tokens) or self.kv_tier_min_tokens
+        )
+        self._kv_tier = (
+            HostKVTier(self.host_kv_tier_bytes, min_tokens=self.kv_tier_min_tokens,
+                       version=self.weight_version)
+            if self.host_kv_tier_bytes > 0 else None
+        )
+        # checkpoint-entry keys: per-batcher sequence numbers
+        self._tier_ck_seq = 0
+        # the spill widths warm() ran the tier's extract and insert at
+        self._warm_tier_widths: List[int] = []
+        # export_prefill and the decode role's peer hooks run on caller
+        # threads: their stat updates take this lock
+        self._export_lock = threading.Lock()
         # HBM pressure: the unified ledger (0 bytes = off: the loop never
         # consults it), the chaos hook (called each working poll; an int
         # re-budgets the ledger, -1 restores the boot budget), and the
@@ -572,6 +619,28 @@ class ContinuousBatcher:
             # share of prefix_evicted)
             "preemptions": 0, "preempt_resumes": 0, "replayed_tokens": 0,
             "pressure_sheds": 0, "pressure_prefix_evictions": 0,
+            # remote admits refused while the ledger is latched
+            "pressure_refused": 0,
+            # disaggregated serving: slabs/bytes shipped out (prefill
+            # role), slabs/bytes admitted in (decode role), the transfer
+            # bytes the decode side's radix cache deduplicated away,
+            # prefill-peer ejections/readmissions (bumped by the decode
+            # server's failover transport) and remote prefills served
+            # locally because the whole prefill pool was ejected
+            "kv_exports": 0, "kv_export_bytes": 0,
+            "kv_imports": 0, "kv_import_bytes": 0,
+            "kv_transfer_bytes_saved": 0,
+            "peer_ejections": 0, "peer_readmissions": 0,
+            "degraded_local_prefill": 0,
+            # host KV tier: slabs demoted (prefix demotions, lane
+            # checkpoints, export publishes), lookups that found an
+            # entry, entries promoted back to the device (prefix match,
+            # peer pull, checkpoint copy-back), entries evicted or
+            # dropped as corrupt, the tier's bytes, and resumes that
+            # expected a checkpoint but recomputed and replayed
+            "kv_tier_demotions": 0, "kv_tier_promotions": 0,
+            "kv_tier_hits": 0, "kv_tier_evictions": 0,
+            "kv_tier_bytes": 0, "kv_tier_replay_fallbacks": 0,
             "burst_reads": 0, "burst_read_bytes": 0,
             "group_bursts": 0, "group_lanes": 0, "group_pad_lanes": 0,
             "fused_steps": 0, "fused_dispatches": 0,
@@ -1206,13 +1275,25 @@ class ContinuousBatcher:
             return None
         return (len(times) - 1) / span
 
-    def _shed_check(self, deadline_s: Optional[float]) -> None:
+    def _shed_check(self, deadline_s: Optional[float], remote: bool = False) -> None:
         """Admit-queue shedding, BEFORE the request costs any device work:
         the HBM-pressure watermark (while the ledger is latched over its
         high watermark: the reclaim ladder's last rung), an explicit queue
         cap, and the deadline-aware rule (expected queue wait = depth /
-        observed completion rate > remaining budget)."""
+        observed completion rate > remaining budget). ``remote`` selects
+        the pressure refusal's type: a local submit sheds with
+        ``ShedError`` (429 + Retry-After), a remote admit refuses with
+        ``PressureRefused`` (503 + Retry-After), so a decode pool under
+        pressure pushes back before a slab crosses the wire."""
         pc = self._pressure
+        if pc.budget_bytes > 0 and pc.active and remote:
+            self.stats["pressure_refused"] += 1
+            raise PressureRefused(
+                f"decode pool over its HBM ledger high watermark ({pc.used} of "
+                f"{pc.budget_bytes} bytes); refusing remote admits until reclaim "
+                "reaches the low watermark",
+                retry_after_s=pc.retry_after_s(),
+            )
         if pc.budget_bytes > 0 and pc.active:
             self.stats["shed"] += 1
             self.stats["pressure_sheds"] += 1
@@ -1248,6 +1329,288 @@ class ContinuousBatcher:
     def generate(self, tokens, **kw) -> List[int]:
         """Blocking convenience: submit and wait for the generated ids."""
         return self.submit(tokens, **kw).result()
+
+    # -- disaggregated serving (prefill/decode pools, KV-slab handoff) ------
+
+    @property
+    def _slab_token_bytes(self) -> int:
+        """K+V bytes one prompt position occupies across every layer --
+        the unit the transfer-dedup accounting is priced in."""
+        return self._kv_key_bytes
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """Device tensor -> contiguous host copy (pinned on CUDA, so the
+        pull runs at the copy engine's rate)."""
+        if t.device.type != "cuda":
+            return t.contiguous()
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        out.copy_(t)
+        return out
+
+    @torch.no_grad()
+    def export_prefill(
+        self,
+        tokens: Sequence[int],
+        max_new_tokens: int = 32,
+        temperature: float = 0.0,
+        eos_id: Optional[int] = None,
+        seed: int = 0,
+        covered_len: int = 0,
+    ):
+        """PREFILL-side half of disaggregation: run the prompt forward and
+        return ``(meta, slab)`` -- the host ``[L, 1, KV, W, Dh]`` K/V
+        stack plus what a decode pool needs to splice it as a remote lane
+        insert (first sampled token, post-split lane key, weight version,
+        sampling params). Never needs the scheduler loop, which a
+        prefill-role server does not run.
+
+        With ``prefill_chunk`` set and a bucket longer than one chunk the
+        slab is built chunk by chunk in a staging slab exactly as an
+        interleaved admission builds it; otherwise the bucketed
+        whole-prompt prefill makes it in one forward. The first token is
+        sampled here as an admission samples it, so disaggregated streams
+        are the unified ones.
+
+        ``covered_len`` > 0 (the decode side's radix cache already holds
+        that many leading tokens) slices the transfer down to the suffix
+        columns; the K/V is still computed here whole."""
+        self._check_alive()
+        n = len(tokens)
+        if not n:
+            raise ValueError("empty prompt")
+        if n >= self.max_seq:
+            raise PromptTooLong(f"prompt of {n} exceeds max_seq {self.max_seq}")
+        self._check_budget(n, max_new_tokens)
+        tokens = [int(t) for t in tokens]
+        seed = int(seed)
+        bucket = self._bucket(n)
+        covered = max(0, min(int(covered_len), n - 1))
+        C = self.prefill_chunk
+        chunks = 0
+        if C and bucket > C:
+            slab = self._new_slab(bucket)
+            start = 0
+            while True:
+                is_last = start + C >= n
+                s0 = max(0, min(start, bucket - C)) if is_last else start
+                end = min(s0 + C, n)
+                buf = np.zeros((1, C), np.int64)
+                buf[0, : end - s0] = tokens[s0:end]
+                attn_len = min(bucket, self._attn_need(s0 + C))
+                with device_trace("gen.prefill_chunk"):
+                    out = self._chunk_step(slab, buf, s0, n - 1 - s0, seed,
+                                           float(temperature), attn_len, is_last)
+                chunks += 1
+                if is_last:
+                    break
+                start = end
+            first, key = out
+        else:
+            prompt = np.zeros((1, bucket), np.int64)
+            prompt[0, :n] = tokens
+            with device_trace("gen.prefill"):
+                first, slab, key = self._prefill(
+                    prompt, np.asarray([n - 1], np.int64), [seed], [float(temperature)])
+        # the host pull IS the export (the slab must cross a transport):
+        # the whole slab when the tier publishes it, else only the
+        # columns the decode side lacks
+        cut = 0 if self._kv_tier is not None else covered
+        host = {name: self._to_host(slab[name][:, :, :, cut:]) for name in ("k", "v")}
+        if self._kv_tier is not None:
+            # the whole prompt slab is host-side already: publishing it
+            # costs one SKV1 encode and makes this member's KV port answer
+            # peer prefix lookups for the prompt
+            self._kv_tier.put_prefix(tokens, host, self.weight_version)
+            if covered:
+                host = {name: t[:, :, :, covered:] for name, t in host.items()}
+        meta = {
+            "tokens": tokens,
+            "prompt_hash": prompt_hash(tokens),
+            "n_tokens": n,
+            "bucket": bucket,
+            "covered_len": covered,
+            "layout": "cache_one",
+            "first_token": int(first.reshape(-1)[0]),
+            "rng_key": [int(x) for x in key.reshape(-1).tolist()],
+            "weight_version": self.weight_version,
+            "max_new_tokens": int(max_new_tokens),
+            "temperature": float(temperature),
+            "eos_id": eos_id,
+            "seed": seed,
+        }
+        nbytes = sum(t.numel() * t.element_size() for t in host.values())
+        with self._export_lock:
+            self.stats["kv_exports"] += 1
+            self.stats["kv_export_bytes"] += nbytes
+            self.stats["prefill_steps"] += max(1, chunks)
+            self.stats["prefill_tokens"] += chunks * C if chunks else bucket
+            self.stats["prefill_chunks"] += chunks
+            # kv_transfer_bytes_saved is counted on the decode side only
+            # (the pool whose radix cache made the dedup decision)
+        return meta, host
+
+    def remote_covered_len(self, tokens: Sequence[int]) -> int:
+        """DECODE-side consult before requesting a remote prefill: the
+        longest locally cached prefix usable as the transfer-dedup base
+        (0 = ask for the full slab), under the same caps as a local
+        prefix-cache admit, so a nonzero answer is one admit_remote can
+        splice."""
+        if self._prefix_index is None:
+            return 0
+        tokens = [int(t) for t in tokens]
+        n = len(tokens)
+        m, slab = self._prefix_index.match(tokens)
+        m = min(m, n - 1)
+        if slab is None or m < self.prefix_cache_min_tokens:
+            return 0
+        if slab["k"].shape[3] > self._bucket(n):
+            return 0  # donor wider than the prompt bucket: not a win
+        return m
+
+    def admit_remote(self, slab: Dict[str, Any], meta: Dict[str, Any], on_tokens=None,
+                     deadline_s: Optional[float] = None) -> Future:
+        """DECODE-side half of disaggregation: validate a shipped slab
+        message and queue it as a remote lane insert, spliced by the
+        scheduler thread through the same inserts an ordinary admission
+        uses (the upload too runs there, from the decoded pinned host
+        tensors), so decode after a remote admit is the unified path's.
+
+        Every refusal is typed and happens BEFORE any lane state exists:
+        ``WeightVersionMismatch`` (409) for another weight version,
+        ``DisaggError`` for a hash, layout, shape, dtype or first-token
+        fault, ``PressureRefused`` (503) while the ledger is latched, and
+        ``PrefixGone`` for a suffix-only slab without a local donor (at
+        insert time too, when the donor was evicted meanwhile; the caller
+        re-requests the full slab). Returns the request Future, exactly
+        like :meth:`submit`."""
+        self._check_alive()
+        if self.speculate_tokens > 0:
+            raise DisaggError(
+                "remote admits are not supported with speculative decoding "
+                "(the draft cache has no prefix for the lane)"
+            )
+        tokens = [int(t) for t in meta.get("tokens") or []]
+        if not tokens:
+            raise DisaggError("slab meta carries no prompt tokens")
+        n = len(tokens)
+        if n >= self.max_seq:
+            raise DisaggError(f"remote prompt of {n} exceeds max_seq {self.max_seq}")
+        self._check_budget(n, meta.get("max_new_tokens", 32))
+        if meta.get("prompt_hash") and meta["prompt_hash"] != prompt_hash(tokens):
+            raise DisaggError("slab prompt hash mismatch — corrupt meta")
+        if meta.get("layout", "cache_one") != "cache_one":
+            raise DisaggError(f"unsupported slab layout {meta.get('layout')!r}")
+        if meta.get("weight_version") != self.weight_version:
+            raise WeightVersionMismatch(
+                f"slab prefilled under weight_version {meta.get('weight_version')!r} "
+                f"but this decode pool serves {self.weight_version!r}"
+            )
+        covered = max(0, int(meta.get("covered_len", 0)))
+        if covered and self._prefix_index is None:
+            raise PrefixGone(
+                "suffix-only slab but this decode pool runs no prefix cache — "
+                "re-request with covered_len=0"
+            )
+        self._shed_check(deadline_s, remote=True)
+        cfg = self.model.cfg
+        k, v = slab["k"], slab["v"]
+        bucket = self._bucket(n)
+        want = (cfg.n_layers, 1, cfg.n_kv_heads, bucket - covered, cfg.head_dim)
+        if tuple(k.shape) != want or tuple(v.shape) != want:
+            raise DisaggError(
+                f"slab shape {tuple(k.shape)} does not match the serving model's "
+                f"{want} (prompt {n} -> bucket {bucket}, covered {covered})"
+            )
+        if k.dtype != self.model.dtype or v.dtype != self.model.dtype:
+            raise DisaggError(
+                f"slab dtype {k.dtype} vs serving dtype {self.model.dtype} — "
+                "prefill and decode pools must share a dtype"
+            )
+        if meta.get("first_token") is None:
+            raise DisaggError("slab meta carries no first_token")
+        # the JAX-format key is two uint32 words; the lane key registers
+        # hold each word in an int64, so the conversion is exact
+        key = [int(x) for x in meta.get("rng_key", [0, 0])]
+        if len(key) != 2 or not all(0 <= x <= 0xFFFFFFFF for x in key):
+            raise DisaggError(f"slab rng_key {key!r} is not two uint32 words")
+        seed = int(meta.get("seed", 0))
+        req = GenRequest(
+            tokens=tokens,
+            max_new_tokens=int(meta.get("max_new_tokens", 32)),
+            temperature=float(meta.get("temperature", 0.0)),
+            eos_id=meta.get("eos_id"),
+            seed=seed,
+            on_tokens=on_tokens,
+        )
+        req.submit_t = time.monotonic()
+        if deadline_s is not None:
+            req.deadline_t = req.submit_t + float(deadline_s)
+        req.cache_hit_tokens = covered
+        req.remote = {
+            "slab": {"k": k, "v": v},
+            "first": int(meta["first_token"]),
+            "key": key,
+            "covered": covered,
+            "nbytes": k.numel() * k.element_size() + v.numel() * v.element_size(),
+            "version": meta.get("weight_version"),
+        }
+        req.future.gen_request = req
+        self._queue.put(req)
+        if self._stop.is_set():
+            self._drain_queue(self._dead_error())
+            return req.future
+        self.start()
+        return req.future
+
+    @torch.no_grad()
+    def _admit_remote_lane(self, slot: int, req: GenRequest) -> None:
+        """Splice a shipped prefill slab into ``slot`` (scheduler thread).
+        No prefill runs here: the slab carries the prompt K/V and the
+        first token. A full slab goes through the ordinary insert, a
+        suffix-only slab re-matches the local radix index and goes
+        through the prefix splice, so decode state after a remote admit
+        is the unified path's."""
+        r = req.remote
+        n = len(req.tokens)
+        req.admit_t = time.monotonic()
+        if r["version"] != self.weight_version:
+            raise WeightVersionMismatch(
+                f"weights changed mid-handoff: slab is {r['version']!r}, "
+                f"serving {self.weight_version!r}"
+            )
+        covered = r["covered"]
+        donor = None
+        if covered:
+            m, donor = self._prefix_index.match(req.tokens)
+            if donor is None or m < covered:
+                raise PrefixGone(
+                    f"cached prefix covers {m} tokens but the slab assumes {covered} "
+                    "— donor evicted mid-handoff; re-request with covered_len=0"
+                )
+        dev = {name: self._to_dev(t) for name, t in r["slab"].items()}
+        first = self._to_dev(np.asarray([r["first"]], np.int64))
+        key = self._to_dev(np.asarray([r["key"]], np.int64))
+        with device_trace("gen.lane_insert"):
+            if covered:
+                self._insert_prefix(donor, dev, slot, covered, first, n, key)
+            else:
+                self._insert(dev, [slot], first, [n], key)
+        if covered:
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_tokens_saved"] += covered
+        elif self._prefix_index is not None:
+            self.stats["prefix_misses"] += 1
+        self._active[slot] = _Slot(request=req)
+        self._pos_host[slot] = n
+        self._masks_dirty = True
+        self.stats["admitted"] += 1
+        self.stats["kv_imports"] += 1
+        self.stats["kv_import_bytes"] += r["nbytes"]
+        if covered:
+            self.stats["kv_transfer_bytes_saved"] += covered * self._slab_token_bytes
+        # the slab is spliced: drop the host reference (a pinned buffer
+        # returns to the host allocator once its copy has run)
+        req.remote = None
 
     def start(self) -> None:
         if self._stop.is_set():
@@ -1358,6 +1721,17 @@ class ContinuousBatcher:
             # a resume replays at the bucket of its lane's end position,
             # which can lie at any bucket from the shallowest prompt up
             self._warm_replay(sorted(set(attn_lens) | {self._attn_need(lo)}))
+        if self._kv_tier is not None:
+            # a preemption spills a lane at its attention width and the
+            # copy-back inserts a slab of that width: run the extract and
+            # the insert once at every width a lane can spill at
+            hi = max(attn_lens) if attn_lens else self._attn_need(lo)
+            widths = sorted({self._attn_need(p) for p in range(max(1, lo), hi + 1)})
+            zero = self._to_dev(np.zeros((1,), np.int64))
+            key0 = self._to_dev(np.zeros((1, 2), np.int64))
+            for w in widths:
+                self._insert(self._extract_prefix(0, w), [0], zero, [w], key0)
+            self._warm_tier_widths = widths
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         # warm left garbage in the lane registers: reset them
@@ -1482,7 +1856,11 @@ class ContinuousBatcher:
 
     def _drain_queue(self, err: Exception) -> None:
         while self._resume_queue:
-            req = self._resume_queue.popleft()
+            try:
+                req = self._resume_queue.popleft()
+            except IndexError:  # raced another drainer
+                break
+            self._release_tier_ckpt(req)
             if not req.future.done():
                 req.future.set_exception(err)
         while True:
@@ -1810,6 +2188,11 @@ class ContinuousBatcher:
             if req.resume is not None:
                 self._admit_one(self._admit_resume, next(free_iter), req)
                 continue
+            if req.remote is not None:
+                # disaggregated handoff: the prompt K/V came over the
+                # wire -- splice it, no local prefill
+                self._admit_one(self._admit_remote_lane, next(free_iter), req)
+                continue
             n = len(req.tokens)
             hit = self._prefix_match(req.tokens)
             if self._needs_chunks(n, hit):
@@ -1847,13 +2230,20 @@ class ContinuousBatcher:
         return bool(C) and (n - hit[0] > C if hit else self._bucket(n) > C)
 
     def _admit_one(self, admit, slot: int, req: GenRequest, *args) -> None:
-        """``admit(slot, req, *args)``; a failure fails the request alone
-        and frees the lane it reserved."""
+        """``admit(slot, req, *args)``; a failure fails the request alone,
+        frees the lane it reserved and releases its tier checkpoint."""
         try:
             admit(slot, req, *args)
         except Exception as e:  # noqa: BLE001 - bad request/device state
-            logger.exception("admit failed")
+            if isinstance(e, (PrefixGone, WeightVersionMismatch)):
+                # expected, self-healing refusals (the caller re-requests
+                # the full slab / re-prefills): one line, no traceback
+                logger.info("remote admit refused: %s", e)
+            else:
+                logger.exception("admit failed")
             self._chunked.pop(slot, None)
+            req.remote = None
+            self._release_tier_ckpt(req)
             if not req.future.done():
                 req.future.set_exception(e)
 
@@ -1975,6 +2365,13 @@ class ContinuousBatcher:
         n = len(tokens)
         m, slab = self._prefix_index.match(tokens)
         m = min(m, n - 1)
+        if (slab is None or m < self.prefix_cache_min_tokens) and self._kv_tier is not None:
+            # device radix miss: a demoted slab in the host tier promotes
+            # (upload + re-insert) and serves this admission as a splice
+            promoted = self._promote_tier_prefix(tokens)
+            if promoted is not None:
+                m, slab = promoted
+                m = min(m, n - 1)
         if slab is None or m < self.prefix_cache_min_tokens:
             return None
         if m + self._bucket(n - m) > self.max_seq:
@@ -2001,6 +2398,191 @@ class ContinuousBatcher:
         nbytes = sum(t.numel() * t.element_size() for t in slab.values())
         self.stats["prefix_evicted"] += idx.insert(toks, slab, nbytes)
         self.stats["prefix_cache_bytes"] = idx.total_bytes
+
+    # -- host KV tier ------------------------------------------------------------
+
+    def sync_kv_tier_stats(self) -> None:
+        """Mirror the tier's counters into ``stats`` (plain int copies,
+        safe from any thread)."""
+        tier = self._kv_tier
+        if tier is None:
+            return
+        t = tier.stats
+        self.stats["kv_tier_demotions"] = t["demotions"]
+        self.stats["kv_tier_hits"] = t["hits"]
+        self.stats["kv_tier_evictions"] = t["evictions"]
+        self.stats["kv_tier_bytes"] = tier.total_bytes
+
+    def kv_tier_summary(self) -> Optional[Dict[str, Any]]:
+        return self._kv_tier.summary() if self._kv_tier is not None else None
+
+    @property
+    def tier_promote_gate(self) -> int:
+        """Effective promote threshold: a tier match below
+        ``prefix_cache_min_tokens`` could never serve an admission, so
+        the gate is the larger of the two knobs."""
+        return max(self.kv_tier_promote_min_tokens, self.prefix_cache_min_tokens)
+
+    def _upload_slab(self, host: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Host K/V slab -> device, without a host sync (a decoded slab
+        is pinned on CUDA already)."""
+        return {name: self._to_dev(t) for name, t in host.items()}
+
+    def _demote_prefix_slabs(self, victims) -> None:
+        """Demote reclaim-ladder prefix victims to the host tier: pull
+        each slab to the host at this poll boundary (the one designed
+        sync of the demote path: the copy buys back a re-prefill later),
+        SKV1-encode, store keyed by weight version and token path. A
+        victim the tier would refuse (too short, already covered) is
+        skipped before its pull."""
+        tier = self._kv_tier
+        for tokens, slab, _nbytes in victims:
+            if (len(tokens) < tier.min_tokens
+                    or tier.prefix_covered_len(tokens, self.weight_version) >= len(tokens)):
+                continue
+            host = {name: self._to_host(t) for name, t in slab.items()}
+            tier.put_prefix(tokens, host, self.weight_version)
+
+    def tier_prefix_lookup(self, tokens, min_tokens: Optional[int] = None):
+        """The one usable-hit probe of this member's host tier, shared by
+        the scheduler's promote-on-miss, the decode role's dedup consult
+        and the KV port's peer lookup, so the gate (promote threshold,
+        donor-bucket cap, near-max suffix cap) is the same on the side
+        that ships a slab and the side that splices it. ``(m, meta,
+        host)`` with the host tensors CRC-verified, or None on a miss,
+        corruption (entry already dropped) or caps. Host reads only."""
+        tier = self._kv_tier
+        if tier is None:
+            return None
+        tokens = [int(t) for t in tokens]
+        n = len(tokens)
+        try:
+            hit = tier.match_prefix(tokens, self.weight_version)
+        except DisaggError as e:
+            logger.warning("kv tier prefix entry dropped: %s", e)
+            return None
+        if hit is None:
+            return None
+        depth, meta, host = hit
+        m = min(depth, n - 1)
+        if m < max(int(min_tokens or 0), self.tier_promote_gate):
+            return None
+        if host["k"].shape[3] > self._bucket(n) or m + self._bucket(n - m) > self.max_seq:
+            return None
+        return m, meta, host
+
+    def _promote_tier_prefix(self, tokens):
+        """Tier consult on a device radix miss: upload the longest stored
+        host prefix, re-insert it into the device radix index under its
+        entry path and return ``(m, device_slab)`` for the ordinary
+        splice -- a warm hit that costs a host-to-device copy instead of
+        a re-prefill. None on a miss, corruption or caps."""
+        if self._prefix_index is None:
+            return None
+        hit = self.tier_prefix_lookup(tokens)
+        if hit is None:
+            return None
+        m, meta, host = hit
+        self.promote_peer_prefix(meta, host)
+        _depth, slab = self._prefix_index.match(tokens)
+        return (m, slab) if slab is not None else None
+
+    def consult_tier_covered_len(self, tokens) -> int:
+        """Decode-role dedup consult of this member's OWN host tier: a
+        demoted prefix of the prompt promotes into the device radix index
+        here (caller thread) and the refreshed ``remote_covered_len`` is
+        returned, so the prefill request ships suffix-only. 0 on a miss."""
+        if self._prefix_index is None:
+            return 0
+        hit = self.tier_prefix_lookup(tokens)
+        if hit is None:
+            return 0
+        _m, meta, host = hit
+        self.promote_peer_prefix(meta, host)
+        return self.remote_covered_len(tokens)
+
+    def promote_peer_prefix(self, meta: Dict[str, Any], host: Dict[str, Any]) -> int:
+        """Insert a prefix slab pulled from a tier (a peer's, or this
+        member's own) into the LOCAL device radix index, so the ordinary
+        match/splice machinery and the dedup consult serve it from here
+        on. Returns the entry's token count. Any thread: the upload
+        queues on the device without a host sync."""
+        idx = self._prefix_index
+        entry = [int(t) for t in meta.get("tokens") or []]
+        if idx is None or not entry:
+            return 0
+        slab = self._upload_slab(host)
+        nbytes = sum(t.numel() * t.element_size() for t in host.values())
+        evicted = idx.insert(entry, slab, nbytes)
+        with self._export_lock:
+            self.stats["prefix_evicted"] += evicted
+            self.stats["prefix_cache_bytes"] = idx.total_bytes
+            self.stats["kv_tier_promotions"] += 1
+        return len(entry)
+
+    def _checkpoint_kv_to_tier(self, slot: int, req: GenRequest) -> None:
+        """Rung 3's spill half: copy the preempted lane's exact cache
+        columns ``[0, _attn_need(pos))`` to the host tier (budget
+        allowing), so its resume is a copy-back insert instead of a
+        prompt recompute and replay. The pipeline is drained already."""
+        ck = req.resume
+        emitted = ck["emitted"]
+        n = len(req.tokens)
+        pos = n + len(emitted) - 1
+        width = self._attn_need(pos)
+        slab = self._extract_prefix(slot, width)
+        host = {name: self._to_host(t) for name, t in slab.items()}
+        self._tier_ck_seq += 1
+        key = self._tier_ck_seq
+        stored = self._kv_tier.put_ckpt(
+            key, {"pos": pos, "width": width, "prompt_tokens": n, "emitted": len(emitted)},
+            host, version=self.weight_version,
+        )
+        if stored:
+            ck["tier"] = key
+        else:
+            ck.pop("tier", None)
+
+    def _release_tier_ckpt(self, req: GenRequest) -> None:
+        """Release a request's tier checkpoint, if any: the request was
+        cancelled or failed, so the entry would otherwise pin tier budget
+        that prefix demotions can never evict. Any thread; idempotent."""
+        ck = req.resume
+        if ck is None or self._kv_tier is None:
+            return
+        key = ck.pop("tier", None)
+        if key is not None:
+            self._kv_tier.drop_ckpt(key)
+
+    def _resume_from_tier(self, slot: int, req: GenRequest, emitted: List[int],
+                          end_pos: int, tier_key) -> bool:
+        """Copy-back resume: take the lane's checkpoint (one-shot),
+        upload the stored columns and insert them with the checkpointed
+        registers. True when the lane is live again; False sends the
+        caller down the recompute-and-replay fallback (entry evicted,
+        stale, corrupt or at another position)."""
+        try:
+            ent = self._kv_tier.take_ckpt(tier_key, self.weight_version)
+        except DisaggError as e:
+            logger.warning("kv tier checkpoint dropped: %s", e)
+            return False
+        if ent is None:
+            return False
+        meta, host = ent
+        if int(meta.get("pos", -1)) != end_pos:
+            # a drifted checkpoint must never splice: registers and cache
+            # would disagree on where the lane is
+            logger.warning("kv tier checkpoint position %s != lane end %d — replaying",
+                           meta.get("pos"), end_pos)
+            return False
+        slab = self._upload_slab(host)
+        first = self._to_dev(np.asarray([emitted[-1]], np.int64))
+        key = self._to_dev(np.asarray([req.resume["key"]], np.int64))
+        with device_trace("gen.lane_insert"):
+            self._insert(slab, [slot], first, [end_pos], key)
+        self.stats["kv_tier_promotions"] += 1
+        self._activate_resumed(slot, req, emitted, replay=False)
+        return True
 
     # -- HBM pressure ----------------------------------------------------------
 
@@ -2045,6 +2627,10 @@ class ContinuousBatcher:
             if pc.active:
                 pc.update(self._ledger_components())
             return
+        if self._kv_tier is not None:
+            # host RAM rides the summary, never the device ledger's math
+            pc.host_bytes = self._kv_tier.total_bytes
+            self.sync_kv_tier_stats()
         if pc.update(self._ledger_components()):
             self._reclaim(pending, pc)
         elif self._spec_suppressed and pc.used + self._draft_ledger_bytes() < pc.high_bytes:
@@ -2064,7 +2650,8 @@ class ContinuousBatcher:
         """The reclaim ladder, cheapest rung first, until the ledger is
         back under its low watermark:
 
-        1. evict prefix slabs (LRU): pure cache, no work lost;
+        1. evict prefix slabs (LRU): pure cache, no work lost; with the
+           host tier on, demote them there instead;
         2. cancel speculation: free the draft cache and decode with the
            plain bursts (:meth:`_suppress_speculation`); greedy streams
            are unchanged, since greedy speculation emits the target's
@@ -2078,14 +2665,22 @@ class ContinuousBatcher:
            :meth:`_shed_check` refuses submits."""
         idx = self._prefix_index
         if idx is not None and idx.total_bytes > 0:
-            evicted = idx.evict_to(max(0, idx.total_bytes - pc.overshoot_bytes()))
+            # with the host tier on, rung 1 DEMOTES: victims are collected
+            # under the index lock, pulled to the host and encoded into
+            # the tier out here
+            demoted: Optional[List] = [] if self._kv_tier is not None else None
+            evicted = idx.evict_to(max(0, idx.total_bytes - pc.overshoot_bytes()),
+                                   collect=demoted)
             if evicted:
                 self.stats["prefix_evicted"] += evicted
                 self.stats["pressure_prefix_evictions"] += evicted
                 self.stats["prefix_cache_bytes"] = idx.total_bytes
+                if demoted:
+                    self._demote_prefix_slabs(demoted)
                 self.pressure_events.append({
                     "type": "pressure_reclaim", "action": "evict_prefix",
-                    "evicted": evicted, "used_bytes": pc.used})
+                    "evicted": evicted, "demoted": len(demoted or ()),
+                    "used_bytes": pc.used})
                 pc.update(self._ledger_components())
         if (pc.active and self._spec_active()
                 and all(s.request.temperature == 0.0 for s in self._active.values())
@@ -2213,10 +2808,11 @@ class ContinuousBatcher:
 
     def _preempt_lane(self, slot: int) -> None:
         """Preempt one decode lane (rung 3): checkpoint its emitted tokens
-        and its lane key on the host (never its K/V), free the lane and
-        requeue the request for resume. The pipeline has been drained, so
-        ``emitted`` and the device state agree; the key's one 16-byte read
-        is the whole cost."""
+        and its lane key on the host, free the lane and requeue the
+        request for resume. The pipeline has been drained, so ``emitted``
+        and the device state agree; without the host tier the key's one
+        16-byte read is the whole cost, with it the lane's K/V columns
+        spill there too (budget allowing) for a copy-back resume."""
         s = self._active.pop(slot)
         req = s.request
         self._pos_host.pop(slot, None)
@@ -2224,11 +2820,17 @@ class ContinuousBatcher:
         if s.emitted:
             req.resume = {"emitted": list(s.emitted),
                           "key": self._whole.keys[slot].tolist()}
+            if self._kv_tier is not None:
+                # spill the K/V before anything can reuse the lane's
+                # columns (nothing was dispatched since the drain)
+                self._checkpoint_kv_to_tier(slot, req)
         self.stats["preemptions"] += 1
         self._resume_queue.append(req)
 
     def _admit_resume(self, slot: int, req: GenRequest) -> None:
-        """Recompute-resume a preempted request into ``slot``: rebuild its
+        """Resume a preempted request into ``slot``. With a tier
+        checkpoint, copy its K/V back (:meth:`_resume_from_tier`). Else
+        recompute: rebuild its
         PROMPT K/V the way an admission would (a prefix hit splicing, a
         long remainder chunking, else a whole prefill), insert the
         checkpointed continuation in place of the prefill's own sample --
@@ -2240,6 +2842,16 @@ class ContinuousBatcher:
         emitted = list(req.resume["emitted"])
         key = req.resume["key"]
         n = len(req.tokens)
+        # the tier key is popped whatever happens next: take_ckpt is
+        # one-shot, and a later preemption checkpoints under a new key
+        tier_key = req.resume.pop("tier", None) if self._kv_tier is not None else None
+        if tier_key is not None:
+            # copy-back: the lane's exact K/V columns come back from the
+            # host, skipping both the prompt recompute and the replay
+            if self._resume_from_tier(slot, req, emitted, n + len(emitted) - 1, tier_key):
+                return
+            # the tier evicted, refused or corrupted the entry
+            self.stats["kv_tier_replay_fallbacks"] += 1
         hit = self._prefix_match(req.tokens)
         if self._needs_chunks(n, hit):
             self._start_chunked(slot, req, hit, (emitted, key))
@@ -2249,13 +2861,16 @@ class ContinuousBatcher:
         self._prompt_into_lane(slot, req, hit, cont)
         self._activate_resumed(slot, req, emitted)
 
-    def _activate_resumed(self, slot: int, req: GenRequest, emitted: List[int]) -> None:
-        """The resume paths' shared tail: replay the emitted tokens' K/V,
-        then re-activate the lane with crediting continuing after the
-        checkpoint (spans already streamed are never sent again, and the
-        inserted token -- ``emitted[-1]`` -- is not credited twice)."""
+    def _activate_resumed(self, slot: int, req: GenRequest, emitted: List[int],
+                          replay: bool = True) -> None:
+        """The resume paths' shared tail: replay the emitted tokens' K/V
+        (not after a copy-back, which restored them), then re-activate
+        the lane with crediting continuing after the checkpoint (spans
+        already streamed are never sent again, and the inserted token --
+        ``emitted[-1]`` -- is not credited twice)."""
         n = len(req.tokens)
-        self._replay_emitted(slot, n, emitted[:-1])
+        if replay:
+            self._replay_emitted(slot, n, emitted[:-1])
         if self._spec_active():
             self._draft_admit_tokens(slot, req.tokens + emitted[:-1])
         s = _Slot(request=req, emitted=list(emitted), first_pending=False,
@@ -2569,6 +3184,9 @@ class ContinuousBatcher:
                         req.future.cancel()  # its budget ran out in the queue
                     if req.future.cancelled():
                         self.stats["cancelled"] += 1
+                        # a preempted-then-cancelled request must not leave
+                        # its K/V checkpoint pinning tier budget
+                        self._release_tier_ckpt(req)
                         continue  # the caller gave up while queued
                     if self._spec_suppressed and req.temperature != 0.0:
                         # while rung 2 keeps speculation off, a sampled

@@ -88,7 +88,7 @@ class RadixPrefixIndex:
 
     All methods are plain Python over host token lists; slabs are opaque.
     Public methods take an internal lock: mutation is dominated by the
-    scheduler thread, but disaggregated decode pools (not ported yet)
+    scheduler thread, but disaggregated decode pools
     consult the index from server worker threads before a KV transfer,
     so walks must never see a half-split edge. The lock is
     uncontended in the unified single-writer case; readers of
@@ -289,13 +289,18 @@ class RadixPrefixIndex:
     def _evict_to_budget(self) -> int:
         return self._evict_down_locked(self.budget_bytes)
 
-    def _evict_down_locked(self, target_bytes: int) -> int:
+    def _evict_down_locked(self, target_bytes: int, collect=None) -> int:
         evicted = 0
         while self.total_bytes > target_bytes:
             nodes = self._slab_nodes()
             if not nodes:
                 break
             victim = min(nodes, key=lambda n: n.last_used)
+            if collect is not None:
+                collect.append((
+                    self._node_tokens(victim), victim.slab,
+                    victim.slab_bytes,
+                ))
             self.total_bytes -= victim.slab_bytes
             victim.slab = None
             victim.slab_bytes = 0
@@ -304,17 +309,21 @@ class RadixPrefixIndex:
             self._prune(victim)
         return evicted
 
-    def evict_to(self, target_bytes: int) -> int:
+    def evict_to(self, target_bytes: int, collect=None) -> int:
         """LRU-evict slabs until ``total_bytes <= target_bytes`` (the
         pressure ladder's first rung: the batcher demotes the cache
         below its own budget to reclaim device memory for live lanes).
         Returns the number of slabs evicted. Eviction only drops the
         tree's reference -- an admit that matched a slab moments earlier
-        keeps it alive exactly as long as the splice needs it. (The JAX
-        package's ``collect`` argument, which hands the victims to the
-        host KV tier, comes with that tier.)"""
+        keeps it alive exactly as long as the splice needs it.
+        ``collect`` (a list) receives ``(tokens, slab, nbytes)`` per
+        victim so the caller can DEMOTE the slabs to the host KV tier
+        instead of losing them -- the append happens under the lock;
+        the (slow) device pull belongs on the caller's side of it."""
         with self._lock:
-            return self._evict_down_locked(max(0, int(target_bytes)))
+            return self._evict_down_locked(
+                max(0, int(target_bytes)), collect
+            )
 
     def remove(self, tokens) -> bool:
         """Drop the slab stored at EXACTLY ``tokens`` (no prefix

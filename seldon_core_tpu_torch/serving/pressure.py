@@ -42,8 +42,8 @@ __all__ = ["PressureController", "PressureRefused"]
 
 class PressureRefused(RuntimeError):
     """A decode pool refused a remote admit because its HBM ledger is
-    over the high watermark (disaggregated serving, which raises it, is
-    not ported yet). Typed and carrying ``retry_after_s`` so the refusal
+    over the high watermark (``ContinuousBatcher.admit_remote`` and the
+    decode role's pre-handoff shed check raise it). Typed and carrying ``retry_after_s`` so the refusal
     pushes back to the prefill/caller side like the shed contract: the
     engine maps it to **503 + Retry-After** and clients back off instead
     of re-shipping slabs at a pool that cannot splice them."""
@@ -90,6 +90,10 @@ class PressureController:
         self.used = 0
         self.components: Dict[str, int] = {}
         self.active = False
+        # host KV tier occupancy: reported beside the ledger, never
+        # counted in it (host RAM is not device memory -- counting it
+        # would double-bill every demotion)
+        self.host_bytes = 0
         self.stats = {
             "updates": 0,
             "activations": 0,
@@ -160,4 +164,5 @@ class PressureController:
             "components": dict(self.components),
             "activations": self.stats["activations"],
             "budget_changes": self.stats["budget_changes"],
+            "host_tier_bytes": self.host_bytes,
         }

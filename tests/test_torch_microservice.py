@@ -142,12 +142,12 @@ def test_health_routes_and_errors(port_app):
 
 
 def test_unported_parameter_raises(model_dir):
-    with pytest.raises(NotImplementedError, match="host_kv_tier_bytes"):
+    with pytest.raises(NotImplementedError, match="swap_drain_ms"):
         microservice.build_user_object(CLS, _typed(
-            model_uri=model_dir, device="cpu", host_kv_tier_bytes=1 << 20))
+            model_uri=model_dir, device="cpu", swap_drain_ms=100))
     # off values, as strings from the typed-params env, are accepted
-    GenerateServer(model_uri=model_dir, device="cpu", host_kv_tier_bytes="0",
-                   role="unified", flight_recorder=0)
+    GenerateServer(model_uri=model_dir, device="cpu", swap_drain_ms="0",
+                   resume_tokens="0", flight_recorder=0)
 
 
 def test_default_api_type_is_both(tmp_path, monkeypatch):

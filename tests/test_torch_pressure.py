@@ -561,10 +561,13 @@ def test_admissions_wait_while_speculation_is_cancelled(models, spec_kw):
         b.pressure_hook = FaultInjector([], pressure={
             "shrink_to_bytes": budget, "after_polls": b._work_poll_count + 1,
             "restore_after_polls": 12}).pressure_hook()
+        # the window: speculation cancelled and, one ledger update later
+        # on the scheduler thread, the latch cleared (until then a submit
+        # is shed, as every submit under pressure is)
         deadline = time.monotonic() + 60
-        while not b._spec_suppressed and time.monotonic() < deadline:
+        while (not b._spec_suppressed or b._pressure.active) and time.monotonic() < deadline:
             time.sleep(0.002)
-        assert b._spec_suppressed
+        assert b._spec_suppressed and not b._pressure.active
         late = b.submit(PROMPTS[2], **req)
         time.sleep(0.05)
         assert late.gen_request.admit_t == 0.0 or not b._spec_suppressed

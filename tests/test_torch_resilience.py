@@ -9,6 +9,7 @@ propagation headers keep the same shape; the device hooks run on
 """
 
 import asyncio
+import io
 import json
 import os
 import random
@@ -187,8 +188,23 @@ def test_faults_from_env_and_not_ported_fields(tmp_path):
             except Exception:  # noqa: BLE001 - the injected poll death
                 deaths[i].append(poll)
     assert deaths[0] == deaths[1] == [3, 6]
-    with pytest.raises(NotImplementedError, match="KV-transport"):
-        port_res.FaultInjector([{"unit": "*", "kv_corrupt_rate": 0.5}])
+    # the KV-transport rule fields (ported now): both packages resolve
+    # the same peers and draw the same per-transfer fault plans
+    kv_rules = [{"unit": "kv:10.0.0.5:9001", "kv_corrupt_rate": 0.5, "kv_drop_rate": 0.3}]
+    kvs = [res.FaultInjector(kv_rules, seed=4).kv_faults_for("10.0.0.5:9001") for res in BOTH]
+    assert all(res.FaultInjector(kv_rules).kv_faults_for("10.0.0.6:9001") is None
+               for res in BOTH)
+    raw = bytes(range(256)) * 16
+
+    def transfers(kv):
+        out = []
+        for _ in range(6):
+            read = kv.wrap_read(io.BytesIO(raw).read)
+            out.append(b"".join(iter(lambda: read(100), b"")))
+        return out
+
+    got = [transfers(kv) for kv in kvs]
+    assert got[0] == got[1] and any(t != raw for t in got[0])
     # the pressure section (ported now): both packages' hooks re-budget
     # the ledger on the same working polls
     pressure = {"shrink_to_bytes": 4096, "after_polls": 3, "restore_after_polls": 5}

@@ -258,7 +258,7 @@ def test_warm_then_serve_equal(models, reference):
 
 
 @pytest.mark.parametrize("knob,on,off", [
-    ("shard_cache_seq", True, False), ("host_kv_tier_bytes", 1 << 20, 0),
+    ("shard_cache_seq", True, False), ("mesh", "data=2", None),
     ("profiler", "device_time", None), ("swap_drain_ms", 100, 0),
     ("flight_recorder_capacity", 512, 0),
 ])

@@ -448,7 +448,7 @@ def test_generateserver_speculation_refusals(tmp_path):
         GenerateServer(model_uri=d, device="cpu", speculate_tokens=3).load()
     with pytest.raises(ValueError, match="must be < the served model's n_layers"):
         GenerateServer(model_uri=d, device="cpu", speculate_tokens=3, draft_layers=2).load()
-    for name, value in (("resume_tokens", 1), ("role", "decode")):
+    for name, value in (("resume_tokens", 1), ("swap_drain_ms", 100)):
         with pytest.raises(NotImplementedError, match="not ported"):
             GenerateServer(model_uri=d, device="cpu", speculate_tokens=3, draft_layers=1,
                            **{name: value})
