@@ -6,8 +6,8 @@
 Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails. ``--phases`` runs a subset of
 ``kernels, small, serve, engine, small-sched, sched, prefix, pressure,
-spec, spec-pressure, dh256, f32, disagg, kvtier, model`` (device and build
-always run; the
+spec, spec-pressure, dh256, f32, disagg, kvtier, migration, model``
+(device and build always run; the
 result lines print only when every phase ran, as with no argument):
 
 1. Device: the card's name and power limit (nvidia-smi) and torch's view.
@@ -158,7 +158,28 @@ result lines print only when every phase ran, as with no argument):
    only, and no graph is captured after ``warm()``. Reports ms per
    copy-back resume against a replay resume, and per promote against a
    re-prefill of the same prompt.
-16. Model (on the engine phase's copy, after every serving phase: a
+16. Migration (llm-1.26b, bf16, `GenerateServer`s from typed parameters
+   with `resume_tokens`; random weights from seed 0, seeds 1 and 2 the
+   swap target and the other tenants; 96 new tokens): three requests
+   (greedy and seeded, buckets 128-1024) each streamed alone and drained
+   mid-decode along a chain of servers over loopback (`drain_to`), the
+   mixed wave streamed and drained, one request drained over TCP through
+   the peer engine's `/drain`, a greedy and a seeded stream resumed on a
+   peer from their last keyless resume token after their member is
+   killed, `/weights/swap` seed 0 -> 1 under three in-flight requests and
+   the straggler bound under `resume` and `fail`, then a server with
+   three tenants (a 10 GiB pager) interleaved and under a flood. Fails
+   unless every request alone and every in-flight one equals the
+   undrained run's alone (the wave's equality is reported), spans add
+   up with none re-sent, a mangled token answers 400 and one of another
+   weight version 409, requests after the swap and each tenant's equal a
+   fresh server's on those weights alone, the swap purged the prefix
+   cache, no graph is captured across the swap and the page-ins, the
+   starvation bound forces a switch, an unknown tenant answers 404 and
+   every whole-prompt prefill launched the flash kernel. Reports drain
+   and resume ms, the swap's checkpoint load, stage and flip ms and peak
+   memory, and each page-in's decode, stage and flip ms.
+17. Model (on the engine phase's copy, after every serving phase: a
    profiler run may slow later launches): full-width prefill time per
    bucket with the flash kernel's device time inside it
    (torch.profiler), a prefix hit's suffix prefill against the full
@@ -170,7 +191,7 @@ result lines print only when every phase ran, as with no argument):
    a 6-layer early-exit draft, the W = 5 verify chunk, acceptance)
    against 5 decode steps at B = 4, attention 512, in device-busy time
    and device operations.
-17. The ``kernels`` JSON line (the flash kernel on the main path, its
+18. The ``kernels`` JSON line (the flash kernel on the main path, its
    Dh 256 instance on the dh256 phase's and its float32 instance on the
    f32 phase's), then the final ``{"ok": true, ...}`` line.
 
@@ -3177,8 +3198,589 @@ def phase_kvtier(card, model, params):
     return launches
 
 
+# -- migration: drain, resume tokens, hot swap, tenants -----------------------
+
+# new tokens per migration request: after the first streamed span (16
+# tokens) at most pipeline_depth more bursts are in flight, so a lane
+# drained then is still mid-decode (1 + 4 x 16 < 96)
+MIG_NEW = 96
+
+
+def _mig_dir(root, seed):
+    """An llm-1.26b model directory with random weights from ``seed``."""
+    d = os.path.join(root, f"seed{seed}")
+    os.makedirs(d)
+    with open(os.path.join(d, "jax_config.json"), "w") as f:
+        json.dump({"family": "llm", "config": {**LLM_1_26B, "seed": seed}}, f)
+    return d
+
+
+def _mig_alone(server, items, tenant=None):
+    """Each ``(label, toks, temp, seed)`` through ``predict`` alone with
+    MIG_NEW new tokens: tokens by label."""
+    out = {}
+    for label, toks, temp, seed in items:
+        body = {"prompt_tokens": toks, "max_new_tokens": MIG_NEW, "temperature": temp,
+                "seed": seed}
+        if tenant is not None:
+            body["tenant"] = tenant
+        out[label] = server.predict(body, [])["tokens"][0]
+    return out
+
+
+class _Stream:
+    """A stream consumed on a thread: its spans with their arrival times,
+    the final event, and an event set once ``k`` spans have arrived."""
+
+    def __init__(self, handle, k=1):
+        self.spans, self.times, self.final, self.error = [], [], None, None
+        self.k, self.reached, self.done = k, threading.Event(), threading.Event()
+        threading.Thread(target=self._run, args=(handle,), daemon=True).start()
+
+    def _run(self, handle):
+        try:
+            for ch in handle.chunks:
+                if ch.get("done"):
+                    self.final = ch
+                    break
+                self.spans.append(ch)
+                self.times.append(time.perf_counter())
+                if len(self.spans) >= self.k:
+                    self.reached.set()
+        except BaseException as e:  # noqa: BLE001 - checked by the caller
+            self.error = e
+        finally:
+            self.reached.set()
+            self.done.set()
+
+    def tokens(self):
+        return [t for ch in self.spans for t in ch["tokens"]]
+
+    def check(self, tag, toks, want):
+        """Completed, the spans adding up to ``want`` with none re-sent."""
+        if not self.done.wait(600) or self.error is not None or self.final is None:
+            raise AssertionError(f"[migration] {tag}: the stream did not complete "
+                                 f"({type(self.error).__name__}: {self.error})")
+        if self.final["tokens"] != want or self.tokens() != want[len(toks):]:
+            raise AssertionError(
+                f"[migration] {tag}: tokens differ from the undrained run's alone (first "
+                f"differing step {_first_diff(self.final['tokens'][len(toks):], want[len(toks):])}"
+                f", spans add up: {self.tokens() == self.final['tokens'][len(toks):]})")
+
+
+def _timed(obj, name, sink, sync=True):
+    """Wrap ``obj.name`` to append each call's ms (after a device sync
+    before and after) to ``sink``. A call on another thread may resolve
+    a future before its time lands: read ``sink`` through
+    :func:`_times`."""
+    import torch
+
+    orig = getattr(obj, name)
+
+    def wrapper(*a, **k):
+        if sync:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(*a, **k)
+        if sync:
+            torch.cuda.synchronize()
+        sink.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    setattr(obj, name, wrapper)
+
+
+def _times(sink, n):
+    """``sink`` once it holds ``n`` times."""
+    deadline = time.monotonic() + 10
+    while len(sink) < n and time.monotonic() < deadline:
+        time.sleep(0.001)
+    if len(sink) < n:
+        raise AssertionError(f"[migration] {len(sink)} of {n} timed calls landed")
+    return sink
+
+
+def _engine_for(server, model_dir):
+    """An EngineApp over the in-process generate ``server``."""
+    from seldon_core_tpu_torch.graph.engine_metrics import MetricsRegistry
+    from seldon_core_tpu_torch.graph.service import EngineApp
+    from seldon_core_tpu_torch.graph.spec import (
+        PredictorSpec,
+        default_predictor,
+        validate_predictor,
+    )
+
+    spec = PredictorSpec.from_dict({
+        "name": "llm-1-26b", "graph": {"name": "llm", "implementation": "GENERATE_SERVER",
+                                       "modelUri": model_dir},
+        "annotations": {"seldon.io/rest-read-timeout": "600000"}})
+    spec = default_predictor(spec)
+    validate_predictor(spec)
+    return EngineApp(spec, registry={"llm": server}, metrics=MetricsRegistry())
+
+
+def _serve_engines(apps):
+    """Serve each app's REST front on a free port: ``(ports, stop)``."""
+    ports = [_free_port() for _ in apps]
+
+    async def start():
+        fronts = [app.rest_app() for app in apps]
+        for front, p in zip(fronts, ports):
+            await front.start("127.0.0.1", p)
+
+        async def close():
+            for front in fronts:
+                front.close()
+        return close
+
+    return ports, serve_in_thread(start)
+
+
+def phase_migration(card):
+    """Live migration, resume tokens, hot swap and tenants at llm-1.26b
+    (bf16, random weights from seed 0; seeds 1 and 2 are the swap target
+    and the other tenants), GenerateServers built from typed parameters
+    (the serve phase's, ``resume_tokens`` on). Fails unless:
+
+    * each of three requests (greedy and seeded, buckets 128-1024) streamed
+      alone and drained mid-decode to a peer over loopback
+      (``drain_to``) completes through its original stream with the
+      undrained run's tokens alone and no span re-sent (a chain of
+      members: each receives one drain and sends the next);
+    * a concurrent wave drained over loopback completes, every stream's
+      spans adding up to its tokens (equality with the alone run
+      reported, not gated: same-bucket prefills batch at bf16);
+    * a request drained over TCP through the peer engine's ``/drain``
+      gives the undrained tokens;
+    * a greedy and a seeded stream whose member dies (an injected loop
+      death, restart budget 0) after two spans resume on a peer from
+      their last keyless resume token, the spans adding up to the
+      undrained stream; a flipped byte answers 400 and a token of
+      another ``weight_version`` 409 through the engine;
+    * ``/weights/swap`` under traffic (three requests in flight, one per
+      bucket): they finish on seed 0 with their alone tokens; afterwards
+      requests equal a fresh seed-1 server's alone (the prefix cache,
+      which held their prompts, purged: ``prefix_evicted`` > 0), no graph
+      is captured; the straggler bound (``swap_drain_ms`` 50) resumes a
+      long generation on the new weights under ``resume`` and refuses it
+      with a 409 under ``fail``;
+    * a server with three tenants (seeds 0, 1, 2; a 10 GiB pager)
+      serves interleaved requests with each tenant's dedicated tokens,
+      pages in without a graph capture, is forced to switch by the
+      starvation bound under a flood, and refuses an unknown tenant
+      (404);
+    * every prefill in the phase launched the flash kernel.
+
+    Reports the drain's ms, lanes and checkpoints, each resume's ms to
+    its first resumed span, the swap's checkpoint load, stage and flip ms
+    and peak memory, and each page-in's decode, stage and flip ms."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+    from seldon_core_tpu_torch.serving.disagg import WeightVersionMismatch
+    from seldon_core_tpu_torch.serving.migration import checkpoint_token, parse_token
+    from seldon_core_tpu_torch.serving.weightpager import TenantUnknown
+
+    _probe, mixed = serve_waves()
+    by_label = {it[0]: it for it in mixed}
+    # one request per prefill bucket: each prefills at m = 1, alone or not
+    alone_items = [by_label[x] for x in ("greedy_128", "seeded_500", "greedy_900")]
+    # in flight across the swap: one per bucket again, none of them a
+    # prompt the swap server has published (a prefix hit's suffix prefill
+    # reads the cache attention, other bf16 numerics than the reference's)
+    swap_items = [by_label[x] for x in ("mixed_greedy_20", "greedy_300", "greedy_900")]
+    both = list({it[0]: it for it in alone_items + swap_items}.values())
+    servers, stops = [], []
+    launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-migration-") as root:
+        dirs = [_mig_dir(root, s) for s in (0, 1, 2)]
+        try:
+            t0 = time.perf_counter()
+            ref = _gen_server(dirs[0], resume_tokens=1)
+            servers.append(ref)
+            log(f"[migration] reference server (seed 0) loaded and warmed in "
+                f"{time.perf_counter() - t0:.1f} s")
+            torch.cuda.synchronize()
+            fa.LAUNCHES["flash_attention"] = 0
+            aside = {"n": 0}
+
+            def whole(s):
+                # prefills over the whole prompt launch the flash kernel; a
+                # prefix hit's suffix prefill reads the cache attention
+                return s.batcher.stats["prefill_steps"] - s.batcher.stats["prefix_hits"]
+
+            steps0 = {id(ref): whole(ref)}
+            done_steps = {"n": 0}
+
+            def load(model_dir, **extra):
+                # warm() of a server loaded mid-phase is not the driven path
+                n0 = fa.LAUNCHES["flash_attention"]
+                s = _gen_server(model_dir, **extra)
+                aside["n"] += fa.LAUNCHES["flash_attention"] - n0
+                servers.append(s)
+                steps0[id(s)] = whole(s)
+                return s
+
+            def retire(s):
+                done_steps["n"] += whole(s) - steps0.pop(id(s))
+                s.close()
+                servers.remove(s)
+
+            def release():
+                # the caller has dropped its names for retired servers
+                gc.collect()
+                torch.cuda.empty_cache()
+
+            def first_credit(dst, sink):
+                """Record, per checkpoint ``dst`` admits, the ms from its
+                submit to its first credited span."""
+                orig = dst.resume_checkpoint
+
+                def resume_checkpoint(ck, on_tokens=None):
+                    t = time.perf_counter()
+                    seen = []
+
+                    def relay(span):
+                        if not seen:
+                            seen.append(1)
+                            sink.append((time.perf_counter() - t) * 1e3)
+                        on_tokens(span)
+
+                    return orig(ck, on_tokens=relay if on_tokens else None)
+
+                dst.resume_checkpoint = resume_checkpoint
+
+            want = _mig_alone(ref, mixed)
+
+            # -- drain over loopback, each request alone (a chain of members)
+            src, drain_ms, resume_ms, handed = ref, [], [], []
+            for label, toks, temp, seed in alone_items:
+                dst = load(dirs[0], resume_tokens=1)
+                first_credit(dst, resume_ms)
+                resumes0 = dst.batcher.stats["preempt_resumes"]
+                st = _Stream(src.stream({"prompt_tokens": toks, "max_new_tokens": MIG_NEW,
+                                         "temperature": temp, "seed": seed}))
+                if not st.reached.wait(600):
+                    raise AssertionError(f"[migration] {label}: no first span")
+                t = time.perf_counter()
+                summary = src.drain_to(dst)
+                t_end = time.perf_counter()
+                drain_ms.append((t_end - t) * 1e3)
+                st.check(f"drained alone ({label})", toks, want[label])
+                if summary != {"drained": 1, "checkpoints": 1, "handed": 1, "failed": 0} \
+                        or dst.batcher.stats["preempt_resumes"] != resumes0 + 1:
+                    raise AssertionError(f"[migration] {label}: drain summary {summary}, "
+                                         "or the peer did not resume it mid-decode")
+                # emitted at the checkpoint: the replayed tokens and the
+                # one the lane resumed from
+                handed.append(dst.batcher.stats["replayed_tokens"] + 1)
+                retire(src)
+                src = ref = None
+                release()
+                src = dst
+            log(f"[migration] loopback drain, each request alone ({len(alone_items)}: greedy "
+                f"and seeded, buckets 128-1024): every stream completed through its original "
+                f"handle with the undrained tokens, no span re-sent; drain_to "
+                f"{', '.join(f'{x:.1f}' for x in drain_ms)} ms (1 lane, 1 checkpoint each, "
+                f"{', '.join(map(str, handed))} tokens emitted at the checkpoint); resume to the "
+                f"first resumed span {', '.join(f'{x:.1f}' for x in resume_ms)} ms (prompt "
+                f"recompute, replay of the emitted tokens, first burst) [{card}]")
+
+            # -- a concurrent wave drained over loopback
+            dst = load(dirs[0], resume_tokens=1)
+            streams = [_Stream(src.stream({"prompt_tokens": toks, "max_new_tokens": MIG_NEW,
+                                           "temperature": temp, "seed": seed}))
+                       for _label, toks, temp, seed in mixed]
+            for st in streams:
+                st.reached.wait(600)
+            t = time.perf_counter()
+            wave_summary = src.drain_to(dst)
+            wave_ms = (time.perf_counter() - t) * 1e3
+            same = 0
+            for st, (label, toks, _t, _s) in zip(streams, mixed):
+                if not st.done.wait(600) or st.error is not None or st.final is None \
+                        or st.tokens() != st.final["tokens"][len(toks):] \
+                        or len(st.final["tokens"]) != len(toks) + MIG_NEW:
+                    raise AssertionError(f"[migration] wave drain: {label} did not complete "
+                                         f"whole ({st.error})")
+                same += st.final["tokens"] == want[label]
+            log(f"[migration] loopback drain of a streamed wave of {len(mixed)}: "
+                f"{wave_summary['drained']} requests drained ({wave_summary['checkpoints']} "
+                f"checkpoints, {wave_summary['handed']} handed) in {wave_ms:.1f} ms; every "
+                f"stream completed whole; {same} of {len(mixed)} equal their alone tokens "
+                f"(reported, not gated) [{card}]")
+            retire(src)
+            src = dst
+            release()
+
+            # -- over TCP through the peer engine's /drain
+            dst = load(dirs[0], resume_tokens=1, restart_budget=0)
+            apps = [_engine_for(src, dirs[0]), _engine_for(dst, dirs[0])]
+            (src_port, dst_port), stop_tcp = _serve_engines(apps)
+            stops.append(stop_tcp)
+            label, toks, temp, seed = by_label["seeded_500"]
+            st = _Stream(src.stream({"prompt_tokens": toks, "max_new_tokens": MIG_NEW,
+                                     "temperature": temp, "seed": seed}))
+            st.reached.wait(600)
+            t = time.perf_counter()
+            status, out = _post(src_port, {"to": f"127.0.0.1:{dst_port}"}, path="/drain")
+            tcp_ms = (time.perf_counter() - t) * 1e3
+            unit = (out.get("units") or {}).get("llm")
+            if status != 200 or unit != {"drained": 1, "checkpoints": 1, "handed": 1,
+                                         "failed": 0}:
+                raise AssertionError(f"[migration] TCP /drain answered {status}: {out}")
+            st.check("drained over TCP (/drain)", toks, want[label])
+            log(f"[migration] TCP: POST /drain to the peer engine: 1 lane handed, the stream "
+                f"completed with the undrained tokens (its tail as one span); the route "
+                f"answered in {tcp_ms:.1f} ms (the import waits for the resumed generation) "
+                f"[{card}]")
+
+            # -- resume tokens: the member dies after two spans
+            items = [by_label["seeded_500"], by_label["greedy_128"]]
+            streams = [_Stream(dst.stream({"prompt_tokens": toks, "max_new_tokens": MIG_NEW,
+                                           "temperature": temp, "seed": seed}), k=2)
+                       for _l, toks, temp, seed in items]
+            for st in streams:
+                st.reached.wait(600)
+
+            def die(_n):
+                raise RuntimeError("injected member death")
+
+            dst.batcher.fault_hook = die
+            for st in streams:
+                st.done.wait(600)
+                if getattr(st.error, "status", None) != 503:
+                    raise AssertionError(f"[migration] the killed member's stream ended "
+                                         f"with {st.error!r}, not a 503")
+            if dst.batcher.health != "dead":
+                raise AssertionError(f"[migration] killed member is {dst.batcher.health}")
+            tokens = [st.spans[-1]["resume_token"] for st in streams]
+            if any(parse_token(tk)["rng_key"] is not None for tk in tokens):
+                raise AssertionError("[migration] a stream's resume token carries a key")
+            # resumed on the swap server while it still serves seed 0
+            w = load(dirs[0], resume_tokens=1, prefix_cache_hbm_bytes=2 << 30)
+            w_app = _engine_for(w, dirs[0])
+            (w_port,), stop = _serve_engines([w_app])
+            stops.append(stop)
+            for st, tk, (label, toks, _t, _s) in zip(streams, tokens, items):
+                resumed = _Stream(w.stream({"resume_token": tk}))
+                resumed.done.wait(600)
+                delivered = [t for ch in st.spans for t in ch["tokens"]]
+                if resumed.error is not None or resumed.final["tokens"] != want[label] \
+                        or delivered + resumed.tokens() != want[label][len(toks):]:
+                    raise AssertionError(f"[migration] token resume of {label}: spans do not "
+                                         "add up to the undrained stream")
+            flipped = bytearray(tokens[0].encode())
+            flipped[40] = ord("A") if flipped[40] != ord("A") else ord("B")
+            ck = parse_token(tokens[1])
+            stale = checkpoint_token({**ck, "weight_version": "v-other"})
+            st400 = _post(w_port, {"jsonData": {"resume_token": flipped.decode()}},
+                          path="/api/v0.1/predictions")[0]
+            st409 = _post(w_port, {"jsonData": {"resume_token": stale}},
+                          path="/api/v0.1/predictions")[0]
+            if (st400, st409) != (400, 409):
+                raise AssertionError(f"[migration] a flipped token answered {st400}, a token "
+                                     f"of another weight_version {st409}")
+            log(f"[migration] resume tokens: a seeded and a greedy stream, their member killed "
+                f"after 2 spans (503), resumed on a peer from the last keyless token "
+                f"(derive_lane_key): spans add up to the undrained streams; a flipped byte "
+                f"answered 400, another weight_version 409")
+            # the engines hold their servers: stop them so that the
+            # retired servers' memory goes before the swap's peak is read
+            stops.remove(stop_tcp)
+            stop_tcp()
+            retire(src)
+            retire(dst)
+            apps = stop_tcp = src = dst = None
+            release()
+
+            # -- dedicated references on seeds 1 and 2
+            refs = {0: want}
+            for seed in (1, 2):
+                f = load(dirs[seed])
+                refs[seed] = _mig_alone(f, both)
+                retire(f)
+                f = None
+                release()
+
+            # -- hot swap under traffic, through /weights/swap; the resumed
+            # streams published their prompts in the swap server's cache
+            b = w.batcher
+            if b._prefix_index.total_bytes <= 0:
+                raise AssertionError("[migration] nothing was published before the swap")
+            load_ms, stage_ms, flip_ms = [], [], []
+            _timed(w, "_load_checkpoint", load_ms)
+            _timed(b, "request_weight_swap", stage_ms)
+            _timed(b, "_do_swap", flip_ms)
+            captured, inline = b.stats["graphs_captured"], b.stats["graph_captures_inline"]
+            evicted0 = b.stats["prefix_evicted"]
+            streams = [_Stream(w.stream({"prompt_tokens": toks, "max_new_tokens": MIG_NEW,
+                                         "temperature": temp, "seed": seed}))
+                       for _l, toks, temp, seed in swap_items]
+            for st in streams:
+                st.reached.wait(600)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            status, out = _post(w_port, {"model_uri": dirs[1], "wait_s": 300},
+                                path="/weights/swap")
+            swap_ms = (time.perf_counter() - t) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            _times(flip_ms, 1)
+            if status != 200 or not out["units"]["llm"]["swapped"] \
+                    or b.weight_version != "v1":
+                raise AssertionError(f"[migration] /weights/swap answered {status}: {out}")
+            for st, (label, toks, _t, _s) in zip(streams, swap_items):
+                st.check(f"in flight across the swap ({label})", toks, want[label])
+            # the resumed and the in-flight prompts were published under
+            # seed 0: after the purge they must miss
+            after = _mig_alone(w, both)
+            bad = [x for x in after if after[x] != refs[1][x]]
+            if bad or b.stats["prefix_evicted"] <= evicted0:
+                raise AssertionError(f"[migration] after the swap {bad} differ from a fresh "
+                                     f"seed-1 server's; prefix_evicted "
+                                     f"{b.stats['prefix_evicted'] - evicted0}")
+            if (b.stats["graphs_captured"], b.stats["graph_captures_inline"]) != (captured,
+                                                                                   inline) \
+                    or inline:
+                raise AssertionError("[migration] the swap captured decode graphs")
+            log(f"[migration] hot swap seed 0 -> seed 1 through /weights/swap under "
+                f"{len(swap_items)} in-flight requests: they finished on seed 0 with their alone "
+                f"tokens; afterwards {len(after)} requests, their prompts published under seed "
+                f"0, equal a fresh seed-1 server's alone (the prefix cache purged: "
+                f"prefix_evicted +{b.stats['prefix_evicted'] - evicted0}); graphs_captured "
+                f"{captured} unchanged, graph_captures_inline 0; checkpoint load (random init "
+                f"and cast on the card) {load_ms[0]:.1f} ms, request_weight_swap (check and "
+                f"stage) {stage_ms[0]:.1f} ms, flip (copy into the served tensors, synchronised) "
+                f"{flip_ms[0]:.2f} ms, route {swap_ms:.1f} ms; peak allocated "
+                f"{peak / 2**30:.2f} GiB [{card}]")
+
+            # -- the straggler bound, resume then fail
+            g_label, g_toks, _t, _s = by_label["mixed_greedy_20"]
+            for policy, target, version in (("resume", dirs[2], "s2"), ("fail", dirs[0], "s0")):
+                b.swap_drain_ms, b.swap_resume_policy = 50, policy
+                pre = b.stats["swap_preemptions"]
+                new = w._load_checkpoint(target, "straggler swap")
+                fut = b.submit(g_toks, max_new_tokens=800)
+                while not any(len(s.emitted) > 0 for s in b._active.values()):
+                    time.sleep(0.001)
+                b.request_weight_swap(new, version=version).result(timeout=300)
+                del new
+                try:
+                    res = fut.result(timeout=600)
+                    failed = None
+                except WeightVersionMismatch as e:
+                    res, failed = None, e
+                ok = (res is not None and len(res) == len(g_toks) + 800) if policy == "resume" \
+                    else (failed is not None and failed.status == 409)
+                if not ok or b.stats["swap_preemptions"] <= pre:
+                    raise AssertionError(f"[migration] straggler bound, {policy}: result "
+                                         f"{'ok' if res else failed!r}, swap_preemptions "
+                                         f"{b.stats['swap_preemptions'] - pre}")
+            b.swap_drain_ms = 0
+            _times(flip_ms, 3)
+            if b.stats["graph_captures_inline"] or b.stats["graphs_captured"] != captured:
+                raise AssertionError("[migration] a straggler swap captured decode graphs")
+            log(f"[migration] straggler bound swap_drain_ms 50: a 800-token generation "
+                f"checkpointed and finished on the new weights (resume), refused with 409 "
+                f"(fail); flips {', '.join(f'{x:.2f}' for x in flip_ms[1:])} ms [{card}]")
+            retire(w)
+
+            # -- three tenants over one batcher
+            t0 = time.perf_counter()
+            tn = load(dirs[0], tenants=f"t0=standard,t1=standard@{dirs[1]},"
+                                       f"t2=best_effort@{dirs[2]}",
+                      weight_pager_host_bytes=10 << 30, tenant_min_resident_ms=0,
+                      tenant_max_wait_polls=1)
+            tb = tn.batcher
+            log(f"[migration] tenant server (3 tenants staged: "
+                f"{tn.tenant_pager.host_bytes / 2**30:.2f} GiB of host blobs) loaded in "
+                f"{time.perf_counter() - t0:.1f} s")
+            promote_ms, pstage_ms, pflip_ms = [], [], []
+            _timed(tn.tenant_pager, "promote", promote_ms, sync=False)
+            _timed(tb, "request_weight_swap", pstage_ms)
+            _timed(tb, "_do_swap", pflip_ms)
+            captured, inline = tb.stats["graphs_captured"], tb.stats["graph_captures_inline"]
+            seeds = {"t0": 0, "t1": 1, "t2": 2}
+            rounds = [(by_label["greedy_128"], t) for t in ("t1", "t0", "t2")] + [
+                (by_label["seeded_500"], t) for t in ("t2", "t1")]
+            for item, tenant in rounds:
+                got = _mig_alone(tn, [item], tenant=tenant)[item[0]]
+                if got != refs[seeds[tenant]][item[0]]:
+                    raise AssertionError(f"[migration] tenant {tenant}, {item[0]}: tokens "
+                                         "differ from the dedicated server's")
+            stats = dict(tn.tenant_scheduler.stats)
+            page_ins = tn.tenant_pager.stats["page_ins"]
+            _times(pflip_ms, stats["switches"])
+            stop_flood = threading.Event()
+
+            def flood():
+                while not stop_flood.is_set():
+                    tn.predict({"prompt_tokens": g_toks, "max_new_tokens": 64,
+                                "tenant": "t0"}, [])
+
+            th = threading.Thread(target=flood, daemon=True)
+            th.start()
+            time.sleep(0.5)
+            try:
+                label, toks, temp, seed = by_label["greedy_128"]
+                got = _mig_alone(tn, [by_label["greedy_128"]], tenant="t1")[label]
+            finally:
+                stop_flood.set()
+                th.join(600)
+            forced = tn.tenant_scheduler.stats["forced_switches"] - stats["forced_switches"]
+            if got != refs[1][label] or not forced:
+                raise AssertionError(f"[migration] starvation bound: forced_switches {forced}")
+            try:
+                tn.predict({"prompt_tokens": g_toks, "max_new_tokens": 4, "tenant": "nope"}, [])
+                raise AssertionError("[migration] an unknown tenant was served")
+            except TenantUnknown as e:
+                if e.status != 404:
+                    raise
+            if (tb.stats["graphs_captured"], tb.stats["graph_captures_inline"]) != (captured,
+                                                                                     inline) \
+                    or inline:
+                raise AssertionError("[migration] a page-in captured decode graphs")
+            sw = tn.tenant_scheduler.stats
+            log(f"[migration] tenants: {len(rounds)} requests interleaved over t1, t0, t2 (seeds "
+                f"1, 0, 2; greedy then seeded) equal each tenant's dedicated server alone; "
+                f"{stats['switches']} switches, "
+                f"{page_ins} page-ins (the first tenant's at load included), no graph captured "
+                f"({captured}); under a t0 flood a t1 request was served by a forced switch "
+                f"(forced_switches {forced}); an unknown tenant answered 404. Page-in: decode "
+                f"(CRC, copy into pinned memory) {np.median(promote_ms):.0f} ms, stage (upload "
+                f"2.53 GB) {np.median(pstage_ms):.1f} ms, flip {np.median(pflip_ms):.2f} ms "
+                f"(medians of {len(promote_ms)}); switch cost "
+                f"{sw['switch_cost_s_sum'] / max(1, sw['switches']) * 1e3:.0f} ms mean [{card}]")
+
+            launches = fa.LAUNCHES["flash_attention"] - aside["n"]
+            prefills = done_steps["n"] + sum(whole(s) - steps0[id(s)] for s in servers)
+            if launches < LLM_1_26B["n_layers"] * prefills:
+                raise AssertionError(f"[migration] {prefills} whole prefills, {launches} "
+                                     "flash launches")
+            log(f"[migration] flash launches {launches} over {prefills} whole-prompt prefills "
+                f"(resume recomputes included) [{card}]")
+            log(f"[migration] numbers: drain alone {', '.join(f'{x:.1f}' for x in drain_ms)} ms; "
+                f"resume to first span {', '.join(f'{x:.1f}' for x in resume_ms)} ms; wave drain "
+                f"{wave_ms:.1f} ms ({wave_summary['drained']} lanes); swap load "
+                f"{load_ms[0]:.1f} ms, stage {stage_ms[0]:.1f} ms, flip {flip_ms[0]:.2f} ms, "
+                f"peak {peak / 2**30:.2f} GiB; page-in decode {np.median(promote_ms):.0f} ms, "
+                f"stage {np.median(pstage_ms):.1f} ms, flip {np.median(pflip_ms):.2f} ms "
+                f"[{card}]")
+        finally:
+            for stop in stops:
+                stop()
+            for s in list(servers):
+                s.close()
+    return launches
+
+
 PHASES = ("kernels", "small", "serve", "engine", "small-sched", "sched", "prefix",
-          "pressure", "spec", "spec-pressure", "dh256", "f32", "disagg", "kvtier", "model")
+          "pressure", "spec", "spec-pressure", "dh256", "f32", "disagg", "kvtier", "migration",
+          "model")
 
 
 def _llm_model():
@@ -3247,7 +3849,7 @@ def main(argv=None) -> int:
         launches = alone = engine_launches = model = params = serve_numbers = None
         sched_launches = sched_tokens = prefix_launches = pressure_launches = None
         spec_launches = dh256_launches = f32_launches = None
-        disagg_launches = kvtier_launches = None
+        disagg_launches = kvtier_launches = migration_launches = None
         if "serve" in phases:
             launches, alone, serve_numbers = phase_serve(card)
             free()  # the serve phase's copy of the model goes
@@ -3297,6 +3899,10 @@ def main(argv=None) -> int:
             kvtier_launches = phase_kvtier(card, model, params)
             free()
             lap("kvtier")
+        if "migration" in phases:
+            migration_launches = phase_migration(card)
+            free()
+            lap("migration")
         # the profiler runs last: once it has traced the card, later
         # launches may carry its overhead
         if "model" in phases:
@@ -3327,6 +3933,7 @@ def main(argv=None) -> int:
             "spec_launches": spec_launches,
             "disagg_launches": disagg_launches,
             "kvtier_launches": kvtier_launches,
+            "migration_launches": migration_launches,
             "dh256_launches": dh256_launches,
             "max_abs_err": worst(lambda r: r["dtype"] == "bfloat16"),
             "wgmma_max_abs_err": worst(lambda r: r["route"] == "wgmma"),

@@ -15,7 +15,11 @@ it is held against. It imports ``torch`` and never ``jax``, and nothing of
   * spans and device ranges            (`tracing`)
   * prepackaged servers                (`servers/torchserver`,
                                         `servers/generateserver`)
-  * continuous-batching generate       (`serving/continuous`)
+  * continuous-batching generate       (`serving/continuous`; the disagg
+                                        transports `serving/disagg`, the
+                                        host KV tier `serving/kvtier`, live
+                                        migration `serving/migration`,
+                                        tenants `serving/weightpager`)
   * the Llama-style decoder            (`models/llm`)
   * hand-written CUDA kernels          (`ops/`)
   * JAX's threefry PRNG, bit for bit   (`rng`)

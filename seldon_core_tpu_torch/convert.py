@@ -13,7 +13,7 @@ No safetensors and no ml_dtypes: plain numpy reads and writes these files.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -69,6 +69,18 @@ def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[parts[-1]] = v
     return out
+
+
+def sorted_leaves(tree, path=()) -> List[Tuple[Tuple[str, ...], Any]]:
+    """``[(key path, leaf)]`` of a nested dict in the JAX package's
+    ``tree_flatten`` order (dict keys sorted at every level): the order
+    its weight pager frames leaves in and its swap check reports them."""
+    if isinstance(tree, dict):
+        out: List[Tuple[Tuple[str, ...], Any]] = []
+        for k in sorted(tree):
+            out.extend(sorted_leaves(tree[k], path + (k,)))
+        return out
+    return [(path, tree)]
 
 
 def save_npz(params, path: str) -> None:

@@ -113,6 +113,23 @@ class MetricsRegistry:
         "gen_kv_tier_hits": "seldon_engine_kv_tier_hits",
         "gen_kv_tier_evictions": "seldon_engine_kv_tier_evictions",
         "gen_kv_tier_replay_fallbacks": "seldon_engine_kv_tier_replay_fallbacks",
+        # live migration and swap: graceful drains, checkpoints exported
+        # and handed to a peer, resumes admitted from wire checkpoints or
+        # resume tokens, swap straggler preemptions
+        "gen_drains": "seldon_engine_drains_total",
+        "gen_checkpoint_exports": "seldon_engine_checkpoint_exports",
+        "gen_migrations": "seldon_engine_migrations_total",
+        "gen_migrated_resumes": "seldon_engine_migrations_resumed",
+        "gen_swap_preemptions": "seldon_engine_swap_preemptions",
+        # multi-tenant serving: per-tenant completions (the tenant tag
+        # becomes a label), scheduler switches, and the weight pager's
+        # page-ins, page-outs, evictions and refusals
+        "gen_tenant_requests": "seldon_engine_tenant_requests",
+        "gen_tenant_switches": "seldon_engine_tenant_switches",
+        "gen_weight_page_ins": "seldon_engine_weight_page_ins",
+        "gen_weight_page_outs": "seldon_engine_weight_page_outs",
+        "gen_weight_pager_evictions": "seldon_engine_weight_pager_evictions",
+        "gen_weight_pager_refused": "seldon_engine_weight_pager_refused",
     }
 
     # fused stop-aware decode: device steps run inside fused bursts and
@@ -132,6 +149,12 @@ class MetricsRegistry:
         # host KV tier occupancy: host RAM, deliberately not one of the
         # HBM pressure gauges (the ledger never counts tier bytes)
         "gen_kv_tier_bytes": "seldon_engine_kv_tier_bytes",
+        # the weight pager: host-RAM staging bytes (not an HBM pressure
+        # gauge), the resident tenant's weight bytes (the ledger's
+        # "pager" component) and the tenants staged
+        "gen_weight_pager_host_bytes": "seldon_engine_weight_pager_host_bytes",
+        "gen_weight_pager_resident_bytes": "seldon_engine_weight_pager_resident_bytes",
+        "gen_tenants_registered": "seldon_engine_tenants_registered",
     }
 
     # generate SLO TIMERs (per completed request, shipped by the generate
@@ -141,6 +164,10 @@ class MetricsRegistry:
         "gen_ttft_ms": "seldon_engine_generate_ttft_seconds",
         "gen_tpot_ms": "seldon_engine_generate_tpot_seconds",
         "gen_queue_wait_ms": "seldon_engine_generate_queue_wait_seconds",
+        # the per-tenant split of the same samples, the tenant as a label
+        "gen_tenant_ttft_ms": "seldon_engine_tenant_ttft_seconds",
+        "gen_tenant_tpot_ms": "seldon_engine_tenant_tpot_seconds",
+        "gen_tenant_queue_wait_ms": "seldon_engine_tenant_queue_wait_seconds",
     }
 
     def record_custom(self, metrics: List[Dict], labels: Dict[str, str] | None = None):

@@ -16,11 +16,16 @@ reference engine's external surface:
     (reference: SeldonGraphReadyChecker.java:24-115, 5s fixedDelay)
   * request/response pair logging hook
   * Prometheus exposition at /prometheus, spans at /traces
+  * live weight swap at ``POST /weights/swap`` and live-lane migration
+    at ``POST /drain`` (units exposing ``hot_swap`` / ``drain_to`` and
+    ``resume_checkpoint``: the generate server), and the
+    ``Seldon-Tenant`` header stamped into the message meta for
+    multi-tenant generate servers
 
 The REST front needs no protobuf runtime (a binary body loads it); the
 gRPC front imports ``grpc`` when it is built. The flight-recorder,
-fleet, openapi, weight-swap, drain and retune routes answer 501: their
-subsystems are not ported yet.
+fleet, openapi and retune routes answer 501: their subsystems are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -44,6 +49,15 @@ from .spec import PredictorSpec
 logger = logging.getLogger(__name__)
 
 READINESS_PERIOD_S = 5.0
+
+
+def _tenant_header(headers) -> Optional[str]:
+    """The ``Seldon-Tenant`` header's value (the HTTP layer lower-cases
+    keys; gRPC metadata and direct callers may not), or None."""
+    if not headers:
+        return None
+    tenant = str(headers.get("seldon-tenant") or headers.get("Seldon-Tenant") or "").strip()
+    return tenant or None
 
 
 def _pb():
@@ -155,6 +169,30 @@ class EngineApp:
         with self._inflight_lock:
             self.inflight += n
 
+    def units_with(self, attr: str):
+        """``(unit name, user object)`` of every in-process unit exposing
+        ``attr`` (the swap and drain routes use it)."""
+        try:
+            for rt in self.executor._walk(self.executor.root):
+                target = getattr(rt.client, "user_object", None)
+                if target is not None and hasattr(target, attr):
+                    yield rt.name, target
+        except Exception:  # noqa: BLE001 - a half-built graph during teardown
+            return
+
+    def _flush_unit_metrics(self, unit) -> None:
+        """Fold one in-process unit's ``metrics()`` deltas into the
+        registry outside the response path: after a drain or a migration
+        import the unit may never answer the request that would carry
+        them."""
+        fn = getattr(unit, "metrics", None)
+        if fn is None:
+            return
+        try:
+            self.metrics.record_custom(fn(), {"deployment": self.spec.name})
+        except Exception:  # noqa: BLE001 - telemetry must not fail the operation
+            logger.exception("unit metrics flush failed")
+
     # -- core entrypoints (shared by REST and gRPC fronts) ------------------
 
     def _shed_wait_s(self, deadline: Optional[Deadline]) -> Optional[float]:
@@ -193,12 +231,14 @@ class EngineApp:
                 f"(seldon.io/max-inflight={self.max_inflight})"
             )
         deadline = deadline_from_request(headers, self._ann)
-        if headers and (headers.get("seldon-tenant") or headers.get("Seldon-Tenant")):
-            # tenant routing feeds the multi-tenant weight pager
-            raise UnitCallError(
-                501, "the Seldon-Tenant header (multi-tenant serving) is not "
-                "ported to seldon_core_tpu_torch yet"
-            )
+        # tenant routing: the Seldon-Tenant header rides the message meta
+        # to every unit, so a multi-tenant generate server sees the id
+        # without the HTTP layer leaking into the executor
+        tenant = _tenant_header(headers)
+        if tenant:
+            from ..serving.weightpager import stamp_tenant_meta
+
+            message = stamp_tenant_meta(message, tenant)
         est = self._shed_wait_s(deadline)
         if est is not None:
             self.metrics.counter_inc("seldon_api_engine_server_rejected", labels)
@@ -498,6 +538,11 @@ class EngineApp:
                 return Response(error_body(400, "empty request body"), 400)
             if "jsonData" in body:
                 body = body["jsonData"]
+            tenant = _tenant_header(req.headers)
+            if tenant:
+                from ..serving.weightpager import stamp_tenant_meta
+
+                body = stamp_tenant_meta(body, tenant)
             try:
                 # stream() validates AND submits eagerly — malformed bodies
                 # and dead batchers raise here, before any bytes go out
@@ -524,11 +569,12 @@ class EngineApp:
                         headers={"Retry-After": str(max(1, int(after + 0.5)))
                                  if after else "1"},
                     )
-                if status in (413, 501):
-                    # over-bucket prompt / prompt+budget past max_seq
-                    # (413), a request field not ported yet (501): the
-                    # typed statuses the unary path answers, not a
-                    # generic 400
+                if status in (400, 404, 409, 413):
+                    # a malformed resume token (400), an unknown tenant
+                    # (404), a resume token of another weight version
+                    # (409), an over-bucket prompt or prompt+budget past
+                    # max_seq (413): the typed statuses the unary path
+                    # answers
                     return Response(error_body(status, str(e)), status)
                 if isinstance(e, (ValueError, RuntimeError)):
                     return Response(error_body(400, str(e)), 400)
@@ -561,10 +607,122 @@ class EngineApp:
         app.add_route("/metrics", prometheus)
         app.add_route("/prometheus", prometheus)
         app.add_route("/traces", traces)
-        for path in ("/flightrecorder", "/fleet", "/openapi.json",
-                     "/weights/swap", "/drain", "/retune"):
+        app.add_route("/weights/swap", self._weights_swap_route)
+        app.add_route("/drain", self._drain_route)
+        for path in ("/flightrecorder", "/fleet", "/openapi.json", "/retune"):
             app.add_route(path, not_ported)
         return app
+
+    async def _weights_swap_route(self, req: Request) -> Response:
+        """Live weight swap for units exposing ``hot_swap``: POST
+        ``{"model_uri": "...", "wait_s": 30}`` stages the checkpoint and
+        flips at a scheduler poll boundary (in-flight lanes finish on the
+        old version); ``{"cancel": true}`` aborts a staged swap whose
+        drain does not converge."""
+        body = req.json() or {}
+        if body.get("cancel"):
+            cancels = {name: unit.cancel_hot_swap()
+                       for name, unit in self.units_with("cancel_hot_swap")}
+            if not cancels:
+                return Response(error_body(501, "no unit supports weight hot-swap"), 501)
+            return Response({"units": cancels})
+        uri = body.get("model_uri")
+        if not uri:
+            return Response(error_body(400, "need model_uri"), 400)
+        wait_s = float(body.get("wait_s", 30.0))
+        loop = asyncio.get_running_loop()
+        units: Dict[str, Any] = {}
+        for name, unit in self.units_with("hot_swap"):
+            try:
+                # checkpoint load and upload block: off the event loop
+                units[name] = await loop.run_in_executor(
+                    None, lambda f=unit.hot_swap: f(uri, wait_s))
+            except Exception as e:  # noqa: BLE001 - a bad checkpoint
+                # units swapped before the failure ARE on the new weights
+                detail = f"{name}: {e}"
+                if units:
+                    detail += f" (units already swapped: {sorted(units)})"
+                return Response(error_body(400, detail), 400)
+        if not units:
+            return Response(error_body(501, "no unit supports weight hot-swap"), 501)
+        return Response({"units": units})
+
+    async def _drain_route(self, req: Request) -> Response:
+        """Live-lane migration, two modes:
+        ``{"to": "host:port"}`` (source: checkpoint every in-flight
+        generation and hand it to the peer engine; the member turns
+        ``draining`` and refuses new work with a 503), and
+        ``{"checkpoints": [<base64 SGC1>, ...]}`` (import: resume each
+        checkpoint here and answer the final token lists once all are
+        done). An import parses every frame and checks its
+        ``weight_version`` before it admits any."""
+        body = req.json() or {}
+        loop = asyncio.get_running_loop()
+        if "checkpoints" in body:
+            return await self._drain_import(body, loop)
+        peer = body.get("to")
+        units: Dict[str, Any] = {}
+        for name, unit in self.units_with("drain_to"):
+            if not peer:
+                return Response(error_body(
+                    400, "need 'to' (peer engine host:port) or 'checkpoints'"), 400)
+            timeout_s = float(body.get("timeout_s", 60.0))
+            try:
+                units[name] = await loop.run_in_executor(
+                    None, lambda f=unit.drain_to: f(peer, timeout_s))
+            except Exception as e:  # noqa: BLE001 - the drain failed
+                status = getattr(e, "status", None) or 502
+                return Response(error_body(status, f"{name}: {e}"), status)
+            # a drained member answers no further request: its drain
+            # counters would never ride a response's meta
+            self._flush_unit_metrics(unit)
+        if not units:
+            return Response(error_body(501, "no unit supports migration"), 501)
+        return Response({"units": units})
+
+    async def _drain_import(self, body: Dict[str, Any], loop) -> Response:
+        from ..serving.disagg import WeightVersionMismatch
+        from ..serving.migration import parse_token
+
+        unit = next((u for _n, u in self.units_with("resume_checkpoint")), None)
+        if unit is None:
+            return Response(error_body(501, "no unit supports migration"), 501)
+        timeout_s = float(body.get("timeout_s", 600.0))
+        try:
+            # all frames parsed and version-checked before any is
+            # admitted: a bad one refuses the whole handoff up front
+            cks = [parse_token(t) if isinstance(t, str) else t for t in body["checkpoints"]]
+            serving_wv = getattr(getattr(unit, "batcher", None), "weight_version", None)
+            for ck in cks:
+                wv = ck.get("weight_version")
+                if serving_wv is not None and wv is not None and wv != serving_wv:
+                    raise WeightVersionMismatch(
+                        f"checkpoint weight_version {wv!r} vs serving {serving_wv!r}")
+        except Exception as e:  # noqa: BLE001 - a typed refusal
+            status = getattr(e, "status", None) or 400
+            return Response(error_body(status, str(e)), status)
+        futures = []
+        try:
+            for ck in cks:
+                futures.append(unit.resume_checkpoint(ck))
+        except Exception as e:  # noqa: BLE001 - a typed refusal
+            for f in futures:
+                f.cancel()
+            status = getattr(e, "status", None) or 400
+            return Response(error_body(status, str(e)), status)
+
+        def collect():
+            return [f.result(timeout=timeout_s) for f in futures]
+
+        try:
+            results = await loop.run_in_executor(None, collect)
+        except Exception as e:  # noqa: BLE001 - a resumed generation failed
+            for f in futures:
+                f.cancel()
+            status = getattr(e, "status", None) or 502
+            return Response(error_body(status, str(e)), status)
+        self._flush_unit_metrics(unit)
+        return Response({"results": results, "accepted": len(futures)})
 
     # -- gRPC front ---------------------------------------------------------
 

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -61,6 +61,12 @@ class LLMConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+
+def _dtype_name(dt) -> str:
+    """``torch.bfloat16`` / ``np.dtype("float32")`` -> ``"bfloat16"`` /
+    ``"float32"``."""
+    return str(dt).replace("torch.", "")
 
 
 def _rms_norm(x, w, eps=1e-5):
@@ -191,6 +197,32 @@ class DecoderLM(ServedModel):
             "ln_f": torch.ones((D,), dtype=torch.float32, device=dev),
             "unembed": init((D, V), s),
         }
+
+    @staticmethod
+    def params_swappable(old, new) -> "Tuple[bool, str]":
+        """Whether ``new`` can replace ``old`` under live serving: a hot
+        swap copies the new leaves into the served tensors in place (the
+        decode bursts' CUDA graphs read those addresses), so both trees
+        must match leaf for leaf in structure, shape and dtype. Returns
+        ``(ok, reason)``; the reason names the first offender in the JAX
+        package's leaf order and wording."""
+        from ..convert import sorted_leaves
+
+        old_leaves, new_leaves = sorted_leaves(old), sorted_leaves(new)
+        if [p for p, _ in old_leaves] != [p for p, _ in new_leaves]:
+            return False, (
+                "param tree structure differs (different architecture or "
+                "checkpoint family)"
+            )
+        for (path, a), (_p, b) in zip(old_leaves, new_leaves):
+            where = "".join(f"[{k!r}]" for k in path)
+            sa, sb = tuple(a.shape), tuple(b.shape)
+            if sa != sb:
+                return False, f"{where}: shape {sb} != served {sa}"
+            da, db = _dtype_name(a.dtype), _dtype_name(b.dtype)
+            if da != db:
+                return False, f"{where}: dtype {db} != served {da}"
+        return True, ""
 
     # ------------------------------------------------------------------
     # forward building blocks

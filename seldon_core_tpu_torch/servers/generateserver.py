@@ -93,13 +93,43 @@ Server parameters (typed, e.g. from ``PREDICTIVE_UNIT_PARAMETERS``)::
                      decode role: ask the prefill peers' tiers for a
                      shared prefix before a full prefill (-1 = on exactly
                      when host_kv_tier_bytes is set, 0 = off, 1 = on)
+    resume_tokens    live migration: every streamed span (and the unary
+                     response) carries an opaque SGC1 resume token
+                     (``serving/migration.py``); after a member death the
+                     token resumes the generation on any peer serving the
+                     same ``weight_version``, the same tokens with no
+                     span re-sent (0 = off; refused with speculation)
+    swap_drain_ms    hot-swap straggler bound: after this long draining a
+                     staged weight swap, the remaining in-flight lanes are
+                     checkpointed (0 = wait forever)
+    swap_resume_policy
+                     what becomes of those lanes: ``resume`` (default)
+                     finishes them on the new weights, ``fail`` refuses
+                     them with a 409
+    tenants          multi-tenant paging: ``name=slo_class[@model_uri]``
+                     entries, comma-separated (slo_class strict |
+                     standard | best_effort); the first tenant boots
+                     resident on ``model_uri``, the others must share its
+                     architecture. Needs:
+    weight_pager_host_bytes
+                     the pager's host-RAM budget for the tenants'
+                     checkpoints (half of it caps one checkpoint)
+    tenant_tick_ms / tenant_max_wait_polls / tenant_min_resident_ms
+                     the tenant scheduler's wake period, its starvation
+                     bound in batcher polls and the least time a tenant
+                     stays resident while it has work (20 / 256 / 50)
 
-The JAX server's other parameters (resume tokens, swap, tenants, the
-profiler, SLO burn, the flight recorder, meshes) are not ported yet:
-each raises when set to anything but its off value, as does a request's
-``resume_token`` or ``tenant``. The fault config's ``pressure`` section
+The JAX server's other parameters (the profiler, SLO burn, the flight
+recorder, meshes) are not ported yet: each raises when set to anything
+but its off value. The fault config's ``pressure`` section
 (``SELDON_FAULTS``) drives the ledger's budget mid-run, its ``kv_*``
 rules perturb the decode role's transfers per peer.
+
+Migration and swap entry points: :meth:`GenerateServer.drain_to`
+(checkpoint every generation and hand it to a peer server or, over TCP,
+a peer engine's ``/drain``), :meth:`GenerateServer.resume_checkpoint`
+and :meth:`GenerateServer.hot_swap` / ``cancel_hot_swap`` (the engine's
+``/weights/swap``).
 
 The remaining deadline budget in the message meta (``deadlineMs``,
 stamped per in-process hop by the engine) bounds each request: the
@@ -117,15 +147,21 @@ every device operation runs on the batcher's scheduler thread.
 Request (jsonData)::
 
     {"prompt_tokens": [1, 2, ...],        # or "prompt": "text" (byte-level)
-     "max_new_tokens": 32, "temperature": 0.0, "eos_id": null, "seed": 0}
+     "max_new_tokens": 32, "temperature": 0.0, "eos_id": null, "seed": 0,
+     "tenant": "acme"}                    # multi-tenant servers only
+
+or ``{"resume_token": "..."}``: continue the generation a token
+describes (400 for a malformed token, 409 for another weight version).
 
 ``prompt_tokens`` may be a list of lists: each prompt is submitted
 separately and rides the same in-flight decode batch.
 
 Response (jsonData): ``{"tokens": [[...]], "text": [...],
-"cache_hit_tokens": [...]}`` (``text`` only for byte-level string
-prompts, ``cache_hit_tokens`` only with the prefix cache on; for a
-decode role these tokens' K/V never crossed the wire).
+"cache_hit_tokens": [...], "resume_tokens": [...]}`` (``text`` only for
+byte-level string prompts, ``cache_hit_tokens`` only with the prefix
+cache on -- for a decode role these tokens' K/V never crossed the wire
+-- and ``resume_tokens`` only with ``resume_tokens`` on). The response
+meta's tags carry the served ``weight_version``.
 """
 
 from __future__ import annotations
@@ -151,9 +187,7 @@ logger = logging.getLogger(__name__)
 # server accepts unknown ones)
 _NOT_PORTED = {
     "mesh": None, "mesh_shape": None, "shard_cache_seq": False,
-    "flight_recorder": 0, "resume_tokens": 0,
-    "swap_drain_ms": 0, "tenants": None, "weight_pager_host_bytes": 0,
-    "profiler": 0, "slo_objectives": None,
+    "flight_recorder": 0, "profiler": 0, "slo_objectives": None,
 }
 
 
@@ -183,7 +217,10 @@ class GenerateServer(SeldonComponent):
     _role = "unified"
     _kv_server = None
     _kv_client = None
+    _resume_tokens = False
     batcher = None
+    tenant_pager = None
+    tenant_scheduler = None
 
     def __init__(
         self,
@@ -220,6 +257,14 @@ class GenerateServer(SeldonComponent):
         kv_tier_min_tokens: int = 0,
         kv_tier_promote_min_tokens: int = 0,
         kv_tier_peer_lookup: int = -1,
+        resume_tokens: int = 0,
+        swap_drain_ms: int = 0,
+        swap_resume_policy: str = "resume",
+        tenants: Optional[str] = None,
+        weight_pager_host_bytes: int = 0,
+        tenant_tick_ms: int = 20,
+        tenant_max_wait_polls: int = 256,
+        tenant_min_resident_ms: int = 50,
         **kwargs,
     ):
         for name, value in kwargs.items():
@@ -238,6 +283,39 @@ class GenerateServer(SeldonComponent):
                 "(the draft cache cannot cross the KV transport)"
             )
         self._role = role
+        # typed parameters deliver booleans as strings
+        self._resume_tokens = (
+            resume_tokens.strip().lower() == "true"
+            if isinstance(resume_tokens, str) and not resume_tokens.strip().isdigit()
+            else bool(int(resume_tokens))
+        )
+        if self._resume_tokens and int(speculate_tokens) > 0:
+            raise ValueError(
+                "resume_tokens is not supported with speculative decoding (the token's "
+                "RNG re-derivation assumes the plain decode split chain)"
+            )
+        self._swap_drain_ms = int(swap_drain_ms)
+        self._swap_resume_policy = str(swap_resume_policy or "resume")
+        self._swap_count = 0
+        # multi-tenancy: the strict spec grammar, refused at construction;
+        # the pager's host budget gates the whole subsystem
+        self._tenant_spec = None
+        if not _is_off("tenants", tenants, None):
+            from ..serving.weightpager import parse_tenant_spec
+
+            self._tenant_spec = parse_tenant_spec(str(tenants))
+        self._weight_pager_host_bytes = int(weight_pager_host_bytes)
+        if self._tenant_spec and self._weight_pager_host_bytes <= 0:
+            raise ValueError("tenants configured but weight_pager_host_bytes is 0 — the "
+                             "pager's host-RAM staging budget must be set")
+        if self._tenant_spec and role != "unified":
+            raise ValueError("multi-tenant paging is not supported on disaggregated roles "
+                             "(the KV transport assumes one weight lineage)")
+        self._tenant_tick_ms = int(tenant_tick_ms)
+        self._tenant_max_wait_polls = int(tenant_max_wait_polls)
+        self._tenant_min_resident_ms = int(tenant_min_resident_ms)
+        self.tenant_pager = None  # WeightPager, set at load
+        self.tenant_scheduler = None  # TenantScheduler, set at load
         self._peer = None if _is_off("peer", peer, None) else peer
         self._kv_port = int(kv_port)
         self._kv_chunk_bytes = int(kv_chunk_bytes)
@@ -350,6 +428,8 @@ class GenerateServer(SeldonComponent):
             host_kv_tier_bytes=self._host_kv_tier_bytes,
             kv_tier_min_tokens=self._kv_tier_min_tokens,
             kv_tier_promote_min_tokens=self._kv_tier_promote_min_tokens,
+            swap_drain_ms=self._swap_drain_ms,
+            swap_resume_policy=self._swap_resume_policy,
         )
         # chaos harness (off without SELDON_FAULTS): the scheduler section
         # wires induced poll death onto the batcher's fault hook, the
@@ -360,6 +440,11 @@ class GenerateServer(SeldonComponent):
         if faults is not None:
             self.batcher.fault_hook = faults.scheduler_hook()
             self.batcher.pressure_hook = faults.pressure_hook()
+        if self._tenant_spec:
+            # every tenant staged and the version lineage aligned to the
+            # first tenant's namespaced version before warm(): one warm
+            # serves all tenants (kernels and graphs are shape-keyed)
+            self._load_tenants(params)
         if self._warmup_prompt_lens:
             # warm before listen: the first admission wave must not pay
             # the kernel build, the libraries' first-call setup or the
@@ -380,6 +465,10 @@ class GenerateServer(SeldonComponent):
                             self._kv_server.port)
         else:
             self.batcher.start()
+            if self.tenant_scheduler is not None:
+                # the page-in thread waits on scheduler progress, so it
+                # starts once the poll loop is live
+                self.tenant_scheduler.start()
         if self._role == "decode" and self._peer is not None:
             self._kv_client = self._build_failover(self._peer)
         logger.info(
@@ -419,6 +508,70 @@ class GenerateServer(SeldonComponent):
             return dmodel, {**params, "blocks": blocks}
         raise ValueError("speculate_tokens needs draft_layers or draft_uri")
 
+    def _load_checkpoint(self, model_uri: str, what: str):
+        """A checkpoint of the served architecture in the serving dtype,
+        on this server's device: the params of a hot swap or a tenant.
+        ``residual_scale`` is ignored (it only shapes random init)."""
+        import torch
+
+        server = TorchServer(model_uri, device=self.device)
+        _apply, params = server.build()
+        other = server._model
+        if other is None or not hasattr(other, "cfg"):
+            raise ValueError(f"{what} checkpoint at {model_uri!r} is not an llm-family model dir")
+        served_cfg = dataclasses.asdict(self._model.cfg)
+        other_cfg = dataclasses.asdict(other.cfg)
+        served_cfg.pop("residual_scale", None)
+        other_cfg.pop("residual_scale", None)
+        if other_cfg != served_cfg:
+            changed = sorted(k for k in set(other_cfg) | set(served_cfg)
+                             if other_cfg.get(k) != served_cfg.get(k))
+            raise ValueError(
+                f"{what} checkpoint architecture differs from the served model "
+                f"({', '.join(changed)}); same-shape checkpoints only")
+        dt = self._model.dtype
+        if dt != torch.float32:
+            params = self._cast_params_freeing(params, dt)
+        return params
+
+    def _load_tenants(self, primary_params) -> None:
+        """Stage every declared tenant's checkpoint in the weight pager
+        and align the batcher's version lineage to the first tenant's
+        namespaced version. The others load as hot swaps do (same
+        architecture, cast to the serving dtype before staging, so a
+        page-in is decode and upload)."""
+        from ..serving.weightpager import TenantScheduler, WeightPager
+
+        pager = WeightPager(self._weight_pager_host_bytes)
+        primary, primary_slo, primary_uri = self._tenant_spec[0]
+        if primary_uri and primary_uri != self.model_uri:
+            raise ValueError(
+                f"primary tenant {primary!r} declares model uri {primary_uri!r} but the "
+                f"server loads {self.model_uri!r} — the first tenant boots resident on "
+                "the served model")
+        v0 = pager.put(primary, primary_params, primary_slo)
+        pager.mark_resident(primary)
+        for name, slo, uri in self._tenant_spec[1:]:
+            pager.put(name, self._load_checkpoint(uri or self.model_uri, f"tenant {name!r}"),
+                      slo)
+        b = self.batcher
+        # caches are empty: adopting the namespaced version purges nothing
+        b.weight_version = v0
+        if b._prefix_index is not None:
+            b._prefix_index.set_version(v0)
+        if b._kv_tier is not None:
+            b._kv_tier.set_version(v0)
+        b.tenant_pager = self.tenant_pager = pager
+        self.tenant_scheduler = TenantScheduler(
+            b, pager, {name: slo for name, slo, _uri in self._tenant_spec},
+            tick_s=self._tenant_tick_ms / 1e3,
+            max_wait_polls=self._tenant_max_wait_polls,
+            min_resident_s=self._tenant_min_resident_ms / 1e3,
+        )
+        logger.info("generateserver: multi-tenant paging over %d tenant(s), %d host-staging "
+                    "bytes, resident=%s", len(self._tenant_spec),
+                    self._weight_pager_host_bytes, primary)
+
     def _encode(self, text: str) -> List[int]:
         return list(text.encode("utf-8"))
 
@@ -428,14 +581,6 @@ class GenerateServer(SeldonComponent):
     def _parse_prompts(self, body: Dict[str, Any]):
         """Wire-schema parser: returns (token_lists, text_mode, sampling
         kwargs)."""
-        for key in ("resume_token", "tenant"):
-            if body.get(key):
-                err = NotImplementedError(
-                    f"generate request field {key!r} is not ported to "
-                    "seldon_core_tpu_torch yet"
-                )
-                err.status = 501  # the engine answers 501, not 500
-                raise err
         if "prompt" in body and "prompt_tokens" not in body:
             prompts = body["prompt"]
             prompts = [prompts] if isinstance(prompts, str) else list(prompts)
@@ -655,8 +800,175 @@ class GenerateServer(SeldonComponent):
         results = self._collect_results(futures, deadline_s, expires_at, retry=retry)
         return futures, results
 
+    # -- live-lane migration (graceful drain, resume tokens) ------------------
+
+    def resume_checkpoint(self, ck, on_tokens=None):
+        """Admit one generate checkpoint -- an SGC1 dict, a base64 resume
+        token or raw SGC1 bytes -- and continue the generation where it
+        stopped (the same tokens, spans never re-sent): the receiving end
+        of a drain handoff and of a client's crash-resume retry; the
+        engine's ``POST /drain`` import lands here per checkpoint."""
+        from ..serving.migration import decode_checkpoint, parse_token
+
+        if self.batcher is None:
+            self.load()
+        if isinstance(ck, str):
+            ck = parse_token(ck)
+        elif isinstance(ck, (bytes, bytearray)):
+            ck = decode_checkpoint(bytes(ck))
+        return self.batcher.submit_checkpoint(ck, on_tokens=on_tokens)
+
+    @staticmethod
+    def _settle_migrated(req, peer_future) -> None:
+        """Done-callback chaining a migrated request's peer future into
+        the original future its client waits on."""
+        if req.future.done():
+            return
+        try:
+            req.future.set_result(peer_future.result())
+        except Exception as e:  # noqa: BLE001 - relay the typed failure
+            req.future.set_exception(e)
+
+    def drain_to(self, peer, timeout_s: float = 60.0) -> Dict[str, Any]:
+        """Graceful drain: checkpoint every in-flight generation at a
+        poll boundary (``ContinuousBatcher.drain``: this member turns
+        ``"draining"`` and refuses new work with a 503) and hand the
+        checkpoints and queued requests to ``peer``:
+
+        * a live server exposing ``resume_checkpoint`` (loopback): each
+          peer future settles the original one, and streamed spans keep
+          flowing through the original ``on_tokens`` consumer;
+        * a ``"host:port"`` string: the peer engine's ``POST /drain`` over
+          TCP (``migration.post_drain``); the final token lists come back
+          positionally and a stream consumer gets the tail after its
+          checkpoint as one span.
+
+        Every request completes as an uninterrupted run would. Returns
+        ``{"drained", "checkpoints", "handed", "failed"}``; a failed
+        handoff fails its original futures typed."""
+        from ..serving import migration
+
+        if self.batcher is None:
+            self.load()
+        b = self.batcher
+        drained = b.drain(timeout_s=timeout_s)
+        cks = [migration.checkpoint_of(req, b.weight_version) for req in drained]
+        for req in drained:
+            # the work leaves this member: a host-tier K/V checkpoint of
+            # an earlier preemption would pin tier budget forever
+            b._release_tier_ckpt(req)
+        with b._export_lock:
+            b.stats["checkpoint_exports"] += len(cks)
+        handed = failed = 0
+        if hasattr(peer, "resume_checkpoint"):
+            for req, ck in zip(drained, cks):
+                try:
+                    pf = peer.resume_checkpoint(ck, on_tokens=req.on_tokens)
+                except Exception as e:  # noqa: BLE001 - a typed refusal
+                    failed += 1
+                    if not req.future.done():
+                        req.future.set_exception(e)
+                    continue
+                handed += 1
+                pf.add_done_callback(lambda f, req=req: self._settle_migrated(req, f))
+        elif cks:
+            try:
+                results = migration.post_drain(str(peer), cks, timeout_s=timeout_s)
+            except Exception as e:  # noqa: BLE001 - a typed refusal
+                failed = len(drained)
+                for req in drained:
+                    if not req.future.done():
+                        req.future.set_exception(e)
+                results = None
+            for req, ck, res in zip(drained, cks, results or ()):
+                handed += 1
+                if req.on_tokens is not None:
+                    # spans at or before stream_pos were already delivered
+                    tail = list(res)[len(ck["prompt"]) + ck["stream_pos"]:]
+                    if tail:
+                        try:
+                            req.on_tokens(tail)
+                        except Exception:  # noqa: BLE001 - a consumer bug
+                            logger.exception("on_tokens relay failed")
+                if not req.future.done():
+                    req.future.set_result(list(res))
+        with b._export_lock:
+            b.stats["migrations"] += handed
+        logger.info("drain_to: %d checkpoint(s) exported, %d handed to the peer, %d failed "
+                    "typed", len(cks), handed, failed)
+        return {"drained": len(drained), "checkpoints": len(cks), "handed": handed,
+                "failed": failed}
+
+    def _make_resume_token(self, req, prompt, delivered, kw, text_mode=False) -> str:
+        """The opaque resume token of a live generation: the SGC1 payload
+        over prompt + delivered so far, keyless (the resume side
+        re-derives the lane key from seed and emitted count), so
+        refreshing it per span costs no device sync. ``text_mode`` rides
+        along so a resumed strData stream keeps its ``text`` fields."""
+        from ..serving.migration import checkpoint_token
+
+        gr = getattr(req, "gen_request", None) or req
+        now = time.monotonic()
+        submit_t = getattr(gr, "submit_t", 0.0)
+        deadline_t = getattr(gr, "deadline_t", None)
+        return checkpoint_token({
+            "v": 1,
+            "prompt": [int(t) for t in prompt],
+            "emitted": [int(t) for t in delivered],
+            "rng_key": None,
+            "text_mode": bool(text_mode),
+            "max_new_tokens": int(kw.get("max_new_tokens", 32)),
+            "temperature": float(kw.get("temperature", 0.0)),
+            "eos_id": kw.get("eos_id"),
+            "seed": int(kw.get("seed", 0)),
+            "weight_version": self.batcher.weight_version,
+            "wait_s": round(max(0.0, now - submit_t), 6) if submit_t else 0.0,
+            "submit_wall_us": int(getattr(gr, "submit_wall_us", 0) or 0),
+            "deadline_s": max(0.0, deadline_t - now) if deadline_t is not None else None,
+            "stream_pos": len(delivered),
+        })
+
+    # -- live weight swap ----------------------------------------------------
+
+    def hot_swap(self, model_uri: str, wait_s: float = 30.0) -> Dict[str, Any]:
+        """Live weight swap: load a checkpoint of the same architecture
+        and replace the served weights without a restart or a dropped
+        request (the engine's ``/weights/swap`` lands here). The params,
+        cast to the serving dtype, go to ``request_weight_swap``: in-flight
+        lanes finish on the old version, the flip lands at a poll
+        boundary and the prefix cache is re-keyed. Waits up to ``wait_s``
+        for the flip; one still draining then returns ``swapped: false``
+        and lands on its own."""
+        if self.batcher is None:
+            self.load()
+        if self.batcher.swap_pending():
+            # fail before the checkpoint load: it is the slow part
+            raise RuntimeError("a weight swap is already pending")
+        params = self._load_checkpoint(model_uri, "hot-swap")
+        self._swap_count += 1
+        version = f"v{self._swap_count}"
+        fut = self.batcher.request_weight_swap(params, version=version)
+        del params
+        swapped = True
+        try:
+            fut.result(timeout=max(0.001, float(wait_s)))
+        except FuturesTimeout:
+            swapped = False  # still draining; the flip lands on its own
+        return {"version": version, "swapped": swapped, "model_uri": model_uri,
+                "weight_version": self.batcher.weight_version}
+
+    def cancel_hot_swap(self) -> Dict[str, Any]:
+        """Abort a staged swap whose drain does not converge (admissions
+        resume on the next poll)."""
+        b = self.batcher
+        return {"cancelled": b.cancel_weight_swap() if b is not None else False,
+                "weight_version": b.weight_version if b is not None else None}
+
     def close(self) -> None:
-        """Stop the KV transport endpoints and the scheduler."""
+        """Stop the tenant scheduler, the KV transport endpoints and the
+        scheduler."""
+        if self.tenant_scheduler is not None:
+            self.tenant_scheduler.stop()
         if self._kv_server is not None:
             self._kv_server.close()
             self._kv_server = None
@@ -687,16 +999,27 @@ class GenerateServer(SeldonComponent):
         # its admit queue cannot meet it (ShedError -> engine 429)
         deadline_s = deadline_s_from_meta(meta)
         expires_at = time.monotonic() + deadline_s if deadline_s is not None else None
+        if body.get("resume_token"):
+            return self._predict_resume(str(body["resume_token"]), deadline_s, expires_at)
         token_lists, text_mode, kw = self._parse_prompts(body)
         if self._role == "decode":
             # prefill at the peer pool, the slab over the KV transport,
             # decode here
             futures, results = self._predict_disagg(token_lists, kw, deadline_s, expires_at)
-            return self._build_response(futures, results, token_lists, text_mode)
+            return self._build_response(futures, results, token_lists, text_mode, kw)
+        submit, skw = self.batcher.submit, dict(kw)
+        if self.tenant_scheduler is not None:
+            # the resident tenant's work passes straight through, the
+            # others queue for a page-in; the id comes in the body or in
+            # the meta (the engine stamps the Seldon-Tenant header there)
+            from ..serving.weightpager import tenant_from_meta
+
+            submit = self.tenant_scheduler.submit
+            skw["tenant"] = body.get("tenant") or tenant_from_meta(meta)
         futures = []
         try:
             for toks in token_lists:
-                futures.append(self.batcher.submit(toks, deadline_s=deadline_s, **kw))
+                futures.append(submit(toks, deadline_s=deadline_s, **skw))
         except Exception:
             # all-or-nothing: a failed prompt cancels its siblings, which
             # frees their queued slots and decode lanes
@@ -704,7 +1027,29 @@ class GenerateServer(SeldonComponent):
                 f.cancel()
             raise
         results = self._collect_results(futures, deadline_s, expires_at)
-        return self._build_response(futures, results, token_lists, text_mode)
+        return self._build_response(futures, results, token_lists, text_mode, kw)
+
+    def _predict_resume(self, token: str, deadline_s, expires_at):
+        """A crash-resume retry: the token's checkpoint continues where
+        the dead member stopped (the same tokens, wait telemetry
+        cumulative)."""
+        from ..serving.migration import parse_token
+
+        ck = parse_token(token)
+        fut = self.batcher.submit_checkpoint(ck)
+        gr = fut.gen_request
+        prompt = list(gr.tokens)
+        results = self._collect_results([fut], deadline_s, expires_at)
+        out: Dict[str, Any] = {"tokens": results}
+        if ck.get("text_mode"):
+            out["text"] = [self._decode(results[0][len(prompt):])]
+        if self._resume_tokens:
+            out["resume_tokens"] = [self._make_resume_token(
+                fut, prompt, results[0][len(prompt):],
+                {"max_new_tokens": gr.max_new_tokens, "temperature": gr.temperature,
+                 "eos_id": gr.eos_id, "seed": gr.seed},
+                text_mode=bool(ck.get("text_mode")))]
+        return out
 
     @staticmethod
     def _collect_results(futures, deadline_s, expires_at, retry=None):
@@ -761,28 +1106,56 @@ class GenerateServer(SeldonComponent):
             self.load()
         if self._role == "prefill":
             raise RuntimeError("prefill-role pool members serve the KV transport only")
-        token_lists, text_mode, kw = self._parse_prompts(body)
-        if len(token_lists) != 1:
-            raise ValueError("stream takes ONE prompt")
-        toks = token_lists[0]
         q: "_queue.Queue" = _queue.Queue()
-        if self._role == "decode":
-            # the handoff happens before the first byte goes out, always
-            # with the FULL slab: a PrefixGone retry cannot be replayed
-            # once response bytes exist
-            fut = self._remote_submit(toks, kw, None, covered=0, on_tokens=q.put)
+        resume_base: List[int] = []
+        if body.get("resume_token"):
+            # crash-resume of an interrupted stream: only NEW spans are
+            # yielded (crediting resumes after the checkpoint)
+            from ..serving.migration import parse_token
+
+            ck = parse_token(str(body["resume_token"]))
+            text_mode = bool(ck.get("text_mode"))
+            toks = [int(t) for t in ck["prompt"]]
+            kw = dict(max_new_tokens=int(ck.get("max_new_tokens", 32)),
+                      temperature=float(ck.get("temperature", 0.0)),
+                      eos_id=ck.get("eos_id"), seed=int(ck.get("seed", 0)))
+            resume_base = [int(t) for t in ck.get("emitted") or []]
+            fut = self.batcher.submit_checkpoint(ck, on_tokens=q.put)
         else:
-            fut = self.batcher.submit(toks, on_tokens=q.put, **kw)
+            token_lists, text_mode, kw = self._parse_prompts(body)
+            if len(token_lists) != 1:
+                raise ValueError("stream takes ONE prompt")
+            toks = token_lists[0]
+            if self._role == "decode":
+                # the handoff happens before the first byte goes out,
+                # always with the FULL slab: a PrefixGone retry cannot be
+                # replayed once response bytes exist
+                fut = self._remote_submit(toks, kw, None, covered=0, on_tokens=q.put)
+            elif self.tenant_scheduler is not None:
+                from ..serving.weightpager import tenant_from_meta
+
+                fut = self.tenant_scheduler.submit(
+                    toks, tenant=body.get("tenant") or tenant_from_meta(body.get("meta")),
+                    on_tokens=q.put, **kw)
+            else:
+                fut = self.batcher.submit(toks, on_tokens=q.put, **kw)
         fut.add_done_callback(lambda _f: q.put(None))
 
         def chunks():
+            # delivered so far: each span's resume token is the checkpoint
+            # over prompt + delivered
+            delivered = list(resume_base)
             while True:
                 item = q.get()
                 if item is None:
                     break
+                delivered.extend(int(t) for t in item)
                 chunk: Dict[str, Any] = {"tokens": item}
                 if text_mode:
                     chunk["text"] = self._decode(item)
+                if self._resume_tokens:
+                    chunk["resume_token"] = self._make_resume_token(
+                        fut, toks, delivered, kw, text_mode=text_mode)
                 yield chunk
             result = fut.result(timeout=600.0)
             final: Dict[str, Any] = {"done": True, "tokens": result}
@@ -794,11 +1167,16 @@ class GenerateServer(SeldonComponent):
 
         return StreamHandle(chunks=chunks(), cancel=fut.cancel)
 
-    def _build_response(self, futures, results, token_lists, text_mode):
+    def _build_response(self, futures, results, token_lists, text_mode, kw):
         out: Dict[str, Any] = {"tokens": results}
         if text_mode:
             out["text"] = [
                 self._decode(r[len(p):]) for r, p in zip(results, token_lists)
+            ]
+        if self._resume_tokens:
+            out["resume_tokens"] = [
+                self._make_resume_token(f, p, r[len(p):], kw, text_mode=text_mode)
+                for f, r, p in zip(futures, results, token_lists)
             ]
         if self.batcher._prefix_index is not None:
             # prompt tokens each request took from the prefix cache
@@ -806,7 +1184,11 @@ class GenerateServer(SeldonComponent):
         return out
 
     def tags(self) -> Dict:
-        return {"server": "generateserver"}
+        tags = {"server": "generateserver"}
+        if self.batcher is not None:
+            # the served weights' version rides every response's meta
+            tags["weight_version"] = str(self.batcher.weight_version)
+        return tags
 
     def health_status(self):
         """A batcher mid-restart or latched dead makes the unit unready."""
@@ -856,6 +1238,17 @@ class GenerateServer(SeldonComponent):
             ])
         if s.get("shed"):
             out.append(delta("gen_shed_total", s["shed"]))
+        # live migration and swap: drains, checkpoints exported and
+        # handed over, resumes from wire checkpoints or resume tokens,
+        # swap straggler preemptions, swaps flipped (the engine exports
+        # seldon_engine_drains_total and friends)
+        for stat, key in (("weight_swaps", "gen_weight_swaps"), ("drains", "gen_drains"),
+                          ("checkpoint_exports", "gen_checkpoint_exports"),
+                          ("migrations", "gen_migrations"),
+                          ("migrated_resumes", "gen_migrated_resumes"),
+                          ("swap_preemptions", "gen_swap_preemptions")):
+            if s.get(stat):
+                out.append(delta(key, s[stat]))
         if s.get("batcher_restarts"):
             out.append(delta("gen_batcher_restarts", s["batcher_restarts"]))
         # HBM pressure: preemptions, resumes, sheds and the ladder's prefix
@@ -918,6 +1311,8 @@ class GenerateServer(SeldonComponent):
             # 1.0 = no draft accepted, gamma + 1 = every draft accepted
             out.append({"type": "GAUGE", "key": "gen_spec_tokens_per_round",
                         "value": round(s["spec_emitted"] / s["spec_rounds"], 4)})
+        if self.tenant_pager is not None:
+            out.extend(self._tenant_metrics())
         pending = self.batcher.slo_pending
         while pending:
             try:
@@ -931,4 +1326,45 @@ class GenerateServer(SeldonComponent):
             if tpot is not None:
                 out.append({"type": "TIMER", "key": "gen_tpot_ms",
                             "value": round(tpot * 1e3, 4)})
+        return out
+
+    def _tenant_metrics(self) -> List[Dict]:
+        """The pager's counters and levels, and per-tenant request
+        counters and SLO TIMERs tagged with the tenant (the engine
+        exports seldon_engine_tenant_* and seldon_engine_weight_pager_*,
+        the tag as a label)."""
+        delta = self._deltas.counter
+        pager = self.tenant_pager
+        p = pager.stats
+        out = [
+            delta("gen_weight_page_ins", p["page_ins"]),
+            delta("gen_weight_page_outs", p["page_outs"]),
+            delta("gen_weight_pager_evictions", p["evictions"]),
+            delta("gen_weight_pager_refused", p["refused"]),
+            {"type": "GAUGE", "key": "gen_weight_pager_host_bytes",
+             "value": float(pager.host_bytes)},
+            {"type": "GAUGE", "key": "gen_weight_pager_resident_bytes",
+             "value": float(pager.resident_hbm_bytes)},
+            {"type": "GAUGE", "key": "gen_tenants_registered",
+             "value": float(len(pager.tenants()))},
+        ]
+        if self.tenant_scheduler is not None:
+            out.append(delta("gen_tenant_switches", self.tenant_scheduler.stats["switches"]))
+        b = self.batcher
+        for t, sums in list(b.tenant_slo.items()):
+            out.append(delta("gen_tenant_requests", sums["finished"], tags={"tenant": t}))
+        for t, pending in list(b.tenant_slo_pending.items()):
+            tags = {"tenant": t}
+            while pending:
+                try:
+                    queue_wait, ttft, tpot = pending.popleft()
+                except IndexError:  # raced another exporter thread
+                    break
+                out.append({"type": "TIMER", "key": "gen_tenant_queue_wait_ms",
+                            "value": round(queue_wait * 1e3, 4), "tags": tags})
+                out.append({"type": "TIMER", "key": "gen_tenant_ttft_ms",
+                            "value": round(ttft * 1e3, 4), "tags": tags})
+                if tpot is not None:
+                    out.append({"type": "TIMER", "key": "gen_tenant_tpot_ms",
+                                "value": round(tpot * 1e3, 4), "tags": tags})
         return out

@@ -104,15 +104,39 @@ Counterpart of ``seldon_core_tpu/serving/continuous.py``
   its slab there for peers, and a preempted lane checkpoints its exact
   K/V columns so its resume is a copy-back insert (recompute and replay
   stay the fallback, counted in ``kv_tier_replay_fallbacks``).
+* Live weight swap (:meth:`ContinuousBatcher.request_weight_swap`): the
+  new params are cast, checked leaf for leaf against the served set
+  (``DecoderLM.params_swappable``) and staged on the device next to it,
+  the upload overlapping serving. Admissions then hold while in-flight
+  lanes finish on the old weights; at the poll boundary where nothing is
+  in flight the staged leaves are copied INTO the served tensors (the
+  decode-burst CUDA graphs captured those addresses, so the pointers
+  never move), ``weight_version`` bumps and the prefix cache and host
+  tier purge by version. ``swap_drain_ms`` bounds the wait: past it the
+  remaining lanes are checkpointed and resume on the new weights
+  (``swap_resume_policy`` ``resume``) or fail typed (``fail``). Refused
+  with speculation (an early-exit draft shares the served tensors).
+* Graceful drain (:meth:`ContinuousBatcher.drain`, the wire half in
+  ``serving/migration.py``): at a poll boundary every live lane is
+  checkpointed (emitted tokens and lane key, no K/V), chunked
+  admissions, the resume queue and the admit queue are collected, and
+  the member refuses new work (``health = "draining"``, 503);
+  :meth:`ContinuousBatcher.submit_checkpoint` admits such a checkpoint
+  (or a client resume token) on another member through the recompute
+  resume, the same stream token for token.
+* Tenants (``serving/weightpager.py`` drives them): requests carry a
+  tenant and SLO class; the victim policy preempts best-effort lanes
+  first and spares a strict tenant's only lane, the SLO samples split
+  per tenant, and the ledger bills the resident tenant's weights as its
+  ``pager`` component (a staged swap's as ``swap``).
 * Prefill, chunk and lane insert run inside ``tracing.device_trace``
   ranges (``gen.prefill``, ``gen.prefill_chunk``, ``gen.lane_insert``),
   decode bursts inside ``gen.decode_burst``, named in ``torch.profiler``
   traces.
 
-Every other scheduler feature of the JAX batcher (weight swap, drain,
-retune, the flight recorder, the device-time profiler, tenants, the
-mesh) is not ported yet: its knob raises when set to anything but its
-off value. ``weight_version`` stays 0 until weight swap is ported.
+Every other scheduler feature of the JAX batcher (retune, the flight
+recorder, the device-time profiler, the mesh) is not ported yet: its
+knob raises when set to anything but its off value.
 """
 
 from __future__ import annotations
@@ -124,6 +148,7 @@ import queue
 import threading
 import time
 from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FuturesTimeout
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -131,7 +156,7 @@ import torch
 
 from .. import rng
 from ..resilience import ShedError
-from ..tracing import device_trace
+from ..tracing import device_trace, wall_us
 from .disagg import DisaggError, PrefixGone, WeightVersionMismatch, prompt_hash
 from .kvtier import HostKVTier
 from .prefix_cache import RadixPrefixIndex
@@ -141,26 +166,20 @@ logger = logging.getLogger(__name__)
 
 # Scheduler knobs of the JAX batcher that this port does not implement
 # yet, with the value that turns each off; any other value raises. They
-# are the mesh (multi-device serving), the flight recorder, weight swap
-# and the device-time profiler.
+# are the mesh (multi-device serving), the flight recorder and the
+# device-time profiler.
 NOT_PORTED_KNOBS: Dict[str, Any] = {
     "mesh": None,
     "shard_cache_seq": False,
     "flight_recorder_capacity": 0,
-    "swap_drain_ms": 0,
     "profiler": None,
 }
-# knobs that only act through one of the features above (the swap's
-# resume policy); accepted at any value so JAX-package configs carry over
-INERT_KNOBS = ("swap_resume_policy",)
 
 
 def check_not_ported(knobs: Dict[str, Any], owner: str) -> None:
     """Raise for a knob of an unported feature set to an enabling value,
     and for a knob this package does not know at all."""
     for name, value in knobs.items():
-        if name in INERT_KNOBS:
-            continue
         if name not in NOT_PORTED_KNOBS:
             raise TypeError(f"{owner} got an unknown knob {name!r}")
         off = NOT_PORTED_KNOBS[name]
@@ -216,6 +235,9 @@ class GenRequest:
     submit_t: float = 0.0
     admit_t: float = 0.0
     first_tok_t: float = 0.0
+    # wall-clock anchor of submit_t (epoch microseconds); a migrated
+    # request keeps its first member's
+    submit_wall_us: int = 0
     # absolute deadline (monotonic seconds) when the submit carried a
     # budget: past it the scheduler cancels the request and frees its lane
     # (the preemption victim choice spares such lanes longest)
@@ -232,6 +254,12 @@ class GenRequest:
     # lane key, covered prefix length, byte count and weight version:
     # the scheduler splices it instead of prefilling (admit_remote)
     remote: Optional[Dict[str, Any]] = None
+    # multi-tenant serving (serving/weightpager.py): the owning tenant
+    # (None = single-tenant) and its SLO class ("strict" | "standard" |
+    # "best_effort"); the victim policy spares a strict tenant's only
+    # lane, and the SLO samples split per tenant
+    tenant: Optional[str] = None
+    slo: str = "standard"
 
 
 @dataclasses.dataclass
@@ -264,6 +292,37 @@ class _ChunkJob:
     # key); the last chunk then inserts that state instead of its own
     # sample and replays the emitted tokens' K/V
     resume: Optional[tuple] = None
+
+
+@dataclasses.dataclass
+class _SwapJob:
+    """A requested live weight swap: the new params, cast and staged on
+    the device next to the served set. The scheduler copies them into
+    the served tensors at the poll boundary where no lane, chunked
+    admission or burst is in flight; admissions hold until then."""
+
+    params: Any
+    version: Any
+    future: Future = dataclasses.field(default_factory=Future)
+    # lanes in flight when the scheduler first saw the job, and polls
+    # spent draining them
+    drain_lanes: Optional[int] = None
+    waited_polls: int = 0
+    # the staged bytes: the ledger's "swap" component until the flip
+    nbytes: int = 0
+    # when the swap was staged (monotonic): the straggler bound
+    # (swap_drain_ms) counts from here
+    staged_t: float = 0.0
+
+
+@dataclasses.dataclass
+class _DrainJob:
+    """A requested graceful drain: the scheduler checkpoints every live
+    lane at the next poll boundary, collects chunked admissions, the
+    resume queue and the admit queue, and resolves the future with the
+    list of :class:`GenRequest` (each checkpoint in ``resume``)."""
+
+    future: Future = dataclasses.field(default_factory=Future)
 
 
 class _PinnedPool:
@@ -469,14 +528,34 @@ class ContinuousBatcher:
         host_kv_tier_bytes: int = 0,
         kv_tier_min_tokens: int = 0,
         kv_tier_promote_min_tokens: int = 0,
+        swap_drain_ms: int = 0,
+        swap_resume_policy: str = "resume",
         cuda_graphs: bool = True,
         **knobs,
     ):
         check_not_ported(knobs, "ContinuousBatcher")
         self.model = model
         # the weights' version: slabs, prefix entries and tier entries
-        # are keyed by it (0 until weight swap is ported)
+        # are keyed by it; a weight swap bumps it
         self.weight_version: Any = 0
+        # live weight swap: request_weight_swap stages a _SwapJob, the
+        # loop flips it at a poll boundary once nothing is in flight
+        self._swap_lock = threading.Lock()
+        self._pending_swap: Optional[_SwapJob] = None
+        self._swap_seq = 0
+        # the swap's straggler bound (0 = wait for in-flight lanes
+        # forever) and what becomes of the lanes it checkpoints: "resume"
+        # requeues them to finish on the NEW weights, "fail" refuses them
+        # with WeightVersionMismatch (409)
+        self.swap_drain_ms = max(0, int(swap_drain_ms))
+        if swap_resume_policy not in ("resume", "fail"):
+            raise ValueError(
+                f"swap_resume_policy must be resume|fail, got {swap_resume_policy!r}")
+        self.swap_resume_policy = swap_resume_policy
+        # graceful drain: drain() stages a _DrainJob, the loop checkpoints
+        # every live lane at the next poll boundary
+        self._pending_drain: Optional[_DrainJob] = None
+        self._drain_lock = threading.Lock()
         self.slots = int(slots)
         self.max_seq = int(max_seq or model.cfg.max_seq)
         self.steps_per_poll = int(steps_per_poll)
@@ -547,9 +626,15 @@ class ContinuousBatcher:
         # chaos hook: called at the top of every poll with the poll count;
         # raising kills the loop and exercises the supervision path
         self.fault_hook: Optional[Any] = None
+        # multi-tenant hook: called at the top of every poll with the poll
+        # count (the TenantScheduler's wake-up: bookkeeping only, it never
+        # blocks), and the WeightPager whose resident weights the ledger
+        # bills as its "pager" component (None: no such component)
+        self.tenant_hook: Optional[Any] = None
+        self.tenant_pager: Optional[Any] = None
         # test hook: set to a list and every dispatched decode (sub)burst
-        # appends {"lanes", "attn_len", "need", "grouped", "k"}, the
-        # proof that no lane reads past its own group's bucket
+        # appends {"lanes", "attn_len", "need", "grouped", "k", "tenant"},
+        # the proof that no lane reads past its own group's bucket
         self.trace_groups: Optional[List[Dict[str, Any]]] = None
         self._poll_count = 0
         # polls with work (lanes, chunk jobs, bursts in flight or queued
@@ -659,12 +744,25 @@ class ContinuousBatcher:
             "steps_per_poll_effective": k,
             "slo_samples": 0, "queue_wait_s_sum": 0.0,
             "ttft_s_sum": 0.0, "tpot_s_sum": 0.0,
+            # weight swaps flipped; graceful drains done, checkpoints
+            # exported and handed to a peer (the server's drain_to),
+            # resumes admitted from a wire checkpoint or resume token, and
+            # lanes the swap's straggler bound checkpointed
+            "weight_swaps": 0, "drains": 0, "checkpoint_exports": 0,
+            "migrations": 0, "migrated_resumes": 0, "swap_preemptions": 0,
         }
         # (queue_wait, ttft, tpot) of completed requests: ``slo_pending``
         # drains into response metrics, ``slo_recent`` is a reservoir for
         # percentiles
         self.slo_pending: "collections.deque" = collections.deque(maxlen=4096)
         self.slo_recent: "collections.deque" = collections.deque(maxlen=2048)
+        # the same samples split per tenant, keyed at _resolve time (the
+        # single-tenant path allocates nothing): cumulative sums and
+        # counts, a drain queue for tenant-tagged TIMERs, and a reservoir
+        # the TenantScheduler reads as its TTFT feedback
+        self.tenant_slo: Dict[str, Dict[str, float]] = {}
+        self.tenant_slo_pending: Dict[str, "collections.deque"] = {}
+        self.tenant_slo_recent: Dict[str, "collections.deque"] = {}
 
         dt = model.dtype
         self.device = params["embed"].device
@@ -1211,6 +1309,14 @@ class ContinuousBatcher:
     def _check_alive(self) -> None:
         if self._stop.is_set() or self.health in ("dead", "closed"):
             raise self._dead_error()
+        if self.health == "draining":
+            # in-flight work is being checkpointed and handed over: new
+            # work is refused typed (503 + Retry-After) so the caller
+            # retries another member
+            raise BatcherDead(
+                "batcher is draining for migration; retry another member",
+                retry_after_s=1.0,
+            )
 
     def _check_budget(self, prompt_len: int, max_new_tokens) -> None:
         m = int(max_new_tokens)
@@ -1230,6 +1336,8 @@ class ContinuousBatcher:
         seed: int = 0,
         on_tokens=None,
         deadline_s: Optional[float] = None,
+        tenant: Optional[str] = None,
+        slo: str = "standard",
     ) -> Future:
         self._check_alive()
         if not len(tokens):
@@ -1250,19 +1358,14 @@ class ContinuousBatcher:
             eos_id=eos_id,
             seed=seed,
             on_tokens=on_tokens,
+            tenant=tenant,
+            slo=slo,
         )
         req.submit_t = time.monotonic()
+        req.submit_wall_us = wall_us(req.submit_t)
         if deadline_s is not None:
             req.deadline_t = req.submit_t + float(deadline_s)
-        req.future.gen_request = req
-        self._queue.put(req)
-        if self._stop.is_set():
-            # the loop died between the entry check and the put: fail the
-            # stranded queue here instead of leaving the future unresolved
-            self._drain_queue(self._dead_error())
-            return req.future
-        self.start()
-        return req.future
+        return self._enqueue(req)
 
     def observed_rate(self) -> Optional[float]:
         """Finished requests per second over the recent completion window
@@ -1329,6 +1432,236 @@ class ContinuousBatcher:
     def generate(self, tokens, **kw) -> List[int]:
         """Blocking convenience: submit and wait for the generated ids."""
         return self.submit(tokens, **kw).result()
+
+    def _enqueue(self, req: GenRequest) -> Future:
+        """Queue a built request and make sure the loop serves it."""
+        req.future.gen_request = req
+        self._queue.put(req)
+        if self._stop.is_set():
+            # the loop died between the entry check and the put: fail the
+            # stranded queue here instead of leaving the future unresolved
+            self._drain_queue(self._dead_error())
+            return req.future
+        self.start()
+        return req.future
+
+    # -- live-lane migration (graceful drain, checkpoint resume) -------------
+
+    def drain(self, timeout_s: float = 30.0) -> List[GenRequest]:
+        """Graceful drain: checkpoint every live lane at the next poll
+        boundary (emitted tokens and post-split lane key, not the K/V),
+        refuse new work (``health = "draining"``, 503) and return every
+        request this batcher still owes an answer: checkpointed lanes
+        (``req.resume`` set), chunked admissions (requeued whole), the
+        resume queue and the admit queue. Their futures stay pending for
+        the caller to settle (``GenerateServer.drain_to``).
+
+        A dead or closed member has nothing to drain: :class:`BatcherDead`
+        propagates. A drain that outruns ``timeout_s`` is cancelled: the
+        scheduler keeps the work and restores ``health = "serving"``."""
+        self._check_alive()
+        with self._drain_lock:
+            if self._pending_drain is not None:
+                raise RuntimeError("a drain is already in progress")
+            # re-check under the lock: the supervisor writes the dead
+            # latch without it, and "draining" must never overwrite it
+            if self._stop.is_set() or self.health in ("dead", "closed"):
+                raise self._dead_error()
+            # refuse admissions now: a request admitted after this line
+            # would miss the checkpoint sweep
+            self.health = "draining"
+            job = _DrainJob()
+            self._pending_drain = job
+        self.start()
+        try:
+            return job.future.result(timeout=timeout_s)
+        except FuturesTimeout:
+            if not job.future.cancel():
+                # the scheduler is resolving it right now: take the result
+                return job.future.result(timeout=5.0)
+            raise RuntimeError(
+                f"drain did not complete within {timeout_s}s; cancelled "
+                "— admissions resume on the next poll"
+            ) from None
+
+    def submit_checkpoint(self, ck: Dict[str, Any], on_tokens=None) -> Future:
+        """Admit a wire checkpoint (an SGC1 dict: a drained peer's lane or
+        a client resume token) and continue the generation where it
+        stopped, through :meth:`_admit_resume` (prompt K/V recompute and
+        teacher-forced replay of the emitted tokens): greedy and seeded
+        streams equal an uninterrupted run's, and crediting continues
+        after the checkpoint (delivered spans are never re-sent).
+
+        Refusals, before any lane state exists: a checkpoint of another
+        ``weight_version`` raises :class:`~.disagg.WeightVersionMismatch`
+        (409), over-long prompts and budgets the 413s ``submit`` raises.
+        The checkpoint's wait anchor re-bases ``submit_t``, so the
+        queue-wait sample spans both members."""
+        self._check_alive()
+        wv = ck.get("weight_version")
+        if wv is not None and wv != self.weight_version:
+            raise WeightVersionMismatch(
+                f"checkpoint was taken under weight_version {wv!r} but this member "
+                f"serves {self.weight_version!r} — its emitted prefix is not "
+                "reproducible here"
+            )
+        tokens = [int(t) for t in ck.get("prompt") or []]
+        if not tokens:
+            raise ValueError("checkpoint carries no prompt tokens")
+        if len(tokens) >= self.max_seq:
+            raise PromptTooLong(
+                f"checkpoint prompt of {len(tokens)} exceeds max_seq {self.max_seq}")
+        mnt = int(ck.get("max_new_tokens", 32))
+        self._check_budget(len(tokens), mnt)
+        emitted = [int(t) for t in ck.get("emitted") or []]
+        if len(emitted) > mnt:
+            raise ValueError(
+                f"checkpoint emitted {len(emitted)} tokens past its max_new_tokens {mnt}")
+        req = GenRequest(
+            tokens=tokens,
+            max_new_tokens=mnt,
+            temperature=float(ck.get("temperature", 0.0)),
+            eos_id=ck.get("eos_id"),
+            seed=int(ck.get("seed", 0)),
+            on_tokens=on_tokens,
+        )
+        now = time.monotonic()
+        # cumulative queue-wait anchor: the source member's wait rides
+        # the checkpoint
+        req.submit_t = now - max(0.0, float(ck.get("wait_s") or 0.0))
+        req.submit_wall_us = int(ck.get("submit_wall_us") or 0) or wall_us(req.submit_t)
+        dl = ck.get("deadline_s")
+        if dl is not None:
+            req.deadline_t = now + max(0.0, float(dl))
+        with self._export_lock:
+            self.stats["migrated_resumes"] += 1
+        if emitted and (len(emitted) >= mnt
+                        or (req.eos_id is not None and emitted[-1] == req.eos_id)):
+            # already complete (a final-state resume token): answer on the
+            # host; re-admitted it would append one overshoot token
+            req.future.gen_request = req
+            req.future.set_result(tokens + emitted)
+            return req.future
+        if emitted:
+            key = ck.get("rng_key")
+            if key is None:
+                # crash tokens ship keyless: re-derive the lane key from
+                # the deterministic split chain
+                from .migration import derive_lane_key
+
+                key = derive_lane_key(req.seed, len(emitted))
+            req.resume = {"emitted": emitted, "key": [int(k) for k in key]}
+        return self._enqueue(req)
+
+    # -- live weight swap ----------------------------------------------------
+
+    def request_weight_swap(self, params, version=None) -> Future:
+        """Stage a live weight swap; the Future resolves to the new weight
+        version once the scheduler flips.
+
+        Thread-safe, under traffic. The new params are cast to the
+        serving dtype, checked leaf for leaf against the served set
+        (``params_swappable``: same tree, shapes and dtypes, or refused
+        here) and staged on the device next to it (a side stream from
+        pinned memory on the card, so the upload overlaps serving). The
+        scheduler then holds admissions while every in-flight lane,
+        chunked admission and burst finishes on the OLD weights, copies
+        the staged leaves into the served tensors at the poll boundary
+        where nothing is in flight (the decode-burst CUDA graphs keep
+        reading the same addresses), bumps ``weight_version``, purges
+        the prefix cache and host tier by version and resumes admissions
+        on the new weights. The served tensors are the ones the
+        constructor was given (cast where they were float32 and the
+        model is not): a caller that keeps a reference to those sees the
+        new weights after the flip."""
+        from ..models.llm import DecoderLM
+
+        self._check_alive()
+        if self.speculate_tokens > 0:
+            raise RuntimeError(
+                "weight hot-swap is not supported with speculative decoding "
+                "(the draft shares or derives from the served params)"
+            )
+        params = _cast_tree(params, self.model.dtype)
+        check = getattr(self.model, "params_swappable", DecoderLM.params_swappable)
+        ok, why = check(self.params, params)
+        if not ok:
+            raise ValueError(f"weight hot-swap rejected: {why}")
+        # fail before the upload when the conflict is already known
+        self._swap_version(version)
+        staged = self._stage_params(params)
+        with self._swap_lock:
+            auto, version = version is None, self._swap_version(version)
+            if auto:
+                self._swap_seq = version
+            job = _SwapJob(params=staged, version=version, nbytes=_tree_bytes(staged),
+                           staged_t=time.monotonic())
+            self._pending_swap = job
+        # the loop must run to flip, traffic or not
+        self.start()
+        return job.future
+
+    def _swap_version(self, version):
+        """The version a new swap takes (an auto sequence number unless
+        given), refusing a second pending swap and the served version
+        (version-keyed prefix slabs of the old weights would match)."""
+        if self._pending_swap is not None:
+            raise RuntimeError("a weight swap is already pending")
+        if version is None:
+            seq = self._swap_seq + 1
+            return seq + 1 if seq == self.weight_version else seq
+        if version == self.weight_version:
+            raise ValueError(
+                f"weight swap version {version!r} is already the served version; "
+                "pick a new version id"
+            )
+        return version
+
+    def _stage_params(self, params):
+        """The swap's params on the batcher's device: leaves already there
+        are kept, the others uploaded (on the card from pinned memory on a
+        side stream, waited for here, on the caller's thread)."""
+        dev = self.device
+
+        def up(t):
+            return t if t.device == dev else t.pin_memory().to(dev, non_blocking=True)
+
+        if dev.type != "cuda":
+            return _map_tree(params, lambda t: t.to(dev))
+        stream = torch.cuda.Stream(dev)
+        with torch.cuda.stream(stream):
+            staged = _map_tree(params, up)
+        stream.synchronize()
+        return staged
+
+    def swap_pending(self) -> bool:
+        """Whether a staged weight swap awaits its flip (callers about to
+        load a checkpoint can fail fast; the authoritative check stays in
+        :meth:`request_weight_swap`)."""
+        return self._pending_swap is not None
+
+    def cancel_weight_swap(self) -> bool:
+        """Abort a staged swap that has not flipped; admissions resume on
+        the next poll. True when one was cancelled."""
+        with self._swap_lock:
+            swap, self._pending_swap = self._pending_swap, None
+        if swap is None:
+            return False
+        if not swap.future.done():
+            swap.future.set_exception(RuntimeError("weight swap cancelled before the flip"))
+        return True
+
+    def _fail_pending_swap(self, err: Exception) -> None:
+        with self._swap_lock:
+            swap, self._pending_swap = self._pending_swap, None
+        if swap is not None and not swap.future.done():
+            swap.future.set_exception(err)
+
+    def _fail_pending_drain(self, err: Exception) -> None:
+        with self._drain_lock:
+            job, self._pending_drain = self._pending_drain, None
+        if job is not None and not job.future.done():
+            job.future.set_exception(err)
 
     # -- disaggregated serving (prefill/decode pools, KV-slab handoff) ------
 
@@ -1717,10 +2050,11 @@ class ContinuousBatcher:
             # with a draft, the plain bursts are what lanes decode with
             # while rung 2 has cancelled speculation
             self._warm_bursts(attn_lens)
-        if pressure:
-            # a resume replays at the bucket of its lane's end position,
-            # which can lie at any bucket from the shallowest prompt up
-            self._warm_replay(sorted(set(attn_lens) | {self._attn_need(lo)}))
+        # a resume (a preempted lane, a migrated checkpoint, a resume
+        # token, a swap straggler) replays at the bucket of its lane's end
+        # position, which can lie at any bucket from the shallowest prompt
+        # up: any member may receive one
+        self._warm_replay(sorted(set(attn_lens) | {self._attn_need(lo)}))
         if self._kv_tier is not None:
             # a preemption spills a lane at its attention width and the
             # copy-back inserts a slab of that width: run the extract and
@@ -1848,6 +2182,8 @@ class ContinuousBatcher:
         if self._thread is not None:
             self._thread.join(timeout=10.0)
         self._drain_queue(self._dead_error())
+        self._fail_pending_swap(self._dead_error())
+        self._fail_pending_drain(self._dead_error())
         # chunked admissions still holding a reserved lane
         for job in self._chunked.values():
             if not job.request.future.done():
@@ -2006,6 +2342,23 @@ class ContinuousBatcher:
                 self.stats["tpot_s_sum"] += tpot
             self.slo_pending.append((queue_wait, ttft, tpot))
             self.slo_recent.append((queue_wait, ttft, tpot))
+            if req.tenant is not None:
+                # the per-tenant split: the TenantScheduler's TTFT
+                # feedback and the server's tenant-tagged TIMERs
+                sums = self.tenant_slo.setdefault(req.tenant, {
+                    "slo_samples": 0.0, "queue_wait_s_sum": 0.0,
+                    "ttft_s_sum": 0.0, "tpot_s_sum": 0.0, "finished": 0.0,
+                })
+                sums["slo_samples"] += 1
+                sums["finished"] += 1
+                sums["queue_wait_s_sum"] += queue_wait
+                sums["ttft_s_sum"] += ttft
+                if tpot is not None:
+                    sums["tpot_s_sum"] += tpot
+                self.tenant_slo_pending.setdefault(
+                    req.tenant, collections.deque(maxlen=1024)).append((queue_wait, ttft, tpot))
+                self.tenant_slo_recent.setdefault(
+                    req.tenant, collections.deque(maxlen=512)).append((queue_wait, ttft, tpot))
         if not req.future.done():
             req.future.set_result(req.tokens + s.emitted)
         self.stats["finished"] += 1
@@ -2136,6 +2489,10 @@ class ContinuousBatcher:
                 )
             self._fail_inflight(pending, err)
             pending = ()
+            self._fail_pending_swap(err)
+            # a drain staged when the loop died cannot complete (the
+            # health writes below replace its latch: a restart serves)
+            self._fail_pending_drain(err)
             if exhausted:
                 logger.error(
                     "continuous batcher crash-loop budget exhausted after %d "
@@ -2598,13 +2955,21 @@ class ContinuousBatcher:
         """The unified HBM ledger, priced the way the reclaim ladder can
         free it: each live lane at its attention-read bucket times the
         K/V bytes per position (the draft cache's included while it is
-        resident), the chunked-prefill staging slabs, and the prefix
-        cache's bytes. Host arithmetic over at most ``slots`` entries."""
+        resident), the chunked-prefill staging slabs, the prefix cache's
+        bytes, a staged swap's weights and the resident tenant's. Host
+        arithmetic over at most ``slots`` entries."""
         per_tok = self._lane_kv_bytes()
+        swap = self._pending_swap
+        pager = self.tenant_pager
         return {
             "decode": sum(self._attn_need(p) for p in self._pos_host.values()) * per_tok,
             "staging": sum(job.bucket for job in self._chunked.values()) * per_tok,
             "prefix": self._prefix_index.total_bytes if self._prefix_index is not None else 0,
+            # a staged swap's second weight set, resident until the flip
+            "swap": swap.nbytes if swap is not None else 0,
+            # the resident tenant's weights (multi-tenant serving): page-ins
+            # compete with K/V growth in the same ledger
+            "pager": int(pager.resident_hbm_bytes) if pager is not None else 0,
         }
 
     def _pressure_poll(self, pending) -> None:
@@ -2776,28 +3141,46 @@ class ContinuousBatcher:
         """``("chunked", slot)``, ``("lane", slot)`` or None. Chunked
         admissions first (nothing emitted yet: preempting one loses no
         work and frees a staging slab; the largest first), then decode
-        lanes: deadline-free ones before those with a deadline (a lane
-        that must answer soon is spared while anything else can yield;
-        among those, the most slack first), and within each the most
-        remaining budget first (the lane that would hold its slot
-        longest yields it)."""
+        lanes: best-effort SLO class before every other, deadline-free
+        ones before those with a deadline (a lane that must answer soon
+        is spared while anything else can yield; among those, the most
+        slack first), and within each the most remaining budget first
+        (the lane that would hold its slot longest yields it).
+
+        Tenant guard: while any best-effort lane is live, the ONLY lane
+        of a ``strict`` tenant is never chosen. When every candidate is
+        protected the guard stands down (pressure relief must stay
+        possible)."""
         if self._chunked:
             return "chunked", max(self._chunked, key=lambda s: self._chunked[s].bucket)
         if len(self._active) <= 1:
             return None
         now = time.monotonic()
+        lanes_per_tenant = collections.Counter(
+            s.request.tenant for s in self._active.values() if s.request.tenant is not None)
+        has_best_effort = any(s.request.slo == "best_effort" for s in self._active.values())
+
+        def protected(slot: int) -> bool:
+            req = self._active[slot].request
+            return (has_best_effort and req.slo == "strict" and req.tenant is not None
+                    and lanes_per_tenant[req.tenant] <= 1)
+
+        candidates = [s for s in self._active if not protected(s)] or list(self._active)
 
         def order(slot: int):
             s = self._active[slot]
             req = s.request
             slack = req.deadline_t - now if req.deadline_t is not None else None
             return (
+                # best_effort first; "standard" (the single-tenant
+                # default) keeps the order it had before tenants
+                0 if req.slo == "best_effort" else 1,
                 0 if slack is None else 1,
                 -(slack if slack is not None else 0.0),
                 -(req.max_new_tokens - len(s.emitted)),
             )
 
-        return "lane", min(self._active, key=order)
+        return "lane", min(candidates, key=order)
 
     def _preempt_chunked(self, slot: int) -> None:
         """Preempt a chunked admission: drop its staging slab and requeue
@@ -2806,13 +3189,14 @@ class ContinuousBatcher:
         self.stats["preemptions"] += 1
         self._resume_queue.append(job.request)
 
-    def _preempt_lane(self, slot: int) -> None:
-        """Preempt one decode lane (rung 3): checkpoint its emitted tokens
-        and its lane key on the host, free the lane and requeue the
-        request for resume. The pipeline has been drained, so ``emitted``
-        and the device state agree; without the host tier the key's one
-        16-byte read is the whole cost, with it the lane's K/V columns
-        spill there too (budget allowing) for a copy-back resume."""
+    def _checkpoint_lane(self, slot: int) -> GenRequest:
+        """Checkpoint one decode lane on the host and free it: its emitted
+        tokens and its post-split lane key in ``req.resume`` (none when
+        nothing was credited yet: a plain re-admit gives the same stream),
+        NOT its K/V. The caller has drained the pipeline, so ``emitted``
+        and the device state agree; the key's 16-byte read is the whole
+        cost. Shared by pressure preemption, the swap's straggler bound
+        and the graceful drain."""
         s = self._active.pop(slot)
         req = s.request
         self._pos_host.pop(slot, None)
@@ -2820,10 +3204,18 @@ class ContinuousBatcher:
         if s.emitted:
             req.resume = {"emitted": list(s.emitted),
                           "key": self._whole.keys[slot].tolist()}
-            if self._kv_tier is not None:
-                # spill the K/V before anything can reuse the lane's
-                # columns (nothing was dispatched since the drain)
-                self._checkpoint_kv_to_tier(slot, req)
+        return req
+
+    def _preempt_lane(self, slot: int) -> None:
+        """Preempt one decode lane (rung 3): :meth:`_checkpoint_lane`,
+        then requeue the request for resume. With the host tier on, the
+        lane's K/V columns spill there too (budget allowing) for a
+        copy-back resume."""
+        req = self._checkpoint_lane(slot)
+        if self._kv_tier is not None and req.resume is not None:
+            # spill the K/V before anything can reuse the lane's columns
+            # (nothing was dispatched since the drain)
+            self._checkpoint_kv_to_tier(slot, req)
         self.stats["preemptions"] += 1
         self._resume_queue.append(req)
 
@@ -2906,6 +3298,128 @@ class ContinuousBatcher:
             self._phase(("replay", attn_len), lambda: self._replay_step(attn_len))
         self.stats["replayed_tokens"] += len(toks)
 
+    # -- swap and drain at the poll boundary ----------------------------------
+
+    @torch.inference_mode()
+    def _do_swap(self, swap: _SwapJob) -> None:
+        """Flip a drained swap (scheduler thread, nothing in flight): copy
+        the staged leaves into the served tensors on the batcher's stream
+        and wait for the copy (the staged set is freed after it), bump
+        ``weight_version`` and purge the prefix cache and host tier by
+        version. Under ``_swap_lock``, so ``cancel_weight_swap`` lands
+        wholly before (the job is gone: skipped) or after (nothing to
+        cancel)."""
+        from ..convert import sorted_leaves
+
+        with self._swap_lock:
+            if self._pending_swap is not swap:
+                return  # cancelled since the loop saw it
+            old_v = self.weight_version
+            for (_p, dst), (_q, src) in zip(sorted_leaves(self.params),
+                                            sorted_leaves(swap.params)):
+                dst.copy_(src)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            swap.params = None
+            self.weight_version = swap.version
+            if self._prefix_index is not None:
+                # old-weights K/V must never splice into a new prefill
+                self.stats["prefix_evicted"] += self._prefix_index.set_version(swap.version)
+                self.stats["prefix_cache_bytes"] = self._prefix_index.total_bytes
+            if self._kv_tier is not None:
+                # the tier's entries are old-weights K/V too (a straggler's
+                # checkpoint then replays instead of splicing stale cache)
+                self._kv_tier.set_version(swap.version)
+            self.stats["weight_swaps"] += 1
+            self._pending_swap = None
+        logger.info("weight swap %r -> %r (drained %d lanes over %d polls)",
+                    old_v, swap.version, swap.drain_lanes or 0, swap.waited_polls)
+        if not swap.future.done():
+            swap.future.set_result(swap.version)
+
+    def _swap_preempt_stragglers(self, pending) -> None:
+        """The swap's straggler bound: the drain outran ``swap_drain_ms``,
+        so every in-flight lane and chunked admission is checkpointed
+        instead of holding the flip hostage. Policy ``"resume"`` requeues
+        them to resume AFTER the flip, on the new weights; ``"fail"``
+        refuses those with emitted tokens (WeightVersionMismatch, 409) and
+        requeues the others (no old-weights prefix to betray)."""
+        self._drain_pending(pending)
+        victims = [self._chunked.pop(slot).request for slot in sorted(self._chunked)]
+        victims += [self._checkpoint_lane(slot) for slot in sorted(self._active)]
+        if not victims:
+            return
+        self.stats["swap_preemptions"] += len(victims)
+        logger.warning("weight swap straggler bound hit after %dms: %d in-flight lane(s) "
+                       "checkpointed (policy=%s)", self.swap_drain_ms, len(victims),
+                       self.swap_resume_policy)
+        for req in victims:
+            if self.swap_resume_policy == "fail" and req.resume is not None:
+                if not req.future.done():
+                    req.future.set_exception(WeightVersionMismatch(
+                        f"generation preempted by a weight swap after swap_drain_ms="
+                        f"{self.swap_drain_ms} and swap_resume_policy=fail forbids "
+                        "resuming its emitted prefix under the new weights; re-submit"))
+            else:
+                self._resume_queue.append(req)
+
+    def _do_drain(self, job: _DrainJob, pending) -> None:
+        """A staged graceful drain at this poll boundary: flush the
+        pipeline (checkpoints need exact host state), checkpoint every
+        live lane, collect chunked admissions whole, then the resume and
+        admit queues. Admissions are already refused (``health`` flipped
+        on the caller's thread), so the list is complete. A job its
+        caller cancelled (timeout) is dropped before any lane is touched
+        and the member serves on."""
+        if not job.future.set_running_or_notify_cancel():
+            with self._drain_lock:
+                if self._pending_drain is job:
+                    self._pending_drain = None
+            self.health = "serving"
+            logger.warning("graceful drain cancelled by its caller before the poll "
+                           "boundary; admissions resumed")
+            return
+        # re-assert the latch: a supervised restart since staging wrote
+        # "serving" back
+        self.health = "draining"
+        try:
+            self._drain_pending(pending)
+            drained = [self._chunked.pop(slot).request for slot in sorted(self._chunked)]
+            n_chunked = len(drained)
+            lanes = [self._checkpoint_lane(slot) for slot in sorted(self._active)]
+            drained += lanes
+            while self._resume_queue:
+                drained.append(self._resume_queue.popleft())
+            while True:
+                try:
+                    drained.append(self._queue.get_nowait())
+                except queue.Empty:
+                    break
+            drained = [r for r in drained if not r.future.cancelled()]
+            self.stats["drains"] += 1
+            logger.info("graceful drain: %d lane(s) checkpointed (%d with emitted tokens), "
+                        "%d chunked, %d requests handed to migration", len(lanes),
+                        sum(r.resume is not None for r in lanes), n_chunked, len(drained))
+            with self._drain_lock:
+                self._pending_drain = None
+            if not job.future.done():
+                job.future.set_result(drained)
+        except Exception as e:  # noqa: BLE001 - the drain's caller must wake
+            with self._drain_lock:
+                self._pending_drain = None
+            if not job.future.done():
+                job.future.set_exception(e)
+
+    def _burst_tenant(self) -> str:
+        """The tenant of a whole-batch dispatch: the one tenant every live
+        lane belongs to, or "" when they mix or have none (the pager
+        serves one resident tenant at a time, so bursts are one tenant's
+        in practice)."""
+        tenants = {s.request.tenant for s in self._active.values()}
+        if len(tenants) != 1:
+            return ""
+        return tenants.pop() or ""
+
     # -- decode dispatch -----------------------------------------------------
 
     def _plan_groups(self, adv: int):
@@ -2973,8 +3487,9 @@ class ContinuousBatcher:
         reason ``"stop_budget"``), never below the ``steps_per_poll``
         burst; while the HBM ledger is latched, to ``steps_per_poll``
         (reason ``"pressure"``: the reclaim ladder runs only between
-        dispatches). The JAX batcher's ``poll_boundary`` reason belongs
-        to weight swap and drain, not ported yet."""
+        dispatches); while a weight swap or a drain is staged, to
+        ``steps_per_poll`` (reason ``"poll_boundary"``: both act at a
+        poll boundary, which a K-step burst would delay by K steps)."""
         k, reason = k_max, None
         floor = min(self._k, k_max)
         rem = [
@@ -2989,6 +3504,9 @@ class ContinuousBatcher:
                 k, reason = tight, "stop_budget"
         if self._pressure.budget_bytes > 0 and self._pressure.active and floor < k:
             k, reason = floor, "pressure"
+        # unlocked reads: a one-poll-late shrink is harmless
+        if (self._pending_swap is not None or self._pending_drain is not None) and floor < k:
+            k, reason = floor, "poll_boundary"
         return max(1, min(k, k_max)), reason
 
     def _sync_masks(self) -> None:
@@ -3079,7 +3597,7 @@ class ContinuousBatcher:
                 self.trace_groups.append({
                     "lanes": tuple(lanes), "attn_len": g_bucket,
                     "need": {i: need[i] for i in lanes}, "grouped": not whole,
-                    "k": k,
+                    "k": k, "tenant": self._burst_tenant(),
                 })
         # PREDICTIVE FREE: an eos-less lane whose budget the dispatched
         # bursts already cover is done; free it now so the next admission
@@ -3159,6 +3677,10 @@ class ContinuousBatcher:
                 self._poll_count += 1
                 if self.fault_hook is not None:
                     self.fault_hook(self._poll_count)
+                if self.tenant_hook is not None:
+                    # the TenantScheduler's poll clock (its starvation
+                    # bound counts scheduler polls)
+                    self.tenant_hook(self._poll_count)
                 if (self._active or self._chunked or pending or self._resume_queue
                         or not self._queue.empty()):
                     self._work_poll_count += 1
@@ -3166,12 +3688,36 @@ class ContinuousBatcher:
                     # refresh the ledger; over the high watermark, run the
                     # reclaim ladder at this poll boundary
                     self._pressure_poll(pending)
+                # graceful drain: checkpoint everything at this boundary
+                # and hand it to the caller; admissions are refused since
+                # drain() latched "draining"
+                drain = self._pending_drain
+                if drain is not None:
+                    self._do_drain(drain, pending)
+                    continue
+                # live weight swap: admissions hold while in-flight lanes,
+                # chunked admissions and bursts finish on the old weights;
+                # the flip comes when all three are empty, so no burst mixes
+                # versions (an unlocked read: _do_swap re-checks the job
+                # under the lock)
+                swap = self._pending_swap
+                if swap is not None:
+                    if swap.drain_lanes is None:
+                        swap.drain_lanes = len(self._active) + len(self._chunked)
+                    if self._active or self._chunked or pending:
+                        swap.waited_polls += 1
+                        if (self.swap_drain_ms
+                                and time.monotonic() - swap.staged_t >= self.swap_drain_ms / 1e3):
+                            self._swap_preempt_stragglers(pending)
+                    if not self._active and not self._chunked and not pending:
+                        self._do_swap(swap)
+                        swap = None
                 # admissions wait while the ledger is latched
                 hold = self._pressure.budget_bytes > 0 and self._pressure.active
                 wave: List[GenRequest] = []
                 busy = len(self._active) + len(self._chunked)
                 wave_cost = 0
-                while not hold and busy + len(wave) < self.slots:
+                while swap is None and not hold and busy + len(wave) < self.slots:
                     # preempted requests resume ahead of newer work
                     if self._resume_queue:
                         req = self._resume_queue.popleft()
@@ -3252,6 +3798,13 @@ def _tree_bytes(tree) -> int:
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
     return 0
+
+
+def _map_tree(tree, fn):
+    """``fn`` over every tensor leaf of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
 def _cast_tree(tree, dt: torch.dtype):

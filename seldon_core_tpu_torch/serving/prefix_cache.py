@@ -103,8 +103,8 @@ class RadixPrefixIndex:
         self._clock = 0
         self._lock = threading.Lock()
         # weight-version key: slabs are K/V computed under ONE set of
-        # model weights. A live weight swap (not ported yet) bumps this
-        # via set_version, purging every stored slab — stale
+        # model weights. A live weight swap bumps this via set_version,
+        # purging every stored slab of its namespace — stale
         # K/V from the old weights can then never splice into a
         # new-weights prefill. match() double-checks per node (belt and
         # braces against any future partial-purge path).

@@ -340,20 +340,74 @@ def test_not_ported_engine_options_raise(kind):
         GraphExecutor(spec, **kw)
 
 
-@pytest.mark.parametrize("path", ["/flightrecorder", "/fleet", "/openapi.json",
-                                  "/weights/swap", "/drain", "/retune"])
+@pytest.mark.parametrize("path", ["/flightrecorder", "/fleet", "/openapi.json", "/retune"])
 def test_not_ported_routes_answer_501(path):
     rest = build_app(PORT, {"name": "m", "implementation": "SIMPLE_MODEL"}).rest_app()
     status, out = dispatch(rest, path, {})
     assert status == 501 and "not ported" in out["status"]["info"]
 
 
+@pytest.mark.parametrize("path,body", [
+    ("/weights/swap", {"model_uri": "/x"}), ("/weights/swap", {"cancel": True}),
+    ("/drain", {"to": "127.0.0.1:1"}), ("/drain", {"checkpoints": []}),
+])
+def test_swap_and_drain_routes_without_a_generate_unit_answer_501(path, body):
+    """The routes are ported; a graph with no unit that can swap or
+    migrate answers 501 as the JAX engine does."""
+    for pkg in (JAX, PORT):
+        rest = build_app(pkg, {"name": "m", "implementation": "SIMPLE_MODEL"}).rest_app()
+        status, out = dispatch(rest, path, body)
+        assert status == 501 and "no unit supports" in out["status"]["info"]
+
+
+def test_swap_and_drain_routes_equal_jax(model_dir):
+    """/weights/swap and /drain on a generate graph answer as the JAX
+    engine's: a missing model_uri or peer is a 400, a cancel with
+    nothing staged reports it, a same-architecture swap flips (both
+    engines load the same checkpoint: the tokens after it stay equal)."""
+    apps = [build_app(pkg, gen_unit(model_dir)) for pkg in (JAX, PORT)]
+    try:
+        _swap_and_drain_routes(apps, model_dir)
+    finally:
+        for app in apps:
+            close_app(app)
+
+
+def _swap_and_drain_routes(engines, model_dir):
+    jax_app, port_app = engines
+    for path, body in (("/weights/swap", {}), ("/drain", {})):
+        want = dispatch(jax_app.rest_app(), path, body)
+        got = dispatch(port_app.rest_app(), path, body)
+        assert got[0] == want[0] == 400
+    want = dispatch(jax_app.rest_app(), "/weights/swap", {"cancel": True})
+    got = dispatch(port_app.rest_app(), "/weights/swap", {"cancel": True})
+    assert got == want == (200, {"units": {"llm": {"cancelled": False, "weight_version": 0}}})
+    swapped = []
+    for app in engines:
+        status, out = dispatch(app.rest_app(), "/weights/swap", {"model_uri": model_dir})
+        assert status == 200, out
+        swapped.append(out["units"]["llm"])
+    assert swapped[0] == swapped[1]
+    assert swapped[1]["swapped"] and swapped[1]["weight_version"] == "v1"
+    body = {"jsonData": REQUESTS[1]}
+    assert dispatch(port_app.rest_app(), PRED, body)[1]["jsonData"] == dispatch(
+        jax_app.rest_app(), PRED, body)[1]["jsonData"]
+
+
 def test_tenant_header_and_resume_token_answer_501(engines):
-    rest = engines[1].rest_app()
+    """Both are ported: a single-tenant server serves a request carrying
+    the Seldon-Tenant header as the JAX engine does (the id rides the
+    meta, unused), and a malformed resume token answers 400, as the
+    JAX engine's."""
+    jax_app, port_app = engines
     body = {"jsonData": {"prompt_tokens": [1, 2], "max_new_tokens": 2}}
-    assert dispatch(rest, PRED, body, headers={"seldon-tenant": "a"})[0] == 501
+    want = dispatch(jax_app.rest_app(), PRED, body, headers={"seldon-tenant": "a"})
+    got = dispatch(port_app.rest_app(), PRED, body, headers={"seldon-tenant": "a"})
+    assert got[0] == want[0] == 200
+    assert got[1]["jsonData"] == want[1]["jsonData"]
     body = {"jsonData": {"resume_token": "x", "max_new_tokens": 2}}
-    assert dispatch(rest, PRED, body)[0] == 501
+    assert dispatch(port_app.rest_app(), PRED, body)[0] == dispatch(
+        jax_app.rest_app(), PRED, body)[0] == 400
 
 
 def test_routes_and_pause(engines):

@@ -142,12 +142,20 @@ def test_health_routes_and_errors(port_app):
 
 
 def test_unported_parameter_raises(model_dir):
-    with pytest.raises(NotImplementedError, match="swap_drain_ms"):
+    with pytest.raises(NotImplementedError, match="flight_recorder"):
         microservice.build_user_object(CLS, _typed(
-            model_uri=model_dir, device="cpu", swap_drain_ms=100))
+            model_uri=model_dir, device="cpu", flight_recorder=512))
     # off values, as strings from the typed-params env, are accepted
-    GenerateServer(model_uri=model_dir, device="cpu", swap_drain_ms="0",
-                   resume_tokens="0", flight_recorder=0)
+    GenerateServer(model_uri=model_dir, device="cpu", profiler="0", flight_recorder=0)
+    # the swap and resume-token parameters are ported: typed strings
+    # parse, and a bad swap policy is refused as the JAX server's batcher
+    # refuses it
+    srv = microservice.build_user_object(CLS, _typed(
+        model_uri=model_dir, device="cpu", swap_drain_ms="100", resume_tokens="1"))
+    assert srv._swap_drain_ms == 100 and srv._resume_tokens
+    bad = GenerateServer(model_uri=model_dir, device="cpu", swap_resume_policy="maybe")
+    with pytest.raises(ValueError, match="swap_resume_policy"):
+        bad.load()
 
 
 def test_default_api_type_is_both(tmp_path, monkeypatch):

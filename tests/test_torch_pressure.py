@@ -362,7 +362,8 @@ def test_ledger_components_track_live_state(models):
     b = port(models, slots=2, prefix_cache_hbm_bytes=1 << 20, prefix_cache_min_tokens=4,
              hbm_ledger_bytes=1 << 30)
     try:
-        assert b._ledger_components() == {"decode": 0, "staging": 0, "prefix": 0}
+        assert b._ledger_components() == {"decode": 0, "staging": 0, "prefix": 0,
+                                          "swap": 0, "pager": 0}
         b.generate(PROMPTS[0], max_new_tokens=8)
         deadline = time.monotonic() + 30
         while (b._pressure.components.get("prefix", 0) != b._prefix_index.total_bytes
@@ -371,7 +372,7 @@ def test_ledger_components_track_live_state(models):
         assert b._pressure.components["prefix"] == b._prefix_index.total_bytes > 0
         summary = b.pressure_summary()
         assert summary["budget_bytes"] == 1 << 30
-        assert set(summary["components"]) == {"decode", "staging", "prefix"}
+        assert set(summary["components"]) == {"decode", "staging", "prefix", "swap", "pager"}
         # a live lane at position p costs its attention bucket of K/V
         b._pos_host[1] = 70
         assert b._ledger_components()["decode"] == b._attn_need(70) * b._kv_key_bytes

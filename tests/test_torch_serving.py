@@ -259,10 +259,23 @@ def test_warm_then_serve_equal(models, reference):
 
 @pytest.mark.parametrize("knob,on,off", [
     ("shard_cache_seq", True, False), ("mesh", "data=2", None),
-    ("profiler", "device_time", None), ("swap_drain_ms", 100, 0),
-    ("flight_recorder_capacity", 512, 0),
+    ("profiler", "device_time", None), ("flight_recorder_capacity", 512, 0),
 ])
 def test_unported_knobs_raise(models, knob, on, off):
     with pytest.raises(NotImplementedError, match="not ported"):
         _port(models, **{knob: on})
     _port(models, **{knob: off}).close()  # the off value is accepted
+
+
+def test_swap_knobs_validated_as_the_jax_package(models):
+    """swap_drain_ms and swap_resume_policy are ported: a policy outside
+    resume|fail is refused as the JAX batcher refuses it."""
+    with pytest.raises(ValueError, match="swap_resume_policy"):
+        _port(models, swap_resume_policy="maybe")
+    with pytest.raises(ValueError, match="swap_resume_policy"):
+        JaxBatcher(models[0], models[1], slots=2, max_seq=64, swap_resume_policy="maybe")
+    b = _port(models, swap_drain_ms=100, swap_resume_policy="fail")
+    try:
+        assert (b.swap_drain_ms, b.swap_resume_policy) == (100, "fail")
+    finally:
+        b.close()

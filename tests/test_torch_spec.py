@@ -448,10 +448,22 @@ def test_generateserver_speculation_refusals(tmp_path):
         GenerateServer(model_uri=d, device="cpu", speculate_tokens=3).load()
     with pytest.raises(ValueError, match="must be < the served model's n_layers"):
         GenerateServer(model_uri=d, device="cpu", speculate_tokens=3, draft_layers=2).load()
-    for name, value in (("resume_tokens", 1), ("swap_drain_ms", 100)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            GenerateServer(model_uri=d, device="cpu", speculate_tokens=3, draft_layers=1,
-                           **{name: value})
+    # resume tokens assume the plain decode's key chain: refused with a
+    # draft, as the JAX server refuses them; a swap is refused at request
+    # time (the early-exit draft shares the served tensors)
+    with pytest.raises(ValueError, match="resume_tokens"):
+        GenerateServer(model_uri=d, device="cpu", speculate_tokens=3, draft_layers=1,
+                       resume_tokens=1)
+    srv = GenerateServer(model_uri=d, device="cpu", speculate_tokens=3, draft_layers=1,
+                         swap_drain_ms=100)
+    srv.load()
+    try:
+        with pytest.raises(RuntimeError, match="speculative"):
+            srv.hot_swap(d)
+        with pytest.raises(RuntimeError, match="speculative"):
+            srv.batcher.request_weight_swap(TorchLM(**CFG).init_params(1, device="cpu"))
+    finally:
+        srv.close()
     with pytest.raises(ValueError, match="draft_params"):
         ContinuousBatcher(TorchLM(**CFG), TorchLM(**CFG).init_params(0, device="cpu"),
                           draft_model=TorchLM(**DRAFT_CFG))

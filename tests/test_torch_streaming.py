@@ -90,8 +90,9 @@ def test_stream_validates_eagerly(port):
     status, _ctype, _ev = port.sse({"jsonData": {"prompt_tokens": list(range(64)),
                                                  "max_new_tokens": 2}})
     assert status == 413
+    # a malformed resume token is a client fault (the token is ported)
     status, _ctype, _ev = port.sse({"jsonData": {"resume_token": "x"}})
-    assert status == 501
+    assert status == 400
 
 
 def test_multi_node_graph_streaming_is_501(model_dir):
