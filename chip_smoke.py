@@ -6,7 +6,8 @@
 Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails. ``--phases`` runs a subset of
 ``kernels, small, serve, engine, small-sched, sched, prefix, pressure,
-spec, spec-pressure, dh256, f32, disagg, kvtier, migration, model``
+spec, spec-pressure, dh256, f32, disagg, kvtier, migration, telemetry,
+model``
 (device and build always run; the
 result lines print only when every phase ran, as with no argument):
 
@@ -179,7 +180,27 @@ result lines print only when every phase ran, as with no argument):
    every whole-prompt prefill launched the flash kernel. Reports drain
    and resume ms, the swap's checkpoint load, stage and flip ms and peak
    memory, and each page-in's decode, stage and flip ms.
-17. Model (on the engine phase's copy, after every serving phase: a
+17. Telemetry (llm-1.26b, bf16, seed-0 weights, `GenerateServer`s from
+   the serve phase's typed parameters plus fused K 64 and depth groups
+   4): a profiler-off boot gives the decode graph count and each serve
+   request's tokens alone; a boot with the device-time ledger (CUDA
+   event pairs, deep every 16th dispatch, 3350 GB/s), the flight
+   recorder (512) and TTFT/TPOT objectives serves the serve waves,
+   alternated with the profiler-off boot (off, on, on, off: tokens/s,
+   TTFT and TPOT side by side, the SM clock after each). Prints the ledger's device ms and share per kind, the busy and idle
+   share and MBU over the waves, the live gauges, the deep samples, the
+   dump's records and the burn verdicts. Fails unless each request alone
+   equals the profiler-off boot's (and greedy_20 the serve phase's when
+   it ran), the graph count equals the profiler-off boot's with none
+   captured after ``warm()``, the ledger's ms per step of its most
+   frequent fused burst lies within 25% of CUDA events around the same
+   replayed burst, a retune of fused K and depth groups through the
+   engine's ``/retune`` under in-flight traffic applies with no graph
+   captured and each request alone unchanged after it, an out-of-census
+   K answers 409, and ``/flightrecorder`` and ``/fleet`` answer 200 with
+   the JAX payload keys. Prints, not gated, a B=1 T=1024 prefill's ledger
+   (stream) time beside torch.profiler's kernel sum.
+18. Model (on the engine phase's copy, after every serving phase: a
    profiler run may slow later launches): full-width prefill time per
    bucket with the flash kernel's device time inside it
    (torch.profiler), a prefix hit's suffix prefill against the full
@@ -191,7 +212,7 @@ result lines print only when every phase ran, as with no argument):
    a 6-layer early-exit draft, the W = 5 verify chunk, acceptance)
    against 5 decode steps at B = 4, attention 512, in device-busy time
    and device operations.
-18. The ``kernels`` JSON line (the flash kernel on the main path, its
+19. The ``kernels`` JSON line (the flash kernel on the main path, its
    Dh 256 instance on the dh256 phase's and its float32 instance on the
    f32 phase's), then the final ``{"ok": true, ...}`` line.
 
@@ -202,9 +223,11 @@ from __future__ import annotations
 
 import asyncio
 import collections
+import gc
 import http.client
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -3778,9 +3801,322 @@ def phase_migration(card):
     return launches
 
 
+# the telemetry phase: llm-1.26b with the flight recorder, the device-time
+# ledger and SLO objectives on, fused decode and depth groups in its boot
+# census (retuned under traffic)
+TELEMETRY_KNOBS = {"fused_steps_per_dispatch": 64, "depth_groups": 4}
+TELEMETRY_ON = {"profiler": 1, "profiler_deep_every": 16, "profiler_hbm_gb_s": 3350,
+                "flight_recorder": 512, "slo_objectives": "ttft:1000:0.99,tpot:10:0.99"}
+TELEMETRY_RETUNE = {"fused_steps_per_dispatch": 32, "depth_groups": 2}
+# (c): the ledger's per-dispatch burst time against CUDA events around
+# the same replayed burst
+LEDGER_TOL = 0.25
+
+
+def _engine_call(rest, method, path, body=None):
+    """One request through an engine's REST router in process:
+    ``(status, json)``."""
+    from seldon_core_tpu_torch.http_server import Request
+
+    data = json.dumps(body).encode() if body is not None else b""
+    query = ""
+    if "?" in path:
+        path, query = path.split("?", 1)
+    hdrs = {"content-type": "application/json"} if data else {}
+    resp = asyncio.run(rest._dispatch(Request(method, path, query, hdrs, data)))
+    return resp.status, json.loads(resp.body) if resp.body else None
+
+
+def _ledger_split(tag, summary, wall_s, card):
+    """Print the ledger's device ms and share per kind over ``wall_s`` of
+    traffic; returns (device busy share, modelled bytes / s)."""
+    rows = summary["buckets"]
+    total = sum(r["s"] for r in rows) or 1e-12
+    for kind, secs in sorted(summary["by_kind"].items(), key=lambda kv: -kv[1]):
+        n = sum(r["n"] for r in rows if r["kind"] == kind)
+        log(f"[telemetry] {tag}: {kind} {secs * 1e3:.2f} ms over {n} dispatches, "
+            f"{100 * secs / total:.1f}% of measured device time [{card}]")
+    nbytes = sum(r["bytes"] for r in rows)
+    busy = total / wall_s
+    log(f"[telemetry] {tag}: measured device time {total * 1e3:.1f} ms in {wall_s * 1e3:.1f} ms "
+        f"of wall time: busy {busy:.4f}, idle {1 - busy:.4f}; modelled reads "
+        f"{nbytes / 1e9:.3f} GB, {nbytes / wall_s / 1e9:.1f} GB/s = MBU "
+        f"{100 * nbytes / wall_s / PEAK_BYTES_S:.2f}% of 3.35 TB/s [{card}]")
+    return busy, nbytes / wall_s
+
+
+def _ledger_delta(before, after):
+    """``after`` minus ``before`` of two ledger summaries, as a summary."""
+    prev = {(r["kind"], r["variant"], r.get("tenant", "")): r for r in before["buckets"]}
+    rows, by_kind = [], {}
+    for r in after["buckets"]:
+        p = prev.get((r["kind"], r["variant"], r.get("tenant", "")))
+        d = {k: r[k] - (p[k] if p else 0) for k in ("s", "n", "bytes", "tokens")}
+        if d["n"]:
+            rows.append({"kind": r["kind"], "variant": r["variant"], **d})
+            by_kind[r["kind"]] = by_kind.get(r["kind"], 0.0) + d["s"]
+    return {"buckets": rows, "by_kind": by_kind}
+
+
+def _burst_check(server, summary, card):
+    """(c): the ledger's ms per step of its most frequent fused burst
+    against CUDA events around the same replayed burst (greedy and
+    sampled step graphs: the traffic ran both) on the same batcher, idle,
+    with every lane live."""
+    import torch
+
+    b = server.batcher
+    fused = [r for r in summary["buckets"] if r["kind"] in ("fused_burst", "decode_burst")]
+    if not fused:
+        raise AssertionError("[telemetry] the ledger recorded no whole-batch decode burst")
+    row = max(fused, key=lambda r: r["n"])
+    k, bucket = (int(x) for x in re.match(r"k(\d+)b(\d+)", row["variant"]).groups())
+    ledger_ms = row["s"] * 1e3 / row["n"]
+    w = b._whole
+    w.act.fill_(True)
+    w.budget.fill_(1 << 20)
+    w.stops.fill_(-1)
+    timed = {}
+    for stoch in (False, True):
+        def burst():
+            # every write lands inside the bucket: k steps from bucket - k - 1
+            w.pos.fill_(bucket - k - 1)
+            b._whole_burst(k, bucket, stoch, True)  # replays the captured graphs
+
+        burst()
+        torch.cuda.synchronize()
+        n = 4
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            burst()
+        end.record()
+        torch.cuda.synchronize()
+        timed[stoch] = start.elapsed_time(end) / n
+    b._reset_lanes()  # the lanes are idle: their registers go back to zero
+    lo, hi = min(timed.values()), max(timed.values())
+    ok = (1 - LEDGER_TOL) * lo <= ledger_ms <= (1 + LEDGER_TOL) * hi
+    log(f"[telemetry] (c) ledger {row['kind']} {row['variant']} over {row['n']} dispatches: "
+        f"{ledger_ms / k:.3f} ms per step; CUDA events around the same replayed burst: greedy "
+        f"{timed[False] / k:.3f}, sampled {timed[True] / k:.3f} ms per step (tolerance "
+        f"{LEDGER_TOL:.0%}): {'OK' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise AssertionError("[telemetry] the ledger's burst time is off the CUDA-event timing")
+
+
+def _prefill_check(server, card):
+    """(d), not gated: a B=1, T=1024 prefill measured by a CUDA ledger
+    (stream time) beside torch.profiler's kernel sum for the same call
+    and its host wall time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from seldon_core_tpu_torch.serving.profiler import DeviceTimeLedger
+
+    b = server.batcher
+    rs = np.random.RandomState(4)
+    prompt = rs.randint(0, LLM_1_26B["vocab_size"], (1, 1024))
+    last = np.asarray([1023])
+    b._prefill(prompt, last, [0], [0.0])
+    torch.cuda.synchronize()
+    led = DeviceTimeLedger(enabled=True, device="cuda")
+    n = 3
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with led.measure("prefill", variant="p1024"):
+            b._prefill(prompt, last, [0], [0.0])
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    ledger_ms = led.summary()["by_kind"]["prefill"] * 1e3 / n
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            b._prefill(prompt, last, [0], [0.0])
+        torch.cuda.synchronize()
+    kern_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type.name == "CUDA") / 1e3 / n
+    log(f"[telemetry] (d) B=1 T=1024 prefill: ledger (stream time) {ledger_ms:.3f} ms, "
+        f"torch.profiler kernel sum {kern_ms:.3f} ms, host wall {wall_ms:.3f} ms: stream "
+        f"time is {ledger_ms / kern_ms:.2f}x the device's busy time on this eager dispatch "
+        f"[{card}]")
+
+
+def phase_telemetry(card, serve_alone=None):
+    """Telemetry and retune at llm-1.26b (bf16, seed-0 weights, the serve
+    phase's GenerateServer parameters plus fused K 64 and depth groups
+    4): a profiler-off boot gives the graph count and each request's
+    tokens alone; a boot with the ledger (deep every 16, 3350 GB/s), the
+    recorder (512) and TTFT/TPOT objectives serves the serve waves
+    alternated with the profiler-off boot (off, on, on, off), then
+    checks (a) each request alone against the profiler-off boot's (and
+    greedy_20 against the serve phase's when it ran), (b) the graph count
+    and no capture after warm(), (c) the ledger's burst time against CUDA
+    events, (d) a B=1 prefill's stream time beside its kernel sum
+    (printed), (e) a retune of fused K and depth groups through the
+    engine's /retune under in-flight traffic (applied at a poll boundary,
+    no graph captured, each request alone unchanged after it; an
+    out-of-census value 409), (f) /flightrecorder and /fleet through the
+    same engine. Returns the flash kernel's launches over the traffic."""
+    import torch
+
+    probe, mixed = serve_waves()
+    items = probe + [m for m in mixed if not m[0].startswith("mixed_")]
+    with tempfile.TemporaryDirectory(prefix="chip-telemetry-") as root:
+        model_dir = _mig_dir(root, 0)
+        t0 = time.perf_counter()
+        off = _gen_server(model_dir, **TELEMETRY_KNOBS)
+        boot_off = time.perf_counter() - t0
+        graphs_off = off.batcher.stats["graphs_captured"]
+        on = None
+        try:
+            if off.batcher.flight is None or off.profiler.enabled:
+                raise AssertionError("[telemetry] the profiler-off boot is not the default")
+            ref = _alone(off, items)
+            if serve_alone is not None and ref["greedy_20"] != serve_alone[0]:
+                raise AssertionError("[telemetry] greedy_20 alone differs from the serve "
+                                     "phase's")
+            t0 = time.perf_counter()
+            on = _gen_server(model_dir, **TELEMETRY_KNOBS, **TELEMETRY_ON)
+            boot_on = time.perf_counter() - t0
+            b = on.batcher
+            census = b.retune_census()
+            log(f"[telemetry] boots: profiler off {boot_off:.1f} s, on {boot_on:.1f} s; graphs "
+                f"captured {graphs_off} / {b.stats['graphs_captured']}; census {census}")
+            if (b.stats["graphs_captured"] != graphs_off
+                    or b.stats["graph_captures_inline"]):
+                raise AssertionError("[telemetry] (b) the ledger changed the graph count")
+            if TELEMETRY_RETUNE["fused_steps_per_dispatch"] not in census["fused_ks"]:
+                raise AssertionError("[telemetry] the retune target is outside the census")
+            app = _engine_for(on, model_dir)
+            rest = app.rest_app()
+
+            def poster(server):
+                return lambda body: (200, {"jsonData": server.predict(body["jsonData"], [])})
+
+            post = poster(on)
+            # (a) each request alone, as on the profiler-off boot, so both
+            # servers' waves come after the same traffic
+            t_run = time.perf_counter()
+            got = _alone(on, items)
+            bad = [x for x in items if got[x[0]] != ref[x[0]]]
+            if bad:
+                raise AssertionError(f"[telemetry] (a) {[x[0] for x in bad]} alone differ "
+                                     "from the profiler-off boot's")
+            log(f"[telemetry] (a) {len(items)} requests alone on the profiler-on server equal "
+                "the profiler-off boot's")
+            # the serve waves with the ledger off and on, alternated off, on,
+            # on, off (what the ledger costs end to end), the SM clock and
+            # power sampled after each
+            numbers = {"off": [], "on": []}
+            wall = off_wall = 0.0
+            before = on.profiler.summary()
+            for side in ("off", "on", "on", "off"):
+                server = on if side == "on" else off
+                t0 = time.perf_counter()
+                n_launch, _p, _f, nums = run_waves(
+                    f"telemetry ledger {side}", poster(server), server.batcher, probe, mixed,
+                    card)
+                if side == "on":
+                    wall += time.perf_counter() - t0
+                    launches = n_launch
+                else:
+                    off_wall += time.perf_counter() - t0
+                numbers[side].append(nums)
+                smi = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+                    capture_output=True, text=True, timeout=60).stdout.strip()
+                log(f"[telemetry] after the ledger-{side} waves: SM clock, power draw {smi}")
+            log("[telemetry] the serve waves, ledger on vs off (off, on, on, off): "
+                + "; ".join(f"{k} on {numbers['on'][0][k]:.2f}, {numbers['on'][1][k]:.2f} / off "
+                            f"{numbers['off'][0][k]:.2f}, {numbers['off'][1][k]:.2f}"
+                            for k in ("tok_s", "ttft_p50", "tpot_p50")) + f" [{card}]")
+            off.close()
+            off = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            traffic = _ledger_delta(before, on.profiler.summary())
+            _ledger_split("the serve waves (both ledger-on runs)", traffic, wall, card)
+            live = on.profiler.gauges()
+            summ = on.profiler.summary()
+            log(f"[telemetry] live gauges over the ledger's 10 s window: device_busy_frac "
+                f"{live.get('device_busy_frac')}, mbu_pct {live.get('mbu_pct')} (3350 GB/s); "
+                f"deep samples {summ['deep_samples']} (every 16th dispatch) [{card}]")
+            _burst_check(on, traffic, card)
+            # (e) a retune through the engine while the mixed wave decodes
+            graphs0 = b.stats["graphs_captured"]
+            wave = {}
+            th = threading.Thread(target=lambda: wave.update(fire(post, mixed)))
+            th.start()
+            # the retune lands while most of the wave decodes
+            deadline = time.monotonic() + 60
+            while len(b._active) < len(mixed) - 2 and time.monotonic() < deadline:
+                time.sleep(0.001)
+            t0 = time.perf_counter()
+            status, out = _engine_call(rest, "POST", "/retune",
+                                       {"knobs": TELEMETRY_RETUNE, "origin": "chip_smoke"})
+            retune_ms = (time.perf_counter() - t0) * 1e3
+            inflight = len(b._active)
+            th.join(600)
+            if status != 200:
+                raise AssertionError(f"[telemetry] (e) /retune answered {status}: {out}")
+            for label, toks, _t, _s in mixed:
+                st, body = wave[label]
+                if st != 200 or len(body["jsonData"]["tokens"][0]) != len(toks) + MAX_NEW:
+                    raise AssertionError(f"[telemetry] (e) {label} failed across the retune")
+            changed = out["units"]["llm"]["changed"]
+            if set(changed) != set(TELEMETRY_RETUNE) or len(wave) != len(mixed):
+                raise AssertionError(f"[telemetry] (e) retune changed {changed}")
+            got = _alone(on, items)
+            bad = [x[0] for x in items if got[x[0]] != ref[x[0]]]
+            if bad or b.stats["graphs_captured"] != graphs0 or b.stats["graph_captures_inline"]:
+                raise AssertionError(f"[telemetry] (e) after the retune: {bad} differ alone, "
+                                     f"graphs {graphs0} -> {b.stats['graphs_captured']}")
+            status, out = _engine_call(rest, "POST", "/retune",
+                                       {"knobs": {"fused_steps_per_dispatch": 128}})
+            if status != 409:
+                raise AssertionError(f"[telemetry] (e) out-of-census retune answered {status}")
+            log(f"[telemetry] (e) /retune {changed} applied at a poll boundary in "
+                f"{retune_ms:.1f} ms with {inflight} lanes in flight; no graph captured; each "
+                f"request alone unchanged; fused 128 answered 409 ({out['status']['info'][:60]})")
+            # (f) the recorder and the fleet plane through the same engine
+            status, fr = _engine_call(rest, "GET", "/flightrecorder")
+            dump = fr["units"]["llm"] if status == 200 else {}
+            want = {"capacity", "enabled", "recorded_total", "dropped", "entries", "slo",
+                    "stats", "weight_version", "profiler", "slo_burn"}
+            if status != 200 or not want <= set(dump):
+                raise AssertionError(f"[telemetry] (f) /flightrecorder {status} "
+                                     f"{sorted(dump)}")
+            status, fleet = _engine_call(rest, "GET", "/fleet")
+            unit = fleet["units"].get("llm", {}) if status == 200 else {}
+            if status != 200 or set(fleet) != {"predictor", "metrics", "units"} \
+                    or set(unit) != {"profiler", "slo_burn", "planning"}:
+                raise AssertionError(f"[telemetry] (f) /fleet {status} {sorted(unit)}")
+            types = collections.Counter(e["type"] for e in dump["entries"])
+            polls = [e for e in dump["entries"] if e["type"] == "poll"]
+            log(f"[telemetry] (f) /flightrecorder: {dump['recorded_total']} records "
+                f"({dump['dropped']} dropped), {len(polls)} poll records in the ring, "
+                f"{sum('device_time' in e for e in polls)} with ledger rows; types "
+                f"{dict(types)}; /fleet series: {len(fleet['metrics']['counters'])} counters, "
+                f"{len(fleet['metrics']['gauges'])} gauges [{card}]")
+            for v in unit["slo_burn"]["verdicts"]:
+                log(f"[telemetry] burn {v['slo']} ({v['threshold_s'] * 1e3:.0f} ms at "
+                    f"{v['target']}): fast {v['fast_burn']} slow {v['slow_burn']} over "
+                    f"{v['slow_samples']} samples, budget left {v['budget_remaining']}, "
+                    f"{v['severity']} [{card}]")
+            # the profiler-on server's whole run, its traffic only
+            _ledger_split("the whole serving run", on.profiler.summary(),
+                          time.perf_counter() - t_run - off_wall, card)
+            _prefill_check(on, card)
+        finally:
+            for server in (off, on):
+                if server is not None:
+                    server.close()
+    return launches
+
+
 PHASES = ("kernels", "small", "serve", "engine", "small-sched", "sched", "prefix",
           "pressure", "spec", "spec-pressure", "dh256", "f32", "disagg", "kvtier", "migration",
-          "model")
+          "telemetry", "model")
 
 
 def _llm_model():
@@ -3849,7 +4185,7 @@ def main(argv=None) -> int:
         launches = alone = engine_launches = model = params = serve_numbers = None
         sched_launches = sched_tokens = prefix_launches = pressure_launches = None
         spec_launches = dh256_launches = f32_launches = None
-        disagg_launches = kvtier_launches = migration_launches = None
+        disagg_launches = kvtier_launches = migration_launches = telemetry_launches = None
         if "serve" in phases:
             launches, alone, serve_numbers = phase_serve(card)
             free()  # the serve phase's copy of the model goes
@@ -3903,6 +4239,10 @@ def main(argv=None) -> int:
             migration_launches = phase_migration(card)
             free()
             lap("migration")
+        if "telemetry" in phases:
+            telemetry_launches = phase_telemetry(card, alone)
+            free()
+            lap("telemetry")
         # the profiler runs last: once it has traced the card, later
         # launches may carry its overhead
         if "model" in phases:
@@ -3934,6 +4274,7 @@ def main(argv=None) -> int:
             "disagg_launches": disagg_launches,
             "kvtier_launches": kvtier_launches,
             "migration_launches": migration_launches,
+            "telemetry_launches": telemetry_launches,
             "dh256_launches": dh256_launches,
             "max_abs_err": worst(lambda r: r["dtype"] == "bfloat16"),
             "wgmma_max_abs_err": worst(lambda r: r["route"] == "wgmma"),

@@ -6,8 +6,9 @@ timers with percentile histograms (reference:
 engine/src/main/resources/application.properties:4-11,
 engine/.../metrics/CustomMetricsManager.java:27-70 for dynamic
 counters/gauges/timers fed from ``Meta.metrics``), scraped at
-``/prometheus`` (and ``/metrics``). The fleet snapshot/merge of the JAX
-package waits for the port's fleet telemetry.
+``/prometheus`` (and ``/metrics``). :meth:`MetricsRegistry.fleet_snapshot`,
+:meth:`MetricsRegistry.ingest_fleet` and :func:`diff_fleet_snapshot` are
+the fleet plane's mergeable view (the engine's ``/fleet`` route).
 """
 
 from __future__ import annotations
@@ -130,6 +131,9 @@ class MetricsRegistry:
         "gen_weight_page_outs": "seldon_engine_weight_page_outs",
         "gen_weight_pager_evictions": "seldon_engine_weight_pager_evictions",
         "gen_weight_pager_refused": "seldon_engine_weight_pager_refused",
+        # live retune: retunes the scheduler applied at a poll boundary
+        # (refused ones never reach the stats)
+        "gen_planner_retunes": "seldon_engine_planner_retunes",
     }
 
     # fused stop-aware decode: device steps run inside fused bursts and
@@ -155,6 +159,31 @@ class MetricsRegistry:
         "gen_weight_pager_host_bytes": "seldon_engine_weight_pager_host_bytes",
         "gen_weight_pager_resident_bytes": "seldon_engine_weight_pager_resident_bytes",
         "gen_tenants_registered": "seldon_engine_tenants_registered",
+    }
+
+    # device-time ledger (serving/profiler.py): seconds, dispatches and
+    # modelled read bytes per (kind, variant[, tenant]);
+    # gen_device_time_ms arrives in ms and lands in seconds
+    _DEVICE = {
+        "gen_device_time_ms": "seldon_engine_device_time_seconds",
+        "gen_device_dispatches": "seldon_engine_device_dispatches",
+        "gen_device_bytes": "seldon_engine_device_bytes",
+    }
+
+    # SLO burn verdict evaluations per (slo, severity[, tenant])
+    _SLO_BURN = {
+        "gen_slo_verdicts": "seldon_engine_slo_burn_verdicts",
+    }
+
+    # the ledger's live gauges over its sliding window (busy fraction,
+    # MBU, dispatch-floor share) and the burn engine's burn rates and
+    # remaining error budget
+    _DEVICE_GAUGES = {
+        "gen_device_busy_frac": "seldon_engine_device_busy_frac",
+        "gen_mbu_pct": "seldon_engine_mbu_pct",
+        "gen_dispatch_floor_pct": "seldon_engine_dispatch_floor_pct",
+        "gen_slo_burn_rate": "seldon_engine_slo_burn_rate",
+        "gen_slo_budget_remaining": "seldon_engine_slo_budget_remaining",
     }
 
     # generate SLO TIMERs (per completed request, shipped by the generate
@@ -196,11 +225,21 @@ class MetricsRegistry:
                 fused = self._FUSED.get(key)
                 if fused is not None:
                     self.counter_inc(fused, tags, val)
+                dev = self._DEVICE.get(key)
+                if dev is not None:
+                    self.counter_inc(
+                        dev, tags, val / 1000.0 if key == "gen_device_time_ms" else val)
+                burn = self._SLO_BURN.get(key)
+                if burn is not None:
+                    self.counter_inc(burn, tags, val)
             elif mtype == "GAUGE":
                 self.gauge_set(f"seldon_custom_{key}", val, tags)
                 rg = self._RECOVERY_GAUGES.get(key)
                 if rg is not None:
                     self.gauge_set(rg, val, tags)
+                dg = self._DEVICE_GAUGES.get(key)
+                if dg is not None:
+                    self.gauge_set(dg, val, tags)
             elif mtype == "TIMER":
                 self.observe(f"seldon_custom_{key}", val / 1000.0, tags)
                 slo = self._SLO_TIMERS.get(key)
@@ -256,6 +295,59 @@ class MetricsRegistry:
                 prev = b
             return prev
 
+    # -- fleet plane (cross-member aggregation) ---------------------------
+
+    def fleet_snapshot(self) -> Dict[str, Dict]:
+        """JSON-safe dump of every series -- counters and gauges with their
+        label sets, histograms with their whole bucket arrays -- that
+        ``/fleet`` ships, so a scraper merges members instead of deriving
+        quantiles from quantiles (bucket counts add; p99s do not)."""
+        def pack(series):
+            return [{"labels": dict(key), "value": v} for key, v in series.items()]
+
+        with self._lock:
+            return {
+                "counters": {n: pack(s) for n, s in self._counters.items()},
+                "gauges": {n: pack(s) for n, s in self._gauges.items()},
+                "histograms": {
+                    n: [{"labels": dict(key), "h": list(h)} for key, h in s.items()]
+                    for n, s in self._histograms.items()
+                },
+                "buckets": list(_BUCKETS),
+            }
+
+    def ingest_fleet(self, snapshot: Dict[str, Dict],
+                     extra_labels: Dict[str, str] | None = None) -> None:
+        """Merge one member's :meth:`fleet_snapshot` (diffed by the caller
+        between scrapes: see :func:`diff_fleet_snapshot`) into this
+        registry: counters and histogram buckets add, gauges overwrite
+        per label set. ``extra_labels`` keeps members apart after the
+        merge; a member on another histogram grid has its histograms
+        skipped, never misbinned."""
+        extra = extra_labels or {}
+        snap_buckets = snapshot.get("buckets")
+        if snap_buckets is not None and list(snap_buckets) != list(_BUCKETS):
+            snapshot = {**snapshot, "histograms": {}}
+        for name, series in (snapshot.get("counters") or {}).items():
+            for ent in series:
+                self.counter_inc(name, {**ent["labels"], **extra}, float(ent["value"]))
+        for name, series in (snapshot.get("gauges") or {}).items():
+            for ent in series:
+                self.gauge_set(name, float(ent["value"]), {**ent["labels"], **extra})
+        with self._lock:
+            for name, series in (snapshot.get("histograms") or {}).items():
+                for ent in series:
+                    key = _labels_key({**ent["labels"], **extra})
+                    src = [float(x) for x in ent["h"]]
+                    if len(src) != len(_BUCKETS) + 2:
+                        continue
+                    h = self._histograms[name].get(key)
+                    if h is None:
+                        self._histograms[name][key] = src
+                    else:
+                        for i, x in enumerate(src):
+                            h[i] += x
+
     def expose(self) -> str:
         lines: List[str] = []
         with self._lock:
@@ -281,3 +373,51 @@ class MetricsRegistry:
 
 
 REGISTRY = MetricsRegistry()
+
+
+def diff_fleet_snapshot(prev: Dict | None, cur: Dict) -> Dict:
+    """Per-member delta between two :meth:`MetricsRegistry.fleet_snapshot`
+    captures, what :meth:`MetricsRegistry.ingest_fleet` takes. Counters
+    and histogram buckets diff elementwise; a negative delta (the member
+    restarted, its totals reset) falls back to the current total. Gauges
+    are levels and pass through."""
+    if not prev:
+        return cur
+
+    def key(ent):
+        return tuple(sorted(ent["labels"].items()))
+
+    out: Dict[str, Dict] = {
+        "counters": {},
+        "gauges": cur.get("gauges") or {},
+        "histograms": {},
+        "buckets": cur.get("buckets"),
+    }
+    for name, series in (cur.get("counters") or {}).items():
+        pmap = {key(e): float(e["value"]) for e in (prev.get("counters") or {}).get(name, [])}
+        ents = []
+        for e in series:
+            d = float(e["value"]) - pmap.get(key(e), 0.0)
+            if d < 0:
+                d = float(e["value"])
+            if d:
+                ents.append({"labels": e["labels"], "value": d})
+        if ents:
+            out["counters"][name] = ents
+    for name, series in (cur.get("histograms") or {}).items():
+        pmap = {key(e): e["h"] for e in (prev.get("histograms") or {}).get(name, [])}
+        ents = []
+        for e in series:
+            h = [float(x) for x in e["h"]]
+            ph = pmap.get(key(e))
+            if ph is not None and len(ph) == len(h):
+                dh = [a - float(b) for a, b in zip(h, ph)]
+                if any(x < 0 for x in dh):
+                    dh = h
+            else:
+                dh = h
+            if any(dh):
+                ents.append({"labels": e["labels"], "h": dh})
+        if ents:
+            out["histograms"][name] = ents
+    return out

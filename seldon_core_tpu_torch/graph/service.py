@@ -21,11 +21,16 @@ reference engine's external surface:
     ``resume_checkpoint``: the generate server), and the
     ``Seldon-Tenant`` header stamped into the message meta for
     multi-tenant generate servers
+  * telemetry and retune: ``/flightrecorder`` (every unit's scheduler
+    flight recorder), ``/fleet`` (the mergeable metric snapshot with each
+    unit's device-time ledger, SLO burn verdicts and retune census) and
+    ``POST /retune`` (a live knob change applied at a poll boundary).
+    The JAX engine's ``(fusion)`` pseudo-unit in ``/flightrecorder`` is
+    absent: graph fusion is not ported
 
 The REST front needs no protobuf runtime (a binary body loads it); the
-gRPC front imports ``grpc`` when it is built. The flight-recorder,
-fleet, openapi and retune routes answer 501: their subsystems are not
-ported yet.
+gRPC front imports ``grpc`` when it is built. The openapi route answers
+501: it is not ported yet.
 """
 
 from __future__ import annotations
@@ -179,6 +184,35 @@ class EngineApp:
                     yield rt.name, target
         except Exception:  # noqa: BLE001 - a half-built graph during teardown
             return
+
+    def fleet_summary(self) -> Dict[str, Any]:
+        """The ``/fleet`` payload: this member's whole metric state
+        (mergeable: counters, gauges, histogram bucket arrays) plus each
+        unit's device-time ledger summary, SLO burn feed and retune
+        census beside its current knob values. Each unit's pending
+        ``metrics()`` deltas are flushed first, so a scrape between
+        requests sees fresh ledger and burn state."""
+        units: Dict[str, Any] = {}
+        for _name, target in self.units_with("metrics"):
+            self._flush_unit_metrics(target)
+        for name, target in self.units_with("profiler"):
+            prof = target.profiler
+            if prof is not None and prof.enabled:
+                units.setdefault(name, {})["profiler"] = prof.summary()
+        for name, target in self.units_with("slo_burn"):
+            burn = target.slo_burn
+            if burn is not None:
+                units.setdefault(name, {})["slo_burn"] = burn.summary()
+        for name, target in self.units_with("serving_config"):
+            cfg = target.serving_config()
+            if cfg is not None:
+                units.setdefault(name, {})["planning"] = {
+                    "config": cfg, "census": target.retune_census()}
+        return {
+            "predictor": self.spec.name,
+            "metrics": self.metrics.fleet_snapshot(),
+            "units": units,
+        }
 
     def _flush_unit_metrics(self, unit) -> None:
         """Fold one in-process unit's ``metrics()`` deltas into the
@@ -609,9 +643,58 @@ class EngineApp:
         app.add_route("/traces", traces)
         app.add_route("/weights/swap", self._weights_swap_route)
         app.add_route("/drain", self._drain_route)
-        for path in ("/flightrecorder", "/fleet", "/openapi.json", "/retune"):
-            app.add_route(path, not_ported)
+        app.add_route("/retune", self._retune_route)
+        app.add_route("/flightrecorder", self._flightrecorder_route)
+        app.add_route("/fleet", self._fleet_route)
+        app.add_route("/openapi.json", not_ported)
         return app
+
+    async def _flightrecorder_route(self, req: Request) -> Response:
+        """Every in-process unit's scheduler flight recorder, keyed by unit
+        name (``?limit=`` caps the entries per unit); 404 when no unit has
+        one on."""
+        limit = req.int_param("limit")
+        units: Dict[str, Any] = {}
+        for name, target in self.units_with("flight_dump"):
+            dump = target.flight_dump(limit)
+            if dump is not None:
+                units[name] = dump
+        if not units:
+            return Response(error_body(404, "no unit exposes a flight recorder"), 404)
+        return Response({"units": units})
+
+    async def _fleet_route(self, req: Request) -> Response:
+        return Response(self.fleet_summary())
+
+    async def _retune_route(self, req: Request) -> Response:
+        """POST ``{"knobs": {...}, "origin": "...", "wait_s": 10}``: stage a
+        validated live retune on every unit exposing ``retune`` and wait
+        (off the event loop) until each applies it at a poll boundary. 400
+        without knobs, 409 for a value outside a unit's boot census
+        (``RetuneError``), 501 when no unit retunes."""
+        from ..serving.continuous import RetuneError
+
+        body = req.json() or {}
+        knobs = body.get("knobs")
+        if not isinstance(knobs, dict) or not knobs:
+            return Response(error_body(400, "need 'knobs' (non-empty object)"), 400)
+        origin = str(body.get("origin", "planner"))
+        wait_s = float(body.get("wait_s", 10.0))
+        loop = asyncio.get_running_loop()
+        units: Dict[str, Any] = {}
+        for name, target in self.units_with("retune"):
+            try:
+                units[name] = await loop.run_in_executor(
+                    None, lambda f=target.retune: f(knobs, origin, wait_s))
+                self._flush_unit_metrics(target)
+            except RetuneError as e:
+                return Response(error_body(409, f"{name}: {e}"), 409)
+            except Exception as e:  # noqa: BLE001 - the apply failed
+                status = getattr(e, "status", None) or 502
+                return Response(error_body(status, f"{name}: {e}"), status)
+        if not units:
+            return Response(error_body(501, "no unit supports retune"), 501)
+        return Response({"units": units})
 
     async def _weights_swap_route(self, req: Request) -> Response:
         """Live weight swap for units exposing ``hot_swap``: POST

@@ -154,6 +154,48 @@ class DecoderLM(ServedModel):
         per_layer = 2 * D + D * h + 2 * D * kv + h * D + 3 * D * F
         return L * per_layer + 2 * V * D + D  # blocks + embed/unembed + ln_f
 
+    def kv_bytes_per_token(self) -> int:
+        """K+V bytes ONE cached position occupies across every layer at
+        bf16: the per-(row, position) unit the read model below prices,
+        the closed-form twin of the batcher's ``_kv_key_bytes`` (which
+        reads the live cache's dtype)."""
+        cfg = self.cfg
+        return cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * 2
+
+    def dispatch_read_bytes(
+        self,
+        kind: str,
+        *,
+        rows: int = 1,
+        k: int = 1,
+        bucket: int = 0,
+        tokens: int = 0,
+        param_bytes: Optional[float] = None,
+        kv_row_bytes: Optional[float] = None,
+    ) -> float:
+        """Modelled device bytes READ by one dispatch of the given ledger
+        kind (``serving/profiler.py``): decode-family bursts read the
+        params once per step plus each row's bucketed KV columns;
+        prefill-family dispatches read the params once and write their
+        KV; splice/insert/extract move ``tokens`` cache positions; a swap
+        flip touches every param byte once. ``param_bytes`` and
+        ``kv_row_bytes`` default to the bf16 closed forms; the batcher
+        passes its live values (so a float32 model is priced at float32)."""
+        if param_bytes is None:
+            param_bytes = self.n_params() * 2.0
+        if kv_row_bytes is None:
+            kv_row_bytes = float(self.kv_bytes_per_token())
+        if kind in ("decode_burst", "fused_burst", "group_burst", "spec_burst"):
+            # spec: one verify forward over gamma+1 positions per lane
+            return k * (param_bytes + rows * bucket * kv_row_bytes)
+        if kind in ("prefill", "chunk_prefill", "replay"):
+            return param_bytes + tokens * kv_row_bytes
+        if kind in ("splice", "insert", "extract"):
+            return tokens * kv_row_bytes
+        if kind == "swap_cast":
+            return param_bytes
+        return 0.0
+
     # ------------------------------------------------------------------
     # params
     # ------------------------------------------------------------------

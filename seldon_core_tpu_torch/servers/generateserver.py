@@ -118,12 +118,35 @@ Server parameters (typed, e.g. from ``PREDICTIVE_UNIT_PARAMETERS``)::
                      the tenant scheduler's wake period, its starvation
                      bound in batcher polls and the least time a tenant
                      stays resident while it has work (20 / 256 / 50)
+    flight_recorder  the scheduler flight recorder's capacity (default 512,
+                     0 = off): per-poll decision records and scheduling
+                     events, served by :meth:`GenerateServer.flight_dump`
+                     (the ``/flightrecorder`` route)
+    profiler         the device-time ledger (``serving/profiler.py``; 0 =
+                     off, the default): every dispatch timed with CUDA
+                     events and attributed per (kind, variant, tenant),
+                     exported as ``gen_device_*`` series
+    profiler_deep_every
+                     every N-th measured dispatch synchronises inside a
+                     ``torch.profiler`` range named after it (0 = never)
+    profiler_hbm_gb_s / profiler_dispatch_floor_us
+                     the denominators of the live ``gen_mbu_pct`` and
+                     ``gen_dispatch_floor_pct`` gauges (0 = omit the gauge)
+    slo_objectives   SLO burn-rate objectives, ``slo:threshold_ms:target``
+                     entries, comma-separated (``ttft:200:0.99``); the
+                     completed requests' samples feed the burn engine
+                     (``serving/slo_burn.py``) and ``gen_slo_*`` series
+    slo_fast_window_s / slo_slow_window_s
+                     the burn engine's windows (60 / 3600)
 
-The JAX server's other parameters (the profiler, SLO burn, the flight
-recorder, meshes) are not ported yet: each raises when set to anything
-but its off value. The fault config's ``pressure`` section
+The JAX server's mesh parameters are not ported yet: each raises when
+set to anything but its off value. The fault config's ``pressure`` section
 (``SELDON_FAULTS``) drives the ledger's budget mid-run, its ``kv_*``
 rules perturb the decode role's transfers per peer.
+
+Live retune: :meth:`GenerateServer.retune` (the engine's ``/retune``),
+:meth:`GenerateServer.retune_census` and
+:meth:`GenerateServer.serving_config`.
 
 Migration and swap entry points: :meth:`GenerateServer.drain_to`
 (checkpoint every generation and hand it to a peer server or, over TCP,
@@ -181,14 +204,11 @@ from .torchserver import TorchServer
 
 logger = logging.getLogger(__name__)
 
-# parameters of the JAX GenerateServer whose feature is not ported yet,
-# with their off value (other JAX-server parameters, which only act
-# through one of these features, are accepted and ignored, as the JAX
+# parameters of the JAX GenerateServer whose feature is not ported yet
+# (the mesh), with their off value (other JAX-server parameters, which
+# only act through one of these, are accepted and ignored, as the JAX
 # server accepts unknown ones)
-_NOT_PORTED = {
-    "mesh": None, "mesh_shape": None, "shard_cache_seq": False,
-    "flight_recorder": 0, "profiler": 0, "slo_objectives": None,
-}
+_NOT_PORTED = {"mesh": None, "mesh_shape": None, "shard_cache_seq": False}
 
 
 def _is_off(name: str, value, off) -> bool:
@@ -221,6 +241,8 @@ class GenerateServer(SeldonComponent):
     batcher = None
     tenant_pager = None
     tenant_scheduler = None
+    profiler = None
+    slo_burn = None
 
     def __init__(
         self,
@@ -265,6 +287,14 @@ class GenerateServer(SeldonComponent):
         tenant_tick_ms: int = 20,
         tenant_max_wait_polls: int = 256,
         tenant_min_resident_ms: int = 50,
+        flight_recorder: int = 512,
+        profiler: int = 0,
+        profiler_deep_every: int = 0,
+        profiler_hbm_gb_s: float = 0.0,
+        profiler_dispatch_floor_us: float = 0.0,
+        slo_objectives: Optional[str] = None,
+        slo_fast_window_s: float = 60.0,
+        slo_slow_window_s: float = 3600.0,
         **kwargs,
     ):
         for name, value in kwargs.items():
@@ -363,6 +393,36 @@ class GenerateServer(SeldonComponent):
         self._warmup_prompt_lens = list(warmup_prompt_lens or [])
         self._warmup_max_new_tokens = int(warmup_max_new_tokens)
         self._deltas = CounterDeltas()
+        self._flight_recorder = int(flight_recorder)
+        # the device-time ledger: off by default (a shared no-op then)
+        from ..serving.profiler import DeviceTimeLedger
+
+        self.profiler = DeviceTimeLedger(
+            enabled=bool(int(profiler)),
+            deep_every=int(profiler_deep_every),
+            hbm_gb_s=float(profiler_hbm_gb_s),
+            dispatch_floor_us=float(profiler_dispatch_floor_us),
+        )
+        # SLO burn-rate engine, fed by the completed-request samples
+        # metrics() drains; "slo:threshold_ms:target" entries, parsed
+        # strictly here
+        self.slo_burn = None
+        if not _is_off("slo_objectives", slo_objectives, None):
+            from ..serving.slo_burn import SloBurnEngine, SloObjective
+
+            objs = []
+            for ent in str(slo_objectives).split(","):
+                ent = ent.strip()
+                if not ent:
+                    continue
+                parts = ent.split(":")
+                if len(parts) != 3:
+                    raise ValueError("slo_objectives entries are slo:threshold_ms:target "
+                                     f"(e.g. ttft:200:0.99), got {ent!r}")
+                objs.append(SloObjective(parts[0].strip(), float(parts[1]) * 1e-3,
+                                         float(parts[2])))
+            self.slo_burn = SloBurnEngine(objs, fast_window_s=float(slo_fast_window_s),
+                                          slow_window_s=float(slo_slow_window_s))
         self.batcher = None
         self._model = None
 
@@ -430,6 +490,8 @@ class GenerateServer(SeldonComponent):
             kv_tier_promote_min_tokens=self._kv_tier_promote_min_tokens,
             swap_drain_ms=self._swap_drain_ms,
             swap_resume_policy=self._swap_resume_policy,
+            flight_recorder_capacity=self._flight_recorder,
+            profiler=self.profiler,
         )
         # chaos harness (off without SELDON_FAULTS): the scheduler section
         # wires induced poll death onto the batcher's fault hook, the
@@ -604,14 +666,20 @@ class GenerateServer(SeldonComponent):
 
     # -- disaggregated serving (prefill/decode pools) ------------------------
 
-    def _note_peer_event(self, kind: str) -> None:
-        """Counter hook of the failover transport's eject/readmit
-        decisions (``peer_ejections`` / ``peer_readmissions``)."""
+    def _note_peer_event(self, kind: str, addr: str, reason: str = "") -> None:
+        """Counter and flight-record hook of the failover transport's
+        eject/readmit decisions (``peer_ejected`` / ``peer_readmitted``
+        records, ``peer_ejections`` / ``peer_readmissions`` counters)."""
         b = self.batcher
         if b is None:
             return
+        key = "peer_ejections" if kind == "peer_ejected" else "peer_readmissions"
         with b._export_lock:
-            b.stats[kind] += 1
+            b.stats[key] += 1
+        rec = {"type": kind, "peer": addr}
+        if reason:
+            rec["reason"] = reason
+        b._flight(rec)
 
     def _build_failover(self, peers):
         """Decode role: the peer list (a comma-separated ``host:port``
@@ -626,8 +694,8 @@ class GenerateServer(SeldonComponent):
             chunk_bytes=self._kv_chunk_bytes,
             fault_for=injector.kv_faults_for if injector is not None else None,
             eject_backoff_s=self._peer_eject_backoff_s,
-            on_eject=lambda addr, reason: self._note_peer_event("peer_ejections"),
-            on_readmit=lambda addr: self._note_peer_event("peer_readmissions"),
+            on_eject=lambda addr, reason: self._note_peer_event("peer_ejected", addr, reason),
+            on_readmit=lambda addr: self._note_peer_event("peer_readmitted", addr),
         )
 
     def set_peer(self, prefill_server) -> None:
@@ -693,6 +761,10 @@ class GenerateServer(SeldonComponent):
         depth, meta, slab = hit
         with b._export_lock:
             b.stats["kv_tier_hits"] = tier.stats["hits"]
+        from ..serving.disagg import prompt_hash
+
+        b._flight({"type": "tier_hit", "kind": "prefix", "source": "peer", "tokens": depth,
+                   "phash": prompt_hash(meta.get("tokens") or [])[:8]})
         out_meta = {
             "kind": "tier_prefix",
             "tokens": meta.get("tokens"),
@@ -770,6 +842,7 @@ class GenerateServer(SeldonComponent):
         b = self.batcher
         with b._export_lock:
             b.stats["degraded_local_prefill"] += 1
+        b._flight({"type": "degraded_local_prefill", "tokens": len(toks), "reason": reason})
         logger.warning("prefill pool fully ejected (%s); serving %d-token prompt with "
                        "local unified prefill", reason, len(toks))
         return b.submit(toks, deadline_s=deadline_s, on_tokens=on_tokens, **kw)
@@ -859,6 +932,9 @@ class GenerateServer(SeldonComponent):
             b._release_tier_ckpt(req)
         with b._export_lock:
             b.stats["checkpoint_exports"] += len(cks)
+        for ck in cks:
+            b._flight({"type": "checkpoint_export", "tokens": len(ck["prompt"]),
+                       "emitted": len(ck["emitted"]), "weight_version": b.weight_version})
         handed = failed = 0
         if hasattr(peer, "resume_checkpoint"):
             for req, ck in zip(drained, cks):
@@ -894,6 +970,10 @@ class GenerateServer(SeldonComponent):
                     req.future.set_result(list(res))
         with b._export_lock:
             b.stats["migrations"] += handed
+        if handed:
+            b._flight({"type": "migrated_resume",
+                       "peer": getattr(peer, "model_uri", None) or str(peer),
+                       "handed": handed})
         logger.info("drain_to: %d checkpoint(s) exported, %d handed to the peer, %d failed "
                     "typed", len(cks), handed, failed)
         return {"drained": len(drained), "checkpoints": len(cks), "handed": handed,
@@ -1183,6 +1263,65 @@ class GenerateServer(SeldonComponent):
             out["cache_hit_tokens"] = [f.gen_request.cache_hit_tokens for f in futures]
         return out
 
+    def retune(self, knobs: Dict[str, Any], origin: str = "planner",
+               wait_s: float = 10.0) -> Dict[str, Any]:
+        """A live scheduler retune (the engine's ``POST /retune`` lands
+        here): staged through ``ContinuousBatcher.retune`` (validated
+        against the boot census on this thread), then waited for until
+        the scheduler applies it at a poll boundary. Returns ``{"changed":
+        {knob: [old, new]}, "census": {...}, "origin": ...}``;
+        ``RetuneError`` propagates (the route answers 409)."""
+        from ..serving.continuous import RetuneError
+
+        if self.batcher is None:
+            raise RuntimeError("retune before load(): no batcher")
+        if not isinstance(knobs, dict):
+            raise RetuneError(f"knobs must be an object, got {type(knobs).__name__}")
+        fut = self.batcher.retune(origin=str(origin), **knobs)
+        changed = fut.result(timeout=wait_s)
+        return {"changed": changed, "census": self.batcher.retune_census(),
+                "origin": str(origin)}
+
+    def retune_census(self) -> Optional[Dict[str, Any]]:
+        """The loaded batcher's boot census (None before load)."""
+        return self.batcher.retune_census() if self.batcher is not None else None
+
+    def serving_config(self) -> Optional[Dict[str, Any]]:
+        """The batcher's current profile-axis knob values (None before
+        load); ``/fleet`` ships it beside the census."""
+        return self.batcher.serving_config() if self.batcher is not None else None
+
+    def flight_dump(self, limit: Optional[int] = None) -> Optional[Dict[str, Any]]:
+        """The ``/flightrecorder`` payload: the recorder's ring plus the
+        SLO reservoir summary, a stats snapshot and, where on, the
+        pressure ledger, the host tier, the tenants, the device-time
+        ledger and the SLO burn verdicts. None when the recorder is off or
+        the server is not loaded."""
+        b = self.batcher
+        if b is None or b.flight is None:
+            return None
+        if b._kv_tier is not None:
+            b.sync_kv_tier_stats()
+        out = b.flight.dump(limit)
+        out["slo"] = b.slo_summary()
+        out["stats"] = dict(b.stats)
+        out["weight_version"] = b.weight_version
+        pressure = b.pressure_summary()
+        if pressure is not None:
+            out["pressure"] = pressure
+        tier = b.kv_tier_summary()
+        if tier is not None:
+            out["kv_tier"] = tier
+        if self.tenant_pager is not None:
+            out["weight_pager"] = self.tenant_pager.summary()
+        if self.tenant_scheduler is not None:
+            out["tenant_scheduler"] = self.tenant_scheduler.summary()
+        if self.profiler is not None and self.profiler.enabled:
+            out["profiler"] = self.profiler.summary()
+        if self.slo_burn is not None:
+            out["slo_burn"] = self.slo_burn.summary()
+        return out
+
     def tags(self) -> Dict:
         tags = {"server": "generateserver"}
         if self.batcher is not None:
@@ -1238,6 +1377,10 @@ class GenerateServer(SeldonComponent):
             ])
         if s.get("shed"):
             out.append(delta("gen_shed_total", s["shed"]))
+        if s.get("planner_retunes"):
+            # retunes applied at a poll boundary (the engine exports
+            # seldon_engine_planner_retunes)
+            out.append(delta("gen_planner_retunes", s["planner_retunes"]))
         # live migration and swap: drains, checkpoints exported and
         # handed over, resumes from wire checkpoints or resume tokens,
         # swap straggler preemptions, swaps flipped (the engine exports
@@ -1326,6 +1469,56 @@ class GenerateServer(SeldonComponent):
             if tpot is not None:
                 out.append({"type": "TIMER", "key": "gen_tpot_ms",
                             "value": round(tpot * 1e3, 4)})
+            if self.slo_burn is not None:
+                # the burn engine rides the same drain: one sample feed,
+                # two consumers (histograms and error budgets)
+                self.slo_burn.observe("queue_wait", queue_wait)
+                self.slo_burn.observe("ttft", ttft)
+                self.slo_burn.observe("tpot", tpot)
+        out.extend(self._telemetry_metrics())
+        return out
+
+    def _telemetry_metrics(self) -> List[Dict]:
+        """The device-time ledger's cumulative buckets as COUNTER deltas
+        (``gen_device_time_ms``/``_dispatches``/``_bytes`` with kind,
+        variant and tenant tags) and its live gauges, then the burn
+        engine's per-(tenant, slo) burn rates, remaining budget and
+        verdict counts."""
+        delta = self._deltas.counter
+        out: List[Dict] = []
+        if self.profiler is not None and self.profiler.enabled:
+            for (kind, variant, tenant), (secs, n, nbytes, _toks) in sorted(
+                    self.profiler.buckets().items()):
+                tags = {"kind": kind, "variant": variant}
+                if tenant:
+                    tags["tenant"] = tenant
+                out.append(delta("gen_device_time_ms", round(secs * 1e3, 3), tags=tags))
+                out.append(delta("gen_device_dispatches", n, tags=tags))
+                out.append(delta("gen_device_bytes", nbytes, tags=tags))
+            live = self.profiler.gauges()
+            for key, name in (("device_busy_frac", "gen_device_busy_frac"),
+                              ("mbu_pct", "gen_mbu_pct"),
+                              ("dispatch_floor_pct", "gen_dispatch_floor_pct")):
+                if live.get(key) is not None:
+                    out.append({"type": "GAUGE", "key": name, "value": float(live[key])})
+        if self.slo_burn is not None:
+            for v in self.slo_burn.verdicts():
+                tags = {"slo": v["slo"], "window": "fast"}
+                if v["tenant"]:
+                    tags["tenant"] = v["tenant"]
+                out.append({"type": "GAUGE", "key": "gen_slo_burn_rate",
+                            "value": v["fast_burn"], "tags": dict(tags)})
+                tags["window"] = "slow"
+                out.append({"type": "GAUGE", "key": "gen_slo_burn_rate",
+                            "value": v["slow_burn"], "tags": dict(tags)})
+                del tags["window"]
+                out.append({"type": "GAUGE", "key": "gen_slo_budget_remaining",
+                            "value": v["budget_remaining"], "tags": dict(tags)})
+            for (t, slo, sev), n in sorted(self.slo_burn.verdict_counts().items()):
+                tags = {"slo": slo, "severity": sev}
+                if t:
+                    tags["tenant"] = t
+                out.append(delta("gen_slo_verdicts", n, tags=tags))
         return out
 
     def _tenant_metrics(self) -> List[Dict]:
@@ -1364,6 +1557,10 @@ class GenerateServer(SeldonComponent):
                             "value": round(queue_wait * 1e3, 4), "tags": tags})
                 out.append({"type": "TIMER", "key": "gen_tenant_ttft_ms",
                             "value": round(ttft * 1e3, 4), "tags": tags})
+                if self.slo_burn is not None:
+                    self.slo_burn.observe("queue_wait", queue_wait, t)
+                    self.slo_burn.observe("ttft", ttft, t)
+                    self.slo_burn.observe("tpot", tpot, t)
                 if tpot is not None:
                     out.append({"type": "TIMER", "key": "gen_tenant_tpot_ms",
                                 "value": round(tpot * 1e3, 4), "tags": tags})

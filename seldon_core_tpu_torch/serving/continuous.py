@@ -133,10 +133,29 @@ Counterpart of ``seldon_core_tpu/serving/continuous.py``
   ranges (``gen.prefill``, ``gen.prefill_chunk``, ``gen.lane_insert``),
   decode bursts inside ``gen.decode_burst``, named in ``torch.profiler``
   traces.
+* Flight recorder (``flight_recorder_capacity``, default 512, 0 = off,
+  ``serving/flightrecorder.py``): one record per working poll (queue,
+  lanes, admissions, chunks, the decode plan and the ledger's per-poll
+  rows) and a typed record per scheduling event (shed, preemption and
+  resume, reclaim, tier demote and promote, export, remote insert,
+  swap, drain, retune, restart), in a bounded drop-oldest ring.
+* Device-time ledger (``profiler``, a ``serving/profiler.py``
+  ``DeviceTimeLedger``): every dispatch -- prefill, chunk, insert,
+  splice, extract, decode/fused/group/spec burst, replay step, swap flip
+  -- is timed (CUDA event pairs on the card, resolved without a
+  synchronise) and attributed per ``(kind, variant, tenant)``, with its
+  modelled read bytes (``DecoderLM.dispatch_read_bytes``).
+* Live retune (:meth:`ContinuousBatcher.retune`): the knobs in
+  ``RETUNABLE_KNOBS`` change at a poll boundary, refused typed
+  (:class:`RetuneError`) outside what ``warm()`` prepared
+  (:meth:`ContinuousBatcher.retune_census`), so a retune never captures
+  a graph. The decode step kind (masked for fused decode, or plain) is
+  fixed at construction: a fused member retuned to
+  ``fused_steps_per_dispatch=0`` runs ``steps_per_poll``-step bursts of
+  its masked step, the same tokens.
 
-Every other scheduler feature of the JAX batcher (retune, the flight
-recorder, the device-time profiler, the mesh) is not ported yet: its
-knob raises when set to anything but its off value.
+The mesh of the JAX batcher is not ported yet: its knobs raise when set
+to anything but their off values.
 """
 
 from __future__ import annotations
@@ -158,21 +177,20 @@ from .. import rng
 from ..resilience import ShedError
 from ..tracing import device_trace, wall_us
 from .disagg import DisaggError, PrefixGone, WeightVersionMismatch, prompt_hash
+from .flightrecorder import FlightRecorder
 from .kvtier import HostKVTier
 from .prefix_cache import RadixPrefixIndex
 from .pressure import PressureController, PressureRefused
+from .profiler import DeviceTimeLedger
 
 logger = logging.getLogger(__name__)
 
 # Scheduler knobs of the JAX batcher that this port does not implement
 # yet, with the value that turns each off; any other value raises. They
-# are the mesh (multi-device serving), the flight recorder and the
-# device-time profiler.
+# are the mesh (multi-device serving).
 NOT_PORTED_KNOBS: Dict[str, Any] = {
     "mesh": None,
     "shard_cache_seq": False,
-    "flight_recorder_capacity": 0,
-    "profiler": None,
 }
 
 
@@ -201,6 +219,14 @@ class PromptTooLong(ValueError):
 class BudgetExceeded(PromptTooLong):
     """``prompt_len + max_new_tokens > max_seq``: the generation would
     outgrow the decode cache. Rejected at submit with the 413 status."""
+
+
+class RetuneError(ValueError):
+    """A :meth:`ContinuousBatcher.retune` named a knob value outside the
+    boot census (what ``warm()`` prepared), or an unknown or ill-typed
+    knob. Raised on the caller's thread before anything is staged: a
+    configuration ``warm()`` did not capture would capture graphs
+    mid-traffic."""
 
 
 class BatcherDead(RuntimeError):
@@ -313,6 +339,20 @@ class _SwapJob:
     # when the swap was staged (monotonic): the straggler bound
     # (swap_drain_ms) counts from here
     staged_t: float = 0.0
+
+
+@dataclasses.dataclass
+class _RetuneJob:
+    """A validated live retune: the scheduler applies ``knobs`` (the
+    canonical target values) at the top of a poll, where no burst is
+    being dispatched; a ``prefill_chunk`` change waits until no chunked
+    prefill is in flight."""
+
+    knobs: Dict[str, Any]
+    origin: str = "planner"
+    future: Future = dataclasses.field(default_factory=Future)
+    # polls spent waiting for chunked prefills (flight-recorder field)
+    waited_polls: int = 0
 
 
 @dataclasses.dataclass
@@ -530,6 +570,8 @@ class ContinuousBatcher:
         kv_tier_promote_min_tokens: int = 0,
         swap_drain_ms: int = 0,
         swap_resume_policy: str = "resume",
+        flight_recorder_capacity: int = 512,
+        profiler=None,
         cuda_graphs: bool = True,
         **knobs,
     ):
@@ -750,7 +792,15 @@ class ContinuousBatcher:
             # lanes the swap's straggler bound checkpointed
             "weight_swaps": 0, "drains": 0, "checkpoint_exports": 0,
             "migrations": 0, "migrated_resumes": 0, "swap_preemptions": 0,
+            # retunes applied at a poll boundary
+            "planner_retunes": 0,
         }
+        # flight recorder: one record per working poll and one per
+        # scheduling event, bounded and drop-oldest (0 = off)
+        self.flight: Optional[FlightRecorder] = (
+            FlightRecorder(flight_recorder_capacity)
+            if int(flight_recorder_capacity) > 0 else None
+        )
         # (queue_wait, ttft, tpot) of completed requests: ``slo_pending``
         # drains into response metrics, ``slo_recent`` is a reservoir for
         # percentiles
@@ -796,6 +846,37 @@ class ContinuousBatcher:
             if depth_group_split_bytes is not None
             else self._param_bytes
         )
+        # device-time ledger: every dispatch runs inside
+        # ``self._prof.measure``; a disabled ledger's measure() is a shared
+        # no-op, and the hooks never touch what they time, so profiler on
+        # vs off is byte-identical and captures no graph
+        self._prof = profiler if profiler is not None else DeviceTimeLedger()
+        self._prof.device = self.device
+        # retune() stages a validated _RetuneJob, the loop applies it at a
+        # poll boundary. The census is what warm() prepares from the boot
+        # knobs: decode graphs are per step (a burst of K replays one step
+        # K times), so every fused K from the poll burst up to the boot K
+        # runs on them; group graphs exist only when the member boots with
+        # depth groups; chunk steps only at the boot chunk size; the
+        # attention buckets cover the boot pipeline depth
+        self._retune_lock = threading.Lock()
+        self._pending_retune: Optional[_RetuneJob] = None
+        census_fks: List[int] = []
+        if self._fused_k > 0:
+            fk, lo = self._fused_k, min(self._k, self._fused_k)
+            while fk >= lo:
+                census_fks.append(fk)
+                fk //= 2
+        self._retune_census: Dict[str, Any] = {
+            "fused_ks": tuple(sorted(census_fks)),
+            "depth_groups": self.depth_groups,
+            "prefill_chunk": self.prefill_chunk,
+            "pipeline_depth": self.pipeline_depth,
+        }
+        # the decode step kind warm() captures, fixed for the batcher's
+        # life: masked (fused) or plain. A retune to fused 0 on a fused
+        # member keeps the masked step at the poll burst length
+        self._masked_steps = self._fused_k > 0 and not self.speculate_tokens
         # decode bursts replay CUDA graphs on the card; ``cuda_graphs=False``
         # keeps them eager (the comparison the on-card smoke run makes)
         self._graphs = (
@@ -1391,6 +1472,7 @@ class ContinuousBatcher:
         pc = self._pressure
         if pc.budget_bytes > 0 and pc.active and remote:
             self.stats["pressure_refused"] += 1
+            self._note_shed("pressure", self._queue.qsize(), None)
             raise PressureRefused(
                 f"decode pool over its HBM ledger high watermark ({pc.used} of "
                 f"{pc.budget_bytes} bytes); refusing remote admits until reclaim "
@@ -1400,6 +1482,7 @@ class ContinuousBatcher:
         if pc.budget_bytes > 0 and pc.active:
             self.stats["shed"] += 1
             self.stats["pressure_sheds"] += 1
+            self._note_shed("pressure", self._queue.qsize(), self.observed_rate())
             raise ShedError(
                 f"HBM ledger over its high watermark ({pc.used} of "
                 f"{pc.budget_bytes} bytes) — admissions shed until the "
@@ -1410,6 +1493,7 @@ class ContinuousBatcher:
         if self.admit_queue_limit and depth >= self.admit_queue_limit:
             rate = self.observed_rate()
             self.stats["shed"] += 1
+            self._note_shed("queue_full", depth, rate)
             raise ShedError(
                 f"admit queue full ({depth} >= {self.admit_queue_limit})",
                 retry_after_s=(depth / rate) if rate else 1.0,
@@ -1422,12 +1506,18 @@ class ContinuousBatcher:
         est_wait = depth / rate
         if est_wait > deadline_s:
             self.stats["shed"] += 1
+            self._note_shed("deadline", depth, rate)
             raise ShedError(
                 f"deadline {deadline_s * 1000:.0f}ms below estimated queue "
                 f"wait {est_wait * 1000:.0f}ms ({depth} queued at "
                 f"{rate:.2f} req/s) — shed before work",
                 retry_after_s=est_wait,
             )
+
+    def _note_shed(self, reason: str, depth: int, rate: Optional[float]) -> None:
+        """A shed decision's flight record (on the submitting thread)."""
+        self._flight({"type": "shed", "reason": reason, "queue": depth,
+                      "rate_per_s": round(rate, 3) if rate else None})
 
     def generate(self, tokens, **kw) -> List[int]:
         """Blocking convenience: submit and wait for the generated ids."""
@@ -1535,6 +1625,8 @@ class ContinuousBatcher:
             req.deadline_t = now + max(0.0, float(dl))
         with self._export_lock:
             self.stats["migrated_resumes"] += 1
+        self._flight({"type": "migrated_resume", "tokens": len(tokens),
+                      "emitted": len(emitted), "weight_version": self.weight_version})
         if emitted and (len(emitted) >= mnt
                         or (req.eos_id is not None and emitted[-1] == req.eos_id)):
             # already complete (a final-state resume token): answer on the
@@ -1663,6 +1755,203 @@ class ContinuousBatcher:
         if job is not None and not job.future.done():
             job.future.set_exception(err)
 
+    # -- live retune ---------------------------------------------------------
+
+    # knobs retune() accepts; every other knob (slots, steps_per_poll,
+    # speculate_tokens, the cache geometry) would need other graphs or
+    # other device state and is refused typed
+    RETUNABLE_KNOBS = (
+        "fused_steps_per_dispatch", "depth_groups",
+        "depth_group_split_bytes", "prefill_chunk", "pipeline_depth",
+        "admit_queue_limit", "pressure_high", "pressure_low",
+    )
+
+    def retune_census(self) -> Dict[str, Any]:
+        """The boot census a retune is validated against: the fused Ks
+        the captured step graphs serve, whether group-burst graphs exist,
+        the one chunk size ``warm()`` ran, and the pipeline depth its
+        attention buckets cover."""
+        return dict(self._retune_census)
+
+    def serving_config(self) -> Dict[str, Any]:
+        """The CURRENT values of the profile-grid knobs (the JAX
+        package's ``planning/artifact.py`` CONFIG_KEYS); unlike the
+        census they move with every applied retune."""
+        return {
+            "slots": int(self.slots),
+            "prefill_chunk": int(self.prefill_chunk or 0),
+            "fused_steps_per_dispatch": int(self.fused_steps_per_dispatch or 0),
+            "depth_groups": int(self.depth_groups or 0),
+            "depth_group_split_bytes": int(self._group_split_bytes or 0),
+            "kv_tier_bytes": int(getattr(self._kv_tier, "budget_bytes", 0) or 0),
+        }
+
+    def retune(self, origin: str = "planner", **knobs) -> Future:
+        """Stage a live retune of scheduler knobs; the Future resolves to
+        ``{knob: [old, new]}`` for the knobs that changed once the
+        scheduler applies the job at the top of a poll (a
+        ``prefill_chunk`` change once no chunked prefill is in flight).
+
+        Thread-safe, under traffic. Every retunable knob already keeps
+        tokens unchanged on vs off (fused decode, depth groups, chunked
+        prefill, pressure, admission caps), so a retuned batcher emits
+        what one booted with the new values emits. Validation runs here,
+        typed (:class:`RetuneError`), before anything is staged: a fused
+        K outside the census, depth groups on a member booted without
+        group graphs, a chunk size ``warm()`` did not run, or a pipeline
+        deeper than its attention buckets cover, so no retune ever
+        captures a graph."""
+        self._check_alive()
+        if not knobs:
+            raise RetuneError("retune called with no knobs")
+        unknown = set(knobs) - set(self.RETUNABLE_KNOBS)
+        if unknown:
+            raise RetuneError(
+                f"unknown/unretunable knob(s) {sorted(unknown)}; "
+                f"retunable: {list(self.RETUNABLE_KNOBS)}"
+            )
+        census = self._retune_census
+        target: Dict[str, Any] = {}
+
+        def _int(name, lo=0):
+            try:
+                v = int(knobs[name])
+            except (TypeError, ValueError):
+                raise RetuneError(f"{name} must be an int, got {knobs[name]!r}") from None
+            if v < lo:
+                raise RetuneError(f"{name} must be >= {lo}, got {v}")
+            return v
+
+        if "fused_steps_per_dispatch" in knobs:
+            raw = _int("fused_steps_per_dispatch")
+            fk = _pow2_floor(raw) if raw > 0 else 0
+            if fk > 0 and self.speculate_tokens:
+                raise RetuneError(
+                    "fused decode cannot be enabled under speculative decoding "
+                    "(no fused graphs exist in spec mode)"
+                )
+            if fk > 0 and fk not in census["fused_ks"]:
+                raise RetuneError(
+                    f"fused_steps_per_dispatch={raw} (pow2 floor {fk}) is outside the "
+                    f"boot census {list(census['fused_ks'])}; only warmed Ks (or 0) "
+                    "can be retuned to"
+                )
+            target["fused_steps_per_dispatch"] = (raw, fk)
+        if "depth_groups" in knobs:
+            dg = _int("depth_groups")
+            if dg > 1 and census["depth_groups"] <= 1:
+                raise RetuneError(
+                    "depth_groups>1 requires group-burst graphs, which warm() only "
+                    "captures when the member boots with depth_groups>1"
+                )
+            target["depth_groups"] = dg
+        if "depth_group_split_bytes" in knobs:
+            # a host-side cost-model price: no graph depends on it
+            target["depth_group_split_bytes"] = _int("depth_group_split_bytes")
+        if "prefill_chunk" in knobs:
+            pc = _int("prefill_chunk")
+            if pc not in (0, census["prefill_chunk"]):
+                raise RetuneError(
+                    f"prefill_chunk={pc} was not prepared by warm(); census allows "
+                    f"0 or {census['prefill_chunk']}"
+                )
+            target["prefill_chunk"] = pc
+        if "pipeline_depth" in knobs:
+            pd = _int("pipeline_depth", lo=1)
+            if pd > census["pipeline_depth"]:
+                raise RetuneError(
+                    f"pipeline_depth={pd} exceeds the warmed depth "
+                    f"{census['pipeline_depth']} (warm()'s attention buckets only "
+                    "cover the boot depth)"
+                )
+            target["pipeline_depth"] = pd
+        if "admit_queue_limit" in knobs:
+            target["admit_queue_limit"] = _int("admit_queue_limit")
+        if "pressure_high" in knobs or "pressure_low" in knobs:
+            try:
+                high = float(knobs.get("pressure_high", self._pressure.high_frac))
+                low = float(knobs.get("pressure_low", self._pressure.low_frac))
+            except (TypeError, ValueError):
+                raise RetuneError("pressure watermarks must be floats") from None
+            if not 0.0 < high <= 1.0:
+                raise RetuneError(f"pressure_high {high} not in (0, 1]")
+            if not 0.0 < low <= high:
+                raise RetuneError(f"pressure_low {low} must be in (0, high={high}]")
+            target["pressure_high"] = high
+            target["pressure_low"] = low
+        with self._retune_lock:
+            if self._pending_retune is not None:
+                raise RetuneError("a retune is already pending")
+            job = _RetuneJob(knobs=target, origin=str(origin))
+            self._pending_retune = job
+        # the loop must run to apply the job, traffic or not
+        self.start()
+        return job.future
+
+    def _do_retune(self, job: _RetuneJob) -> None:
+        """Apply a staged retune (scheduler thread, top of a poll), under
+        ``_retune_lock`` so that :meth:`cancel_retune` lands wholly before
+        or after. A ``prefill_chunk`` change waits while chunked prefills
+        are in flight: their slabs and offsets follow the old size."""
+        with self._retune_lock:
+            if self._pending_retune is not job:
+                return
+            new_pc = job.knobs.get("prefill_chunk")
+            if new_pc is not None and new_pc != self.prefill_chunk and self._chunked:
+                job.waited_polls += 1
+                return
+            changed: Dict[str, List[Any]] = {}
+            attrs = {
+                "depth_groups": (self, "depth_groups"),
+                "depth_group_split_bytes": (self, "_group_split_bytes"),
+                "prefill_chunk": (self, "prefill_chunk"),
+                "pipeline_depth": (self, "pipeline_depth"),
+                "admit_queue_limit": (self, "admit_queue_limit"),
+                "pressure_high": (self._pressure, "high_frac"),
+                "pressure_low": (self._pressure, "low_frac"),
+            }
+            for name, val in job.knobs.items():
+                if name == "fused_steps_per_dispatch":
+                    raw, fk = val
+                    if self._fused_k != fk:
+                        changed[name] = [self._fused_k, fk]
+                        # the device's stop/budget registers re-upload
+                        # before the next fused dispatch
+                        self._fused_sync = False
+                    self.fused_steps_per_dispatch = raw
+                    self._fused_k = fk
+                    continue
+                obj, attr = attrs[name]
+                old = getattr(obj, attr)
+                if old != val:
+                    changed[name] = [old, val]
+                setattr(obj, attr, val)
+            self.stats["planner_retunes"] += 1
+            self._flight({
+                "type": "planner_retune", "origin": job.origin,
+                "changed": changed, "waited_polls": job.waited_polls,
+            })
+            self._pending_retune = None
+        if changed:
+            logger.info(
+                "planner retune (%s): %s (deferred %d polls)", job.origin,
+                ", ".join(f"{k} {o!r}->{n!r}" for k, (o, n) in changed.items()),
+                job.waited_polls,
+            )
+        if not job.future.done():
+            job.future.set_result(changed)
+
+    def cancel_retune(self) -> bool:
+        """Abort a staged retune before its poll boundary. True when one
+        was cancelled."""
+        with self._retune_lock:
+            job, self._pending_retune = self._pending_retune, None
+        if job is None:
+            return False
+        if not job.future.done():
+            job.future.set_exception(RetuneError("retune cancelled before the poll boundary"))
+        return True
+
     # -- disaggregated serving (prefill/decode pools, KV-slab handoff) ------
 
     @property
@@ -1730,7 +2019,9 @@ class ContinuousBatcher:
                 buf = np.zeros((1, C), np.int64)
                 buf[0, : end - s0] = tokens[s0:end]
                 attn_len = min(bucket, self._attn_need(s0 + C))
-                with device_trace("gen.prefill_chunk"):
+                with self._prof.measure("chunk_prefill", variant=f"b{bucket}",
+                                        bytes_read=self._rb("chunk_prefill", tokens=C),
+                                        tokens=C), device_trace("gen.prefill_chunk"):
                     out = self._chunk_step(slab, buf, s0, n - 1 - s0, seed,
                                            float(temperature), attn_len, is_last)
                 chunks += 1
@@ -1741,7 +2032,9 @@ class ContinuousBatcher:
         else:
             prompt = np.zeros((1, bucket), np.int64)
             prompt[0, :n] = tokens
-            with device_trace("gen.prefill"):
+            with self._prof.measure("prefill", variant=f"p{bucket}",
+                                    bytes_read=self._rb("prefill", tokens=bucket),
+                                    tokens=bucket), device_trace("gen.prefill"):
                 first, slab, key = self._prefill(
                     prompt, np.asarray([n - 1], np.int64), [seed], [float(temperature)])
         # the host pull IS the export (the slab must cross a transport):
@@ -1753,7 +2046,12 @@ class ContinuousBatcher:
             # the whole prompt slab is host-side already: publishing it
             # costs one SKV1 encode and makes this member's KV port answer
             # peer prefix lookups for the prompt
-            self._kv_tier.put_prefix(tokens, host, self.weight_version)
+            if self._kv_tier.put_prefix(tokens, host, self.weight_version):
+                self._flight({
+                    "type": "kv_demote", "kind": "prefix", "source": "export",
+                    "tokens": n, "phash": prompt_hash(tokens)[:8],
+                    "bytes": sum(t.numel() * t.element_size() for t in host.values()),
+                })
             if covered:
                 host = {name: t[:, :, :, covered:] for name, t in host.items()}
         meta = {
@@ -1780,6 +2078,11 @@ class ContinuousBatcher:
             self.stats["prefill_chunks"] += chunks
             # kv_transfer_bytes_saved is counted on the decode side only
             # (the pool whose radix cache made the dedup decision)
+        self._flight({
+            "type": "kv_export", "tokens": n, "bucket": bucket,
+            "covered_len": covered, "bytes": nbytes, "chunks": chunks,
+            "weight_version": self.weight_version,
+        })
         return meta, host
 
     def remote_covered_len(self, tokens: Sequence[int]) -> int:
@@ -1923,7 +2226,11 @@ class ContinuousBatcher:
         dev = {name: self._to_dev(t) for name, t in r["slab"].items()}
         first = self._to_dev(np.asarray([r["first"]], np.int64))
         key = self._to_dev(np.asarray([r["key"]], np.int64))
-        with device_trace("gen.lane_insert"):
+        b = self._bucket(n)
+        with self._prof.measure("insert", variant=f"px{b}" if covered else f"b{b}",
+                                tenant=req.tenant or "",
+                                bytes_read=self._rb("insert", tokens=b),
+                                tokens=n), device_trace("gen.lane_insert"):
             if covered:
                 self._insert_prefix(donor, dev, slot, covered, first, n, key)
             else:
@@ -1941,6 +2248,11 @@ class ContinuousBatcher:
         self.stats["kv_import_bytes"] += r["nbytes"]
         if covered:
             self.stats["kv_transfer_bytes_saved"] += covered * self._slab_token_bytes
+        self._flight({
+            "type": "remote_insert", "lane": slot, "tokens": n,
+            "covered_len": covered, "bytes": r["nbytes"],
+            "weight_version": self.weight_version,
+        })
         # the slab is spliced: drop the host reference (a pinned buffer
         # returns to the host allocator once its copy has run)
         req.remote = None
@@ -1962,24 +2274,30 @@ class ContinuousBatcher:
         self._started.wait()
 
     def slo_summary(self) -> Optional[Dict[str, Any]]:
-        """p50/p99 of queue wait, TTFT and TPOT over the recent reservoir."""
-        if not self.slo_recent:
+        """Percentile summary (ms) of the recent completed-request SLO
+        reservoir -- queue wait, TTFT, TPOT -- in the JAX package's shape
+        (``tools/flight_report.py`` reads it). None until a request
+        completes; single-token completions have no TPOT."""
+        samples = list(self.slo_recent)
+        if not samples:
             return None
 
         def pct(vals: List[float]) -> Dict[str, float]:
-            a = np.asarray(vals, np.float64)
-            return {"p50": float(np.percentile(a, 50)), "p99": float(np.percentile(a, 99)),
-                    "n": int(a.size)}
+            vals = sorted(vals)
+            n = len(vals)
+            return {
+                "p50_ms": round(vals[n // 2] * 1e3, 3),
+                "p99_ms": round(vals[min(n - 1, int(n * 0.99))] * 1e3, 3),
+                "mean_ms": round(sum(vals) / n * 1e3, 3),
+            }
 
-        rec = list(self.slo_recent)
-        out = {
-            "queue_wait_s": pct([r[0] for r in rec]),
-            "ttft_s": pct([r[1] for r in rec]),
+        tpots = [r[2] for r in samples if r[2] is not None]
+        return {
+            "samples": len(samples),
+            "queue_wait_ms": pct([r[0] for r in samples]),
+            "ttft_ms": pct([r[1] for r in samples]),
+            "tpot_ms": pct(tpots) if tpots else None,
         }
-        tpots = [r[2] for r in rec if r[2] is not None]
-        if tpots:
-            out["tpot_s"] = pct(tpots)
-        return out
 
     def warm(
         self,
@@ -2006,8 +2324,11 @@ class ContinuousBatcher:
             buckets = [self.prefill_buckets[0]]
         # per-poll advance: a fused dispatch advances up to fused_steps,
         # and its adaptive K shrinks to the poll burst at the least (a
-        # configured draft keeps the fused plan off)
-        fused_k = 0 if self.speculate_tokens else self._fused_k
+        # configured draft keeps the fused plan off). The boot census's
+        # K, so that a rebuild after a retune still prepares every K a
+        # retune may return to
+        fused_k = 0 if self.speculate_tokens else max(
+            self._retune_census["fused_ks"], default=0)
         adv = max(self._k, fused_k)
         least = min(self._k, fused_k) if fused_k else self._k
         attn_lens = self._warm_attn_lens(prompt_lens, max_new_tokens, adv, least)
@@ -2083,7 +2404,7 @@ class ContinuousBatcher:
         hi = (
             (max(prompt_lens) if prompt_lens else 1)
             + int(max_new_tokens)
-            + adv * (1 + max(0, self.pipeline_depth - 1))
+            + adv * (1 + max(0, self._retune_census["pipeline_depth"] - 1))
         )
         return sorted(
             {self._attn_need(p) for p in range(lo + least, hi + 1, self.attn_bucket)}
@@ -2114,7 +2435,7 @@ class ContinuousBatcher:
         when fused decode is on), greedy and sampled, over the whole
         batch and, with depth groups, every group size. On the card each
         key is run once and captured; on the CPU each phase runs once."""
-        masked = self._fused_k > 0 and not self.speculate_tokens
+        masked = self._masked_steps
         w = self._whole
         w.act.zero_()
         w.temps.zero_()
@@ -2245,11 +2566,23 @@ class ContinuousBatcher:
             n = len(req.tokens)
             prompts[i, :n] = req.tokens
             last[i] = n - 1
-        with device_trace("gen.prefill"):
+        if m == 1:
+            tenant = reqs[0].tenant or ""
+            pv, iv, ins_tokens = f"p{bucket}", f"b{bucket}", int(last[0]) + 1
+        else:
+            # a wave's tenant: the one every request names, else none
+            tenants = {r.tenant for r in reqs}
+            tenant = (tenants.pop() or "") if len(tenants) == 1 else ""
+            pv, iv, ins_tokens = f"m{m}p{bucket}", f"m{m}b{bucket}", m * bucket
+        with self._prof.measure("prefill", variant=pv, tenant=tenant,
+                                bytes_read=self._rb("prefill", tokens=m * bucket),
+                                tokens=m * bucket), device_trace("gen.prefill"):
             firsts, slab, lane_keys = self._prefill(
                 prompts, last, [r.seed for r in reqs], [r.temperature for r in reqs]
             )
-        with device_trace("gen.lane_insert"):
+        with self._prof.measure("insert", variant=iv, tenant=tenant,
+                                bytes_read=self._rb("insert", tokens=m * bucket),
+                                tokens=ins_tokens), device_trace("gen.lane_insert"):
             self._insert(slab, slots, firsts, last + 1, lane_keys)
         for slot, req in zip(slots, reqs):
             if self._spec_active():
@@ -2290,16 +2623,21 @@ class ContinuousBatcher:
         key, or with a resume's continuation ``cont = (token [1], key
         [1, 2], position)``."""
         n = len(req.tokens)
+        tenant = req.tenant or ""
         if hit is not None:
             m, slab = hit
             wb = self._bucket(n - m)
             suffix = np.zeros((1, wb), np.int64)
             suffix[0, : n - m] = req.tokens[m:]
-            with device_trace("gen.prefill"):
+            with self._prof.measure("prefill", variant=f"px{wb}", tenant=tenant,
+                                    bytes_read=self._rb("prefill", tokens=wb),
+                                    tokens=wb), device_trace("gen.prefill"):
                 first, suffix_slab, key = self._prefix_prefill(
                     slab, suffix, m, n - 1 - m, req.seed, req.temperature)
             first, key, pos = cont or (first, key, n)
-            with device_trace("gen.lane_insert"):
+            with self._prof.measure("insert", variant=f"px{wb}", tenant=tenant,
+                                    bytes_read=self._rb("insert", tokens=m + wb),
+                                    tokens=pos), device_trace("gen.lane_insert"):
                 self._insert_prefix(slab, suffix_slab, slot, m, first, pos, key)
             req.cache_hit_tokens = m
             self.stats["prefix_hits"] += 1
@@ -2309,11 +2647,15 @@ class ContinuousBatcher:
             bucket = self._bucket(n)
             prompt = np.zeros((1, bucket), np.int64)
             prompt[0, :n] = req.tokens
-            with device_trace("gen.prefill"):
+            with self._prof.measure("prefill", variant=f"p{bucket}", tenant=tenant,
+                                    bytes_read=self._rb("prefill", tokens=bucket),
+                                    tokens=bucket), device_trace("gen.prefill"):
                 first, slab, key = self._prefill(prompt, np.asarray([n - 1], np.int64),
                                                  [req.seed], [req.temperature])
             first, key, pos = cont or (first, key, n)
-            with device_trace("gen.lane_insert"):
+            with self._prof.measure("insert", variant=f"b{bucket}", tenant=tenant,
+                                    bytes_read=self._rb("insert", tokens=bucket),
+                                    tokens=pos), device_trace("gen.lane_insert"):
                 self._insert(slab, [slot], first, [pos], key)
             if self._prefix_index is not None:
                 self.stats["prefix_misses"] += 1
@@ -2425,6 +2767,9 @@ class ContinuousBatcher:
             self._process_spec_burst(burst)
             return
         host_toks, counts = burst.numpy()  # the burst's one host read
+        if self._prof.enabled:
+            # the stream has passed this burst: fold its measured records
+            self._prof.resolve()
         for slot, (s, start, col) in burst.snapshot.items():
             if burst.fused:
                 n = int(counts[col])
@@ -2493,6 +2838,9 @@ class ContinuousBatcher:
             # a drain staged when the loop died cannot complete (the
             # health writes below replace its latch: a restart serves)
             self._fail_pending_drain(err)
+            self._flight({"type": "batcher_restart", "attempt": attempt,
+                          "budget": self.restart_budget, "backoff_s": round(backoff, 3),
+                          "outcome": "latched_dead" if exhausted else "restarting"})
             if exhausted:
                 logger.error(
                     "continuous batcher crash-loop budget exhausted after %d "
@@ -2624,7 +2972,10 @@ class ContinuousBatcher:
             m, donor = hit
             start = (m // self.prefill_chunk) * self.prefill_chunk
             if start > 0:
-                with torch.no_grad():
+                with self._prof.measure("splice", variant=f"b{bucket}",
+                                        tenant=req.tenant or "",
+                                        bytes_read=self._rb("splice", tokens=start),
+                                        tokens=start), torch.no_grad():
                     tb = donor["k"].shape[3]
                     for name in ("k", "v"):
                         slab[name][:, :, :, :tb] = donor[name]
@@ -2665,8 +3016,12 @@ class ContinuousBatcher:
             buf = np.zeros((1, C), np.int64)
             buf[0, : end - start] = req.tokens[start:end]
             attn_len = min(job.bucket, self._attn_need(start + C))
+            tenant = req.tenant or ""
             try:
-                with device_trace("gen.prefill_chunk"):
+                with self._prof.measure("chunk_prefill", variant=f"b{job.bucket}",
+                                        tenant=tenant,
+                                        bytes_read=self._rb("chunk_prefill", tokens=C),
+                                        tokens=C), device_trace("gen.prefill_chunk"):
                     first = self._chunk_step(job.slab, buf, start, n - 1 - start,
                                              req.seed, req.temperature, attn_len, is_last)
                 if is_last:
@@ -2678,7 +3033,10 @@ class ContinuousBatcher:
                         first_tok = self._to_dev(np.asarray([emitted[-1]], np.int64))
                         lane_key = self._to_dev(np.asarray([ckey], np.int64))
                         first_pos = n + len(emitted) - 1
-                    with device_trace("gen.lane_insert"):
+                    with self._prof.measure(
+                            "insert", variant=f"b{job.bucket}", tenant=tenant,
+                            bytes_read=self._rb("insert", tokens=job.bucket),
+                            tokens=first_pos), device_trace("gen.lane_insert"):
                         self._insert(job.slab, [slot], first_tok, [first_pos], lane_key)
             except Exception as e:  # noqa: BLE001 - bad request/device state
                 logger.exception("chunked prefill failed")
@@ -2751,7 +3109,10 @@ class ContinuousBatcher:
         n = len(toks)
         if n < self.prefix_cache_min_tokens or idx.covered_len(toks) >= n:
             return
-        slab = self._extract_prefix(slot, self._bucket(n))
+        b = self._bucket(n)
+        with self._prof.measure("extract", variant=f"b{b}", tenant=s.request.tenant or "",
+                                bytes_read=self._rb("extract", tokens=b), tokens=b):
+            slab = self._extract_prefix(slot, b)
         nbytes = sum(t.numel() * t.element_size() for t in slab.values())
         self.stats["prefix_evicted"] += idx.insert(toks, slab, nbytes)
         self.stats["prefix_cache_bytes"] = idx.total_bytes
@@ -2798,7 +3159,12 @@ class ContinuousBatcher:
                     or tier.prefix_covered_len(tokens, self.weight_version) >= len(tokens)):
                 continue
             host = {name: self._to_host(t) for name, t in slab.items()}
-            tier.put_prefix(tokens, host, self.weight_version)
+            if tier.put_prefix(tokens, host, self.weight_version):
+                self._flight({
+                    "type": "kv_demote", "kind": "prefix", "tokens": len(tokens),
+                    "phash": prompt_hash(tokens)[:8],
+                    "bytes": sum(t.numel() * t.element_size() for t in host.values()),
+                })
 
     def tier_prefix_lookup(self, tokens, min_tokens: Optional[int] = None):
         """The one usable-hit probe of this member's host tier, shared by
@@ -2840,7 +3206,11 @@ class ContinuousBatcher:
         if hit is None:
             return None
         m, meta, host = hit
-        self.promote_peer_prefix(meta, host)
+        self._flight({
+            "type": "tier_hit", "kind": "prefix", "source": "local", "tokens": m,
+            "phash": prompt_hash(meta.get("tokens") or [])[:8],
+        })
+        self.promote_peer_prefix(meta, host, source="local")
         _depth, slab = self._prefix_index.match(tokens)
         return (m, slab) if slab is not None else None
 
@@ -2855,10 +3225,11 @@ class ContinuousBatcher:
         if hit is None:
             return 0
         _m, meta, host = hit
-        self.promote_peer_prefix(meta, host)
+        self.promote_peer_prefix(meta, host, source="local")
         return self.remote_covered_len(tokens)
 
-    def promote_peer_prefix(self, meta: Dict[str, Any], host: Dict[str, Any]) -> int:
+    def promote_peer_prefix(self, meta: Dict[str, Any], host: Dict[str, Any],
+                            source: str = "peer") -> int:
         """Insert a prefix slab pulled from a tier (a peer's, or this
         member's own) into the LOCAL device radix index, so the ordinary
         match/splice machinery and the dedup consult serve it from here
@@ -2875,6 +3246,10 @@ class ContinuousBatcher:
             self.stats["prefix_evicted"] += evicted
             self.stats["prefix_cache_bytes"] = idx.total_bytes
             self.stats["kv_tier_promotions"] += 1
+        self._flight({
+            "type": "kv_promote", "kind": "prefix", "source": source,
+            "tokens": len(entry), "bytes": nbytes, "phash": prompt_hash(entry)[:8],
+        })
         return len(entry)
 
     def _checkpoint_kv_to_tier(self, slot: int, req: GenRequest) -> None:
@@ -2887,7 +3262,9 @@ class ContinuousBatcher:
         n = len(req.tokens)
         pos = n + len(emitted) - 1
         width = self._attn_need(pos)
-        slab = self._extract_prefix(slot, width)
+        with self._prof.measure("extract", variant="preempt", tenant=req.tenant or "",
+                                bytes_read=self._rb("extract", tokens=width), tokens=width):
+            slab = self._extract_prefix(slot, width)
         host = {name: self._to_host(t) for name, t in slab.items()}
         self._tier_ck_seq += 1
         key = self._tier_ck_seq
@@ -2897,6 +3274,11 @@ class ContinuousBatcher:
         )
         if stored:
             ck["tier"] = key
+            self._flight({
+                "type": "kv_demote", "kind": "ckpt", "lane": slot, "tokens": pos,
+                "phash": prompt_hash(req.tokens)[:8],
+                "bytes": sum(t.numel() * t.element_size() for t in host.values()),
+            })
         else:
             ck.pop("tier", None)
 
@@ -2935,9 +3317,20 @@ class ContinuousBatcher:
         slab = self._upload_slab(host)
         first = self._to_dev(np.asarray([emitted[-1]], np.int64))
         key = self._to_dev(np.asarray([req.resume["key"]], np.int64))
-        with device_trace("gen.lane_insert"):
+        with self._prof.measure("insert", variant="tier", tenant=req.tenant or "",
+                                bytes_read=self._rb("insert", tokens=int(meta.get("width", 0))),
+                                tokens=end_pos), device_trace("gen.lane_insert"):
             self._insert(slab, [slot], first, [end_pos], key)
         self.stats["kv_tier_promotions"] += 1
+        if self.flight is not None and self.flight.enabled:
+            phash = prompt_hash(req.tokens)[:8]
+            self.flight.record({"type": "tier_hit", "kind": "ckpt", "source": "local",
+                                "lane": slot, "tokens": end_pos, "phash": phash})
+            self.flight.record({
+                "type": "kv_promote", "kind": "ckpt", "source": "local", "lane": slot,
+                "tokens": end_pos, "phash": phash,
+                "bytes": sum(t.numel() * t.element_size() for t in host.values()),
+            })
         self._activate_resumed(slot, req, emitted, replay=False)
         return True
 
@@ -2984,6 +3377,10 @@ class ContinuousBatcher:
                     pc.restore_budget()
                 else:
                     pc.set_budget(int(nb))
+                if self._kv_tier is not None:
+                    pc.host_bytes = self._kv_tier.total_bytes
+                self._flight({"type": "pressure_budget", "budget_bytes": pc.budget_bytes,
+                              "restored": int(nb) < 0, "host_tier_bytes": pc.host_bytes})
         if pc.budget_bytes <= 0:
             # a restore can land on a zero boot budget (pressure driven by
             # the hook alone): cancelled speculation must still come back
@@ -3003,6 +3400,12 @@ class ContinuousBatcher:
             # otherwise the next poll would cancel it again (the JAX
             # batcher resumes as soon as the latch clears, and oscillates)
             self._resume_speculation()
+
+    def _pressure_event(self, entry: Dict[str, Any]) -> None:
+        """A reclaim-ladder action: kept in ``pressure_events`` and
+        recorded by the flight recorder."""
+        self.pressure_events.append(dict(entry))
+        self._flight(entry)
 
     def _drain_pending(self, pending) -> None:
         """Read every in-flight burst now, oldest first: a checkpoint must
@@ -3042,7 +3445,7 @@ class ContinuousBatcher:
                 self.stats["prefix_cache_bytes"] = idx.total_bytes
                 if demoted:
                     self._demote_prefix_slabs(demoted)
-                self.pressure_events.append({
+                self._pressure_event({
                     "type": "pressure_reclaim", "action": "evict_prefix",
                     "evicted": evicted, "demoted": len(demoted or ()),
                     "used_bytes": pc.used})
@@ -3083,8 +3486,7 @@ class ContinuousBatcher:
                                     {key: graphs.pop(key) for key in spec})
         self._draft_cache = self._draft_buf = None
         self._masks_dirty = True
-        self.pressure_events.append({"type": "pressure_reclaim",
-                                     "action": "cancel_speculation"})
+        self._pressure_event({"type": "pressure_reclaim", "action": "cancel_speculation"})
         logger.warning("HBM pressure: speculation cancelled (draft cache freed); "
                        "plain decode bursts until the ledger clears")
 
@@ -3116,9 +3518,8 @@ class ContinuousBatcher:
                 self.stats["spec_graph_recaptures"] += 1
                 self.stats["graph_captures_inline"] += 1
         self._masks_dirty = True
-        self.pressure_events.append({"type": "pressure_reclaim",
-                                     "action": "resume_speculation",
-                                     "lanes": len(self._active)})
+        self._pressure_event({"type": "pressure_reclaim", "action": "resume_speculation",
+                              "lanes": len(self._active)})
 
     def _admit_cost_bytes(self, req: GenRequest) -> int:
         """Ledger footprint of ``req`` at the end of its generation: the
@@ -3187,6 +3588,8 @@ class ContinuousBatcher:
         the request whole (a resume's checkpoint rides along on it)."""
         job = self._chunked.pop(slot)
         self.stats["preemptions"] += 1
+        self._flight({"type": "preempt", "lane": slot, "kind": "chunked",
+                      "prompt_tokens": len(job.request.tokens), "emitted": 0})
         self._resume_queue.append(job.request)
 
     def _checkpoint_lane(self, slot: int) -> GenRequest:
@@ -3211,12 +3614,16 @@ class ContinuousBatcher:
         then requeue the request for resume. With the host tier on, the
         lane's K/V columns spill there too (budget allowing) for a
         copy-back resume."""
+        emitted = len(self._active[slot].emitted)
         req = self._checkpoint_lane(slot)
         if self._kv_tier is not None and req.resume is not None:
             # spill the K/V before anything can reuse the lane's columns
             # (nothing was dispatched since the drain)
             self._checkpoint_kv_to_tier(slot, req)
         self.stats["preemptions"] += 1
+        self._flight({"type": "preempt", "lane": slot, "kind": "lane",
+                      "prompt_tokens": len(req.tokens), "emitted": emitted,
+                      "remaining": req.max_new_tokens - emitted})
         self._resume_queue.append(req)
 
     def _admit_resume(self, slot: int, req: GenRequest) -> None:
@@ -3272,6 +3679,10 @@ class ContinuousBatcher:
         self._masks_dirty = True
         req.resume = None
         self.stats["preempt_resumes"] += 1
+        self._flight({"type": "preempt_resume", "lane": slot, "prompt_tokens": n,
+                      "replayed_tokens": max(0, len(emitted) - 1) if replay else 0,
+                      "copyback": not replay, "emitted": len(emitted),
+                      "cache_hit_tokens": req.cache_hit_tokens})
 
     def _replay_emitted(self, slot: int, start_pos: int, toks: List[int]) -> None:
         """Teacher-forced replay: rebuild positions ``[start_pos,
@@ -3295,7 +3706,9 @@ class ContinuousBatcher:
             self._upload(r["cur"], cur)
             self._upload(r["pos"], pos)
             self._upload(r["wpos"], wpos)
-            self._phase(("replay", attn_len), lambda: self._replay_step(attn_len))
+            with self._prof.measure("replay", variant=f"k1b{attn_len}",
+                                    bytes_read=self._rb("replay", tokens=1), tokens=1):
+                self._phase(("replay", attn_len), lambda: self._replay_step(attn_len))
         self.stats["replayed_tokens"] += len(toks)
 
     # -- swap and drain at the poll boundary ----------------------------------
@@ -3315,9 +3728,11 @@ class ContinuousBatcher:
             if self._pending_swap is not swap:
                 return  # cancelled since the loop saw it
             old_v = self.weight_version
-            for (_p, dst), (_q, src) in zip(sorted_leaves(self.params),
-                                            sorted_leaves(swap.params)):
-                dst.copy_(src)
+            with self._prof.measure("swap_cast", variant=str(self.model.dtype).replace("torch.", ""),
+                                    bytes_read=self._rb("swap_cast")):
+                for (_p, dst), (_q, src) in zip(sorted_leaves(self.params),
+                                                sorted_leaves(swap.params)):
+                    dst.copy_(src)
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
             swap.params = None
@@ -3331,6 +3746,9 @@ class ContinuousBatcher:
                 # checkpoint then replays instead of splicing stale cache)
                 self._kv_tier.set_version(swap.version)
             self.stats["weight_swaps"] += 1
+            self._flight({"type": "weight_swap", "old_version": old_v,
+                          "new_version": swap.version, "drained_lanes": swap.drain_lanes or 0,
+                          "waited_polls": swap.waited_polls})
             self._pending_swap = None
         logger.info("weight swap %r -> %r (drained %d lanes over %d polls)",
                     old_v, swap.version, swap.drain_lanes or 0, swap.waited_polls)
@@ -3350,6 +3768,8 @@ class ContinuousBatcher:
         if not victims:
             return
         self.stats["swap_preemptions"] += len(victims)
+        self._flight({"type": "swap_straggler_preempt", "lanes": len(victims),
+                      "policy": self.swap_resume_policy, "swap_drain_ms": self.swap_drain_ms})
         logger.warning("weight swap straggler bound hit after %dms: %d in-flight lane(s) "
                        "checkpointed (policy=%s)", self.swap_drain_ms, len(victims),
                        self.swap_resume_policy)
@@ -3397,6 +3817,9 @@ class ContinuousBatcher:
                     break
             drained = [r for r in drained if not r.future.cancelled()]
             self.stats["drains"] += 1
+            self._flight({"type": "drain", "lanes": len(lanes),
+                          "checkpoints": sum(r.resume is not None for r in lanes),
+                          "chunked": n_chunked, "handed": len(drained)})
             logger.info("graceful drain: %d lane(s) checkpointed (%d with emitted tokens), "
                         "%d chunked, %d requests handed to migration", len(lanes),
                         sum(r.resume is not None for r in lanes), n_chunked, len(drained))
@@ -3538,24 +3961,51 @@ class ContinuousBatcher:
         self._upload(self._whole.budget, budget)
         self._fused_sync = True
 
-    def _dispatch(self, pending) -> None:
+    def _rb(self, kind: str, **kw) -> int:
+        """Modelled read bytes of one dispatch (the ledger's cost model)
+        at the live param and K/V widths."""
+        return int(self.model.dispatch_read_bytes(
+            kind, param_bytes=self._param_bytes, kv_row_bytes=self._kv_key_bytes, **kw))
+
+    def _dispatch(self, pending) -> Optional[Dict[str, Any]]:
         """Dispatch one poll's decode: a whole-batch burst, or one
-        sub-burst per depth group; each queues its tokens for the host."""
+        sub-burst per depth group; each queues its tokens for the host.
+        Returns the poll's decode plan for the flight recorder (None with
+        the recorder off)."""
         if self._masks_dirty:
             self._sync_masks()
         if self._spec_active():
-            self._dispatch_spec(pending)
-            return
-        # a configured draft keeps the fused plan off, also while rung 2
-        # suppresses speculation: the plain burst is what warm() captured
-        masked = self._fused_k > 0 and not self.speculate_tokens
+            return self._dispatch_spec(pending)
+        # the step kind warm() captured (a configured draft keeps the
+        # fused plan off, also while rung 2 suppresses speculation)
+        masked = self._masked_steps
+        fused_k = self._fused_k  # one snapshot per poll
+        use_fused = masked and fused_k > 0
+        reason = None
         if masked:
-            k, _reason = self._fused_plan(self._fused_k)
+            # fused 0 on a fused member: bursts of the poll length
+            k, reason = self._fused_plan(fused_k or self._k)
             if not self._fused_sync:
                 self._sync_stops()
         else:
             k = self._k
         groups, need = self._plan_groups(k)
+        plan = None
+        if self.flight is not None and self.flight.enabled:
+            # the depth-group plan and the cost model's verdict: distinct
+            # need buckets minus dispatched groups is how many splits it
+            # merged away; one record per poll, never per step
+            distinct = len(set(need.values()))
+            plan = {
+                "mode": "fused" if use_fused else "decode", "k": k,
+                "groups": [{"lanes": len(lanes), "bucket": b} for lanes, b in groups],
+                "distinct_buckets": distinct, "merged": distinct - len(groups),
+            }
+            if use_fused:
+                plan["k_max"] = fused_k
+                if reason is not None:
+                    plan["shrunk_by"] = reason
+        tenant = self._burst_tenant() if self._prof.enabled else ""
         for lanes, g_bucket in groups:
             whole = len(groups) == 1
             # snapshot BEFORE dispatch: this burst's tokens belong to these
@@ -3569,28 +4019,36 @@ class ContinuousBatcher:
                 s.first_pending = False
                 s.dispatched += k + (1 if first else 0)
                 self._pos_host[slot] += k
-            with device_trace("gen.decode_burst"):
+            rows = self.slots if whole else self._group_size_bucket(len(lanes))
+            if whole:
+                kind = "fused_burst" if use_fused else "decode_burst"
+                variant = f"k{k}b{g_bucket}" if use_fused else f"b{g_bucket}"
+                n_tok = k * rows
+            else:
+                kind = "group_burst"
+                variant = f"k{k}r{rows}b{g_bucket}" if use_fused else f"r{rows}b{g_bucket}"
+                n_tok = k * len(lanes)
+            read = self._rb(kind, rows=rows, k=k, bucket=g_bucket)
+            with self._prof.measure(kind, variant=variant, tenant=tenant, bytes_read=read,
+                                    tokens=n_tok), device_trace("gen.decode_burst"):
                 if whole:
-                    rows = self.slots
                     toks, counts = self._whole_burst(k, g_bucket, self._any_stoch, masked)
                 else:
-                    rows = self._group_size_bucket(len(lanes))
                     pads = [i for i in range(self.slots) if i not in snapshot]
                     toks, counts = self._group_burst(
                         lanes + pads[: rows - len(lanes)], len(lanes), k, g_bucket,
                         self._any_stoch, masked,
                     )
-                    self.stats["group_bursts"] += 1
-                    self.stats["group_lanes"] += len(lanes)
-                    self.stats["group_pad_lanes"] += rows - len(lanes)
-                pending.append(_Burst(toks, counts, snapshot, k, self._pinned))
+            if not whole:
+                self.stats["group_bursts"] += 1
+                self.stats["group_lanes"] += len(lanes)
+                self.stats["group_pad_lanes"] += rows - len(lanes)
+            pending.append(_Burst(toks, counts, snapshot, k, self._pinned))
             self.stats["steps"] += k
             self.stats["lane_steps"] += k * rows
             self.stats["burst_reads"] += 1
-            self.stats["burst_read_bytes"] += k * (
-                self._param_bytes + rows * g_bucket * self._kv_key_bytes
-            )
-            if masked:
+            self.stats["burst_read_bytes"] += read
+            if use_fused:
                 self.stats["fused_dispatches"] += 1
                 self.stats["fused_steps"] += k
             if self.trace_groups is not None:
@@ -3613,8 +4071,9 @@ class ContinuousBatcher:
             self._pos_host.pop(slot, None)
         if freed:
             self._masks_dirty = True
+        return plan
 
-    def _dispatch_spec(self, pending) -> None:
+    def _dispatch_spec(self, pending) -> Optional[Dict[str, Any]]:
         """Dispatch one spec burst: ``k`` rounds over the whole batch
         (spec bursts stay whole-batch under depth groups: their advance
         is data-dependent and the verify already shares the param read),
@@ -3632,11 +4091,19 @@ class ContinuousBatcher:
             s.dispatched += k + (1 if first else 0)
             self._pos_host[slot] += adv
         stoch = self._any_stoch
-        with device_trace("gen.decode_burst"):
+        with self._prof.measure(
+                "spec_burst", variant=f"g{self.speculate_tokens}b{attn_len}",
+                tenant=self._burst_tenant() if self._prof.enabled else "",
+                bytes_read=self._rb("spec_burst", rows=self.slots, k=k, bucket=attn_len),
+                tokens=k * self.slots), device_trace("gen.decode_burst"):
             self._phase(("spec", attn_len, stoch), lambda: self._spec_burst(attn_len, stoch))
-            pending.append(_Burst(self._spec_out, None, snapshot, k, self._pinned, spec=True))
+        pending.append(_Burst(self._spec_out, None, snapshot, k, self._pinned, spec=True))
         self.stats["steps"] += k
         self.stats["lane_steps"] += k * self.slots
+        if self.flight is not None and self.flight.enabled:
+            return {"mode": "spec", "k": k, "attn_len": attn_len,
+                    "lanes": len(self._active)}
+        return None
 
     def _process_spec_burst(self, burst: _Burst) -> None:
         """Credit one spec burst: per round a lane emitted ``count`` tokens
@@ -3645,6 +4112,8 @@ class ContinuousBatcher:
         bound tightens from the worst case ``k * (gamma + 1)`` to what
         its rounds emitted."""
         host, _ = burst.numpy()  # the burst's one host read
+        if self._prof.enabled:
+            self._prof.resolve()
         k, g = burst.k, self.speculate_tokens
         start_tok = host[0]
         toks = host[1: 1 + k * (g + 1)].reshape(k, g + 1, -1)
@@ -3668,6 +4137,38 @@ class ContinuousBatcher:
                 done = self._credit(s, toks[r, : int(counts[r, slot]), slot])
         self._check_done()
 
+    def _flight(self, entry: Dict[str, Any]) -> None:
+        """One typed event record, when the recorder is on."""
+        if self.flight is not None and self.flight.enabled:
+            self.flight.record(entry)
+
+    def _record_poll(self, flight: FlightRecorder, f0, plan, pending) -> None:
+        """The poll's record (when it admitted, chunked or dispatched):
+        the queue and lanes, the counters' deltas, the decode plan and the
+        ledger's rows since the last flush (a quiet poll's rows roll into
+        the next record)."""
+        admitted = self.stats["admitted"] - f0[0]
+        chunks = self.stats["prefill_chunks"] - f0[1]
+        if plan is None and not admitted and not chunks:
+            return
+        entry: Dict[str, Any] = {
+            "type": "poll", "queue": self._queue.qsize(), "active": len(self._active),
+            "chunked": len(self._chunked), "pending_bursts": len(pending),
+        }
+        hits = self.stats["prefix_hits"] - f0[2]
+        evicted = self.stats["prefix_evicted"] - f0[3]
+        for name, n in (("admitted", admitted), ("prefill_chunks", chunks),
+                        ("prefix_hits", hits), ("prefix_evicted", evicted)):
+            if n:
+                entry[name] = n
+        if plan is not None:
+            entry["plan"] = plan
+        if self._prof.enabled:
+            rows = self._prof.poll_flush()
+            if rows:
+                entry["device_time"] = rows
+        flight.record(entry)
+
     def _loop(self) -> bool:
         """One supervised run of the poll loop. False on a clean close(),
         else :meth:`_crash_recover`'s verdict after a loop death."""
@@ -3688,6 +4189,13 @@ class ContinuousBatcher:
                     # refresh the ledger; over the high watermark, run the
                     # reclaim ladder at this poll boundary
                     self._pressure_poll(pending)
+                # flight recorder: counters at the poll's start, so that
+                # the poll record carries what this poll did
+                flight = self.flight if self.flight is not None and self.flight.enabled else None
+                if flight is not None:
+                    f0 = (self.stats["admitted"], self.stats["prefill_chunks"],
+                          self.stats["prefix_hits"], self.stats["prefix_evicted"])
+                plan = None
                 # graceful drain: checkpoint everything at this boundary
                 # and hand it to the caller; admissions are refused since
                 # drain() latched "draining"
@@ -3695,6 +4203,12 @@ class ContinuousBatcher:
                 if drain is not None:
                     self._do_drain(drain, pending)
                     continue
+                # live retune: applied here, before this poll reads any
+                # knob, so one poll never sees a half-applied configuration
+                # (an unlocked read: _do_retune re-checks under the lock)
+                retune = self._pending_retune
+                if retune is not None:
+                    self._do_retune(retune)
                 # live weight swap: admissions hold while in-flight lanes,
                 # chunked admissions and bursts finish on the old weights;
                 # the flip comes when all three are empty, so no burst mixes
@@ -3771,7 +4285,9 @@ class ContinuousBatcher:
                     # then the decode burst, so decode lanes keep their pace
                     self._advance_chunks()
                 if self._active:
-                    self._dispatch(pending)
+                    plan = self._dispatch(pending)
+                if flight is not None:
+                    self._record_poll(flight, f0, plan, pending)
                 # read bursts oldest-first: always when the pipeline is
                 # full (or nothing is left to dispatch), and early when a
                 # burst's copy has already landed

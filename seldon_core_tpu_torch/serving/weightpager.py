@@ -627,6 +627,7 @@ class TenantScheduler:
 
     def _switch_to(self, tenant: str, forced: bool) -> None:
         b = self.batcher
+        outgoing = self.pager.resident
         # ingress drain: queued work would run under the new weights
         while not (b._queue.empty() and not b._resume_queue):
             if self._stop.is_set():
@@ -642,6 +643,15 @@ class TenantScheduler:
         cost_s = time.monotonic() - t0
         # the decision threshold tracks what a switch costs here
         self._switch_cost_s = 0.7 * self._switch_cost_s + 0.3 * cost_s
+        if b.flight is not None and b.flight.enabled:
+            if outgoing is not None:
+                b.flight.record({"type": "weight_page_out", "tenant": outgoing,
+                                 "host_bytes": self.pager.host_bytes})
+            b.flight.record({"type": "weight_page_in", "tenant": tenant, "version": version,
+                             "cost_ms": round(cost_s * 1e3, 3)})
+            b.flight.record({"type": "tenant_switch", "from": outgoing, "to": tenant,
+                             "forced": forced, "cost_ms": round(cost_s * 1e3, 3),
+                             "queued": len(self._queues[tenant])})
         with self._lock:
             self.stats["switches"] += 1
             self.stats["switch_cost_s_sum"] += cost_s

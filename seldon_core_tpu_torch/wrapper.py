@@ -131,6 +131,16 @@ def get_rest_microservice(
     app.add_route("/ready", ready)
     app.add_route("/pause", pause)
     app.add_route("/unpause", unpause)
+    if hasattr(user_object, "flight_dump"):
+        # a standalone generate server serves its scheduler flight
+        # recorder here too (the engine serves the graph-wide twin)
+        async def flightrecorder(req: Request) -> Response:
+            dump = user_object.flight_dump(req.int_param("limit"))
+            if dump is None:
+                return Response(error_body(404, "flight recorder is off"), 404)
+            return Response(dump)
+
+        app.add_route("/flightrecorder", flightrecorder)
     return app
 
 

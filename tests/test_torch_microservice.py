@@ -142,10 +142,17 @@ def test_health_routes_and_errors(port_app):
 
 
 def test_unported_parameter_raises(model_dir):
-    with pytest.raises(NotImplementedError, match="flight_recorder"):
+    with pytest.raises(NotImplementedError, match="shard_cache_seq"):
         microservice.build_user_object(CLS, _typed(
-            model_uri=model_dir, device="cpu", flight_recorder=512))
-    # off values, as strings from the typed-params env, are accepted
+            model_uri=model_dir, device="cpu", shard_cache_seq="true"))
+    # the telemetry parameters are ported: a JAX config spelling the JAX
+    # default flight_recorder 512, the profiler and SLO objectives, as
+    # typed strings, is accepted; off values too
+    srv = microservice.build_user_object(CLS, _typed(
+        model_uri=model_dir, device="cpu", flight_recorder=512, profiler="1",
+        slo_objectives="ttft:200:0.99"))
+    assert srv._flight_recorder == 512 and srv.profiler.enabled
+    assert [o.slo for o in srv.slo_burn.objectives] == ["ttft"]
     GenerateServer(model_uri=model_dir, device="cpu", profiler="0", flight_recorder=0)
     # the swap and resume-token parameters are ported: typed strings
     # parse, and a bad swap policy is refused as the JAX server's batcher

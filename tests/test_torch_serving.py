@@ -262,8 +262,22 @@ def test_warm_then_serve_equal(models, reference):
     ("profiler", "device_time", None), ("flight_recorder_capacity", 512, 0),
 ])
 def test_unported_knobs_raise(models, knob, on, off):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _port(models, **{knob: on})
+    """The mesh knobs raise at any value but their off value; the flight
+    recorder and the device-time ledger are ported, so their on values
+    are accepted (``profiler`` takes a ledger object, as the JAX
+    batcher's does: the string case passes an enabled one)."""
+    from seldon_core_tpu_torch.serving.continuous import NOT_PORTED_KNOBS
+    from seldon_core_tpu_torch.serving.profiler import DeviceTimeLedger
+
+    if knob in NOT_PORTED_KNOBS:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            _port(models, **{knob: on})
+    else:
+        value = DeviceTimeLedger(enabled=True) if knob == "profiler" else on
+        b = _port(models, **{knob: value})
+        assert (b._prof.enabled if knob == "profiler"
+                else b.flight.capacity == on)
+        b.close()
     _port(models, **{knob: off}).close()  # the off value is accepted
 
 
