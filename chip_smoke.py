@@ -7,7 +7,7 @@ Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails. ``--phases`` runs a subset of
 ``kernels, small, serve, engine, small-sched, sched, prefix, pressure,
 spec, spec-pressure, dh256, f32, disagg, kvtier, migration, telemetry,
-model``
+fronts, model``
 (device and build always run; the
 result lines print only when every phase ran, as with no argument):
 
@@ -200,7 +200,34 @@ result lines print only when every phase ran, as with no argument):
    K answers 409, and ``/flightrecorder`` and ``/fleet`` answer 200 with
    the JAX payload keys. Prints, not gated, a B=1 T=1024 prefill's ledger
    (stream) time beside torch.profiler's kernel sum.
-18. Model (on the engine phase's copy, after every serving phase: a
+18. Fronts (llm-1.26b, bf16, seed-0 weights, a GenerateServer from the
+   serve phase's typed parameters): (a) an FBSServer over it: two
+   20-byte strData prompts, a wave of 8 (20-900 bytes) on 8 connections,
+   each prompt alone over FBS equal to the same prompt alone over REST
+   ``/predict`` (a strData prompt is greedy with the server's default 32
+   new tokens: the FBS wire carries no sampling fields), FBS and REST
+   client ms side by side, an ndarray request answered by a FAILURE
+   frame carrying the server's ValueError on a connection that then
+   serves again; (b) the request-logger collector started through its
+   CLI, an engine built with ``RequestLogger.from_env()`` against one
+   without a logger, 16 generate records alone through each,
+   alternated: equal tokens, 16 documents at ``/entries``, the sink's
+   posted 16, dropped and errors 0, engine latency and TTFT on vs off;
+   (c) a FileQueue of the 16 records and a poison record drained through
+   the engine by ``IngestConsumer(concurrency=8)``, stopped after half
+   and restarted: each record once in the results, the poison
+   dead-lettered, the commit at the queue's end (equality with alone
+   reported: bf16 rounding depends on batch composition), then a second
+   group at concurrency 1 whose every result equals the record alone;
+   records/s and per-record p50/p99; (d) ``/openapi.json`` 200 on the
+   engine and the microservice, paths equal to each app's routes; (e)
+   ``python -m seldon_core_tpu_torch.microservice PidGenerateServer
+   REST --workers 2`` (a GenerateServer subclass tagging its pid): the
+   16 records on fresh connections answered by both pids, each equal to
+   the record alone, SIGTERM ending both workers with code 0 within 30
+   s; boot times and each worker's memory from nvidia-smi. The flash
+   kernel's launches over (a)-(d) join the ``kernels`` line.
+19. Model (on the engine phase's copy, after every serving phase: a
    profiler run may slow later launches): full-width prefill time per
    bucket with the flash kernel's device time inside it
    (torch.profiler), a prefix hit's suffix prefill against the full
@@ -212,7 +239,7 @@ result lines print only when every phase ran, as with no argument):
    a 6-layer early-exit draft, the W = 5 verify chunk, acceptance)
    against 5 decode steps at B = 4, attention 512, in device-busy time
    and device operations.
-19. The ``kernels`` JSON line (the flash kernel on the main path, its
+20. The ``kernels`` JSON line (the flash kernel on the main path, its
    Dh 256 instance on the dh256 phase's and its float32 instance on the
    f32 phase's), then the final ``{"ok": true, ...}`` line.
 
@@ -228,6 +255,7 @@ import http.client
 import json
 import os
 import re
+import signal
 import socket
 import subprocess
 import sys
@@ -3323,8 +3351,9 @@ def _times(sink, n):
     return sink
 
 
-def _engine_for(server, model_dir):
-    """An EngineApp over the in-process generate ``server``."""
+def _engine_for(server, model_dir, **kw):
+    """An EngineApp over the in-process generate ``server`` (``kw`` to
+    ``EngineApp``)."""
     from seldon_core_tpu_torch.graph.engine_metrics import MetricsRegistry
     from seldon_core_tpu_torch.graph.service import EngineApp
     from seldon_core_tpu_torch.graph.spec import (
@@ -3339,7 +3368,7 @@ def _engine_for(server, model_dir):
         "annotations": {"seldon.io/rest-read-timeout": "600000"}})
     spec = default_predictor(spec)
     validate_predictor(spec)
-    return EngineApp(spec, registry={"llm": server}, metrics=MetricsRegistry())
+    return EngineApp(spec, registry={"llm": server}, metrics=MetricsRegistry(), **kw)
 
 
 def _serve_engines(apps):
@@ -4114,9 +4143,562 @@ def phase_telemetry(card, serve_alone=None):
     return launches
 
 
+FRONTS_NEW = 32  # new tokens of a strData prompt: the generate server's default
+FRONTS_LENS = (20, 128, 500, 900, 20, 300, 24, 30)
+WORKER_CLASS = """import os
+
+import torch
+
+from seldon_core_tpu_torch.servers.generateserver import GenerateServer
+
+
+class PidGenerateServer(GenerateServer):
+    def tags(self):
+        return {**super().tags(), "pid": os.getpid(),
+                "reserved_mib": torch.cuda.memory_reserved() >> 20,
+                "peak_allocated_mib": torch.cuda.max_memory_allocated() >> 20}
+"""
+
+
+def fronts_traffic():
+    """The fronts phase's traffic: strData prompts of printable ASCII (the
+    byte-level prompts of a generate server), two of 20 bytes and a wave
+    of 8 at the serve waves' lengths; and 16 token records at the same
+    lengths, 64 new tokens, every fourth seeded."""
+    import numpy as np
+
+    rs = np.random.RandomState(12)
+
+    def text(n):
+        return "".join(chr(c) for c in rs.randint(32, 127, n))
+
+    probe = [("str_20a", text(20)), ("str_20b", text(20))]
+    wave = [(f"str_{n}_{i}", text(n)) for i, n in enumerate(FRONTS_LENS)]
+    vocab = LLM_1_26B["vocab_size"]
+    records = []
+    for i in range(16):
+        seeded = i % 4 == 2
+        records.append((f"r{i:02d}", rs.randint(0, vocab, FRONTS_LENS[i % 8]).tolist(),
+                        0.8 if seeded else 0.0, i if seeded else 0))
+    return probe, wave, records
+
+
+def _fbs_call(conn, frame):
+    """One frame out on ``conn``, the decoded answer back."""
+    import struct
+
+    from seldon_core_tpu_torch import fbs
+
+    conn.sendall(frame)
+    head = fbs._recv_exact(conn, 4)
+    payload = None if head is None else fbs._recv_exact(conn, struct.unpack("<I", head)[0])
+    if payload is None:
+        raise AssertionError("[fronts] the FBS server closed the connection mid-answer")
+    return fbs.decode_message(head + payload)
+
+
+def _fbs_text(port, text, timeout=600.0):
+    """One strData request on a fresh connection: (tokens, client ms)."""
+    from seldon_core_tpu_torch import fbs
+
+    t = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", port), timeout) as conn:
+        out = _fbs_call(conn, fbs.encode_message(str_data=text))
+    return _fbs_tokens(out), (time.perf_counter() - t) * 1e3
+
+
+def _fbs_tokens(out):
+    st = out["status"]
+    if not st or st["code"] != 200 or st["status"] != "SUCCESS" or out["strData"] is None:
+        raise AssertionError(f"[fronts] FBS answered {st}")
+    return json.loads(out["strData"])["tokens"]
+
+
+def _ping(port) -> bool:
+    try:
+        return _get(port, "/ping", timeout=5)[0] == 200
+    except (OSError, ValueError):
+        return False
+
+
+def _get(port, path, timeout=60.0):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        raw = resp.read()
+        if resp.getheader("Content-Type", "").startswith("application/json"):
+            return resp.status, json.loads(raw)
+        return resp.status, raw
+    finally:
+        conn.close()
+
+
+def _pctl(xs, q):
+    import numpy as np
+
+    return float(np.percentile(xs, q))
+
+
+def _next_ttft(batcher, n_before, what):
+    """TTFT (ms) of the request that completes the batcher's SLO reservoir
+    past ``n_before`` entries (requests run one at a time)."""
+    deadline = time.monotonic() + 10
+    while len(batcher.slo_recent) <= n_before and time.monotonic() < deadline:
+        time.sleep(0.001)
+    if len(batcher.slo_recent) <= n_before:
+        raise AssertionError(f"[fronts] {what}: no SLO record landed")
+    return batcher.slo_recent[-1][1] * 1e3
+
+
+def _smi_apps():
+    """[(pid, MiB)] of the card's compute processes, one per line that
+    nvidia-smi prints (inside a container several processes may show
+    under one pid)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=30).stdout
+    apps = []
+    for line in out.strip().splitlines():
+        pid, _, mib = line.partition(",")
+        try:
+            apps.append((int(pid), int(mib)))
+        except ValueError:
+            continue
+    return apps
+
+
+def _smi_used():
+    """The card's memory.used in MiB (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=30).stdout
+    return int(out.strip().splitlines()[0])
+
+
+def _fronts_a(card, fport, mport, probe, wave):
+    """(a) FBS over the in-process server; returns nothing, raises on a
+    failed check."""
+    import numpy as np
+
+    from seldon_core_tpu_torch import fbs
+
+    for label, text in probe:
+        toks, _ms = _fbs_text(fport, text)
+        if len(toks) != 1 or toks[0][:len(text)] != list(text.encode()) \
+                or len(toks[0]) != len(text) + FRONTS_NEW:
+            raise AssertionError(f"[fronts] {label}: malformed FBS tokens")
+    got, errors = {}, []
+
+    def one(label, text):
+        try:
+            got[label] = _fbs_text(fport, text)[0]
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(f"{label}: {type(e).__name__}: {e}")
+
+    t = time.perf_counter()
+    threads = [threading.Thread(target=one, args=it) for it in wave]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    wave_s = time.perf_counter() - t
+    if errors or len(got) != len(wave):
+        raise AssertionError(f"[fronts] FBS wave failed: {errors or 'a request did not finish'}")
+    for label, text in wave:
+        toks = got[label]
+        if len(toks) != 1 or toks[0][:len(text)] != list(text.encode()) \
+                or len(toks[0]) != len(text) + FRONTS_NEW:
+            raise AssertionError(f"[fronts] {label}: malformed FBS tokens")
+    log(f"[fronts] (a) FBS wave of {len(wave)} strData prompts ({min(FRONTS_LENS)}-"
+        f"{max(FRONTS_LENS)} bytes, {FRONTS_NEW} new tokens) on {len(wave)} connections: "
+        f"{len(wave) * FRONTS_NEW / wave_s:.1f} tokens/s in {wave_s:.2f} s [{card}]")
+    fbs_ms, rest_ms, in_wave = [], [], 0
+    for label, text in probe + wave:
+        toks, ms = _fbs_text(fport, text)
+        t = time.perf_counter()
+        status, body = _post(mport, {"strData": text})
+        rest_ms.append((time.perf_counter() - t) * 1e3)
+        fbs_ms.append(ms)
+        if status != 200:
+            raise AssertionError(f"[fronts] {label}: REST HTTP {status} {body}")
+        if toks != body["jsonData"]["tokens"]:
+            raise AssertionError(f"[fronts] {label}: FBS alone != REST alone")
+        in_wave += label in got and got[label] == toks
+    log(f"[fronts] (a) each of {len(fbs_ms)} strData prompts alone: FBS tokens == REST "
+        f"/predict tokens; the wave's equal to alone: {in_wave} of {len(wave)} "
+        "(bf16 rounding depends on batch composition)")
+    log(f"[fronts] (a) client ms alone, FBS vs REST: p50 {_pctl(fbs_ms, 50):.1f} vs "
+        f"{_pctl(rest_ms, 50):.1f}, min {min(fbs_ms):.1f} vs {min(rest_ms):.1f}, "
+        f"max {max(fbs_ms):.1f} vs {max(rest_ms):.1f} [{card}]")
+    with socket.create_connection(("127.0.0.1", fport), 600) as conn:
+        out = _fbs_call(conn, fbs.encode_message(np.array([[1.0, 2.0]]), ["a", "b"]))
+        st = out["status"] or {}
+        if st.get("status") != "FAILURE" or "ValueError" not in st.get("info", ""):
+            raise AssertionError(f"[fronts] an ndarray request answered {st}, not a FAILURE "
+                                 "frame with the server's ValueError")
+        label, text = probe[0]
+        again = _fbs_tokens(_fbs_call(conn, fbs.encode_message(str_data=text)))
+        if again != _fbs_text(fport, text)[0]:
+            raise AssertionError("[fronts] the connection after a FAILURE frame answered "
+                                 "other tokens")
+    log(f"[fronts] (a) DefaultData request: FAILURE frame, code {st['code']}, "
+        f"{st['info'][:60]!r}...; the same connection then served {label}")
+
+
+def _fronts_b(card, user, ports, records, sink, cport):
+    """(b) the request logger: each record alone through the engine with
+    the CloudEvents sink on and through the one without it, alternated.
+    Returns each record's tokens alone."""
+    batcher = user.batcher
+    lat = {"on": [], "off": []}
+    ttft = {"on": [], "off": []}
+    alone = {}
+    for i, (label, toks, temp, seed) in enumerate(records):
+        got = {}
+        for side in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            n0 = len(batcher.slo_recent)
+            t = time.perf_counter()
+            status, body = _post(ports["engine_" + side], _gen_body(toks, temp, seed),
+                                 path="/api/v0.1/predictions")
+            lat[side].append((time.perf_counter() - t) * 1e3)
+            if status != 200:
+                raise AssertionError(f"[fronts] {label} logger {side}: HTTP {status} {body}")
+            ttft[side].append(_next_ttft(batcher, n0, label))
+            got[side] = body["jsonData"]["tokens"]
+            out = got[side]
+            if len(out) != 1 or out[0][:len(toks)] != toks or len(out[0]) != len(toks) + MAX_NEW:
+                raise AssertionError(f"[fronts] {label}: malformed tokens")
+        if got["on"] != got["off"]:
+            raise AssertionError(f"[fronts] {label}: logger on != off, each alone")
+        alone[label] = got["off"][0]
+    n = len(records)
+    deadline = time.monotonic() + 30
+    while sink.stats["posted"] + sink.stats["errors"] < n and time.monotonic() < deadline:
+        time.sleep(0.01)
+    status, entries = _get(cport, "/entries")
+    docs = entries["entries"]
+    if status != 200 or len(docs) != n or entries["stats"]["events"] != n \
+            or sorted(d["response"]["tokens"][0] for d in docs) != sorted(alone.values()):
+        raise AssertionError(f"[fronts] the collector holds {len(docs)} documents, "
+                             f"stats {entries.get('stats')}, for {n} pairs")
+    if sink.stats != {"posted": n, "dropped": 0, "errors": 0}:
+        raise AssertionError(f"[fronts] sink stats {sink.stats}, want {n} posted")
+    log(f"[fronts] (b) {n} generate predictions through the engine with the CloudEvents "
+        f"sink: {n} documents at the collector's /entries, sink {sink.stats}; each alone "
+        "equal with the logger on and off")
+    for side in ("on", "off"):
+        log(f"[fronts] (b) logger {side}: engine latency p50 {_pctl(lat[side], 50):.1f} ms, "
+            f"p99 {_pctl(lat[side], 99):.1f}; TTFT p50 {_pctl(ttft[side], 50):.1f} ms, "
+            f"p99 {_pctl(ttft[side], 99):.1f} (alternated, {n} each) [{card}]")
+    return alone
+
+
+def _fronts_c(card, tmp, engine_port, records, alone):
+    """(c) the ingest tier: a FileQueue of the records and a poison record
+    drained through the engine by IngestConsumer(concurrency=8), stopped
+    after about half and restarted; then a second group at concurrency 1,
+    whose records are each alone."""
+    from seldon_core_tpu_torch.ingest import FileQueue, IngestConsumer, read_results
+
+    q = FileQueue(os.path.join(tmp, "queue"))
+    poison = {"id": "poison", "request": {"data": {"raw": {
+        "dtype": "no-such-dtype", "shape": [1], "data": ""}}}}
+    recs = [{"id": label, "request": _gen_body(toks, temp, seed)}
+            for label, toks, temp, seed in records]
+    q.append_many(recs[:8] + [poison] + recs[8:])
+    ids = {r["id"] for r in recs}
+
+    def drain(group, concurrency, stop_at=None):
+        out = os.path.join(tmp, f"results-{group}.jsonl")
+        dead = os.path.join(tmp, f"dead-{group}.jsonl")
+        lat = []
+
+        def consumer():
+            c = IngestConsumer(q, "127.0.0.1", engine_port, group=group, out_path=out,
+                               dead_letter_path=dead, concurrency=concurrency, retries=2,
+                               retry_backoff_s=0.01, engine_timeout_s=600.0)
+            score = c._score
+
+            async def timed(record):
+                t = time.perf_counter()
+                try:
+                    return await score(record)
+                finally:
+                    lat.append((time.perf_counter() - t) * 1e3)
+            c._score = timed
+            return c
+
+        async def first_life():
+            c = consumer()
+            task = asyncio.ensure_future(c.run())
+            while c.stats["scored"] < stop_at and not task.done():
+                await asyncio.sleep(0.005)
+            c.stop()
+            return await task
+
+        t = time.perf_counter()
+        lives = []
+        if stop_at is not None:
+            lives.append(asyncio.run(first_life()))
+            lives.append(q.committed(group))
+        lives.append(asyncio.run(consumer().run(drain=True)))
+        wall = time.perf_counter() - t
+        results = read_results(out)
+        with open(out) as f:
+            rows = [json.loads(line)["id"] for line in f]
+        with open(dead) as f:
+            dead_rows = [json.loads(line) for line in f]
+        if set(results) != ids or sorted(rows) != sorted(ids):
+            raise AssertionError(f"[fronts] {group}: results {sorted(rows)}, want each of "
+                                 f"{len(ids)} records once")
+        if [r["record"]["id"] for r in dead_rows] != ["poison"] or not dead_rows[0]["error"]:
+            raise AssertionError(f"[fronts] {group}: dead letters {dead_rows}")
+        if q.committed(group) != q.end_offset():
+            raise AssertionError(f"[fronts] {group}: commit {q.committed(group)} short of "
+                                 f"the queue's end {q.end_offset()}")
+        for rid, row in results.items():
+            toks = row["response"]["jsonData"]["tokens"]
+            if len(toks) != 1 or len(toks[0]) != len(alone[rid]) \
+                    or toks[0][:len(toks[0]) - MAX_NEW] != alone[rid][:len(toks[0]) - MAX_NEW]:
+                raise AssertionError(f"[fronts] {group} {rid}: malformed result")
+        same = sum(results[rid]["response"]["jsonData"]["tokens"][0] == alone[rid] for rid in ids)
+        return lives, wall, lat, same
+
+    # stopped once the first record is scored: the first wave of 8 (and
+    # what a freed slot polled) ends in the first life, the rest in the
+    # restart
+    lives, wall, lat, same = drain("fronts", 8, stop_at=1)
+    first, commit1, second = lives
+    if not 0 < first["scored"] < len(recs) or second["scored"] <= 0:
+        raise AssertionError(f"[fronts] ingest lives scored {first['scored']} and "
+                             f"{second['scored']}: the restart drained nothing")
+    log(f"[fronts] (c) ingest, concurrency 8: {len(recs)} records + 1 poison; first life "
+        f"scored {first['scored']} (commit {commit1}), the restart {second['scored']} "
+        f"(replayed {second['replayed']}); every record once in the results, the poison "
+        f"dead-lettered, commit at the end ({q.end_offset()}); equal to alone: {same} of "
+        f"{len(recs)} (bf16, batch composition)")
+    log(f"[fronts] (c) ingest, concurrency 8: {len(recs) / wall:.2f} records/s over both "
+        f"lives ({wall:.2f} s), per-record engine call p50 {_pctl(lat, 50):.1f} ms, "
+        f"p99 {_pctl(lat, 99):.1f} [{card}]")
+    lives, wall, lat, same = drain("fronts-alone", 1)
+    if same != len(recs):
+        raise AssertionError(f"[fronts] ingest at concurrency 1: {same} of {len(recs)} "
+                             "records equal to the same request alone")
+    log(f"[fronts] (c) ingest, concurrency 1: every record equal to the same request alone; "
+        f"{len(recs) / wall:.2f} records/s, p50 {_pctl(lat, 50):.1f} ms, "
+        f"p99 {_pctl(lat, 99):.1f} [{card}]")
+
+
+def _fronts_e(card, tmp, model_dir, records, alone):
+    """(e) --workers 2: the microservice CLI as a subprocess serving
+    PidGenerateServer from ``model_dir``; 16 requests on fresh
+    connections answered by two pids, each equal to the same request
+    alone; SIGTERM ends both workers with code 0."""
+    with open(os.path.join(tmp, "PidGenerateServer.py"), "w") as f:
+        f.write(WORKER_CLASS)
+    params = [{"name": "model_uri", "value": model_dir, "type": "STRING"}] + SERVE_PARAMS
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + tmp,
+               PREDICTIVE_UNIT_PARAMETERS=json.dumps(params))
+    port = _free_port()
+    log_path = os.path.join(tmp, "workers.log")
+    logf = open(log_path, "w")
+    base = _smi_used()
+    peak = {"used": base, "lines": []}
+    sampling = threading.Event()
+
+    def sample():
+        while not sampling.wait(0.5):
+            used = _smi_used()
+            if used > peak["used"]:
+                peak.update(used=used, lines=_smi_apps())
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seldon_core_tpu_torch.microservice", "PidGenerateServer",
+         "REST", "--workers", "2", "--service-port", str(port), "--host", "127.0.0.1"],
+        cwd=tmp, env=env, stdout=logf, stderr=subprocess.STDOUT)
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    try:
+        seen, first_s = set(), None
+        deadline = time.monotonic() + 240
+        while len(seen) < 2 and time.monotonic() < deadline:
+            if proc.poll() is not None:
+                raise AssertionError(f"[fronts] --workers 2 exited with {proc.returncode}")
+            try:
+                status, body = _post(port, _gen_body([1, 2, 3], max_new=1), timeout=60)
+            except OSError:
+                time.sleep(0.2)
+                continue
+            if status != 200:
+                raise AssertionError(f"[fronts] worker answered HTTP {status} {body}")
+            seen.add(body["meta"]["tags"]["pid"])
+            first_s = first_s or time.perf_counter() - t0
+        if len(seen) < 2:
+            raise AssertionError(f"[fronts] only pids {seen} answered within 240 s")
+        both_s = time.perf_counter() - t0
+        pids, mem = collections.Counter(), {}
+        for label, toks, temp, seed in records:
+            status, body = _post(port, _gen_body(toks, temp, seed))
+            if status != 200:
+                raise AssertionError(f"[fronts] {label} via --workers 2: HTTP {status} {body}")
+            if body["jsonData"]["tokens"] != [alone[label]]:
+                raise AssertionError(f"[fronts] {label} via --workers 2 != the same request alone")
+            tags = body["meta"]["tags"]
+            pids[tags["pid"]] += 1
+            mem[tags["pid"]] = (tags["reserved_mib"], tags["peak_allocated_mib"])
+        if len(pids) < 2:
+            raise AssertionError(f"[fronts] {len(records)} requests all answered by {dict(pids)}")
+        now, used = _smi_apps(), _smi_used()
+        sampling.set()
+        sampler.join(5)
+        t = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(30)
+        except subprocess.TimeoutExpired:
+            raise AssertionError("[fronts] SIGTERM did not end --workers 2 within 30 s") from None
+        stop_s = time.perf_counter() - t
+        if rc != 0:
+            raise AssertionError(f"[fronts] --workers 2 exited {rc} after SIGTERM")
+    except BaseException:
+        with open(log_path) as f:
+            log(f"[fronts] workers log tail:\n{f.read()[-3000:]}")
+        raise
+    finally:
+        sampling.set()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        logf.close()
+    log(f"[fronts] (e) --workers 2: first answer {first_s:.1f} s, both pids {both_s:.1f} s "
+        f"after launch; {len(records)} requests on fresh connections answered by pids "
+        f"{dict(pids)}, each equal to the same request alone; SIGTERM -> exit 0 in "
+        f"{stop_s:.1f} s [{card}]")
+    log(f"[fronts] (e) nvidia-smi --query-compute-apps=pid,used_memory after the requests "
+        f"(pid, MiB): {now}, at the card's peak: {peak['lines']} (inside a container the "
+        f"processes may show under one pid) [{card}]")
+    log(f"[fronts] (e) the card's memory.used: {base} MiB before the launch, {used} MiB with "
+        f"both workers serving (+{used - base}), peak {peak['used']} MiB (+{peak['used'] - base}) "
+        f"over the boots and requests [{card}]")
+    for pid in sorted(mem):
+        log(f"[fronts] (e) worker {pid}: torch.cuda.memory_reserved {mem[pid][0]} MiB, "
+            f"max_memory_allocated {mem[pid][1]} MiB (after its last answer) [{card}]")
+
+
+def phase_fronts(card):
+    """The fronts at llm-1.26b (bf16, seed-0 weights, the serve phase's
+    GenerateServer parameters): (a) an FBSServer over the in-process
+    server: the two 20-byte strData prompts, a wave of 8 on 8
+    connections, each prompt alone equal over FBS and REST /predict, an
+    ndarray request answered by a FAILURE frame on a connection that
+    stays usable; (b) the request logger's collector started through its
+    CLI, an engine with ``RequestLogger.from_env()`` over the same server
+    against one without: 16 generate predictions alone, alternated, one
+    document each at ``/entries``, the sink's posted 16 with nothing
+    dropped; (c) the ingest tier through the engine; (d) ``/openapi.json``
+    on the engine and the microservice; (e) ``--workers 2``. Returns the
+    flash kernel's launches over (a)-(d)."""
+    import torch
+
+    from seldon_core_tpu_torch import fbs, wrapper
+    from seldon_core_tpu_torch.graph.service import RequestLogger
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+    from seldon_core_tpu_torch.request_logging import CloudEventsSink
+
+    probe, wave, records = fronts_traffic()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fronts-") as tmp:
+        model_dir = os.path.join(tmp, "llm")
+        os.makedirs(model_dir)
+        with open(os.path.join(model_dir, "jax_config.json"), "w") as f:
+            json.dump({"family": "llm", "config": LLM_1_26B}, f)
+        t0 = time.perf_counter()
+        user = _gen_server(model_dir)
+        log(f"[fronts] llm-1.26b loaded and warmed in {time.perf_counter() - t0:.1f} s")
+        cport = _free_port()
+        collector_log = open(os.path.join(tmp, "collector.log"), "w")
+        collector = subprocess.Popen(
+            [sys.executable, "-m", "seldon_core_tpu_torch.request_logging",
+             "--host", "127.0.0.1", "--port", str(cport)],
+            cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+            stdout=collector_log, stderr=subprocess.STDOUT)
+        stops, fbs_srv, sink = [], None, None
+        try:
+            _wait_for(lambda: _ping(cport), "the request-logger collector", 60)
+            saved = os.environ.get("SELDON_MESSAGE_LOGGING_SERVICE")
+            os.environ["SELDON_MESSAGE_LOGGING_SERVICE"] = f"http://127.0.0.1:{cport}/"
+            try:
+                logger_on = RequestLogger.from_env()
+            finally:
+                if saved is None:
+                    os.environ.pop("SELDON_MESSAGE_LOGGING_SERVICE")
+                else:
+                    os.environ["SELDON_MESSAGE_LOGGING_SERVICE"] = saved
+            sink = logger_on.sink
+            if not isinstance(sink, CloudEventsSink):
+                raise AssertionError("SELDON_MESSAGE_LOGGING_SERVICE did not select the "
+                                     "CloudEvents sink")
+            fronts = {"micro": wrapper.get_rest_microservice(user),
+                      "engine_on": _engine_for(user, model_dir,
+                                               request_logger=logger_on).rest_app(),
+                      "engine_off": _engine_for(user, model_dir).rest_app()}
+            ports = {k: _free_port() for k in fronts}
+
+            async def start():
+                for k, front in fronts.items():
+                    await front.start("127.0.0.1", ports[k])
+
+                async def close():
+                    for front in fronts.values():
+                        front.close()
+                return close
+
+            stops.append(serve_in_thread(start))
+            fbs_srv = fbs.FBSServer(user, host="127.0.0.1", port=0).start()
+            stats0 = dict(user.batcher.stats)
+            torch.cuda.synchronize()
+            fa.LAUNCHES["flash_attention"] = 0  # count this phase's traffic only
+            _fronts_a(card, fbs_srv.port, ports["micro"], probe, wave)
+            alone = _fronts_b(card, user, ports, records, sink, cport)
+            _fronts_c(card, tmp, ports["engine_off"], records, alone)
+            for name, key in (("engine", "engine_off"), ("microservice", "micro")):
+                status, doc = _get(ports[key], "/openapi.json")
+                if status != 200 or set(doc["paths"]) != set(fronts[key].routes):
+                    raise AssertionError(f"[fronts] {name} /openapi.json: HTTP {status}, "
+                                         "paths other than its routes")
+            log(f"[fronts] (d) /openapi.json 200 on the engine ({len(fronts['engine_off'].routes)}"
+                f" paths) and the microservice ({len(fronts['micro'].routes)} paths), each "
+                "equal to its served routes")
+            torch.cuda.synchronize()
+            launches = fa.LAUNCHES["flash_attention"]
+            prefills = user.batcher.stats["prefill_steps"] - stats0["prefill_steps"]
+            layers = LLM_1_26B["n_layers"]
+            log(f"[fronts] prefill dispatches {prefills}, flash kernel launches {launches} "
+                f"(need >= {layers} x {prefills})")
+            if prefills <= 0 or launches < layers * prefills:
+                raise AssertionError("not every prefill went through the flash kernel")
+        finally:
+            if fbs_srv is not None:
+                fbs_srv.close()
+            for stop in stops:
+                stop()
+            if sink is not None:
+                sink.close()
+            collector.terminate()
+            collector.wait(30)
+            collector_log.close()
+            user.close()
+        del user, fronts
+        gc.collect()
+        torch.cuda.empty_cache()
+        _fronts_e(card, tmp, model_dir, records, alone)
+    return launches
+
+
 PHASES = ("kernels", "small", "serve", "engine", "small-sched", "sched", "prefix",
           "pressure", "spec", "spec-pressure", "dh256", "f32", "disagg", "kvtier", "migration",
-          "telemetry", "model")
+          "telemetry", "fronts", "model")
 
 
 def _llm_model():
@@ -4186,6 +4768,7 @@ def main(argv=None) -> int:
         sched_launches = sched_tokens = prefix_launches = pressure_launches = None
         spec_launches = dh256_launches = f32_launches = None
         disagg_launches = kvtier_launches = migration_launches = telemetry_launches = None
+        fronts_launches = None
         if "serve" in phases:
             launches, alone, serve_numbers = phase_serve(card)
             free()  # the serve phase's copy of the model goes
@@ -4243,6 +4826,10 @@ def main(argv=None) -> int:
             telemetry_launches = phase_telemetry(card, alone)
             free()
             lap("telemetry")
+        if "fronts" in phases:
+            fronts_launches = phase_fronts(card)
+            free()
+            lap("fronts")
         # the profiler runs last: once it has traced the card, later
         # launches may carry its overhead
         if "model" in phases:
@@ -4275,6 +4862,7 @@ def main(argv=None) -> int:
             "kvtier_launches": kvtier_launches,
             "migration_launches": migration_launches,
             "telemetry_launches": telemetry_launches,
+            "fronts_launches": fronts_launches,
             "dh256_launches": dh256_launches,
             "max_abs_err": worst(lambda r: r["dtype"] == "bfloat16"),
             "wgmma_max_abs_err": worst(lambda r: r["route"] == "wgmma"),

@@ -6,10 +6,12 @@ it is held against. It imports ``torch`` and never ``jax``, and nothing of
 ``seldon_core_tpu``. Module paths mirror the JAX package's:
 
   * wire contract                      (`proto/`, `payload`)
-  * microservice runtime (REST, gRPC)  (`user_model`, `seldon_methods`,
-                                        `wrapper`, `http_server`,
-                                        `microservice`)
+  * microservice runtime (REST, gRPC,  (`user_model`, `seldon_methods`,
+    FBS; workers, persistence)          `wrapper`, `http_server`,
+                                        `microservice`, `fbs`,
+                                        `persistence`, `openapi`)
   * inference-graph engine             (`graph/`, `engine_main`)
+  * request logging, async ingestion   (`request_logging`, `ingest`)
   * deadlines, retries, breakers,
     fault injection                    (`resilience/`)
   * spans and device ranges            (`tracing`)

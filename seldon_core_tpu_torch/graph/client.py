@@ -158,6 +158,19 @@ class RestClient(UnitClient):
             if not pooled:
                 writer.close()
 
+    async def engine_predict(self, message: Dict[str, Any]) -> Dict[str, Any]:
+        """POST to an ENGINE's external predictions route (the ingest tier
+        and batch scorers talk to engines, not bare units). Deadline-bound
+        like call(): a wedged engine must surface as an error the caller's
+        retry/dead-letter path can act on, not an eternal hang."""
+        return await asyncio.wait_for(
+            self._request(
+                "/api/v0.1/predictions",
+                json.dumps(message, separators=(",", ":")).encode(),
+            ),
+            self.timeout,
+        )
+
     async def call(self, method: str, message: Dict[str, Any]) -> Dict[str, Any]:
         from ..payload import has_raw_bytes, jsonable
 
@@ -212,6 +225,20 @@ class RestClient(UnitClient):
         while not self._pool.empty():
             _, writer = self._pool.get_nowait()
             writer.close()
+
+
+async def engine_predict_url(url: str, message: Dict[str, Any],
+                             timeout: float = DEFAULT_TIMEOUT_S * 2) -> Dict[str, Any]:
+    """One-shot POST to an ENGINE's predictions route by URL
+    (``http://host:port``): a connection per call, so there is no pool
+    to leak when the caller goes away."""
+    rest = url.split("//", 1)[-1]
+    host, _, port = rest.partition(":")
+    client = RestClient(host, int(port or 80), timeout=timeout, retries=1)
+    try:
+        return await client.engine_predict(message)
+    finally:
+        await client.close()
 
 
 class GrpcClient(UnitClient):

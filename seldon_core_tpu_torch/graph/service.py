@@ -28,9 +28,13 @@ reference engine's external surface:
     The JAX engine's ``(fusion)`` pseudo-unit in ``/flightrecorder`` is
     absent: graph fusion is not ported
 
+  * ``/openapi.json``: the engine's OpenAPI document reconciled against
+    the routes it serves (equal to the JAX engine's, key for key)
+  * ``SELDON_MESSAGE_LOGGING_SERVICE`` selects a CloudEvents sink for the
+    request/response pairs (``request_logging.py``)
+
 The REST front needs no protobuf runtime (a binary body loads it); the
-gRPC front imports ``grpc`` when it is built. The openapi route answers
-501: it is not ported yet.
+gRPC front imports ``grpc`` when it is built.
 """
 
 from __future__ import annotations
@@ -81,17 +85,16 @@ class RequestLogger:
 
     @classmethod
     def from_env(cls) -> "RequestLogger":
-        """No-op logger; the CloudEvents POST sink that
-        SELDON_MESSAGE_LOGGING_SERVICE selects in the JAX package is not
-        ported yet and raises when that variable is set."""
+        """CloudEvents POST sink when SELDON_MESSAGE_LOGGING_SERVICE is set;
+        no-op logger otherwise."""
         import os
 
-        if os.environ.get("SELDON_MESSAGE_LOGGING_SERVICE"):
-            raise NotImplementedError(
-                "SELDON_MESSAGE_LOGGING_SERVICE (the CloudEvents request "
-                "logger) is not ported to seldon_core_tpu_torch yet"
-            )
-        return cls()
+        url = os.environ.get("SELDON_MESSAGE_LOGGING_SERVICE")
+        if not url:
+            return cls()
+        from ..request_logging import CloudEventsSink
+
+        return cls(CloudEventsSink(url))
 
     def log(self, puid: str, request: Dict, response: Dict) -> None:
         if self.sink is None:
@@ -533,12 +536,10 @@ class EngineApp:
                 since_us=req.int_param("since_us"),
             ))
 
-        async def not_ported(req: Request) -> Response:
-            return Response(
-                error_body(501, f"{req.path} is not ported to "
-                           "seldon_core_tpu_torch yet"),
-                501,
-            )
+        async def openapi(req: Request) -> Response:
+            from ..openapi import engine_spec
+
+            return Response(engine_spec(served_paths=app.routes))
 
         app.add_route("/api/v0.1/predictions", predictions)
         app.add_route("/api/v1.0/predictions", predictions)
@@ -646,7 +647,7 @@ class EngineApp:
         app.add_route("/retune", self._retune_route)
         app.add_route("/flightrecorder", self._flightrecorder_route)
         app.add_route("/fleet", self._fleet_route)
-        app.add_route("/openapi.json", not_ported)
+        app.add_route("/openapi.json", openapi)
         return app
 
     async def _flightrecorder_route(self, req: Request) -> Response:

@@ -3,7 +3,8 @@
 Counterpart of ``seldon_core_tpu/wrapper.py``. REST routes: ``/predict`` (and ``/api/v1.0/predictions``,
 ``/api/v0.1/predictions``), ``/transform-input``, ``/transform-output``,
 ``/route``, ``/aggregate``, ``/send-feedback``, ``/explain``, plus
-``/health/status``, ``/ready``, ``/live``, ``/pause``, ``/unpause``.
+``/health/status``, ``/ready``, ``/live``, ``/pause``, ``/unpause`` and
+``/openapi.json`` (the document of the routes this app serves).
 JSON bodies take the protobuf-free path; a binary ``SeldonMessage`` body
 (``application/x-protobuf``) is transcoded at the edge.
 
@@ -15,12 +16,14 @@ JSON bodies take the protobuf-free path; a binary ``SeldonMessage`` body
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import logging
 from concurrent import futures
 from typing import Optional
 
 from . import seldon_methods
 from .http_server import HTTPServer, Request, Response, error_body
+from .tracing import get_tracer
 
 logger = logging.getLogger(__name__)
 
@@ -54,7 +57,10 @@ def get_rest_microservice(
     app._hook_pool = pool
 
     def _sync(fn, *args):
-        return asyncio.get_running_loop().run_in_executor(pool, fn, *args)
+        # context-copied so the server-side trace span opened below is
+        # visible on the worker thread
+        ctx = contextvars.copy_context()
+        return asyncio.get_running_loop().run_in_executor(pool, ctx.run, fn, *args)
 
     PROTO_TYPES = ("application/x-protobuf", "application/octet-stream")
 
@@ -78,7 +84,12 @@ def get_rest_microservice(
                 body = req.json()
             if body is None and needs_body:
                 return Response(error_body(400, "empty request body"), 400)
-            out = await _sync(method_fn, user_object, body)
+            # server-side span, stitched to the caller's via uber-trace-id
+            with get_tracer().span(
+                method_fn.__name__, tags={"component": type(user_object).__name__},
+                headers=req.headers,
+            ):
+                out = await _sync(method_fn, user_object, body)
             if binary:
                 def _serialize(result):
                     return json_to_proto(result).SerializeToString()
@@ -126,11 +137,17 @@ def get_rest_microservice(
         state.paused = False
         return Response({"status": "ok"})
 
+    async def openapi(req: Request) -> Response:
+        from .openapi import wrapper_spec
+
+        return Response(wrapper_spec(served_paths=app.routes))
+
     app.add_route("/health/status", health)
     app.add_route("/live", live)
     app.add_route("/ready", ready)
     app.add_route("/pause", pause)
     app.add_route("/unpause", unpause)
+    app.add_route("/openapi.json", openapi)
     if hasattr(user_object, "flight_dump"):
         # a standalone generate server serves its scheduler flight
         # recorder here too (the engine serves the graph-wide twin)

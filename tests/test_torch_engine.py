@@ -342,19 +342,18 @@ def test_not_ported_engine_options_raise(kind):
 
 @pytest.mark.parametrize("path", ["/flightrecorder", "/fleet", "/openapi.json", "/retune"])
 def test_not_ported_routes_answer_501(path):
-    """/openapi.json is not ported and answers 501. The telemetry routes
-    are ported: on a graph without a generate unit they answer as the
-    JAX engine's (no recorder 404, the fleet snapshot 200, a retune
-    without knobs 400)."""
+    """These routes are all ported now; on a graph without a generate unit
+    they answer as the JAX engine's: /openapi.json 200 with the JAX
+    engine's document, no recorder 404, the fleet snapshot 200, a retune
+    without knobs 400."""
     rest = build_app(PORT, {"name": "m", "implementation": "SIMPLE_MODEL"}).rest_app()
     status, out = dispatch(rest, path, {})
-    if path == "/openapi.json":
-        assert status == 501 and "not ported" in out["status"]["info"]
-        return
-    jax_status, _ = dispatch(
+    jax_status, jax_out = dispatch(
         build_app(JAX, {"name": "m", "implementation": "SIMPLE_MODEL"}).rest_app(), path, {})
     assert status == jax_status == {"/flightrecorder": 404, "/fleet": 200,
-                                    "/retune": 400}[path]
+                                    "/openapi.json": 200, "/retune": 400}[path]
+    if path == "/openapi.json":
+        assert out == jax_out and set(out["paths"]) == set(rest.routes)
 
 
 @pytest.mark.parametrize("path,body", [
