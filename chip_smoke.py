@@ -7,7 +7,7 @@ Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails. ``--phases`` runs a subset of
 ``kernels, small, serve, engine, small-sched, sched, prefix, pressure,
 spec, spec-pressure, dh256, f32, disagg, kvtier, migration, telemetry,
-fronts, model``
+fronts, zoo, model``
 (device and build always run; the
 result lines print only when every phase ran, as with no argument):
 
@@ -227,7 +227,37 @@ result lines print only when every phase ran, as with no argument):
    the record alone, SIGTERM ending both workers with code 0 within 30
    s; boot times and each worker's memory from nvidia-smi. The flash
    kernel's launches over (a)-(d) join the ``kernels`` line.
-19. Model (on the engine phase's copy, after every serving phase: a
+19. Zoo (the predict path, full width, random weights from seed 0): (a)
+   ResNet-50 (bf16, 1000 classes, 224x224) as a JAX_SERVER unit of an
+   engine with ``seldon.io/microbatch`` (max-batch 128, timeout 600 ms)
+   and ``seldon.io/max-inflight`` 4, every batch shape the batcher can
+   produce warmed first, driven over REST with binary SeldonMessages of
+   raw uint8 [32, 224, 224, 3] photo-like images at concurrency 16 for
+   8 s (a 429 backs off 20 ms); (b) BERT-base (bf16, 2 classes) the same
+   way over gRPC ``Seldon/Predict`` (REST binary protobuf when grpcio
+   does not import; the line says which) with raw int32 [16, 128] token
+   ids, max-batch 256, timeout 25 ms, concurrency 64 for 8 s. Each prints
+   rows/s, req/s, p50/p99, flushes, rows per flush, padded rows, 429s,
+   H2D ms per flush, peak memory and MFU against 989 TFLOP/s, and one
+   bf16 forward at the max batch in CUDA-event device time; fails on any
+   other status, a wrong or non-finite response, or a device put that
+   fell back to the host fuse; prints, not gated, the bf16 |dlogit| and
+   top-1 agreement of 4 requests micro-batched against alone. Then, at
+   float32 with TF32 off: 4 requests micro-batched (one flush) equal the
+   same requests alone for ResNet-50 and BERT-base, and the card equals
+   the CPU on the same params for ResNet-50, BERT-base, ViT-B/16 and the
+   iris MLP (2 rows each), both within 1e-4 of the largest |logit|; (c)
+   ViT-B/16 and the iris MLP through the REST microservice with
+   TorchServer (every MLP row sums to 1); (d) EpsilonGreedy (epsilon 0.1,
+   seed 7), then ThompsonSampling, over two ResNet-50 units (seeds 0 and
+   1) in one engine graph: 200 single-image requests, each rewarded
+   through ``/api/v0.1/feedback`` (numpy seed 1, p 0.2 and 0.8); the
+   router ends on branch 1 with 200 tries, most on branch 1, routing as
+   the same router driven directly, and its state persisted, the engine
+   rebuilt around the restored router and the state equal. The flash
+   kernel's launches over the phase (none: no zoo model runs it) join the
+   ``kernels`` line.
+20. Model (on the engine phase's copy, after every serving phase: a
    profiler run may slow later launches): full-width prefill time per
    bucket with the flash kernel's device time inside it
    (torch.profiler), a prefix hit's suffix prefill against the full
@@ -239,7 +269,7 @@ result lines print only when every phase ran, as with no argument):
    a 6-layer early-exit draft, the W = 5 verify chunk, acceptance)
    against 5 decode steps at B = 4, attention 512, in device-busy time
    and device operations.
-20. The ``kernels`` JSON line (the flash kernel on the main path, its
+21. The ``kernels`` JSON line (the flash kernel on the main path, its
    Dh 256 instance on the dh256 phase's and its float32 instance on the
    f32 phase's), then the final ``{"ok": true, ...}`` line.
 
@@ -4696,9 +4726,707 @@ def phase_fronts(card):
     return launches
 
 
+# -- zoo: the predict path's model zoo -------------------------------------
+
+# full width and depth, random weights from seed 0: ResNet-50 and BERT-base
+# as the JAX package's benchmark serves them (seldon_core_tpu/modelbench.py
+# bench_resnet50_rest, bench_bert_grpc), ViT-B/16 and the iris MLP at the
+# zoo's defaults
+ZOO_RESNET = {"num_classes": 1000, "image_size": 224, "dtype": "bfloat16", "seed": 0}
+ZOO_BERT = {"vocab_size": 30522, "d_model": 768, "n_layers": 12, "n_heads": 12,
+            "d_ff": 3072, "max_seq": 512, "num_classes": 2, "dtype": "bfloat16", "seed": 0}
+ZOO_VIT = {"image_size": 224, "patch_size": 16, "d_model": 768, "n_layers": 12,
+           "n_heads": 12, "d_ff": 3072, "num_classes": 1000, "dtype": "bfloat16", "seed": 0}
+ZOO_MLP = {"in_features": 4, "hidden": [64, 64], "num_classes": 3, "dtype": "bfloat16",
+           "seed": 0}
+ZOO_WINDOW_S = 8.0
+ZOO_DEVICE = "cuda"
+ZOO_RESNET_BATCH, ZOO_BERT_BATCH, ZOO_BERT_SEQ = 32, 16, 128
+ZOO_RESNET_ANN = {"seldon.io/microbatch": "true", "seldon.io/microbatch-max-batch": "128",
+                  "seldon.io/microbatch-timeout-ms": "600", "seldon.io/max-inflight": "4"}
+ZOO_BERT_ANN = {"seldon.io/microbatch": "true", "seldon.io/microbatch-max-batch": "256",
+                "seldon.io/microbatch-timeout-ms": "25"}
+# float32 with TF32 off, relative to the largest |logit|: micro-batched
+# rows against the same rows alone (another batch size may take another
+# cuDNN/cuBLAS algorithm: summation order only), and the card against
+# the CPU (another library's summation order, over up to 16 blocks;
+# port vs JAX on the CPU agree to 2e-6)
+ZOO_F32_TOL = 1e-4
+ZOO_ROUTER_REQUESTS = 200
+ZOO_REWARD_P = (0.2, 0.8)
+
+
+class _exact_f32:
+    """float32 as float32 on the card: TF32 off for cuBLAS matmuls and
+    cuDNN convolutions inside the block, restored after."""
+
+    def __enter__(self):
+        import torch
+
+        self._saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self._saved
+
+
+def _zoo_dir(root, family, config, tag=""):
+    d = os.path.join(root, f"{family}{tag}")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "jax_config.json"), "w") as f:
+        json.dump({"family": family, "config": config}, f)
+    return d
+
+
+def _zoo_unit(name, model_dir):
+    return {"name": name, "implementation": "JAX_SERVER", "modelUri": model_dir,
+            "parameters": [{"name": "device", "value": ZOO_DEVICE, "type": "STRING"}]}
+
+
+def _zoo_engine(graph, annotations=None, registry=None):
+    from seldon_core_tpu_torch.graph.engine_metrics import MetricsRegistry
+    from seldon_core_tpu_torch.graph.service import EngineApp
+    from seldon_core_tpu_torch.graph.spec import (
+        PredictorSpec,
+        default_predictor,
+        validate_predictor,
+    )
+
+    spec = default_predictor(PredictorSpec.from_dict(
+        {"name": "zoo", "graph": graph, "annotations": annotations or {}}))
+    validate_predictor(spec)
+    return EngineApp(spec, registry=registry, metrics=MetricsRegistry())
+
+
+def _zoo_serve(apps, grpc_app=None):
+    """Serve each app's REST front (and ``grpc_app``'s gRPC front) on free
+    ports: ``(ports, grpc_port, stop)``; stopping closes the executors."""
+    ports = [_free_port() for _ in apps]
+    gport = _free_port() if grpc_app is not None else None
+
+    async def start():
+        fronts = [app.rest_app() for app in apps]
+        for front, p in zip(fronts, ports):
+            await front.start("127.0.0.1", p)
+        gsrv = None
+        if grpc_app is not None:
+            gsrv = grpc_app.grpc_server()
+            gsrv.add_insecure_port(f"127.0.0.1:{gport}")
+            await gsrv.start()
+
+        async def close():
+            for front in fronts:
+                front.close()
+            if gsrv is not None:
+                await gsrv.stop(grace=0.5)
+            for app in apps:
+                await app.executor.close()
+        return close
+
+    return ports, gport, serve_in_thread(start)
+
+
+def _synthetic_images(n, size, seed=0):
+    """Photo-like uint8 images: low-frequency sines plus mild noise, as the
+    JAX package's benchmark builds them (modelbench.py _synthetic_images)."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    y, x = np.mgrid[0:size, 0:size]
+    imgs = []
+    for _ in range(n):
+        chans = []
+        for _c in range(3):
+            fx, fy = rs.uniform(0.5, 3.0, 2)
+            ph = rs.uniform(0, 2 * np.pi)
+            chans.append(127.0 + 100.0 * np.sin(2 * np.pi * fx * x / size + ph)
+                         * np.cos(2 * np.pi * fy * y / size))
+        imgs.append(np.stack(chans, -1) + rs.normal(0, 6.0, (size, size, 3)))
+    return np.asarray(np.clip(imgs, 0, 255), dtype=np.uint8)
+
+
+def _bert_tokens(rows, seed=0):
+    import numpy as np
+
+    return np.random.RandomState(seed).randint(
+        1, ZOO_BERT["vocab_size"], (rows, ZOO_BERT_SEQ)).astype(np.int32)
+
+
+def _raw_message(arr) -> bytes:
+    from seldon_core_tpu_torch.payload import array_to_raw, pb
+
+    return pb.SeldonMessage(data=pb.DefaultData(raw=array_to_raw(arr))).SerializeToString()
+
+
+def _message_rows(msg, rows, classes, what):
+    """The logits of a SeldonMessage response, checked finite [rows, classes]."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.payload import proto_data_to_array
+
+    out = np.asarray(proto_data_to_array(msg.data), dtype=np.float32)
+    if out.shape != (rows, classes) or not np.isfinite(out).all():
+        raise AssertionError(f"[zoo] {what}: response {out.shape}, finite "
+                             f"{bool(np.isfinite(out).all())}; want ({rows}, {classes})")
+    return out
+
+
+def _rest_proto_call(port, body, rows, classes, what):
+    """A keep-alive REST caller posting a binary SeldonMessage to the
+    engine: ``(call, close)``; ``call()`` returns None on a 429, else the
+    checked logits."""
+    from seldon_core_tpu_torch.payload import pb
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    headers = {"Content-Type": "application/x-protobuf"}
+
+    def call():
+        conn.request("POST", "/api/v0.1/predictions", body, headers)
+        resp = conn.getresponse()
+        raw = resp.read()
+        if resp.status == 429:
+            return None
+        if resp.status != 200:
+            raise AssertionError(f"[zoo] {what}: HTTP {resp.status} {raw[:300]!r}")
+        return _message_rows(pb.SeldonMessage.FromString(raw), rows, classes, what)
+
+    return call, conn.close
+
+
+def _grpc_call(port, body, rows, classes, what):
+    """``_rest_proto_call`` over gRPC ``Seldon/Predict`` (RESOURCE_EXHAUSTED
+    is the 429)."""
+    import grpc
+
+    from seldon_core_tpu_torch.payload import pb
+
+    channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+    rpc = channel.unary_unary("/seldontpu.Seldon/Predict",
+                              request_serializer=lambda b: b,
+                              response_deserializer=pb.SeldonMessage.FromString)
+
+    def call():
+        try:
+            out = rpc(body, timeout=600)
+        except grpc.RpcError as e:
+            if e.code() == grpc.StatusCode.RESOURCE_EXHAUSTED:
+                return None
+            raise AssertionError(f"[zoo] {what}: gRPC {e.code().name} {e.details()}") from None
+        return _message_rows(out, rows, classes, what)
+
+    return call, channel.close
+
+
+def _closed_loop(make_call, seconds, concurrency, backoff_s=0.02):
+    """``concurrency`` threads, each calling its own ``call()`` back to back
+    for ``seconds``; a 429 (``call()`` returns None) backs off
+    ``backoff_s`` and is not timed.
+    Returns (latencies of the answered calls, 429s, wall seconds)."""
+    lat, errors, rejects = [], [], [0]
+    lock = threading.Lock()
+    stop_at = time.perf_counter() + seconds
+
+    def worker():
+        call, close = make_call()
+        try:
+            while time.perf_counter() < stop_at:
+                t = time.perf_counter()
+                answered = call() is not None
+                dt = time.perf_counter() - t
+                with lock:
+                    if answered:
+                        lat.append(dt)
+                    else:
+                        rejects[0] += 1
+                if not answered:
+                    time.sleep(backoff_s)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            with lock:
+                errors.append(e)
+        finally:
+            close()
+
+    threads = [threading.Thread(target=worker, daemon=True) for _ in range(concurrency)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(seconds + 600)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("[zoo] a closed-loop worker did not finish")
+    return lat, rejects[0], wall
+
+
+def _warm_buckets(server, batch, max_batch, shape, dtype):
+    """Run every batch shape the micro-batcher can hand the forward (the
+    JAX benchmark's _warm_buckets): ``batch`` (a singleton flush), the
+    power-of-two buckets of k * batch below ``max_batch``, and the first
+    multiple of ``batch`` at or past ``max_batch`` (an oversize flush)."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.graph.batching import _bucket
+
+    sizes, rows = {batch}, batch
+    while rows < max_batch:
+        sizes.add(_bucket(rows, max_batch))
+        rows += batch
+    sizes.add(rows)
+    for b in sorted(sizes):
+        server.predict(np.zeros((b, *shape), dtype=dtype), [])
+    torch.cuda.synchronize()
+    return sorted(sizes)
+
+
+def _forward_ms(server, x):
+    """Device time of one forward on the device tensor ``x`` (CUDA events
+    around 5 back-to-back forwards after 2 warm ones)."""
+    import torch
+
+    with torch.no_grad():
+        return time_ms(lambda: server._apply(server.params, x), iters=5, warmup=2)
+
+
+def _zoo_window(card, tag, app, server, make_call, concurrency, batch, max_batch,
+                flops_per_row, shape, dtype):
+    """One closed-loop window through ``app`` (its MODEL unit micro-batched
+    over ``server``): counters reset just before, read just after; prints
+    the end-to-end, micro-batch and device numbers."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.graph.engine_metrics import (
+        MICROBATCH_FLUSHES,
+        MICROBATCH_PADDED_ROWS,
+        MICROBATCH_ROWS,
+    )
+
+    mb = app.executor.root.client
+    m = app.metrics
+    c0 = [m.counter_total(s) for s in (MICROBATCH_FLUSHES, MICROBATCH_ROWS,
+                                       MICROBATCH_PADDED_ROWS)]
+    h2d0, puts0 = mb.h2d_seconds, mb.h2d_puts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat, rejects, wall = _closed_loop(make_call, ZOO_WINDOW_S, concurrency)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    flushes, rows, padded = (m.counter_total(s) - c for s, c in zip(
+        (MICROBATCH_FLUSHES, MICROBATCH_ROWS, MICROBATCH_PADDED_ROWS), c0))
+    if not lat or flushes <= 0:
+        raise AssertionError(f"[zoo] {tag}: {len(lat)} answered, {flushes} flushes")
+    if mb.prefetch_failures:
+        raise AssertionError(f"[zoo] {tag}: {mb.prefetch_failures} device puts failed "
+                             "(host fuse fallback)")
+    if mb.h2d_puts - puts0 != rows / batch:
+        raise AssertionError(f"[zoo] {tag}: {mb.h2d_puts - puts0} device puts for "
+                             f"{rows / batch:.0f} requests fused")
+    rows_s = len(lat) * batch / wall
+    mfu = rows_s * flops_per_row / PEAK_FLOPS["bfloat16"]
+    log(f"[zoo] {tag}: {rows_s:.1f} rows/s, {len(lat) / wall:.2f} req/s, p50 "
+        f"{_pctl(lat, 50) * 1e3:.1f} ms, p99 {_pctl(lat, 99) * 1e3:.1f} ms over {wall:.1f} s "
+        f"at concurrency {concurrency} ({len(lat)} answered, {rejects} 429s) [{card}]")
+    log(f"[zoo] {tag}: flushes {flushes:.0f}, rows per flush {rows / flushes:.1f}, padded "
+        f"rows {padded:.0f}, H2D {(mb.h2d_seconds - h2d0) * 1e3 / flushes:.2f} ms per flush "
+        f"(host wall time of the device puts, default stream), device-put fallbacks "
+        f"{mb.prefetch_failures}; peak {peak / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated); MFU {100 * mfu:.2f}% of 989 TFLOP/s bf16 "
+        f"({flops_per_row / 1e9:.2f} GFLOP per row) [{card}]")
+    x = server._to_dev(np.zeros((max_batch, *shape), dtype=dtype))
+    ms = _forward_ms(server, x)
+    log(f"[zoo] {tag}: one bf16 forward at batch {max_batch}: {ms:.2f} ms device time "
+        f"(CUDA events), {max_batch * 1e3 / ms:.0f} rows/s, MFU "
+        f"{100 * max_batch * flops_per_row / (ms * 1e-3) / PEAK_FLOPS['bfloat16']:.2f}% "
+        f"[{card}]")
+    return {"rows_s": rows_s, "p50_ms": _pctl(lat, 50) * 1e3, "p99_ms": _pctl(lat, 99) * 1e3,
+            "rows_per_flush": rows / flushes, "forward_ms": ms}
+
+
+def _bf16_alone(tag, server, unit, make_call, bodies, arrays):
+    """The bf16 numbers the gate does not hold: four distinct requests sent
+    together to the micro-batched engine against each alone through an
+    engine without batching over the same server; the largest |Δlogit|
+    and the top-1 agreement."""
+    import numpy as np
+
+    got = [None] * len(bodies)
+
+    def one(i):
+        call, close = make_call(bodies[i])
+        try:
+            got[i] = call()
+        finally:
+            close()
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(bodies))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    if any(g is None for g in got):
+        raise AssertionError(f"[zoo] {tag}: a concurrent request did not answer")
+    alone_app = _zoo_engine(unit, registry={unit["name"]: server})
+    try:
+        alone = [_inproc_rows(alone_app, a) for a in arrays]
+    finally:
+        asyncio.run(alone_app.executor.close())
+    fused = got
+    diff = max(float(np.abs(f - a).max()) for f, a in zip(fused, alone))
+    top1 = float(np.mean([(f.argmax(-1) == a.argmax(-1)).mean() for f, a in zip(fused, alone)]))
+    log(f"[zoo] {tag}: bf16 micro-batched vs alone, 4 requests: max |dlogit| {diff:.4e}, "
+        f"top-1 agreement {top1:.3f} (reported, not gated)")
+
+
+def _inproc_rows(app, arr):
+    """One request through ``app`` in this thread's own event loop: the
+    logits of its raw response."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.payload import array_to_json_data, json_data_to_array
+
+    out = asyncio.run(app.predict({"data": array_to_json_data(arr, [], "raw")}))
+    return np.asarray(json_data_to_array(out["data"]), dtype=np.float32)
+
+
+def _zoo_f32_gates(card, root):
+    """float32, TF32 off: (1) for ResNet-50 and BERT-base, the rows of 4
+    distinct requests served micro-batched equal the same requests served
+    alone with micro-batching off; (2) for all four families at full
+    width, the port on CUDA equals the port on the CPU on the same params,
+    2 rows each."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch import models as model_zoo
+    from seldon_core_tpu_torch.servers.torchserver import TorchServer
+    from seldon_core_tpu_torch.user_model import _tree_to
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    cases = {
+        "resnet50": (ZOO_RESNET, lambda n, s: _synthetic_images(
+            n, ZOO_RESNET["image_size"], seed=s)),
+        "bert": (ZOO_BERT, lambda n, s: _bert_tokens(n, seed=s)),
+        "vit": (ZOO_VIT, lambda n, s: _synthetic_images(n, ZOO_VIT["image_size"], seed=s)),
+        "mlp": (ZOO_MLP, lambda n, s: np.random.RandomState(s).uniform(
+            0, 8, (n, 4)).astype(np.float32)),
+    }
+    with _exact_f32():
+        for family, (config, inputs) in cases.items():
+            config = dict(config, dtype="float32")
+            server = TorchServer(model_uri=_zoo_dir(root, family, config, "-f32"),
+                                 device=ZOO_DEVICE)
+            server.load()
+            if family in ("resnet50", "bert"):
+                unit = _zoo_unit(family, server.model_uri)
+                arrays = [inputs(2, 10 + i) for i in range(4)]
+                mb_app = _zoo_engine(unit, {
+                    "seldon.io/microbatch": "true", "seldon.io/microbatch-max-batch": "16",
+                    "seldon.io/microbatch-timeout-ms": "500"}, registry={family: server})
+                alone_app = _zoo_engine(unit, registry={family: server})
+
+                async def fire(app=mb_app, arrays=arrays):
+                    from seldon_core_tpu_torch.payload import array_to_json_data
+
+                    return await asyncio.gather(*(app.predict(
+                        {"data": array_to_json_data(a, [], "raw")}) for a in arrays))
+
+                from seldon_core_tpu_torch.payload import json_data_to_array
+
+                try:
+                    fused = [np.asarray(json_data_to_array(o["data"]), np.float32)
+                             for o in asyncio.run(fire())]
+                    flushes = mb_app.metrics.counter_total("seldon_engine_microbatch_flushes")
+                    alone = [_inproc_rows(alone_app, a) for a in arrays]
+                finally:
+                    for app in (mb_app, alone_app):
+                        asyncio.run(app.executor.close())
+                err = max(rel(f, a) for f, a in zip(fused, alone))
+                log(f"[zoo] f32 {family}: 4 requests x 2 rows micro-batched ({flushes:.0f} "
+                    f"flush) vs alone: max relative |dlogit| {err:.3e} (tol {ZOO_F32_TOL})")
+                if flushes != 1 or err > ZOO_F32_TOL:
+                    raise AssertionError(f"[zoo] f32 {family}: micro-batched rows differ "
+                                         "from alone (or did not fuse)")
+            x = inputs(2, 20)
+            cpu_model = model_zoo.build(family, **config)
+            cpu_params = _tree_to(server.params, "cpu")
+            with torch.no_grad():
+                want = cpu_model.apply(cpu_params, server._to_dev(x).cpu()).float().numpy()
+                got = server.predict(x, []).float().cpu().numpy()
+            err = rel(got, want)
+            top1 = float((got.argmax(-1) == want.argmax(-1)).mean())
+            log(f"[zoo] f32 {family}: card vs CPU on the same params, 2 rows: max relative "
+                f"|dout| {err:.3e} (tol {ZOO_F32_TOL}), top-1 agreement {top1:.2f}")
+            if err > ZOO_F32_TOL:
+                raise AssertionError(f"[zoo] f32 {family}: the card differs from the CPU")
+            del server, cpu_params
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def _zoo_micro(card, root):
+    """(c) ViT-B/16 and the iris MLP through the REST microservice with
+    TorchServer: a few requests each; every MLP row sums to 1."""
+    import base64
+
+    import numpy as np
+
+    from seldon_core_tpu_torch import microservice, wrapper
+
+    users, apps = [], []
+    for family, config in (("vit", ZOO_VIT), ("mlp", ZOO_MLP)):
+        t0 = time.perf_counter()
+        user = microservice.build_user_object(
+            "seldon_core_tpu_torch.servers.torchserver.TorchServer", json.dumps([
+                {"name": "model_uri", "value": _zoo_dir(root, family, config),
+                 "type": "STRING"},
+                {"name": "device", "value": ZOO_DEVICE, "type": "STRING"}]))
+        user.load()
+        log(f"[zoo] {family}: TorchServer loaded and warmed in {time.perf_counter() - t0:.1f} s")
+        users.append(user)
+        apps.append(wrapper.get_rest_microservice(user))
+    ports = [_free_port() for _ in apps]
+
+    async def start():
+        for app, p in zip(apps, ports):
+            await app.start("127.0.0.1", p)
+
+        async def close():
+            for app in apps:
+                app.close()
+        return close
+
+    stop = serve_in_thread(start)
+    try:
+        lat, classes = [], ZOO_VIT["num_classes"]
+        for i in range(4):
+            imgs = _synthetic_images(2, ZOO_VIT["image_size"], seed=30 + i)
+            body = {"data": {"raw": {"dtype": "uint8", "shape": list(imgs.shape),
+                                     "data": base64.b64encode(imgs.tobytes()).decode()}}}
+            t = time.perf_counter()
+            status, out = _post(ports[0], body)
+            lat.append(time.perf_counter() - t)
+            from seldon_core_tpu_torch.payload import json_data_to_array
+
+            logits = np.asarray(json_data_to_array(out["data"]), np.float32) \
+                if status == 200 else None
+            if logits is None or logits.shape != (2, classes) or not np.isfinite(logits).all():
+                raise AssertionError(f"[zoo] vit: HTTP {status}, {out if status != 200 else ''}")
+        log(f"[zoo] vit: 4 REST requests of 2 raw uint8 images: 200, logits [2, {classes}] "
+            "finite, "
+            f"client ms {[round(x * 1e3, 1) for x in lat]} [{card}]")
+        rs = np.random.RandomState(7)
+        lat, sums = [], []
+        for n in (1, 3, 8):
+            rows = rs.uniform(0.1, 7.9, (n, 4)).round(1).tolist()
+            t = time.perf_counter()
+            status, out = _post(ports[1], {"data": {"ndarray": rows}})
+            lat.append(time.perf_counter() - t)
+            probs = np.asarray(out["data"]["ndarray"]) if status == 200 else None
+            if probs is None or probs.shape != (n, 3) or \
+                    not np.allclose(probs.sum(-1), 1.0, atol=1e-5):
+                raise AssertionError(f"[zoo] mlp: HTTP {status}, {out}")
+            sums.extend(probs.sum(-1).tolist())
+        log(f"[zoo] mlp: 3 REST ndarray requests (1, 3, 8 rows): 200, every row sums to 1 "
+            f"(max |sum - 1| {max(abs(s - 1) for s in sums):.2e}), client ms "
+            f"{[round(x * 1e3, 1) for x in lat]} [{card}]")
+    finally:
+        stop()
+        for app in apps:
+            app._hook_pool.shutdown(wait=False)
+
+
+def _zoo_routers(card, root):
+    """(d) EpsilonGreedy (epsilon 0.1, seed 7), then ThompsonSampling
+    (seed 7), routing over two ResNet-50 TorchServers (seeds 0 and 1) in
+    one engine graph: 200 single-image requests over REST, each answered
+    by a Bernoulli reward (numpy seed 1; p 0.2 on branch 0, 0.8 on branch
+    1) posted to /api/v0.1/feedback. The router converges to branch 1 and
+    routes exactly as the same router driven directly; its state is
+    persisted, the engine rebuilt around the restored router, and the
+    state comes back equal."""
+    import base64
+
+    import numpy as np
+
+    from seldon_core_tpu_torch import persistence
+    from seldon_core_tpu_torch.components import EpsilonGreedy, ThompsonSampling
+
+    dirs = [_zoo_dir(root, "resnet50", dict(ZOO_RESNET, seed=s), f"-seed{s}") for s in (0, 1)]
+    graph = {"name": "router", "type": "ROUTER",
+             "children": [_zoo_unit(f"resnet_{s}", d) for s, d in enumerate(dirs)]}
+    img = _synthetic_images(1, ZOO_RESNET["image_size"], seed=40)
+    request = {"data": {"raw": {"dtype": "uint8", "shape": list(img.shape),
+                                "data": base64.b64encode(img.tobytes()).decode()}}}
+    servers = None
+    for cls, kw in ((EpsilonGreedy, {"epsilon": 0.1}), (ThompsonSampling, {})):
+        name = cls.__name__
+        params = dict(n_branches=2, seed=7, **kw)
+        router = cls(**params)
+        registry = {"router": router, **(servers or {})}
+        app = _zoo_engine(graph, registry=registry)
+        servers = {c.name: c.client.user_object for c in app.executor.root.children}
+        (port,), _g, stop = _zoo_serve([app])
+        rng = np.random.RandomState(1)
+        branches, lat = [], []
+        t0 = time.perf_counter()
+        try:
+            for _ in range(ZOO_ROUTER_REQUESTS):
+                t = time.perf_counter()
+                status, out = _post(port, request, path="/api/v0.1/predictions")
+                lat.append(time.perf_counter() - t)
+                if status != 200:
+                    raise AssertionError(f"[zoo] {name}: predict HTTP {status} {out}")
+                branch = out["meta"]["routing"]["router"]
+                branches.append(branch)
+                reward = float(rng.random_sample() < ZOO_REWARD_P[branch])
+                status, fb = _post(port, {"request": request, "response": out,
+                                          "reward": reward}, path="/api/v0.1/feedback")
+                if status != 200:
+                    raise AssertionError(f"[zoo] {name}: feedback HTTP {status} {fb}")
+        finally:
+            stop()
+        wall = time.perf_counter() - t0
+        # the same router driven directly with the same rewards routes alike
+        ref, rng, want = cls(**params), np.random.RandomState(1), []
+        for _ in range(ZOO_ROUTER_REQUESTS):
+            b = ref.route(img, [])
+            want.append(b)
+            ref.send_feedback(img, [], float(rng.random_sample() < ZOO_REWARD_P[b]), None,
+                              routing=b)
+        st = router.state
+        log(f"[zoo] {name}: {ZOO_ROUTER_REQUESTS} requests + feedback in {wall:.1f} s "
+            f"(predict p50 {_pctl(lat, 50) * 1e3:.1f} ms), tries {st.tries.tolist()}, "
+            f"success {st.success.tolist()}, best_branch {st.best_branch}; routing == the "
+            f"router driven directly: {branches == want} [{card}]")
+        if st.best_branch != 1 or st.tries.sum() != ZOO_ROUTER_REQUESTS \
+                or st.tries[1] <= st.tries[0] or branches != want:
+            raise AssertionError(f"[zoo] {name}: did not converge to branch 1 as driven directly")
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-router-") as store:
+            key = persistence.state_key("router", "zoo", "smoke")
+            path = persistence.persist(router, store, key)
+            restored = persistence.restore(cls, params, store, key)
+            app2 = _zoo_engine(graph, registry={"router": restored, **servers})
+            (port2,), _g, stop2 = _zoo_serve([app2])
+            try:
+                status, out = _post(port2, request, path="/api/v0.1/predictions")
+            finally:
+                stop2()
+        rs = restored.state
+        same = (np.array_equal(rs.success, st.success) and np.array_equal(rs.tries, st.tries)
+                and rs.best_branch == st.best_branch)
+        log(f"[zoo] {name}: persisted to {os.path.basename(path)}, engine rebuilt around the "
+            f"restored router: success/tries/best_branch equal {same}; a request after "
+            f"the rebuild HTTP {status}")
+        if not same or status != 200:
+            raise AssertionError(f"[zoo] {name}: state not restored")
+
+
+def phase_zoo(card):
+    """The predict path's model zoo at full width (random weights from seed
+    0): (a) ResNet-50 bf16 through the engine over REST (binary
+    SeldonMessage, raw uint8 [32, 224, 224, 3]; micro-batching max-batch
+    128, timeout 600 ms; max-inflight 4; concurrency 16 for 8 s, a 429
+    backs off); (b) BERT-base bf16 through the engine over gRPC
+    Seldon/Predict (REST binary protobuf without grpcio; raw int32 [16,
+    128]; max-batch 256, timeout 25 ms; concurrency 64 for 8 s); the f32
+    gates (micro-batched == alone, card == CPU); (c) ViT-B/16 and the
+    iris MLP through the REST microservice; (d) the bandit routers.
+    Returns the flash kernel's launches over the phase (no zoo model
+    runs it)."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.synchronize()
+    fa.LAUNCHES["flash_attention"] = 0
+    grpc_ok = _grpc_available()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-zoo-") as root:
+        # (a) ResNet-50 over REST
+        t0 = time.perf_counter()
+        unit = _zoo_unit("resnet", _zoo_dir(root, "resnet50", ZOO_RESNET))
+        app = _zoo_engine(unit, ZOO_RESNET_ANN)
+        server = app.executor.root.client.inner.user_object
+        if server.device.type != torch.device(ZOO_DEVICE).type:
+            raise AssertionError(f"[zoo] resnet50 on {server.device}")
+        size, classes = ZOO_RESNET["image_size"], ZOO_RESNET["num_classes"]
+        shape = (size, size, 3)
+        sizes = _warm_buckets(server, ZOO_RESNET_BATCH, 128, shape, np.uint8)
+        log(f"[zoo] resnet50 (bf16, {classes} classes, {size}x{size}) loaded and warmed at "
+            f"batch {sizes} in {time.perf_counter() - t0:.1f} s")
+        imgs = _synthetic_images(ZOO_RESNET_BATCH, size)
+        body = _raw_message(imgs)
+        (port,), _g, stop = _zoo_serve([app])
+        try:
+            _zoo_window(card, "resnet50 REST raw", app, server,
+                        lambda: _rest_proto_call(port, body, ZOO_RESNET_BATCH, classes,
+                                                 "resnet50"),
+                        16, ZOO_RESNET_BATCH, 128, server._model.flops_per_row(), shape,
+                        np.uint8)
+            arrays = [_synthetic_images(2, size, seed=50 + i) for i in range(4)]
+            _bf16_alone("resnet50", server, unit,
+                        lambda b: _rest_proto_call(port, b, 2, classes, "resnet50"),
+                        [_raw_message(a) for a in arrays], arrays)
+        finally:
+            stop()
+        del app, server
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) BERT-base over gRPC (REST binary protobuf without grpcio)
+        t0 = time.perf_counter()
+        unit = _zoo_unit("bert", _zoo_dir(root, "bert", ZOO_BERT))
+        app = _zoo_engine(unit, ZOO_BERT_ANN)
+        server = app.executor.root.client.inner.user_object
+        sizes = _warm_buckets(server, ZOO_BERT_BATCH, 256, (ZOO_BERT_SEQ,), np.int32)
+        log(f"[zoo] bert (bf16, BERT-base, 2 classes) loaded and warmed at batch {sizes} "
+            f"in {time.perf_counter() - t0:.1f} s")
+        body = _raw_message(_bert_tokens(ZOO_BERT_BATCH))
+        (port,), gport, stop = _zoo_serve([app], app if grpc_ok else None)
+        transport = "gRPC Seldon/Predict" if grpc_ok else "REST binary protobuf"
+        log(f"[zoo] bert: driven over {transport}" + (
+            "" if grpc_ok else " (import grpc, google.protobuf failed on this machine)"))
+
+        def caller(b, rows):
+            if grpc_ok:
+                return _grpc_call(gport, b, rows, ZOO_BERT["num_classes"], "bert")
+            return _rest_proto_call(port, b, rows, ZOO_BERT["num_classes"], "bert")
+
+        try:
+            _zoo_window(card, f"bert {transport} raw int32", app, server,
+                        lambda: caller(body, ZOO_BERT_BATCH), 64, ZOO_BERT_BATCH, 256,
+                        server._model.flops_per_row(ZOO_BERT_SEQ), (ZOO_BERT_SEQ,), np.int32)
+            arrays = [_bert_tokens(2, seed=50 + i) for i in range(4)]
+            _bf16_alone("bert", server, unit, lambda b: caller(b, 2),
+                        [_raw_message(a) for a in arrays], arrays)
+        finally:
+            stop()
+        del app, server
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        _zoo_f32_gates(card, root)
+        log(f"[zoo] f32 gates in {time.perf_counter() - t0:.1f} s")
+        _zoo_micro(card, root)
+        _zoo_routers(card, root)
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES["flash_attention"]
+    log(f"[zoo] flash kernel launches over the phase: {launches} (no zoo model runs it)")
+    return launches
+
+
 PHASES = ("kernels", "small", "serve", "engine", "small-sched", "sched", "prefix",
           "pressure", "spec", "spec-pressure", "dh256", "f32", "disagg", "kvtier", "migration",
-          "telemetry", "fronts", "model")
+          "telemetry", "fronts", "zoo", "model")
 
 
 def _llm_model():
@@ -4768,7 +5496,7 @@ def main(argv=None) -> int:
         sched_launches = sched_tokens = prefix_launches = pressure_launches = None
         spec_launches = dh256_launches = f32_launches = None
         disagg_launches = kvtier_launches = migration_launches = telemetry_launches = None
-        fronts_launches = None
+        fronts_launches = zoo_launches = None
         if "serve" in phases:
             launches, alone, serve_numbers = phase_serve(card)
             free()  # the serve phase's copy of the model goes
@@ -4830,6 +5558,10 @@ def main(argv=None) -> int:
             fronts_launches = phase_fronts(card)
             free()
             lap("fronts")
+        if "zoo" in phases:
+            zoo_launches = phase_zoo(card)
+            free()
+            lap("zoo")
         # the profiler runs last: once it has traced the card, later
         # launches may carry its overhead
         if "model" in phases:
@@ -4863,6 +5595,7 @@ def main(argv=None) -> int:
             "migration_launches": migration_launches,
             "telemetry_launches": telemetry_launches,
             "fronts_launches": fronts_launches,
+            "zoo_launches": zoo_launches,
             "dh256_launches": dh256_launches,
             "max_abs_err": worst(lambda r: r["dtype"] == "bfloat16"),
             "wgmma_max_abs_err": worst(lambda r: r["route"] == "wgmma"),

@@ -1,4 +1,4 @@
-"""Inference-graph engine: spec, executor, units, clients, service.
+"""Inference-graph engine: spec, executor, units, clients, batching, service.
 
 Counterpart of ``seldon_core_tpu/graph/`` (reference: the Java engine —
 graph bootstrap EnginePredictor.java, recursive async walk

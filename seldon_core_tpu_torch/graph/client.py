@@ -73,6 +73,24 @@ class InProcessClient(UnitClient):
             self._executor, ctx.run, fn, self.user_object, message
         )
 
+    def accepts_device_arrays(self) -> bool:
+        """True when this unit is an in-process TorchComponent with a loaded
+        forward: the micro-batcher can then put request slabs on the device
+        at arrival and hand the fused hop a device tensor under the
+        ``__torch__`` message key."""
+        from ..user_model import TorchComponent
+
+        return (
+            isinstance(self.user_object, TorchComponent)
+            and self.user_object._apply is not None
+        )
+
+    def device_put(self, arr):
+        """Host slab -> device, through the component's own input transform
+        (its device and compute-dtype cast), so the fused forward sees
+        exactly what a request alone would."""
+        return self.user_object._to_dev(arr)
+
     async def ready(self) -> bool:
         from ..user_model import client_health_status
 

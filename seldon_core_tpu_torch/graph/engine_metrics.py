@@ -26,6 +26,15 @@ _BUCKETS = [
 
 LabelKey = Tuple[Tuple[str, str], ...]
 
+# engine-side micro-batching (graph/batching.py), labelled by MODEL unit:
+# flushes (one fused downstream call each), the rows they carried, the
+# bucket-padding rows added, and the rows waiting (a gauge); the JAX
+# engine's series names
+MICROBATCH_FLUSHES = "seldon_engine_microbatch_flushes"
+MICROBATCH_ROWS = "seldon_engine_microbatch_rows"
+MICROBATCH_PADDED_ROWS = "seldon_engine_microbatch_padded_rows"
+MICROBATCH_QUEUE_DEPTH = "seldon_engine_microbatch_queue_depth"
+
 
 def _labels_key(labels: Dict[str, str]) -> LabelKey:
     return tuple(sorted(labels.items()))

@@ -21,9 +21,11 @@ feedback walk that replays the routing map
 
 Units co-located with the engine are in-process objects (no
 serialization), called on a thread pool; device work stays on each
-unit's own threads (the generate server's batcher thread). Not ported
-yet, and refused at construction: graph fusion (``seldon.io/fuse``),
-micro-batching (``seldon.io/microbatch``) and a device mesh.
+unit's own threads (the generate server's batcher thread). MODEL units
+may be micro-batched (``graph/batching.py``, ``seldon.io/microbatch``):
+concurrent requests fuse into one forward, on the device for in-process
+TorchComponents. Not ported yet, and refused at construction: graph
+fusion (``seldon.io/fuse``) and a device mesh.
 """
 
 from __future__ import annotations
@@ -166,17 +168,12 @@ def _ann_int(ann: Dict[str, str], key: str) -> Optional[int]:
         return None
 
 
-def _refuse_not_ported(ann: Dict[str, str], batching, mesh) -> None:
-    """Graph fusion, micro-batching and a device mesh are not ported yet:
-    each raises when asked for, never serves hop-by-hop in its place."""
+def _refuse_not_ported(ann: Dict[str, str], mesh) -> None:
+    """Graph fusion and a device mesh are not ported yet: each raises
+    when asked for, never serves hop-by-hop in its place."""
     if str(ann.get("seldon.io/fuse", "false")).strip().lower() != "false":
         raise NotImplementedError(
             "seldon.io/fuse (graph fusion) is not ported to "
-            "seldon_core_tpu_torch yet"
-        )
-    if batching or str(ann.get("seldon.io/microbatch", "false")).lower() != "false":
-        raise NotImplementedError(
-            "micro-batching (seldon.io/microbatch) is not ported to "
             "seldon_core_tpu_torch yet"
         )
     if mesh is not None or ann.get("seldon.io/mesh") is not None:
@@ -204,11 +201,14 @@ class GraphExecutor:
         sized independently of cpu_count so concurrent requests to a
         blocking unit (a generate request waiting on its batcher) do not
         queue behind each other on a small host.
-        batching and mesh: not ported yet; anything but None raises."""
+        batching: unit name -> MicroBatchingClient kwargs for the MODEL
+        units to micro-batch (``batching_from_annotations``).
+        mesh: not ported yet; anything but None raises."""
         from concurrent.futures import ThreadPoolExecutor
 
         ann = getattr(spec, "annotations", None) or {}
-        _refuse_not_ported(ann, batching, mesh)
+        _refuse_not_ported(ann, mesh)
+        self._batching = batching or {}
         self.spec = spec
         self._registry = registry or {}
         self._timeout = timeout_s
@@ -265,11 +265,18 @@ class GraphExecutor:
             )
         else:
             client = InProcessClient(self._resolve_object(unit), executor=self._pool)
-        # fault injection hugs the transport: everything above (retries,
-        # breaker, hedging) sees injected faults exactly where
+        # fault injection hugs the transport: everything above (batching,
+        # retries, breaker, hedging) sees injected faults exactly where
         # real unit failures would surface
         if self._faults is not None:
             client = self._faults.wrap(client, unit.name)
+        if unit.name in self._batching and unit.type in (None, UnitType.MODEL):
+            from .batching import MicroBatchingClient
+
+            client = MicroBatchingClient(
+                client, metrics=self._metrics, unit=unit.name,
+                **self._batching[unit.name],
+            )
         # resilience policies (annotation-gated, off by default): only
         # wrap when at least one is active so unconfigured graphs keep
         # their exact client objects — the happy path must not change

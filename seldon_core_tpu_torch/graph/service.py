@@ -12,6 +12,8 @@ reference engine's external surface:
     ``Seldon.GenerateStream`` (reference: SeldonGrpcServer.java:40-143)
   * bounded admission (``seldon.io/max-inflight``) and deadline-aware
     shedding before work, both answered 429 + Retry-After
+  * engine-side micro-batching of MODEL units from the
+    ``seldon.io/microbatch*`` annotations (``graph/batching.py``)
   * periodic graph readiness check gating /ready
     (reference: SeldonGraphReadyChecker.java:24-115, 5s fixedDelay)
   * request/response pair logging hook
@@ -125,6 +127,12 @@ class EngineApp:
         mesh=None,
         faults=None,
     ):
+        if batching is None:
+            # annotation-driven config, the reference's feature-flag idiom
+            # (seldon.io/microbatch* — InternalPredictionService.java:82-91)
+            from .batching import batching_from_annotations
+
+            batching = batching_from_annotations(spec)
         self.spec = spec
         self.executor = GraphExecutor(
             spec, registry=registry, batching=batching, mesh=mesh, metrics=metrics,

@@ -1,9 +1,10 @@
 """Model zoo registry of the port.
 
-Counterpart of ``seldon_core_tpu/models/__init__.py``. Only the ``llm``
-family (the generate path's DecoderLM) is ported so far; the JAX
-package's other families raise a "not ported yet" error that names them.
-Families are lazy-imported.
+Counterpart of ``seldon_core_tpu/models/__init__.py``. Families map to
+BASELINE.json's configs: mlp (iris parity), resnet50 (REST image path),
+bert (gRPC text path), vit, and llm (generate() with dynamic batching).
+The JAX package's retrieval families raise a "not ported yet" error that
+names them. Families are lazy-imported.
 """
 
 from __future__ import annotations
@@ -12,11 +13,15 @@ import importlib
 from typing import Any, Dict
 
 _FAMILIES: Dict[str, str] = {
+    "mlp": "seldon_core_tpu_torch.models.mlp.MLP",
+    "resnet50": "seldon_core_tpu_torch.models.resnet.ResNet50",
+    "bert": "seldon_core_tpu_torch.models.bert.BertClassifier",
     "llm": "seldon_core_tpu_torch.models.llm.DecoderLM",
+    "vit": "seldon_core_tpu_torch.models.vit.ViTClassifier",
 }
 
 # families of the JAX package that this package does not serve yet
-NOT_PORTED = ("mlp", "resnet50", "bert", "vit", "retrieval", "reranker")
+NOT_PORTED = ("retrieval", "reranker")
 
 
 def build(family: str, **config) -> Any:

@@ -6,15 +6,20 @@ exposes:
   * ``apply(params, x) -> y``
   * ``example_input_shape`` (without batch) for warmup
 
-Parameters stay a nested dict of tensors keyed exactly as the JAX
-package's pytree, so weights carry across one-to-one (see ``convert``).
+Parameters stay a nested dict (or list) of tensors keyed exactly as the
+JAX package's pytree, so weights carry across one-to-one (see
+``convert``). A family whose forward wants the weights in another layout
+or dtype (ResNet-50's OIHW convolutions, the encoders' compute-dtype
+copies) derives them once per parameter tree in :meth:`ServedModel.prepare`
+and reads them through :meth:`ServedModel.prepared`; the tree itself,
+what ``convert.save_npz`` writes, keeps the JAX keys and shapes.
 The JAX package's sharding hooks (``input_sharding``/``param_sharding``)
 belong to multi-device serving, which this package has not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Tuple
 
 import torch
 
@@ -47,3 +52,35 @@ class ServedModel:
 
     def apply(self, params, x):
         raise NotImplementedError
+
+    def prepare(self, params) -> Any:
+        """Tensors derived from ``params`` for the forward (permuted or
+        cast copies); by default the params themselves."""
+        return params
+
+    def prepared(self, params) -> Any:
+        """:meth:`prepare` of ``params``, computed on the first forward over
+        this tree (a server's warmup, before it serves) and kept while the
+        same tree object is served (one entry: a new tree replaces it)."""
+        cached = getattr(self, "_prepared_for", None)
+        if cached is None or cached[0] is not params:
+            cached = (params, self.prepare(params))
+            self._prepared_for = cached
+        return cached[1]
+
+    def flops_per_row(self, seq_len: int = None) -> float:
+        """Analytic forward-pass FLOPs for one input row (a multiply-add
+        counts 2); ``None`` means unknown."""
+        return None
+
+
+def layer_norm(x, scale, bias, eps: float):
+    """Shared LayerNorm (the JAX package's ``models.base.layer_norm``):
+    float32 statistics with the population variance, the result cast back
+    to ``x.dtype``. One implementation for every encoder family (BERT eps
+    1e-12, ViT eps from its config)."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    out = (x32 - mu) * torch.reciprocal(torch.sqrt(var + eps))
+    return (out * scale + bias).to(x.dtype)

@@ -368,7 +368,22 @@ def array_to_proto_data(
 # ---------------------------------------------------------------------------
 
 
+# interior-only key: a device tensor handed to an in-process component
+# (the micro-batcher's fused batch; the JAX package's ``__jax__``)
+DEVICE_KEY = "__torch__"
+
+
 def json_data_to_array(data: JsonDict) -> np.ndarray:
+    if DEVICE_KEY in data:
+        # device-resident interior fast path: the micro-batcher hands fused
+        # device tensors straight to an in-process TorchComponent (no host
+        # copy, no re-encode). Untrusted wire JSON can only put a list or a
+        # string here (it has no codec for tensors), so require a real
+        # array: a client smuggling the key gets the 400 contract
+        v = data[DEVICE_KEY]
+        if not (hasattr(v, "shape") and hasattr(v, "dtype") and hasattr(v, "ndim")):
+            raise PayloadError(f"{DEVICE_KEY} is an interior-only encoding")
+        return v
     if "raw" in data:
         raw = data["raw"]
         if not isinstance(raw, dict):
@@ -496,7 +511,13 @@ def extract_parts_json(body: JsonDict) -> Parts:
     meta = body.get("meta") or {}
     if "data" in body:
         data = body["data"]
-        datadef_type = next((k for k in TENSOR_KEYS if k in data), "ndarray")
+        # a device tensor (interior hop) responds raw: the micro-batch
+        # splitter re-encodes each caller's rows in its own encoding, and
+        # tolist()-ing a fused logits matrix would dwarf the forward
+        datadef_type = (
+            "raw" if DEVICE_KEY in data
+            else next((k for k in TENSOR_KEYS if k in data), "ndarray")
+        )
         return Parts(
             array=json_data_to_array(data),
             names=list(data.get("names", [])),

@@ -1,3 +1,5 @@
 """Prepackaged model servers of the port: ``TorchServer`` (counterpart of
-the JAX package's ``JAXServer``) and ``GenerateServer`` (continuous-batching
-LLM generation). The JAX package's other servers are not ported yet."""
+the JAX package's ``JAXServer``: the mlp, resnet50, bert, vit and llm
+families of ``models``) and ``GenerateServer`` (continuous-batching LLM
+generation). The JAX package's other servers (sklearn, xgboost, mlflow,
+tensorflow, triton, sagemaker) are not ported yet."""

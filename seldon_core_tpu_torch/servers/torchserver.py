@@ -3,7 +3,7 @@
 It reads the JAX package's model directory layout, so one directory
 serves under both packages::
 
-    <model_uri>/jax_config.json   {"family": "llm",
+    <model_uri>/jax_config.json   {"family": "resnet50"|"bert"|"vit"|"mlp"|"llm",
                                    "config": {...model kwargs...},
                                    "checkpoint": "params.npz"}  # optional
     <model_uri>/params.npz        parameters as ``convert.save_npz`` writes
@@ -14,6 +14,12 @@ Orbax checkpoint directories stay on the JAX side: convert them with
 ``convert.params_from_numpy`` + ``convert.save_npz``. Without a
 checkpoint the params come from the port's ``init_params(seed)``, whose
 numbers differ from the JAX package's (same shapes and scales).
+
+Float requests are cast to the component's ``compute_dtype`` (bfloat16)
+on the way to the device, as the JAX server casts them; integer requests
+(uint8 images, int32 token ids) keep their type. The JAX server's
+``batch_size_hint`` is accepted and, as there, unused; a ``mesh``
+(sharded serving) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -30,8 +36,15 @@ logger = logging.getLogger(__name__)
 
 
 class TorchServer(TorchComponent):
-    def __init__(self, model_uri: str, device: str = "cuda"):
+    def __init__(self, model_uri: str, device: str = "cuda", batch_size_hint: int = 8,
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a device mesh (sharded serving) for TorchServer is not ported to "
+                "seldon_core_tpu_torch yet"
+            )
         super().__init__(device=device)
+        self.batch_size_hint = int(batch_size_hint)
         self.model_uri = model_uri
         self._family = None
         self._config: Dict[str, Any] = {}

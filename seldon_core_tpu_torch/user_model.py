@@ -10,7 +10,8 @@ hook is missing.
 :class:`TorchComponent` takes the place of the JAX package's
 ``JAXComponent``: a component whose ``predict`` runs a PyTorch function
 over device-resident params, on ``device`` (CUDA unless the caller asks
-for the CPU).
+for the CPU). :class:`TorchTransformComponent` (``JAXTransformComponent``)
+also serves the transform hooks with that forward.
 """
 
 from __future__ import annotations
@@ -229,6 +230,8 @@ def client_health_status(user_model):
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to(v, device) for v in tree]
     return tree.to(device) if hasattr(tree, "to") else tree
 
 
@@ -240,7 +243,9 @@ class TorchComponent(SeldonComponent):
     ``device`` and, when ``warmup_shape`` is set, runs one warmup batch so
     the first request pays no one-time initialisation. Requests land on
     the device through ``payload.to_device``; outputs stay there until
-    serialization.
+    serialization. A request that is already a tensor (the micro-batcher's
+    fused device batch, under the ``__torch__`` key) goes to the forward
+    as it is.
     """
 
     # dtype for float inputs on the device
@@ -294,3 +299,17 @@ class TorchComponent(SeldonComponent):
             X = self._to_dev(X)
         with torch.no_grad():
             return self._apply(self.params, X)
+
+
+class TorchTransformComponent(TorchComponent):
+    """A TorchComponent whose forward also serves the transform hooks, for
+    TRANSFORMER / OUTPUT_TRANSFORMER graph nodes (a BERT-style input
+    transformer computes on the device). A bare TorchComponent on such a
+    node degrades to the identity transform (the client_* contract
+    above)."""
+
+    def transform_input(self, X, names, meta=None):
+        return self.predict(X, names, meta)
+
+    def transform_output(self, X, names, meta=None):
+        return self.predict(X, names, meta)

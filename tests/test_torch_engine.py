@@ -330,7 +330,9 @@ def test_not_ported_engine_options_raise(kind):
     if kind == "fuse":
         ann = {"seldon.io/fuse": "true"}
     elif kind == "microbatch":
-        ann = {"seldon.io/microbatch": "true"}
+        # micro-batching is ported; with graph fusion beside it the
+        # predictor is still refused
+        ann = {"seldon.io/microbatch": "true", "seldon.io/fuse": "true"}
     elif kind == "mesh":
         kw = {"mesh": object()}
     else:

@@ -149,8 +149,8 @@ def test_npz_roundtrip(tmp_path, pair):
 
 def test_registry_lists_llm_only():
     assert isinstance(tmodels.build("llm", **CONFIGS["small"]), TorchLM)
-    with pytest.raises(NotImplementedError, match="'bert' is not ported"):
-        tmodels.build("bert")
+    with pytest.raises(NotImplementedError, match="'retrieval' is not ported"):
+        tmodels.build("retrieval")
     with pytest.raises(ValueError, match="unknown model family"):
         tmodels.build("nope")
     with pytest.raises(NotImplementedError, match="mixture-of-experts"):
