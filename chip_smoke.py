@@ -7,7 +7,7 @@ Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails. ``--phases`` runs a subset of
 ``kernels, small, serve, engine, small-sched, sched, prefix, pressure,
 spec, spec-pressure, dh256, f32, disagg, kvtier, migration, telemetry,
-fronts, zoo, model``
+fronts, zoo, rag, model``
 (device and build always run; the
 result lines print only when every phase ran, as with no argument):
 
@@ -257,7 +257,32 @@ result lines print only when every phase ran, as with no argument):
    rebuilt around the restored router and the state equal. The flash
    kernel's launches over the phase (none: no zoo model runs it) join the
    ``kernels`` line.
-20. Model (on the engine phase's copy, after every serving phase: a
+20. RAG (``llm-rag-chip``: a BERT-base embedder with 256 classes as the
+   query embedding, a 256-document corpus at d_embed 256 drawn by the
+   port's threefry (seed 7), top-8 retrieval, an MLP reranker,
+   RAG_PROMPT_BUILDER with 32 new tokens greedy, and llm-1.26b at
+   max_seq 256 with 4 slots; bf16, random weights from seed 0) on the
+   port's GraphExecutor, hop by hop and with ``seldon.io/fuse: "true"``:
+   (a) 24 requests of 64 query tokens (numpy seed 11) interleaved, the
+   fused responses byte for byte the hop-by-hop ones (puid and TIMER
+   metrics dropped), requestPath the five units, the segment [embed,
+   retrieve, rerank] a prefix continuing at the prompt builder with 24
+   dispatches and no fallback, one traced fused request with one
+   ``gen.fused_segment`` span and no stage span, and a chaos leg (1 ms of
+   injected latency on rerank: a counted ``faults`` fallback, rerank in
+   no segment, 4 requests equal to hop); prints p50/p99 of both paths,
+   the segment's span against the hop stage spans, the segment's and the
+   embed forward's eager and device (CUDA graph) times, peak memory and
+   the flash launches; (b) at float32 with TF32 off, the small RAG
+   configuration of the tests on the card and the CPU over the same
+   weights: the embed output within 1e-5 of its largest |value|, equal
+   indices, doc rows and greedy tokens, and the card's rng corpus within
+   4 ulps of the CPU's; (c) the VAE, seq2seq and Mahalanobis detectors
+   and KS drift as input TRANSFORMERs before the iris MLP, on the card
+   and the CPU: equal flags, scores within 1e-5 relative, the same drift
+   verdicts (unshifted windows pass, shifted ones flag). The flash
+   kernel's launches over (a) join the ``kernels`` line.
+21. Model (on the engine phase's copy, after every serving phase: a
    profiler run may slow later launches): full-width prefill time per
    bucket with the flash kernel's device time inside it
    (torch.profiler), a prefix hit's suffix prefill against the full
@@ -269,7 +294,7 @@ result lines print only when every phase ran, as with no argument):
    a 6-layer early-exit draft, the W = 5 verify chunk, acceptance)
    against 5 decode steps at B = 4, attention 512, in device-busy time
    and device operations.
-21. The ``kernels`` JSON line (the flash kernel on the main path, its
+22. The ``kernels`` JSON line (the flash kernel on the main path, its
    Dh 256 instance on the dh256 phase's and its float32 instance on the
    f32 phase's), then the final ``{"ok": true, ...}`` line.
 
@@ -5424,9 +5449,396 @@ def phase_zoo(card):
     return launches
 
 
+# llm-rag-chip (seldon_core_tpu/modelbench.py, "llm-rag-chip"): a BERT-base
+# embedder, a 256-document corpus and an llm-1.26b generate tail
+RAG_BERT = {"vocab_size": 32000, "d_model": 768, "n_layers": 12, "n_heads": 12,
+            "d_ff": 3072, "max_seq": 128, "num_classes": 256, "dtype": "bfloat16", "seed": 0}
+RAG_RET = {"corpus_size": 256, "d_embed": 256, "top_k": 8, "doc_len": 64,
+           "vocab_size": 32000, "seed": 7, "hidden": [32], "dtype": "bfloat16"}
+RAG_LLM = dict(LLM_1_26B, max_seq=256)
+RAG_GEN = {"slots": 4, "steps_per_poll": 8, "warmup_prompt_lens": [64],
+           "warmup_max_new_tokens": 32}
+RAG_REQUESTS, RAG_QUERY_LEN, RAG_MAX_NEW = 24, 64, 32
+RAG_STAGES = ("embed", "retrieve", "rerank")
+RAG_GRAPH = {
+    "name": "embed", "type": "MODEL", "children": [{
+        "name": "retrieve", "type": "MODEL", "children": [{
+            "name": "rerank", "type": "MODEL", "children": [{
+                "name": "prompt", "implementation": "RAG_PROMPT_BUILDER",
+                "children": [{"name": "generate", "type": "MODEL"}],
+            }],
+        }],
+    }],
+}
+# the small RAG configuration of tests/test_torch_fusion.py, at float32
+RAG_SMALL = {
+    "bert": {"vocab_size": 256, "d_model": 32, "n_layers": 2, "n_heads": 2, "d_ff": 64,
+             "max_seq": 32, "num_classes": 16, "dtype": "float32"},
+    "retrieval": {"corpus_size": 64, "d_embed": 16, "top_k": 4, "doc_len": 6,
+                  "vocab_size": 256, "seed": 7, "dtype": "float32"},
+    "llm": {"vocab_size": 256, "d_model": 32, "n_layers": 2, "n_heads": 2, "n_kv_heads": 2,
+            "d_ff": 64, "max_seq": 32, "dtype": "float32"},
+}
+RAG_DEVICE = "cuda"
+RAG_F32_TOL = 1e-5     # embed output, card vs CPU, of its largest |value|
+RAG_NORMAL_ULPS = 4    # rng.normal, card vs CPU (tests/test_torch_retrieval.py)
+RAG_DETECTOR_RTOL = 1e-5
+
+
+def _rag_units(root, device, configs, gen, max_new, checkpoints=None):
+    """The five units of the RAG graph on ``device``: TorchServers over
+    ``configs`` (family -> config; ``checkpoints`` family -> params
+    written as the unit's npz), a RAG_PROMPT_BUILDER asking ``max_new``
+    tokens and a GenerateServer (``gen`` its keyword arguments), each
+    loaded."""
+    from seldon_core_tpu_torch.convert import save_npz
+    from seldon_core_tpu_torch.graph.units import RagPromptBuilder
+    from seldon_core_tpu_torch.servers.generateserver import GenerateServer
+    from seldon_core_tpu_torch.servers.torchserver import TorchServer
+
+    checkpoints = checkpoints or {}
+    dirs = {}
+    for family in ("bert", "retrieval", "reranker", "llm"):
+        config = configs["retrieval" if family == "reranker" else family]
+        d = os.path.join(root, f"{family}-{device}")
+        os.makedirs(d, exist_ok=True)
+        meta = {"family": family, "config": config}
+        if family in checkpoints:
+            save_npz(checkpoints[family], os.path.join(d, "params.npz"))
+            meta["checkpoint"] = "params.npz"
+        with open(os.path.join(d, "jax_config.json"), "w") as f:
+            json.dump(meta, f)
+        dirs[family] = d
+    units = {name: TorchServer(model_uri=dirs[family], device=device)
+             for name, family in zip(RAG_STAGES, ("bert", "retrieval", "reranker"))}
+    for u in units.values():
+        u.load()
+    generate = GenerateServer(model_uri=dirs["llm"], device=device, **gen)
+    generate.load()
+    units.update(prompt=RagPromptBuilder(max_new_tokens=max_new), generate=generate)
+    return units
+
+
+def _rag_executor(units, fuse, metrics=None, faults=None):
+    from seldon_core_tpu_torch.graph.executor import GraphExecutor
+    from seldon_core_tpu_torch.graph.spec import PredictorSpec, default_predictor
+
+    spec = default_predictor(PredictorSpec.from_dict({
+        "name": "rag", "graph": json.loads(json.dumps(RAG_GRAPH)),
+        **({"annotations": {"seldon.io/fuse": "true"}} if fuse else {})}))
+    return GraphExecutor(spec, registry=units, metrics=metrics, faults=faults)
+
+
+def _rag_scrub(out):
+    """A response as data: no puid, no TIMER metrics (wall time)."""
+    out = json.loads(json.dumps(out))
+    meta = out.get("meta", {})
+    meta.pop("puid", None)
+    if "metrics" in meta:
+        meta["metrics"] = [m for m in meta["metrics"] if m.get("type") != "TIMER"]
+    return out
+
+
+def _rag_f32_gates(root):
+    """(b) The small RAG configuration at float32, TF32 off, on the card
+    and on the CPU over the same weights: the embed output within 1e-5 of
+    its largest |value|, the retrieval indices, the reranker's doc rows
+    and the graph's greedy tokens equal; the corpus drawn by rng on the
+    card equal to the CPU's (doc rows exactly, embeddings within 4
+    ulps)."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch import models as model_zoo
+    from seldon_core_tpu_torch.models.retrieval import corpus_params
+
+    ret = RAG_SMALL["retrieval"]
+    args = (ret["seed"], ret["corpus_size"], ret["d_embed"], ret["doc_len"], ret["vocab_size"])
+    emb_c, docs_c = corpus_params(*args, device=RAG_DEVICE)
+    emb_h, docs_h = corpus_params(*args, device="cpu")
+    a, b = emb_c.cpu().numpy(), emb_h.numpy()
+    ulps = int(np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64)).max())
+    docs_equal = torch.equal(docs_c.cpu(), docs_h)
+    log(f"[rag] (b) rng corpus on the card vs the CPU: doc rows equal {docs_equal}, "
+        f"embeddings max {ulps} ulps (tol {RAG_NORMAL_ULPS})")
+    if not docs_equal or ulps > RAG_NORMAL_ULPS:
+        raise AssertionError("[rag] the card's rng corpus differs from the CPU's")
+    checkpoints = {}
+    for family in ("bert", "retrieval", "reranker", "llm"):
+        config = RAG_SMALL["retrieval" if family == "reranker" else family]
+        checkpoints[family] = model_zoo.build(family, **config).init_params(0, device="cpu")
+    with _exact_f32():
+        gen = {"slots": 2, "steps_per_poll": 2, "warmup_prompt_lens": [ret["doc_len"]],
+               "warmup_max_new_tokens": 8}
+        sides = {dev: _rag_units(root, dev, RAG_SMALL, gen, 8, checkpoints)
+                 for dev in (RAG_DEVICE, "cpu")}
+        try:
+            rs = np.random.RandomState(3)
+            queries = rs.randint(1, 256, (4, 8))
+            chain = {}
+            for dev, units in sides.items():
+                e = units["embed"].predict(queries, [])
+                r = units["retrieve"].predict(e.float().cpu().numpy(), [])
+                d = units["rerank"].predict(r.float().cpu().numpy(), [])
+                chain[dev] = (e.float().cpu().numpy(), r.float().cpu().numpy(), d.cpu().numpy())
+            (ec, rc, dc), (eh, rh, dh) = chain[RAG_DEVICE], chain["cpu"]
+            err = float(np.abs(ec - eh).max() / np.abs(eh).max())
+            k = ret["d_embed"]
+            idx_equal = bool((rc[:, k:] == rh[:, k:]).all())
+            docs_equal = bool((dc == dh).all())
+            tokens = {}
+            for dev, units in sides.items():
+                ex = _rag_executor(units, fuse=True)
+                try:
+                    outs = [asyncio.run(ex.predict({"data": {"ndarray": queries[i:i + 2].tolist()}}))
+                            for i in (0, 2)]
+                finally:
+                    asyncio.run(ex.close())
+                tokens[dev] = [o["jsonData"]["tokens"] for o in outs]
+        finally:
+            for units in sides.values():
+                units["generate"].close()
+    log(f"[rag] (b) f32 card vs CPU, small RAG config: embed max relative |d| {err:.3e} "
+        f"(tol {RAG_F32_TOL}), retrieval indices equal {idx_equal}, doc rows equal "
+        f"{docs_equal}, greedy tokens equal {tokens[RAG_DEVICE] == tokens['cpu']}")
+    if err > RAG_F32_TOL or not idx_equal or not docs_equal or tokens[RAG_DEVICE] != tokens["cpu"]:
+        raise AssertionError("[rag] (b) the card differs from the CPU at float32")
+
+
+def _rag_detectors(root):
+    """(c) Mahalanobis, VAE and seq2seq detectors and KS drift as input
+    TRANSFORMERs in front of the iris MLP through the engine, on the card
+    and (the same parameters) on the CPU: equal flags, scores within 1e-5
+    relative, the drift verdict false on unshifted windows and true on
+    shifted ones on both."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch import rng
+    from seldon_core_tpu_torch.components import KSDrift
+    from seldon_core_tpu_torch.components.outlier import (
+        Mahalanobis,
+        Seq2SeqOutlier,
+        VAEOutlier,
+        seq2seq_init,
+        vae_init,
+    )
+    from seldon_core_tpu_torch.components.outlier.base import numpy_tree
+    from seldon_core_tpu_torch.servers.torchserver import TorchServer
+
+    rs = np.random.RandomState(5)
+    ref = rs.normal(3.0, 1.0, (256, 4)).astype(np.float32)
+    stats = {"mean": ref.mean(axis=0), "std": ref.std(axis=0) + 1e-8}
+    seq_stats = {"mean": ref.mean(axis=(0, 1)), "std": ref.std(axis=(0, 1)) + 1e-8}
+    vae_p = numpy_tree(vae_init(rng.prng_key(0, device=RAG_DEVICE), 4, (8,), 2))
+    seq_p = numpy_tree(seq2seq_init(rng.prng_key(1, device=RAG_DEVICE), 1, 8))
+    mlp_dir = _zoo_dir(root, "mlp", dict(ZOO_MLP, dtype="float32"), "-rag")
+    graph = {"name": "vae", "type": "TRANSFORMER", "children": [{
+        "name": "seq2seq", "type": "TRANSFORMER", "children": [{
+            "name": "maha", "type": "TRANSFORMER", "children": [{
+                "name": "drift", "type": "TRANSFORMER", "children": [{
+                    "name": "mlp", "type": "MODEL"}]}]}]}]}
+    windows = [rs.normal(3.0, 1.0, (16, 4)) for _ in range(3)] + \
+        [rs.normal(6.0, 1.0, (16, 4)) for _ in range(3)]
+    seen = {}
+    for dev in (RAG_DEVICE, "cpu"):
+        mlp = TorchServer(model_uri=mlp_dir, device=dev)
+        mlp.load()
+        dets = {
+            "vae": VAEOutlier(threshold=2.0, mc_samples=4, seed=0, device=dev).fit_from(
+                vae_p, stats),
+            "seq2seq": Seq2SeqOutlier(threshold=1.5, seq_len=4, device=dev).fit_from(
+                seq_p, seq_stats),
+            "maha": Mahalanobis(threshold=9.0, n_components=2, start_clip=32),
+            "drift": KSDrift(reference=ref, window=32, min_window=32),
+        }
+        app = _zoo_engine(graph, registry={**dets, "mlp": mlp})
+        rows = []
+        try:
+            for w in windows:
+                out = asyncio.run(app.predict({"data": {"ndarray": w.tolist()}}))
+                probs = np.asarray(out["data"]["ndarray"])
+                if probs.shape != (16, 3) or not np.isfinite(probs).all():
+                    raise AssertionError(f"[rag] (c) MLP output {probs.shape} on {dev}")
+                rows.append({n: (dets[n].prediction_.copy(), dets[n].score_.copy())
+                             for n in ("vae", "seq2seq", "maha")}
+                            | {"drift": dets["drift"].drifted})
+        finally:
+            asyncio.run(app.executor.close())
+        seen[dev] = rows
+    worst = {}
+    for n in ("vae", "seq2seq", "maha"):
+        pairs = list(zip(seen[RAG_DEVICE], seen["cpu"]))
+        flags_equal = all((c[n][0] == h[n][0]).all() for c, h in pairs)
+        err = max(float(np.abs(c[n][1] - h[n][1]).max() / max(np.abs(h[n][1]).max(), 1e-30))
+                  for c, h in pairs)
+        flagged = sum(int(c[n][0].sum()) for c in seen[RAG_DEVICE])
+        worst[n] = err
+        log(f"[rag] (c) {n}: card vs CPU flags equal {flags_equal}, {flagged}/96 rows "
+            f"flagged, max relative |dscore| {err:.3e} (tol {RAG_DETECTOR_RTOL})")
+        if not flags_equal or err > RAG_DETECTOR_RTOL:
+            raise AssertionError(f"[rag] (c) {n} differs between the card and the CPU")
+    drift = [[r["drift"] for r in seen[d]] for d in (RAG_DEVICE, "cpu")]
+    log(f"[rag] (c) KS drift per window (3 unshifted, 3 shifted), card {drift[0]}, CPU {drift[1]}")
+    if drift[0] != drift[1] or drift[0][2] or not drift[0][-1]:
+        raise AssertionError("[rag] (c) the drift verdicts are wrong or differ")
+    torch.cuda.synchronize()
+
+
+def phase_rag(card):
+    """llm-rag-chip (BERT-base embedder, a 256-document corpus at d_embed
+    256 with top-8 and an MLP reranker, RAG_PROMPT_BUILDER, llm-1.26b at
+    max_seq 256 with 4 slots; bf16, random weights from seed 0) on the
+    port's GraphExecutor, hop by hop and with ``seldon.io/fuse: "true"``:
+    (a) 24 requests of 64 query tokens interleaved hop and fused, byte
+    for byte equal, the segment [embed, retrieve, rerank] a prefix
+    continuing at the prompt builder with 24 dispatches and no fallback,
+    one traced fused request with one ``gen.fused_segment`` span and no
+    stage span, then the chaos leg (1 ms of injected latency on rerank:
+    counted ``faults`` fallback, output equal); (b) the float32 card ==
+    CPU gates; (c) the detectors. Returns the flash kernel's launches
+    over (a)."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch import tracing
+    from seldon_core_tpu_torch.graph.engine_metrics import MetricsRegistry
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+    from seldon_core_tpu_torch.resilience import FaultInjector
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-rag-") as root:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        units = _rag_units(root, RAG_DEVICE, {"bert": RAG_BERT, "retrieval": RAG_RET,
+                                              "llm": RAG_LLM}, RAG_GEN, RAG_MAX_NEW)
+        hop_reg, fused_reg, chaos_reg = MetricsRegistry(), MetricsRegistry(), MetricsRegistry()
+        ex_hop = _rag_executor(units, fuse=False, metrics=hop_reg)
+        ex_fused = _rag_executor(units, fuse=True, metrics=fused_reg)
+        seg = ex_fused.fusion.segments.get("embed")
+        log(f"[rag] llm-rag-chip loaded (BERT-base, corpus 256 x 256, llm-1.26b max_seq 256) "
+            f"and the segment warmed in {time.perf_counter() - t0:.1f} s")
+        if seg is None or seg.kind != "prefix" or seg.names != list(RAG_STAGES) \
+                or seg.continue_at is None or seg.continue_at.name != "prompt":
+            raise AssertionError(f"[rag] wrong fusion plan: {ex_fused.fusion.dump()['segments']}")
+        rs = np.random.RandomState(11)
+        requests = [{"data": {"ndarray": rs.randint(1, 32000, (1, RAG_QUERY_LEN)).tolist()}}
+                    for _ in range(RAG_REQUESTS)]
+        loop = asyncio.new_event_loop()
+
+        def call(ex, req):
+            t = time.perf_counter()
+            out = loop.run_until_complete(ex.predict(json.loads(json.dumps(req))))
+            return out, (time.perf_counter() - t) * 1000.0
+
+        torch.cuda.synchronize()
+        fa.LAUNCHES["flash_attention"] = 0
+        try:
+            for ex in (ex_hop, ex_fused):  # thread pools and first calls
+                call(ex, requests[0])
+            before = seg.dispatches
+            lat = {"hop": [], "fused": []}
+            outs = {"hop": [], "fused": []}
+            for req in requests:
+                for name, ex in (("hop", ex_hop), ("fused", ex_fused)):
+                    out, ms = call(ex, req)
+                    outs[name].append(_rag_scrub(out))
+                    lat[name].append(ms)
+            identical = outs["hop"] == outs["fused"]
+            dispatches = seg.dispatches - before
+            empty = sum(1 for o in outs["fused"] if not o["jsonData"]["tokens"][0])
+            paths = {tuple(o["meta"]["requestPath"]) for o in outs["fused"]}
+            log(f"[rag] (a) {RAG_REQUESTS} requests interleaved: fused == hop byte for byte "
+                f"{identical}; fused dispatches {dispatches}, fallbacks {seg.fallbacks}; "
+                f"requestPath {sorted(paths)}; empty token lists {empty}")
+            if not identical or dispatches != RAG_REQUESTS or seg.fallbacks or empty or \
+                    paths != {("embed", "retrieve", "rerank", "prompt", "generate")}:
+                raise AssertionError("[rag] (a) fused and hop-by-hop differ, or the segment "
+                                     "did not serve every request")
+            for name in ("hop", "fused"):
+                xs = np.asarray(lat[name])
+                log(f"[rag] (a) {name}: client p50 {np.percentile(xs, 50):.2f} ms, p99 "
+                    f"{np.percentile(xs, 99):.2f} ms over {RAG_REQUESTS} requests "
+                    f"({len(outs[name][0]['jsonData']['tokens'][0])} tokens each, prompt and new)")
+            # the span proof: one fused request traced, then one hop request
+            tracer = tracing.init_tracer(enabled=True)
+            try:
+                call(ex_fused, requests[1])
+                spans = tracer.finished_spans()
+                ops = [s.operation for s in spans]
+                seg_spans = [s.duration_us for s in spans if s.operation == "gen.fused_segment"]
+                stage_spans = sum(ops.count(f"{u}.predict") for u in RAG_STAGES)
+                tracer = tracing.init_tracer(enabled=True)
+                call(ex_hop, requests[1])
+                hop_us = {s.operation: s.duration_us for s in tracer.finished_spans()
+                          if s.operation.split(".")[0] in RAG_STAGES}
+            finally:
+                tracing.init_tracer(enabled=False)
+            log(f"[rag] (a) traced fused request: {len(seg_spans)} gen.fused_segment span "
+                f"({seg_spans[0] / 1000.0 if seg_spans else float('nan'):.3f} ms), "
+                f"{stage_spans} stage spans; hop request's stage spans "
+                + ", ".join(f"{k} {v / 1000.0:.3f} ms" for k, v in sorted(hop_us.items()))
+                + f" (sum {sum(hop_us.values()) / 1000.0:.3f} ms)")
+            if len(seg_spans) != 1 or stage_spans != 0 or len(hop_us) != 3:
+                raise AssertionError("[rag] (a) the fused request is not one span")
+            # the chaos leg: faults on rerank keep it per-unit, counted
+            faults = FaultInjector([{"unit": "rerank", "latency_ms": 1.0}])
+            ex_chaos = _rag_executor(units, fuse=True, metrics=chaos_reg, faults=faults)
+            chaos = [_rag_scrub(call(ex_chaos, r)[0]) for r in requests[:4]]
+            fallbacks = chaos_reg.counter_total("seldon_engine_fusion_fallbacks",
+                                                {"reason": "faults"})
+            in_segment = any("rerank" in s.names for s in ex_chaos.fusion.segments.values())
+            log(f"[rag] (a) chaos (1 ms on rerank): faults fallbacks {fallbacks:.0f}, "
+                f"segments {[s.label for s in ex_chaos.fusion.segments.values()]}, "
+                f"4 requests equal to hop {chaos == outs['hop'][:4]}")
+            if fallbacks < 1 or in_segment or chaos != outs["hop"][:4]:
+                raise AssertionError("[rag] (a) the chaos leg fused rerank or changed the output")
+            torch.cuda.synchronize()
+            launches = fa.LAUNCHES["flash_attention"]
+            # the fused segment and the embed forward alone: CUDA events
+            # around eager calls (host launches included), and device time
+            # from a CUDA graph of the same calls (launches left out)
+            embed = units["embed"]
+            x = embed._to_dev(np.asarray(requests[0]["data"]["ndarray"]))
+
+            def embed_fwd():
+                with torch.no_grad():
+                    return embed._apply(embed.params, x)
+
+            eager = {"segment": time_ms(lambda: seg._run(x), iters=20, warmup=3),
+                     "embed": time_ms(embed_fwd, iters=20, warmup=3)}
+            dev = {}
+            for name, fn in (("segment", lambda: seg._run(x)), ("embed", embed_fwd)):
+                try:
+                    dev[name] = f"{device_ms(fn):.3f} ms"
+                except Exception as e:  # noqa: BLE001 - reported, not gated
+                    dev[name] = f"not measured ({type(e).__name__}: {str(e)[:80]})"
+            log(f"[rag] (a) fused segment, B=1 T={RAG_QUERY_LEN}: {eager['segment']:.3f} ms per "
+                f"eager call (CUDA events), device time {dev['segment']} (CUDA graph of 20); the "
+                f"embed forward alone {eager['embed']:.3f} ms eager, device time {dev['embed']}")
+            log(f"[rag] (a) peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                f"allocated, {torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved; "
+                f"flash launches over (a) {launches} (card {card})")
+            if launches <= 0:
+                raise AssertionError("[rag] the generate tail launched no flash kernel")
+            for ex in (ex_hop, ex_fused, ex_chaos):
+                loop.run_until_complete(ex.close())
+        finally:
+            loop.close()
+            units["generate"].close()
+            del units
+            gc.collect()
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _rag_f32_gates(root)
+        _rag_detectors(root)
+        log(f"[rag] (b) and (c) in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 PHASES = ("kernels", "small", "serve", "engine", "small-sched", "sched", "prefix",
           "pressure", "spec", "spec-pressure", "dh256", "f32", "disagg", "kvtier", "migration",
-          "telemetry", "fronts", "zoo", "model")
+          "telemetry", "fronts", "zoo", "rag", "model")
 
 
 def _llm_model():
@@ -5496,7 +5908,7 @@ def main(argv=None) -> int:
         sched_launches = sched_tokens = prefix_launches = pressure_launches = None
         spec_launches = dh256_launches = f32_launches = None
         disagg_launches = kvtier_launches = migration_launches = telemetry_launches = None
-        fronts_launches = zoo_launches = None
+        fronts_launches = zoo_launches = rag_launches = None
         if "serve" in phases:
             launches, alone, serve_numbers = phase_serve(card)
             free()  # the serve phase's copy of the model goes
@@ -5562,6 +5974,10 @@ def main(argv=None) -> int:
             zoo_launches = phase_zoo(card)
             free()
             lap("zoo")
+        if "rag" in phases:
+            rag_launches = phase_rag(card)
+            free()
+            lap("rag")
         # the profiler runs last: once it has traced the card, later
         # launches may carry its overhead
         if "model" in phases:
@@ -5596,6 +6012,7 @@ def main(argv=None) -> int:
             "telemetry_launches": telemetry_launches,
             "fronts_launches": fronts_launches,
             "zoo_launches": zoo_launches,
+            "rag_launches": rag_launches,
             "dh256_launches": dh256_launches,
             "max_abs_err": worst(lambda r: r["dtype"] == "bfloat16"),
             "wgmma_max_abs_err": worst(lambda r: r["route"] == "wgmma"),

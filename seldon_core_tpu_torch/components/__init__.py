@@ -1,10 +1,12 @@
-"""Graph components of the port: the bandit routers.
+"""Graph components of the port: the bandit routers, the outlier
+detectors (``outlier``) and the KS drift detector.
 
 Counterpart of ``seldon_core_tpu/components/`` (the reference's
 ``components/`` tree, SURVEY.md §2 #37-38). Their state is a dict of
 arrays, snapshotted by :mod:`seldon_core_tpu_torch.persistence`. The JAX
-package's outlier detectors, drift, explainer and anchors are not ported
-yet.
+package's explainer and anchors, and its detectors' training, are not
+ported yet.
 """
 
+from .drift import KSDrift  # noqa: F401
 from .routers import BanditState, EpsilonGreedy, ThompsonSampling  # noqa: F401

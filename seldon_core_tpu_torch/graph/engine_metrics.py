@@ -35,6 +35,14 @@ MICROBATCH_ROWS = "seldon_engine_microbatch_rows"
 MICROBATCH_PADDED_ROWS = "seldon_engine_microbatch_padded_rows"
 MICROBATCH_QUEUE_DEPTH = "seldon_engine_microbatch_queue_depth"
 
+# graph fusion (graph/fusion.py), labelled by segment ("a|b|c") or unit:
+# fused dispatches served, fallbacks to the hop-by-hop walk by reason,
+# and segments the cost gate left unfused (reason="cost"); the JAX
+# engine's series names
+FUSED_SEGMENTS = "seldon_engine_fused_segments"
+FUSION_FALLBACKS = "seldon_engine_fusion_fallbacks"
+FUSION_SKIPPED = "seldon_engine_fusion_skipped"
+
 
 def _labels_key(labels: Dict[str, str]) -> LabelKey:
     return tuple(sorted(labels.items()))

@@ -24,8 +24,10 @@ serialization), called on a thread pool; device work stays on each
 unit's own threads (the generate server's batcher thread). MODEL units
 may be micro-batched (``graph/batching.py``, ``seldon.io/microbatch``):
 concurrent requests fuse into one forward, on the device for in-process
-TorchComponents. Not ported yet, and refused at construction: graph
-fusion (``seldon.io/fuse``) and a device mesh.
+TorchComponents. With ``seldon.io/fuse: "true"`` chains of in-process
+TorchComponents run as one device hop (``graph/fusion.py``); any
+per-unit condition falls back, counted, to this walk. Not ported yet,
+and refused at construction: a device mesh.
 """
 
 from __future__ import annotations
@@ -169,13 +171,8 @@ def _ann_int(ann: Dict[str, str], key: str) -> Optional[int]:
 
 
 def _refuse_not_ported(ann: Dict[str, str], mesh) -> None:
-    """Graph fusion and a device mesh are not ported yet: each raises
-    when asked for, never serves hop-by-hop in its place."""
-    if str(ann.get("seldon.io/fuse", "false")).strip().lower() != "false":
-        raise NotImplementedError(
-            "seldon.io/fuse (graph fusion) is not ported to "
-            "seldon_core_tpu_torch yet"
-        )
+    """A device mesh is not ported yet: it raises when asked for, never
+    serves unsharded in its place."""
     if mesh is not None or ann.get("seldon.io/mesh") is not None:
         raise NotImplementedError(
             "a device mesh for in-process servers is not ported to "
@@ -206,8 +203,14 @@ class GraphExecutor:
         mesh: not ported yet; anything but None raises."""
         from concurrent.futures import ThreadPoolExecutor
 
+        from .spec import parse_fuse_annotation
+
         ann = getattr(spec, "annotations", None) or {}
         _refuse_not_ported(ann, mesh)
+        # the ONE strict parser (admission uses the same): a typo'd value
+        # fails construction, never serves hop-by-hop while the operator
+        # believes fusion is on
+        fuse = parse_fuse_annotation(spec)
         self._batching = batching or {}
         self.spec = spec
         self._registry = registry or {}
@@ -228,6 +231,19 @@ class GraphExecutor:
             max_workers=int(inprocess_workers), thread_name_prefix="unit-call"
         )
         self.root = self._build(spec.graph)
+        # graph fusion (opt-in via seldon.io/fuse): chains of co-resident
+        # in-process units run as ONE device hop so activations never
+        # leave the device between stages; any per-unit semantics
+        # condition falls back to the hop-by-hop walk (fusion.py's module
+        # docstring has the contract). The engine app sets the hook below
+        # to report a live rollout shadow mirror: divergence analysis
+        # keeps the per-unit path.
+        self.shadow_active_fn = None
+        self.fusion = None
+        if fuse:
+            from .fusion import FusionPlan
+
+            self.fusion = FusionPlan(self)
 
     # -- construction -------------------------------------------------------
 
@@ -395,6 +411,24 @@ class GraphExecutor:
         return response
 
     async def _get_output(self, rt: UnitRuntime, message: Dict[str, Any], ctx: RequestCtx):
+        if self.fusion is not None:
+            seg = self.fusion.segment_at(rt.name)
+            if seg is not None:
+                reason = seg.blocked(self, ctx, message)
+                if reason is None:
+                    try:
+                        out = await seg.run(self, message, ctx)
+                    except Exception as e:  # noqa: BLE001 - counted fallback
+                        # per-unit attribution of the failure comes from
+                        # re-running hop-by-hop (stages are pure forwards:
+                        # re-running them has no side effect)
+                        seg.note_fallback("error", detail=str(e))
+                    else:
+                        if seg.continue_at is not None:
+                            return await self._get_output(seg.continue_at, out, ctx)
+                        return out
+                else:
+                    seg.note_fallback(reason)
         ctx.request_path[rt.name] = rt.identity
 
         # 1. input transform

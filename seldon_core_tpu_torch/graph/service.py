@@ -26,9 +26,9 @@ reference engine's external surface:
   * telemetry and retune: ``/flightrecorder`` (every unit's scheduler
     flight recorder), ``/fleet`` (the mergeable metric snapshot with each
     unit's device-time ledger, SLO burn verdicts and retune census) and
-    ``POST /retune`` (a live knob change applied at a poll boundary).
-    The JAX engine's ``(fusion)`` pseudo-unit in ``/flightrecorder`` is
-    absent: graph fusion is not ported
+    ``POST /retune`` (a live knob change applied at a poll boundary);
+    with graph fusion on, ``/flightrecorder`` also serves the fusion
+    plan's records under the ``(fusion)`` pseudo-unit
 
   * ``/openapi.json``: the engine's OpenAPI document reconciled against
     the routes it serves (equal to the JAX engine's, key for key)
@@ -178,8 +178,12 @@ class EngineApp:
             != "false"
         )
         # progressive delivery (a rollout's shadow mirror) is not ported:
-        # the mirror stays None, one attribute check on the hot path
+        # the mirror stays None, one attribute check on the hot path.
+        # While a mirror is live, fused segments fall back to the per-unit
+        # walk so a divergence verdict can never implicate the fusion
+        # planner (fusion.py's "shadow" fallback reason)
         self.shadow_mirror = None
+        self.executor.shadow_active_fn = lambda: self.shadow_mirror is not None
 
     def _inflight_add(self, n: int) -> None:
         with self._inflight_lock:
@@ -668,6 +672,10 @@ class EngineApp:
             dump = target.flight_dump(limit)
             if dump is not None:
                 units[name] = dump
+        # fusion records live on the EXECUTOR, not on a unit: a reserved
+        # pseudo-unit key keeps one payload shape
+        if self.executor.fusion is not None:
+            units["(fusion)"] = self.executor.fusion.dump(limit)
         if not units:
             return Response(error_body(404, "no unit exposes a flight recorder"), 404)
         return Response({"units": units})

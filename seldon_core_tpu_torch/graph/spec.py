@@ -228,15 +228,36 @@ def parse_hpa_spec(hpa: Dict[str, Any], who: str = "?") -> "tuple[int, int, floa
     return lo, hi, target
 
 
+# graph fusion (``graph/fusion.py``): opt-in flag running chains of
+# co-resident in-process units as one device segment
+ANNOTATION_FUSE = "seldon.io/fuse"
+
+
+def parse_fuse_annotation(spec: PredictorSpec) -> bool:
+    """Strict-at-apply parse of ``seldon.io/fuse``: only "true"/"false"
+    (any case) are meaningful; a typo'd value means the operator
+    believes fusion is on, so it fails the apply instead of silently
+    serving hop-by-hop."""
+    raw = (spec.annotations or {}).get(ANNOTATION_FUSE)
+    if raw is None:
+        return False
+    val = str(raw).strip().lower()
+    if val not in ("true", "false"):
+        raise GraphSpecError(
+            f"predictor {spec.name!r}: {ANNOTATION_FUSE} must be "
+            f'"true" or "false", got {raw!r}'
+        )
+    return val == "true"
+
+
 # Predictor annotations of the JAX engine whose feature is not ported to
 # this package yet, with the values that leave the feature off
-# (disaggregated serving, graph fusion, the host KV tier, sharded
-# serving, multi-tenant paging, the autonomic planner)
+# (disaggregated serving, the host KV tier, sharded serving,
+# multi-tenant paging, the autonomic planner)
 NOT_PORTED_ANNOTATIONS = {
     "seldon.io/disagg": ("false",),
     "seldon.io/disagg-prefill-replicas": (),
     "seldon.io/disagg-decode-replicas": (),
-    "seldon.io/fuse": ("false",),
     "seldon.io/kv-tier-bytes": ("0",),
     "seldon.io/mesh": (),
     "seldon.io/tenants": (),
@@ -281,5 +302,6 @@ def validate_predictor(spec: PredictorSpec) -> None:
             raise GraphSpecError(f"router {unit.name} has no children")
     if spec.hpa_spec is not None:
         parse_hpa_spec(spec.hpa_spec, who=spec.name)
+    parse_fuse_annotation(spec)
     check_not_ported_annotations(spec)
 

@@ -58,6 +58,18 @@ class AverageCombinerUnit(SeldonComponent):
             raise ValueError(f"combiner inputs disagree on shape: {sorted(shapes)}")
         return np.mean(arrays, axis=0)
 
+    def fused_aggregate(self, Ys: List):
+        """Device mean for the graph-fusion planner (``graph/fusion.py``):
+        lets a COMBINER fan-in whose children are in-process TorchComponents
+        run inside one fused segment. Computes in float32 on the device
+        where the host path computes float64, so bit-identity with
+        hop-by-hop holds only when the mean is exact at f32 (identical
+        children, or values whose sum is f32-representable), the JAX
+        package's caveat too."""
+        import torch
+
+        return torch.stack([y.float() for y in Ys]).mean(dim=0)
+
 
 class RandomABTestUnit(SeldonComponent):
     """Seeded 50/50 (configurable ratio) A/B split.

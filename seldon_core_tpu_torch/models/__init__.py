@@ -2,9 +2,8 @@
 
 Counterpart of ``seldon_core_tpu/models/__init__.py``. Families map to
 BASELINE.json's configs: mlp (iris parity), resnet50 (REST image path),
-bert (gRPC text path), vit, and llm (generate() with dynamic batching).
-The JAX package's retrieval families raise a "not ported yet" error that
-names them. Families are lazy-imported.
+bert (gRPC text path), vit, llm (generate() with dynamic batching), and
+the RAG graph's retrieval and reranker. Families are lazy-imported.
 """
 
 from __future__ import annotations
@@ -18,10 +17,12 @@ _FAMILIES: Dict[str, str] = {
     "bert": "seldon_core_tpu_torch.models.bert.BertClassifier",
     "llm": "seldon_core_tpu_torch.models.llm.DecoderLM",
     "vit": "seldon_core_tpu_torch.models.vit.ViTClassifier",
+    "retrieval": "seldon_core_tpu_torch.models.retrieval.RetrievalIndex",
+    "reranker": "seldon_core_tpu_torch.models.retrieval.Reranker",
 }
 
 # families of the JAX package that this package does not serve yet
-NOT_PORTED = ("retrieval", "reranker")
+NOT_PORTED = ()
 
 
 def build(family: str, **config) -> Any:

@@ -134,6 +134,15 @@ def effective_encoding(arr: ArrayLike, requested: Optional[str]) -> str:
     return enc
 
 
+def is_extended_torch_dtype(dtype) -> bool:
+    """True when a tensor of this torch dtype reaches the host
+    (:func:`_to_numpy`) as an extended dtype, so a response carrying it
+    goes 'raw': bfloat16 and fp8 where ml_dtypes names them (without
+    ml_dtypes bf16 widens to float32 on the way to the host and stays
+    JSON-encodable)."""
+    return str(dtype).replace("torch.", "") in _EXTENDED_DTYPES
+
+
 def dtype_name(dtype) -> str:
     return np.dtype(dtype).name
 
@@ -789,6 +798,14 @@ def to_device(arr: ArrayLike, device, dtype=None):
     np_arr = np.ascontiguousarray(_to_numpy(arr))
     if not np_arr.flags.writeable:
         np_arr = np_arr.copy()
+    ext = np_arr.dtype.name if np_arr.dtype.name in _EXTENDED_DTYPES else None
+    if ext is not None:
+        # torch reads no ml_dtypes array: move the bits, then name the type
+        bits = np_arr.view(np.int16 if np_arr.dtype.itemsize == 2 else np.uint8)
+        out = torch.from_numpy(bits).to(device).view(getattr(torch, ext))
+        if dtype is not None:
+            out = out.to(dtype if isinstance(dtype, torch.dtype) else getattr(torch, str(dtype)))
+        return out
     tdt = None
     if dtype is not None:
         tdt = dtype if isinstance(dtype, torch.dtype) else getattr(torch, str(dtype))

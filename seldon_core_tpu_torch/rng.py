@@ -25,6 +25,13 @@ Recipes (``jax/_src/prng.py``, ``jax/_src/random.py``):
   [1, 2), minus 1, then ``max(minval, u * (maxval - minval) + minval)``.
 * ``categorical(key, logits)`` = ``argmax(-log(-log(U)) + logits)`` with
   ``U = uniform(minval=tiny, maxval=1)`` over the logits' shape.
+* ``normal`` (float32) = ``sqrt(2) * erf_inv(U)`` with ``U =
+  uniform(minval=nextafter(-1, 0), maxval=1)``; ``erf_inv`` is XLA's f32
+  polynomial (Giles' single-precision approximation), spelled out in
+  torch ops. The bits and ``U`` match JAX bit for bit; ``log1p`` and the
+  polynomial's rounding may differ from XLA's by a few float32 ulps.
+* ``randint`` (int32) = two 32-bit draws from ``split(key)``, folded into
+  ``[minval, maxval)`` modulo the span with uint32 wraparound.
 """
 
 from __future__ import annotations
@@ -36,6 +43,13 @@ import torch
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _F32_TINY = float(torch.finfo(torch.float32).tiny)
+# XLA's ErfInv32 coefficients, highest degree first: |w| < 5, then the tail
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+_F32_SQRT2 = 1.4142135381698608  # np.float32(np.sqrt(2))
+_F32_NEXT_BELOW_NEG1 = -0.9999999403953552  # nextafter(-1, 0) in float32
 
 
 def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -111,6 +125,60 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     width = (torch.tensor(maxval, dtype=torch.float32) - lo).item()
     lo = lo.item()
     return torch.clamp(floats * width + lo, min=lo)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``ErfInv``: ``w = -log1p(-x*x)``, a degree-8
+    polynomial in ``w - 2.5`` (``w < 5``) or ``sqrt(w) - 3``, times ``x``;
+    ``+-inf`` at ``|x| == 1``. XLA contracts each Horner step into a fused
+    multiply-add; here a step is one float64 multiply-add rounded once to
+    float32 (the product of two float32 values is exact in float64), the
+    same on the CPU and on CUDA. ``log1p`` is the device's own."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).float()
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        c = torch.where(lt, a, b).float()
+        p = (c.double() + p.double() * w).float()
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.normal`` in float32 for each key of ``key``."""
+    u = uniform(key, shape, minval=_F32_NEXT_BELOW_NEG1, maxval=1.0)
+    return erf_inv(u) * _F32_SQRT2
+
+
+def _mul32(a: torch.Tensor, b) -> torch.Tensor:
+    """``a * b`` modulo 2**32 for uint32 values held in int64, in 16-bit
+    halves so that no product leaves int64."""
+    return (a * (b & 0xFFFF) + (((a * (b >> 16)) & 0xFFFF) << 16)) & MASK
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, int32)`` for ONE key
+    ``[2]``: returns int32 in ``[minval, maxval)`` (``minval`` when
+    ``maxval <= minval``)."""
+    lo_i32, hi_i32 = -(1 << 31), (1 << 31) - 1
+    out_of_range = maxval > hi_i32
+    minval = min(max(int(minval), lo_i32), hi_i32)
+    maxval = min(max(int(maxval), lo_i32), hi_i32)
+    span = (maxval - minval) & MASK
+    if maxval <= minval:
+        span = 1
+    elif out_of_range:
+        span = (span + 1) & MASK
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    if span == 0:  # a span of 2**32 wrapped: every draw is in range
+        offset = lower
+    else:
+        mult = (1 << 16) % span
+        mult = (mult * mult & MASK) % span
+        offset = ((_mul32(higher % span, mult) + lower % span) & MASK) % span
+    out = (offset + minval) & MASK
+    return torch.where(out >= (1 << 31), out - (1 << 32), out).to(torch.int32)
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

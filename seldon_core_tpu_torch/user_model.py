@@ -290,6 +290,22 @@ class TorchComponent(SeldonComponent):
         )
         return payload.to_device(X, self.device, dtype=dtype)
 
+    def fused_stage(self):
+        """``(fn, params, compute_dtype)`` for the graph-fusion planner
+        (``graph/fusion.py``): ``fn(params, x)`` is the SAME forward
+        :meth:`predict` runs, so a fused segment computes exactly what the
+        hop-by-hop path would, the property its byte-identity rests on."""
+        if self._apply is None:
+            self.load()
+        return self._apply, self.params, self.compute_dtype
+
+    # graph-fusion eligibility marker (graph/fusion.py): a bare
+    # TorchComponent backs ONLY ``predict`` with its forward; its
+    # transform hooks degrade to identity, so a TRANSFORMER-typed unit
+    # must not be fused through ``_apply``. TorchTransformComponent flips
+    # this by routing the transform hooks through the same forward.
+    fused_transforms = False
+
     def predict(self, X, names, meta=None):
         import torch
 
@@ -304,9 +320,12 @@ class TorchComponent(SeldonComponent):
 class TorchTransformComponent(TorchComponent):
     """A TorchComponent whose forward also serves the transform hooks, for
     TRANSFORMER / OUTPUT_TRANSFORMER graph nodes (a BERT-style input
-    transformer computes on the device). A bare TorchComponent on such a
-    node degrades to the identity transform (the client_* contract
-    above)."""
+    transformer computes on the device): the hop path and the fusion
+    planner then agree on what the unit computes. A bare TorchComponent on
+    such a node degrades to the identity transform (the client_* contract
+    above), which is why fusion refuses it."""
+
+    fused_transforms = True
 
     def transform_input(self, X, names, meta=None):
         return self.predict(X, names, meta)

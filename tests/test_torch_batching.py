@@ -129,16 +129,31 @@ def test_batching_from_annotations():
 
 @pytest.mark.parametrize("ann", [{"seldon.io/fuse": "true"}, "mesh"])
 def test_fuse_and_mesh_still_refused(ann):
-    """Micro-batching is ported; graph fusion and a mesh still raise, with
-    micro-batching on beside them."""
+    """Micro-batching is ported; a mesh still raises with micro-batching on
+    beside it. Graph fusion is ported too: beside micro-batching it keeps
+    the micro-batched unit on the per-unit path, counted as the
+    ``microbatch`` plan reason, and the batcher still fuses requests."""
+    from seldon_core_tpu_torch.graph.engine_metrics import MetricsRegistry
     from seldon_core_tpu_torch.graph.executor import GraphExecutor
 
     kw = {"mesh": object()} if ann == "mesh" else {}
+    fuse = ann != "mesh"
     ann = {} if ann == "mesh" else ann
     spec = _spec({"seldon.io/microbatch": "true", **ann})
-    with pytest.raises(NotImplementedError, match="not ported to seldon_core_tpu_torch yet"):
-        GraphExecutor(spec, registry={"m": CountingBatchModel()},
-                      batching=batching_from_annotations(spec), **kw)
+    model = CountingBatchModel()
+    if not fuse:
+        with pytest.raises(NotImplementedError,
+                           match="not ported to seldon_core_tpu_torch yet"):
+            GraphExecutor(spec, registry={"m": model},
+                          batching=batching_from_annotations(spec), **kw)
+        return
+    metrics = MetricsRegistry()
+    ex = GraphExecutor(spec, registry={"m": model}, metrics=metrics,
+                       batching=batching_from_annotations(spec))
+    assert ex.fusion.segments == {}
+    assert metrics.counter_total("seldon_engine_fusion_fallbacks",
+                                 {"unit": "m", "reason": "microbatch"}) == 1.0
+    assert isinstance(ex.root.client, MicroBatchingClient)
 
 
 def test_micro_batching_padding_capped_at_max_batch():

@@ -306,7 +306,7 @@ def test_batcher_deadline_shed_matches_jax_rule(engines, monkeypatch):
 
 
 @pytest.mark.parametrize("annotation", [
-    ("seldon.io/fuse", "true"), ("seldon.io/disagg", "true"),
+    ("seldon.io/disagg-prefill-replicas", "2"), ("seldon.io/disagg", "true"),
     ("seldon.io/kv-tier-bytes", "1024"), ("seldon.io/mesh", "data=1,model=2"),
     ("seldon.io/tenants", "a=strict"), ("seldon.io/planner", "true"),
 ])
@@ -320,26 +320,69 @@ def test_not_ported_annotations_raise(annotation):
     build_spec(PORT, graph, {"seldon.io/fuse": "false", "seldon.io/planner": "false"})
 
 
+def test_junk_fuse_annotation_refused():
+    """``seldon.io/fuse`` takes "true" or "false" only (any case): junk
+    fails the apply and the executor's construction, as in the JAX
+    engine."""
+    from seldon_core_tpu_torch.graph.executor import GraphExecutor
+    from seldon_core_tpu_torch.graph.spec import GraphSpecError, PredictorSpec
+
+    graph = {"name": "m", "implementation": "SIMPLE_MODEL"}
+    for pkg in (JAX, PORT):
+        with pytest.raises(Exception, match="seldon.io/fuse"):
+            build_spec(pkg, graph, {"seldon.io/fuse": "yes"})
+    spec = PredictorSpec.from_dict(
+        {"name": "p", "graph": graph, "annotations": {"seldon.io/fuse": "on"}})
+    with pytest.raises(GraphSpecError, match="seldon.io/fuse"):
+        GraphExecutor(spec)
+    build_spec(PORT, graph, {"seldon.io/fuse": "TRUE"})
+
+
 @pytest.mark.parametrize("kind", ["fuse", "microbatch", "mesh", "server"])
 def test_not_ported_engine_options_raise(kind):
+    """A device mesh and unported prepackaged servers raise "not
+    ported". Graph fusion is ported: alone it builds a plan (a
+    single-unit graph has no segment), and beside micro-batching it
+    builds and counts the micro-batched unit's ``microbatch`` plan
+    reason."""
+    from seldon_core_tpu_torch.graph.batching import batching_from_annotations
+    from seldon_core_tpu_torch.graph.engine_metrics import MetricsRegistry
     from seldon_core_tpu_torch.graph.executor import GraphExecutor
     from seldon_core_tpu_torch.graph.spec import PredictorSpec
 
     graph = {"name": "m", "implementation": "SIMPLE_MODEL"}
     kw, ann = {}, {}
-    if kind == "fuse":
+    if kind in ("fuse", "microbatch"):
         ann = {"seldon.io/fuse": "true"}
-    elif kind == "microbatch":
-        # micro-batching is ported; with graph fusion beside it the
-        # predictor is still refused
-        ann = {"seldon.io/microbatch": "true", "seldon.io/fuse": "true"}
-    elif kind == "mesh":
+        if kind == "microbatch":
+            ann["seldon.io/microbatch"] = "true"
+            graph = {"name": "m", "type": "MODEL"}
+        spec = PredictorSpec.from_dict({"name": "p", "graph": graph, "annotations": ann})
+        metrics = MetricsRegistry()
+        ex = GraphExecutor(spec, registry={"m": _Doubler()}, metrics=metrics,
+                           batching=batching_from_annotations(spec))
+        assert ex.fusion is not None and ex.fusion.segments == {}
+        want = 1.0 if kind == "microbatch" else 0.0
+        assert metrics.counter_total("seldon_engine_fusion_fallbacks",
+                                     {"unit": "m", "reason": "microbatch"}) == want
+        out = asyncio.run(ex.predict({"data": {"ndarray": [[1.0, 2.0]]}}))
+        assert out["data"]["ndarray"] == [[2.0, 4.0]]
+        asyncio.run(ex.close())
+        return
+    if kind == "mesh":
         kw = {"mesh": object()}
     else:
         graph = {"name": "m", "implementation": "SKLEARN_SERVER", "modelUri": "/x"}
     spec = PredictorSpec.from_dict({"name": "p", "graph": graph, "annotations": ann})
     with pytest.raises(NotImplementedError, match="not ported"):
         GraphExecutor(spec, **kw)
+
+
+class _Doubler:
+    def predict(self, X, names, meta=None):
+        import numpy as np
+
+        return np.asarray(X) * 2
 
 
 @pytest.mark.parametrize("path", ["/flightrecorder", "/fleet", "/openapi.json", "/retune"])

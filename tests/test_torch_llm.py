@@ -148,9 +148,14 @@ def test_npz_roundtrip(tmp_path, pair):
 
 
 def test_registry_lists_llm_only():
+    """Every family of the JAX package's zoo builds in the port (the
+    retrieval families were its last); unknown names and the unported
+    mixture-of-experts variant raise."""
+    from seldon_core_tpu import models as jmodels
+
     assert isinstance(tmodels.build("llm", **CONFIGS["small"]), TorchLM)
-    with pytest.raises(NotImplementedError, match="'retrieval' is not ported"):
-        tmodels.build("retrieval")
+    assert set(tmodels._FAMILIES) == set(jmodels._FAMILIES) and tmodels.NOT_PORTED == ()
+    assert type(tmodels.build("retrieval")).__name__ == "RetrievalIndex"
     with pytest.raises(ValueError, match="unknown model family"):
         tmodels.build("nope")
     with pytest.raises(NotImplementedError, match="mixture-of-experts"):

@@ -163,9 +163,12 @@ def test_port_init_params_match_jax_shapes():
 def test_registry():
     for family in FAMILIES:
         torch_models.build(family, **FAMILIES[family])
+    # the retrieval families build too, and refuse what the JAX ones do
+    assert type(torch_models.build("retrieval")).__name__ == "RetrievalIndex"
+    assert type(torch_models.build("reranker")).__name__ == "Reranker"
     for family in ("retrieval", "reranker"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            torch_models.build(family)
+        with pytest.raises(ValueError, match="corpus_size"):
+            torch_models.build(family, corpus_size=512)
     with pytest.raises(ValueError, match="unknown model family"):
         torch_models.build("nope")
 
