@@ -7,7 +7,7 @@ Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails. ``--phases`` runs a subset of
 ``kernels, small, serve, engine, small-sched, sched, prefix, pressure,
 spec, spec-pressure, dh256, f32, disagg, kvtier, migration, telemetry,
-fronts, zoo, rag, model``
+fronts, zoo, rag, explain, model``
 (device and build always run; the
 result lines print only when every phase ran, as with no argument):
 
@@ -282,7 +282,32 @@ result lines print only when every phase ran, as with no argument):
    and the CPU: equal flags, scores within 1e-5 relative, the same drift
    verdicts (unshifted windows pass, shifted ones flag). The flash
    kernel's launches over (a) join the ``kernels`` line.
-21. Model (on the engine phase's copy, after every serving phase: a
+21. Explain (``/explain`` and the rest of the component inventory): (a)
+   an integrated-gradients ``Explainer`` (32 steps) behind the REST
+   microservice over ResNet-50 (224x224, 1000 classes, the port's
+   seed-0 weights written as ``params.npz``) at bf16: 4 photo-like
+   images sent as float, finite attributions and targets the argmax of
+   the prediction; the client latency, one explanation's CUDA-event time
+   and one forward-backward pass of the folded alphas; then at float32
+   with TF32 off, IG from a gray baseline and saliency on 2 images
+   against the same explainers on the CPU and against the same forward
+   in float64 on both: the same targets, card vs CPU within 1e-2
+   relative L2, the card's error against float64 at most 2x the CPU's
+   plus 1e-3, float64 card vs CPU within 1e-5 of the largest, the same
+   request twice bit-identical, IG complete within 5%; (b) the iris MLP (f32) served
+   by the port's engine on the card, an ablation and an anchor_tabular
+   explainer (150 seeded background rows) pointed at it over REST:
+   ablation within 1e-6 and the same anchors, precision and coverage as
+   against the model on the CPU; (c) ``VAEOutlier.fit`` and
+   ``Seq2SeqOutlier.fit`` at their default widths and epochs on the
+   card and on the CPU: the same flags on seeded inliers and planted
+   outliers, scores within 1e-3, seconds per epoch; (d) SKLEARN,
+   XGBOOST, MLFLOW, TENSORFLOW and SAGEMAKER servers resolved from graph
+   specs give their missing-library errors (none "not ported"), and
+   TRITON_SERVER answers through the engine on a stub transport. The
+   flash kernel's launches over the phase (none) join the ``kernels``
+   line.
+22. Model (on the engine phase's copy, after every serving phase: a
    profiler run may slow later launches): full-width prefill time per
    bucket with the flash kernel's device time inside it
    (torch.profiler), a prefix hit's suffix prefill against the full
@@ -294,7 +319,7 @@ result lines print only when every phase ran, as with no argument):
    a 6-layer early-exit draft, the W = 5 verify chunk, acceptance)
    against 5 decode steps at B = 4, attention 512, in device-busy time
    and device operations.
-22. The ``kernels`` JSON line (the flash kernel on the main path, its
+23. The ``kernels`` JSON line (the flash kernel on the main path, its
    Dh 256 instance on the dh256 phase's and its float32 instance on the
    f32 phase's), then the final ``{"ok": true, ...}`` line.
 
@@ -5203,9 +5228,9 @@ def _zoo_micro(card, root):
 
     import numpy as np
 
-    from seldon_core_tpu_torch import microservice, wrapper
+    from seldon_core_tpu_torch import microservice
 
-    users, apps = [], []
+    users = []
     for family, config in (("vit", ZOO_VIT), ("mlp", ZOO_MLP)):
         t0 = time.perf_counter()
         user = microservice.build_user_object(
@@ -5216,19 +5241,7 @@ def _zoo_micro(card, root):
         user.load()
         log(f"[zoo] {family}: TorchServer loaded and warmed in {time.perf_counter() - t0:.1f} s")
         users.append(user)
-        apps.append(wrapper.get_rest_microservice(user))
-    ports = [_free_port() for _ in apps]
-
-    async def start():
-        for app, p in zip(apps, ports):
-            await app.start("127.0.0.1", p)
-
-        async def close():
-            for app in apps:
-                app.close()
-        return close
-
-    stop = serve_in_thread(start)
+    ports, stop = _serve_micro(users)
     try:
         lat, classes = [], ZOO_VIT["num_classes"]
         for i in range(4):
@@ -5264,8 +5277,32 @@ def _zoo_micro(card, root):
             f"{[round(x * 1e3, 1) for x in lat]} [{card}]")
     finally:
         stop()
+
+
+def _serve_micro(users):
+    """Each user object behind its own REST microservice on a free port:
+    ``(ports, stop)``."""
+    from seldon_core_tpu_torch import wrapper
+
+    apps = [wrapper.get_rest_microservice(u) for u in users]
+    ports = [_free_port() for _ in apps]
+
+    async def start():
+        for app, p in zip(apps, ports):
+            await app.start("127.0.0.1", p)
+
+        async def close():
+            for app in apps:
+                app.close()
+        return close
+
+    stop = serve_in_thread(start)
+
+    def stop_all():
+        stop()
         for app in apps:
             app._hook_pool.shutdown(wait=False)
+    return ports, stop_all
 
 
 def _zoo_routers(card, root):
@@ -5836,9 +5873,481 @@ def phase_rag(card):
     return launches
 
 
+# /explain (explainer.py): ResNet-50 at full width under IG and saliency,
+# ablation and anchors over the port's engine, the detectors' training,
+# the host servers
+EXPLAIN_RESNET = {"num_classes": 1000, "image_size": 224, "seed": 0}
+EXPLAIN_DEVICE = "cuda"
+EXPLAIN_STEPS = 32
+EXPLAIN_IMAGES = 4     # the bf16 request
+EXPLAIN_F32_IMAGES = 2  # the f32 requests, also explained on the CPU
+EXPLAIN_BASELINE = 127.5  # the f32 IG request's gray baseline (meta.tags)
+# float32 with TF32 off, attributions card vs CPU. The input gradient of
+# ResNet-50 at 224 is ill-conditioned in float32: against the same
+# forward in float64, the card's and the CPU's float32 saliency are both
+# off by 3.5e-3-5.6e-3 in relative L2 (4.6e-2 of the largest element),
+# ReLU and max-pool decisions flipping on rounding (measured on an H100
+# 80GB HBM3 at 700 W, `PERF.md`). So the float32 gates are: card vs CPU
+# relative L2 within EXPLAIN_F32_L2, and the card's error against the
+# float64 reference at most 2x the CPU's plus 1e-3. The float64
+# forward-backward (every
+# convolution in float64, the float32 head) is the tight check of the
+# card's gradient path: card vs CPU within EXPLAIN_F64_TOL of the
+# largest |attribution| (rounded to float32 they were equal there).
+EXPLAIN_F32_L2 = 1e-2
+EXPLAIN_F64_TOL = 1e-5
+# IG's midpoint rule over 32 steps from the gray baseline: |sum(attr) -
+# (f(x) - f(baseline))| within this fraction of |f(x) - f(baseline)|
+EXPLAIN_COMPLETENESS = 0.05
+EXPLAIN_MLP = dict(ZOO_MLP, dtype="float32")
+EXPLAIN_ABLATION_TOL = 1e-6  # float32 probabilities, card vs CPU (ulps)
+EXPLAIN_TRAINED_RTOL = 1e-3  # detector scores trained on the card vs the CPU
+EXPLAIN_VAE_EPOCHS, EXPLAIN_SEQ_EPOCHS = 50, 50
+# the host servers whose library the card's machine lacks: (implementation,
+# the module its load imports first, the error naming it)
+EXPLAIN_SERVERS = (("SKLEARN_SERVER", "joblib", "joblib"),
+                   ("XGBOOST_SERVER", "xgboost", "xgboost"),
+                   ("MLFLOW_SERVER", "mlflow", "mlflow"),
+                   ("TENSORFLOW_SERVER", "tensorflow", "tensorflow"),
+                   ("SAGEMAKER_SERVER", "boto3", "boto3"))
+
+
+def _explain_dirs(root):
+    """ResNet-50 (seed-0 weights through params.npz: the port's
+    ``init_params(0)`` drawn on the CPU) at bf16, f32 and f64 (the f32
+    reference), and the iris MLP at f32, each a ``jax_config.json`` +
+    ``params.npz`` directory."""
+    from seldon_core_tpu_torch import models
+    from seldon_core_tpu_torch.convert import save_npz
+
+    dirs = {}
+    for tag, family, config in (("bf16", "resnet50", dict(EXPLAIN_RESNET, dtype="bfloat16")),
+                                ("f32", "resnet50", dict(EXPLAIN_RESNET, dtype="float32")),
+                                ("f64", "resnet50", dict(EXPLAIN_RESNET, dtype="float64")),
+                                ("mlp", "mlp", EXPLAIN_MLP)):
+        d = os.path.join(root, f"explain-{tag}")
+        os.makedirs(d, exist_ok=True)
+        src = os.path.join(root, "explain-bf16", "params.npz")
+        if tag in ("f32", "f64"):
+            os.link(src, os.path.join(d, "params.npz"))
+        else:
+            model = models.build(family, device="cpu", **config)
+            save_npz(model.init_params(config.get("seed", 0), device="cpu"),
+                     os.path.join(d, "params.npz"))
+        with open(os.path.join(d, "jax_config.json"), "w") as f:
+            json.dump({"family": family, "config": config, "checkpoint": "params.npz"}, f)
+        dirs[tag] = d
+    return dirs
+
+
+def _explainer_user(model_dir, kind, device):
+    from seldon_core_tpu_torch import microservice
+
+    user = microservice.build_user_object(
+        "seldon_core_tpu_torch.components.explainer.Explainer", json.dumps([
+            {"name": "explainer_type", "value": kind, "type": "STRING"},
+            {"name": "model_uri", "value": model_dir, "type": "STRING"},
+            {"name": "n_steps", "value": str(EXPLAIN_STEPS), "type": "INT"},
+            {"name": "device", "value": device, "type": "STRING"}]))
+    user.load()
+    return user
+
+
+def _explain_call(port, x, baseline=None, what="explain"):
+    """POST ``x`` (float) to ``/explain``; returns (jsonData, client s)."""
+    import numpy as np
+
+    body = {"data": {"tensor": {"shape": list(x.shape),
+                                "values": x.astype(np.float32).ravel().tolist()}}}
+    if baseline is not None:
+        body["meta"] = {"tags": {"baseline": baseline}}
+    t = time.perf_counter()
+    status, out = _post(port, body, path="/explain")
+    dt = time.perf_counter() - t
+    if status != 200:
+        raise AssertionError(f"[explain] {what}: HTTP {status} {str(out)[:300]}")
+    got = out["jsonData"]
+    attr = np.asarray(got["attributions"], np.float32)
+    pred = np.asarray(got["prediction"], np.float32)
+    if attr.shape != x.shape or not np.isfinite(attr).all() or \
+            pred.shape != (x.shape[0], EXPLAIN_RESNET["num_classes"]):
+        raise AssertionError(f"[explain] {what}: attributions {attr.shape}, prediction "
+                             f"{pred.shape}, finite {bool(np.isfinite(attr).all())}")
+    if got["target"] != np.argmax(pred, axis=-1).tolist():
+        raise AssertionError(f"[explain] {what}: target is not the argmax of the prediction")
+    return got, dt
+
+
+def _score(user, x, target):
+    """f(x)[target] in float32 through the explainer's own forward."""
+    import numpy as np
+    import torch
+
+    with torch.no_grad():
+        logits = user._apply(user._params, torch.from_numpy(x).to(user.device)).float()
+    return logits.cpu().numpy()[np.arange(len(target)), target]
+
+
+def _explain_timing(user, x, card):
+    """One IG explanation's device work in CUDA-event time (the upload,
+    the target forward, the folded passes, the attributions' copy back;
+    not the response's encoding), and one forward-backward pass of the
+    explainer's chunk (MAX_ROWS rows) alone, with cuDNN deterministic (as
+    the explainer sets it when it loads) and without."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.components.explainer import MAX_ROWS
+
+    zeros = np.zeros_like(x)
+    user._white_box(x, zeros)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    user._white_box(x, zeros)
+    end.record()
+    torch.cuda.synchronize()
+    one = start.elapsed_time(end)
+    per = max(1, MAX_ROWS // x.shape[0])
+    rows = per * x.shape[0]
+    pts = torch.from_numpy(np.repeat(x, per, axis=0)).to(user.device)
+    target = torch.zeros(rows, dtype=torch.int64, device=user.device)
+    if not torch.backends.cudnn.deterministic:
+        raise AssertionError("[explain] the explainer left cuDNN nondeterministic on the card")
+    with torch.enable_grad():
+        step = time_ms(lambda: user._grad(pts, target), iters=5, warmup=2)
+        torch.backends.cudnn.deterministic = False
+        try:
+            free_step = time_ms(lambda: user._grad(pts, target), iters=5, warmup=2)
+        finally:
+            torch.backends.cudnn.deterministic = True
+    with torch.no_grad():
+        fwd = time_ms(lambda: user._apply(user._params, pts), iters=5, warmup=2)
+    passes = -(-EXPLAIN_STEPS // per)
+    log(f"[explain] (a) one IG explanation of {x.shape[0]} images, {EXPLAIN_STEPS} steps in "
+        f"{passes} forward-backward passes of {rows} rows: {one:.1f} ms (CUDA events), "
+        f"{one / EXPLAIN_STEPS:.2f} ms per step; one pass of {rows} rows alone {step:.2f} ms "
+        f"({step / rows:.3f} ms per row), {free_step:.2f} ms without cuDNN deterministic, "
+        f"the forward alone {fwd:.2f} ms [{card}]")
+
+
+def _f64_explain(model_dir, kind, device, x, meta):
+    """The explainer's answer from the float64 model directory (every
+    convolution and batch norm in float64; the head stays float32): the
+    reference the float32 attributions are measured against."""
+    import torch
+
+    from seldon_core_tpu_torch.components.explainer import Explainer
+
+    e = Explainer(explainer_type=kind, model_uri=model_dir, n_steps=EXPLAIN_STEPS, device=device)
+    e.load()
+    if e._apply.__self__.dtype is not torch.float64:
+        raise AssertionError(f"[explain] the float64 reference computes in "
+                             f"{e._apply.__self__.dtype}")
+    return e.explain(x, [], meta)
+
+
+def _explain_white_box(card, dirs):
+    """(a) ResNet-50 under IG and saliency behind the REST microservice:
+    bf16 (4 images, latency and times), then f32 with TF32 off against
+    the CPU."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    bf16 = _explainer_user(dirs["bf16"], "integrated_gradients", EXPLAIN_DEVICE)
+    log(f"[explain] (a) ResNet-50 bf16 (224x224, 1000 classes, seed-0 params.npz) IG "
+        f"explainer loaded in {time.perf_counter() - t0:.1f} s")
+    imgs = _synthetic_images(EXPLAIN_IMAGES, EXPLAIN_RESNET["image_size"], seed=3) \
+        .astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    (port,), stop = _serve_micro([bf16])
+    try:
+        _explain_call(port, imgs, what="bf16 warm-up")
+        lat, outs = [], []
+        for _ in range(3):
+            got, dt = _explain_call(port, imgs, what="bf16 IG")
+            lat.append(dt)
+            outs.append(got)
+    finally:
+        stop()
+    attr = np.asarray(outs[0]["attributions"], np.float32)
+    fx = _score(bf16, imgs, outs[0]["target"])
+    gap = np.abs(attr.reshape(len(imgs), -1).sum(1) - fx) / np.abs(fx)
+    log(f"[explain] (a) bf16 IG over REST, {EXPLAIN_IMAGES} images sent as float: 200, "
+        f"attributions [{EXPLAIN_IMAGES}, 224, 224, 3] finite, targets {outs[0]['target']}, "
+        f"client ms {[round(x * 1e3, 1) for x in lat]}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; completeness |sum - f(x)|/|f(x)| "
+        f"(zero baseline) {[float(f'{g:.3e}') for g in gap]} (not gated at bf16) [{card}]")
+    _explain_timing(bf16, imgs, card)
+    del bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    x = _synthetic_images(EXPLAIN_F32_IMAGES, EXPLAIN_RESNET["image_size"], seed=4) \
+        .astype(np.float32)
+    with _exact_f32():
+        users = {k: _explainer_user(dirs["f32"], k, EXPLAIN_DEVICE)
+                 for k in ("integrated_gradients", "saliency")}
+        ports, stop = _serve_micro([users["integrated_gradients"], users["saliency"]])
+        try:
+            ig = [_explain_call(ports[0], x, EXPLAIN_BASELINE, "f32 IG")[0] for _ in range(2)]
+            sal = [_explain_call(ports[1], x, None, "f32 saliency")[0] for _ in range(2)]
+        finally:
+            stop()
+        card_fx = _score(users["integrated_gradients"], x, ig[0]["target"])
+        card_fb = _score(users["integrated_gradients"], np.full_like(x, EXPLAIN_BASELINE),
+                         ig[0]["target"])
+    t0 = time.perf_counter()
+    metas = {"integrated_gradients": {"tags": {"baseline": EXPLAIN_BASELINE}}, "saliency": None}
+    cpu = {k: _explainer_user(dirs["f32"], k, "cpu").explain(x, [], m) for k, m in metas.items()}
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = {(k, dev): _f64_explain(dirs["f64"], k, dev, x, m)
+           for k, m in metas.items() for dev in (EXPLAIN_DEVICE, "cpu")}
+    ref_s = time.perf_counter() - t0
+    failed = []
+    for kind, got in (("integrated_gradients", ig), ("saliency", sal)):
+        want = cpu[kind]
+        a0, a1 = (np.asarray(g["attributions"], np.float32) for g in got)
+        ac = np.asarray(want["attributions"], np.float32)
+        r_card, r_cpu = (np.asarray(ref[(kind, d)]["attributions"], np.float32)
+                         for d in (EXPLAIN_DEVICE, "cpu"))
+
+        def l2(a, b):
+            return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+        err = float(np.abs(a0 - ac).max() / np.abs(ac).max())
+        f64_err = float(np.abs(r_card - r_cpu).max() / np.abs(r_cpu).max())
+        e_card, e_cpu = l2(a0, r_cpu), l2(ac, r_cpu)
+        spread = float(np.abs(a0 - a1).max())
+        targets = [got[0]["target"], want["target"]] + \
+            [ref[(kind, d)]["target"] for d in (EXPLAIN_DEVICE, "cpu")]
+        log(f"[explain] (a) f32 {kind} ({EXPLAIN_F32_IMAGES} images, TF32 off): targets card "
+            f"{targets[0]} CPU {targets[1]} (float64 {targets[2]}, {targets[3]}); card vs CPU "
+            f"relative L2 {l2(a0, ac):.3e} (tol {EXPLAIN_F32_L2}), max |dattr| {err:.3e} of "
+            f"the largest; against the float64 reference: card {e_card:.3e}, CPU {e_cpu:.3e} "
+            f"(card at most 2x + 1e-3); float64 card vs CPU max |dattr| {f64_err:.3e} (tol "
+            f"{EXPLAIN_F64_TOL}); the same request twice max |dattr| {spread:.3e}")
+        if any(t != targets[0] for t in targets) or l2(a0, ac) > EXPLAIN_F32_L2 or \
+                e_card > 2 * e_cpu + 1e-3 or f64_err > EXPLAIN_F64_TOL or spread != 0.0:
+            failed.append(kind)
+    a0 = np.asarray(ig[0]["attributions"], np.float32)
+    sums = a0.reshape(len(x), -1).sum(1)
+    diff = card_fx - card_fb
+    rel = np.abs(sums - diff) / np.abs(diff)
+    log(f"[explain] (a) f32 IG completeness from the gray baseline {EXPLAIN_BASELINE}: sum "
+        f"{sums.tolist()} vs f(x) - f(b) {diff.tolist()}, relative gap "
+        f"{[float(f'{r:.3e}') for r in rel]} (tol {EXPLAIN_COMPLETENESS}); the CPU's two "
+        f"explanations in {cpu_s:.1f} s, the four float64 ones in {ref_s:.1f} s")
+    if not (rel <= EXPLAIN_COMPLETENESS).all():
+        failed.append("completeness")
+    if failed:
+        raise AssertionError(f"[explain] (a) f32 gates failed: {failed}")
+    del users
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _iris_like(n, seed):
+    """``n`` iris-like rows (three clusters at the iris class means)."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    means = np.array([[5.0, 3.4, 1.5, 0.2], [5.9, 2.8, 4.3, 1.3], [6.6, 3.0, 5.6, 2.0]])
+    scale = np.array([0.35, 0.35, 0.45, 0.2])
+    cls = rs.randint(0, 3, n)
+    return np.round(means[cls] + rs.normal(0, 1, (n, 4)) * scale, 1)
+
+
+def _explain_black_box(card, root, dirs):
+    """(b) The iris MLP (f32) served by the port's engine on the card; an
+    ablation and an anchor_tabular explainer point at it over REST, the
+    same explainers against the model on the CPU."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.components.explainer import Explainer
+    from seldon_core_tpu_torch.servers.torchserver import TorchServer
+
+    np.save(os.path.join(root, "iris-background.npy"), _iris_like(150, seed=17))
+    train_uri = f"file://{root}/iris-background.npy"
+    unit = {"name": "iris", "implementation": "JAX_SERVER", "modelUri": dirs["mlp"],
+            "parameters": [{"name": "device", "value": EXPLAIN_DEVICE, "type": "STRING"}]}
+    app = _zoo_engine(unit)
+    host = TorchServer(dirs["mlp"], device="cpu")
+    host.load()
+
+    def on_cpu(batch):
+        return np.asarray(host.predict(np.asarray(batch, np.float32), []), np.float32)
+
+    rows = _iris_like(4, seed=18).astype(np.float32)
+    calls = {"n": 0}
+    (port,), _g, stop = _zoo_serve([app])
+    try:
+        remote = {k: Explainer(explainer_type=k, predictor_endpoint=f"127.0.0.1:{port}",
+                               train_data_uri=train_uri, anchor_seed=0)
+                  for k in ("ablation", "anchor_tabular")}
+        local = {k: Explainer(explainer_type=k, predictor_endpoint="cpu",
+                              train_data_uri=train_uri, anchor_seed=0)
+                 for k in ("ablation", "anchor_tabular")}
+        for e in local.values():
+            e._query_predictor = on_cpu
+        query = remote["anchor_tabular"]._query_predictor
+
+        def counted(batch):
+            calls["n"] += 1
+            return query(batch)
+
+        remote["anchor_tabular"]._query_predictor = counted
+        t = time.perf_counter()
+        abl = remote["ablation"].explain(rows, [])
+        abl_s = time.perf_counter() - t
+        t = time.perf_counter()
+        anc = remote["anchor_tabular"].explain(rows[:2], [])
+        anc_s = time.perf_counter() - t
+    finally:
+        stop()
+    abl_cpu = local["ablation"].explain(rows, [])
+    anc_cpu = local["anchor_tabular"].explain(rows[:2], [])
+    err = float(np.abs(np.asarray(abl["attributions"]) - np.asarray(abl_cpu["attributions"])).max())
+    log(f"[explain] (b) ablation of 4 iris rows through the engine (one predict call of "
+        f"{4 * 5} rows, {abl_s * 1e3:.1f} ms): targets card {abl['target']} CPU "
+        f"{abl_cpu['target']}, max |dattr| {err:.3e} (tol {EXPLAIN_ABLATION_TOL})")
+    if abl["target"] != abl_cpu["target"] or err > EXPLAIN_ABLATION_TOL:
+        raise AssertionError("[explain] (b) ablation differs between the card and the CPU")
+    keys = ("anchor", "precision", "coverage", "prediction")
+    for i, (a, c) in enumerate(zip(anc["anchors"], anc_cpu["anchors"])):
+        log(f"[explain] (b) anchor_tabular row {i}: card {[a[k] for k in keys]}, CPU "
+            f"{[c[k] for k in keys]}, converged {a['converged']}, {a['n_samples']} samples")
+    log(f"[explain] (b) anchor_tabular of 2 rows: {calls['n']} predict calls through the "
+        f"engine in {anc_s:.2f} s [{card}]")
+    if anc != anc_cpu:
+        raise AssertionError("[explain] (b) the anchors differ between the card and the CPU")
+
+
+def _explain_training(card):
+    """(c) VAEOutlier.fit and Seq2SeqOutlier.fit on the card and on the CPU
+    at their default widths and epochs: the same flags on seeded inliers
+    and planted outliers, scores within EXPLAIN_TRAINED_RTOL."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.components.outlier import Seq2SeqOutlier, VAEOutlier
+
+    rs = np.random.RandomState(21)
+    X = rs.normal(0, 1, (1024, 4)).astype(np.float32)
+    probe = np.concatenate([rs.normal(0, 1, (24, 4)), rs.normal(5, 1, (8, 4))]).astype(np.float32)
+    t_seq = np.linspace(0, 6, 16)[None, :, None]
+    S = (np.sin(t_seq) * rs.uniform(0.5, 1.5, (256, 1, 2))
+         + rs.normal(0, 0.1, (256, 16, 2))).astype(np.float32)
+    probe_s = np.concatenate([
+        np.sin(t_seq) * rs.uniform(0.5, 1.5, (12, 1, 2)) + rs.normal(0, 0.1, (12, 16, 2)),
+        rs.normal(0, 1.5, (4, 16, 2))]).astype(np.float32)
+    for name, make, data, pr, n_out, epochs in (
+            ("vae", lambda d: VAEOutlier(threshold=4.0, mc_samples=5, seed=0, device=d), X,
+             probe, 8, EXPLAIN_VAE_EPOCHS),
+            ("seq2seq", lambda d: Seq2SeqOutlier(threshold=1.0, device=d), S, probe_s, 4,
+             EXPLAIN_SEQ_EPOCHS)):
+        got = {}
+        for dev in (EXPLAIN_DEVICE, "cpu"):
+            det = make(dev)
+            t = time.perf_counter()
+            det.fit(data, epochs=epochs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            flags = det.predict(pr, [])
+            got[dev] = (flags, det.score_.copy(), dt)
+        (fc, sc, tc), (fh, sh, th) = got[EXPLAIN_DEVICE], got["cpu"]
+        err = float(np.abs(sc - sh).max() / np.abs(sh).max())
+        log(f"[explain] (c) {name}.fit ({len(data)} rows, {epochs} epochs, default widths): "
+            f"card {tc:.2f} s ({tc / epochs * 1e3:.1f} ms/epoch), CPU {th:.2f} s "
+            f"({th / epochs * 1e3:.1f} ms/epoch); flags card {fc.tolist()} == CPU "
+            f"{bool((fc == fh).all())}, max relative |dscore| {err:.3e} (tol "
+            f"{EXPLAIN_TRAINED_RTOL}) [{card}]")
+        if not (fc == fh).all() or err > EXPLAIN_TRAINED_RTOL or fc[-n_out:].sum() < n_out:
+            raise AssertionError(f"[explain] (c) {name} trained on the card differs from the "
+                                 "CPU or misses the planted outliers")
+
+
+def _explain_servers(root):
+    """(d) The host servers resolved from graph specs by the port's engine:
+    each gives its clear missing-library error (none "not ported"), and
+    TRITON_SERVER goes through the engine against a stub transport."""
+    import importlib.util
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.servers.trtserver import TRTServer
+
+    empty = os.path.join(root, "no-model")
+    os.makedirs(empty, exist_ok=True)
+    for impl, module, word in EXPLAIN_SERVERS:
+        try:
+            present = importlib.util.find_spec(module) is not None
+        except (ImportError, ValueError):
+            present = False
+        try:
+            _zoo_engine({"name": "m", "implementation": impl, "modelUri": empty})
+            err = None
+        except Exception as e:  # noqa: BLE001 - the error is the result
+            err = e
+        msg = f"{type(err).__name__}: {err}" if err is not None else "no error"
+        log(f"[explain] (d) {impl}: {module} {'installed' if present else 'absent'}; {msg}")
+        if err is None or "not ported" in str(err) or (not present and word not in str(err)):
+            raise AssertionError(f"[explain] (d) {impl} did not give its missing-library error")
+
+    def transport(url, body, timeout):
+        if body is None:
+            return {"inputs": [{"name": "x", "datatype": "FP64", "shape": [-1, 2]}]}
+        req = json.loads(body)
+        rows = np.asarray(req["inputs"][0]["data"]).reshape(req["inputs"][0]["shape"])
+        return {"outputs": [{"name": "y", "datatype": "FP64", "shape": list(rows.shape),
+                             "data": (rows * 3).ravel().tolist()}]}
+
+    app = _zoo_engine({"name": "m", "type": "MODEL"},
+                      registry={"m": TRTServer(transport=transport)})
+    out = asyncio.run(app.predict({"data": {"ndarray": [[1.0, 2.0]]}}))
+    asyncio.run(app.executor.close())
+    log(f"[explain] (d) TRITON_SERVER through the engine on a stub transport: "
+        f"{out['data']['ndarray']}")
+    if out["data"]["ndarray"] != [[3.0, 6.0]]:
+        raise AssertionError("[explain] (d) the Triton proxy answered wrongly")
+
+
+def phase_explain(card):
+    """``/explain`` and the rest of this slice on the card: (a) ResNet-50
+    (224x224, 1000 classes, seed-0 params.npz) under integrated gradients
+    (32 steps) behind the REST microservice at bf16, then IG and saliency
+    at f32 with TF32 off against the CPU; (b) ablation and anchor_tabular
+    over the iris MLP served by the port's engine, against the CPU; (c)
+    the VAE and seq2seq detectors trained on the card against the CPU;
+    (d) the host servers' errors and the Triton proxy. Returns the flash
+    kernel's launches over the phase (none of these models runs it)."""
+    import torch
+
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.synchronize()
+    fa.LAUNCHES["flash_attention"] = 0
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-explain-") as root:
+        t0 = time.perf_counter()
+        dirs = _explain_dirs(root)
+        log(f"[explain] model directories written in {time.perf_counter() - t0:.1f} s")
+        for part, fn in (("(a)", lambda: _explain_white_box(card, dirs)),
+                         ("(b)", lambda: _explain_black_box(card, root, dirs)),
+                         ("(c)", lambda: _explain_training(card)),
+                         ("(d)", lambda: _explain_servers(root))):
+            t0 = time.perf_counter()
+            fn()
+            log(f"[explain] {part} in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES["flash_attention"]
+    log(f"[explain] flash kernel launches over the phase: {launches} (no model here runs it)")
+    return launches
+
+
 PHASES = ("kernels", "small", "serve", "engine", "small-sched", "sched", "prefix",
           "pressure", "spec", "spec-pressure", "dh256", "f32", "disagg", "kvtier", "migration",
-          "telemetry", "fronts", "zoo", "rag", "model")
+          "telemetry", "fronts", "zoo", "rag", "model", "explain")
 
 
 def _llm_model():
@@ -5908,7 +6417,7 @@ def main(argv=None) -> int:
         sched_launches = sched_tokens = prefix_launches = pressure_launches = None
         spec_launches = dh256_launches = f32_launches = None
         disagg_launches = kvtier_launches = migration_launches = telemetry_launches = None
-        fronts_launches = zoo_launches = rag_launches = None
+        fronts_launches = zoo_launches = rag_launches = explain_launches = None
         if "serve" in phases:
             launches, alone, serve_numbers = phase_serve(card)
             free()  # the serve phase's copy of the model goes
@@ -5978,6 +6487,10 @@ def main(argv=None) -> int:
             rag_launches = phase_rag(card)
             free()
             lap("rag")
+        if "explain" in phases:
+            explain_launches = phase_explain(card)
+            free()
+            lap("explain")
         # the profiler runs last: once it has traced the card, later
         # launches may carry its overhead
         if "model" in phases:
@@ -6013,6 +6526,7 @@ def main(argv=None) -> int:
             "fronts_launches": fronts_launches,
             "zoo_launches": zoo_launches,
             "rag_launches": rag_launches,
+            "explain_launches": explain_launches,
             "dh256_launches": dh256_launches,
             "max_abs_err": worst(lambda r: r["dtype"] == "bfloat16"),
             "wgmma_max_abs_err": worst(lambda r: r["route"] == "wgmma"),

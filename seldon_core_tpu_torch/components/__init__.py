@@ -1,11 +1,10 @@
 """Graph components of the port: the bandit routers, the outlier
-detectors (``outlier``) and the KS drift detector.
+detectors (``outlier``), the KS drift detector, and the explainer
+(``explainer.Explainer``: ``/explain``) with its anchors.
 
 Counterpart of ``seldon_core_tpu/components/`` (the reference's
 ``components/`` tree, SURVEY.md §2 #37-38). Their state is a dict of
-arrays, snapshotted by :mod:`seldon_core_tpu_torch.persistence`. The JAX
-package's explainer and anchors, and its detectors' training, are not
-ported yet.
+arrays, snapshotted by :mod:`seldon_core_tpu_torch.persistence`.
 """
 
 from .drift import KSDrift  # noqa: F401

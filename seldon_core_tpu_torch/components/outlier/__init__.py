@@ -4,9 +4,9 @@ components/outlier-detection/{mahalanobis,vae,isolation-forest,seq2seq-lstm}).
 Counterpart of ``seldon_core_tpu/components/outlier``. Use as MODELs
 (predict -> 0/1 flags) or input TRANSFORMERs (passthrough +
 ``outlier-predictions`` tag + gauges). The VAE and seq2seq detectors
-score on a torch device (CUDA unless asked for the CPU); their training
-(``train_vae``, ``train_seq2seq``) is not ported yet and raises:
-parameters trained by the JAX package load through ``fit_from``."""
+train (``train_vae``, ``train_seq2seq``, ``fit``) and score on a torch
+device (CUDA unless asked for the CPU); parameters trained by the JAX
+package load through ``fit_from`` or their pickles."""
 
 from .base import OutlierDetector  # noqa: F401
 from .iforest import IsolationForestOutlier  # noqa: F401

@@ -6,7 +6,8 @@ Core*.py: predict/transform_input both call the scoring core; tags expose
 per-row outlier flags; metrics expose is_outlier / outlier_score /
 nb_outliers / fraction_outliers / observation / threshold gauges;
 Outlier*.py subclasses add label bookkeeping in send_feedback), plus the
-state-dict helpers the device-backed detectors share.
+state-dict helpers and the training loop's Adam that the device-backed
+detectors share.
 """
 
 from __future__ import annotations
@@ -14,15 +15,10 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
+from seldon_core_tpu_torch.convert import params_from_numpy, sorted_leaves
 from seldon_core_tpu_torch.user_model import SeldonComponent
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to seldon_core_tpu_torch yet: train with the JAX "
-        "package and load the parameters through fit_from"
-    )
 
 
 def numpy_tree(tree) -> Any:
@@ -57,6 +53,62 @@ def params_tree(state) -> Any:
             sorted(int(k) for k in kids) == list(range(len(kids))):
         return [kids[str(i)] for i in range(len(kids))]
     return kids
+
+
+class Adam:
+    """``optax.adam(lr)`` (b1 0.9, b2 0.999, eps 1e-8, eps_root 0) over a
+    list of float32 tensors, its arithmetic in its order: ``mu = (1 - b1)
+    g + b1 mu``, ``nu = (1 - b2) g^2 + b2 nu``, both divided by ``1 - b^t``
+    (float32), then ``p += -lr * mu_hat / (sqrt(nu_hat) + eps)``.
+    ``torch.optim.Adam`` folds the bias corrections into the step size
+    instead, which rounds otherwise, and where ``|g|`` is near ``eps`` a
+    rounding can move a step by a share of ``lr``."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+
+    def __init__(self, params: List[torch.Tensor], lr: float):
+        self.params = params
+        self.lr = lr
+        self.mu = [torch.zeros_like(p) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor]) -> None:
+        """One update of every parameter, in place."""
+        self.count += 1
+        # 1 - b**t in float32, as optax's bias correction computes it
+        c1 = float(np.float32(1) - np.float32(self.B1) ** np.float32(self.count))
+        c2 = float(np.float32(1) - np.float32(self.B2) ** np.float32(self.count))
+        for i, (p, g) in enumerate(zip(self.params, grads)):
+            self.mu[i] = (1 - self.B1) * g + self.B1 * self.mu[i]
+            self.nu[i] = (1 - self.B2) * (g * g) + self.B2 * self.nu[i]
+            update = (self.mu[i] / c1) / (torch.sqrt(self.nu[i] / c2) + self.EPS)
+            p.add_(-self.lr * update)
+
+
+def train_loop(params, loss_fn, Xs: np.ndarray, epochs: int, batch_size: int,
+               seed: int, lr: float, device, on_batch=None):
+    """The JAX package's training loop on ``device``: Adam over every
+    parameter, the batches of each epoch in the order of
+    ``np.random.default_rng(seed).permutation``, ``loss_fn(params, batch,
+    extra)`` per batch with ``extra = on_batch()`` (the VAE's noise key).
+    Returns the trained parameters (a tree of tensors on ``device``)."""
+    params = params_from_numpy(numpy_tree(params), device=device)
+    leaves = [t.requires_grad_(True) for _, t in sorted_leaves(params)]
+    opt = Adam(leaves, lr)
+    X = torch.from_numpy(np.ascontiguousarray(Xs, np.float32)).to(device)
+    order_rng = np.random.default_rng(seed)
+    n = X.shape[0]
+    for _ in range(epochs):
+        order = torch.from_numpy(order_rng.permutation(n)).to(device)
+        for i in range(0, n, batch_size):
+            extra = on_batch() if on_batch is not None else None
+            loss = loss_fn(params, X[order[i:i + batch_size]], extra)
+            opt.step(torch.autograd.grad(loss, leaves))
+    for t in leaves:
+        t.requires_grad_(False)
+    return params
 
 
 class OutlierDetector(SeldonComponent):

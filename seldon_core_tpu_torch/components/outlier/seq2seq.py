@@ -8,10 +8,15 @@ flags scores above ``threshold``.
 A single-layer LSTM encoder + LSTM decoder, each a loop over time where
 the JAX package runs ``lax.scan``, with the JAX cell's forget-gate bias
 (``sigmoid(f + 1.0)``); the decoder starts from the encoder state and is
-fed the input shifted by one step (teacher forcing). Training
-(``train_seq2seq``: optax Adam under ``jax.value_and_grad``) is not
-ported: ``fit`` raises, and parameters trained by the JAX package load
-through ``fit_from`` or ``seq2seq.pkl``.
+fed the input shifted by one step (teacher forcing).
+
+``train_seq2seq`` is the JAX package's: the initial parameters from
+``PRNGKey(seed)``, the batch order of ``np.random.default_rng(seed)``,
+and optax's Adam step
+(:class:`~seldon_core_tpu_torch.components.outlier.base.Adam`), with the
+loop over time under autograd where JAX differentiates ``lax.scan``.
+The init is drawn on the CPU and moved, so that every device starts
+from the same numbers. ``fit`` trains on the detector's device.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch
 from seldon_core_tpu_torch import rng
 from seldon_core_tpu_torch.convert import params_from_numpy
 from seldon_core_tpu_torch.device import resolve_device
-from .base import OutlierDetector, not_ported, numpy_tree, params_tree, state_tree
+from .base import OutlierDetector, numpy_tree, params_tree, state_tree, train_loop
 
 
 def _lstm_init(key, in_dim: int, hidden: int):
@@ -75,8 +80,29 @@ def seq2seq_apply(params, x):
     return torch.stack(hs, dim=1) @ params["proj"]["w"] + params["proj"]["b"]
 
 
-def train_seq2seq(*_a, **_kw):
-    raise not_ported("train_seq2seq (seq2seq training)")
+def train_seq2seq(
+    X: np.ndarray,
+    hidden: int = 16,
+    lr: float = 1e-2,
+    epochs: int = 50,
+    batch_size: int = 32,
+    seed: int = 0,
+    device="cuda",
+):
+    """Fit on normal sequences X [n, time, features] on ``device``;
+    returns (params, stats), the JAX package's ``train_seq2seq``."""
+    dev = resolve_device(device)
+    X = np.asarray(X, dtype=np.float32)
+    mean = X.mean(axis=(0, 1))
+    std = X.std(axis=(0, 1)) + 1e-8
+    Xs = (X - mean) / std
+    params = seq2seq_init(rng.prng_key(seed), X.shape[2], hidden)
+
+    def loss(p, batch, _extra):
+        return ((batch - seq2seq_apply(p, batch)) ** 2).mean()
+
+    params = train_loop(params, loss, Xs, epochs, batch_size, seed, lr, dev)
+    return params, {"mean": mean, "std": std}
 
 
 class Seq2SeqOutlier(OutlierDetector):
@@ -107,7 +133,8 @@ class Seq2SeqOutlier(OutlierDetector):
             self.fit_from(blob["params"], blob["stats"])
 
     def fit(self, X: np.ndarray, **train_kwargs) -> "Seq2SeqOutlier":
-        raise not_ported("Seq2SeqOutlier.fit (seq2seq training)")
+        params, stats = train_seq2seq(X, device=self.device, **train_kwargs)
+        return self.fit_from(params, stats)
 
     def fit_from(self, params, stats) -> "Seq2SeqOutlier":
         self.params = params_from_numpy(numpy_tree(params), device=self.device)

@@ -11,9 +11,17 @@ batched pass over a leading sample axis (the JAX package's ``vmap``).
 The latent noise follows the JAX key chain through
 :mod:`seldon_core_tpu_torch.rng`: ``PRNGKey(seed + 1)`` split once per
 score, the sub-key split into ``mc_samples`` keys, one ``normal`` draw of
-the latent shape per key. Training (``train_vae``: optax Adam under
-``jax.value_and_grad``) is not ported: ``fit`` raises, and parameters
-trained by the JAX package load through ``fit_from`` or ``vae.pkl``.
+the latent shape per key. Keys stay on the CPU and every draw is made
+there, then moved to the device, so that the card and the CPU score and
+train on the same noise (``rng.normal``'s ``log1p`` is the device's own).
+
+``train_vae`` is the JAX package's: the same initial parameters from
+``seed`` (``PRNGKey(seed)`` split once for the init), the same batch
+order (``np.random.default_rng(seed).permutation`` per epoch), one key
+split per batch for its noise, and optax's Adam step
+(:class:`~seldon_core_tpu_torch.components.outlier.base.Adam`); the
+gradient comes from ``torch.autograd.grad`` where JAX runs
+``jax.value_and_grad``. ``fit`` trains on the detector's device.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ import torch
 from seldon_core_tpu_torch import rng
 from seldon_core_tpu_torch.convert import params_from_numpy
 from seldon_core_tpu_torch.device import resolve_device
-from .base import OutlierDetector, not_ported, numpy_tree, params_tree, state_tree
+from .base import OutlierDetector, numpy_tree, params_tree, state_tree, train_loop
 
 
 def _mlp_init(key, dims):
@@ -64,16 +72,52 @@ def vae_apply(params, x, key):
     """One stochastic forward pass: returns (reconstruction, mu, logvar).
     ``key`` may be a batch of keys ``[S, 2]``: the reconstructions then
     carry a leading sample axis, one draw per key (the JAX package's
-    ``vmap`` over keys)."""
+    ``vmap`` over keys). The draw is made on ``key``'s device and moved to
+    ``x``'s."""
     h = _mlp_apply(params["enc"], x, final_linear=False)
     mu = _mlp_apply(params["mu"], h)
     logvar = _mlp_apply(params["logvar"], h)
-    z = mu + torch.exp(0.5 * logvar) * rng.normal(key, tuple(mu.shape))
+    z = mu + torch.exp(0.5 * logvar) * rng.normal(key, tuple(mu.shape)).to(mu.device)
     return _mlp_apply(params["dec"], z), mu, logvar
 
 
-def train_vae(*_a, **_kw):
-    raise not_ported("train_vae (VAE training)")
+def vae_loss(params, x, key, beta: float = 1.0):
+    recon, mu, logvar = vae_apply(params, x, key)
+    mse = ((x - recon) ** 2).sum(dim=-1).mean()
+    kl = -0.5 * (1 + logvar - mu ** 2 - torch.exp(logvar)).sum(dim=-1).mean()
+    return mse + beta * kl
+
+
+def train_vae(
+    X: np.ndarray,
+    hidden: Sequence[int] = (32, 16),
+    latent_dim: int = 2,
+    beta: float = 1.0,
+    lr: float = 1e-3,
+    epochs: int = 50,
+    batch_size: int = 64,
+    seed: int = 0,
+    device="cuda",
+):
+    """Fit a VAE on inlier rows on ``device``; returns (params,
+    standardization stats), the JAX package's ``train_vae``."""
+    dev = resolve_device(device)
+    X = np.atleast_2d(np.asarray(X, dtype=np.float32))
+    mean, std = X.mean(axis=0), X.std(axis=0) + 1e-8
+    Xs = (X - mean) / std
+    key, init_key = rng.split(rng.prng_key(seed))
+    params = vae_init(init_key, X.shape[1], tuple(hidden), latent_dim)
+
+    def noise_keys(key):
+        while True:
+            key, sub = rng.split(key)
+            yield sub
+
+    keys = noise_keys(key)
+    params = train_loop(
+        params, lambda p, batch, key: vae_loss(p, batch, key, beta), Xs,
+        epochs, batch_size, seed, lr, dev, on_batch=lambda: next(keys))
+    return params, {"mean": mean, "std": std}
 
 
 class VAEOutlier(OutlierDetector):
@@ -106,14 +150,15 @@ class VAEOutlier(OutlierDetector):
             self.fit_from(blob["params"], blob["stats"])
 
     def fit(self, X: np.ndarray, **train_kwargs) -> "VAEOutlier":
-        raise not_ported("VAEOutlier.fit (VAE training)")
+        params, stats = train_vae(X, seed=self._seed, device=self.device, **train_kwargs)
+        return self.fit_from(params, stats)
 
     def fit_from(self, params, stats) -> "VAEOutlier":
         """Serve ``params`` (numpy or tensors, the JAX package's layout)
         standardizing with ``stats`` (``mean``/``std`` arrays)."""
         self.params = params_from_numpy(numpy_tree(params), device=self.device)
         self.stats = {k: np.asarray(v) for k, v in stats.items()}
-        self._key = rng.prng_key(self._seed + 1, device=self.device)
+        self._key = rng.prng_key(self._seed + 1)  # on the CPU: see the module doc
         return self
 
     def save(self, path: str) -> None:

@@ -41,13 +41,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from .client import GrpcClient, InProcessClient, RestClient, UnitCallError, UnitClient
-from .spec import (
-    NOT_PORTED_SERVERS,
-    PREPACKAGED_SERVERS,
-    PredictorSpec,
-    PredictiveUnit,
-    UnitType,
-)
+from .spec import PREPACKAGED_SERVERS, PredictorSpec, PredictiveUnit, UnitType
 from .units import BUILTIN_IMPLEMENTATIONS
 from ..resilience import (
     CircuitBreaker,
@@ -314,11 +308,6 @@ class GraphExecutor:
                 return cls(**params) if params else cls()
             except TypeError:
                 return cls()
-        if impl in NOT_PORTED_SERVERS:
-            raise NotImplementedError(
-                f"unit {unit.name!r}: prepackaged server {impl} is not ported "
-                "to seldon_core_tpu_torch yet"
-            )
         if impl in PREPACKAGED_SERVERS:
             module_name, cls_name = PREPACKAGED_SERVERS[impl].rsplit(".", 1)
             cls = getattr(importlib.import_module(module_name), cls_name)

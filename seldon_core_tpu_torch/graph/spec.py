@@ -39,17 +39,20 @@ class UnitType(str, Enum):
 
 
 # Prepackaged server implementations (reference:
-# operator/controllers/seldondeployment_prepackaged_servers.go:30-176).
-# The port serves two of the JAX package's servers; the engine raises
-# "not ported yet" when it resolves any of the others.
+# operator/controllers/seldondeployment_prepackaged_servers.go:30-176):
+# the JAX package's eight. JAX_SERVER and GENERATE_SERVER run on the
+# card; the others run on the host and raise a clear error on load when
+# their library is missing.
 PREPACKAGED_SERVERS = {
+    "SKLEARN_SERVER": "seldon_core_tpu_torch.servers.sklearnserver.SKLearnServer",
+    "XGBOOST_SERVER": "seldon_core_tpu_torch.servers.xgboostserver.XGBoostServer",
+    "MLFLOW_SERVER": "seldon_core_tpu_torch.servers.mlflowserver.MLFlowServer",
+    "TENSORFLOW_SERVER": "seldon_core_tpu_torch.servers.tfserver.TFServer",
     "JAX_SERVER": "seldon_core_tpu_torch.servers.torchserver.TorchServer",
     "GENERATE_SERVER": "seldon_core_tpu_torch.servers.generateserver.GenerateServer",
+    "TRITON_SERVER": "seldon_core_tpu_torch.servers.trtserver.TRTServer",
+    "SAGEMAKER_SERVER": "seldon_core_tpu_torch.servers.sagemakerserver.SageMakerServer",
 }
-NOT_PORTED_SERVERS = (
-    "SKLEARN_SERVER", "XGBOOST_SERVER", "MLFLOW_SERVER", "TENSORFLOW_SERVER",
-    "TRITON_SERVER", "SAGEMAKER_SERVER",
-)
 
 FIRST_PORT = 9000
 FIRST_GRPC_PORT = 9500
@@ -179,8 +182,7 @@ def default_predictor(spec: PredictorSpec, separate_pods: bool = False) -> Predi
     for unit in spec.graph.walk():
         if unit.type is None:
             impl = unit.implementation or ""
-            if impl == "SIMPLE_MODEL" or impl in PREPACKAGED_SERVERS \
-                    or impl in NOT_PORTED_SERVERS:
+            if impl == "SIMPLE_MODEL" or impl in PREPACKAGED_SERVERS:
                 unit.type = UnitType.MODEL
             elif impl in ("SIMPLE_ROUTER", "RANDOM_ABTEST"):
                 unit.type = UnitType.ROUTER
@@ -290,9 +292,7 @@ def validate_predictor(spec: PredictorSpec) -> None:
     if len(names) != len(set(names)):
         raise GraphSpecError(f"duplicate unit names in graph: {names}")
     for unit in spec.graph.walk():
-        prepackaged = (unit.implementation in PREPACKAGED_SERVERS
-                       or unit.implementation in NOT_PORTED_SERVERS)
-        if prepackaged and not unit.model_uri:
+        if unit.implementation in PREPACKAGED_SERVERS and not unit.model_uri:
             raise GraphSpecError(
                 f"unit {unit.name}: modelUri is required for {unit.implementation}"
             )

@@ -27,6 +27,7 @@ DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
     "float16": torch.float16,
+    "float64": torch.float64,
 }
 
 

@@ -1,5 +1,8 @@
-"""Prepackaged model servers of the port: ``TorchServer`` (counterpart of
-the JAX package's ``JAXServer``: the mlp, resnet50, bert, vit and llm
-families of ``models``) and ``GenerateServer`` (continuous-batching LLM
-generation). The JAX package's other servers (sklearn, xgboost, mlflow,
-tensorflow, triton, sagemaker) are not ported yet."""
+"""Prepackaged model servers of the port, the JAX package's eight:
+``TorchServer`` (counterpart of ``JAXServer``: the mlp, resnet50, bert,
+vit, llm, retrieval and reranker families of ``models``) and
+``GenerateServer`` (continuous-batching LLM generation) on the card;
+``SKLearnServer``, ``XGBoostServer``, ``MLFlowServer``, ``TFServer``,
+``TRTServer`` (a Triton proxy) and ``SageMakerServer`` (an endpoint
+proxy) on the host. A server whose library is missing raises a clear
+error naming it on load."""

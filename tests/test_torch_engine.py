@@ -339,19 +339,20 @@ def test_junk_fuse_annotation_refused():
 
 
 @pytest.mark.parametrize("kind", ["fuse", "microbatch", "mesh", "server"])
-def test_not_ported_engine_options_raise(kind):
-    """A device mesh and unported prepackaged servers raise "not
-    ported". Graph fusion is ported: alone it builds a plan (a
-    single-unit graph has no segment), and beside micro-batching it
-    builds and counts the micro-batched unit's ``microbatch`` plan
-    reason."""
+def test_not_ported_engine_options_raise(kind, monkeypatch):
+    """A device mesh raises "not ported". Graph fusion is ported: alone it
+    builds a plan (a single-unit graph has no segment), and beside
+    micro-batching it builds and counts the micro-batched unit's
+    ``microbatch`` plan reason. The prepackaged servers are ported: a
+    SKLEARN_SERVER unit resolves and, without joblib, raises the JAX
+    engine's ImportError naming it."""
     from seldon_core_tpu_torch.graph.batching import batching_from_annotations
     from seldon_core_tpu_torch.graph.engine_metrics import MetricsRegistry
     from seldon_core_tpu_torch.graph.executor import GraphExecutor
     from seldon_core_tpu_torch.graph.spec import PredictorSpec
 
     graph = {"name": "m", "implementation": "SIMPLE_MODEL"}
-    kw, ann = {}, {}
+    ann = {}
     if kind in ("fuse", "microbatch"):
         ann = {"seldon.io/fuse": "true"}
         if kind == "microbatch":
@@ -369,13 +370,24 @@ def test_not_ported_engine_options_raise(kind):
         assert out["data"]["ndarray"] == [[2.0, 4.0]]
         asyncio.run(ex.close())
         return
-    if kind == "mesh":
-        kw = {"mesh": object()}
-    else:
+    if kind == "server":
+        import sys
+
+        from seldon_core_tpu.graph.executor import GraphExecutor as JaxGraphExecutor
+        from seldon_core_tpu.graph.spec import PredictorSpec as JaxPredictorSpec
+
+        monkeypatch.setitem(sys.modules, "joblib", None)
         graph = {"name": "m", "implementation": "SKLEARN_SERVER", "modelUri": "/x"}
+        errors = []
+        for ex, ps in ((JaxGraphExecutor, JaxPredictorSpec), (GraphExecutor, PredictorSpec)):
+            with pytest.raises(ImportError, match="joblib") as e:
+                ex(ps.from_dict({"name": "p", "graph": graph}))
+            errors.append(e.value)
+        assert type(errors[1]) is type(errors[0]) and "not ported" not in str(errors[1])
+        return
     spec = PredictorSpec.from_dict({"name": "p", "graph": graph, "annotations": ann})
     with pytest.raises(NotImplementedError, match="not ported"):
-        GraphExecutor(spec, **kw)
+        GraphExecutor(spec, mesh=object())
 
 
 class _Doubler:

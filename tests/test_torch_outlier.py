@@ -10,7 +10,17 @@ noise also carries ``rng.normal``'s few-ulp difference from
 gives the JAX package's parameters within ``rng.normal``'s tolerance.
 Mahalanobis, the isolation forest and KS drift are numpy/sklearn under
 both packages: equal scores, flags and verdicts. State dicts go through
-``persistence.py`` as ``.npz``; training raises "not ported".
+``persistence.py`` as ``.npz``.
+
+Training (``train_vae``, ``train_seq2seq``, ``fit``) from one seed under
+both packages: every parameter within ``TRAIN_TOL`` (1e-5) of its
+leaf's largest |value| after one step and after one epoch (the port
+measures 1e-7 to 5e-6: float32 gradients in another summation order and
+an init within rng.normal's ulps; where a gradient is near Adam's eps
+(1e-8), ``m/(sqrt(v) + eps)`` turns its rounding into a share of
+``lr``). The full
+default run (50 epochs) is held by the detector's flags, equal, and
+scores within ``TRAINED_SCORE_RTOL`` (1e-3 relative).
 """
 
 import jax
@@ -27,6 +37,8 @@ from seldon_core_tpu_torch.components import outlier as tout
 torch.set_num_threads(1)
 
 SCORE_RTOL = 1e-5
+TRAIN_TOL = 1e-5
+TRAINED_SCORE_RTOL = 1e-3
 # rng.normal against jax.random.normal, in float32 ulps (see
 # tests/test_torch_retrieval.py); a scaled draw may add one rounding
 INIT_ULPS = 5
@@ -231,13 +243,91 @@ def test_vae_pickle_loads_across_packages(tmp_path, vae_trained):
 
 
 def test_training_not_ported():
-    for fn in (tout.train_vae, tout.train_seq2seq,
-               tout.VAEOutlier(device="cpu").fit, tout.Seq2SeqOutlier(device="cpu").fit):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            fn(np.zeros((4, 3)))
+    """Training is ported now (the name is the former case's): ``fit``
+    trains the device detectors on the CPU, and scoring before any fit
+    still raises "not fitted"."""
+    X = np.random.default_rng(0).normal(0, 1, (40, 3))
+    vae = tout.VAEOutlier(device="cpu").fit(X, epochs=1)
+    assert np.isfinite(vae.score(X[:4])).all()
+    seq = tout.Seq2SeqOutlier(device="cpu").fit(X.reshape(10, 4, 3), epochs=1)
+    assert np.isfinite(seq.score(X.reshape(10, 4, 3))).all()
     for cls in (tout.VAEOutlier, tout.Seq2SeqOutlier):
         with pytest.raises(RuntimeError, match="not fitted"):
             cls(device="cpu").score(np.zeros((1, 3)))
+
+
+def _leaf_errors(jp, tp):
+    """Each leaf's max |port - JAX| over its largest |JAX value|."""
+    jl = jax.tree_util.tree_leaves_with_path(_np(jp))
+    tl = jax.tree_util.tree_leaves_with_path(jax.tree.map(lambda t: t.numpy(), tp))
+    assert [p for p, _ in jl] == [p for p, _ in tl]
+    return [float(np.abs(b - a).max() / max(np.abs(a).max(), 1e-30))
+            for (_, a), (_, b) in zip(jl, tl)]
+
+
+def _seqs(seed=1, n=40):
+    rs = np.random.default_rng(seed)
+    return np.sin(np.linspace(0, 6, 10))[None, :, None] + rs.normal(0, 0.1, (n, 10, 2))
+
+
+@pytest.mark.parametrize("batch", [1000, 64], ids=["step", "epoch"])
+def test_train_vae_equals_jax(batch):
+    X, _ = _data(seed=6)
+    kw = dict(hidden=(8,), latent_dim=2, epochs=1, batch_size=batch, seed=3)
+    (jp, jstats), (tp, tstats) = jout.vae.train_vae(X, **kw), tout.train_vae(X, device="cpu", **kw)
+    assert max(_leaf_errors(jp, tp)) <= TRAIN_TOL
+    np.testing.assert_array_equal(tstats["mean"], jstats["mean"])
+    np.testing.assert_array_equal(tstats["std"], jstats["std"])
+
+
+@pytest.mark.parametrize("batch", [1000, 16], ids=["step", "epoch"])
+def test_train_seq2seq_equals_jax(batch):
+    X = _seqs()
+    kw = dict(hidden=6, epochs=1, batch_size=batch, seed=2)
+    (jp, _), (tp, _) = jout.seq2seq.train_seq2seq(X, **kw), tout.train_seq2seq(X, device="cpu", **kw)
+    assert max(_leaf_errors(jp, tp)) <= TRAIN_TOL
+
+
+def test_adam_step_is_optax():
+    """One Adam update on the same parameters and gradients: optax's
+    numbers to the float32 ulp."""
+    import optax
+
+    from seldon_core_tpu_torch.components.outlier.base import Adam
+
+    rs = np.random.RandomState(0)
+    p0 = rs.randn(5, 3).astype(np.float32)
+    grads = [rs.randn(5, 3).astype(np.float32) * s for s in (1.0, 1e-3, 1e-7)]
+    opt = optax.adam(1e-2)
+    jp, state = jax.numpy.asarray(p0), opt.init(jax.numpy.asarray(p0))
+    tp = torch.from_numpy(p0.copy())
+    tadam = Adam([tp], 1e-2)
+    for g in grads:
+        upd, state = opt.update(jax.numpy.asarray(g), state)
+        jp = optax.apply_updates(jp, upd)
+        tadam.step([torch.from_numpy(g)])
+        np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=0,
+                                   atol=2 * np.spacing(np.abs(np.asarray(jp)).max()))
+
+
+def test_default_training_flags_equal_jax():
+    """The full default runs (VAE hidden (32, 16), latent 2, 50 epochs;
+    seq2seq hidden 16, 50 epochs) through ``fit``: the same flags on
+    inliers and planted outliers, scores within TRAINED_SCORE_RTOL."""
+    X, batches = _data(seed=8)
+    jd = jout.VAEOutlier(threshold=2.0, mc_samples=4, seed=5).fit(X)
+    td = tout.VAEOutlier(threshold=2.0, mc_samples=4, seed=5, device="cpu").fit(X)
+    _assert_same(_flags_and_scores(jd, batches), _flags_and_scores(td, batches),
+                 TRAINED_SCORE_RTOL)
+    assert int(td.predict(batches[1], []).sum()) == 4  # the shifted rows flag
+    S = _seqs(seed=9, n=48)
+    rs = np.random.default_rng(4)
+    seq_batches = [S[:6], S[6:9] + rs.normal(3, 1, (3, 10, 2)), S[9:13]]
+    js = jout.Seq2SeqOutlier(threshold=0.5).fit(S)
+    ts = tout.Seq2SeqOutlier(threshold=0.5, device="cpu").fit(S)
+    _assert_same(_flags_and_scores(js, seq_batches), _flags_and_scores(ts, seq_batches),
+                 TRAINED_SCORE_RTOL)
+    assert int(ts.predict(seq_batches[1], []).sum()) == 3
 
 
 def test_device_detectors_default_to_cuda():
