@@ -7,7 +7,7 @@ Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails. ``--phases`` runs a subset of
 ``kernels, small, serve, engine, small-sched, sched, prefix, pressure,
 spec, spec-pressure, dh256, f32, disagg, kvtier, migration, telemetry,
-fronts, zoo, rag, explain, model``
+fronts, zoo, rag, explain, moe, model``
 (device and build always run; the
 result lines print only when every phase ran, as with no argument):
 
@@ -307,7 +307,30 @@ result lines print only when every phase ran, as with no argument):
    TRITON_SERVER answers through the engine on a stub transport. The
    flash kernel's launches over the phase (none) join the ``kernels``
    line.
-22. Model (on the engine phase's copy, after every serving phase: a
+22. MoE (``llm-1.26b-moe8``: llm-1.26b with a top-1 switch mixture of 8
+   GELU experts, capacity factor 1.25, in every layer: 4.86 B parameters,
+   bf16, random weights from seed 0; and a small float32 model with 4
+   experts): (a) on the small model, greedy requests alone whose prompts
+   fill their prefill bucket equal ``generate()``, a whole batch of six
+   requests over four lanes (greedy and seeded, staggered budgets, queued
+   at once, ``pipeline_depth`` 1) from graph replay equals the same batch
+   eager, and a seeded request alone repeats, graph == eager; (b)
+   llm-1.26b-moe8 through GenerateServer with the serve phase's typed
+   parameters and the device-time ledger, the serve waves (2 + 8 + 2
+   requests of 20-900 prompt tokens, 64 new tokens) twice, each wave
+   queued whole: every request answers 64 tokens, both runs and each
+   run's probe repeat token for token (the experts' capacity counts every
+   row of a call, so the same batch must give the same tokens), every
+   prefill launched the flash kernel, no graph is captured after
+   ``warm()``; prints tokens/s, TTFT, TPOT, peak memory, the ledger's
+   split, busy share and MBU, and the decode step beside its weight-read
+   bound (every expert read once per step); (c) torch.profiler's device
+   time of the MoE layer's stages (router and softmax, dispatch, expert
+   matmuls, combine) in one B=8 decode step and one B=1, T=1024 prefill,
+   each stage alone at layer 0's shapes in CUDA-event-timed graphs, and
+   the share of rows dropped past capacity in a separate forward. Prints
+   the phase's wall time; its flash launches join the ``kernels`` line.
+23. Model (on the engine phase's copy, after every serving phase: a
    profiler run may slow later launches): full-width prefill time per
    bucket with the flash kernel's device time inside it
    (torch.profiler), a prefix hit's suffix prefill against the full
@@ -319,7 +342,7 @@ result lines print only when every phase ran, as with no argument):
    a 6-layer early-exit draft, the W = 5 verify chunk, acceptance)
    against 5 decode steps at B = 4, attention 512, in device-busy time
    and device operations.
-23. The ``kernels`` JSON line (the flash kernel on the main path, its
+24. The ``kernels`` JSON line (the flash kernel on the main path, its
    Dh 256 instance on the dh256 phase's and its float32 instance on the
    f32 phase's), then the final ``{"ok": true, ...}`` line.
 
@@ -1328,14 +1351,16 @@ class _Gate:
 
     def submit_together(self, batcher, items, on_tokens=None, max_new=MAX_NEW):
         """Submit ``items`` ``(tokens, temperature, seed, eos)`` while the
-        loop is parked; ``on_tokens[i]`` (optional) streams item i."""
+        loop is parked; ``on_tokens[i]`` (optional) streams item i;
+        ``max_new`` is every item's budget or a list of one per item."""
+        budgets = max_new if isinstance(max_new, list) else [max_new] * len(items)
         self.go.clear()
         self.parked.clear()
         self.hold.set()
         if not self.parked.wait(30):
             raise AssertionError("the batcher loop did not reach its poll hook")
         try:
-            return [batcher.submit(toks, max_new_tokens=max_new, temperature=temp,
+            return [batcher.submit(toks, max_new_tokens=budgets[i], temperature=temp,
                                    seed=seed, eos_id=eos,
                                    on_tokens=on_tokens[i] if on_tokens else None)
                     for i, (toks, temp, seed, eos) in enumerate(items)]
@@ -6345,9 +6370,310 @@ def phase_explain(card):
     return launches
 
 
+# -- mixture of experts ---------------------------------------------------------------
+
+# llm-1.26b-moe8: llm-1.26b with a top-1 switch mixture of 8 GELU experts
+# (capacity factor 1.25) in every layer in place of its SwiGLU FFN: 4.86 B
+# parameters, 4.43 B of them experts (8 x 2 x 2048 x 5632 x 24), 9.7 GB in
+# bf16. The dense dispatch reads every expert on every decode step.
+LLM_1_26B_MOE8 = {**LLM_1_26B, "n_experts": 8, "capacity_factor": 1.25}
+MOE_SERVE = {"profiler": 1, "profiler_hbm_gb_s": 3350}
+# (a): the small float32 model of phase 4 with 4 experts
+MOE_SMALL_CFG = dict(vocab_size=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                     d_ff=512, max_seq=128, n_experts=4, dtype="float32")
+MOE_SMALL_BATCHER = dict(slots=4, prefill_buckets=(32, 64), steps_per_poll=4, pipeline_depth=1)
+# (a)'s whole batch: six requests over four lanes, greedy and seeded, their
+# budgets staggered so that lanes free at different polls
+MOE_SMALL_LENS = (32, 20, 64, 9, 50, 32)
+MOE_SMALL_NEW = [16, 9, 12, 7, 14, 10]
+MOE_STAGES = ("moe.router", "moe.dispatch", "moe.experts", "moe.combine")
+
+
+def _moe_staged(wrap):
+    """``moe_ffn``'s calls in its order, each stage inside ``wrap(name)``
+    (``torch.profiler.record_function``): the layer the split reads."""
+    import torch
+
+    from seldon_core_tpu_torch.parallel import moe
+
+    def staged(x, router_w, w1, w2, capacity_factor=1.25):
+        with wrap("moe.router"):
+            r = moe.route(x, router_w, capacity_factor)
+        with wrap("moe.dispatch"):
+            dispatch, combine = moe.dispatch_combine(r, router_w.shape[1], x.dtype)
+            expert_in = torch.einsum("nec,nd->ecd", dispatch, x)
+        with wrap("moe.experts"):
+            expert_out = moe.experts(expert_in, w1, w2)
+        with wrap("moe.combine"):
+            out = torch.einsum("nec,ecd->nd", combine, expert_out)
+        return out, r.aux_loss
+
+    return staged
+
+
+def _moe_small(card):
+    """(a) The small float32 MoE model on the card: greedy requests alone
+    (prompts that fill their bucket, so that the batcher's prefill runs
+    generate()'s rows) equal ``generate``; a whole batch, greedy and
+    seeded, queued at once, from graph replay equals the same batch run
+    eagerly; a seeded request alone repeats, graph == eager."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models.llm import DecoderLM
+    from seldon_core_tpu_torch.serving.continuous import ContinuousBatcher
+
+    model = DecoderLM(device="cuda", **MOE_SMALL_CFG)
+    params = model.init_params(0, device="cuda")
+    rs = np.random.RandomState(12)
+    vocab = MOE_SMALL_CFG["vocab_size"]
+    wave = [(rs.randint(0, vocab, n).tolist(), 0.9 * (i % 2), 20 + i, None)
+            for i, n in enumerate(MOE_SMALL_LENS)]
+    alone = [rs.randint(0, vocab, n).tolist() for n in (32, 64)]
+    refs = [model.generate(params, torch.tensor([p], device="cuda"), 16)[0].tolist()
+            for p in alone]
+    out = {}
+    for side, graphs in (("graphs", True), ("eager", False)):
+        gate = _Gate()
+        b = ContinuousBatcher(model, params, cuda_graphs=graphs, **MOE_SMALL_BATCHER)
+        b.fault_hook = gate
+        b.warm(prompt_lens=MOE_SMALL_LENS, max_new_tokens=max(MOE_SMALL_NEW))
+        b.start()
+        try:
+            futs = gate.submit_together(b, wave, max_new=MOE_SMALL_NEW)
+            batch = [f.result(timeout=300) for f in futs]
+            greedy = [b.generate(p, max_new_tokens=16) for p in alone]
+            seeded = [b.generate(alone[0], max_new_tokens=16, temperature=0.9, seed=5)
+                      for _ in range(2)]
+            inline, captured = b.stats["graph_captures_inline"], b.stats["graphs_captured"]
+        finally:
+            b.close()
+        if graphs and (inline or not captured):
+            raise AssertionError(f"[moe] (a) {captured} graphs captured, {inline} after warm()")
+        if seeded[0] != seeded[1]:
+            raise AssertionError(f"[moe] (a) {side}: a seeded request alone did not repeat")
+        for p, g, ref in zip(alone, greedy, refs):
+            if g != ref:
+                raise AssertionError(f"[moe] (a) {side}: the greedy {len(p)}-token request "
+                                     f"alone parts from generate() at step "
+                                     f"{_first_diff(g[len(p):], ref[len(p):])}")
+        out[side] = (batch, seeded[0])
+    if out["graphs"] != out["eager"]:
+        bad = [i for i, (x, y) in enumerate(zip(out["graphs"][0], out["eager"][0])) if x != y]
+        raise AssertionError(f"[moe] (a) graph replay differs from eager: batch rows {bad}, "
+                             f"seeded alone equal {out['graphs'][1] == out['eager'][1]}")
+    log(f"[moe] (a) small f32 MoE (E=4): greedy alone == generate() (prompts of 32 and 64); "
+        f"a whole batch of {len(wave)} (greedy and seeded) from graph replay == eager; a "
+        f"seeded request alone repeats, graph == eager [{card}]")
+
+
+def _moe_serve(card, model_dir):
+    """(b) llm-1.26b-moe8 through GenerateServer (the serve phase's typed
+    parameters with the device-time ledger on), driven twice with the
+    serve waves, each wave queued whole. Fails unless every request
+    answers 64 tokens, both runs and each run's probe repeat token for
+    token, every prefill launched the flash kernel and no graph is
+    captured after warm(). Prints tokens/s, TTFT, TPOT, peak memory, the
+    ledger's split, busy share and MBU, and the decode step beside its
+    weight-read bound. Returns the server and the flash launches of the
+    two runs."""
+    probe, mixed = serve_waves()
+    t0 = time.perf_counter()
+    server = _gen_server(model_dir, **MOE_SERVE)
+    b, model = server.batcher, server._model
+    gate = _Gate()
+    b.fault_hook = gate
+    log(f"[moe] (b) llm-1.26b-moe8 loaded and warmed in {time.perf_counter() - t0:.1f} s "
+        f"({model.n_params() / 1e9:.3f} B params, {b._param_bytes / 1e9:.3f} GB in bf16, "
+        f"{b.stats['graphs_captured']} graphs)")
+    runs, launches = [], 0
+    for n in range(2):
+        before = server.profiler.summary()
+        t = time.perf_counter()
+        run = _sched_run(gate, b, probe, mixed)
+        run["wall"] = time.perf_counter() - t
+        run["ledger"] = _ledger_delta(before, server.profiler.summary())
+        runs.append(run)
+        launches += run["launches"]
+    inline = b.stats["graph_captures_inline"]
+    layers = model.cfg.n_layers
+    vocab = model.cfg.vocab_size
+    for n, run in enumerate(runs):
+        for key, out in run["tokens"].items():
+            toks = _p(key, probe, mixed)
+            if len(out) != len(toks) + MAX_NEW or out[: len(toks)] != toks \
+                    or not all(0 <= x < vocab for x in out):
+                raise AssertionError(f"[moe] (b) run {n + 1} {key}: malformed tokens")
+        for label, *_r in probe:
+            if run["tokens"][label] != run["tokens"][label + "#2"]:
+                raise AssertionError(f"[moe] (b) run {n + 1} {label}: the repeat gave other "
+                                     "tokens")
+        prefills = run["delta"]["prefill_steps"]
+        if prefills <= 0 or run["launches"] < layers * prefills:
+            raise AssertionError(f"[moe] (b) run {n + 1}: {prefills} prefills but "
+                                 f"{run['launches']} flash launches")
+    bad = [k for k in runs[0]["tokens"] if runs[1]["tokens"][k] != runs[0]["tokens"][k]]
+    if bad:
+        raise AssertionError(f"[moe] (b) the second run gave other tokens: {bad}")
+    if inline:
+        raise AssertionError(f"[moe] (b) {inline} graphs captured after warm()")
+    bound_ms = b._param_bytes / PEAK_BYTES_S * 1e3
+    for n, run in enumerate(runs):
+        slo, led = run["slo"], run["ledger"]
+        total = sum(r["s"] for r in led["buckets"]) or 1e-12
+        nbytes = sum(r["bytes"] for r in led["buckets"])
+        split = ", ".join(f"{kind} {100 * s / total:.1f}%" for kind, s in
+                          sorted(led["by_kind"].items(), key=lambda kv: -kv[1]))
+        # a whole-batch burst's ledger tokens are its steps times the slots
+        bursts = [r for r in led["buckets"] if r["kind"] == "decode_burst"]
+        step_ms = sum(r["s"] for r in bursts) * 1e3 * b.slots / max(
+            1, sum(r["tokens"] for r in bursts))
+        log(f"[moe] (b) run {n + 1}: tokens/s {run['tok_s']:.1f}, TTFT p50 "
+            f"{slo['ttft_p50']:.1f} ms p99 {slo['ttft_p99']:.1f} ms, TPOT p50 "
+            f"{slo['tpot_p50']:.2f} ms, peak allocated {run['peak'] / 2**30:.2f} GiB, flash "
+            f"launches {run['launches']} over {run['delta']['prefill_steps']} prefills [{card}]")
+        log(f"[moe] (b) run {n + 1} ledger: device {total * 1e3:.1f} ms in "
+            f"{run['wall'] * 1e3:.1f} ms of wall time (busy {total / run['wall']:.4f}); "
+            f"{split}; modelled reads {nbytes / 1e9:.2f} GB = MBU "
+            f"{100 * nbytes / run['wall'] / PEAK_BYTES_S:.2f}% of 3.35 TB/s; decode step "
+            f"{step_ms:.3f} ms (ledger stream time, whole-batch bursts) against a "
+            f"{bound_ms:.3f} ms bound (every expert's bf16 weights once at 3.35 TB/s) [{card}]")
+    log(f"[moe] (b) both runs token-identical ({len(runs[0]['tokens'])} streams each, probes "
+        f"repeat); every prefill launched the flash kernel; graph_captures_inline {inline}")
+    return server, launches
+
+
+def _moe_dropped(model, params, x_prefill, ks, vs, toks, pos):
+    """Share of rows dropped past capacity in a B=1 T=1024 prefill and a
+    B=8 decode step: a separate forward whose layers count ``kept``."""
+    from seldon_core_tpu_torch.models import llm as llm_mod
+    from seldon_core_tpu_torch.parallel import moe
+
+    counts = []
+    orig = llm_mod.moe_ffn
+
+    def counting(x, router_w, *a):
+        r = moe.route(x, router_w, *a[2:])
+        counts.append((int(r.kept.sum().item()), x.shape[0], r.capacity))
+        return orig(x, router_w, *a)
+
+    llm_mod.moe_ffn = counting
+    try:
+        model.prefill(params, x_prefill, x_prefill.shape[1])
+        pre = list(counts)
+        counts.clear()
+        model.decode_step_ragged_list(params, ks, vs, toks, pos, attn_len=256)
+        dec = list(counts)
+    finally:
+        llm_mod.moe_ffn = orig
+    return pre, dec
+
+
+def _moe_split(card, server):
+    """(c) The MoE layer's stages in one B=8 decode step and one B=1,
+    T=1024 prefill: torch.profiler's device time per stage (the stages of
+    ``moe_ffn`` inside ``record_function`` ranges) against the whole
+    call's kernel sum, each stage's time from CUDA-event-timed graphs at
+    layer 0's shapes times the layers, and the share of dropped rows."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from seldon_core_tpu_torch.models import llm as llm_mod
+    from seldon_core_tpu_torch.parallel import moe
+
+    model, params = server._model, server.batcher.params
+    cfg = model.cfg
+    rs = np.random.RandomState(8)
+    prompt = torch.tensor(rs.randint(0, cfg.vocab_size, (1, 1024)), device="cuda")
+    ctx = torch.tensor(rs.randint(0, cfg.vocab_size, (8, 128)), device="cuda")
+    _l, slab = model.prefill(params, ctx, 256)
+    ks = [slab["k"][l] for l in range(cfg.n_layers)]
+    vs = [slab["v"][l] for l in range(cfg.n_layers)]
+    toks = torch.tensor(rs.randint(0, cfg.vocab_size, (8, 1)), device="cuda")
+    pos = torch.full((8,), 128, dtype=torch.long, device="cuda")
+    calls = {
+        "decode step B=8": lambda: model.decode_step_ragged_list(
+            params, ks, vs, toks, pos, attn_len=256),
+        "prefill B=1 T=1024": lambda: model.prefill(params, prompt, 1024),
+    }
+    orig = llm_mod.moe_ffn
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        llm_mod.moe_ffn = _moe_staged(record_function)
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+        finally:
+            llm_mod.moe_ffn = orig
+        events = prof.key_averages()
+        # a range shows twice: on the host with the device time of the
+        # kernels it launched, and on the device as its span (gaps between
+        # eager launches included), which the kernel sum leaves out
+        kern_ms = sum(e.self_device_time_total for e in events
+                      if e.device_type.name == "CUDA" and e.key not in MOE_STAGES) / 1e3
+        inside = {e.key: e.device_time_total / 1e3 for e in events
+                  if e.key in MOE_STAGES and e.device_type.name == "CPU"}
+        span = {e.key: e.device_time_total / 1e3 for e in events
+                if e.key in MOE_STAGES and e.device_type.name == "CUDA"}
+        log(f"[moe] (c) {name}, eager under torch.profiler: kernel sum {kern_ms:.3f} ms; MoE "
+            "stages (kernels launched in the range / the range's span on the device) "
+            + ", ".join(f"{st.split('.')[1]} {inside.get(st, 0.0):.3f} / "
+                        f"{span.get(st, 0.0):.3f} ms" for st in MOE_STAGES)
+            + f"; the stages' kernels {100 * sum(inside.values()) / max(kern_ms, 1e-9):.1f}% "
+            f"of the kernel sum [{card}]")
+    # the stages alone at layer 0's shapes, CUDA-event-timed graphs
+    p0 = {k: v[0] for k, v in params["blocks"].items()}
+    for name, n in (("decode step B=8", 8), ("prefill B=1 T=1024", 1024)):
+        x = torch.randn((n, cfg.d_model), device="cuda", dtype=model.dtype)
+        r = moe.route(x, p0["router"], cfg.capacity_factor)
+        disp, comb = moe.dispatch_combine(r, cfg.n_experts, x.dtype)
+        e_in = torch.einsum("nec,nd->ecd", disp, x)
+        e_out = moe.experts(e_in, p0["w1e"], p0["w2e"])
+        timed = {
+            "router": lambda: moe.route(x, p0["router"], cfg.capacity_factor),
+            "dispatch": lambda: torch.einsum(
+                "nec,nd->ecd", moe.dispatch_combine(r, cfg.n_experts, x.dtype)[0], x),
+            "experts": lambda: moe.experts(e_in, p0["w1e"], p0["w2e"]),
+            "combine": lambda: torch.einsum("nec,ecd->nd", comb, e_out),
+        }
+        ms = {k: device_ms(f, launches=10, reps=3) for k, f in timed.items()}
+        log(f"[moe] (c) {name}, one layer's stages alone (CUDA graph, capacity "
+            f"{r.capacity}): " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+            + f"; x {cfg.n_layers} layers = {cfg.n_layers * sum(ms.values()):.3f} ms [{card}]")
+    pre, dec = _moe_dropped(model, params, prompt, ks, vs, toks, pos)
+    for name, rows in (("prefill B=1 T=1024", pre), ("decode step B=8", dec)):
+        kept = sum(k for k, _n, _c in rows)
+        total = sum(n for _k, n, _c in rows)
+        log(f"[moe] (c) {name}: {total - kept} of {total} rows dropped past capacity over "
+            f"{len(rows)} layers ({100 * (total - kept) / total:.1f}%; capacity {rows[0][2]} "
+            f"per expert, per layer {[n - k for k, n, _c in rows]})")
+
+
+def phase_moe(card):
+    """llm-1.26b-moe8 and a small float32 MoE model on the card: (a) the
+    batcher against generate() and graph replay against eager, (b) serving
+    at full width through GenerateServer, (c) the MoE layer's split and
+    its dropped rows. Returns the flash launches of (b)'s two runs."""
+    t0 = time.perf_counter()
+    _moe_small(card)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-moe-") as model_dir:
+        with open(os.path.join(model_dir, "jax_config.json"), "w") as f:
+            json.dump({"family": "llm", "config": LLM_1_26B_MOE8}, f)
+        server, launches = _moe_serve(card, model_dir)
+        try:
+            _moe_split(card, server)
+        finally:
+            server.close()
+    log(f"[moe] phase wall time {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 PHASES = ("kernels", "small", "serve", "engine", "small-sched", "sched", "prefix",
           "pressure", "spec", "spec-pressure", "dh256", "f32", "disagg", "kvtier", "migration",
-          "telemetry", "fronts", "zoo", "rag", "model", "explain")
+          "telemetry", "fronts", "zoo", "rag", "model", "explain", "moe")
 
 
 def _llm_model():
@@ -6418,6 +6744,7 @@ def main(argv=None) -> int:
         spec_launches = dh256_launches = f32_launches = None
         disagg_launches = kvtier_launches = migration_launches = telemetry_launches = None
         fronts_launches = zoo_launches = rag_launches = explain_launches = None
+        moe_launches = None
         if "serve" in phases:
             launches, alone, serve_numbers = phase_serve(card)
             free()  # the serve phase's copy of the model goes
@@ -6491,6 +6818,10 @@ def main(argv=None) -> int:
             explain_launches = phase_explain(card)
             free()
             lap("explain")
+        if "moe" in phases:
+            moe_launches = phase_moe(card)
+            free()
+            lap("moe")
         # the profiler runs last: once it has traced the card, later
         # launches may carry its overhead
         if "model" in phases:
@@ -6527,6 +6858,7 @@ def main(argv=None) -> int:
             "zoo_launches": zoo_launches,
             "rag_launches": rag_launches,
             "explain_launches": explain_launches,
+            "moe_launches": moe_launches,
             "dh256_launches": dh256_launches,
             "max_abs_err": worst(lambda r: r["dtype"] == "bfloat16"),
             "wgmma_max_abs_err": worst(lambda r: r["route"] == "wgmma"),

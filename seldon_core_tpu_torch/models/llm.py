@@ -1,7 +1,8 @@
 """DecoderLM: Llama-style decoder-only transformer, serving half.
 
 Counterpart of ``seldon_core_tpu/models/llm.py``: RMSNorm, rotary
-embeddings, grouped-query attention, SwiGLU FFN, untied unembed. The
+embeddings, grouped-query attention, a SwiGLU FFN or (``n_experts`` > 0)
+a top-1 switch mixture of GELU experts, untied unembed. The
 parameter dict has the JAX package's keys and shapes (layers stacked on
 a leading axis), so weights carry across one-to-one.
 
@@ -13,8 +14,10 @@ fused stop-aware burst), ``decode_chunk_ragged_list`` (a window of
 tokens per row in one forward: speculative decoding's verify step),
 ``prefill_chunk`` (one chunk of a long prompt into a staging slab),
 ``prefill_with_prefix`` (a suffix prefill over a cached prefix slab),
-``generate``, ``init_params`` and the analytic counts. Not ported yet:
-MoE, the tp/sp/ep parallel paths and the training loss.
+``generate``, ``init_params`` and the analytic counts. Under MoE every
+one of these runs the experts over the call's ``B*T`` rows
+(``parallel/moe.py``). Not ported yet: the tp/sp/ep parallel paths and
+the training loss.
 
 Layouts match the JAX package exactly: per-layer caches
 ``[B, KV, T, Dh]``, the prefill slab ``[L, B, KV, Tb, Dh]``, and q/k/v
@@ -34,6 +37,7 @@ from .. import rng
 from ..device import resolve_device
 from ..ops.flash_attention import attention as prefill_attention
 from ..ops.flash_attention import check_kernel_config
+from ..parallel.moe import moe_ffn
 from .base import ServedModel, torch_dtype
 
 NEG_INF = -1e30
@@ -49,7 +53,8 @@ class LLMConfig:
     d_ff: int = 1408
     max_seq: int = 2048
     rope_theta: float = 10000.0
-    # MoE: 0 experts = dense SwiGLU everywhere (the only mode ported)
+    # MoE: 0 experts = dense SwiGLU everywhere, else a top-1 switch
+    # mixture of GELU experts in every layer
     n_experts: int = 0
     capacity_factor: float = 1.25
     aux_loss_weight: float = 0.01
@@ -103,11 +108,6 @@ class DecoderLM(ServedModel):
         cfg_fields = {f.name for f in dataclasses.fields(LLMConfig)}
         extra = {k: v for k, v in config.items() if k not in cfg_fields}
         self.cfg = LLMConfig(**{k: v for k, v in config.items() if k in cfg_fields})
-        if self.cfg.n_experts > 0:
-            raise NotImplementedError(
-                "mixture-of-experts DecoderLM (n_experts > 0) is not ported to "
-                "seldon_core_tpu_torch yet"
-            )
         self._extra = extra
         self.example_input_shape = (16,)  # token ids
         self.compute_dtype = self.cfg.dtype
@@ -132,7 +132,10 @@ class DecoderLM(ServedModel):
 
     def flops_per_token(self, context_len: float) -> float:
         """Matmul FLOPs to process ONE token attending over ``context_len``
-        keys: q/kv/out projections + scores/attn*V + gated FFN + lm head."""
+        keys: q/kv/out projections + scores/attn*V + gated FFN + lm head.
+        The JAX package's formula, kept as it is under MoE too, where it
+        counts ``6*D*F`` for the FFN although a routed GELU expert does
+        ``4*D*F`` and the router ``2*D*E``."""
         cfg = self.cfg
         D, F = cfg.d_model, cfg.d_ff
         kv_dim = cfg.n_kv_heads * cfg.head_dim
@@ -145,14 +148,35 @@ class DecoderLM(ServedModel):
         )
         return cfg.n_layers * per_layer + 2.0 * D * cfg.vocab_size
 
+    def flops_per_row(self, seq_len: Optional[int] = None) -> float:
+        """Full-forward FLOPs for one sequence (causal: average context
+        T/2)."""
+        T = int(seq_len or self.example_input_shape[0])
+        return T * self.flops_per_token(T / 2.0)
+
     def n_params(self) -> int:
         """Exact parameter count of ``init_params``' dict (closed form)."""
         cfg = self.cfg
         D, F, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab_size
         kv = cfg.n_kv_heads * cfg.head_dim
         h = cfg.n_heads * cfg.head_dim
-        per_layer = 2 * D + D * h + 2 * D * kv + h * D + 3 * D * F
+        per_layer = 2 * D + D * h + 2 * D * kv + h * D  # norms + q,k,v,o
+        if cfg.n_experts > 0:
+            per_layer += D * cfg.n_experts + cfg.n_experts * 2 * D * F
+        else:
+            per_layer += 3 * D * F
         return L * per_layer + 2 * V * D + D  # blocks + embed/unembed + ln_f
+
+    def decode_bytes_per_token(self, context_len: float, batch: int = 1,
+                               param_bytes: int = 2) -> float:
+        """Bytes read per DECODED TOKEN at the given batch size: the params
+        once per step, shared by the batch, plus each lane's bf16 K/V read
+        over its context. Under MoE the dense dispatch reads every expert
+        on every step, so all of ``n_params`` counts."""
+        cfg = self.cfg
+        kv_bytes_per_tok_layer = 2 * cfg.n_kv_heads * cfg.head_dim * 2  # k+v, bf16
+        cache_read = cfg.n_layers * kv_bytes_per_tok_layer * context_len
+        return self.n_params() * param_bytes / max(1, batch) + cache_read
 
     def kv_bytes_per_token(self) -> int:
         """K+V bytes ONE cached position occupies across every layer at
@@ -229,10 +253,16 @@ class DecoderLM(ServedModel):
             "wv": init((L, D, KV * Dh), s),
             "wo": init((L, H * Dh, D), rs / math.sqrt(H * Dh)),
             "ln2": torch.ones((L, D), dtype=torch.float32, device=dev),
-            "w1": init((L, D, F), s),
-            "w3": init((L, D, F), s),
-            "w2": init((L, F, D), rs / math.sqrt(F)),
         }
+        if cfg.n_experts > 0:
+            E = cfg.n_experts
+            blocks["router"] = init((L, D, E), s)
+            blocks["w1e"] = init((L, E, D, F), s)
+            blocks["w2e"] = init((L, E, F, D), rs / math.sqrt(F))
+        else:
+            blocks["w1"] = init((L, D, F), s)
+            blocks["w3"] = init((L, D, F), s)
+            blocks["w2"] = init((L, F, D), rs / math.sqrt(F))
         return {
             "embed": init((V, D), 1.0),
             "blocks": blocks,
@@ -290,9 +320,17 @@ class DecoderLM(ServedModel):
         return _rope(q, positions, cfg.rope_theta), _rope(k, positions, cfg.rope_theta), v
 
     def _ffn(self, p, x):
+        """Norm + the FFN of one layer over ``x`` [B, T, D]: SwiGLU, or
+        under MoE the experts over the ``B*T`` rows of the call (the aux
+        loss is dropped: serving has no use for it)."""
         cfg = self.cfg
         dt = x.dtype
         h = _rms_norm(x, p["ln2"].to(dt), cfg.norm_eps)
+        if cfg.n_experts > 0:
+            B, T, D = h.shape
+            out, _aux = moe_ffn(h.reshape(B * T, D), p["router"].to(dt), p["w1e"].to(dt),
+                                p["w2e"].to(dt), cfg.capacity_factor)
+            return out.reshape(B, T, D)
         a = h @ p["w1"].to(dt)
         g = h @ p["w3"].to(dt)
         return (torch.nn.functional.silu(a) * g) @ p["w2"].to(dt)

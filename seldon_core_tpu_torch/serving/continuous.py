@@ -209,6 +209,14 @@ def check_not_ported(knobs: Dict[str, Any], owner: str) -> None:
         )
 
 
+class MoEKnobRefused(ValueError):
+    """A knob or path that a mixture-of-experts model cannot serve as the
+    JAX package serves it. The experts' capacity counts every row of a
+    call, so what a row emits depends on the rows beside it: speculation
+    (the verify window holds the drafts, whose rows take capacity from
+    the lane's real token) is refused for an MoE target or draft."""
+
+
 class PromptTooLong(ValueError):
     """The request cannot fit the serving cache: the prompt exceeds every
     prefill bucket and ``max_seq``. Carries a 413 wire status."""
@@ -638,6 +646,13 @@ class ContinuousBatcher:
                 raise ValueError(
                     f"the draft's vocab ({draft_model.cfg.vocab_size}) differs from "
                     f"the target's ({model.cfg.vocab_size})"
+                )
+            if model.cfg.n_experts > 0 or draft_model.cfg.n_experts > 0:
+                raise MoEKnobRefused(
+                    "speculative decoding with a mixture-of-experts target or draft: "
+                    "the verify window's drafted rows share the experts' capacity "
+                    "with each lane's real token, so the emitted tokens would depend "
+                    "on the draft"
                 )
 
         self._queue: "queue.Queue[GenRequest]" = queue.Queue()
@@ -2374,8 +2389,10 @@ class ContinuousBatcher:
         # a resume (a preempted lane, a migrated checkpoint, a resume
         # token, a swap straggler) replays at the bucket of its lane's end
         # position, which can lie at any bucket from the shallowest prompt
-        # up: any member may receive one
-        self._warm_replay(sorted(set(attn_lens) | {self._attn_need(lo)}))
+        # up: any member may receive one (an MoE lane replays alone,
+        # eagerly: see _replay_emitted)
+        if not self.model.cfg.n_experts:
+            self._warm_replay(sorted(set(attn_lens) | {self._attn_need(lo)}))
         if self._kv_tier is not None:
             # a preemption spills a lane at its attention width and the
             # copy-back inserts a slab of that width: run the extract and
@@ -3693,10 +3710,18 @@ class ContinuousBatcher:
         step runs over the whole batch, the shape the lane decoded in
         (every other row parked: it writes nothing, and no lane register
         moves), at the attention bucket of the replay's end; on the card
-        it replays a graph ``warm()`` captured when pressure is on."""
+        it replays a graph ``warm()`` captured when pressure is on.
+
+        Under MoE the parked rows would take the experts' capacity, so
+        the lane replays alone: one row per step over a view of its cache
+        rows, the rows the JAX package's ``replay_burst`` runs, eagerly
+        (the view's address follows the slot)."""
         if not toks:
             return
         attn_len = self._attn_need(start_pos + len(toks))
+        if self.model.cfg.n_experts:
+            self._replay_alone(slot, start_pos, toks, attn_len)
+            return
         cur = np.zeros((self.slots,), np.int64)
         pos = np.zeros((self.slots,), np.int64)
         wpos = np.full((self.slots,), self.max_seq, np.int64)
@@ -3709,6 +3734,19 @@ class ContinuousBatcher:
             with self._prof.measure("replay", variant=f"k1b{attn_len}",
                                     bytes_read=self._rb("replay", tokens=1), tokens=1):
                 self._phase(("replay", attn_len), lambda: self._replay_step(attn_len))
+        self.stats["replayed_tokens"] += len(toks)
+
+    @torch.inference_mode()
+    def _replay_alone(self, slot: int, start_pos: int, toks: List[int],
+                      attn_len: int) -> None:
+        ks = [layer[slot: slot + 1] for layer in self._cache["k"]]
+        vs = [layer[slot: slot + 1] for layer in self._cache["v"]]
+        for j, tok in enumerate(toks):
+            with self._prof.measure("replay", variant=f"k1b{attn_len}",
+                                    bytes_read=self._rb("replay", tokens=1), tokens=1):
+                self.model.decode_step_ragged_list(
+                    self.params, ks, vs, self._to_dev(np.asarray([[tok]], np.int64)),
+                    self._to_dev(np.asarray([start_pos + j], np.int64)), attn_len=attn_len)
         self.stats["replayed_tokens"] += len(toks)
 
     # -- swap and drain at the poll boundary ----------------------------------

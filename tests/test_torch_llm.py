@@ -149,8 +149,8 @@ def test_npz_roundtrip(tmp_path, pair):
 
 def test_registry_lists_llm_only():
     """Every family of the JAX package's zoo builds in the port (the
-    retrieval families were its last); unknown names and the unported
-    mixture-of-experts variant raise."""
+    retrieval families were its last), the mixture-of-experts variant
+    too, matching the JAX package's forward; unknown names raise."""
     from seldon_core_tpu import models as jmodels
 
     assert isinstance(tmodels.build("llm", **CONFIGS["small"]), TorchLM)
@@ -158,5 +158,12 @@ def test_registry_lists_llm_only():
     assert type(tmodels.build("retrieval")).__name__ == "RetrievalIndex"
     with pytest.raises(ValueError, match="unknown model family"):
         tmodels.build("nope")
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        TorchLM(**{**CONFIGS["small"], "n_experts": 4})
+    moe_cfg = {**CONFIGS["small"], "n_experts": 4}
+    moe = tmodels.build("llm", **moe_cfg)
+    jm = JaxLM(**moe_cfg)
+    jp = jax.jit(jm.init_params)(0)
+    prompt = _prompt(5, 2, 12, moe.cfg.vocab_size)
+    want = jax.jit(jm.apply)(jp, jnp.asarray(prompt))
+    got = moe.apply(params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu"),
+                    torch.from_numpy(prompt))
+    assert _maxdiff(want, got) <= TOL
