@@ -7,7 +7,7 @@ Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails. ``--phases`` runs a subset of
 ``kernels, small, serve, engine, small-sched, sched, prefix, pressure,
 spec, spec-pressure, dh256, f32, disagg, kvtier, migration, telemetry,
-fronts, zoo, rag, explain, moe, model``
+fronts, zoo, rag, explain, moe, train, model``
 (device and build always run; the
 result lines print only when every phase ran, as with no argument):
 
@@ -330,19 +330,38 @@ result lines print only when every phase ran, as with no argument):
    each stage alone at layer 0's shapes in CUDA-event-timed graphs, and
    the share of rows dropped past capacity in a separate forward. Prints
    the phase's wall time; its flash launches join the ``kernels`` line.
-23. Model (on the engine phase's copy, after every serving phase: a
+23. Train (the parallel training step, ``parallel/train.py``): a
+   one-rank NCCL group joined through ``initialize_distributed`` with a
+   file coordinator and the mesh {data 1, stage 1, seq 1, model 1};
+   (a) ``make_train_step`` on llm-1.26b at full width and depth (bf16
+   compute over float32 params, seed-0 weights, TF32 off), 5 SGD steps at
+   lr 1e-2 on one seeded batch [4, 1025]: fails unless every loss is
+   finite and the last below the first; prints each step's ms, the steady
+   ms per step, tokens/s, MFU (3 x ``flops_per_row(1024)`` x 4 a step
+   against 989 TFLOP/s), peak memory and the losses, then one
+   forward-backward under torch.profiler (kernel sum, top kernels); (b)
+   one float32 step of llm-1.26b's width at 2 layers, B 1, T 256, on the
+   card against the CPU from the same weights: the loss within 1e-4, each
+   gradient leaf within 1e-4 and each updated parameter leaf within 1e-5
+   of its largest |value|; (c) two steps of llm-1.26b-moe8 at full width
+   and 4 layers (depth cut for the time budget), ep 1: finite losses. The
+   flash kernel must not launch (training attends in plain PyTorch, as in
+   the JAX package); its count (0) joins the ``kernels`` line.
+24. Model (on the engine phase's copy, after every serving phase: a
    profiler run may slow later launches): full-width prefill time per
    bucket with the flash kernel's device time inside it
    (torch.profiler), a prefix hit's suffix prefill against the full
    512-bucket prefill (wall and device-busy time), a decode step's wall
    time beside its device-busy time and weight-read bound, and a
    16-step decode burst through the batcher, eager against CUDA-graph
-   replay: wall, device span and busy time per step, device operations,
-   host launches and busy share; then one speculation round (4 steps of
+   replay: wall and device span per step, then device-busy time, device
+   operations, host launches and busy share per step from torch.profiler
+   over a 4-step eager burst and a replayed 16-step one; then one
+   speculation round (4 steps of
    a 6-layer early-exit draft, the W = 5 verify chunk, acceptance)
    against 5 decode steps at B = 4, attention 512, in device-busy time
    and device operations.
-24. The ``kernels`` JSON line (the flash kernel on the main path, its
+25. The ``kernels`` JSON line (the flash kernel on the main path, its
    Dh 256 instance on the dh256 phase's and its float32 instance on the
    f32 phase's), then the final ``{"ok": true, ...}`` line.
 
@@ -356,6 +375,7 @@ import collections
 import gc
 import http.client
 import json
+import math
 import os
 import re
 import signal
@@ -2127,6 +2147,12 @@ def phase_model(model, params):
     phase_burst(model, params, weight_ms)
 
 
+# steps of the eager burst the model phase traces (the profiler's processing
+# of an eager step takes ~2 s on the card's host; the replayed burst is
+# traced whole)
+PROF_EAGER_K = 4
+
+
 def phase_burst(model, params, weight_ms, k=16, n=6):
     """A whole decode burst through the batcher (8 lanes, k steps), eager
     (graphs off) against CUDA-graph replay: per step, the host's wall
@@ -2160,23 +2186,24 @@ def phase_burst(model, params, weight_ms, k=16, n=6):
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3 / (n * k)
                 span = start.elapsed_time(end) / (n * k)
-                # the profiler's host-side processing of a traced burst
-                # (~36,000 device operations) takes seconds: one eager
-                # burst, two replayed, are enough for per-step averages
-                n_prof = 2 if graphs else 1
+                # the profiler's host-side processing of a traced eager
+                # burst (~2,260 device operations a step) takes seconds a
+                # step: an eager burst of PROF_EAGER_K steps and one
+                # replayed burst of k are enough for per-step averages
+                steps = k if graphs else PROF_EAGER_K
                 t_prof = time.perf_counter()
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    for _ in range(n_prof):
-                        burst()
+                    b._whole_burst(steps, attn_len, False, False)
+                    b._whole.pos.zero_()
                     torch.cuda.synchronize()
                 events = prof.key_averages()
                 dev = [e for e in events if e.device_type.name == "CUDA"]
-                busy = sum(e.self_device_time_total for e in dev) / 1e3 / (n_prof * k)
-                ops = sum(e.count for e in dev) / (n_prof * k)
-                calls = {name: sum(e.count for e in events if e.key == name) / (n_prof * k)
+                busy = sum(e.self_device_time_total for e in dev) / 1e3 / steps
+                ops = sum(e.count for e in dev) / steps
+                calls = {name: sum(e.count for e in events if e.key == name) / steps
                          for name in ("cudaLaunchKernel", "cudaGraphLaunch")}
                 log(f"[burst] {'graph replay' if graphs else 'eager'}, 8 lanes, k {k}, attn_len "
-                    f"{attn_len}, per step ({n_prof} burst(s) profiled in "
+                    f"{attn_len}, per step (a burst of {steps} profiled in "
                     f"{time.perf_counter() - t_prof:.1f} s): wall {wall:.3f} ms, device span "
                     f"{span:.3f} ms, "
                     f"device busy {busy:.3f} ms ({ops:.0f} device ops), host launches "
@@ -6670,10 +6697,227 @@ def phase_moe(card):
     log(f"[moe] phase wall time {time.perf_counter() - t0:.1f} s")
     return launches
 
+# -- training -------------------------------------------------------------------------
+
+# (a) and (c): one seeded batch of 4 rows of 1024 positions (+ the next-token
+# target), SGD at the train step's default learning rate
+TRAIN_BATCH = (4, 1025)
+TRAIN_LR = 1e-2
+TRAIN_STEPS = 5
+# (b): llm-1.26b's width at 2 layers, float32, B 1, T 256, TF32 off; card
+# against CPU after one step. Both sum float32 in different orders:
+#  * the loss (~10.8, a mean over 256 tokens of a 32000-way log-softmax):
+#    |card - CPU| <= 1e-4;
+#  * each parameter leaf after the step, max |card - CPU| / max |CPU| <= 1e-5
+#    (the update is ~1e-4 of a weight, so this is the params' own rounding);
+#  * each gradient leaf, max |card - CPU| / max |CPU| <= 1e-4 (sums over up
+#    to 5632-long products and 256 rows, ~1e-6 expected).
+TRAIN_F32_LAYERS, TRAIN_F32_T = 2, 256
+TRAIN_F32_TOL = {"loss": 1e-4, "param": 1e-5, "grad": 1e-4}
+TRAIN_MOE_LAYERS = 4
+
+
+def _train_model(config, **over):
+    from seldon_core_tpu_torch.models.llm import DecoderLM
+
+    return DecoderLM(device="cuda", **{**config, **over})
+
+
+def _train_steps(step, params, tokens, n):
+    """``n`` steps; per step its loss and its host time around a step that
+    ends in a synchronise (the loss's read)."""
+    import torch
+
+    losses, secs = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, loss = step(params, tokens)
+        losses.append(float(loss))
+        secs.append(time.perf_counter() - t)
+    return params, losses, secs
+
+
+def _train_throughput(card, mesh, tokens):
+    """(a) llm-1.26b at full width and depth, bf16 over float32 params:
+    TRAIN_STEPS SGD steps on one batch; ms per step, tokens/s, MFU, peak
+    memory and the losses; then one profiled forward-backward."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from seldon_core_tpu_torch.parallel.train import make_train_step
+
+    model = _train_model(LLM_1_26B)
+    torch.cuda.reset_peak_memory_stats()
+    init, step = make_train_step(model, mesh, learning_rate=TRAIN_LR)
+    t = time.perf_counter()
+    params = init(LLM_1_26B["seed"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    params, losses, secs = _train_steps(step, params, tokens, TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] (a) losses {losses}: not finite or not falling")
+    B, T = tokens.shape[0], tokens.shape[1] - 1
+    steady = sum(secs[1:]) / len(secs[1:])
+    flops = 3 * model.flops_per_row(T) * B
+    log(f"[train] (a) llm-1.26b (full width and depth, {model.n_params() / 1e9:.3f} B params, "
+        f"bf16 compute over float32 params, TF32 off), B {B} T {T}, SGD lr {TRAIN_LR}: init "
+        f"{init_s:.2f} s; steps {', '.join(f'{1e3 * x:.1f}' for x in secs)} ms; steady (steps "
+        f"2-{len(secs)}) {1e3 * steady:.2f} ms/step, {B * T / steady:.1f} tokens/s, MFU "
+        f"{100 * flops / steady / PEAK_FLOPS['bfloat16']:.2f}% (3 x flops_per_row({T}) x {B} = "
+        f"{flops / 1e12:.2f} TFLOP a step against 989 TFLOP/s); peak allocated "
+        f"{peak / 2**30:.2f} GiB; losses {', '.join(f'{x:.4f}' for x in losses)} [{card}]")
+    # where a step's device time goes: one forward-backward under the
+    # profiler, attention inside a range, kernels attributed to the
+    # operators that launched them
+    from seldon_core_tpu_torch.models import llm as llm_mod
+
+    ring = llm_mod.ring_attention
+
+    def ranged(*a, **k):
+        with record_function("train.attention"):
+            return ring(*a, **k)
+
+    llm_mod.ring_attention = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step.value_and_grad(params, tokens)
+            torch.cuda.synchronize()
+    finally:
+        llm_mod.ring_attention = ring
+    events = prof.key_averages()
+    kern = [e for e in events if e.device_type.name == "CUDA"]
+    total = sum(e.self_device_time_total for e in kern) / 1e3
+    attn = sum(e.device_time_total for e in events
+               if e.key == "train.attention" and e.device_type.name == "CPU") / 1e3
+    ops = sorted((e for e in events if e.device_type.name == "CPU" and e.key.startswith("aten::")),
+                 key=lambda e: -e.self_device_time_total)[:10]
+    log(f"[train] (a) one forward-backward under torch.profiler: kernel sum {total:.1f} ms over "
+        f"{sum(e.count for e in kern)} kernels; attention's forward (ring_attention, "
+        f"{model.cfg.n_layers} layers) {attn:.1f} ms ({100 * attn / max(total, 1e-9):.1f}%); by "
+        "operator (device time of the kernels it launched): " + "; ".join(
+            f"{e.key} x{e.count} {e.self_device_time_total / 1e3:.1f} ms "
+            f"({100 * e.self_device_time_total / 1e3 / max(total, 1e-9):.1f}%)" for e in ops))
+    return steady
+
+
+def _train_card_vs_cpu(card, mesh):
+    """(b) One float32 step of llm-1.26b's width at 2 layers, B 1, T 256,
+    on the card against the port on the CPU from the same weights, TF32
+    off: the loss, each gradient leaf and each updated parameter leaf."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.convert import sorted_leaves
+    from seldon_core_tpu_torch.models.llm import DecoderLM
+    from seldon_core_tpu_torch.parallel.train import gather_params, make_train_step, shard_params
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("[train] (b) needs TF32 off")
+    cfg = {**LLM_1_26B, "n_layers": TRAIN_F32_LAYERS, "dtype": "float32"}
+    model = DecoderLM(**cfg)
+    host = model.init_params(0, device="cpu")
+    tokens = np.random.RandomState(1).randint(0, cfg["vocab_size"], (1, TRAIN_F32_T + 1))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        t = time.perf_counter()
+        _init, step = make_train_step(model, mesh, learning_rate=TRAIN_LR, device=dev)
+        params = shard_params(host, mesh, dev)
+        loss0, grads = step.value_and_grad(params, tokens)
+        grads = gather_params(grads, mesh)
+        params, loss = step(params, tokens)
+        got[dev] = (float(loss0), float(loss), grads, gather_params(params, mesh))
+        got[dev + " s"] = time.perf_counter() - t
+    card_loss, cpu_loss = got["cuda"][1], got["cpu"][1]
+
+    def worst(a, b):
+        return max((float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-30)), path)
+                   for (path, x), (_p, y) in zip(sorted_leaves(a), sorted_leaves(b)))
+
+    g_err, g_leaf = worst(got["cuda"][2], got["cpu"][2])
+    p_err, p_leaf = worst(got["cuda"][3], got["cpu"][3])
+    dl = abs(card_loss - cpu_loss)
+    log(f"[train] (b) float32 llm-1.26b width x {TRAIN_F32_LAYERS} layers, B 1 T {TRAIN_F32_T}, "
+        f"TF32 off, one step: loss card {card_loss:.6f} CPU {cpu_loss:.6f} |diff| {dl:.3e} (tol "
+        f"{TRAIN_F32_TOL['loss']:g}); worst gradient leaf {'/'.join(g_leaf)} {g_err:.3e} of its "
+        f"largest (tol {TRAIN_F32_TOL['grad']:g}); worst updated parameter leaf "
+        f"{'/'.join(p_leaf)} {p_err:.3e} (tol {TRAIN_F32_TOL['param']:g}); card "
+        f"{got['cuda s']:.2f} s, CPU {got['cpu s']:.2f} s for both calls [{card}]")
+    if dl > TRAIN_F32_TOL["loss"] or g_err > TRAIN_F32_TOL["grad"] \
+            or p_err > TRAIN_F32_TOL["param"]:
+        raise AssertionError("[train] (b) card and CPU disagree past the tolerance")
+
+
+def _train_moe(card, mesh, tokens):
+    """(c) One step of llm-1.26b-moe8 at full width and TRAIN_MOE_LAYERS
+    layers (depth cut for the time budget), ep 1: a finite loss."""
+    import torch
+
+    from seldon_core_tpu_torch.parallel.train import make_train_step
+
+    model = _train_model(LLM_1_26B_MOE8, n_layers=TRAIN_MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    init, step = make_train_step(model, mesh, learning_rate=TRAIN_LR)
+    params = init(LLM_1_26B["seed"])
+    params, losses, secs = _train_steps(step, params, tokens, 2)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[train] (c) losses {losses}: not finite")
+    log(f"[train] (c) llm-1.26b-moe8 at {TRAIN_MOE_LAYERS} of 24 layers "
+        f"({model.n_params() / 1e9:.3f} B params), ep 1, B {tokens.shape[0]} T "
+        f"{tokens.shape[1] - 1}: steps {', '.join(f'{1e3 * x:.1f}' for x in secs)} ms, losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}, peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+
+
+def phase_train(card):
+    """The parallel training step on the card: a one-rank NCCL group joined
+    through ``initialize_distributed`` with a file coordinator, the mesh
+    {data 1, stage 1, seq 1, model 1}, then (a) llm-1.26b's throughput,
+    (b) card == CPU at float32, (c) an llm-1.26b-moe8 step. Returns the
+    flash kernel's launches over the phase (training attends in plain
+    PyTorch, as the JAX package does: none)."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+    from seldon_core_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    t0 = time.perf_counter()
+    fa.LAUNCHES["flash_attention"] = 0
+    tokens = torch.as_tensor(np.random.RandomState(0).randint(
+        0, LLM_1_26B["vocab_size"], TRAIN_BATCH), device="cuda")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
+        if not initialize_distributed(f"file://{tmp}/rendezvous", num_processes=1,
+                                      process_id=0):
+            raise AssertionError("[train] initialize_distributed did not join a group")
+        try:
+            mesh = make_mesh({"data": 1, "stage": 1, "seq": 1, "model": 1})
+            log(f"[train] joined a {dist.get_world_size()}-rank {dist.get_backend()} group "
+                f"(file coordinator); mesh {mesh.shape}, rank {mesh.rank} on "
+                f"cuda:{torch.cuda.current_device()}")
+            _train_throughput(card, mesh, tokens)
+            gc.collect()
+            torch.cuda.empty_cache()
+            _train_card_vs_cpu(card, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            _train_moe(card, mesh, tokens)
+        finally:
+            dist.destroy_process_group()
+    launches = fa.LAUNCHES["flash_attention"]
+    if launches:
+        raise AssertionError(f"[train] training launched the flash kernel {launches} times")
+    log(f"[train] flash launches 0; phase wall time {time.perf_counter() - t0:.1f} s")
+    return launches
+
 
 PHASES = ("kernels", "small", "serve", "engine", "small-sched", "sched", "prefix",
           "pressure", "spec", "spec-pressure", "dh256", "f32", "disagg", "kvtier", "migration",
-          "telemetry", "fronts", "zoo", "rag", "model", "explain", "moe")
+          "telemetry", "fronts", "zoo", "rag", "model", "explain", "moe", "train")
 
 
 def _llm_model():
@@ -6744,7 +6988,7 @@ def main(argv=None) -> int:
         spec_launches = dh256_launches = f32_launches = None
         disagg_launches = kvtier_launches = migration_launches = telemetry_launches = None
         fronts_launches = zoo_launches = rag_launches = explain_launches = None
-        moe_launches = None
+        moe_launches = train_launches = None
         if "serve" in phases:
             launches, alone, serve_numbers = phase_serve(card)
             free()  # the serve phase's copy of the model goes
@@ -6822,6 +7066,10 @@ def main(argv=None) -> int:
             moe_launches = phase_moe(card)
             free()
             lap("moe")
+        if "train" in phases:
+            train_launches = phase_train(card)
+            free()
+            lap("train")
         # the profiler runs last: once it has traced the card, later
         # launches may carry its overhead
         if "model" in phases:
@@ -6859,6 +7107,7 @@ def main(argv=None) -> int:
             "rag_launches": rag_launches,
             "explain_launches": explain_launches,
             "moe_launches": moe_launches,
+            "train_launches": train_launches,
             "dh256_launches": dh256_launches,
             "max_abs_err": worst(lambda r: r["dtype"] == "bfloat16"),
             "wgmma_max_abs_err": worst(lambda r: r["route"] == "wgmma"),

@@ -23,6 +23,9 @@ it is held against. It imports ``torch`` and never ``jax``, and nothing of
                                         migration `serving/migration`,
                                         tenants `serving/weightpager`)
   * the Llama-style decoder            (`models/llm`)
+  * the parallel training step, MoE    (`parallel/`: mesh, collectives,
+                                        ring attention, GPipe, experts,
+                                        `make_train_step`)
   * hand-written CUDA kernels          (`ops/`)
   * JAX's threefry PRNG, bit for bit   (`rng`)
   * weights from the JAX package       (`convert`)

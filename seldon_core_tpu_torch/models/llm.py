@@ -16,8 +16,15 @@ tokens per row in one forward: speculative decoding's verify step),
 ``prefill_with_prefix`` (a suffix prefill over a cached prefix slab),
 ``generate``, ``init_params`` and the analytic counts. Under MoE every
 one of these runs the experts over the call's ``B*T`` rows
-(``parallel/moe.py``). Not ported yet: the tp/sp/ep parallel paths and
-the training loss.
+(``parallel/moe.py``).
+
+The training forward sits beside them: ``backbone`` (every layer, with
+the tp/sp/ep collectives of ``parallel/`` when given mesh axes) and
+``loss_fn`` (next-token cross-entropy plus the MoE aux loss), which
+autograd differentiates. It attends in plain PyTorch (``full_attention``,
+or ``ring_attention`` over a sequence axis), as the JAX package trains
+through XLA's attention and not its kernel; ``apply`` keeps the flash
+kernel under ``inference_mode``.
 
 Layouts match the JAX package exactly: per-layer caches
 ``[B, KV, T, Dh]``, the prefill slab ``[L, B, KV, Tb, Dh]``, and q/k/v
@@ -37,7 +44,9 @@ from .. import rng
 from ..device import resolve_device
 from ..ops.flash_attention import attention as prefill_attention
 from ..ops.flash_attention import check_kernel_config
-from ..parallel.moe import moe_ffn
+from ..parallel.collectives import psum, pvary
+from ..parallel.moe import moe_ffn, moe_ffn_ep
+from ..parallel.ring import full_attention, ring_attention
 from .base import ServedModel, torch_dtype
 
 NEG_INF = -1e30
@@ -78,6 +87,13 @@ def _rms_norm(x, w, eps=1e-5):
     x32 = x.float()
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     return (x32 * torch.reciprocal(torch.sqrt(var + eps))).to(x.dtype) * w
+
+
+def token_ce(logits, targets):
+    """Per-token next-token cross-entropy: ``-log_softmax(logits)`` at
+    ``targets``, in the logits' dtype (float32)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets[..., None].long())[..., 0]
 
 
 def _rope(x, positions, theta: float):
@@ -669,3 +685,76 @@ class DecoderLM(ServedModel):
             tok = sample(logits, sub)
             out.append(tok)
         return torch.cat([prompt.long(), torch.stack(out, dim=1)], dim=1)
+
+    # ------------------------------------------------------------------
+    # training forward (axis-parametrised: None => one device)
+    # ------------------------------------------------------------------
+
+    def _block(self, p, x, positions, *, tp=None, sp=None, ep=None):
+        """One layer of the training forward, the JAX ``_block`` (its
+        ``_attention`` prefill branch and ``_ffn``). ``tp``, ``sp``,
+        ``ep``: mesh ``Axis`` objects or None. Under ``tp`` the weights are
+        this rank's column (``wq``/``wk``/``wv``/``w1``/``w3``) and row
+        (``wo``/``w2``) shards: the normed input enters the column products
+        through ``pvary`` (its gradient summed over ``tp``) and the row
+        products' outputs are ``psum``-ed. Returns ``(x, aux)``."""
+        cfg = self.cfg
+        dt = x.dtype
+        B, T, D = x.shape
+        Dh = cfg.head_dim
+        h = pvary(_rms_norm(x, p["ln1"].to(dt), cfg.norm_eps), tp)
+        q = (h @ p["wq"].to(dt)).reshape(B, T, -1, Dh).transpose(1, 2)
+        k = (h @ p["wk"].to(dt)).reshape(B, T, -1, Dh).transpose(1, 2)
+        v = (h @ p["wv"].to(dt)).reshape(B, T, -1, Dh).transpose(1, 2)
+        q = _rope(q, positions, cfg.rope_theta)
+        k = _rope(k, positions, cfg.rope_theta)
+        rep = q.shape[1] // k.shape[1]
+        if rep > 1:  # GQA: repeat the kv groups on this path
+            k = k.repeat_interleave(rep, dim=1)
+            v = v.repeat_interleave(rep, dim=1)
+        if sp is not None:
+            o = ring_attention(q, k, v, sp, causal=True)
+        else:
+            o = full_attention(q, k, v, causal=True)
+        o = o.transpose(1, 2).reshape(B, T, -1) @ p["wo"].to(dt)
+        x = x + psum(o, tp)
+        h = _rms_norm(x, p["ln2"].to(dt), cfg.norm_eps)
+        if cfg.n_experts > 0:
+            out, aux = moe_ffn_ep(h.reshape(B * T, D), p["router"].to(dt), p["w1e"].to(dt),
+                                  p["w2e"].to(dt), ep, cfg.capacity_factor)
+            return x + out.reshape(B, T, D), aux
+        h = pvary(h, tp)
+        a = h @ p["w1"].to(dt)
+        g = h @ p["w3"].to(dt)
+        out = (torch.nn.functional.silu(a) * g) @ p["w2"].to(dt)
+        return x + psum(out, tp), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def backbone(self, blocks, x, positions, *, tp=None, sp=None, ep=None):
+        """Every layer of ``blocks`` (leaves stacked on a leading layer
+        axis: this rank's layers under a pipeline) over ``x`` [B, T, D] at
+        ``positions`` [T]. Returns ``(x, aux)``, the MoE aux loss summed
+        over the layers (0 when dense)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        names = list(blocks)
+        # unbind, not one index per layer: the backward then stacks the
+        # layers' gradients once instead of adding L full-size zero-padded
+        # gradients into each stacked leaf
+        for ws in zip(*(blocks[n].unbind(0) for n in names)):
+            x, aux_l = self._block(dict(zip(names, ws)), x, positions, tp=tp, sp=sp, ep=ep)
+            aux = aux + aux_l
+        return x, aux
+
+    def loss_fn(self, params, tokens):
+        """Next-token cross-entropy on float32 logits (+ the MoE
+        load-balancing aux times ``aux_loss_weight``) on one device:
+        ``tokens`` [B, T+1]. Differentiable: autograd runs through
+        :meth:`backbone`."""
+        cfg = self.cfg
+        dt = self.dtype
+        inputs = tokens[:, :-1].long()
+        x = params["embed"][inputs].to(dt)
+        positions = torch.arange(inputs.shape[1], device=tokens.device)
+        x, aux = self.backbone(params["blocks"], x, positions)
+        x = _rms_norm(x, params["ln_f"].to(dt), cfg.norm_eps)
+        logits = (x @ params["unembed"].to(dt)).float()
+        return token_ce(logits, tokens[:, 1:]).mean() + cfg.aux_loss_weight * aux

@@ -1,6 +1,7 @@
-"""Switch mixture-of-experts FFN on one device.
+"""Switch mixture-of-experts FFN, on one device and expert-parallel.
 
-Counterpart of ``seldon_core_tpu/parallel/moe.py`` at ``ep_axes=None``:
+Counterpart of ``seldon_core_tpu/parallel/moe.py``. :func:`moe_ffn` is
+the JAX ``moe_ffn`` at ``ep_axes=None``, the serving path:
 tokens route top-1 to an expert with a capacity buffer, and a token past
 its expert's capacity is dropped (its FFN output is 0). Dispatch and
 combine are dense one-hot tensors of static shape, so a decode step that
@@ -13,6 +14,13 @@ The capacity counts every row of the call, ``max(1, int(capacity_factor
 included, and a row's place in its expert's buffer is its rank among the
 rows before it that chose the same expert. So a row's output depends on
 what shares its call, as in the JAX package.
+
+:func:`moe_ffn_ep` is the JAX ``moe_ffn`` with ``ep_axes``, the training
+path: the experts are sharded over an expert axis (the combined
+``("data", "seq")`` ranks, data-major, so expert k lives where
+``train.param_specs`` puts it) and two tiled all_to_alls trade each
+expert's buffer for the ranks' rows. The capacity is per rank, over the
+rank's own rows, as in JAX.
 """
 
 from __future__ import annotations
@@ -20,6 +28,8 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+
+from .collectives import all_to_all
 
 
 class Routing(NamedTuple):
@@ -78,4 +88,28 @@ def moe_ffn(x, router_w, w1, w2, capacity_factor: float = 1.25):
     dispatch, combine = dispatch_combine(r, E, x.dtype)
     expert_in = torch.einsum("nec,nd->ecd", dispatch, x)
     out = torch.einsum("nec,ecd->nd", combine, experts(expert_in, w1, w2))
+    return out, r.aux_loss
+
+
+def moe_ffn_ep(x, router_w, w1, w2, ep, capacity_factor: float = 1.25):
+    """Top-1 switch MoE over this rank's ``x`` [N, D] with this rank's
+    experts ``w1`` [E_local, D, F] and ``w2`` [E_local, F, D] of the
+    ``router_w`` [D, E] experts, sharded over ``ep`` (a mesh ``Axis``, or
+    None for one device): ``E_local * ep.size == E``. Returns ``([N, D]
+    outputs, aux loss)``."""
+    N, D = x.shape
+    E = router_w.shape[1]
+    n = 1 if ep is None else ep.size
+    e_local = w1.shape[0]
+    if e_local * n != E:
+        raise ValueError(f"experts {E} != {e_local} x ep {n}")
+    r = route(x, router_w, capacity_factor)
+    dispatch, combine = dispatch_combine(r, E, x.dtype)
+    C = r.capacity
+    expert_in = torch.einsum("nec,nd->ecd", dispatch, x)  # [E, C, D]
+    # [ep, E_local, C, D]: block j to index j, received blocks along C
+    expert_in = all_to_all(expert_in.reshape(n, e_local, C, D), ep, 0, 2)
+    expert_out = experts(expert_in.reshape(e_local, n * C, D), w1, w2)
+    expert_out = all_to_all(expert_out.reshape(e_local, n, C, D), ep, 1, 0)
+    out = torch.einsum("nec,ecd->nd", combine, expert_out.reshape(n * e_local, C, D))
     return out, r.aux_loss
