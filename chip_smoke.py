@@ -7,7 +7,7 @@ Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails. ``--phases`` runs a subset of
 ``kernels, small, serve, engine, small-sched, sched, prefix, pressure,
 spec, spec-pressure, dh256, f32, disagg, kvtier, migration, telemetry,
-fronts, zoo, rag, explain, moe, train, model``
+fronts, zoo, rag, explain, moe, train, model, controlplane``
 (device and build always run; the
 result lines print only when every phase ran, as with no argument):
 
@@ -47,7 +47,7 @@ result lines print only when every phase ran, as with no argument):
    a microservice over the same generate server, median of 20, and of
    a SIMPLE_MODEL request (host only), median of 200; then the serve
    waves through the engine and through that microservice alternated
-   (ABBA twice), their tokens/s, TTFT and TPOT side by side.
+   (ABBA once), their tokens/s, TTFT and TPOT side by side.
 7. Small scheduler (float32, the small model of phase 4): the batcher's
    configurations A-E (as in phase 8, ``MIN_ATTN_BUCKET`` lowered so
    that depth groups split), P (the prefix cache on: the second pass
@@ -68,8 +68,7 @@ result lines print only when every phase ran, as with no argument):
    prefill_chunk 256) and F (depth groups 4, default cost model), each
    warmed for the serve phase's prompt lengths and driven with the serve
    waves, every wave queued whole so that each run has one batch
-   composition; A/B and A/C alternated in one process (ABBA once), D-F
-   once each; four requests of the mixed wave stop at the token their
+   composition; one run each (each run repeats its probe wave); four requests of the mixed wave stop at the token their
    knobs-off run emitted at steps 3, 17, 40 and 63. Fails unless B and C
    equal A token for token, every configuration repeats itself, every
    stop fires where A's does, no graph is captured after ``warm()``,
@@ -103,8 +102,8 @@ result lines print only when every phase ran, as with no argument):
 11. Speculation (llm-1.26b, bf16, 4 slots, cache 512, built through
    GenerateServer's parameters): four 128-token greedy prompts with 256
    new tokens and one seeded request, off (steps_per_poll 8) against on
-   (steps_per_poll 4, speculate_tokens 4, draft_layers 6), off, on, on,
-   off. Fails unless every request answers 256 tokens, the on-runs are
+   (steps_per_poll 4, speculate_tokens 4, draft_layers 6), off, on, on.
+   Fails unless every request answers 256 tokens, the on-runs are
    token-identical, no graph is captured after ``warm()``, a round emits
    1..5 tokens and every prefill (target and draft) launched the flash
    kernel; reports tokens/s, TTFT p50/p99, TPOT p50, tokens per round,
@@ -169,7 +168,7 @@ result lines print only when every phase ran, as with no argument):
    peer from their last keyless resume token after their member is
    killed, `/weights/swap` seed 0 -> 1 under three in-flight requests and
    the straggler bound under `resume` and `fail`, then a server with
-   three tenants (a 10 GiB pager) interleaved and under a flood. Fails
+   three tenants (a 10 GiB pager) interleaved and behind a backlog. Fails
    unless every request alone and every in-flight one equals the
    undrained run's alone (the wave's equality is reported), spans add
    up with none re-sent, a mangled token answers 400 and one of another
@@ -186,7 +185,7 @@ result lines print only when every phase ran, as with no argument):
    request's tokens alone; a boot with the device-time ledger (CUDA
    event pairs, deep every 16th dispatch, 3350 GB/s), the flight
    recorder (512) and TTFT/TPOT objectives serves the serve waves,
-   alternated with the profiler-off boot (off, on, on, off: tokens/s,
+   after the profiler-off boot (off, on: tokens/s,
    TTFT and TPOT side by side, the SM clock after each). Prints the ledger's device ms and share per kind, the busy and idle
    share and MBU over the waves, the live gauges, the deep samples, the
    dump's records and the burn verdicts. Fails unless each request alone
@@ -356,12 +355,37 @@ result lines print only when every phase ran, as with no argument):
    16-step decode burst through the batcher, eager against CUDA-graph
    replay: wall and device span per step, then device-busy time, device
    operations, host launches and busy share per step from torch.profiler
-   over a 4-step eager burst and a replayed 16-step one; then one
+   over a 2-step eager burst and a replayed 16-step one; then one
    speculation round (4 steps of
    a 6-layer early-exit draft, the W = 5 verify chunk, acceptance)
    against 5 decode steps at B = 4, attention 512, in device-busy time
    and device operations.
-25. The ``kernels`` JSON line (the flash kernel on the main path, its
+25. Control plane (``seldon_core_tpu_torch/controlplane``, the port's
+   ``sdctl`` as processes): ``sdctl controller --subprocess-runtime``
+   with its gateway; (a) ``sdctl apply`` of a GENERATE_SERVER
+   SeldonDeployment of llm-1.26b (full width and depth, bf16, seed 0, the
+   serve phase's parameters without ``device``) -> Available; three
+   greedy requests alone through the gateway must equal the serve
+   phase's alone tokens, the member must be
+   ``seldon_core_tpu_torch.engine_main`` with no device parameter and
+   CUDA memory on the card in its ``/fleet``, and the flash kernel must
+   launch there (its count joins the ``kernels`` line); the gateway's
+   overhead against the member's port (1-token requests, ABBA, median
+   of 8); (b) an annotation change: create-before-delete with two
+   generations on the card while a client sends requests back to back,
+   every one 200 with its alone tokens; (c) at llm-1.26b's widths and 8
+   of 24 layers (depth cut for the time budget), one slot:
+   ``seldon.io/disagg`` (one prefill, one decode member) equal to the
+   unified deployment with the decode member importing KV slabs,
+   ``sdctl scale`` 2 -> 1 with requests queued on both members, the
+   removed one draining over ``/drain`` and every request answering
+   with its alone tokens, and a shadow rollout on an in-process
+   ``sdctl controller`` promoted by its mirrored samples with
+   ``diff_responses`` finding no token diff; (d) ``sdctl delete``: no
+   member left, both controllers stopped, the card's memory back.
+   Prints apply -> Available, client ms, peak memory, flip, drain and
+   teardown seconds.
+26. The ``kernels`` JSON line (the flash kernel on the main path, its
    Dh 256 instance on the dh256 phase's and its float32 instance on the
    f32 phase's), then the final ``{"ok": true, ...}`` line.
 
@@ -971,6 +995,15 @@ def phase_serve(card):
             if status != 200:
                 raise AssertionError(f"greedy_20 alone: HTTP {status} {body}")
             alone = body["jsonData"]["tokens"]
+            # each of these greedy requests alone: the control-plane
+            # phase's gateway must give the same tokens
+            numbers["alone_tokens"] = {}
+            toks = {x[0]: x[1] for x in probe + mixed}
+            for label in CP_LABELS:
+                status, body = _post(port, _gen_body(toks[label]))
+                if status != 200:
+                    raise AssertionError(f"{label} alone: HTTP {status} {body}")
+                numbers["alone_tokens"][label] = body["jsonData"]["tokens"][0]
         finally:
             stop()
             app._hook_pool.shutdown(wait=False)
@@ -1309,10 +1342,10 @@ def phase_engine(card, alone_ref):
 
             # the engine's end-to-end cost: the same waves through the
             # engine and through the microservice over the same generate
-            # server, in one process, alternated (ABBA twice)
+            # server, in one process, alternated (ABBA once)
             paths = {"engine": post, "micro": lambda body: _post(micro_port, body)}
             ab = {"engine": [], "micro": []}
-            for name in ("engine", "micro", "micro", "engine") * 2:
+            for name in ("engine", "micro", "micro", "engine"):
                 b.slo_recent.clear()
                 t = time.perf_counter()
                 results = [fire(paths[name], wave) for wave in (probe, mixed, probe)]
@@ -1325,7 +1358,7 @@ def phase_engine(card, alone_ref):
                 tok = [r[0] for r in runs]
                 tpot = [r[1]["tpot_p50"] for r in runs]
                 ttft = [r[1]["ttft_p50"] for r in runs]
-                log(f"[engine] A/B waves via {name} (4 runs): tokens/s median "
+                log(f"[engine] A/B waves via {name} ({len(runs)} runs): tokens/s median "
                     f"{np.median(tok):.1f} {[round(x, 1) for x in tok]}; TPOT p50 median "
                     f"{np.median(tpot):.2f} {[round(x, 2) for x in tpot]} ms; TTFT p50 median "
                     f"{np.median(ttft):.1f} {[round(x, 1) for x in ttft]} ms [{card}]")
@@ -1453,9 +1486,9 @@ def _check_sched_run(name, run, probe, mixed):
 
 def phase_scheduler(card, model, params):
     """The scheduler knobs at llm-1.26b full width (bf16, 8 slots):
-    configurations A-F of SCHED_CONFIGS driven with the serve waves, A/B
-    and A/C alternated in one process (ABBA once); the gated checks and
-    the reported numbers are in the module docstring."""
+    configurations A-F of SCHED_CONFIGS driven with the serve waves, one
+    run each; the gated checks and the reported numbers are in the module
+    docstring."""
     import gc
 
     import numpy as np
@@ -1482,9 +1515,11 @@ def phase_scheduler(card, model, params):
         return b
 
     live = {name: build(name) for name in ("A", "B", "C")}
-    for other in ("B", "C"):
-        for name in ("A", other, other, "A"):
-            runs[name].append(_sched_run(gate, live[name], probe, mixed))
+    # one run each (a run repeats its probe wave: the repeat check holds
+    # inside it); the ABBA alternation of A/B and A/C is cut for the
+    # whole script's time budget
+    for name in ("A", "B", "C"):
+        runs[name].append(_sched_run(gate, live[name], probe, mixed))
     # the stops ride the mixed wave itself (same batch composition as the
     # knobs-off run they are read from)
     eos, expect = _pick_stops(runs["A"][0]["tokens"], prompts)
@@ -2129,7 +2164,9 @@ def phase_model(model, params):
         for _ in range(3):
             step()
         torch.cuda.synchronize()
-        n = 10
+        # 3 eager steps traced (the profiler's processing takes ~2 s a
+        # step; the per-step averages need no more)
+        n = 3
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
@@ -2150,10 +2187,10 @@ def phase_model(model, params):
 # steps of the eager burst the model phase traces (the profiler's processing
 # of an eager step takes ~2 s on the card's host; the replayed burst is
 # traced whole)
-PROF_EAGER_K = 4
+PROF_EAGER_K = 2
 
 
-def phase_burst(model, params, weight_ms, k=16, n=6):
+def phase_burst(model, params, weight_ms, k=16, n=6, n_eager=2):
     """A whole decode burst through the batcher (8 lanes, k steps), eager
     (graphs off) against CUDA-graph replay: per step, the host's wall
     time (uninstrumented, host clock), the device span (CUDA events),
@@ -2178,14 +2215,17 @@ def phase_burst(model, params, weight_ms, k=16, n=6):
                 burst()
                 torch.cuda.synchronize()
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                # an eager step takes ~45 ms of host launches: 2 bursts
+                # are enough for its per-step wall time
+                reps = n if graphs else n_eager
                 t0 = time.perf_counter()
                 start.record()
-                for _ in range(n):
+                for _ in range(reps):
                     burst()
                 end.record()
                 torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3 / (n * k)
-                span = start.elapsed_time(end) / (n * k)
+                wall = (time.perf_counter() - t0) * 1e3 / (reps * k)
+                span = start.elapsed_time(end) / (reps * k)
                 # the profiler's host-side processing of a traced eager
                 # burst (~2,260 device operations a step) takes seconds a
                 # step: an eager burst of PROF_EAGER_K steps and one
@@ -2381,7 +2421,7 @@ def phase_spec(card):
     concurrent 128-token greedy prompts with 256 new tokens each, then a
     seeded request alone. Off: steps_per_poll 8. On: steps_per_poll 4,
     speculate_tokens 4, draft_layers 6 (an early-exit self-draft). Runs
-    off, on, on, off in one process. Fails unless every request answers
+    off, on, on in one process. Fails unless every request answers
     256 tokens, the two on-runs are token-identical (the seeded request
     too), no graph is captured after warm(), a round emits 1..5 tokens
     on average and every prefill (target and draft) launched the flash
@@ -2407,7 +2447,9 @@ def phase_spec(card):
                 log(f"[spec] {side}: GenerateServer loaded and warmed in "
                     f"{time.perf_counter() - t0:.1f} s ({st['graphs_captured']} graphs, "
                     f"{st['graph_capture_s']:.2f} s of capture)")
-            for side in ("off", "on", "on", "off"):
+            # off, on, on (the trailing off run is cut for the time budget;
+            # the two on-runs must repeat each other)
+            for side in ("off", "on", "on"):
                 runs[side].append(_spec_run(gate, users[side], wave, seeded))
             metrics = {side: {m["key"]: m["value"] for m in users[side].metrics()
                               if m["type"] == "GAUGE"} for side in users}
@@ -2887,14 +2929,20 @@ def _check_equal(tag, got, want):
                              f"{ {x: _first_diff(got[x], want[x]) for x in bad} })")
 
 
+# the disagg phase's shared-prefix traffic: the first 16 of the 32 prompts
+DISAGG_PREFIX_PROMPTS = 16
+
+
 def _prefix_wave(tag, dec, card):
     """The shared-prefix traffic through a decode role with its cache on:
-    the 4 system prompts, then the 32 prompts, each set from 8 client
-    threads (the prefill listener's capacity: a ninth concurrent
-    transfer would be shed with PeerBusy)."""
+    the 4 system prompts, then the first 16 of the 32 prompts (4 per
+    system prompt; cut for the whole script's time budget), each set
+    from 8 client threads (the prefill listener's capacity: a ninth
+    concurrent transfer would be shed with PeerBusy)."""
     from concurrent.futures import ThreadPoolExecutor
 
     systems, prompts = prefix_traffic()
+    prompts = prompts[:DISAGG_PREFIX_PROMPTS]
     s0 = dict(dec.batcher.stats)
 
     def fire_all(items):
@@ -2918,10 +2966,11 @@ def _prefix_wave(tag, dec, card):
     if min(hits) < SYSTEM_LEN or d["kv_transfer_bytes_saved"] <= 0:
         raise AssertionError(f"[disagg] {tag}: cache_hit_tokens {sorted(set(hits))}, "
                              f"kv_transfer_bytes_saved {d['kv_transfer_bytes_saved']}")
-    log(f"[disagg] {tag}: shared-prefix traffic (4 systems, then 32 prompts of 384 + 64 "
+    log(f"[disagg] {tag}: shared-prefix traffic (4 systems, then {len(prompts)} prompts of "
+        f"384 + 64 "
         f"tokens): every prompt shipped suffix-only over a {min(hits)}-token radix hit; "
         f"kv_imports {d['kv_imports']}, import bytes {d['kv_import_bytes']}, "
-        f"kv_transfer_bytes_saved {d['kv_transfer_bytes_saved']}; 32 prompts "
+        f"kv_transfer_bytes_saved {d['kv_transfer_bytes_saved']}; {len(prompts)} prompts "
         f"{MAX_NEW * len(prompts) / wall:.1f} tokens/s [{card}]")
     return d
 
@@ -3387,6 +3436,8 @@ def phase_kvtier(card, model, params):
 # tokens) at most pipeline_depth more bursts are in flight, so a lane
 # drained then is still mid-decode (1 + 4 x 16 < 96)
 MIG_NEW = 96
+# the straggler bound's generation: far longer than its 50 ms bound
+STRAGGLER_NEW = 400
 
 
 def _mig_dir(root, seed):
@@ -3551,7 +3602,7 @@ def phase_migration(card):
     * a server with three tenants (seeds 0, 1, 2; a 10 GiB pager)
       serves interleaved requests with each tenant's dedicated tokens,
       pages in without a graph capture, is forced to switch by the
-      starvation bound under a flood, and refuses an unknown tenant
+      starvation bound behind a backlog, and refuses an unknown tenant
       (404);
     * every prefill in the phase launched the flash kernel.
 
@@ -3848,7 +3899,7 @@ def phase_migration(card):
                 b.swap_drain_ms, b.swap_resume_policy = 50, policy
                 pre = b.stats["swap_preemptions"]
                 new = w._load_checkpoint(target, "straggler swap")
-                fut = b.submit(g_toks, max_new_tokens=800)
+                fut = b.submit(g_toks, max_new_tokens=STRAGGLER_NEW)
                 while not any(len(s.emitted) > 0 for s in b._active.values()):
                     time.sleep(0.001)
                 b.request_weight_swap(new, version=version).result(timeout=300)
@@ -3858,7 +3909,8 @@ def phase_migration(card):
                     failed = None
                 except WeightVersionMismatch as e:
                     res, failed = None, e
-                ok = (res is not None and len(res) == len(g_toks) + 800) if policy == "resume" \
+                ok = (res is not None and len(res) == len(g_toks) + STRAGGLER_NEW) \
+                    if policy == "resume" \
                     else (failed is not None and failed.status == 409)
                 if not ok or b.stats["swap_preemptions"] <= pre:
                     raise AssertionError(f"[migration] straggler bound, {policy}: result "
@@ -3868,7 +3920,7 @@ def phase_migration(card):
             _times(flip_ms, 3)
             if b.stats["graph_captures_inline"] or b.stats["graphs_captured"] != captured:
                 raise AssertionError("[migration] a straggler swap captured decode graphs")
-            log(f"[migration] straggler bound swap_drain_ms 50: a 800-token generation "
+            log(f"[migration] straggler bound swap_drain_ms 50: a {STRAGGLER_NEW}-token generation "
                 f"checkpointed and finished on the new weights (resume), refused with 409 "
                 f"(fail); flips {', '.join(f'{x:.2f}' for x in flip_ms[1:])} ms [{card}]")
             retire(w)
@@ -3899,22 +3951,22 @@ def phase_migration(card):
             stats = dict(tn.tenant_scheduler.stats)
             page_ins = tn.tenant_pager.stats["page_ins"]
             _times(pflip_ms, stats["switches"])
-            stop_flood = threading.Event()
-
-            def flood():
-                while not stop_flood.is_set():
-                    tn.predict({"prompt_tokens": g_toks, "max_new_tokens": 64,
-                                "tenant": "t0"}, [])
-
-            th = threading.Thread(target=flood, daemon=True)
-            th.start()
-            time.sleep(0.5)
+            # a t0 backlog deeper than one poll (twice the slots) when the
+            # t1 request arrives: the resident never idles before the
+            # starvation bound forces the switch (a flood of one request
+            # at a time leaves gaps in which the idle resident yields)
+            backlog = [threading.Thread(target=lambda: tn.predict(
+                {"prompt_tokens": g_toks, "max_new_tokens": 64, "tenant": "t0"}, []),
+                daemon=True) for _ in range(2 * tb.slots)]
+            for th in backlog:
+                th.start()
+            _wait_for(lambda: len(tb._active) > 0, "the t0 backlog", 120)
             try:
                 label, toks, temp, seed = by_label["greedy_128"]
                 got = _mig_alone(tn, [by_label["greedy_128"]], tenant="t1")[label]
             finally:
-                stop_flood.set()
-                th.join(600)
+                for th in backlog:
+                    th.join(600)
             forced = tn.tenant_scheduler.stats["forced_switches"] - stats["forced_switches"]
             if got != refs[1][label] or not forced:
                 raise AssertionError(f"[migration] starvation bound: forced_switches {forced}")
@@ -3933,10 +3985,11 @@ def phase_migration(card):
                 f"1, 0, 2; greedy then seeded) equal each tenant's dedicated server alone; "
                 f"{stats['switches']} switches, "
                 f"{page_ins} page-ins (the first tenant's at load included), no graph captured "
-                f"({captured}); under a t0 flood a t1 request was served by a forced switch "
+                f"({captured}); behind a t0 backlog a t1 request was served by a forced switch "
                 f"(forced_switches {forced}); an unknown tenant answered 404. Page-in: decode "
                 f"(CRC, copy into pinned memory) {np.median(promote_ms):.0f} ms, stage (upload "
-                f"2.53 GB) {np.median(pstage_ms):.1f} ms, flip {np.median(pflip_ms):.2f} ms "
+                f"{tb._param_bytes / 1e9:.2f} GB) {np.median(pstage_ms):.1f} ms, flip "
+                f"{np.median(pflip_ms):.2f} ms "
                 f"(medians of {len(promote_ms)}); switch cost "
                 f"{sw['switch_cost_s_sum'] / max(1, sw['switches']) * 1e3:.0f} ms mean [{card}]")
 
@@ -4108,7 +4161,7 @@ def phase_telemetry(card, serve_alone=None):
     4): a profiler-off boot gives the graph count and each request's
     tokens alone; a boot with the ledger (deep every 16, 3350 GB/s), the
     recorder (512) and TTFT/TPOT objectives serves the serve waves
-    alternated with the profiler-off boot (off, on, on, off), then
+    after the profiler-off boot (off, on), then
     checks (a) each request alone against the profiler-off boot's (and
     greedy_20 against the serve phase's when it ran), (b) the graph count
     and no capture after warm(), (c) the ledger's burst time against CUDA
@@ -4165,13 +4218,14 @@ def phase_telemetry(card, serve_alone=None):
                                      "from the profiler-off boot's")
             log(f"[telemetry] (a) {len(items)} requests alone on the profiler-on server equal "
                 "the profiler-off boot's")
-            # the serve waves with the ledger off and on, alternated off, on,
-            # on, off (what the ledger costs end to end), the SM clock and
-            # power sampled after each
+            # the serve waves with the ledger off and on (what the ledger
+            # costs end to end), the SM clock and power sampled after each
             numbers = {"off": [], "on": []}
             wall = off_wall = 0.0
             before = on.profiler.summary()
-            for side in ("off", "on", "on", "off"):
+            # (off, on: the second pair of the alternation is cut for the
+            # whole script's time budget)
+            for side in ("off", "on"):
                 server = on if side == "on" else off
                 t0 = time.perf_counter()
                 n_launch, _p, _f, nums = run_waves(
@@ -4187,16 +4241,15 @@ def phase_telemetry(card, serve_alone=None):
                     ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
                     capture_output=True, text=True, timeout=60).stdout.strip()
                 log(f"[telemetry] after the ledger-{side} waves: SM clock, power draw {smi}")
-            log("[telemetry] the serve waves, ledger on vs off (off, on, on, off): "
-                + "; ".join(f"{k} on {numbers['on'][0][k]:.2f}, {numbers['on'][1][k]:.2f} / off "
-                            f"{numbers['off'][0][k]:.2f}, {numbers['off'][1][k]:.2f}"
+            log("[telemetry] the serve waves, ledger on vs off (off, on): "
+                + "; ".join(f"{k} on {numbers['on'][0][k]:.2f} / off {numbers['off'][0][k]:.2f}"
                             for k in ("tok_s", "ttft_p50", "tpot_p50")) + f" [{card}]")
             off.close()
             off = None
             gc.collect()
             torch.cuda.empty_cache()
             traffic = _ledger_delta(before, on.profiler.summary())
-            _ledger_split("the serve waves (both ledger-on runs)", traffic, wall, card)
+            _ledger_split("the serve waves (the ledger-on run)", traffic, wall, card)
             live = on.profiler.gauges()
             summ = on.profiler.summary()
             log(f"[telemetry] live gauges over the ledger's 10 s window: device_busy_frac "
@@ -4249,9 +4302,12 @@ def phase_telemetry(card, serve_alone=None):
                                      f"{sorted(dump)}")
             status, fleet = _engine_call(rest, "GET", "/fleet")
             unit = fleet["units"].get("llm", {}) if status == 200 else {}
-            if status != 200 or set(fleet) != {"predictor", "metrics", "units"} \
-                    or set(unit) != {"profiler", "slo_burn", "planning"}:
-                raise AssertionError(f"[telemetry] (f) /fleet {status} {sorted(unit)}")
+            # on the card /fleet also carries the member's device block
+            if status != 200 or set(fleet) != {"predictor", "metrics", "units", "device"} \
+                    or set(unit) != {"profiler", "slo_burn", "planning"} \
+                    or fleet["device"]["memory_allocated"] <= 0:
+                raise AssertionError(f"[telemetry] (f) /fleet {status} {sorted(fleet)} "
+                                     f"{sorted(unit)}")
             types = collections.Counter(e["type"] for e in dump["entries"])
             polls = [e for e in dump["entries"] if e["type"] == "poll"]
             log(f"[telemetry] (f) /flightrecorder: {dump['recorded_total']} records "
@@ -6915,9 +6971,517 @@ def phase_train(card):
     return launches
 
 
+# -- the control plane: sdctl, the reconciler, the gateway -------------------
+
+# the generate parameters of the control-plane phase's deployments: the
+# serve phase's without ``device`` (the members run on the card by their
+# own default; nothing here passes a device)
+CP_PARAMS = [p for p in SERVE_PARAMS if p["name"] != "device"]
+# (c)'s deployments: llm-1.26b's widths at CP_SMALL_LAYERS of 24 layers
+# (depth cut for the time budget), one slot, so that every request runs
+# alone and a member's queue is deep enough to be in flight at a drain
+CP_SMALL_LAYERS = 8
+CP_SMALL_PARAMS = [
+    {"name": "slots", "value": "1", "type": "INT"},
+    {"name": "steps_per_poll", "value": "16", "type": "INT"},
+    {"name": "pipeline_depth", "value": "3", "type": "INT"},
+    {"name": "warmup_prompt_lens", "value": "20", "type": "STRING"},
+    {"name": "warmup_max_new_tokens", "value": "64", "type": "INT"},
+]
+CP_LABELS = ("greedy_20", "greedy_128", "greedy_300")
+CP_DRAIN_NEW = 900
+
+
+def _cp_children(pid):
+    """The pids whose parent is ``pid`` (from /proc)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+            out.append(int(d))
+    return sorted(out)
+
+
+def _cp_member(pid):
+    """A controller child's command line, REST port, deployment and (for an
+    engine) the predictor spec of its ``ENGINE_PREDICTOR``; None once it
+    is gone."""
+    import base64
+
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            cmd = [c.decode() for c in f.read().split(b"\0") if c]
+        with open(f"/proc/{pid}/environ", "rb") as f:
+            env = dict(kv.split("=", 1) for kv in f.read().decode(errors="replace").split("\0")
+                       if "=" in kv)
+    except OSError:
+        return None
+    port = int(cmd[cmd.index("--http-port") + 1]) if "--http-port" in cmd else None
+    spec = (json.loads(base64.b64decode(env["ENGINE_PREDICTOR"]))
+            if "ENGINE_PREDICTOR" in env else None)
+    return {"pid": pid, "cmd": cmd, "port": port, "spec": spec,
+            "deployment": env.get("SELDON_DEPLOYMENT_ID")}
+
+
+class _Controller:
+    """``sdctl controller`` as a process of its own over a store directory,
+    its output (and its children's) in ``log``."""
+
+    def __init__(self, root, tag, subprocess_runtime):
+        self.store = os.path.join(root, f"store-{tag}")
+        self.log_path = os.path.join(root, f"controller-{tag}.log")
+        self.gw_port = _free_port()
+        self.env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        cmd = [sys.executable, "-m", "seldon_core_tpu_torch.controlplane", "--store-dir",
+               self.store, "controller", "--gateway-port", str(self.gw_port), "--poll-s", "0.2"]
+        if subprocess_runtime:
+            cmd.insert(cmd.index("controller") + 1, "--subprocess-runtime")
+        self.logf = open(self.log_path, "w")
+        self.proc = subprocess.Popen(cmd, cwd=HERE, env=self.env, stdout=self.logf,
+                                     stderr=subprocess.STDOUT)
+
+    def sdctl(self, *args):
+        """The port's sdctl against this controller's store."""
+        p = subprocess.run([sys.executable, "-m", "seldon_core_tpu_torch.controlplane",
+                            "--store-dir", self.store, *args], cwd=HERE, env=self.env,
+                           capture_output=True, text=True, timeout=120)
+        if p.returncode != 0:
+            raise AssertionError(f"sdctl {' '.join(args)}: exit {p.returncode} "
+                                 f"{p.stderr[-2000:]}")
+        return p.stdout
+
+    def apply(self, root, body):
+        path = os.path.join(root, f"{body['metadata']['name']}-{time.monotonic_ns()}.json")
+        with open(path, "w") as f:
+            json.dump(body, f)
+        return self.sdctl("apply", "-f", path)
+
+    def state(self, name):
+        """The deployment's status as the store file holds it (the file
+        ``sdctl get`` reads), polled without a process per look."""
+        try:
+            with open(os.path.join(self.store, f"default__{name}.json")) as f:
+                return json.load(f).get("status") or {}
+        except (OSError, ValueError):
+            return {}
+
+    def wait(self, name, cond, what, timeout=300.0):
+        t0 = time.monotonic()
+        while True:
+            st = self.state(name)
+            if cond(st):
+                return time.monotonic() - t0
+            if self.proc.poll() is not None:
+                raise AssertionError(f"[controlplane] the controller exited: {self.tail()}")
+            if time.monotonic() - t0 > timeout:
+                raise AssertionError(f"[controlplane] timed out waiting for {name} {what}: "
+                                     f"{st}; {self.tail()}")
+            time.sleep(0.05)
+
+    def members(self, name=None):
+        out = [m for m in map(_cp_member, _cp_children(self.proc.pid)) if m is not None]
+        return [m for m in out if name is None or m["deployment"] == f"default-{name}"]
+
+    def predict(self, name, body, headers=None, timeout=600.0):
+        return _post(self.gw_port, body, timeout=timeout, headers=headers,
+                     path=f"/seldon/default/{name}/api/v0.1/predictions")
+
+    def tail(self, n=3000):
+        return self.log_text()[-n:]
+
+    def log_text(self):
+        if not self.logf.closed:
+            self.logf.flush()
+        with open(self.log_path) as f:
+            return f.read()
+
+    def stop(self):
+        """SIGTERM: the controller stops every member it started, then
+        exits; anything left behind is killed."""
+        kids = _cp_children(self.proc.pid) if self.proc.poll() is None else []
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(30)
+        left = [k for k in kids if os.path.exists(f"/proc/{k}")]
+        for k in left:
+            try:
+                os.kill(k, signal.SIGKILL)
+            except OSError:
+                pass
+        self.logf.close()
+        return left
+
+
+def _cp_deployment(name, model_dir, params, annotations=None, replicas=1, predictors=None):
+    graph = {"name": "llm", "implementation": "GENERATE_SERVER", "modelUri": model_dir,
+             "parameters": params}
+    return {"apiVersion": "machinelearning.seldon.io/v1alpha2", "kind": "SeldonDeployment",
+            "metadata": {"name": name},
+            "spec": {"predictors": predictors or [{
+                "name": "main", "replicas": replicas, "annotations": annotations or {},
+                "graph": graph}]}}
+
+
+def _cp_tokens(tag, status, body):
+    if status != 200:
+        raise AssertionError(f"[controlplane] {tag}: HTTP {status} {body}")
+    return body["jsonData"]["tokens"][0]
+
+
+def _cp_sampler(period=0.25):
+    """nvidia-smi's memory.used sampled on a thread until the returned
+    stop() is called; stop() gives the peak in MiB."""
+    peak = {"mib": _smi_used()}
+    done = threading.Event()
+
+    def loop():
+        while not done.wait(period):
+            try:
+                peak["mib"] = max(peak["mib"], _smi_used())
+            except Exception:  # noqa: BLE001 - a missed sample
+                pass
+
+    t = threading.Thread(target=loop, daemon=True)
+    t.start()
+
+    def stop():
+        done.set()
+        t.join(10)
+        return peak["mib"]
+    return stop
+
+
+def phase_controlplane(card, serve_alone):
+    """The control plane on the card: the port's ``sdctl`` applies
+    SeldonDeployments to ``sdctl controller --subprocess-runtime`` (its
+    engines are ``seldon_core_tpu_torch.engine_main`` children) and the
+    gateway answers. (a) llm-1.26b at full width and depth (bf16, seed 0):
+    apply -> Available, greedy requests alone through the gateway equal to
+    the serve phase's alone tokens, the member on the card (its /fleet:
+    CUDA memory, the flash kernel's launches) with no device passed, the
+    gateway's overhead against the member's own port (ABBA); (b) an
+    annotation change: create-before-delete, two generations on the card,
+    a client sending requests throughout, every one 200 with its tokens;
+    (c) at llm-1.26b's widths and CP_SMALL_LAYERS layers: seldon.io/disagg
+    (one prefill, one decode member) equal to the unified deployment,
+    ``sdctl scale`` 2 -> 1 with requests in flight on both members drained
+    over /drain and completing with their tokens, and a shadow rollout on
+    an in-process controller (``sdctl controller``) promoted with no token
+    diff; (d) ``sdctl delete``: no member left, the card's memory back.
+    Returns the flash kernel's launches in (a)'s member over (a)'s
+    requests."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.rollout import diff_responses
+
+    t_phase = time.perf_counter()
+    probe, mixed = serve_waves()
+    prompts = {label: toks for label, toks, _t, _s in probe + mixed}
+    body = {label: _gen_body(prompts[label]) for label in CP_LABELS}
+    mem0 = _smi_used()
+    ctls = []
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cp-") as root:
+        full = os.path.join(root, "llm-1.26b")
+        small = os.path.join(root, f"llm-1.26b-{CP_SMALL_LAYERS}l")
+        for d, cfg in ((full, LLM_1_26B), (small, {**LLM_1_26B, "n_layers": CP_SMALL_LAYERS})):
+            os.makedirs(d)
+            with open(os.path.join(d, "jax_config.json"), "w") as f:
+                json.dump({"family": "llm", "config": cfg}, f)
+        try:
+            if serve_alone is None:
+                # run alone: the serve phase's alone tokens from an
+                # in-process server with its parameters
+                ref_server = _gen_server(full)
+                try:
+                    serve_alone = {label: ref_server.predict(body[label]["jsonData"], [])[
+                        "tokens"][0] for label in CP_LABELS}
+                finally:
+                    ref_server.close()
+                    del ref_server
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                mem0 = _smi_used()
+            sub = _Controller(root, "sub", subprocess_runtime=True)
+            ctls.append(sub)
+
+            # -- (a) apply -> Available, requests through the gateway
+            t = time.perf_counter()
+            sub.apply(root, _cp_deployment("cp-llm", full, CP_PARAMS))
+            avail_s = sub.wait("cp-llm", lambda st: st.get("state") == "Available",
+                               "Available")
+            apply_s = time.perf_counter() - t
+            shown = json.loads(sub.sdctl("get", "cp-llm"))["status"]
+            if shown["state"] != "Available" or shown["predictorStatus"][0]["replicasAvailable"] != 1:
+                raise AssertionError(f"[controlplane] sdctl get cp-llm: {shown}")
+            (member,) = sub.members("cp-llm")
+            if member["cmd"][1:3] != ["-m", "seldon_core_tpu_torch.engine_main"]:
+                raise AssertionError(f"[controlplane] the member is not the port's engine: "
+                                     f"{member['cmd']}")
+            params = member["spec"]["graph"].get("parameters") or []
+            if any(p["name"] == "device" for p in params):
+                raise AssertionError(f"[controlplane] a device was passed: {params}")
+            _s, fleet0 = _get(member["port"], "/fleet")
+            n0 = fleet0["device"]["kernel_launches"]["flash_attention"]
+            got, client_ms = {}, []
+            for label in CP_LABELS:
+                t = time.perf_counter()
+                got[label] = _cp_tokens(label, *sub.predict("cp-llm", body[label]))
+                client_ms.append((time.perf_counter() - t) * 1e3)
+            _s, fleet1 = _get(member["port"], "/fleet")
+            dev = fleet1["device"]
+            launches = dev["kernel_launches"]["flash_attention"] - n0
+            bad = [label for label in CP_LABELS if got[label] != serve_alone[label]]
+            if bad:
+                raise AssertionError(f"[controlplane] (a) tokens through sdctl/the gateway differ "
+                                     f"from the serve phase's alone tokens: {bad}")
+            if dev["memory_allocated"] <= 0 or dev["name"] != torch.cuda.get_device_name(0):
+                raise AssertionError(f"[controlplane] (a) the member is not on the card: {dev}")
+            if launches < len(CP_LABELS):
+                raise AssertionError(f"[controlplane] (a) {launches} flash launches for "
+                                     f"{len(CP_LABELS)} prefills")
+            one = _gen_body(prompts["greedy_20"], max_new=1)
+            pairs = {"gateway": [], "member": []}
+            for i in range(8):
+                order = ("gateway", "member") if i % 2 == 0 else ("member", "gateway")
+                for side in order:
+                    t = time.perf_counter()
+                    if side == "gateway":
+                        _cp_tokens("1-token", *sub.predict("cp-llm", one))
+                    else:
+                        _cp_tokens("1-token", *_post(member["port"], one,
+                                                     path="/api/v0.1/predictions"))
+                    pairs[side].append((time.perf_counter() - t) * 1e3)
+            gw_ms, mem_ms = (float(np.median(pairs[k])) for k in ("gateway", "member"))
+            log(f"[controlplane] (a) sdctl apply -> Available {apply_s:.1f} s (store file "
+                f"polled every 50 ms: {avail_s:.1f} s after the apply returned); the member "
+                f"is seldon_core_tpu_torch.engine_main pid {member['pid']} on {dev['name']} with "
+                f"no device parameter, {dev['memory_allocated'] / 2**30:.2f} GiB allocated, peak "
+                f"{dev['max_memory_allocated'] / 2**30:.2f} GiB; {len(CP_LABELS)} greedy "
+                f"requests alone through the gateway equal the serve phase's alone tokens "
+                f"({', '.join(CP_LABELS)}), client ms "
+                f"{', '.join(f'{x:.1f}' for x in client_ms)}; flash launches {launches}; a "
+                f"1-token request median of 8 (ABBA): gateway {gw_ms:.2f} ms, member port "
+                f"{mem_ms:.2f} ms, gateway overhead {gw_ms - mem_ms:.2f} ms [{card}]")
+
+            # -- (b) rolling update: an annotation change under traffic
+            results, stop_client = [], threading.Event()
+
+            def client():
+                i = 0
+                while not stop_client.is_set():
+                    label = CP_LABELS[i % len(CP_LABELS)]
+                    i += 1
+                    t0 = time.perf_counter()
+                    try:
+                        status, out = sub.predict("cp-llm", body[label])
+                    except Exception as e:  # noqa: BLE001 - recorded, fails below
+                        status, out = None, repr(e)
+                    results.append((label, t0, time.perf_counter(), status, out))
+
+            sampler = _cp_sampler()
+            thread = threading.Thread(target=client, daemon=True)
+            thread.start()
+            _wait_for(lambda: len(results) >= 2, "(b) traffic before the flip", 120)
+            old_pid = member["pid"]
+            t_apply = time.perf_counter()
+            sub.apply(root, _cp_deployment("cp-llm", full, CP_PARAMS,
+                                           annotations={"seldon.io/drain-seconds": "30"}))
+            _wait_for(lambda: len(sub.members("cp-llm")) == 2, "(b) the second generation", 300)
+            t_both = time.perf_counter()
+            _wait_for(lambda: not os.path.exists(f"/proc/{old_pid}")
+                      or old_pid not in _cp_children(sub.proc.pid), "(b) the old member's exit",
+                      300)
+            t_old_gone = time.perf_counter()
+            n_at_flip = len(results)
+            _wait_for(lambda: len(results) >= n_at_flip + 2, "(b) traffic after the flip", 120)
+            stop_client.set()
+            thread.join(600)
+            peak_mib = sampler()
+            sub.wait("cp-llm", lambda st: st.get("state") == "Available", "Available after (b)")
+            (new_member,) = sub.members("cp-llm")
+            _s, fleet_new = _get(new_member["port"], "/fleet")
+            failed = [(label, st, str(out)[:200]) for label, _a, _b, st, out in results
+                      if st != 200 or out["jsonData"]["tokens"][0] != serve_alone[label]]
+            if failed:
+                raise AssertionError(f"[controlplane] (b) requests across the rolling update "
+                                     f"failed or changed tokens: {failed[:4]}")
+            across = sum(1 for _l, a, b, _s, _o in results if b > t_apply and a < t_old_gone)
+            log(f"[controlplane] (b) annotation change -> create-before-delete: the new member "
+                f"(pid {new_member['pid']}) started {t_both - t_apply:.1f} s after the apply, "
+                f"the old one (pid {old_pid}) gone {t_old_gone - t_apply:.1f} s after it (the "
+                f"flip); {len(results)} requests sent back to back, {across} of them in flight "
+                f"during the flip, all 200 with their alone tokens; the card's memory.used peak "
+                f"{peak_mib / 1024:.2f} GiB with two generations (phase start "
+                f"{mem0 / 1024:.2f} GiB), the new member's peak allocated "
+                f"{fleet_new['device']['max_memory_allocated'] / 2**30:.2f} GiB [{card}]")
+
+            # -- (c) annotation paths at CP_SMALL_LAYERS layers
+            inproc = _Controller(root, "inproc", subprocess_runtime=False)
+            ctls.append(inproc)
+            t = time.perf_counter()
+            sub.apply(root, _cp_deployment(
+                "cp-unified", small, CP_SMALL_PARAMS, replicas=2,
+                annotations={"seldon.io/drain-seconds": "120"}))
+            sub.apply(root, _cp_deployment(
+                "cp-disagg", small, CP_SMALL_PARAMS, annotations={
+                    "seldon.io/disagg": "true", "seldon.io/disagg-prefill-replicas": "1",
+                    "seldon.io/disagg-decode-replicas": "1"}))
+            shadow_ann = {"seldon.io/shadow": "true", "seldon.io/rollout": "shadow",
+                          "seldon.io/rollout-steps": "1", "seldon.io/rollout-interval-s": "2",
+                          "seldon.io/rollout-min-samples": "3"}
+            graph = {"name": "llm", "implementation": "GENERATE_SERVER", "modelUri": small,
+                     "parameters": CP_SMALL_PARAMS}
+            inproc.apply(root, _cp_deployment("cp-shadow", small, CP_SMALL_PARAMS, predictors=[
+                {"name": "baseline", "traffic": 100, "graph": graph},
+                {"name": "canary", "annotations": shadow_ann, "graph": graph}]))
+            for c, name in ((sub, "cp-unified"), (sub, "cp-disagg"), (inproc, "cp-shadow")):
+                c.wait(name, lambda st: st.get("state") == "Available", "Available")
+            boot_s = time.perf_counter() - t
+            roles = sorted(p["value"] for mm in sub.members("cp-disagg")
+                           for p in mm["spec"]["graph"]["parameters"] if p["name"] == "role")
+            if roles != ["decode", "prefill"]:
+                raise AssertionError(f"[controlplane] (c) disagg roles {roles}")
+            uni, dis = {}, {}
+            for label in CP_LABELS:
+                uni[label] = _cp_tokens(label, *sub.predict("cp-unified", body[label]))
+                dis[label] = _cp_tokens(label, *sub.predict("cp-disagg", body[label]))
+            if dis != uni:
+                raise AssertionError(f"[controlplane] (c) disagg != unified: "
+                                     f"{[k for k in uni if dis[k] != uni[k]]}")
+            (dec,) = [mm for mm in sub.members("cp-disagg")
+                      if any(p["value"] == "decode" for p in mm["spec"]["graph"]["parameters"]
+                             if p["name"] == "role")]
+            _s, fleet_dec = _get(dec["port"], "/fleet")
+            imports = sum(c["value"] for c in fleet_dec["metrics"]["counters"].get(
+                "seldon_engine_kv_transfer_slabs", []) if c["labels"].get("direction") == "import")
+            if imports < len(CP_LABELS):
+                raise AssertionError(f"[controlplane] (c) the decode member imported {imports} "
+                                     f"KV slabs for {len(CP_LABELS)} requests")
+            log(f"[controlplane] (c) cp-unified (2 members), cp-disagg (prefill + decode) and "
+                f"the in-process controller's cp-shadow Available {boot_s:.1f} s after the "
+                f"applies (llm-1.26b widths, {CP_SMALL_LAYERS} of 24 layers, bf16); disagg == "
+                f"unified token for token on {len(CP_LABELS)} greedy prompts; the decode "
+                f"member imported {imports:.0f} KV slabs [{card}]")
+
+            # scale 2 -> 1 with requests in flight on both members
+            drain_body = _gen_body(prompts["greedy_20"], max_new=CP_DRAIN_NEW)
+            t = time.perf_counter()
+            want = _cp_tokens("drain ref", *sub.predict("cp-unified", drain_body))
+            one_s = time.perf_counter() - t
+            # a queue of >= 3 s on each member: in flight when the scale
+            # lands (sdctl's process, the store rescan, then the drain)
+            per_member = max(2, min(8, math.ceil(3.0 / max(one_s, 1e-3))))
+            members = sub.members("cp-unified")
+            if len(members) != 2:
+                raise AssertionError(f"[controlplane] (c) cp-unified has {len(members)} members")
+            out, threads = [], []
+            for mm in members:
+                for _ in range(per_member):
+                    th = threading.Thread(target=lambda p=mm["port"]: out.append(
+                        _post(p, drain_body, path="/api/v0.1/predictions")), daemon=True)
+                    th.start()
+                    threads.append(th)
+
+            def inflight(mm):
+                _s, b = _get(mm["port"], "/inflight")
+                return b["inflight"]
+
+            _wait_for(lambda: all(inflight(mm) >= per_member for mm in members),
+                      "(c) requests in flight on both members", 60)
+            t = time.perf_counter()
+            sub.sdctl("scale", "cp-unified", "1")
+            _wait_for(lambda: len(sub.members("cp-unified")) == 1, "(c) the scale-down", 300)
+            scale_s = time.perf_counter() - t
+            for th in threads:
+                th.join(600)
+            bad = [(st, str(b)[:200]) for st, b in out
+                   if st != 200 or b["jsonData"]["tokens"][0] != want]
+            if len(out) != 2 * per_member or bad:
+                raise AssertionError(f"[controlplane] (c) scale-down: {len(out)} of "
+                                     f"{2 * per_member} answered, failed {bad[:3]}")
+            drained = re.findall(r"drained (\d+) in-flight generation\(s\) to \S+ over /drain "
+                                 r"in ([0-9.]+) ms", sub.log_text())
+            if not drained or int(drained[-1][0]) < 1:
+                raise AssertionError(f"[controlplane] (c) no drain over /drain: {sub.tail()}")
+            log(f"[controlplane] (c) sdctl scale cp-unified 2 -> 1 with {per_member} requests of "
+                f"{CP_DRAIN_NEW} tokens queued on each member (one alone took {one_s:.2f} s): "
+                f"the removed member drained {drained[-1][0]} generation(s) over /drain in "
+                f"{float(drained[-1][1]):.1f} ms, member gone {scale_s:.1f} s after the scale; "
+                f"all {len(out)} requests 200 with the alone tokens [{card}]")
+
+            # shadow rollout on the in-process controller
+            sent = 0
+            t = time.perf_counter()
+            short = {label: _gen_body(prompts[label], max_new=16) for label in CP_LABELS}
+            while True:
+                _cp_tokens("shadow", *inproc.predict("cp-shadow", short[CP_LABELS[sent % 3]]))
+                sent += 1
+                phase = (inproc.state("cp-shadow").get("rollout") or {}).get("phase")
+                if phase not in (None, "ramping"):
+                    break
+                if time.perf_counter() - t > 120:
+                    raise AssertionError("[controlplane] (c) the shadow rollout never ended")
+            if phase != "promoted":
+                raise AssertionError(f"[controlplane] (c) shadow rollout {phase}: "
+                                     f"{inproc.tail()}")
+            base = inproc.predict("cp-shadow", body["greedy_128"])
+            cand = inproc.predict("cp-shadow", body["greedy_128"],
+                                  headers={"seldon-predictor": "canary"})
+            diff = diff_responses(base[1], cand[1])
+            if base[0] != 200 or cand[0] != 200 or diff["diverged"] or diff["mismatch_tokens"]:
+                raise AssertionError(f"[controlplane] (c) baseline vs canary: {diff}")
+            log(f"[controlplane] (c) shadow rollout (in-process controller, both predictors "
+                f"on the card): promoted after {sent} requests mirrored to the canary "
+                f"({time.perf_counter() - t:.1f} s; a 2 s window of >= 3 mirrored samples, no "
+                f"divergence); diff_responses(baseline, canary) on greedy_128: "
+                f"{diff['mismatch_tokens']} token diffs [{card}]")
+
+            # -- (d) teardown
+            pids = [mm["pid"] for mm in sub.members()]
+            t = time.perf_counter()
+            for c, names in ((sub, ("cp-llm", "cp-unified", "cp-disagg")),
+                             (inproc, ("cp-shadow",))):
+                for name in names:
+                    c.sdctl("delete", name)
+            _wait_for(lambda: not sub.members(), "(d) the members' exit", 120)
+            delete_s = time.perf_counter() - t
+            left = [c.stop() for c in ctls]
+            ctls = []
+            alive = [p for p in pids if os.path.exists(f"/proc/{p}")]
+            mem_end = _smi_used()
+            if any(left) or alive or mem_end > mem0 + 1024:
+                raise AssertionError(f"[controlplane] (d) members left {left} {alive}, "
+                                     f"memory.used {mem_end} MiB vs {mem0} MiB at the start")
+            log(f"[controlplane] (d) sdctl delete: all {len(pids)} members gone "
+                f"{delete_s:.1f} s after the deletes, both controllers stopped; the card's "
+                f"memory.used {mem_end / 1024:.2f} GiB (phase start {mem0 / 1024:.2f} GiB) "
+                f"[{card}]")
+        except BaseException:
+            for c in ctls:  # the members' side of the failure
+                log(f"[controlplane] {os.path.basename(c.log_path)} (tail):\n{c.tail(12000)}")
+            raise
+        finally:
+            for c in ctls:
+                c.stop()
+    log(f"[controlplane] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 PHASES = ("kernels", "small", "serve", "engine", "small-sched", "sched", "prefix",
           "pressure", "spec", "spec-pressure", "dh256", "f32", "disagg", "kvtier", "migration",
-          "telemetry", "fronts", "zoo", "rag", "model", "explain", "moe", "train")
+          "telemetry", "fronts", "zoo", "rag", "model", "explain", "moe", "train",
+          "controlplane")
 
 
 def _llm_model():
@@ -6988,7 +7552,7 @@ def main(argv=None) -> int:
         spec_launches = dh256_launches = f32_launches = None
         disagg_launches = kvtier_launches = migration_launches = telemetry_launches = None
         fronts_launches = zoo_launches = rag_launches = explain_launches = None
-        moe_launches = train_launches = None
+        moe_launches = train_launches = controlplane_launches = None
         if "serve" in phases:
             launches, alone, serve_numbers = phase_serve(card)
             free()  # the serve phase's copy of the model goes
@@ -7070,6 +7634,11 @@ def main(argv=None) -> int:
             train_launches = phase_train(card)
             free()
             lap("train")
+        if "controlplane" in phases:
+            controlplane_launches = phase_controlplane(
+                card, serve_numbers["alone_tokens"] if serve_numbers else None)
+            free()
+            lap("controlplane")
         # the profiler runs last: once it has traced the card, later
         # launches may carry its overhead
         if "model" in phases:
@@ -7108,6 +7677,7 @@ def main(argv=None) -> int:
             "explain_launches": explain_launches,
             "moe_launches": moe_launches,
             "train_launches": train_launches,
+            "controlplane_launches": controlplane_launches,
             "dh256_launches": dh256_launches,
             "max_abs_err": worst(lambda r: r["dtype"] == "bfloat16"),
             "wgmma_max_abs_err": worst(lambda r: r["route"] == "wgmma"),

@@ -44,6 +44,7 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import sys
 import threading
 import time
 from typing import Any, Dict, Optional
@@ -114,6 +115,26 @@ class RequestLogger:
             )
         except Exception as e:  # noqa: BLE001 - logging must not break serving
             logger.warning("request logging failed: %s", e)
+
+
+def _cuda_summary() -> Optional[Dict[str, Any]]:
+    """This process's CUDA device, its memory and the flash kernel's
+    launch counts, once the process has used the card (None before, and
+    on the CPU): what a control plane reads to see that a member runs on
+    the card."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return None
+    fa = sys.modules.get("seldon_core_tpu_torch.ops.flash_attention")
+    dev = torch.cuda.current_device()
+    return {
+        "name": torch.cuda.get_device_name(dev),
+        "index": dev,
+        "memory_allocated": torch.cuda.memory_allocated(dev),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "memory_reserved": torch.cuda.memory_reserved(dev),
+        "kernel_launches": dict(fa.LAUNCHES) if fa is not None else {},
+    }
 
 
 class EngineApp:
@@ -223,11 +244,15 @@ class EngineApp:
             if cfg is not None:
                 units.setdefault(name, {})["planning"] = {
                     "config": cfg, "census": target.retune_census()}
-        return {
+        out = {
             "predictor": self.spec.name,
             "metrics": self.metrics.fleet_snapshot(),
             "units": units,
         }
+        device = _cuda_summary()
+        if device is not None:
+            out["device"] = device
+        return out
 
     def _flush_unit_metrics(self, unit) -> None:
         """Fold one in-process unit's ``metrics()`` deltas into the

@@ -490,6 +490,7 @@ class _StepGraphs:
         self.graphs: Dict[tuple, Any] = {}
         self._pool = None
         self._side = None
+        self._tls = threading.local()
 
     def clear(self) -> None:
         self.graphs.clear()
@@ -510,6 +511,8 @@ class _StepGraphs:
         with torch.cuda.stream(self._side), torch.inference_mode():
             if warm_first:
                 fn()
+            else:
+                self._init_libraries()
             reserved = torch.cuda.memory_reserved(self.device)
             graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
             try:
@@ -521,6 +524,21 @@ class _StepGraphs:
         self.stats["graph_pool_bytes"] += torch.cuda.memory_reserved(self.device) - reserved
         self.stats["graphs_captured"] += 1
         self.stats["graph_capture_s"] += time.perf_counter() - t0
+
+    def _init_libraries(self) -> None:
+        """cuBLAS makes a handle per thread, and a workspace per handle
+        and stream, at the first product it runs; made inside a capture
+        that fails (CUBLAS_STATUS_NOT_INITIALIZED). Before an inline
+        capture, run one small product of each dtype eagerly on the
+        capture stream, once per thread: a decode role's loop thread
+        runs no prefill of its own, so its first product may come inside
+        a capture. The products touch no live state."""
+        if getattr(self._tls, "ready", False):
+            return
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.zeros(16, 16, device=self.device, dtype=dtype)
+            a @ a
+        self._tls.ready = True
 
     def run(self, key: tuple, fn) -> None:
         graph = self.graphs.get(key)

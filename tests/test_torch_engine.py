@@ -311,11 +311,26 @@ def test_batcher_deadline_shed_matches_jax_rule(engines, monkeypatch):
     ("seldon.io/tenants", "a=strict"), ("seldon.io/planner", "true"),
 ])
 def test_not_ported_annotations_raise(annotation):
+    """Only sharded serving (``seldon.io/mesh``) is still refused as not
+    ported. The disagg, KV-tier, tenants and planner annotations are
+    validated as the JAX engine validates them: on this SIMPLE_MODEL
+    graph each gives the JAX package's verdict, word for word."""
     from seldon_core_tpu_torch.graph.spec import GraphSpecError
 
     graph = {"name": "m", "implementation": "SIMPLE_MODEL"}
-    with pytest.raises(GraphSpecError, match="not ported"):
-        build_spec(PORT, graph, dict([annotation]))
+    if annotation[0] == "seldon.io/mesh":
+        with pytest.raises(GraphSpecError, match="not ported"):
+            build_spec(PORT, graph, dict([annotation]))
+    else:
+        verdicts = []
+        for pkg in (JAX, PORT):
+            try:
+                build_spec(pkg, graph, dict([annotation]))
+                verdicts.append(None)
+            except Exception as e:  # noqa: BLE001 - the verdict is the datum
+                verdicts.append((type(e).__name__, str(e)))
+        assert verdicts[1] == verdicts[0]
+        assert verdicts[1] is None or "not ported" not in verdicts[1][1]
     # the off values are accepted
     build_spec(PORT, graph, {"seldon.io/fuse": "false", "seldon.io/planner": "false"})
 

@@ -147,3 +147,41 @@ def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):
                               timeout=120, env=env, cwd=cwd)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+# the control plane, rollouts and the serving planner, driven through the
+# port's sdctl in a fresh interpreter
+_CONTROL_PLANE_CHILD = r'''
+import json, os, sys, tempfile
+from seldon_core_tpu_torch.controlplane import cli
+from seldon_core_tpu_torch.controlplane.reconciler import DeploymentController
+from seldon_core_tpu_torch.planning import CostModel, ServingPlanner, TrafficSim
+from seldon_core_tpu_torch.rollout import RolloutController, ShadowMirror, diff_responses
+d = tempfile.mkdtemp()
+dep = os.path.join(d, "dep.json")
+json.dump({"name": "iso", "predictors": [{"name": "p0", "graph": {
+    "name": "m", "implementation": "SIMPLE_MODEL"}}]}, open(dep, "w"))
+cli.main(["--store-dir", os.path.join(d, "store"), "apply", "-f", dep])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "seldon_core_tpu"
+             or m.startswith("seldon_core_tpu."))
+print(json.dumps({"bad": bad, "diff": diff_responses({"jsonData": {"tokens": [[1]]}},
+                                                     {"jsonData": {"tokens": [[1]]}})}))
+'''
+
+
+def test_control_plane_subpackages_stand_alone():
+    for sub in ("controlplane", "rollout", "planning"):
+        files = [f for f in os.listdir(os.path.join(PKG, sub)) if f.endswith(".py")]
+        assert "__init__.py" in files
+        for f in files:
+            text = open(os.path.join(PKG, sub, f)).read()
+            assert not _IMPORT_JAX.search(text) and not _IMPORT_REF.search(text), (sub, f)
+            assert not _RELATIVE_OUT.search(text), (sub, f)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", _CONTROL_PLANE_CHILD], capture_output=True,
+                          text=True, timeout=300, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "seldondeployment.machinelearning.seldon.io/iso added" in proc.stdout
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == [] and out["diff"]["diverged"] is False

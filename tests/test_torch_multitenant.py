@@ -378,25 +378,28 @@ def test_scale_to_zero_pages_back_without_recapture(model_dirs):
 
 
 def test_starvation_bound_forces_the_flip(model_dirs):
-    s = _mk_server(model_dirs, tenant_max_wait_polls=1, tenant_min_resident_ms=0)
+    """A waiter is flipped in by the starvation bound alone. The resident
+    tenant holds a backlog deeper than one poll (four requests on two
+    slots) when the waiter arrives, and a long minimum residency rules
+    out the natural flip while that backlog runs, so the first poll after
+    the waiter's arrival forces the switch. (A single in-flight request
+    leaves gaps in which the idle resident yields: a natural flip.)"""
+    s = _mk_server(model_dirs, tenant_max_wait_polls=1, tenant_min_resident_ms=60_000)
     try:
-        stop = threading.Event()
-
-        def flood():
-            while not stop.is_set():
-                try:
-                    _gen(s, PROMPTS[0], tenant="acme", n=8)
-                except RuntimeError:
-                    return
-
-        t = threading.Thread(target=flood, daemon=True)
-        t.start()
-        try:
-            assert len(_gen(s, PROMPTS[1], tenant="globex", n=8)) == len(PROMPTS[1]) + 8
-        finally:
-            stop.set()
-            t.join(timeout=60)
-        assert not t.is_alive()
+        done = []
+        backlog = [threading.Thread(target=lambda: done.append(
+            _gen(s, PROMPTS[0], tenant="acme", n=24)), daemon=True) for _ in range(4)]
+        for t in backlog:
+            t.start()
+        deadline = time.monotonic() + 60
+        while not s.batcher._active and time.monotonic() < deadline:
+            time.sleep(0.001)
+        assert s.batcher._active and s.tenant_pager.resident == "acme"
+        assert len(_gen(s, PROMPTS[1], tenant="globex", n=8)) == len(PROMPTS[1]) + 8
+        for t in backlog:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in backlog)
+        assert [len(d) for d in done] == [len(PROMPTS[0]) + 24] * 4
         assert s.tenant_scheduler.stats["switches"] >= 1
         assert s.tenant_scheduler.stats["forced_switches"] >= 1
     finally:
