@@ -7,7 +7,7 @@ Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails. ``--phases`` runs a subset of
 ``kernels, small, serve, engine, small-sched, sched, prefix, pressure,
 spec, spec-pressure, dh256, f32, disagg, kvtier, migration, telemetry,
-fronts, zoo, rag, explain, moe, train, model, controlplane``
+fronts, zoo, rag, explain, moe, train, model, controlplane, tools``
 (device and build always run; the
 result lines print only when every phase ran, as with no argument):
 
@@ -82,8 +82,8 @@ result lines print only when every phase ran, as with no argument):
 9. Prefix cache (llm-1.26b, bf16, the JAX package's shared-prefix
    scenario: 4 system prompts of 384 tokens, 32 prompts of a system
    prompt + 64 user tokens, 64 new tokens, 16 slots, cache length 640,
-   2 GiB of cache): cache on against off, alternated on, off, off, on in
-   one process, each run priming one request per system prompt and then
+   2 GiB of cache): cache on against off, alternated on, off, on in one
+   process, each run priming one request per system prompt and then
    queuing the 32 whole. Fails unless every request answers 64 tokens,
    each cache-on wave makes 32 hits and no miss, the on-runs repeat,
    every whole prefill launched the flash kernel and no graph is
@@ -232,10 +232,10 @@ result lines print only when every phase ran, as with no argument):
    and ``seldon.io/max-inflight`` 4, every batch shape the batcher can
    produce warmed first, driven over REST with binary SeldonMessages of
    raw uint8 [32, 224, 224, 3] photo-like images at concurrency 16 for
-   8 s (a 429 backs off 20 ms); (b) BERT-base (bf16, 2 classes) the same
+   4 s (a 429 backs off 20 ms); (b) BERT-base (bf16, 2 classes) the same
    way over gRPC ``Seldon/Predict`` (REST binary protobuf when grpcio
    does not import; the line says which) with raw int32 [16, 128] token
-   ids, max-batch 256, timeout 25 ms, concurrency 64 for 8 s. Each prints
+   ids, max-batch 256, timeout 25 ms, concurrency 64 for 4 s. Each prints
    rows/s, req/s, p50/p99, flushes, rows per flush, padded rows, 429s,
    H2D ms per flush, peak memory and MFU against 989 TFLOP/s, and one
    bf16 forward at the max batch in CUDA-event device time; fails on any
@@ -298,7 +298,7 @@ result lines print only when every phase ran, as with no argument):
    explainer (150 seeded background rows) pointed at it over REST:
    ablation within 1e-6 and the same anchors, precision and coverage as
    against the model on the CPU; (c) ``VAEOutlier.fit`` and
-   ``Seq2SeqOutlier.fit`` at their default widths and epochs on the
+   ``Seq2SeqOutlier.fit`` at their default widths and 25 epochs on the
    card and on the CPU: the same flags on seeded inliers and planted
    outliers, scores within 1e-3, seconds per epoch; (d) SKLEARN,
    XGBOOST, MLFLOW, TENSORFLOW and SAGEMAKER servers resolved from graph
@@ -348,8 +348,8 @@ result lines print only when every phase ran, as with no argument):
    the JAX package); its count (0) joins the ``kernels`` line.
 24. Model (on the engine phase's copy, after every serving phase: a
    profiler run may slow later launches): full-width prefill time per
-   bucket with the flash kernel's device time inside it
-   (torch.profiler), a prefix hit's suffix prefill against the full
+   bucket, with the flash kernel's device time inside the 128 and 1024
+   ones (torch.profiler), a prefix hit's suffix prefill against the full
    512-bucket prefill (wall and device-busy time), a decode step's wall
    time beside its device-busy time and weight-read bound, and a
    16-step decode burst through the batcher, eager against CUDA-graph
@@ -365,13 +365,14 @@ result lines print only when every phase ran, as with no argument):
    with its gateway; (a) ``sdctl apply`` of a GENERATE_SERVER
    SeldonDeployment of llm-1.26b (full width and depth, bf16, seed 0, the
    serve phase's parameters without ``device``) -> Available; three
-   greedy requests alone through the gateway must equal the serve
-   phase's alone tokens, the member must be
+   greedy requests alone through the gateway (one of them through the
+   port's ``SeldonClient``) must equal the serve phase's alone tokens,
+   the member must be
    ``seldon_core_tpu_torch.engine_main`` with no device parameter and
    CUDA memory on the card in its ``/fleet``, and the flash kernel must
    launch there (its count joins the ``kernels`` line); the gateway's
    overhead against the member's port (1-token requests, ABBA, median
-   of 8); (b) an annotation change: create-before-delete with two
+   of 4); (b) an annotation change: create-before-delete with two
    generations on the card while a client sends requests back to back,
    every one 200 with its alone tokens; (c) at llm-1.26b's widths and 8
    of 24 layers (depth cut for the time budget), one slot:
@@ -385,7 +386,27 @@ result lines print only when every phase ran, as with no argument):
    member left, both controllers stopped, the card's memory back.
    Prints apply -> Available, client ms, peak memory, flip, drain and
    teardown seconds.
-26. The ``kernels`` JSON line (the flash kernel on the main path, its
+26. Tools (the user's tools against the port's engines on the card):
+   one engine serving ResNet-50 (bf16, 224, micro-batched as the zoo
+   phase's (a), without its admission cap), one the iris MLP at float32;
+   (a) the port's ``tester`` fuzzes the MLP from a contract (every
+   response inside the contract's targets) and ``SeldonClient`` over
+   REST, and over gRPC where ``import grpc`` works, answers what a plain
+   HTTP call answers; (b) ``python -m seldon_core_tpu_torch.loadtester``
+   as a process of its own against ResNet-50 over REST with ``--binary``
+   (2 workers x 4 clients, 5 s): no failure, its table, rows/s and the
+   micro-batcher's flushes; (c) the batch scorer over 256 MLP rows with
+   ``--batch-rows 8`` and concurrency 16: one output line per row in
+   input order, each row equal to the same row scored alone (float32,
+   TF32 off, within 1e-4 of the largest); (d) the native engine
+   (``native_engine.NativeEngine``) fronting the port's microservice on
+   the card as a remote REST unit: its answers equal the port's Python
+   engine's on the same spec, and the load tester's rows/s against both
+   for the same seconds; where the machine lacks ``protoc`` or the
+   protobuf headers (probed before any build), one line says the native
+   engine was not driven. The flash kernel launches 0 times (no model
+   here runs it).
+27. The ``kernels`` JSON line (the flash kernel on the main path, its
    Dh 256 instance on the dh256 phase's and its float32 instance on the
    f32 phase's), then the final ``{"ok": true, ...}`` line.
 
@@ -398,6 +419,7 @@ import asyncio
 import collections
 import gc
 import http.client
+import io
 import json
 import math
 import os
@@ -1700,7 +1722,7 @@ def _prefix_run(gate, b, systems, prompts):
 def phase_prefix(card, model, params):
     """The radix prefix cache at llm-1.26b (bf16, full width and depth):
     the shared-prefix traffic with the cache on (2 GiB) and off,
-    alternated on, off, off, on in one process. Fails unless every
+    alternated on, off, on in one process. Fails unless every
     request answers 64 tokens, each on-run's wave makes 32 hits and no
     miss after priming, the two on-runs give the same tokens, every
     priming miss launched the flash kernel and no decode graph is
@@ -1728,7 +1750,7 @@ def phase_prefix(card, model, params):
         b.start()
         live[name] = b
     runs = {"on": [], "off": []}
-    for name in ("on", "off", "off", "on"):
+    for name in ("on", "off", "on"):
         runs[name].append(_prefix_run(gates[name], live[name], systems, prompts))
     inline = {name: b.stats["graph_captures_inline"] for name, b in live.items()}
     for b in live.values():
@@ -2088,6 +2110,10 @@ def phase_small_scheduler():
         f"{dict(sorted(fa.ROUTE_LAUNCHES.items()))}")
 
 
+# the prefill buckets profiled (every bucket's wall time is taken)
+MODEL_PROFILED_BUCKETS = (128, 1024)
+
+
 def phase_model(model, params):
     """Model-layer times at full width: prefill per bucket (B=1), and one
     ragged decode step over 8 lanes — its wall time beside the device
@@ -2107,8 +2133,8 @@ def phase_model(model, params):
     # then, under the profiler (after all the wall times: a profiler run
     # can slow later launches), the flash kernel's device time inside a
     # prefill, by its name in the per-kernel sums
-    for t, toks in prompts.items():
-        n = 3
+    for t in MODEL_PROFILED_BUCKETS:
+        toks, n = prompts[t], 1
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 model.prefill(params, toks, t)
@@ -2137,7 +2163,7 @@ def phase_model(model, params):
     busy = {}
     for name, fn in cases.items():
         wall_ms = time_ms(fn, iters=5, warmup=1)
-        n = 3
+        n = 1
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
@@ -2164,9 +2190,9 @@ def phase_model(model, params):
         for _ in range(3):
             step()
         torch.cuda.synchronize()
-        # 3 eager steps traced (the profiler's processing takes ~2 s a
-        # step; the per-step averages need no more)
-        n = 3
+        # 1 eager step traced (the profiler's processing takes ~2 s a
+        # step; the 3 warm steps above precede it)
+        n = 1
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
@@ -2564,8 +2590,8 @@ def phase_spec_round(model, params):
     try:
         for name, fn in cases.items():
             with torch.inference_mode():
-                wall_ms = time_ms(fn, iters=5, warmup=2)
-                n = 3
+                wall_ms = time_ms(fn, iters=3, warmup=1)
+                n = 1
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     for _ in range(n):
                         fn()
@@ -4897,7 +4923,7 @@ ZOO_VIT = {"image_size": 224, "patch_size": 16, "d_model": 768, "n_layers": 12,
            "n_heads": 12, "d_ff": 3072, "num_classes": 1000, "dtype": "bfloat16", "seed": 0}
 ZOO_MLP = {"in_features": 4, "hidden": [64, 64], "num_classes": 3, "dtype": "bfloat16",
            "seed": 0}
-ZOO_WINDOW_S = 8.0
+ZOO_WINDOW_S = 4.0
 ZOO_DEVICE = "cuda"
 ZOO_RESNET_BATCH, ZOO_BERT_BATCH, ZOO_BERT_SEQ = 32, 16, 128
 ZOO_RESNET_ANN = {"seldon.io/microbatch": "true", "seldon.io/microbatch-max-batch": "128",
@@ -5503,10 +5529,10 @@ def phase_zoo(card):
     """The predict path's model zoo at full width (random weights from seed
     0): (a) ResNet-50 bf16 through the engine over REST (binary
     SeldonMessage, raw uint8 [32, 224, 224, 3]; micro-batching max-batch
-    128, timeout 600 ms; max-inflight 4; concurrency 16 for 8 s, a 429
+    128, timeout 600 ms; max-inflight 4; concurrency 16 for 4 s, a 429
     backs off); (b) BERT-base bf16 through the engine over gRPC
     Seldon/Predict (REST binary protobuf without grpcio; raw int32 [16,
-    128]; max-batch 256, timeout 25 ms; concurrency 64 for 8 s); the f32
+    128]; max-batch 256, timeout 25 ms; concurrency 64 for 4 s); the f32
     gates (micro-batched == alone, card == CPU); (c) ViT-B/16 and the
     iris MLP through the REST microservice; (d) the bandit routers.
     Returns the flash kernel's launches over the phase (no zoo model
@@ -6010,7 +6036,8 @@ EXPLAIN_COMPLETENESS = 0.05
 EXPLAIN_MLP = dict(ZOO_MLP, dtype="float32")
 EXPLAIN_ABLATION_TOL = 1e-6  # float32 probabilities, card vs CPU (ulps)
 EXPLAIN_TRAINED_RTOL = 1e-3  # detector scores trained on the card vs the CPU
-EXPLAIN_VAE_EPOCHS, EXPLAIN_SEQ_EPOCHS = 50, 50
+# half the detectors' default 50 epochs (the smoke's time budget)
+EXPLAIN_VAE_EPOCHS, EXPLAIN_SEQ_EPOCHS = 25, 25
 # the host servers whose library the card's machine lacks: (implementation,
 # the module its load imports first, the error naming it)
 EXPLAIN_SERVERS = (("SKLEARN_SERVER", "joblib", "joblib"),
@@ -6172,7 +6199,7 @@ def _explain_white_box(card, dirs):
     try:
         _explain_call(port, imgs, what="bf16 warm-up")
         lat, outs = [], []
-        for _ in range(3):
+        for _ in range(2):
             got, dt = _explain_call(port, imgs, what="bf16 IG")
             lat.append(dt)
             outs.append(got)
@@ -6334,7 +6361,7 @@ def _explain_black_box(card, root, dirs):
 
 def _explain_training(card):
     """(c) VAEOutlier.fit and Seq2SeqOutlier.fit on the card and on the CPU
-    at their default widths and epochs: the same flags on seeded inliers
+    at their default widths and 25 epochs: the same flags on seeded inliers
     and planted outliers, scores within EXPLAIN_TRAINED_RTOL."""
     import numpy as np
     import torch
@@ -7183,6 +7210,7 @@ def phase_controlplane(card, serve_alone):
     import numpy as np
     import torch
 
+    from seldon_core_tpu_torch.client import SeldonClient
     from seldon_core_tpu_torch.rollout import diff_responses
 
     t_phase = time.perf_counter()
@@ -7234,9 +7262,17 @@ def phase_controlplane(card, serve_alone):
             _s, fleet0 = _get(member["port"], "/fleet")
             n0 = fleet0["device"]["kernel_launches"]["flash_attention"]
             got, client_ms = {}, []
+            # the first request through the port's SeldonClient
+            client = SeldonClient(deployment_name="cp-llm",
+                                  gateway_endpoint=f"127.0.0.1:{sub.gw_port}", timeout_s=600)
             for label in CP_LABELS:
                 t = time.perf_counter()
-                got[label] = _cp_tokens(label, *sub.predict("cp-llm", body[label]))
+                if label == CP_LABELS[0]:
+                    r = client.predict(json_data=body[label]["jsonData"])
+                    got[label] = _cp_tokens(f"{label} (SeldonClient)",
+                                            200 if r.success else r.msg, r.response)
+                else:
+                    got[label] = _cp_tokens(label, *sub.predict("cp-llm", body[label]))
                 client_ms.append((time.perf_counter() - t) * 1e3)
             _s, fleet1 = _get(member["port"], "/fleet")
             dev = fleet1["device"]
@@ -7252,7 +7288,7 @@ def phase_controlplane(card, serve_alone):
                                      f"{len(CP_LABELS)} prefills")
             one = _gen_body(prompts["greedy_20"], max_new=1)
             pairs = {"gateway": [], "member": []}
-            for i in range(8):
+            for i in range(4):
                 order = ("gateway", "member") if i % 2 == 0 else ("member", "gateway")
                 for side in order:
                     t = time.perf_counter()
@@ -7268,10 +7304,10 @@ def phase_controlplane(card, serve_alone):
                 f"is seldon_core_tpu_torch.engine_main pid {member['pid']} on {dev['name']} with "
                 f"no device parameter, {dev['memory_allocated'] / 2**30:.2f} GiB allocated, peak "
                 f"{dev['max_memory_allocated'] / 2**30:.2f} GiB; {len(CP_LABELS)} greedy "
-                f"requests alone through the gateway equal the serve phase's alone tokens "
-                f"({', '.join(CP_LABELS)}), client ms "
+                f"requests alone through the gateway ({CP_LABELS[0]} through SeldonClient) "
+                f"equal the serve phase's alone tokens ({', '.join(CP_LABELS)}), client ms "
                 f"{', '.join(f'{x:.1f}' for x in client_ms)}; flash launches {launches}; a "
-                f"1-token request median of 8 (ABBA): gateway {gw_ms:.2f} ms, member port "
+                f"1-token request median of 4 (ABBA): gateway {gw_ms:.2f} ms, member port "
                 f"{mem_ms:.2f} ms, gateway overhead {gw_ms - mem_ms:.2f} ms [{card}]")
 
             # -- (b) rolling update: an annotation change under traffic
@@ -7478,10 +7514,262 @@ def phase_controlplane(card, serve_alone):
     return launches
 
 
+# the tools phase: the user's tools against engines on the card
+TOOLS_SECONDS = 5.0
+TOOLS_WORKERS, TOOLS_CLIENTS = 2, 4
+# the zoo's micro-batching without its admission cap: the load tester
+# counts a 429 as a failure (it has no backoff)
+TOOLS_RESNET_ANN = {k: v for k, v in ZOO_RESNET_ANN.items() if k != "seldon.io/max-inflight"}
+TOOLS_MLP = dict(ZOO_MLP, dtype="float32")
+TOOLS_ROWS, TOOLS_BATCH_ROWS, TOOLS_CONCURRENCY = 256, 8, 16
+TOOLS_NAMES = ["sepal_length", "sepal_width", "petal_length", "petal_width"]
+TOOLS_CONTRACT = {
+    "features": [{"name": n, "ftype": "continuous", "dtype": "FLOAT", "range": [0.1, 7.9]}
+                 for n in TOOLS_NAMES],
+    "targets": [{"name": "proba", "ftype": "continuous", "dtype": "FLOAT", "range": [0, 1],
+                 "shape": [3]}],
+}
+
+
+def _tools_load(card, tag, target, body_path, rows_per_request):
+    """``python -m seldon_core_tpu_torch.loadtester`` as a process of its own
+    (its workers fork; this process holds a CUDA context and server
+    threads) against ``target`` for TOOLS_SECONDS: its stats, checked for
+    no failure, its table printed."""
+    from seldon_core_tpu_torch.loadtester import format_table
+
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "seldon_core_tpu_torch.loadtester", target,
+           "--workers", str(TOOLS_WORKERS), "--clients-per-worker", str(TOOLS_CLIENTS),
+           "--seconds", str(TOOLS_SECONDS), "--binary", "--body-file", body_path,
+           "--timeout", "120", "--json"]
+    proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True,
+                          timeout=TOOLS_SECONDS + 300)
+    if proc.returncode != 0:
+        raise AssertionError(f"[tools] {tag}: the load tester exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    stats = json.loads(proc.stdout.strip().splitlines()[-1])
+    if stats["failures"] or not stats["requests"]:
+        raise AssertionError(f"[tools] {tag}: {stats['requests']} requests, "
+                             f"{stats['failures']} failures")
+    for line in format_table(stats).splitlines():
+        log(f"[tools] {tag} | {line}")
+    rows_s = stats["rps"] * rows_per_request
+    log(f"[tools] {tag}: {stats['requests']} requests, 0 failures, {stats['rps']:.2f} req/s = "
+        f"{rows_s:.1f} rows/s ({rows_per_request} rows a request; the load tester's wall time "
+        f"includes its workers' start) [{card}]")
+    return stats, rows_s
+
+
+def _tools_client(card, mlp_port, mlp_gport, grpc_ok):
+    """(a) The tester fuzzes the MLP from a contract; SeldonClient over REST
+    (and gRPC) against a plain HTTP call."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.client import SeldonClient
+    from seldon_core_tpu_torch.tester import run_contract_test
+
+    rest = SeldonClient(engine_endpoint=f"127.0.0.1:{mlp_port}", timeout_s=120)
+    t = time.perf_counter()
+    summary = run_contract_test(rest, TOOLS_CONTRACT, n_requests=16, batch_size=4,
+                                external=True, seed=0)
+    if summary["ok"] != 16 or summary["failed"]:
+        raise AssertionError(f"[tools] (a) the contract test failed: {summary}")
+    log(f"[tools] (a) tester: 16 contract-generated requests of 4 rows (seed 0) through the "
+        f"MLP engine, every response inside the contract's targets, in "
+        f"{time.perf_counter() - t:.2f} s: {summary}")
+    X = np.random.RandomState(3).uniform(0.1, 7.9, (4, 4)).round(2)
+    status, plain = _post(mlp_port, {"data": {"names": TOOLS_NAMES, "ndarray": X.tolist()}},
+                          path="/api/v0.1/predictions")
+    got = rest.predict(X, names=TOOLS_NAMES)
+    if status != 200 or not got.success or got.response["data"] != plain["data"]:
+        raise AssertionError(f"[tools] (a) SeldonClient REST {got.msg or got.response} != "
+                             f"plain HTTP {status} {plain}")
+    line = "SeldonClient REST == a plain HTTP call (4 rows, the same data block)"
+    if grpc_ok:
+        g = SeldonClient(engine_endpoint=f"127.0.0.1:{mlp_gport}", transport="grpc",
+                         timeout_s=120).predict(X, names=TOOLS_NAMES)
+        if not g.success or not np.array_equal(g.data, np.asarray(plain["data"]["ndarray"])):
+            raise AssertionError(f"[tools] (a) SeldonClient gRPC {g.msg or g.response} != "
+                                 f"plain HTTP {plain}")
+        line += "; SeldonClient gRPC Seldon/Predict == the same"
+    else:
+        line += "; gRPC not driven (import grpc, google.protobuf failed on this machine)"
+    log(f"[tools] (a) {line} [{card}]")
+
+
+def _tools_batch(card, root, mlp_port):
+    """(c) The batch scorer over TOOLS_ROWS MLP rows fused TOOLS_BATCH_ROWS a
+    request: one line per row in input order, each row equal to the same
+    row scored alone."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.batch import BatchScorer, fuse_rows, read_records
+
+    rows = np.random.RandomState(11).uniform(0.1, 7.9, (TOOLS_ROWS, 4)).round(3)
+    path = os.path.join(root, "rows.jsonl")
+    with open(path, "w") as f:
+        for r in rows.tolist():
+            f.write(json.dumps(r) + "\n")
+
+    def score(batch_rows):
+        out = io.StringIO()
+        scorer = BatchScorer(f"http://127.0.0.1:{mlp_port}", concurrency=TOOLS_CONCURRENCY,
+                             timeout_s=120)
+        t = time.perf_counter()
+        with open(path) as f:
+            stats = asyncio.run(scorer.run(fuse_rows(read_records(f, "jsonl"), batch_rows), out))
+        return stats, [json.loads(x) for x in out.getvalue().splitlines()], \
+            time.perf_counter() - t
+
+    with _exact_f32():
+        stats, fused, fused_s = score(TOOLS_BATCH_ROWS)
+        stats1, alone, alone_s = score(1)
+    want = {"requests": TOOLS_ROWS // TOOLS_BATCH_ROWS, "rows": TOOLS_ROWS, "failures": 0}
+    if stats != want or stats1 != {"requests": TOOLS_ROWS, "rows": TOOLS_ROWS, "failures": 0}:
+        raise AssertionError(f"[tools] (c) batch scorer stats {stats} / alone {stats1}")
+    if [r["index"] for r in fused] != list(range(TOOLS_ROWS)):
+        raise AssertionError("[tools] (c) the output is not in input order")
+    a = np.asarray([r["response"]["data"]["ndarray"][0] for r in fused], dtype=np.float64)
+    b = np.asarray([r["response"]["data"]["ndarray"][0] for r in alone], dtype=np.float64)
+    err = float(np.abs(a - b).max() / np.abs(b).max())
+    exact = int((a == b).all(axis=1).sum())
+    log(f"[tools] (c) batch scorer: {TOOLS_ROWS} MLP rows, --batch-rows {TOOLS_BATCH_ROWS}, "
+        f"concurrency {TOOLS_CONCURRENCY}: {stats['requests']} requests in {fused_s:.2f} s "
+        f"({TOOLS_ROWS / fused_s:.1f} rows/s), one line per row in input order; each row "
+        f"against the same row scored alone ({alone_s:.2f} s): max relative |dp| {err:.3e} "
+        f"(tol {ZOO_F32_TOL}), {exact} of {TOOLS_ROWS} bit-identical [{card}]")
+    if err > ZOO_F32_TOL:
+        raise AssertionError("[tools] (c) fused rows differ from the same rows alone")
+
+
+def _tools_native(card, root, mlp_dir):
+    """(d) The native engine fronting the port's microservice (the MLP on
+    the card) as a remote REST unit, against the port's Python engine on
+    the same spec: the same answers, and the load tester against both."""
+    import numpy as np
+
+    from seldon_core_tpu_torch import microservice, native_engine
+
+    missing = native_engine.missing_toolchain()
+    if missing:
+        log(f"[tools] (d) native engine: not driven, this machine lacks {', '.join(missing)} "
+            "(probed before any build)")
+        return
+    t = time.perf_counter()
+    native_engine.build()
+    log(f"[tools] (d) native engine built from native/ into build/native/ in "
+        f"{time.perf_counter() - t:.1f} s: {native_engine.version()}")
+    user = microservice.build_user_object(
+        "seldon_core_tpu_torch.servers.torchserver.TorchServer", json.dumps([
+            {"name": "model_uri", "value": mlp_dir, "type": "STRING"},
+            {"name": "device", "value": ZOO_DEVICE, "type": "STRING"}]))
+    user.load()
+    (mport,), stop_micro = _serve_micro([user])
+    graph = {"name": "mlp", "type": "MODEL", "endpoint": {
+        "service_host": "127.0.0.1", "service_port": mport, "transport": "REST"}}
+    py_app = _zoo_engine(graph)
+    (py_port,), _g, stop_py = _zoo_serve([py_app])
+    nport = _free_port()
+    # start() returns once the port listens (or raises)
+    eng = native_engine.NativeEngine({"name": "tools", "graph": graph}, port=nport).start()
+    try:
+        rs = np.random.RandomState(5)
+        for n in (1, 3, 8):
+            body = {"data": {"ndarray": rs.uniform(0.1, 7.9, (n, 4)).round(2).tolist()}}
+            s_n, got = _post(nport, body, path="/api/v0.1/predictions")
+            s_p, want = _post(py_port, body, path="/api/v0.1/predictions")
+            if s_n != 200 or s_p != 200 or got["data"] != want["data"]:
+                raise AssertionError(f"[tools] (d) native {s_n} {got} != Python engine {s_p} "
+                                     f"{want}")
+        log("[tools] (d) native engine == the port's Python engine on the same spec (a remote "
+            "REST unit: the MLP behind the port's microservice), 3 requests of 1, 3, 8 rows")
+        path = os.path.join(root, "mlp-body.json")
+        with open(path, "w") as f:
+            json.dump({"data": {"ndarray": rs.uniform(0.1, 7.9, (8, 4)).round(2).tolist()}}, f)
+        _s, native_rows = _tools_load(card, "(d) load, native engine", f"http://127.0.0.1:{nport}",
+                                      path, 8)
+        _s, py_rows = _tools_load(card, "(d) load, Python engine", f"http://127.0.0.1:{py_port}",
+                                  path, 8)
+        log(f"[tools] (d) rows/s over {TOOLS_SECONDS:.0f} s each: native engine {native_rows:.1f}, "
+            f"Python engine {py_rows:.1f} (the same microservice behind both) [{card}]")
+    finally:
+        eng.stop()
+        stop_py()
+        stop_micro()
+
+
+def phase_tools(card):
+    """The user's tools against the port's engines on the card: (a) the
+    tester and SeldonClient on the float32 MLP, (b) the load tester as a
+    process of its own against ResNet-50 (bf16, micro-batched), (c) the
+    batch scorer on the MLP, (d) the native engine where it can be built.
+    Returns the flash kernel's launches over the phase (no model here runs
+    it)."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.graph.engine_metrics import MICROBATCH_FLUSHES, MICROBATCH_ROWS
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    fa.LAUNCHES["flash_attention"] = 0
+    grpc_ok = _grpc_available()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-tools-") as root:
+        t = time.perf_counter()
+        rn_app = _zoo_engine(_zoo_unit("resnet", _zoo_dir(root, "resnet50", ZOO_RESNET)),
+                             TOOLS_RESNET_ANN)
+        rn_server = rn_app.executor.root.client.inner.user_object
+        size = ZOO_RESNET["image_size"]
+        sizes = _warm_buckets(rn_server, ZOO_RESNET_BATCH, 128, (size, size, 3), np.uint8)
+        mlp_dir = _zoo_dir(root, "mlp", TOOLS_MLP, "-f32")
+        mlp_app = _zoo_engine(_zoo_unit("mlp", mlp_dir))
+        if rn_server.device.type != "cuda" and ZOO_DEVICE == "cuda":
+            raise AssertionError(f"[tools] resnet50 on {rn_server.device}")
+        log(f"[tools] engines: ResNet-50 (bf16, {size}x{size}, micro-batched, warmed at batch "
+            f"{sizes}) and the iris MLP (float32) loaded in {time.perf_counter() - t:.1f} s")
+        (rn_port, mlp_port), mlp_gport, stop = _zoo_serve(
+            [rn_app, mlp_app], mlp_app if grpc_ok else None)
+        try:
+            _tools_client(card, mlp_port, mlp_gport, grpc_ok)
+            imgs = _synthetic_images(ZOO_RESNET_BATCH, size, seed=60)
+            body_path = os.path.join(root, "resnet-body.json")
+            with open(body_path, "w") as f:
+                json.dump({"data": {"raw": {"dtype": "uint8", "shape": list(imgs.shape),
+                                            "data": base64.b64encode(imgs.tobytes()).decode()}}},
+                          f)
+            m = rn_app.metrics
+            c0 = [m.counter_total(x) for x in (MICROBATCH_FLUSHES, MICROBATCH_ROWS)]
+            _tools_load(card, "(b) load, ResNet-50 REST --binary", f"http://127.0.0.1:{rn_port}",
+                        body_path, ZOO_RESNET_BATCH)
+            flushes, rows = (m.counter_total(x) - c for x, c in zip(
+                (MICROBATCH_FLUSHES, MICROBATCH_ROWS), c0))
+            if flushes <= 0:
+                raise AssertionError("[tools] (b) no micro-batch flush under the load tester")
+            log(f"[tools] (b) the engine's micro-batcher over the load: {flushes:.0f} flushes, "
+                f"{rows / flushes:.1f} rows per flush ({TOOLS_WORKERS} workers x "
+                f"{TOOLS_CLIENTS} clients of {ZOO_RESNET_BATCH} images) [{card}]")
+            _tools_batch(card, root, mlp_port)
+        finally:
+            stop()
+        del rn_app, rn_server, mlp_app
+        gc.collect()
+        torch.cuda.empty_cache()
+        _tools_native(card, root, mlp_dir)
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES["flash_attention"]
+    log(f"[tools] flash kernel launches over the phase: {launches} (no model here runs it); "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 PHASES = ("kernels", "small", "serve", "engine", "small-sched", "sched", "prefix",
           "pressure", "spec", "spec-pressure", "dh256", "f32", "disagg", "kvtier", "migration",
           "telemetry", "fronts", "zoo", "rag", "model", "explain", "moe", "train",
-          "controlplane")
+          "controlplane", "tools")
 
 
 def _llm_model():
@@ -7639,6 +7927,10 @@ def main(argv=None) -> int:
                 card, serve_numbers["alone_tokens"] if serve_numbers else None)
             free()
             lap("controlplane")
+        if "tools" in phases:
+            phase_tools(card)
+            free()
+            lap("tools")
         # the profiler runs last: once it has traced the card, later
         # launches may carry its overhead
         if "model" in phases:

@@ -9,8 +9,10 @@ the K8s API server, an admission step mirrors the defaulting/validating
 webhook, and the reconciler materializes engines + microservice processes
 (instead of Deployments/Services) with device placement over the
 host's CUDA devices instead of node-pool scheduling. The operator side
-that renders Kubernetes objects or drives a live cluster (``k8s.py``,
-``kube.py``) and the image build (``build.py``) are not ported yet.
+for a Kubernetes cluster is here too: ``k8s.py`` renders the objects (one
+``nvidia.com/gpu`` for an engine whose units run on the card) and
+``kube.py`` installs the CRD and converges a live cluster onto its
+SeldonDeployments. Sharded serving (a mesh) is not ported yet.
 """
 
 from .resource import DeploymentStatus, SeldonDeployment

@@ -12,11 +12,16 @@ testing/scripts/test_prepackaged_servers.py:7-35):
     python -m seldon_core_tpu_torch.controlplane status <name>
     python -m seldon_core_tpu_torch.controlplane delete <name>
     python -m seldon_core_tpu_torch.controlplane controller --subprocess-runtime --gateway-port 8003
+    python -m seldon_core_tpu_torch.controlplane render -f dep.json [-o out.yaml]
+    python -m seldon_core_tpu_torch.controlplane crd
+    python -m seldon_core_tpu_torch.controlplane controller --kube [--kube-server URL] [--once]
+    python -m seldon_core_tpu_torch.controlplane build --src DIR --model-name M --out CTX
 
-``render``, ``crd``, ``controller --kube`` (Kubernetes objects and the
-live-cluster operator, ``k8s.py``/``kube.py``) and ``build`` (the image
-build, ``build.py``) are not ported yet and exit naming the module they
-wait for.
+``render`` emits the Kubernetes objects of ``k8s.py`` (GPU scheduling,
+the port's engine), ``crd`` the SeldonDeployment CRD of ``kube.py``,
+``controller --kube`` runs ``kube.py``'s operator against a live
+cluster, and ``build`` writes ``build.py``'s image build context. A
+predictor with a mesh (sharded serving) is refused: not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import signal
 import sys
 import tempfile
 
+from ..graph.spec import GraphSpecError
 from .ingress import Gateway
 from .reconciler import DeploymentController
 from .resource import SeldonDeployment
@@ -40,12 +46,6 @@ from .placement import DevicePlacement
 DEFAULT_STORE = os.environ.get(
     "SELDON_TPU_STORE", os.path.join(tempfile.gettempdir(), "seldon-tpu-torch-store")
 )
-
-
-def _not_ported(what: str, module: str) -> None:
-    raise SystemExit(
-        f"{what} is not ported to seldon_core_tpu_torch yet (waits for {module})"
-    )
 
 
 def main(argv=None) -> None:
@@ -80,7 +80,8 @@ def main(argv=None) -> None:
 
     p_render = sub.add_parser(
         "render",
-        help="emit Kubernetes YAML for a SeldonDeployment (not ported yet)",
+        help="emit Kubernetes YAML (Deployments/Services/HPAs/VirtualService "
+        "with NVIDIA GPU scheduling) for a SeldonDeployment",
     )
     p_render.add_argument("-f", "--filename", required=True)
     p_render.add_argument("-o", "--output", default="-",
@@ -89,7 +90,7 @@ def main(argv=None) -> None:
     sub.add_parser(
         "crd",
         help="print the SeldonDeployment CustomResourceDefinition YAML "
-        "(not ported yet)",
+        "(GitOps alternative to controller --kube's auto-install)",
     )
 
     p_ctl = sub.add_parser("controller")
@@ -102,7 +103,9 @@ def main(argv=None) -> None:
     p_ctl.add_argument("--poll-s", type=float, default=1.0,
                        help="store re-scan period (picks up sdctl writes from other processes)")
     p_ctl.add_argument("--kube", action="store_true",
-                       help="operator mode on a live cluster (not ported yet)")
+                       help="operator mode: install the SeldonDeployment CRD "
+                       "on a live cluster, watch CRs and converge rendered "
+                       "objects (instead of the self-hosted runtime)")
     p_ctl.add_argument("--kube-server", default=None,
                        help="kube-apiserver URL (default: in-cluster; use "
                        "`kubectl proxy` + http://127.0.0.1:8001 from a laptop)")
@@ -123,7 +126,7 @@ def main(argv=None) -> None:
 
     p_build = sub.add_parser(
         "build",
-        help="user code -> servable image build context (not ported yet)",
+        help="user code -> servable image build context (s2i counterpart)",
     )
     p_build.add_argument("--src", required=True,
                          help="directory with the user component")
@@ -142,12 +145,30 @@ def main(argv=None) -> None:
     p_build.add_argument("--image", default=None,
                          help="also run `docker build -t IMAGE` when a "
                          "docker CLI is present")
+    p_build.add_argument("--base-image", default=None,
+                         help="python template: the image to build on (default: a "
+                         "public PyTorch image built for CUDA)")
 
     args = parser.parse_args(argv)
     logging.basicConfig(level="INFO", format="%(asctime)s %(name)s %(levelname)s %(message)s")
 
     if args.cmd == "build":
-        _not_ported("sdctl build", "build.py")
+        from ..build import DEFAULT_BASE_IMAGE, docker_build, write_build_context
+
+        files = write_build_context(
+            src=args.src, out=args.out, model_name=args.model_name,
+            api_type=args.api_type, service_type=args.service_type,
+            persistence=args.persistence, language=args.language,
+            base_image=args.base_image or DEFAULT_BASE_IMAGE,
+        )
+        print(f"wrote build context ({len(files)} files) to {args.out}")
+        if args.image:
+            if docker_build(args.out, args.image):
+                print(f"built image {args.image}")
+            else:
+                print("docker CLI not found — build the context with: "
+                      f"docker build -t {args.image} {args.out}")
+        return
     store = ResourceStore(persist_dir=args.store_dir)
 
     if args.cmd == "apply":
@@ -160,10 +181,32 @@ def main(argv=None) -> None:
         return
 
     if args.cmd == "render":
-        _not_ported("sdctl render", "k8s.py")
+        from .k8s import render, to_yaml, validate_manifests
+
+        with open(args.filename) as f:
+            dep = SeldonDeployment.from_dict(json.load(f))
+        if dep.namespace == "default" and args.namespace != "default":
+            dep.namespace = args.namespace
+        try:
+            manifests = render(dep)
+        except GraphSpecError as e:
+            raise SystemExit(f"sdctl render: {e}") from None
+        validate_manifests(manifests)
+        out = to_yaml(manifests)
+        if args.output == "-":
+            sys.stdout.write(out)
+        else:
+            with open(args.output, "w") as f:
+                f.write(out)
+            print(f"wrote {len(manifests)} objects to {args.output}", file=sys.stderr)
+        return
 
     if args.cmd == "crd":
-        _not_ported("sdctl crd", "k8s.py and kube.py")
+        from .k8s import to_yaml
+        from .kube import CRD_MANIFEST
+
+        sys.stdout.write(to_yaml([CRD_MANIFEST]))
+        return
 
     if args.cmd == "get":
         deps = store.list(args.namespace)
@@ -240,7 +283,39 @@ def main(argv=None) -> None:
         return
 
     if args.cmd == "controller" and args.kube:
-        _not_ported("sdctl controller --kube", "kube.py")
+        from .kube import HttpKubeApi, KubeController, LeaderElector
+
+        api = HttpKubeApi(server=args.kube_server, token=args.kube_token)
+        ns = args.namespace if args.namespace != "default" else None
+        elector = None
+        if args.leader_elect and not args.once:
+            elector = LeaderElector(
+                api, namespace=args.namespace,
+                lease_duration_s=args.lease_duration_s,
+            )
+        ctl = KubeController(
+            api, namespace=ns, resync_s=args.resync_s, elector=elector
+        )
+        if args.once:
+            ctl.install_crd()
+            # unconditional: even a pre-existing CRD (e.g. created by a
+            # racing replica or a prior run that exited early) may not be
+            # Established yet, and the immediate list below would crash
+            # the whole one-shot pass. Cheap when already serving: the
+            # first successful list returns.
+            if not ctl.wait_crd_established():
+                print(json.dumps(
+                    {"failed": 1, "error": "CRD not established in time"}
+                ))
+                raise SystemExit(1)
+            ops = ctl.reconcile_all()
+            print(json.dumps(ops))
+            raise SystemExit(1 if ops.get("failed") else 0)
+        try:
+            ctl.run()
+        except KeyboardInterrupt:
+            pass
+        return
 
     if args.cmd == "controller":
         runtime = SubprocessRuntime() if args.subprocess_runtime else InProcessRuntime()

@@ -185,3 +185,58 @@ def test_control_plane_subpackages_stand_alone():
     assert "seldondeployment.machinelearning.seldon.io/iso added" in proc.stdout
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["bad"] == [] and out["diff"]["diverged"] is False
+
+
+# the user's tools and the operator side, exercised in a fresh interpreter
+_TOOLS_CHILD = r'''
+import io, json, os, sys, tempfile
+from seldon_core_tpu_torch import batch, build, client, loadtester, native_engine, tester
+from seldon_core_tpu_torch.controlplane import cli, k8s, kube
+from seldon_core_tpu_torch.controlplane.resource import SeldonDeployment
+d = tempfile.mkdtemp()
+contract = {"features": [{"name": "x", "ftype": "continuous", "range": [0, 1], "repeat": 2}]}
+rows = tester.generate_batch(tester.unfold_contract(contract), 3, seed=0).tolist()
+fused = list(batch.fuse_rows(batch.read_records(io.StringIO("[1]\n[2]\n"), "jsonl"), 2))
+dep = SeldonDeployment.from_dict({"name": "iso", "predictors": [{"name": "p", "graph": {
+    "name": "m", "implementation": "JAX_SERVER", "modelUri": "/m"}}]})
+manifests = k8s.render(dep)
+k8s.validate_manifests(manifests)
+os.makedirs(os.path.join(d, "src"))
+open(os.path.join(d, "src", "M.py"), "w").write("class M:\n    pass\n")
+files = build.write_build_context(os.path.join(d, "src"), os.path.join(d, "ctx"), "M")
+cli.main(["--store-dir", os.path.join(d, "store"), "crd"])
+bad = sorted(x for x in sys.modules
+             if x == "jax" or x.startswith("jax.") or x == "seldon_core_tpu"
+             or x.startswith("seldon_core_tpu."))
+print(json.dumps({"bad": bad, "rows": len(rows), "fused": fused[0]["count"],
+                  "kinds": [x["kind"] for x in manifests], "files": files,
+                  "crd": kube.CRD_MANIFEST["kind"], "payload": loadtester.build_payload({}),
+                  "client": client.SeldonClient(engine_endpoint="x:1")._external_base(),
+                  "make": native_engine.make_argv()[0]}))
+'''
+
+TOOL_MODULES = ("client.py", "tester.py", "loadtester.py", "batch.py", "build.py",
+                "native_engine.py", "controlplane/k8s.py", "controlplane/kube.py",
+                "protos/prediction.proto")
+
+
+def test_tools_and_operator_side_stand_alone():
+    for f in TOOL_MODULES:
+        path = os.path.join(PKG, f)
+        assert os.path.exists(path), f
+        if f.endswith(".py"):
+            text = open(path).read()
+            assert not _IMPORT_JAX.search(text) and not _IMPORT_REF.search(text), f
+            assert not _RELATIVE_OUT.search(text), f
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", _TOOLS_CHILD], capture_output=True,
+                          text=True, timeout=300, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "kind: CustomResourceDefinition" in proc.stdout
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    assert (out["rows"], out["fused"], out["crd"], out["make"]) == (
+        3, 2, "CustomResourceDefinition", "make")
+    assert out["kinds"] == ["Deployment", "Service"]
+    assert out["files"] == ["Dockerfile", "src/M.py"]
+    assert out["client"] == "http://x:1" and out["payload"] == {"data": {"ndarray": [[1.0]]}}
