@@ -7,7 +7,7 @@ Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails. ``--phases`` runs a subset of
 ``kernels, small, serve, engine, small-sched, sched, prefix, pressure,
 spec, spec-pressure, dh256, f32, disagg, kvtier, migration, telemetry,
-fronts, zoo, rag, explain, moe, train, model, controlplane, tools``
+fronts, zoo, rag, explain, moe, train, model, controlplane, tools, mesh``
 (device and build always run; the
 result lines print only when every phase ran, as with no argument):
 
@@ -46,8 +46,8 @@ result lines print only when every phase ran, as with no argument):
    client-side latency of a 1-token request through the engine against
    a microservice over the same generate server, median of 20, and of
    a SIMPLE_MODEL request (host only), median of 200; then the serve
-   waves through the engine and through that microservice alternated
-   (ABBA once), their tokens/s, TTFT and TPOT side by side.
+   waves through the engine and then through that microservice, their
+   tokens/s, TTFT and TPOT side by side.
 7. Small scheduler (float32, the small model of phase 4): the batcher's
    configurations A-E (as in phase 8, ``MIN_ATTN_BUCKET`` lowered so
    that depth groups split), P (the prefix cache on: the second pass
@@ -135,8 +135,9 @@ result lines print only when every phase ran, as with no argument):
    process over the loopback transport, then a decode role over TCP to
    a prefill role started as a second process (the microservice CLI,
    ``role=prefill``, ``kv_port``), which must reuse the kernel library
-   this process built. Fails unless every request of the mixed wave,
-   each alone, gives the unified server's tokens over both transports,
+   this process built. Fails unless three greedy requests of the mixed
+   wave (buckets 32, 128, 1024) and its two seeded ones, each alone,
+   give the unified server's tokens over both transports,
    seeded requests repeat, the shared-prefix traffic ships suffix-only
    slabs (``kv_transfer_bytes_saved`` > 0), a transfer corrupted by a
    ``SELDON_FAULTS`` peer rule is refused typed and retried on the next
@@ -160,8 +161,8 @@ result lines print only when every phase ran, as with no argument):
    re-prefill of the same prompt.
 16. Migration (llm-1.26b, bf16, `GenerateServer`s from typed parameters
    with `resume_tokens`; random weights from seed 0, seeds 1 and 2 the
-   swap target and the other tenants; 96 new tokens): three requests
-   (greedy and seeded, buckets 128-1024) each streamed alone and drained
+   swap target and the other tenants; 96 new tokens): two requests
+   (greedy and seeded, buckets 128 and 512) each streamed alone and drained
    mid-decode along a chain of servers over loopback (`drain_to`), the
    mixed wave streamed and drained, one request drained over TCP through
    the peer engine's `/drain`, a greedy and a seeded stream resumed on a
@@ -181,8 +182,8 @@ result lines print only when every phase ran, as with no argument):
    memory, and each page-in's decode, stage and flip ms.
 17. Telemetry (llm-1.26b, bf16, seed-0 weights, `GenerateServer`s from
    the serve phase's typed parameters plus fused K 64 and depth groups
-   4): a profiler-off boot gives the decode graph count and each serve
-   request's tokens alone; a boot with the device-time ledger (CUDA
+   4): a profiler-off boot gives the decode graph count and the tokens
+   alone of the serve probe, greedy_128 and seeded_500; a boot with the device-time ledger (CUDA
    event pairs, deep every 16th dispatch, 3350 GB/s), the flight
    recorder (512) and TTFT/TPOT objectives serves the serve waves,
    after the profiler-off boot (off, on: tokens/s,
@@ -202,7 +203,8 @@ result lines print only when every phase ran, as with no argument):
 18. Fronts (llm-1.26b, bf16, seed-0 weights, a GenerateServer from the
    serve phase's typed parameters): (a) an FBSServer over it: two
    20-byte strData prompts, a wave of 8 (20-900 bytes) on 8 connections,
-   each prompt alone over FBS equal to the same prompt alone over REST
+   the probe and half the wave (20-900 bytes) each alone over FBS equal to
+   the same prompt alone over REST
    ``/predict`` (a strData prompt is greedy with the server's default 32
    new tokens: the FBS wire carries no sampling fields), FBS and REST
    client ms side by side, an ndarray request answered by a FAILURE
@@ -406,7 +408,31 @@ result lines print only when every phase ran, as with no argument):
    protobuf headers (probed before any build), one line says the native
    engine was not driven. The flash kernel launches 0 times (no model
    here runs it).
-27. The ``kernels`` JSON line (the flash kernel on the main path, its
+27. Mesh (sharded generate serving): llm-1.26b (full width and depth,
+   bf16, seed 0, 8 slots) through ``GenerateServer`` on an explicit
+   ``ServingMesh`` of data=1, model=4 with every position on cuda:0 (the
+   layout a 4-card cell would use: params and KV cache stored in 4
+   blocks, each layer gathered onto the compute device), beside an
+   unsharded twin with the same knobs (fused K 64, a 2 GiB prefix
+   cache, prefill_chunk 256, the ledger; pipeline_depth 1, so the two
+   take the same scheduling decisions). Fails unless (a) greedy_20,
+   seeded_20 and greedy_128 alone equal the twin's and the serve
+   phase's alone tokens; (b) two prefix splices, the chunked
+   seeded_500, and the mixed wave under a 24-poll ledger shrink
+   (the sharded budget a quarter of the twin's: its ledger prices one
+   position) equal the twin's token for token with the same hits,
+   chunks, fused bursts, preemptions and resumes (at least one of each);
+   (c) no graph is
+   captured after ``warm()``; (d) the census names 7 of 12 leaves split
+   and the ``gen_mesh_*`` gauges say 4 positions, model 4, kv_shard 4
+   and the param shard bytes; (f) the flash kernel launches on the
+   sharded server as often as on the twin (once a layer for every
+   whole-prompt prefill). Prints (d) beside nvidia-smi's
+   memory.used and (e) a B=8 decode step's wall and device time
+   sharded against unsharded at attention 128 and 1024, and the
+   gathers' and re-slices' own device time. One card cannot show the
+   capacity a mesh buys across cards.
+28. The ``kernels`` JSON line (the flash kernel on the main path, its
    Dh 256 instance on the dh256 phase's and its float32 instance on the
    f32 phase's), then the final ``{"ok": true, ...}`` line.
 
@@ -1026,6 +1052,12 @@ def phase_serve(card):
                 if status != 200:
                     raise AssertionError(f"{label} alone: HTTP {status} {body}")
                 numbers["alone_tokens"][label] = body["jsonData"]["tokens"][0]
+            # the seeded probe alone: the mesh phase's sharded server must
+            # give the same tokens
+            status, body = _post(port, _gen_body(probe[1][1], probe[1][2], probe[1][3]))
+            if status != 200:
+                raise AssertionError(f"seeded_20 alone: HTTP {status} {body}")
+            numbers["alone_tokens"]["seeded_20"] = body["jsonData"]["tokens"][0]
         finally:
             stop()
             app._hook_pool.shutdown(wait=False)
@@ -1364,10 +1396,10 @@ def phase_engine(card, alone_ref):
 
             # the engine's end-to-end cost: the same waves through the
             # engine and through the microservice over the same generate
-            # server, in one process, alternated (ABBA once)
+            # server, in one process, one run each
             paths = {"engine": post, "micro": lambda body: _post(micro_port, body)}
             ab = {"engine": [], "micro": []}
-            for name in ("engine", "micro", "micro", "engine"):
+            for name in ("engine", "micro"):
                 b.slo_recent.clear()
                 t = time.perf_counter()
                 results = [fire(paths[name], wave) for wave in (probe, mixed, probe)]
@@ -2955,13 +2987,13 @@ def _check_equal(tag, got, want):
                              f"{ {x: _first_diff(got[x], want[x]) for x in bad} })")
 
 
-# the disagg phase's shared-prefix traffic: the first 16 of the 32 prompts
-DISAGG_PREFIX_PROMPTS = 16
+# the disagg phase's shared-prefix traffic: the first 8 of the 32 prompts
+DISAGG_PREFIX_PROMPTS = 8
 
 
 def _prefix_wave(tag, dec, card):
     """The shared-prefix traffic through a decode role with its cache on:
-    the 4 system prompts, then the first 16 of the 32 prompts (4 per
+    the 4 system prompts, then the first 8 of the 32 prompts (2 per
     system prompt; cut for the whole script's time budget), each set
     from 8 client threads (the prefill listener's capacity: a ninth
     concurrent transfer would be shed with PeerBusy)."""
@@ -3035,8 +3067,9 @@ def phase_disagg(card):
     a prefill-role and a decode-role GenerateServer on the one card over
     the loopback transport, then over TCP with the prefill role as a
     second process (the microservice CLI, role=prefill, kv_port). Fails
-    unless every greedy request of the mixed wave, each alone, gives the
-    unified server's tokens over both transports, seeded requests
+    unless three greedy requests of the mixed wave (prefill buckets 32,
+    128, 1024) and its seeded ones, each alone, give the unified server's
+    tokens over both transports, seeded requests
     repeat, the shared-prefix traffic ships suffix-only slabs
     (kv_transfer_bytes_saved > 0), a transfer corrupted by a
     SELDON_FAULTS peer rule is refused typed and retried on the next
@@ -3059,6 +3092,8 @@ def phase_disagg(card):
     probe, mixed = serve_waves()
     greedy = [it for it in mixed if it[2] == 0.0]
     seeded = [it for it in mixed if it[2] != 0.0]
+    # the greedy requests run alone: one per prefill bucket 32, 128, 1024
+    greedy_alone = greedy[:3]
     # prompts no server has seen before the prefill process is killed: a
     # degraded request then prefills whole, as the unified server does
     rs = np.random.RandomState(6)
@@ -3098,13 +3133,13 @@ def phase_disagg(card):
                 return out
 
             # token for token: each greedy request alone
-            want = _alone(unified, greedy + seeded + fresh)
-            lo = _alone(dec, greedy + seeded)
+            want = _alone(unified, greedy_alone + seeded + fresh)
+            lo = _alone(dec, greedy_alone + seeded)
             _check_equal("loopback, each request alone", lo, want)
             again = _alone(dec, seeded)
             if any(again[label] != lo[label] for label, *_r in seeded):
                 raise AssertionError("[disagg] loopback: a seeded request did not repeat")
-            log(f"[disagg] loopback: {len(greedy)} greedy and {len(seeded)} seeded requests "
+            log(f"[disagg] loopback: {len(greedy_alone)} greedy and {len(seeded)} seeded requests "
                 f"of the mixed wave, each alone, equal the unified server's token for token; "
                 f"seeded repeat identical (the repeat shipped suffix-only)")
 
@@ -3192,9 +3227,9 @@ def phase_disagg(card):
                                   peer=f"127.0.0.1:{kv_port}", prefix_cache_hbm_bytes=2 << 30)
             servers.append(dec_tcp)
             steps0[id(dec_tcp)] = dec_tcp.batcher.stats["prefill_steps"]
-            tcp = _alone(dec_tcp, greedy + seeded)
+            tcp = _alone(dec_tcp, greedy_alone + seeded)
             _check_equal("TCP, each request alone", tcp, want)
-            log(f"[disagg] TCP: {len(greedy)} greedy and {len(seeded)} seeded requests, each "
+            log(f"[disagg] TCP: {len(greedy_alone)} greedy and {len(seeded)} seeded requests, each "
                 f"alone, equal the unified server's token for token")
             tcp_wave, tcp_num = _wave_numbers("TCP", dec_tcp, mixed, card)
             full_ms, suf_ms = [], []
@@ -3603,7 +3638,7 @@ def phase_migration(card):
     and the other tenants), GenerateServers built from typed parameters
     (the serve phase's, ``resume_tokens`` on). Fails unless:
 
-    * each of three requests (greedy and seeded, buckets 128-1024) streamed
+    * each of two requests (greedy and seeded, buckets 128 and 512) streamed
       alone and drained mid-decode to a peer over loopback
       (``drain_to``) completes through its original stream with the
       undrained run's tokens alone and no span re-sent (a chain of
@@ -3648,7 +3683,7 @@ def phase_migration(card):
     _probe, mixed = serve_waves()
     by_label = {it[0]: it for it in mixed}
     # one request per prefill bucket: each prefills at m = 1, alone or not
-    alone_items = [by_label[x] for x in ("greedy_128", "seeded_500", "greedy_900")]
+    alone_items = [by_label[x] for x in ("greedy_128", "seeded_500")]
     # in flight across the swap: one per bucket again, none of them a
     # prompt the swap server has published (a prefix hit's suffix prefill
     # reads the cache attention, other bf16 numerics than the reference's)
@@ -3743,7 +3778,7 @@ def phase_migration(card):
                 release()
                 src = dst
             log(f"[migration] loopback drain, each request alone ({len(alone_items)}: greedy "
-                f"and seeded, buckets 128-1024): every stream completed through its original "
+                f"and seeded, buckets 128 and 512): every stream completed through its original "
                 f"handle with the undrained tokens, no span re-sent; drain_to "
                 f"{', '.join(f'{x:.1f}' for x in drain_ms)} ms (1 lane, 1 checkpoint each, "
                 f"{', '.join(map(str, handed))} tokens emitted at the checkpoint); resume to the "
@@ -3968,7 +4003,7 @@ def phase_migration(card):
             captured, inline = tb.stats["graphs_captured"], tb.stats["graph_captures_inline"]
             seeds = {"t0": 0, "t1": 1, "t2": 2}
             rounds = [(by_label["greedy_128"], t) for t in ("t1", "t0", "t2")] + [
-                (by_label["seeded_500"], t) for t in ("t2", "t1")]
+                (by_label["seeded_500"], "t2")]
             for item, tenant in rounds:
                 got = _mig_alone(tn, [item], tenant=tenant)[item[0]]
                 if got != refs[seeds[tenant]][item[0]]:
@@ -4184,8 +4219,8 @@ def _prefill_check(server, card):
 def phase_telemetry(card, serve_alone=None):
     """Telemetry and retune at llm-1.26b (bf16, seed-0 weights, the serve
     phase's GenerateServer parameters plus fused K 64 and depth groups
-    4): a profiler-off boot gives the graph count and each request's
-    tokens alone; a boot with the ledger (deep every 16, 3350 GB/s), the
+    4): a profiler-off boot gives the graph count and the tokens alone of
+    the probe, greedy_128 and seeded_500; a boot with the ledger (deep every 16, 3350 GB/s), the
     recorder (512) and TTFT/TPOT objectives serves the serve waves
     after the profiler-off boot (off, on), then
     checks (a) each request alone against the profiler-off boot's (and
@@ -4200,7 +4235,7 @@ def phase_telemetry(card, serve_alone=None):
     import torch
 
     probe, mixed = serve_waves()
-    items = probe + [m for m in mixed if not m[0].startswith("mixed_")]
+    items = probe + [m for m in mixed if m[0] in ("greedy_128", "seeded_500")]
     with tempfile.TemporaryDirectory(prefix="chip-telemetry-") as root:
         model_dir = _mig_dir(root, 0)
         t0 = time.perf_counter()
@@ -4528,7 +4563,8 @@ def _fronts_a(card, fport, mport, probe, wave):
         f"{max(FRONTS_LENS)} bytes, {FRONTS_NEW} new tokens) on {len(wave)} connections: "
         f"{len(wave) * FRONTS_NEW / wave_s:.1f} tokens/s in {wave_s:.2f} s [{card}]")
     fbs_ms, rest_ms, in_wave = [], [], 0
-    for label, text in probe + wave:
+    # the probe and the first half of the wave alone (lengths 20-900)
+    for label, text in probe + wave[: len(wave) // 2]:
         toks, ms = _fbs_text(fport, text)
         t = time.perf_counter()
         status, body = _post(mport, {"strData": text})
@@ -6199,7 +6235,7 @@ def _explain_white_box(card, dirs):
     try:
         _explain_call(port, imgs, what="bf16 warm-up")
         lat, outs = [], []
-        for _ in range(2):
+        for _ in range(1):
             got, dt = _explain_call(port, imgs, what="bf16 IG")
             lat.append(dt)
             outs.append(got)
@@ -7769,7 +7805,262 @@ def phase_tools(card):
 PHASES = ("kernels", "small", "serve", "engine", "small-sched", "sched", "prefix",
           "pressure", "spec", "spec-pressure", "dh256", "f32", "disagg", "kvtier", "migration",
           "telemetry", "fronts", "zoo", "rag", "model", "explain", "moe", "train",
-          "controlplane", "tools")
+          "controlplane", "tools", "mesh")
+
+
+# the mesh phase: llm-1.26b stored split over a data=1, model=4 serving
+# mesh whose every position is cuda:0 (the layout a 4-card cell would
+# use), beside an unsharded twin with the same knobs. pipeline_depth 1:
+# the host reads every burst in the poll that dispatched it, so both
+# servers take the same scheduling decisions under the same traffic
+MESH_CARD_SHAPE = {"data": 1, "model": 4}
+MESH_KNOBS = dict(
+    slots=8, steps_per_poll=16, pipeline_depth=1, warmup_prompt_lens=list(WARM_LENS),
+    warmup_max_new_tokens=MAX_NEW, fused_steps_per_dispatch=64,
+    prefix_cache_hbm_bytes=2 << 30, prefix_cache_min_tokens=64, prefill_chunk=256,
+    hbm_ledger_bytes=1 << 40,
+)
+# the requests alone that equal the serve phase's (no chunk: bucket <= 256,
+# no prefix hit: the first time each prompt is seen)
+MESH_ALONE = ("greedy_20", "seeded_20", "greedy_128")
+
+
+def _mesh_requests(server, gate, probe, mixed, shrink):
+    """One server's traffic of the mesh phase, every request alone but
+    the pressure wave: (a) ``MESH_ALONE``; (b) a prefix splice (a
+    100-token stem, then two prompts extending it: suffix prefills
+    spliced over the cached stem) and a chunked splice (a 300-token stem
+    chunked at 256, then a prompt extending it), the chunked seeded_500,
+    and the mixed wave queued whole under a
+    24-poll ledger shrink to ``shrink`` bytes. Returns the tokens by
+    label and the counters' deltas."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.resilience import FaultInjector
+
+    b = server.batcher
+    rs = np.random.RandomState(5)
+    vocab = LLM_1_26B["vocab_size"]
+    s100, s300 = rs.randint(0, vocab, 100).tolist(), rs.randint(0, vocab, 300).tolist()
+    by = {x[0]: x for x in probe + mixed}
+    items = [by[label] for label in MESH_ALONE] + [
+        ("stem_100", s100, 0.0, 0), ("stem_100+20", s100 + rs.randint(0, vocab, 20).tolist(),
+                                     0.0, 0),
+        ("stem_100+60", s100 + rs.randint(0, vocab, 60).tolist(), 0.8, 5),
+        ("stem_300", s300, 0.0, 0), ("stem_300+80", s300 + rs.randint(0, vocab, 80).tolist(),
+                                     0.0, 0),
+        by["seeded_500"]]
+    s0 = dict(b.stats)
+    out = _alone(server, items)
+    b.pressure_hook = FaultInjector([], pressure={
+        "shrink_to_bytes": shrink, "after_polls": b._work_poll_count + 3,
+        "restore_after_polls": 24}).pressure_hook()
+    futs = gate.submit_together(b, [(toks, temp, seed, None) for _l, toks, temp, seed in mixed])
+    out.update({"pressure_" + label: f.result(timeout=600)
+                for (label, *_r), f in zip(mixed, futs)})
+    keys = ("prefix_hits", "prefill_chunks", "fused_dispatches", "preemptions",
+            "preempt_resumes", "replayed_tokens", "prefill_steps")
+    return out, {k: b.stats[k] - s0[k] for k in keys}
+
+
+def _mesh_step_ms(server, attn_len):
+    """One 8-row decode step over ``server``'s cache at ``attn_len``: its
+    wall time eager (CUDA events around 3 calls: host-bound) and its
+    device time from a CUDA graph of 2 steps; the lanes are idle, so the
+    positions it writes are residue."""
+    import torch
+
+    b = server.batcher
+    tok = torch.zeros((b.slots, 1), dtype=torch.long, device="cuda")
+    pos = torch.full((b.slots,), attn_len - 8, dtype=torch.long, device="cuda")
+
+    def step():
+        b.model.decode_step_ragged_list(b.params, b._cache["k"], b._cache["v"], tok, pos,
+                                        attn_len=attn_len)
+
+    with torch.inference_mode():
+        return time_ms(step, iters=3, warmup=1), device_ms(step, launches=2, reps=3)
+
+
+def _mesh_gather_ms(server, attn_len):
+    """Device time of the gathers and re-slices alone of one sharded decode
+    step: every layer's weights and its cache window gathered onto the
+    compute device and the window re-sliced, no arithmetic."""
+    import torch
+
+    b = server.batcher
+    model, blocks = b.model, b.params["blocks"]
+    ks, vs = b._cache["k"], b._cache["v"]
+
+    def gathers():
+        for layer in range(len(ks)):
+            model._layer(blocks, layer)
+            ck, cv, region = model._kv_in(ks, vs, layer, attn_len)
+            model._kv_out(ks, vs, layer, ck, cv, region)
+
+    with torch.inference_mode():
+        return device_ms(gathers, launches=2, reps=3)
+
+
+def phase_mesh(card, serve_numbers):
+    """Sharded generate serving at llm-1.26b (full width and depth, bf16,
+    seed-0 weights, 8 slots) through GenerateServer on an explicit
+    ServingMesh of data=1, model=4 with every position on cuda:0, beside
+    an unsharded twin with the same knobs (``MESH_KNOBS``: fused K 64, a
+    2 GiB prefix cache, prefill_chunk 256, the ledger). Fails unless (a)
+    greedy_20, seeded_20 and greedy_128 alone equal the twin's and the
+    serve phase's alone tokens; (b) two prefix splices, the chunked
+    prompts and the mixed wave under a 24-poll ledger shrink (lanes
+    preempted and resumed, the sharded ledger's budget a quarter of the
+    twin's) equal the twin's token for token, with hits, chunks, fused
+    bursts and preemptions on both; (c) no graph is captured after
+    ``warm()``; (d) the census names 7 of 12 leaves split, the gen_mesh_*
+    gauges say 4 positions, model 4, kv_shard 4 and the param shard
+    bytes; (f) the flash kernel launches, once a layer for every
+    whole-prompt prefill, as often as for the twin.
+    Reports (d) beside nvidia-smi's memory.used and (e) the decode step's
+    wall and device time sharded against unsharded, with the gathers'
+    own device time. Returns the flash launches of the sharded server's
+    traffic."""
+    import logging
+
+    import torch
+
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+    from seldon_core_tpu_torch.parallel.mesh import ServingMesh, ShardedTensor
+    from seldon_core_tpu_torch.servers.generateserver import GenerateServer
+
+    probe, mixed = serve_waves()
+    census = []
+
+    class _Census(logging.Handler):
+        def emit(self, record):
+            if "sharded serving census" in record.getMessage():
+                census.append(record.getMessage())
+
+    cont_log = logging.getLogger("seldon_core_tpu_torch.serving.continuous")
+    handler, level = _Census(), cont_log.level
+    cont_log.addHandler(handler)
+    cont_log.setLevel(logging.INFO)
+    servers = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as model_dir:
+        with open(os.path.join(model_dir, "jax_config.json"), "w") as f:
+            json.dump({"family": "llm", "config": LLM_1_26B}, f)
+        try:
+            mib0 = _smi_used()
+            t0 = time.perf_counter()
+            mesh = ServingMesh(MESH_CARD_SHAPE, ["cuda:0"] * 4)
+            servers["sharded"] = GenerateServer(model_uri=model_dir, device="cuda",
+                                                mesh=mesh, **MESH_KNOBS)
+            servers["sharded"].load()
+            t_s = time.perf_counter() - t0
+            mib_s = _smi_used()
+            t0 = time.perf_counter()
+            servers["unsharded"] = GenerateServer(model_uri=model_dir, device="cuda",
+                                                  **MESH_KNOBS)
+            servers["unsharded"].load()
+            t_u = time.perf_counter() - t0
+            mib_u = _smi_used()
+            cont_log.removeHandler(handler)
+            cont_log.setLevel(level)
+            S, U = servers["sharded"], servers["unsharded"]
+            sb, ub = S.batcher, U.batcher
+            if sb.mesh is not mesh or not isinstance(sb._cache["k"][0], ShardedTensor) \
+                    or len(sb._cache["k"][0].blocks()) != 4:
+                raise AssertionError("[mesh] the sharded server's cache is not split in 4 blocks")
+            log(f"[mesh] llm-1.26b on ServingMesh {mesh.shape} (every position cuda:0) loaded "
+                f"and warmed in {t_s:.1f} s, the unsharded twin in {t_u:.1f} s")
+            # (d) the census, the gauges and the footprint
+            if not census or "devices=4" not in census[-1] or "kv_shard=4" not in census[-1] \
+                    or "partitioned_params=7/12" not in census[-1]:
+                raise AssertionError(f"[mesh] census {census}")
+            log(f"[mesh] census: {census[-1]}")
+            gauges = {d["key"]: d["value"] for d in S.metrics() if d["key"].startswith("gen_mesh_")}
+            want = {"gen_mesh_devices": 4.0, "gen_mesh_data": 1.0, "gen_mesh_model": 4.0,
+                    "gen_mesh_kv_shard": 4.0,
+                    "gen_mesh_param_shard_bytes": float(sb._param_shard_bytes)}
+            if gauges != want or sb._kv_shard != 4:
+                raise AssertionError(f"[mesh] gauges {gauges}, want {want}")
+            log(f"[mesh] gauges {gauges}; param bytes {sb._param_bytes} global, "
+                f"{sb._param_shard_bytes} per position ({sb._param_shard_bytes / sb._param_bytes:.3f}); "
+                f"nvidia-smi memory.used {mib0} MiB before, {mib_s} MiB with the sharded server, "
+                f"{mib_u} MiB with both (+{mib_s - mib0} and +{mib_u - mib_s} MiB) [{card}]")
+            # (a), (b): the same traffic through each server, flash
+            # launches counted over the sharded server's
+            shrink_u = 2 * ub.max_seq * ub._kv_key_bytes
+            got, delta, launches = {}, {}, {}
+            for name, srv, shrink in (("sharded", S, shrink_u // sb._kv_shard),
+                                      ("unsharded", U, shrink_u)):
+                gate = _Gate()
+                srv.batcher.fault_hook = gate
+                torch.cuda.synchronize()
+                fa.LAUNCHES["flash_attention"] = 0
+                t0 = time.perf_counter()
+                got[name], delta[name] = _mesh_requests(srv, gate, probe, mixed, shrink)
+                torch.cuda.synchronize()
+                launches[name] = fa.LAUNCHES["flash_attention"]
+                srv.batcher.fault_hook = None
+                log(f"[mesh] {name}: {len(got[name])} requests in "
+                    f"{time.perf_counter() - t0:.1f} s; {delta[name]}; flash launches "
+                    f"{launches[name]}")
+            ref = (serve_numbers or {}).get("alone_tokens") or {}
+            for label in MESH_ALONE:
+                if got["sharded"][label] != got["unsharded"][label]:
+                    raise AssertionError(f"[mesh] (a) {label}: sharded != unsharded alone")
+                if label in ref and got["sharded"][label] != ref[label]:
+                    raise AssertionError(f"[mesh] (a) {label}: sharded != the serve phase's alone")
+            log(f"[mesh] (a) {', '.join(MESH_ALONE)} alone: sharded == unsharded"
+                + (" == the serve phase's alone tokens" if ref else
+                   " (the serve phase did not run)"))
+            diff = [k for k in got["unsharded"] if got["sharded"][k] != got["unsharded"][k]]
+            if diff:
+                raise AssertionError(f"[mesh] (b) sharded != unsharded for {diff}")
+            ds, du = delta["sharded"], delta["unsharded"]
+            # a preempted chunked admission, or a lane with nothing
+            # credited yet, is re-admitted whole: no resume is counted
+            if ds != du or ds["prefix_hits"] < 3 or ds["prefill_chunks"] <= 0 \
+                    or ds["fused_dispatches"] <= 0 or ds["preemptions"] <= 0 \
+                    or not 1 <= ds["preempt_resumes"] <= ds["preemptions"]:
+                raise AssertionError(f"[mesh] (b) counters sharded {ds} unsharded {du}")
+            log(f"[mesh] (b) prefix splices (stem 100 + 20, + 60 seeded; stem 300 + 80 chunked), "
+                f"chunked seeded_500, the mixed wave under a 24-poll shrink to "
+                f"{shrink_u} B unsharded / {shrink_u // sb._kv_shard} B per position: "
+                f"{len(got['sharded'])} streams sharded == unsharded token for token; hits "
+                f"{ds['prefix_hits']}, chunks {ds['prefill_chunks']}, fused bursts "
+                f"{ds['fused_dispatches']}, preemptions {ds['preemptions']}, resumes "
+                f"{ds['preempt_resumes']}, replayed tokens {ds['replayed_tokens']}")
+            # (c) and (f)
+            for name, b in (("sharded", sb), ("unsharded", ub)):
+                if b.stats["graph_captures_inline"]:
+                    raise AssertionError(f"[mesh] {name}: {b.stats['graph_captures_inline']} "
+                                         "graphs captured after warm()")
+            # every whole-prompt prefill launches the kernel once a layer;
+            # a chunk or a prefix hit's suffix prefill reads the cache
+            # attention: the two servers made the same dispatches
+            layers = LLM_1_26B["n_layers"]
+            if launches["sharded"] <= 0 or launches["sharded"] != launches["unsharded"] \
+                    or launches["sharded"] % layers:
+                raise AssertionError(f"[mesh] flash launches sharded {launches['sharded']}, "
+                                     f"unsharded {launches['unsharded']}")
+            log(f"[mesh] (c) graphs captured after warm(): 0 on both "
+                f"({sb.stats['graphs_captured']} sharded, {ub.stats['graphs_captured']} "
+                f"unsharded); (f) flash launches {launches['sharded']} "
+                f"({launches['sharded'] // layers} whole-prompt prefills x {layers} layers), "
+                f"equal to the unsharded server's")
+            # (e) the decode step, sharded against unsharded
+            for attn_len in (128, 1024):
+                (ws, ds_ms), (wu, du_ms) = (_mesh_step_ms(srv, attn_len) for srv in (S, U))
+                g_ms = _mesh_gather_ms(S, attn_len)
+                log(f"[mesh] (e) decode step B=8 attn {attn_len}: sharded wall {ws:.3f} ms, "
+                    f"device {ds_ms:.3f} ms; unsharded wall {wu:.3f} ms, device {du_ms:.3f} ms; "
+                    f"the gathers and re-slices alone {g_ms:.3f} ms device [{card}]")
+        finally:
+            cont_log.removeHandler(handler)
+            cont_log.setLevel(level)
+            for srv in servers.values():
+                srv.close()
+    return launches["sharded"]
+
 
 
 def _llm_model():
@@ -7840,7 +8131,7 @@ def main(argv=None) -> int:
         spec_launches = dh256_launches = f32_launches = None
         disagg_launches = kvtier_launches = migration_launches = telemetry_launches = None
         fronts_launches = zoo_launches = rag_launches = explain_launches = None
-        moe_launches = train_launches = controlplane_launches = None
+        moe_launches = train_launches = controlplane_launches = mesh_launches = None
         if "serve" in phases:
             launches, alone, serve_numbers = phase_serve(card)
             free()  # the serve phase's copy of the model goes
@@ -7931,6 +8222,10 @@ def main(argv=None) -> int:
             phase_tools(card)
             free()
             lap("tools")
+        if "mesh" in phases:
+            mesh_launches = phase_mesh(card, serve_numbers)
+            free()
+            lap("mesh")
         # the profiler runs last: once it has traced the card, later
         # launches may carry its overhead
         if "model" in phases:
@@ -7970,6 +8265,7 @@ def main(argv=None) -> int:
             "moe_launches": moe_launches,
             "train_launches": train_launches,
             "controlplane_launches": controlplane_launches,
+            "mesh_launches": mesh_launches,
             "dh256_launches": dh256_launches,
             "max_abs_err": worst(lambda r: r["dtype"] == "bfloat16"),
             "wgmma_max_abs_err": worst(lambda r: r["route"] == "wgmma"),

@@ -12,7 +12,9 @@ host's CUDA devices instead of node-pool scheduling. The operator side
 for a Kubernetes cluster is here too: ``k8s.py`` renders the objects (one
 ``nvidia.com/gpu`` for an engine whose units run on the card) and
 ``kube.py`` installs the CRD and converges a live cluster onto its
-SeldonDeployments. Sharded serving (a mesh) is not ported yet.
+SeldonDeployments. Sharded serving (``seldon.io/mesh``, a ``tpuMesh``)
+places a block of devices per engine and serves one model replica split
+over it.
 """
 
 from .resource import DeploymentStatus, SeldonDeployment

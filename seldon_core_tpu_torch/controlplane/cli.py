@@ -21,7 +21,9 @@ testing/scripts/test_prepackaged_servers.py:7-35):
 the port's engine), ``crd`` the SeldonDeployment CRD of ``kube.py``,
 ``controller --kube`` runs ``kube.py``'s operator against a live
 cluster, and ``build`` writes ``build.py``'s image build context. A
-predictor with a mesh (sharded serving) is refused: not ported yet.
+predictor with a mesh (sharded serving) renders as one pod asking for
+the mesh's cards; a mesh past one host's cards is refused: not ported
+yet.
 """
 
 from __future__ import annotations

@@ -26,9 +26,17 @@ Design notes (vs the reference's output):
   GKE accelerator (``seldon.io/gpu-accelerator``, default
   ``DEFAULT_GPU_ACCELERATOR``). A predictor whose units run on the host
   (builtins, host servers, remote units) gets no accelerator.
-* **No mesh.** Sharded serving is not ported: a predictor with a
-  ``tpuMesh`` or a ``seldon.io/mesh`` annotation is refused, and with it
-  the multi-host StatefulSet of the JAX package's renderer.
+* **A mesh is one pod.** A predictor with a ``tpuMesh`` or a
+  ``seldon.io/mesh`` annotation (sharded generate serving) renders one
+  pod per replica that asks for the mesh's product of ``nvidia.com/gpu``:
+  one engine process drives every card of its mesh. The annotation's
+  shape reaches the engine as the predictor's ``tpuMesh`` (injected into
+  ``ENGINE_PREDICTOR``, the annotation stripped there, as the reconciler
+  does). Refused, not ported yet: a mesh for a JAX_SERVER unit
+  (TorchServer: sharded predict), and a mesh larger than one host's
+  cards (``seldon.io/gpus-per-host``, default ``DEFAULT_GPUS_PER_HOST``),
+  the JAX renderer's multi-host StatefulSet, which one process cannot
+  drive.
 * **Exact preStop drain**: ``/pause`` then poll ``/inflight`` to zero
   (the engine exposes an exact gauge) instead of the reference's blind
   ``curl /pause; sleep 10`` (seldondeployment_engine.go:173-177).
@@ -44,10 +52,12 @@ import json
 from typing import Any, Dict, List, Optional
 
 from ..graph.spec import (
+    ANNOTATION_MESH,
     GraphSpecError,
     PredictorSpec,
     check_not_ported_annotations,
     default_predictor,
+    parse_mesh_annotation,
 )
 from .resource import SeldonDeployment
 
@@ -67,6 +77,9 @@ ENGINE_COMMAND = "seldon-tpu-torch-engine"
 # GKE's node label value for a node pool of H100 80GB cards
 DEFAULT_GPU_ACCELERATOR = "nvidia-h100-80gb"
 GPU_RESOURCE = "nvidia.com/gpu"
+ANNOTATION_GPUS_PER_HOST = "seldon.io/gpus-per-host"
+# the cards of one H100 host (an 8-GPU node)
+DEFAULT_GPUS_PER_HOST = 8
 # in-process implementations whose model runs on the card (graph/spec.py
 # PREPACKAGED_SERVERS: the others run on the host)
 DEVICE_IMPLEMENTATIONS = ("JAX_SERVER", "GENERATE_SERVER")
@@ -110,6 +123,13 @@ def _engine_container(dep: SeldonDeployment, p: PredictorSpec) -> Dict[str, Any]
     jmx/admin ports have no counterpart here)."""
     p_env = PredictorSpec.from_dict(p.to_dict())  # deep copy
     p_env.traffic = 0  # reference parity: zero so canary flips don't re-roll pods
+    mesh = _mesh_of(p)
+    if mesh is not None and not p.tpu_mesh:
+        # the annotation's shape rides as tpuMesh, which the engine builds
+        # its serving mesh from; stripped, so re-validation sees one source
+        p_env.tpu_mesh = dict(mesh)
+        p_env.annotations = {k: v for k, v in p_env.annotations.items()
+                             if k != ANNOTATION_MESH}
     env = [
         {"name": "ENGINE_PREDICTOR", "value": p_env.to_env_b64()},
         {"name": "DEPLOYMENT_NAME", "value": dep.name},
@@ -174,10 +194,10 @@ def _uses_device(p: PredictorSpec) -> bool:
     return False
 
 
-def _gpu_scheduling(ann: Dict[str, str]) -> Dict[str, Any]:
-    """nodeSelector/tolerations/resources for one NVIDIA card on a GKE GPU
-    node pool (the NVIDIA device plugin's ``nvidia.com/gpu`` resource and
-    taint)."""
+def _gpu_scheduling(ann: Dict[str, str], cards: int = 1) -> Dict[str, Any]:
+    """nodeSelector/tolerations/resources for ``cards`` NVIDIA cards on a
+    GKE GPU node pool (the NVIDIA device plugin's ``nvidia.com/gpu``
+    resource and taint)."""
     return {
         "nodeSelector": {
             "cloud.google.com/gke-accelerator": ann.get(
@@ -187,28 +207,60 @@ def _gpu_scheduling(ann: Dict[str, str]) -> Dict[str, Any]:
         "tolerations": [
             {"key": GPU_RESOURCE, "operator": "Exists", "effect": "NoSchedule"}
         ],
-        "resources": {GPU_RESOURCE: "1"},
+        "resources": {GPU_RESOURCE: str(cards)},
     }
 
 
-def _refuse_mesh(dep: SeldonDeployment, p: PredictorSpec) -> None:
-    """Sharded serving is not ported: a tpuMesh or a seldon.io/mesh
-    annotation refuses, as the engine and the reconciler refuse it."""
+def _mesh_of(p: PredictorSpec) -> Optional[Dict[str, int]]:
+    """The predictor's serving-mesh shape: its ``tpuMesh``, else its
+    ``seldon.io/mesh`` annotation, validated as at apply (the predictor's
+    own, as the reconciler reads it)."""
     if p.tpu_mesh:
-        raise GraphSpecError(
-            f"predictor {p.name!r}: a tpuMesh (sharded serving) is not "
-            "ported to seldon_core_tpu_torch yet"
-        )
+        return dict(p.tpu_mesh)
+    return parse_mesh_annotation(p)
+
+
+def _check_predictor(dep: SeldonDeployment, p: PredictorSpec) -> None:
+    """Refuse what this renderer cannot render: an unported feature's
+    annotation; a mesh for the predict path's TorchServer (a JAX_SERVER
+    unit), whose sharded forward is not ported; and a mesh past one
+    host's cards (the JAX renderer's multi-host StatefulSet: one engine
+    process drives one host's cards)."""
     merged = PredictorSpec.from_dict(p.to_dict())
     merged.annotations = {**dep.annotations, **p.annotations}
     check_not_ported_annotations(merged)
+    mesh = _mesh_of(p)
+    if mesh is None:
+        return
+    if any(u.implementation == "JAX_SERVER" for u in p.graph.walk()):
+        raise GraphSpecError(
+            f"predictor {p.name!r}: a mesh {mesh} for TorchServer (a JAX_SERVER unit: "
+            "sharded predict) is not ported to seldon_core_tpu_torch yet"
+        )
+    cards = _cards(mesh)
+    per_host = int(merged.annotations.get(ANNOTATION_GPUS_PER_HOST, DEFAULT_GPUS_PER_HOST))
+    if cards > per_host:
+        raise GraphSpecError(
+            f"predictor {p.name!r}: a mesh {mesh} of {cards} cards spans more than "
+            f"one host of {per_host}; multi-host sharded serving is not ported to "
+            "seldon_core_tpu_torch yet"
+        )
+
+
+def _cards(mesh: Dict[str, int]) -> int:
+    n = 1
+    for v in mesh.values():
+        n *= int(v)
+    return n
 
 
 def _pod_spec(dep: SeldonDeployment, p: PredictorSpec) -> Dict[str, Any]:
     container = _engine_container(dep, p)
     pod: Dict[str, Any] = {"containers": [container], "terminationGracePeriodSeconds": 90}
     if _uses_device(p):
-        sched = _gpu_scheduling({**dep.annotations, **p.annotations})
+        mesh = _mesh_of(p)
+        sched = _gpu_scheduling({**dep.annotations, **p.annotations},
+                                _cards(mesh) if mesh else 1)
         pod["nodeSelector"] = sched["nodeSelector"]
         pod["tolerations"] = sched["tolerations"]
         resources = container.setdefault("resources", {})
@@ -429,11 +481,11 @@ def _destination_rules(dep: SeldonDeployment) -> List[Dict[str, Any]]:
 def render(dep: SeldonDeployment) -> List[Dict[str, Any]]:
     """SeldonDeployment -> ordered manifest list (workloads, services,
     HPAs, then routing), webhook-defaulted first like the operator. A
-    predictor with a mesh raises GraphSpecError (not ported yet)."""
+    mesh past one host's cards raises GraphSpecError (not ported yet)."""
     manifests: List[Dict[str, Any]] = []
     defaulted = []
     for p in dep.predictors:
-        _refuse_mesh(dep, p)
+        _check_predictor(dep, p)
         defaulted.append(default_predictor(PredictorSpec.from_dict(p.to_dict())))
     dep = SeldonDeployment(
         name=dep.name, namespace=dep.namespace, predictors=defaulted,

@@ -11,8 +11,10 @@ before anything starts. The devices are ``torch.cuda.device_count()``
 devices, all in process 0; a caller may pass its own device list.
 
 As in the JAX package, a non-mesh engine is counted against its block
-but not pinned to it: the child picks its device by its own default.
-A mesh (sharded serving) is not ported yet: ``mesh_for`` raises.
+but not pinned to it: the child picks its device by its own default. A
+mesh engine (sharded serving) gets a ``ServingMesh`` over its block
+(``mesh_for``). A placement over CPU devices (the tests) makes CPU
+meshes.
 """
 
 from __future__ import annotations
@@ -90,10 +92,18 @@ class DevicePlacement:
         return self._assignments.get(key)
 
     def mesh_for(self, key: str, mesh_spec: Dict[str, int]):
-        raise PlacementError(
-            f"{key}: a device mesh {mesh_spec} is not ported to "
-            "seldon_core_tpu_torch yet (sharded serving)"
-        )
+        """The ``ServingMesh`` of ``mesh_spec`` over the block allocated to
+        ``key`` (allocated here when it is not yet), positions row-major
+        over the block, as the JAX placement reshapes its devices."""
+        from ..parallel.mesh import make_serving_mesh
+
+        devs = self._assignments.get(key)
+        if devs is None:
+            devs = self.allocate(key, mesh_spec)
+        n = _mesh_size(mesh_spec)
+        if len(devs) != n:
+            raise PlacementError(f"{key}: mesh {mesh_spec} wants {n} devices, have {len(devs)}")
+        return make_serving_mesh(dict(mesh_spec), devices=list(devs))
 
     def capacity(self) -> Dict[str, int]:
         free = len(self._free())

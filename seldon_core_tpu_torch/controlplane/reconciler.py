@@ -13,8 +13,8 @@ seldondeployment_engine.go:101-214), explainer components (reference:
 seldondeployment_explainers.go:32-187), then diffs desired vs running
 components, performs create-before-delete rolling updates, and rolls the
 status up to Creating/Available/Failed. Sharded serving
-(``seldon.io/mesh``, a predictor ``tpuMesh``) is not ported yet: such a
-deployment fails its reconcile.
+(``seldon.io/mesh``, a predictor ``tpuMesh``) places a block of devices
+per engine and hands its members a ``ServingMesh`` over it.
 """
 
 from __future__ import annotations
@@ -174,11 +174,6 @@ class DeploymentController:
         h = self._component_hash(dep)
         no_engine = dep.annotations.get(ANNOTATION_NO_ENGINE, "false") == "true"
         for pspec in dep.predictors:
-            if pspec.tpu_mesh:
-                raise GraphSpecError(
-                    f"{pspec.name}: a predictor tpuMesh (sharded serving) is "
-                    "not ported to seldon_core_tpu_torch yet"
-                )
             separate = dep.annotations.get(ANNOTATION_SEPARATE_ENGINE, "false") == "true"
             pspec = default_predictor(pspec, separate_pods=False)
             await self._initialize_models(pspec)
@@ -847,8 +842,10 @@ class DeploymentController:
                     self.placement.allocate(spec.name, mesh_spec)
                     fresh.append(spec.name)
                 if mesh_spec and spec.name not in self.components:
-                    # a mesh over the placed block: sharded serving is
-                    # not ported, so mesh_for raises PlacementError
+                    # hand the placed block to the engine as a serving
+                    # mesh: its generate unit shards over exactly the
+                    # devices this engine was allocated (only components
+                    # about to start: a running engine keeps its own)
                     spec.mesh = self.placement.mesh_for(spec.name, mesh_spec)
         except PlacementError:
             for name in fresh:

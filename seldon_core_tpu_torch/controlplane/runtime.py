@@ -80,8 +80,9 @@ class ComponentSpec:
     # routable components receive external traffic from the gateway:
     # engines, and direct-exposed models in no-engine mode
     routable: bool = False
-    # a device mesh over the engine's placement-allocated block (sharded
-    # serving: not ported yet, so always None here)
+    # the ServingMesh over the engine's placement-allocated device block
+    # (in-process runtime only; subprocess engines rebuild it from the
+    # spec's tpuMesh over their own host's devices)
     mesh: Any = None
 
 

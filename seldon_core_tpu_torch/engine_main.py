@@ -35,14 +35,32 @@ def load_spec(path=None) -> PredictorSpec:
         spec = PredictorSpec.from_env_b64(os.environ["ENGINE_PREDICTOR"])
     else:
         raise SystemExit("no graph: pass --spec or set ENGINE_PREDICTOR")
-    if spec.tpu_mesh:
-        raise NotImplementedError(
-            "a predictor tpuMesh (sharded serving) is not ported to "
-            "seldon_core_tpu_torch yet"
-        )
     spec = default_predictor(spec)
     validate_predictor(spec)
     return spec
+
+
+def mesh_device(spec: PredictorSpec) -> str:
+    """The device type a predictor's serving mesh spans: the ``device``
+    parameter its units give (the tests' ``cpu``), else CUDA."""
+    stack = [spec.graph]
+    while stack:
+        unit = stack.pop()
+        for p in unit.parameters:
+            if p.name == "device" and p.value:
+                return str(p.value)
+        stack.extend(unit.children)
+    return "cuda"
+
+
+def build_mesh(spec: PredictorSpec):
+    """The serving mesh of a predictor's ``tpuMesh`` (None without one):
+    a standalone engine process spans its own host's devices."""
+    if not spec.tpu_mesh:
+        return None
+    from .parallel.mesh import make_serving_mesh
+
+    return make_serving_mesh(spec.tpu_mesh, device=mesh_device(spec))
 
 
 def main(argv=None) -> None:
@@ -63,7 +81,7 @@ def main(argv=None) -> None:
 
     init_tracer("seldon-torch-engine")  # enabled iff TRACING env set
     spec = load_spec(args.spec)
-    app = EngineApp(spec, request_logger=RequestLogger.from_env())
+    app = EngineApp(spec, request_logger=RequestLogger.from_env(), mesh=build_mesh(spec))
     try:
         asyncio.run(app.serve(args.host, args.http_port, None if args.no_grpc else args.grpc_port))
     except KeyboardInterrupt:

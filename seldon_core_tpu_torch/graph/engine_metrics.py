@@ -170,6 +170,14 @@ class MetricsRegistry:
         # host KV tier occupancy: host RAM, deliberately not one of the
         # HBM pressure gauges (the ledger never counts tier bytes)
         "gen_kv_tier_bytes": "seldon_engine_kv_tier_bytes",
+        # sharded serving: the mesh a member serves on and one position's
+        # footprint (param_shard_bytes under the split layout, against
+        # the global param bytes; the ways the KV cache's bytes divide)
+        "gen_mesh_devices": "seldon_engine_mesh_devices",
+        "gen_mesh_data": "seldon_engine_mesh_data",
+        "gen_mesh_model": "seldon_engine_mesh_model",
+        "gen_mesh_param_shard_bytes": "seldon_engine_mesh_param_shard_bytes",
+        "gen_mesh_kv_shard": "seldon_engine_mesh_kv_shard",
         # the weight pager: host-RAM staging bytes (not an HBM pressure
         # gauge), the resident tenant's weight bytes (the ledger's
         # "pager" component) and the tenants staged

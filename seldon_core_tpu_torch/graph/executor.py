@@ -26,8 +26,10 @@ may be micro-batched (``graph/batching.py``, ``seldon.io/microbatch``):
 concurrent requests fuse into one forward, on the device for in-process
 TorchComponents. With ``seldon.io/fuse: "true"`` chains of in-process
 TorchComponents run as one device hop (``graph/fusion.py``); any
-per-unit condition falls back, counted, to this walk. Not ported yet,
-and refused at construction: a device mesh.
+per-unit condition falls back, counted, to this walk. A device mesh
+(``parallel/mesh.py`` ``ServingMesh``, the predictor's ``tpuMesh``) is
+handed to the mesh-aware prepackaged servers (``GenerateServer``); the
+predict path's ``TorchServer`` refuses it as not ported yet.
 """
 
 from __future__ import annotations
@@ -164,16 +166,6 @@ def _ann_int(ann: Dict[str, str], key: str) -> Optional[int]:
         return None
 
 
-def _refuse_not_ported(ann: Dict[str, str], mesh) -> None:
-    """A device mesh is not ported yet: it raises when asked for, never
-    serves unsharded in its place."""
-    if mesh is not None or ann.get("seldon.io/mesh") is not None:
-        raise NotImplementedError(
-            "a device mesh for in-process servers is not ported to "
-            "seldon_core_tpu_torch yet"
-        )
-
-
 class GraphExecutor:
     def __init__(
         self,
@@ -194,13 +186,15 @@ class GraphExecutor:
         queue behind each other on a small host.
         batching: unit name -> MicroBatchingClient kwargs for the MODEL
         units to micro-batch (``batching_from_annotations``).
-        mesh: not ported yet; anything but None raises."""
+        mesh: the ``ServingMesh`` handed to mesh-aware in-process
+        prepackaged servers (the predictor spec's tpuMesh, placed by the
+        control plane)."""
         from concurrent.futures import ThreadPoolExecutor
 
         from .spec import parse_fuse_annotation
 
         ann = getattr(spec, "annotations", None) or {}
-        _refuse_not_ported(ann, mesh)
+        self._mesh = mesh
         # the ONE strict parser (admission uses the same): a typo'd value
         # fails construction, never serves hop-by-hop while the operator
         # believes fusion is on
@@ -311,7 +305,26 @@ class GraphExecutor:
         if impl in PREPACKAGED_SERVERS:
             module_name, cls_name = PREPACKAGED_SERVERS[impl].rsplit(".", 1)
             cls = getattr(importlib.import_module(module_name), cls_name)
-            obj = cls(model_uri=unit.model_uri, **params)
+            if self._mesh is not None:
+                import inspect
+
+                # signature-gated, not try/except: a constructor fault must
+                # surface, never degrade an N-device allocation quietly
+                sig = inspect.signature(cls.__init__)
+                mesh_aware = "mesh" in sig.parameters or any(
+                    p.kind is inspect.Parameter.VAR_KEYWORD for p in sig.parameters.values()
+                )
+                if mesh_aware:
+                    obj = cls(model_uri=unit.model_uri, mesh=self._mesh, **params)
+                else:
+                    logger.warning(
+                        "unit %s: %s is not mesh-aware; serving unsharded "
+                        "despite a %d-device allocation",
+                        unit.name, cls_name, self._mesh.size,
+                    )
+                    obj = cls(model_uri=unit.model_uri, **params)
+            else:
+                obj = cls(model_uri=unit.model_uri, **params)
             if hasattr(obj, "load"):
                 obj.load()
             return obj

@@ -285,12 +285,12 @@ class FusedSegment:
                 self._probed = True
                 return y
 
-    def warm(self) -> None:
-        """Run the segment once on zeros of the head's warmup shape before
-        traffic arrives (the compile-before-listen discipline of the
-        components' own ``load``), which also records the intermediate
-        dtypes. Heads without a warmup shape record them on the first
-        dispatch instead."""
+    def warm(self, batch: int = 1) -> None:
+        """Run the segment once on ``batch`` rows of zeros of the head's
+        warmup shape before traffic arrives (the compile-before-listen
+        discipline of the components' own ``load``), which also records
+        the intermediate dtypes. Heads without a warmup shape record them
+        on the first dispatch instead."""
         import numpy as np
         import torch
 
@@ -298,7 +298,7 @@ class FusedSegment:
         shape = getattr(head_comp, "warmup_shape", None)
         if shape is None:
             return
-        x = np.zeros((1, *shape), getattr(head_comp, "warmup_dtype", "float32"))
+        x = np.zeros((batch, *shape), getattr(head_comp, "warmup_dtype", "float32"))
         y = self._run(head_comp._to_dev(x))
         if y.device.type == "cuda":
             torch.cuda.synchronize(y.device)
@@ -455,8 +455,13 @@ class FusionPlan:
         self._plan(executor.root)
         if warm and self.segments:
             t0 = time.perf_counter()
+            # at the mesh's data width: the batch a meshed engine serves
+            batch = 1
+            mesh = getattr(executor, "_mesh", None)
+            if mesh is not None:
+                batch = int(mesh.shape.get("data", 1)) or 1
             for seg in self.segments.values():
-                seg.warm()
+                seg.warm(batch)
             logger.info(
                 "fusion: %d segment(s) (%s) warmed in %.1fs",
                 len(self.segments),
@@ -573,6 +578,10 @@ class FusionPlan:
             comp.fused_stage()  # forces load; raises on a broken build
         except Exception as e:  # noqa: BLE001 - broken stage = not fusable
             logger.warning("fusion: unit %s stage build failed: %s", rt.name, e)
+            return None, None, "structural"
+        if getattr(comp, "_mesh", None) is not getattr(self.executor, "_mesh", None):
+            # every stage must live on the engine's mesh (or all off it):
+            # a mixed segment would move its activations between layouts
             return None, None, "structural"
         return comp, breaker, None
 

@@ -14,8 +14,7 @@ port allocation from 9000, endpoint host defaulting, graph/type inference,
 modelUri required for prepackaged servers, traffic weights sum to 100,
 duplicate predictor names rejected, and the feature annotations parsed
 strictly at apply (disagg pools, the host KV tier, tenants, the
-planner, graph fusion). Sharded serving (``seldon.io/mesh``, a
-predictor ``tpuMesh``) is not ported yet and refuses.
+planner, graph fusion, sharded serving's ``seldon.io/mesh``).
 """
 
 from __future__ import annotations
@@ -605,11 +604,9 @@ def inject_tenants_param(spec_dict: Dict, tenants: str) -> Dict:
 
 
 # Predictor annotations of the JAX engine whose feature is not ported to
-# this package yet, with the values that leave the feature off (sharded
-# serving)
-NOT_PORTED_ANNOTATIONS = {
-    "seldon.io/mesh": (),
-}
+# this package yet, with the values that leave the feature off. Every one
+# is ported: the table stays for the next feature that is not.
+NOT_PORTED_ANNOTATIONS: Dict[str, tuple] = {}
 
 
 def check_not_ported_annotations(spec: PredictorSpec) -> None:
@@ -646,8 +643,8 @@ def validate_predictor(spec: PredictorSpec) -> None:
             raise GraphSpecError(f"router {unit.name} has no children")
     if spec.hpa_spec is not None:
         parse_hpa_spec(spec.hpa_spec, who=spec.name)
-    # sharded serving is not ported: its annotation refuses before the
-    # JAX package's checks run
+    # an unported feature's annotation refuses before the JAX package's
+    # checks run
     check_not_ported_annotations(spec)
     # disagg annotations parse strictly at admission (same policy as
     # rollout annotations): a typo'd pool size or a multi-node disagg

@@ -30,6 +30,11 @@ Layouts match the JAX package exactly: per-layer caches
 ``[B, KV, T, Dh]``, the prefill slab ``[L, B, KV, Tb, Dh]``, and q/k/v
 ``[B, H, T, Dh]`` at the attention call. Where JAX donated a buffer
 (the decode cache), this port writes into the tensor in place.
+
+Sharded serving (``set_serving_mesh``): params and caches stored split
+over a serving mesh (``param_sharding``, ``cache_sharding``,
+``slab_sharding``) are gathered one layer at a time onto the compute
+device by every serving forward, which re-slices what it wrote.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from ..device import resolve_device
 from ..ops.flash_attention import attention as prefill_attention
 from ..ops.flash_attention import check_kernel_config
 from ..parallel.collectives import psum, pvary
+from ..parallel.mesh import ServingSharding, ShardedTensor
 from ..parallel.moe import moe_ffn, moe_ffn_ep
 from ..parallel.ring import full_attention, ring_attention
 from .base import ServedModel, torch_dtype
@@ -115,6 +121,10 @@ def _rope(x, positions, theta: float):
 
 
 class DecoderLM(ServedModel):
+    # the serving mesh a batcher armed (set_serving_mesh), None unmeshed
+    _serving_mesh = None
+    _serving_shard_seq = False
+
     def __init__(self, device=None, **config):
         """``config``: the JAX package's model config keys. ``device``
         (optional): where the model will run; on CUDA the config is held
@@ -313,12 +323,151 @@ class DecoderLM(ServedModel):
         return True, ""
 
     # ------------------------------------------------------------------
-    # forward building blocks
+    # sharded serving: sharded storage, replicated compute
     # ------------------------------------------------------------------
 
+    def param_sharding(self, mesh, params) -> Dict[str, Any]:
+        """The tensor-parallel storage layout over the ``model`` axis, leaf
+        for leaf with ``params``: the JAX package's table (column-split
+        ``wq wk wv w1 w3`` on their last dim, row-split ``wo w2`` on the
+        one before, the experts' ``w1e`` on F and ``w2e`` on their F
+        rows), every other leaf replicated."""
+        col = {"wq", "wk", "wv", "w1", "w3"}
+        row = {"wo", "w2"}
+        has_model = "model" in mesh.axis_names
+
+        def spec_for(name, leaf):
+            nd = leaf.ndim
+            if not has_model:
+                return ServingSharding(mesh, ())
+            if name in col:
+                return ServingSharding(mesh, (None,) * (nd - 1) + ("model",))
+            if name in row:
+                return ServingSharding(mesh, (None,) * (nd - 2) + ("model", None))
+            if name == "w1e":
+                return ServingSharding(mesh, (None, None, None, "model"))
+            if name == "w2e":
+                return ServingSharding(mesh, (None, None, "model", None))
+            return ServingSharding(mesh, ())
+
+        def walk(tree, name):
+            if isinstance(tree, dict):
+                return {k: walk(v, k) for k, v in tree.items()}
+            return spec_for(name, tree)
+
+        return walk(params, None)
+
+    def set_serving_mesh(self, mesh, shard_seq: bool = False) -> None:
+        """Arm sharded STORAGE with replicated COMPUTE (the batcher calls
+        this when it puts the params under :meth:`param_sharding`), the
+        JAX package's serving mode and its reason: tensor parallelism by
+        partial sums would sum the row-parallel products and the
+        head-split attention in another order than the one-device
+        program, and greedy argmax flips at a near-tie, so the 1-vs-N
+        byte identity would break.
+
+        Params and the KV cache live split over the mesh
+        (:class:`~seldon_core_tpu_torch.parallel.mesh.ShardedTensor`).
+        Every forward gathers what one layer reads onto the compute
+        device, runs the one-device arithmetic on tensors of the
+        unsharded shape, dtype and strides, and re-slices the cache and
+        slab positions it wrote back into their blocks: copies only, so
+        the numbers are the one-device program's. The JAX executables
+        gather whole at entry; here the gather runs one layer at a time,
+        into buffers kept across calls (a decode burst's CUDA graph
+        captures their addresses), so the compute device holds one
+        layer's gathered weights and cache beside its own blocks."""
+        self._serving_mesh = mesh
+        self._serving_shard_seq = bool(shard_seq)
+
+    def cache_sharding(self, mesh, kv_heads: Optional[int] = None,
+                       shard_seq: bool = False) -> ServingSharding:
+        """One per-layer cache buffer ``[S, KV, T, Dh]``: KV heads over
+        ``model`` (replicated when they do not divide it), T over ``seq``
+        under ``shard_seq``, lanes and head dim replicated."""
+        kv = self.cfg.n_kv_heads if kv_heads is None else kv_heads
+        model_ax = "model" if "model" in mesh.axis_names else None
+        if model_ax and kv % mesh.shape["model"] != 0:
+            model_ax = None
+        seq_ax = None
+        if shard_seq and "seq" in mesh.axis_names and mesh.shape["seq"] > 1:
+            seq_ax = "seq"
+        return ServingSharding(mesh, (None, model_ax, seq_ax, None))
+
+    def slab_sharding(self, mesh, kv_heads: Optional[int] = None) -> ServingSharding:
+        """A staging or transfer slab ``[L, 1, KV, T, Dh]``: the KV heads
+        split as :meth:`cache_sharding` splits them, the rest replicated.
+        Wire and tier bytes always gather first."""
+        kv = self.cfg.n_kv_heads if kv_heads is None else kv_heads
+        model_ax = "model" if "model" in mesh.axis_names else None
+        if model_ax and kv % mesh.shape["model"] != 0:
+            model_ax = None
+        return ServingSharding(mesh, (None, None, model_ax, None, None))
+
+    def _gather_buffer(self, tag: str, shape, dtype, device) -> torch.Tensor:
+        """The buffer a sharded operand of one layer is gathered into,
+        one per (tag, shape, dtype, device), kept for the model's life:
+        a captured decode burst reads and writes it at a fixed address,
+        so it must exist before the capture (:meth:`reserve_gather_buffers`)."""
+        bufs = self.__dict__.setdefault("_gather_bufs", {})
+        key = (tag, tuple(shape), dtype, device)
+        buf = bufs.get(key)
+        if buf is None:
+            if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"gather buffer {key} first asked for inside a CUDA graph "
+                    "capture: reserve it before capturing")
+            buf = bufs[key] = torch.empty(shape, dtype=dtype, device=device)
+        return buf
+
+    def reserve_gather_buffers(self, params, cache_shape=None, dtype=None) -> None:
+        """Allocate every gather buffer a forward over ``params`` (and,
+        given ``cache_shape``, a decode over a per-layer cache of that
+        shape) will use, before any CUDA graph captures them."""
+        self._layer(params["blocks"], 0)
+        if cache_shape is not None:
+            dev = self._serving_mesh.device
+            for tag in ("k", "v"):
+                self._gather_buffer(tag, cache_shape, dtype, dev)
+
+    def _take(self, tag: str, w, key) -> torch.Tensor:
+        """``w[key]``; from a sharded ``w``, gathered into its buffer."""
+        if not isinstance(w, ShardedTensor):
+            return w[key]
+        buf = self._gather_buffer(tag, w.shape[len(key):], w.dtype, w.device)
+        w.read_into(buf, key)
+        return buf
+
+    def _layer(self, blocks, l: int) -> Dict[str, torch.Tensor]:
+        return {name: self._take(name, w, (l,)) for name, w in blocks.items()}
+
+    def _kv_in(self, ks, vs, l: int, upto: Optional[int]):
+        """Layer ``l`` of a per-layer cache, and its read window
+        ``[0, upto)``. A sharded layer is gathered into a buffer of the
+        layer's own shape (the window only: nothing past it is read)."""
+        ck, cv = ks[l], vs[l]
+        if not isinstance(ck, ShardedTensor):
+            return ck, cv, None
+        T = ck.shape[2]
+        region = (slice(None), slice(None), slice(0, upto)) if upto is not None and upto < T else ()
+        out = []
+        for tag, c in (("k", ck), ("v", cv)):
+            buf = self._gather_buffer(tag, c.shape, c.dtype, c.device)
+            c.read_into(buf[region], region)
+            out.append(buf)
+        return out[0], out[1], region
+
     @staticmethod
-    def _layer(blocks, l: int) -> Dict[str, torch.Tensor]:
-        return {name: w[l] for name, w in blocks.items()}
+    def _kv_out(ks, vs, l: int, ck, cv, region) -> None:
+        """Re-slice a gathered layer's window back into its blocks."""
+        if region is None:
+            return
+        ks[l].write_from(ck[region], region)
+        vs[l].write_from(cv[region], region)
+
+    # ------------------------------------------------------------------
+    # forward building blocks
+    # ------------------------------------------------------------------
 
     def _qkv(self, p, x, positions):
         """Norm + q/k/v projections + RoPE: q [B,H,T,Dh], k/v [B,KV,T,Dh]."""
@@ -452,8 +601,9 @@ class DecoderLM(ServedModel):
         x = params["embed"][tokens.long()].to(dt)  # [B,1,D]
         blocks = params["blocks"]
         for l in range(len(ks)):
-            x = self._decode_layer(self._layer(blocks, l), x, pos, ks[l], vs[l],
-                                   attn_len, wp)
+            ck, cv, region = self._kv_in(ks, vs, l, attn_len)
+            x = self._decode_layer(self._layer(blocks, l), x, pos, ck, cv, attn_len, wp)
+            self._kv_out(ks, vs, l, ck, cv, region)
         return self._decode_head(params, x), ks, vs
 
     @torch.inference_mode()
@@ -496,15 +646,19 @@ class DecoderLM(ServedModel):
         for l in range(len(ks)):
             p = self._layer(blocks, l)
             q, k, v = self._qkv(p, x, positions)
-            for cache, new in ((ks[l], k), (vs[l], v)):
+            # a sharded layer is gathered whole: a window write clamped
+            # onto T - 1 reads the cache's last position
+            ck, cv, region = self._kv_in(ks, vs, l, None)
+            for cache, new in ((ck, k), (cv, v)):
                 nt = new.transpose(1, 2)  # [B, W, KV, Dh]
                 end = torch.where(reaches[:, None, None], nt[rows, j_end], cache[:, :, T - 1])
                 cache[rows[:, None], :, wp] = torch.where(at_end[:, :, None, None],
                                                           end[:, None], nt)
-            kc, vc = ks[l], vs[l]
+            kc, vc = ck, cv
             if attn_len is not None and attn_len < T:
                 kc, vc = kc[:, :, :attn_len], vc[:, :, :attn_len]
             o = self._cache_attention(q, kc, vc, positions, dt)
+            self._kv_out(ks, vs, l, ck, cv, region)
             x = x + self._merge_heads(p, o)
             x = x + self._ffn(p, x)
         x = _rms_norm(x, params["ln_f"].to(dt), cfg.norm_eps)
@@ -580,13 +734,27 @@ class DecoderLM(ServedModel):
         positions = (start + torch.arange(C, device=dev))[None, :].expand(B, C)
         x = params["embed"][tokens.long()].to(dt)
         blocks = params["blocks"]
+        sharded = isinstance(slab["k"], ShardedTensor)
         for l in range(cfg.n_layers):
             p = self._layer(blocks, l)
             q, k, v = self._qkv(p, x, positions)
-            slab["k"][l, :, :, start:start + C] = k
-            slab["v"][l, :, :, start:start + C] = v
-            o = self._cache_attention(q, slab["k"][l, :, :, :attn_len],
-                                      slab["v"][l, :, :, :attn_len], positions, dt)
+            if sharded:
+                # layer l's window gathered into a buffer of the layer's
+                # shape, the chunk written there and re-sliced
+                sk, sv = (self._gather_buffer("slab_" + n, slab[n].shape[1:], dt, slab[n].device)
+                          for n in ("k", "v"))
+                window = (l, slice(None), slice(None), slice(0, attn_len))
+                slab["k"].read_into(sk[:, :, :attn_len], window)
+                slab["v"].read_into(sv[:, :, :attn_len], window)
+            else:
+                sk, sv = slab["k"][l], slab["v"][l]
+            sk[:, :, start:start + C] = k
+            sv[:, :, start:start + C] = v
+            o = self._cache_attention(q, sk[:, :, :attn_len], sv[:, :, :attn_len], positions, dt)
+            if sharded:
+                at = (l, slice(None), slice(None), slice(start, start + C))
+                slab["k"].write_from(sk[:, :, start:start + C], at)
+                slab["v"].write_from(sv[:, :, start:start + C], at)
             x = x + self._merge_heads(p, o)
             x = x + self._ffn(p, x)
         if not want_logits:

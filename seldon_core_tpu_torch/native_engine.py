@@ -98,14 +98,40 @@ def build(force: bool = False) -> str:
 _lib = None
 
 
+def _isolated_handle(path: str):
+    """``dlmopen(LM_ID_NEWLM, path)``: the library and its dependencies
+    (libprotobuf, libstdc++) in a link-map namespace of their own, so
+    their protobuf descriptor pool is private. Another engine built from
+    the same ``prediction.proto`` in this process (the JAX package's)
+    registers the same file in the shared libprotobuf's pool, and the
+    second registration aborts the process. None where the C library
+    has no ``dlmopen``."""
+    libc = ctypes.CDLL(None)
+    dlmopen = getattr(libc, "dlmopen", None)
+    if dlmopen is None:
+        return None
+    dlmopen.restype = ctypes.c_void_p
+    dlmopen.argtypes = [ctypes.c_long, ctypes.c_char_p, ctypes.c_int]
+    handle = dlmopen(-1, path.encode(), os.RTLD_NOW | os.RTLD_LOCAL)  # -1: LM_ID_NEWLM
+    if not handle:
+        libc.dlerror.restype = ctypes.c_char_p
+        raise OSError(f"dlmopen {path}: {(libc.dlerror() or b'').decode()}")
+    return handle
+
+
 def _load():
     global _lib
     if _lib is None:
-        # RTLD_DEEPBIND: the engine must bind ITS libprotobuf symbols even
-        # though torch (which bundles incompatible protobuf symbols) is
-        # loaded in this process — without it the binary front segfaults
-        mode = ctypes.RTLD_LOCAL | getattr(os, "RTLD_DEEPBIND", 0)
-        lib = ctypes.CDLL(build(), mode=mode)
+        path = build()
+        handle = _isolated_handle(path)
+        if handle is not None:
+            lib = ctypes.CDLL(path, handle=handle)
+        else:
+            # RTLD_DEEPBIND: the engine must bind ITS libprotobuf symbols
+            # even though torch (which bundles incompatible protobuf
+            # symbols) is loaded in this process
+            mode = ctypes.RTLD_LOCAL | getattr(os, "RTLD_DEEPBIND", 0)
+            lib = ctypes.CDLL(path, mode=mode)
         lib.sce_start.restype = ctypes.c_void_p
         lib.sce_start.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
         lib.sce_start_grpc.restype = ctypes.c_void_p

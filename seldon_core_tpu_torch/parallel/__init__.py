@@ -14,8 +14,9 @@ Ported: the mesh (``mesh.py``, ``launch.py`` for N ranks on one host), the
 collectives with their transposes (``collectives.py``), ring attention,
 GPipe, the switch MoE on one device and expert-parallel, and the explicit
 parallel training step (``train.py``: ``make_train_step``,
-``dryrun_multichip``). Not ported yet: sharded serving (the serving mesh
-of the batcher and the servers, which still refuse ``mesh`` knobs).
+``dryrun_multichip``), and the serving mesh of sharded generate serving
+(``mesh.py``: ``ServingMesh``, one process over N devices, and
+``ShardedTensor``, the storage it splits).
 """
 
 from .mesh import (  # noqa: F401

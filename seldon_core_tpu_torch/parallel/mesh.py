@@ -14,13 +14,21 @@ Backends: NCCL on ``cuda:<local rank>`` (the default), gloo with CPU
 tensors for the tests. The pure-Python helpers (:func:`factor_devices`,
 :func:`parse_mesh_shape`, :func:`validate_model_dims`) are copies of the
 JAX package's, with the same messages.
+
+Sharded generate serving runs one controller over N devices, as the JAX
+serving mesh does: a :class:`ServingMesh` names a device per position,
+a :class:`ServingSharding` says which dimension splits over which axis,
+and a :class:`ShardedTensor` holds a tensor's blocks on their devices
+(:func:`place` puts a tensor there). The batcher and ``DecoderLM``
+store params and the KV cache so and compute on the mesh's first device
+(``DecoderLM.set_serving_mesh``).
 """
 
 from __future__ import annotations
 
 import itertools
 import os
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -393,3 +401,468 @@ def initialize_distributed(
     dist.init_process_group(backend, init_method=coordinator_address,
                             world_size=num_processes, rank=process_id)
     return True
+
+
+# ---------------------------------------------------------------------------
+# the serving mesh: one process over N devices
+# ---------------------------------------------------------------------------
+
+# The positions a CPU mesh may hold: the CPU stands in for this many
+# devices, as the tests' JAX backend stands in for 8 virtual devices
+# (``--xla_force_host_platform_device_count=8``).
+CPU_DEVICE_COUNT = 8
+
+
+class ServingMesh:
+    """The device mesh of sharded generate serving, held by ONE process
+    (the JAX serving mesh is single-controller too; :class:`Mesh` is the
+    training step's one-process-a-rank view).
+
+    ``shape`` maps each named axis, in order, to its size (``data``,
+    ``model``, and ``seq`` when the cache length is sharded);
+    ``axis_names`` is that order, ``size`` the product. ``devices`` holds
+    one ``torch.device`` per position, row-major in ``axis_names`` order
+    as ``make_mesh`` reshapes ``jax.devices()``; ``device`` is the first,
+    where the replicated compute runs. Several positions may name one
+    device: the tests and the on-card smoke run map every position onto
+    one CPU or one card. :func:`make_serving_mesh` never does."""
+
+    def __init__(self, shape: Dict[str, int], devices: Sequence):
+        import torch
+
+        shape = dict(shape)
+        for ax in shape:
+            if ax not in AXES:
+                raise MeshShapeError(f"mesh axis {ax!r}: must be one of {AXES}")
+        total = _check_shape(shape)
+        devices = [torch.device(d) for d in devices]
+        if len(devices) != total:
+            raise MeshShapeError(
+                f"mesh {shape} has {total} positions, got {len(devices)} devices")
+        self.shape = shape
+        self.axis_names = tuple(shape)
+        self.size = total
+        self.devices = devices
+        self.device = devices[0]
+
+    def coords(self, position: int) -> Dict[str, int]:
+        """The axis coordinates of a position (row-major)."""
+        sizes = [self.shape[ax] for ax in self.axis_names]
+        return dict(zip(self.axis_names, (int(c) for c in np.unravel_index(position, sizes))))
+
+    def distinct_devices(self) -> List:
+        out: List = []
+        for d in self.devices:
+            if d not in out:
+                out.append(d)
+        return out
+
+    def __repr__(self) -> str:
+        devs = ",".join(str(d) for d in self.distinct_devices())
+        return f"ServingMesh({self.shape}, devices=[{devs}])"
+
+
+def serving_device_count(device="cuda") -> int:
+    """Devices a serving mesh on ``device``'s type can span: the visible
+    cards for CUDA, :data:`CPU_DEVICE_COUNT` positions for the CPU."""
+    import torch
+
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    return torch.cuda.device_count() if dev.type == "cuda" else CPU_DEVICE_COUNT
+
+
+def make_serving_mesh(shape: Dict[str, int], device="cuda",
+                      devices: Optional[Sequence] = None) -> ServingMesh:
+    """Build the :class:`ServingMesh` of ``{axis: size}``: over ``devices``
+    when given (a control-plane placement block), else over the visible
+    cards ``cuda:0..N-1`` (``device`` of type cuda) or the CPU's
+    :data:`CPU_DEVICE_COUNT` positions (``device`` "cpu").
+
+    The JAX ``make_mesh`` refusals, with its messages: a size that is not
+    a positive int, more positions than devices, and a size that does not
+    divide the device count (the rest would idle). The mesh takes the
+    first devices. Between two distinct cards the gathers and re-slices
+    copy card to card inside the decode bursts' CUDA graphs, which needs
+    peer access: a mesh over cards without it is refused."""
+    import torch
+
+    from ..device import resolve_device
+
+    shape = dict(shape)
+    for ax in shape:
+        if ax not in AXES:
+            raise MeshShapeError(f"mesh axis {ax!r}: must be one of {AXES}")
+    total = _check_shape(shape)
+    if devices is None:
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        else:
+            devices = [torch.device("cpu")] * CPU_DEVICE_COUNT
+    devices = [torch.device(d) for d in devices]
+    if total > len(devices):
+        raise MeshShapeError(f"mesh {shape} needs {total} devices, have {len(devices)}")
+    if len(devices) % total != 0:
+        raise MeshShapeError(
+            f"mesh {shape} covers {total} of {len(devices)} devices; "
+            f"{total} does not divide {len(devices)} — the leftover "
+            f"{len(devices) % total} chip(s) would idle"
+        )
+    mesh = ServingMesh(shape, devices[:total])
+    cards = [d for d in mesh.distinct_devices() if d.type == "cuda"]
+    for a in cards:
+        for b in cards:
+            if a != b and not torch.cuda.can_device_access_peer(a.index, b.index):
+                raise MeshShapeError(
+                    f"mesh {shape}: {a} cannot access {b} directly (no peer "
+                    "access); the serving mesh copies between its cards inside "
+                    "CUDA graphs and needs it"
+                )
+    return mesh
+
+
+class ServingSharding:
+    """Which tensor dimension splits over which mesh axis: the port's
+    ``NamedSharding(mesh, PartitionSpec(*spec))``. ``spec[d]`` is an axis
+    name or None; dimensions past the spec are replicated (``()`` is
+    fully replicated, as ``P()``)."""
+
+    def __init__(self, mesh: ServingMesh, spec: Sequence[Optional[str]] = ()):
+        self.mesh = mesh
+        self.spec = tuple(spec)
+
+    def split_dims(self) -> Dict[int, str]:
+        """``{dim: axis}`` of the dimensions that really split (axis size
+        above 1)."""
+        return {d: ax for d, ax in enumerate(self.spec)
+                if ax is not None and self.mesh.shape.get(ax, 1) > 1}
+
+    @property
+    def is_fully_replicated(self) -> bool:
+        return not self.split_dims()
+
+    def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        out = list(shape)
+        for d, ax in self.split_dims().items():
+            out[d] //= self.mesh.shape[ax]
+        return tuple(out)
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, ServingSharding) and other.mesh is self.mesh
+                and other.spec == self.spec)
+
+    def __hash__(self) -> int:
+        return hash((id(self.mesh), self.spec))
+
+    def __repr__(self) -> str:
+        return f"ServingSharding({self.spec})"
+
+
+class _Block:
+    __slots__ = ("index", "region", "device", "tensor")
+
+    def __init__(self, index, region, device, tensor):
+        self.index = index  # block coordinate per split dim
+        self.region = region  # {dim: (lo, hi)} of the split dims
+        self.device = device
+        self.tensor = tensor
+
+
+class ShardedTensor:
+    """A tensor stored in blocks over a :class:`ServingMesh`: each split
+    dimension cut into ``torch.chunk``-sized pieces, each piece held on
+    the device of every mesh position that owns it (replicated over the
+    axes that do not split it; two positions on one device share one
+    block). Nothing computes on it: reads gather blocks into a tensor on
+    the mesh's compute device (``read_into``, ``[...]``) and writes
+    re-slice a tensor into every block that holds the region
+    (``write_from``, ``[...] =``). Both are copies only, so the numbers
+    are the unsharded tensor's exactly."""
+
+    def __init__(self, shape, dtype, sharding: ServingSharding, blocks: List[_Block],
+                 split: Dict[int, str]):
+        import torch
+
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.sharding = sharding
+        self.mesh = sharding.mesh
+        self.device = self.mesh.device
+        self._blocks = blocks
+        self._split = split
+        # the block each region is read from: the compute device's copy
+        # when it has one, else the first position's
+        self._primary: Dict[tuple, _Block] = {}
+        for b in blocks:
+            cur = self._primary.get(b.index)
+            if cur is None or (cur.device != self.device and b.device == self.device):
+                self._primary[b.index] = b
+
+    # -- construction -------------------------------------------------------
+
+    @staticmethod
+    def _layout(shape, sharding: ServingSharding):
+        """``[(index, region, device)]`` of every distinct block, in mesh
+        position order, and the split dims."""
+        split = sharding.split_dims()
+        mesh = sharding.mesh
+        for d, ax in split.items():
+            if shape[d] % mesh.shape[ax]:
+                raise MeshShapeError(
+                    f"dimension {d} of {tuple(shape)} does not divide over "
+                    f"{ax}={mesh.shape[ax]}")
+        seen, out = set(), []
+        for pos, dev in enumerate(mesh.devices):
+            c = mesh.coords(pos)
+            index = tuple(c[ax] for _d, ax in sorted(split.items()))
+            if (index, dev) in seen:
+                continue
+            seen.add((index, dev))
+            region = {}
+            for d, ax in split.items():
+                n = shape[d] // mesh.shape[ax]
+                region[d] = (c[ax] * n, (c[ax] + 1) * n)
+            out.append((index, region, dev))
+        return out, split
+
+    @classmethod
+    def zeros(cls, shape, dtype, sharding: ServingSharding) -> "ShardedTensor":
+        """A zeroed sharded tensor, allocated block by block (the whole
+        tensor never exists in one place)."""
+        import torch
+
+        layout, split = cls._layout(shape, sharding)
+        blocks = []
+        for index, region, dev in layout:
+            bshape = list(shape)
+            for d, (lo, hi) in region.items():
+                bshape[d] = hi - lo
+            blocks.append(_Block(index, region, dev, torch.zeros(bshape, dtype=dtype, device=dev)))
+        return cls(shape, dtype, sharding, blocks, split)
+
+    @classmethod
+    def from_tensor(cls, t, sharding: ServingSharding) -> "ShardedTensor":
+        """``t`` cut into its blocks, each a copy on its device."""
+        layout, split = cls._layout(t.shape, sharding)
+        blocks = []
+        for index, region, dev in layout:
+            piece = t
+            for d, (lo, hi) in region.items():
+                piece = piece.narrow(d, lo, hi - lo)
+            blocks.append(_Block(index, region, dev,
+                                 piece.to(dev, copy=True).contiguous()))
+        return cls(t.shape, t.dtype, sharding, blocks, split)
+
+    # -- tensor-like surface ------------------------------------------------
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def numel(self) -> int:
+        return self.shape.numel()
+
+    def element_size(self) -> int:
+        return self._blocks[0].tensor.element_size()
+
+    @property
+    def nbytes(self) -> int:
+        """Global bytes, as a sharded JAX array's ``.nbytes``."""
+        return self.numel() * self.element_size()
+
+    @property
+    def shard_nbytes(self) -> int:
+        """Bytes one mesh position holds."""
+        n = self.element_size()
+        for s in self.sharding.shard_shape(self.shape):
+            n *= s
+        return n
+
+    def blocks(self) -> List[Tuple[Any, Any]]:
+        """``[(device, tensor)]`` of every stored block."""
+        return [(b.device, b.tensor) for b in self._blocks]
+
+    def __repr__(self) -> str:
+        return (f"ShardedTensor(shape={tuple(self.shape)}, dtype={self.dtype}, "
+                f"spec={self.sharding.spec}, blocks={len(self._blocks)})")
+
+    # -- indexing -----------------------------------------------------------
+
+    def _norm_key(self, key) -> Optional[list]:
+        import torch
+
+        if not isinstance(key, tuple):
+            key = (key,)
+        if len(key) > self.ndim or any(e is Ellipsis or e is None for e in key):
+            return None
+        key = list(key) + [slice(None)] * (self.ndim - len(key))
+        n_adv = 0
+        for i, e in enumerate(key):
+            if isinstance(e, (list, np.ndarray)):
+                key[i] = e = torch.as_tensor(e)
+            if isinstance(e, torch.Tensor):
+                if e.dim() != 1 or e.dtype == torch.bool:
+                    return None
+                n_adv += 1
+            elif isinstance(e, slice):
+                if e.step not in (None, 1):
+                    return None
+            elif not isinstance(e, int):
+                return None
+        return key if n_adv <= 1 else None
+
+    def _out_shape(self, key) -> List[int]:
+        out = []
+        for d, e in enumerate(key):
+            if isinstance(e, slice):
+                out.append(len(range(*e.indices(self.shape[d]))))
+            elif not isinstance(e, int):
+                out.append(int(e.numel()))
+        return out
+
+    def _plan(self, key, blocks):
+        """Per block: its local key, and ``{out dim: (lo, hi)}`` of the
+        indexed result that it covers; blocks the key misses are left
+        out."""
+        import torch
+
+        out_dim, o = {}, 0
+        for d, e in enumerate(key):
+            if not isinstance(e, int):
+                out_dim[d] = o
+                o += 1
+        for e_d, e in enumerate(key):
+            if isinstance(e, torch.Tensor) and e_d in self._split:
+                return None
+        plans = []
+        for b in blocks:
+            local, ranges, hit = list(key), {}, True
+            for d in self._split:
+                lo, hi = b.region[d]
+                e = key[d]
+                if isinstance(e, slice):
+                    s, t, _ = e.indices(self.shape[d])
+                    a, z = max(s, lo), min(t, hi)
+                    if a >= z:
+                        hit = False
+                        break
+                    local[d] = slice(a - lo, z - lo)
+                    ranges[out_dim[d]] = (a - s, z - s)
+                else:
+                    i = e % self.shape[d]
+                    if not lo <= i < hi:
+                        hit = False
+                        break
+                    local[d] = i - lo
+            if not hit:
+                continue
+            for d, e in enumerate(local):
+                if isinstance(e, torch.Tensor) and e.device != b.device:
+                    local[d] = e.to(b.device)
+            plans.append((b, tuple(local), ranges))
+        return plans
+
+    @staticmethod
+    def _narrow(t, ranges):
+        for od, (a, z) in ranges.items():
+            t = t.narrow(od, a, z - a)
+        return t
+
+    def full(self):
+        """The whole tensor, gathered onto the compute device."""
+        import torch
+
+        out = torch.empty(self.shape, dtype=self.dtype, device=self.device)
+        self.read_into(out, ())
+        return out
+
+    def read_into(self, out, key=()) -> None:
+        """``out.copy_(self[key])`` without materialising the rest:
+        ``out`` has the indexed shape (any strides)."""
+        k = self._norm_key(key)
+        plans = None if k is None else self._plan(k, self._primary.values())
+        if plans is None:
+            out.copy_(self.full()[key])
+            return
+        for b, local, ranges in plans:
+            self._narrow(out, ranges).copy_(b.tensor[local])
+
+    def write_from(self, src, key=()) -> None:
+        """``self[key] = src`` into every block holding the region."""
+        import torch
+
+        if isinstance(src, ShardedTensor):
+            src = src.full()
+        k = self._norm_key(key)
+        plans = None if k is None else self._plan(k, self._blocks)
+        if plans is None:
+            whole = self.full()
+            whole[key] = src
+            self.write_from(whole, ())
+            return
+        src = torch.as_tensor(src, dtype=self.dtype, device=self.device)
+        src = src.expand(self._out_shape(k))
+        for b, local, ranges in plans:
+            piece = self._narrow(src, ranges)
+            if piece.device != b.device:
+                piece = piece.to(b.device)
+            b.tensor[local] = piece
+
+    def __getitem__(self, key):
+        import torch
+
+        k = self._norm_key(key)
+        if k is None:
+            return self.full()[key]
+        out = torch.empty(self._out_shape(k), dtype=self.dtype, device=self.device)
+        self.read_into(out, key)
+        return out
+
+    def __setitem__(self, key, value) -> None:
+        self.write_from(value, key)
+
+    def copy_(self, src) -> "ShardedTensor":
+        if isinstance(src, ShardedTensor) and src.sharding == self.sharding:
+            for b, s in zip(self._blocks, src._blocks):
+                b.tensor.copy_(s.tensor)
+        else:
+            self.write_from(src, ())
+        return self
+
+    def narrow(self, dim: int, start: int, length: int) -> "ShardedTensor":
+        """A view of ``[start, start + length)`` along an unsplit ``dim``:
+        writes through it land in this tensor's blocks."""
+        if dim in self._split:
+            raise ValueError(f"narrow along split dimension {dim}")
+        shape = list(self.shape)
+        shape[dim] = length
+        blocks = [_Block(b.index, b.region, b.device, b.tensor.narrow(dim, start, length))
+                  for b in self._blocks]
+        return ShardedTensor(shape, self.dtype, self.sharding, blocks, self._split)
+
+
+def place(t, sharding: Optional[ServingSharding]):
+    """Put a tensor under a sharding: a :class:`ShardedTensor` when some
+    dimension really splits, else the tensor itself on the mesh's compute
+    device (a replicated leaf is read on that device only, so it is kept
+    there once). An already-placed tensor of that sharding is returned as
+    it is; ``sharding`` None returns ``t``."""
+    if sharding is None:
+        return t
+    if isinstance(t, ShardedTensor):
+        if t.sharding == sharding:
+            return t
+        t = t.full()
+    if sharding.is_fully_replicated:
+        return t.to(sharding.mesh.device)
+    return ShardedTensor.from_tensor(t, sharding)
+
+
+def place_tree(tree, shardings):
+    """:func:`place` over nested dicts, leaf for leaf with ``shardings``
+    (the same structure)."""
+    if isinstance(tree, dict):
+        return {k: place_tree(v, shardings[k]) for k, v in tree.items()}
+    return place(tree, shardings)

@@ -315,19 +315,12 @@ def dryrun_factorizations(n_devices: int):
 
 
 def _dryrun_rank(rank: int, runs, device: str):
-    from ..models.llm import DecoderLM
-
     out = []
     for axes in runs:
         mesh = make_mesh(axes)
         dp, sp = axes["data"], axes["seq"]
-        ep = dp * sp  # experts ride the combined (data, seq) ranks
-        n_heads = 4 * axes["model"]
-        model = DecoderLM(
-            vocab_size=256, d_model=32 * axes["model"], n_layers=2 * axes["stage"],
-            n_heads=n_heads, n_kv_heads=n_heads, d_ff=64 * axes["model"], max_seq=8 * sp,
-            n_experts=2 * ep, dtype="float32",
-        )
+        # experts ride the combined (data, seq) ranks
+        model = _dryrun_model(axes)
         init, step = make_train_step(model, mesh, n_microbatches=2, learning_rate=1e-2,
                                      device=device)
         params = init(0)
@@ -341,15 +334,56 @@ def _dryrun_rank(rank: int, runs, device: str):
     return out
 
 
+def _dryrun_model(axes: Dict[str, int]):
+    """The dry run's tiny model of one factorization (MoE with ``2 * ep``
+    experts, widths that split over ``model``)."""
+    from ..models.llm import DecoderLM
+
+    ep = axes["data"] * axes["seq"]
+    n_heads = 4 * axes["model"]
+    return DecoderLM(
+        vocab_size=256, d_model=32 * axes["model"], n_layers=2 * axes["stage"],
+        n_heads=n_heads, n_kv_heads=n_heads, d_ff=64 * axes["model"],
+        max_seq=8 * axes["seq"], n_experts=2 * ep, dtype="float32",
+    )
+
+
+def dryrun_serving(axes: Dict[str, int], device="cuda") -> Tuple[int, ...]:
+    """The serving half of ``__graft_entry__.dryrun_multichip``: the
+    sharded ``apply`` over a serving mesh of the same axes, its params
+    stored under ``param_sharding`` (one process over the mesh's
+    devices: the cards, or CPU positions). Raises unless the logits are
+    finite and equal to the unsharded ``apply``'s bit for bit; returns
+    their shape."""
+    from .mesh import make_serving_mesh, place_tree
+
+    dev = resolve_device(device)
+    total = int(np.prod(list(axes.values())))
+    mesh = make_serving_mesh(axes, device=dev,
+                             devices=None if dev.type == "cuda" else [dev] * total)
+    model = _dryrun_model(axes)
+    params = model.init_params(0, device=mesh.device)
+    sharded = place_tree(params, model.param_sharding(mesh, params))
+    B, T = axes["data"] * 2 * 2, 8 * axes["seq"]
+    x = torch.as_tensor(np.random.RandomState(0).randint(0, 256, (B, T)), device=mesh.device)
+    logits = model.apply(sharded, x)
+    if not bool(torch.isfinite(logits).all()):
+        raise RuntimeError("dry-run serving forward produced non-finite logits")
+    if not torch.equal(logits, model.apply(params, x)):
+        raise RuntimeError("dry-run sharded serving forward differs from the unsharded one")
+    return tuple(logits.shape)
+
+
 def dryrun_multichip(n_devices: int, axes: Optional[Dict[str, int]] = None,
                      device="cuda"):
-    """The train half of ``__graft_entry__.dryrun_multichip``: the FULL
-    training step (tp/pp/dp/sp/ep) on tiny shapes over ``n_devices``
-    spawned ranks (NCCL, one card each, by default; ``device="cpu"``:
-    gloo), one step per factorization (:func:`dryrun_factorizations`, or
-    ``axes``) with ``n_experts = 2 * ep``. Returns ``[(axes, loss)]`` as
-    every rank computed it (rank 0's list), after checking that all ranks
-    agree; raises if a loss is not finite."""
+    """``__graft_entry__.dryrun_multichip``: the FULL training step
+    (tp/pp/dp/sp/ep) on tiny shapes over ``n_devices`` spawned ranks
+    (NCCL, one card each, by default; ``device="cpu"``: gloo), one step
+    per factorization (:func:`dryrun_factorizations`, or ``axes``) with
+    ``n_experts = 2 * ep``, then the sharded serving forward over a
+    serving mesh of the same axes (:func:`dryrun_serving`). Returns
+    ``[(axes, loss)]`` as every rank computed it (rank 0's list), after
+    checking that all ranks agree; raises if a loss is not finite."""
     from .launch import launch
 
     if n_devices < 1:
@@ -362,5 +396,7 @@ def dryrun_multichip(n_devices: int, axes: Optional[Dict[str, int]] = None,
         raise RuntimeError(f"ranks disagree on the dry-run losses: {results}")
     for ax, loss in results[0]:
         ep = ax["data"] * ax["seq"]
-        print(f"dryrun_multichip ok: mesh={ax} (ep={ep} via data x seq) loss={loss:.4f}")
+        shape = dryrun_serving(ax, device=dev)
+        print(f"dryrun_multichip ok: mesh={ax} (ep={ep} via data x seq) loss={loss:.4f} "
+              f"serve_logits={shape}")
     return results[0]

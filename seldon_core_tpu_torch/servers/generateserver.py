@@ -139,8 +139,22 @@ Server parameters (typed, e.g. from ``PREDICTIVE_UNIT_PARAMETERS``)::
     slo_fast_window_s / slo_slow_window_s
                      the burn engine's windows (60 / 3600)
 
-The JAX server's mesh parameters are not ported yet: each raises when
-set to anything but its off value. The fault config's ``pressure`` section
+Sharded serving (the JAX server's mesh parameters):
+
+    mesh             an explicit ``parallel/mesh.py`` ``ServingMesh`` (the
+                     engine hands the control plane's placement here); it
+                     always wins over ``mesh_shape``
+    mesh_shape       build a serving mesh at load: ``"data=2,model=4"``
+                     (strict, refused at construction when malformed) or
+                     ``"auto"`` (every visible device factored, collapsed
+                     to ``data x model``). The params and the KV cache are
+                     stored split over the mesh, the compute runs on its
+                     first device; greedy and seeded tokens equal the
+                     unmeshed server's. ``model`` must divide n_heads and
+                     d_ff (refused at load)
+    shard_cache_seq  split the KV cache length over the mesh's ``seq`` axis
+
+The fault config's ``pressure`` section
 (``SELDON_FAULTS``) drives the ledger's budget mid-run, its ``kv_*``
 rules perturb the decode role's transfers per peer.
 
@@ -204,11 +218,12 @@ from .torchserver import TorchServer
 
 logger = logging.getLogger(__name__)
 
-# parameters of the JAX GenerateServer whose feature is not ported yet
-# (the mesh), with their off value (other JAX-server parameters, which
-# only act through one of these, are accepted and ignored, as the JAX
-# server accepts unknown ones)
-_NOT_PORTED = {"mesh": None, "mesh_shape": None, "shard_cache_seq": False}
+# parameters of the JAX GenerateServer whose feature is not ported yet,
+# with their off value (other JAX-server parameters, which only act
+# through one of these, are accepted and ignored, as the JAX server
+# accepts unknown ones). Every one is ported: the table stays for the
+# next feature that is not.
+_NOT_PORTED: Dict[str, Any] = {}
 
 
 def _is_off(name: str, value, off) -> bool:
@@ -295,6 +310,9 @@ class GenerateServer(SeldonComponent):
         slo_objectives: Optional[str] = None,
         slo_fast_window_s: float = 60.0,
         slo_slow_window_s: float = 3600.0,
+        mesh=None,
+        mesh_shape: Optional[str] = None,
+        shard_cache_seq=False,
         **kwargs,
     ):
         for name, value in kwargs.items():
@@ -313,6 +331,23 @@ class GenerateServer(SeldonComponent):
                 "(the draft cache cannot cross the KV transport)"
             )
         self._role = role
+        self._mesh = mesh
+        # the mesh knob, parsed strictly here (a malformed shape refuses
+        # at construction, never mid-load); "auto" factors at load
+        self._mesh_shape: Optional[Any] = None
+        if isinstance(mesh_shape, str):
+            mesh_shape = mesh_shape.strip()
+        if mesh_shape:
+            if str(mesh_shape).lower() == "auto":
+                self._mesh_shape = "auto"
+            else:
+                from ..parallel.mesh import parse_mesh_shape
+
+                self._mesh_shape = parse_mesh_shape(str(mesh_shape))
+        self._shard_cache_seq = (
+            shard_cache_seq.strip().lower() in ("1", "true", "yes")
+            if isinstance(shard_cache_seq, str) else bool(shard_cache_seq)
+        )
         # typed parameters deliver booleans as strings
         self._resume_tokens = (
             resume_tokens.strip().lower() == "true"
@@ -447,6 +482,11 @@ class GenerateServer(SeldonComponent):
 
         from ..serving.continuous import ContinuousBatcher
 
+        if self._mesh is None and self._mesh_shape is not None:
+            self._mesh = self._build_mesh()
+        if self._mesh is not None:
+            # the mesh's first device computes: the weights load there
+            self.device = self._mesh.device
         server = TorchServer(self.model_uri, device=self.device)
         _apply, params = server.build()
         self._model = server._model
@@ -455,6 +495,12 @@ class GenerateServer(SeldonComponent):
                 f"model family {getattr(self._model, '__class__', None)} "
                 "does not support generate(); use family 'llm'"
             )
+        if self._mesh is not None:
+            from ..parallel.mesh import validate_model_dims
+
+            cfg = self._model.cfg
+            validate_model_dims(self._mesh.shape, int(cfg.n_heads), int(cfg.d_ff),
+                                n_kv_heads=int(cfg.n_kv_heads))
         dt = self._model.dtype
         if dt != torch.float32:
             params = self._cast_params_freeing(params, dt)
@@ -492,6 +538,8 @@ class GenerateServer(SeldonComponent):
             swap_resume_policy=self._swap_resume_policy,
             flight_recorder_capacity=self._flight_recorder,
             profiler=self.profiler,
+            mesh=self._mesh,
+            shard_cache_seq=self._shard_cache_seq,
         )
         # chaos harness (off without SELDON_FAULTS): the scheduler section
         # wires induced poll death onto the batcher's fault hook, the
@@ -537,6 +585,24 @@ class GenerateServer(SeldonComponent):
             "generateserver: %s ready on %s (role=%s, slots=%d, max_seq=%d)",
             self.model_uri, self.device, self._role, self._slots, self.batcher.max_seq,
         )
+
+    def _build_mesh(self):
+        """The serving mesh of the ``mesh_shape`` knob over this server's
+        device type: ``auto`` factors every visible device and collapses
+        the factors to ``data x model`` (generate serving runs no pipeline
+        axis, and ``seq`` pays only with ``shard_cache_seq``, which takes
+        an explicit shape)."""
+        from ..parallel.mesh import factor_devices, make_serving_mesh, serving_device_count
+
+        if self._mesh_shape == "auto":
+            f = factor_devices(serving_device_count(self.device))
+            shape = {"data": f["data"] * f["stage"] * f["seq"], "model": f["model"]}
+        else:
+            shape = dict(self._mesh_shape)
+        mesh = make_serving_mesh(shape, device=self.device)
+        logger.info("generateserver: sharded serving mesh %s over %d device(s)",
+                    shape, mesh.size)
+        return mesh
 
     def _build_draft(self, params):
         """``(draft_model, draft_params)`` for speculation, or ``(None,
@@ -1358,6 +1424,22 @@ class GenerateServer(SeldonComponent):
             {"type": "GAUGE", "key": "gen_batcher_healthy",
              "value": 1.0 if self.batcher.health == "serving" else 0.0},
         ]
+        mesh = self.batcher.mesh
+        if mesh is not None:
+            # sharded serving: the mesh and one position's footprint (the
+            # engine's seldon_engine_mesh_* gauges); param_shard_bytes
+            # against the global param bytes is the headroom a mesh buys
+            out.extend([
+                {"type": "GAUGE", "key": "gen_mesh_devices", "value": float(mesh.size)},
+                {"type": "GAUGE", "key": "gen_mesh_data",
+                 "value": float(mesh.shape.get("data", 1))},
+                {"type": "GAUGE", "key": "gen_mesh_model",
+                 "value": float(mesh.shape.get("model", 1))},
+                {"type": "GAUGE", "key": "gen_mesh_param_shard_bytes",
+                 "value": float(self.batcher._param_shard_bytes)},
+                {"type": "GAUGE", "key": "gen_mesh_kv_shard",
+                 "value": float(self.batcher._kv_shard)},
+            ])
         if s.get("prefill_chunks"):
             out.append(delta("gen_prefill_chunks", s["prefill_chunks"]))
         if s.get("fused_dispatches"):

@@ -154,8 +154,17 @@ Counterpart of ``seldon_core_tpu/serving/continuous.py``
   ``fused_steps_per_dispatch=0`` runs ``steps_per_poll``-step bursts of
   its masked step, the same tokens.
 
-The mesh of the JAX batcher is not ported yet: its knobs raise when set
-to anything but their off values.
+* Sharded serving (``mesh``, a ``parallel/mesh.py`` ``ServingMesh``;
+  ``shard_cache_seq``): the params and the KV cache are STORED split
+  over the mesh (``DecoderLM.param_sharding``, ``cache_sharding``: KV
+  heads over ``model``, T over ``seq`` under ``shard_cache_seq``) and
+  the compute is the one-device program on the mesh's first device:
+  every forward gathers one layer at a time, computes, and re-slices
+  what it wrote (``DecoderLM.set_serving_mesh``). Staging, transfer and
+  prefix slabs live split as the cache does (``_slab_sharding``); wire
+  and tier bytes gather first, so they are the unsharded bytes. The
+  pressure ledger prices every component per shard. Greedy and seeded
+  streams are byte-identical to the unmeshed batcher's.
 """
 
 from __future__ import annotations
@@ -174,6 +183,7 @@ import numpy as np
 import torch
 
 from .. import rng
+from ..parallel.mesh import ShardedTensor, place, place_tree
 from ..resilience import ShedError
 from ..tracing import device_trace, wall_us
 from .disagg import DisaggError, PrefixGone, WeightVersionMismatch, prompt_hash
@@ -186,12 +196,9 @@ from .profiler import DeviceTimeLedger
 logger = logging.getLogger(__name__)
 
 # Scheduler knobs of the JAX batcher that this port does not implement
-# yet, with the value that turns each off; any other value raises. They
-# are the mesh (multi-device serving).
-NOT_PORTED_KNOBS: Dict[str, Any] = {
-    "mesh": None,
-    "shard_cache_seq": False,
-}
+# yet, with the value that turns each off; any other value raises. Every
+# knob is ported: the table stays for the next feature that is not.
+NOT_PORTED_KNOBS: Dict[str, Any] = {}
 
 
 def check_not_ported(knobs: Dict[str, Any], owner: str) -> None:
@@ -599,6 +606,8 @@ class ContinuousBatcher:
         flight_recorder_capacity: int = 512,
         profiler=None,
         cuda_graphs: bool = True,
+        mesh=None,
+        shard_cache_seq: bool = False,
         **knobs,
     ):
         check_not_ported(knobs, "ContinuousBatcher")
@@ -848,12 +857,21 @@ class ContinuousBatcher:
         self.tenant_slo_recent: Dict[str, "collections.deque"] = {}
 
         dt = model.dtype
-        self.device = params["embed"].device
+        # sharded serving: the mesh's first device computes; params and
+        # cache are stored split over the mesh
+        self.mesh = mesh
+        self.shard_cache_seq = bool(shard_cache_seq)
+        self.device = mesh.device if mesh is not None else params["embed"].device
         model.check_device(self.device)
         # params are stored in the compute dtype: the forward casts at use,
         # so pre-casting is numerically identical and halves the bytes
         # every decode step reads
         self.params = _cast_tree(params, dt)
+        if mesh is not None:
+            # armed before any forward: every forward then gathers, one
+            # layer at a time, and re-slices what it writes
+            model.set_serving_mesh(mesh, shard_seq=self.shard_cache_seq)
+            self.params = place_tree(self.params, model.param_sharding(mesh, self.params))
         self._draft_params = None
         self._draft_kv_key_bytes = 0
         if self.speculate_tokens:
@@ -861,6 +879,10 @@ class ContinuousBatcher:
             # an early-exit self-draft shares the target's tensors: leaves
             # already in the draft's dtype are kept as they are
             self._draft_params = _cast_tree(draft_params, draft_model.dtype)
+            if mesh is not None:
+                draft_model.set_serving_mesh(mesh)
+                self._draft_params = place_tree(
+                    self._draft_params, draft_model.param_sharding(mesh, self._draft_params))
             dcfg = draft_model.cfg
             self._draft_kv_key_bytes = (
                 2 * dcfg.n_layers * dcfg.n_kv_heads * dcfg.head_dim
@@ -874,6 +896,25 @@ class ContinuousBatcher:
             * torch.empty((), dtype=dt).element_size()
         )
         self._param_bytes = _tree_bytes(self.params)
+        # the params one mesh position holds (partitioned leaves at their
+        # shard's bytes, replicated leaves whole); the global bytes
+        # unmeshed
+        self._param_shard_bytes = _tree_shard_bytes(self.params)
+        # the per-shard split factors of the ledger: how many ways the
+        # cache's bytes divide (KV heads over model, when they divide it;
+        # T over seq under shard_cache_seq); 1 unmeshed
+        self._kv_model_shard = 1
+        self._kv_seq_shard = 1
+        self._slab_sharding = None
+        if mesh is not None:
+            tp = int(mesh.shape.get("model", 1))
+            if tp > 1 and cfg.n_kv_heads % tp == 0:
+                self._kv_model_shard = tp
+            sq = int(mesh.shape.get("seq", 1))
+            if self.shard_cache_seq and sq > 1:
+                self._kv_seq_shard = sq
+            self._slab_sharding = model.slab_sharding(mesh)
+        self._kv_shard = self._kv_model_shard * self._kv_seq_shard
         self._group_split_bytes = (
             int(depth_group_split_bytes)
             if depth_group_split_bytes is not None
@@ -935,10 +976,14 @@ class ContinuousBatcher:
         cfg = self.model.cfg
         shape = (self.slots, cfg.n_kv_heads, self.max_seq, cfg.head_dim)
         dt, dev = self.model.dtype, self.device
+        sharding = self._cache_sharding_for(self.model)
         self._cache = {
-            "k": [torch.zeros(shape, dtype=dt, device=dev) for _ in range(cfg.n_layers)],
-            "v": [torch.zeros(shape, dtype=dt, device=dev) for _ in range(cfg.n_layers)],
+            "k": [self._zeros(shape, dt, sharding) for _ in range(cfg.n_layers)],
+            "v": [self._zeros(shape, dt, sharding) for _ in range(cfg.n_layers)],
         }
+        if self.mesh is not None:
+            # before any capture: a decode burst's graph reads them
+            self.model.reserve_gather_buffers(self.params, shape, dt)
         kmax = max(self._k, self._fused_k)
         self._whole = _LaneState.alloc(self.slots, kmax, dev, group=False)
         # the teacher-forced replay step's registers: each row's token,
@@ -978,6 +1023,21 @@ class ContinuousBatcher:
             self._graphs.clear()
         self._reset_lanes()
 
+    def _cache_sharding_for(self, owner):
+        """The per-layer cache layout of ``owner`` (the target or the
+        draft) under the mesh, None unmeshed."""
+        if self.mesh is None:
+            return None
+        return owner.cache_sharding(self.mesh, kv_heads=owner.cfg.n_kv_heads,
+                                    shard_seq=self.shard_cache_seq)
+
+    def _zeros(self, shape, dtype, sharding):
+        """A zeroed device tensor, stored under ``sharding`` when one of
+        its dimensions splits (block by block: it never exists whole)."""
+        if sharding is None or sharding.is_fully_replicated:
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        return ShardedTensor.zeros(shape, dtype, sharding)
+
     def _spec_rows(self) -> int:
         """Rows of a spec burst's packed output: ``1 + k * (gamma + 2)``
         (0 without speculation)."""
@@ -990,8 +1050,21 @@ class ContinuousBatcher:
         (``_draft_buf``), so that rung 2's free and re-allocation is one
         block the caching allocator can hand back at the same address."""
         dcfg = self.draft_model.cfg
+        sharding = self._cache_sharding_for(self.draft_model)
+        if sharding is not None and not sharding.is_fully_replicated:
+            # split per layer: no one buffer to come back at the same
+            # address, so rung 2's resume captures the spec graphs again
+            self._draft_buf = None
+            shape = (self.slots, dcfg.n_kv_heads, self.max_seq, dcfg.head_dim)
+            dt = self.draft_model.dtype
+            cache = {name: [ShardedTensor.zeros(shape, dt, sharding)
+                            for _ in range(dcfg.n_layers)] for name in ("k", "v")}
+            self.draft_model.reserve_gather_buffers(self._draft_params, shape, dt)
+            return cache
         shape = (2, dcfg.n_layers, self.slots, dcfg.n_kv_heads, self.max_seq, dcfg.head_dim)
         self._draft_buf = torch.zeros(shape, dtype=self.draft_model.dtype, device=self.device)
+        if self.mesh is not None:
+            self.draft_model.reserve_gather_buffers(self._draft_params)
         return {"k": list(self._draft_buf[0]), "v": list(self._draft_buf[1])}
 
     def _spec_active(self) -> bool:
@@ -1111,18 +1184,20 @@ class ContinuousBatcher:
         cache publishes (a copy, so the lane's next occupant cannot
         change it)."""
         return {
-            name: torch.stack([layer[slot: slot + 1, :, :bucket] for layer in self._cache[name]])
+            name: place(torch.stack([layer[slot: slot + 1, :, :bucket]
+                                     for layer in self._cache[name]]), self._slab_sharding)
             for name in ("k", "v")
         }
 
     def _new_slab(self, bucket: int):
         """A zeroed staging slab ``{"k","v"}`` of ``[L, 1, KV, bucket, Dh]``
-        in the layout the lane insert takes."""
+        in the layout the lane insert takes (split as the cache under a
+        mesh, so chunks write their shards in place)."""
         cfg = self.model.cfg
         shape = (cfg.n_layers, 1, cfg.n_kv_heads, bucket, cfg.head_dim)
         dt = self.model.dtype
-        return {"k": torch.zeros(shape, dtype=dt, device=self.device),
-                "v": torch.zeros(shape, dtype=dt, device=self.device)}
+        return {"k": self._zeros(shape, dt, self._slab_sharding),
+                "v": self._zeros(shape, dt, self._slab_sharding)}
 
     @torch.no_grad()
     def _chunk_step(self, slab, tokens: np.ndarray, start: int, last: int,
@@ -1181,7 +1256,7 @@ class ContinuousBatcher:
             for name in ("k", "v"):
                 for l, layer in enumerate(self._draft_cache[name]):
                     layer[slot, :, :bucket] = slab[name][l, 0]
-                    layer[slot, :, bucket:].zero_()
+                    layer[slot, :, bucket:] = 0
 
     def _spec_round(self, attn_len: int, any_stoch: bool):
         """ONE speculation round over every lane (the JAX package's
@@ -1366,10 +1441,13 @@ class ContinuousBatcher:
         burst-local state never leaks into its lane."""
         w, ix = self._whole, g.lane_ix
         gks, gvs = self._group_slabs(g.act.shape[0], attn_len)
-        for layer, gk in zip(self._cache["k"], gks):
-            layer[:, :, :attn_len].index_copy_(0, ix, gk)
-        for layer, gv in zip(self._cache["v"], gvs):
-            layer[:, :, :attn_len].index_copy_(0, ix, gv)
+        for name, gathered in (("k", gks), ("v", gvs)):
+            for layer, gl in zip(self._cache[name], gathered):
+                if isinstance(layer, ShardedTensor):
+                    # the group's lanes are distinct: the same rows
+                    layer[ix, :, :attn_len] = gl
+                else:
+                    layer[:, :, :attn_len].index_copy_(0, ix, gl)
         regs = [(w.cur, g.cur), (w.pos, g.pos)] + ([(w.budget, g.budget)] if masked else [])
         for dst, src in regs:
             dst.index_copy_(0, ix, torch.where(g.act, src, dst[ix]))
@@ -1752,11 +1830,15 @@ class ContinuousBatcher:
             return t if t.device == dev else t.pin_memory().to(dev, non_blocking=True)
 
         if dev.type != "cuda":
-            return _map_tree(params, lambda t: t.to(dev))
-        stream = torch.cuda.Stream(dev)
-        with torch.cuda.stream(stream):
-            staged = _map_tree(params, up)
-        stream.synchronize()
+            staged = _map_tree(params, lambda t: t.to(dev))
+        else:
+            stream = torch.cuda.Stream(dev)
+            with torch.cuda.stream(stream):
+                staged = _map_tree(params, up)
+            stream.synchronize()
+        if self.mesh is not None:
+            # staged in the served layout: the flip copies block to block
+            staged = place_tree(staged, self.model.param_sharding(self.mesh, staged))
         return staged
 
     def swap_pending(self) -> bool:
@@ -1995,7 +2077,10 @@ class ContinuousBatcher:
 
     def _to_host(self, t: torch.Tensor) -> torch.Tensor:
         """Device tensor -> contiguous host copy (pinned on CUDA, so the
-        pull runs at the copy engine's rate)."""
+        pull runs at the copy engine's rate). A sharded slab gathers
+        first: wire and tier bytes are the unsharded bytes."""
+        if isinstance(t, ShardedTensor):
+            t = t.full()
         if t.device.type != "cuda":
             return t.contiguous()
         out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -2424,6 +2509,18 @@ class ContinuousBatcher:
             self._warm_tier_widths = widths
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if self.mesh is not None:
+            # the sharded serving census: a change in partitioned leaves
+            # or per-shard bytes between runs means a layout change moved
+            # bytes between devices
+            leaves = _tree_leaves(self.params)
+            partitioned = sum(1 for t in leaves if isinstance(t, ShardedTensor))
+            logger.info(
+                "warm: sharded serving census: mesh=%s devices=%d "
+                "partitioned_params=%d/%d param_shard_bytes=%d kv_shard=%d",
+                dict(self.mesh.shape), self.mesh.size, partitioned, len(leaves),
+                self._param_shard_bytes, self._kv_shard,
+            )
         # warm left garbage in the lane registers: reset them
         self._reset_lanes()
 
@@ -3178,7 +3275,12 @@ class ContinuousBatcher:
 
     def _upload_slab(self, host: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Host K/V slab -> device, without a host sync (a decoded slab
-        is pinned on CUDA already)."""
+        is pinned on CUDA already). Under a mesh each block is scattered
+        to its device in the cache's layout, so the insert and splice
+        read the slab as they read a prefix slab."""
+        if self._slab_sharding is not None:
+            return {name: place(torch.as_tensor(t), self._slab_sharding)
+                    for name, t in host.items()}
         return {name: self._to_dev(t) for name, t in host.items()}
 
     def _demote_prefix_slabs(self, victims) -> None:
@@ -3377,7 +3479,13 @@ class ContinuousBatcher:
         pc = self._pressure
         if pc.budget_bytes <= 0 and not pc.stats["budget_changes"]:
             return None
-        return pc.summary()
+        out = pc.summary()
+        if self.mesh is not None:
+            # the factors the ledger divided by: used_bytes is one
+            # position's occupancy
+            out["kv_shard"] = self._kv_shard
+            out["param_shard_bytes"] = self._param_shard_bytes
+        return out
 
     def _ledger_components(self) -> Dict[str, int]:
         """The unified HBM ledger, priced the way the reclaim ladder can
@@ -3385,19 +3493,34 @@ class ContinuousBatcher:
         K/V bytes per position (the draft cache's included while it is
         resident), the chunked-prefill staging slabs, the prefix cache's
         bytes, a staged swap's weights and the resident tenant's. Host
-        arithmetic over at most ``slots`` entries."""
+        arithmetic over at most ``slots`` entries.
+
+        Under a mesh every component is one position's bytes, as the
+        watermark guards one device: the cache components divide by the
+        cache's split (the decode lanes by ``_kv_shard``; staging and
+        prefix slabs, split over ``model`` only, by ``_kv_model_shard``)
+        and weight sets scale by the param layout's per-shard share.
+        Unmeshed every factor is 1."""
         per_tok = self._lane_kv_bytes()
         swap = self._pending_swap
         pager = self.tenant_pager
+        swap_bytes = swap.nbytes if swap is not None else 0
+        pager_bytes = int(pager.resident_hbm_bytes) if pager is not None else 0
+        if self.mesh is not None and self._param_bytes:
+            swap_bytes = swap_bytes * self._param_shard_bytes // self._param_bytes
+            pager_bytes = pager_bytes * self._param_shard_bytes // self._param_bytes
         return {
-            "decode": sum(self._attn_need(p) for p in self._pos_host.values()) * per_tok,
-            "staging": sum(job.bucket for job in self._chunked.values()) * per_tok,
-            "prefix": self._prefix_index.total_bytes if self._prefix_index is not None else 0,
+            "decode": sum(self._attn_need(p) for p in self._pos_host.values()) * per_tok
+            // self._kv_shard,
+            "staging": sum(job.bucket for job in self._chunked.values()) * per_tok
+            // self._kv_model_shard,
+            "prefix": (self._prefix_index.total_bytes if self._prefix_index is not None else 0)
+            // self._kv_model_shard,
             # a staged swap's second weight set, resident until the flip
-            "swap": swap.nbytes if swap is not None else 0,
+            "swap": swap_bytes,
             # the resident tenant's weights (multi-tenant serving): page-ins
             # compete with K/V growth in the same ledger
-            "pager": int(pager.resident_hbm_bytes) if pager is not None else 0,
+            "pager": pager_bytes,
         }
 
     def _pressure_poll(self, pending) -> None:
@@ -3472,8 +3595,11 @@ class ContinuousBatcher:
             # under the index lock, pulled to the host and encoded into
             # the tier out here
             demoted: Optional[List] = [] if self._kv_tier is not None else None
-            evicted = idx.evict_to(max(0, idx.total_bytes - pc.overshoot_bytes()),
-                                   collect=demoted)
+            # the overshoot is one position's bytes, the index counts a
+            # slab's global bytes (a prefix slab splits over model)
+            evicted = idx.evict_to(
+                max(0, idx.total_bytes - pc.overshoot_bytes() * self._kv_model_shard),
+                collect=demoted)
             if evicted:
                 self.stats["prefix_evicted"] += evicted
                 self.stats["pressure_prefix_evictions"] += evicted
@@ -3517,8 +3643,8 @@ class ContinuousBatcher:
         if self._graphs is not None:
             graphs = self._graphs.graphs
             spec = [key for key in graphs if key[0] == "spec"]
-            self._spec_suspended = (self._draft_buf.data_ptr(),
-                                    {key: graphs.pop(key) for key in spec})
+            ptr = self._draft_buf.data_ptr() if self._draft_buf is not None else None
+            self._spec_suspended = (ptr, {key: graphs.pop(key) for key in spec})
         self._draft_cache = self._draft_buf = None
         self._masks_dirty = True
         self._pressure_event({"type": "pressure_reclaim", "action": "cancel_speculation"})
@@ -3541,7 +3667,8 @@ class ContinuousBatcher:
             self._draft_admit_tokens(slot, full)
         ptr, graphs = self._spec_suspended or (None, {})
         self._spec_suspended = None
-        if self._graphs is not None and ptr == self._draft_buf.data_ptr():
+        if (self._graphs is not None and self._draft_buf is not None
+                and ptr == self._draft_buf.data_ptr()):
             self._graphs.graphs.update(graphs)
             self.stats["spec_graph_reuses"] += len(graphs)
         elif self._graphs is not None:
@@ -3559,14 +3686,17 @@ class ContinuousBatcher:
     def _admit_cost_bytes(self, req: GenRequest) -> int:
         """Ledger footprint of ``req`` at the end of its generation: the
         attention bucket of its last position times the K/V bytes per
-        position (the watermark-aware admission's price)."""
+        position (the watermark-aware admission's price), per shard as
+        the ledger's decode component (the JAX batcher compares the
+        global bytes with its per-shard ledger)."""
         end = min(self.max_seq, len(req.tokens) + req.max_new_tokens)
-        return self._attn_need(end) * self._lane_kv_bytes()
+        return self._attn_need(end) * self._lane_kv_bytes() // self._kv_shard
 
     def _draft_ledger_bytes(self) -> int:
         """What the live lanes' draft cache adds to the ledger's decode
-        component while speculation is on."""
-        return sum(self._attn_need(p) for p in self._pos_host.values()) * self._draft_kv_key_bytes
+        component while speculation is on (per shard, as that component)."""
+        return (sum(self._attn_need(p) for p in self._pos_host.values())
+                * self._draft_kv_key_bytes // self._kv_shard)
 
     def _lane_kv_bytes(self) -> int:
         """K/V bytes a live lane holds per position: the target's, plus
@@ -3757,8 +3887,8 @@ class ContinuousBatcher:
     @torch.inference_mode()
     def _replay_alone(self, slot: int, start_pos: int, toks: List[int],
                       attn_len: int) -> None:
-        ks = [layer[slot: slot + 1] for layer in self._cache["k"]]
-        vs = [layer[slot: slot + 1] for layer in self._cache["v"]]
+        ks = [layer.narrow(0, slot, 1) for layer in self._cache["k"]]
+        vs = [layer.narrow(0, slot, 1) for layer in self._cache["v"]]
         for j, tok in enumerate(toks):
             with self._prof.measure("replay", variant=f"k1b{attn_len}",
                                     bytes_read=self._rb("replay", tokens=1), tokens=1):
@@ -4367,6 +4497,23 @@ def _pow2_floor(n: int) -> int:
 def _tree_bytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (torch.Tensor, ShardedTensor)):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _tree_leaves(v)]
+    return [tree]
+
+
+def _tree_shard_bytes(tree) -> int:
+    """Bytes one mesh position holds of a placed tree."""
+    if isinstance(tree, dict):
+        return sum(_tree_shard_bytes(v) for v in tree.values())
+    if isinstance(tree, ShardedTensor):
+        return tree.shard_nbytes
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
     return 0

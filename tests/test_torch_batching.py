@@ -129,24 +129,56 @@ def test_batching_from_annotations():
 
 @pytest.mark.parametrize("ann", [{"seldon.io/fuse": "true"}, "mesh"])
 def test_fuse_and_mesh_still_refused(ann):
-    """Micro-batching is ported; a mesh still raises with micro-batching on
-    beside it. Graph fusion is ported too: beside micro-batching it keeps
-    the micro-batched unit on the per-unit path, counted as the
-    ``microbatch`` plan reason, and the batcher still fuses requests."""
+    """Micro-batching is ported, and so are a mesh and graph fusion beside
+    it. With a serving mesh the engine builds as the JAX engine builds:
+    the micro-batched registry unit keeps its MicroBatchingClient and
+    fuses requests, the executor holds the mesh for its mesh-aware
+    units, and the predict path's TorchServer (a JAX_SERVER unit) alone
+    still refuses the mesh as not ported. Beside micro-batching, fusion
+    keeps the micro-batched unit on the per-unit path, counted as the
+    ``microbatch`` plan reason."""
     from seldon_core_tpu_torch.graph.engine_metrics import MetricsRegistry
     from seldon_core_tpu_torch.graph.executor import GraphExecutor
 
-    kw = {"mesh": object()} if ann == "mesh" else {}
-    fuse = ann != "mesh"
-    ann = {} if ann == "mesh" else ann
-    spec = _spec({"seldon.io/microbatch": "true", **ann})
-    model = CountingBatchModel()
-    if not fuse:
+    if ann == "mesh":
+        from seldon_core_tpu.graph.batching import MicroBatchingClient as JaxMBC
+        from seldon_core_tpu.graph.batching import batching_from_annotations as jax_batching
+        from seldon_core_tpu.graph.executor import GraphExecutor as JaxExecutor
+        from seldon_core_tpu.graph.spec import PredictorSpec as JaxSpec
+        from seldon_core_tpu.graph.spec import default_predictor as jax_default
+        from seldon_core_tpu.parallel.mesh import make_mesh
+        from seldon_core_tpu_torch.parallel.mesh import make_serving_mesh
+
+        ann = {"seldon.io/microbatch": "true"}
+        mesh = make_serving_mesh({"data": 2, "model": 4}, device="cpu")
+        spec = _spec(ann)
+        model = CountingBatchModel()
+        ex = GraphExecutor(spec, registry={"m": model}, mesh=mesh,
+                           batching=batching_from_annotations(spec))
+        jspec = jax_default(JaxSpec.from_dict({
+            "name": "d", "graph": {"name": "m", "type": "MODEL"}, "annotations": ann}))
+        jex = JaxExecutor(jspec, registry={"m": CountingBatchModel()},
+                          mesh=make_mesh({"data": 2, "model": 4}),
+                          batching=jax_batching(jspec))
+        assert ex._mesh is mesh
+        assert isinstance(ex.root.client, MicroBatchingClient)
+        assert isinstance(jex.root.client, JaxMBC)
+
+        async def burst():
+            return await asyncio.gather(*[
+                ex.predict({"data": {"ndarray": [[float(i)]]}}) for i in range(4)])
+
+        outs = asyncio.run(burst())
+        assert [o["data"]["ndarray"] for o in outs] == [[[2.0 * i]] for i in range(4)]
+        asyncio.run(ex.close())
+        torch_unit = _spec({}, {"name": "c", "implementation": "JAX_SERVER",
+                                "modelUri": "/x"})
         with pytest.raises(NotImplementedError,
                            match="not ported to seldon_core_tpu_torch yet"):
-            GraphExecutor(spec, registry={"m": model},
-                          batching=batching_from_annotations(spec), **kw)
+            GraphExecutor(torch_unit, mesh=mesh)
         return
+    spec = _spec({"seldon.io/microbatch": "true", **ann})
+    model = CountingBatchModel()
     metrics = MetricsRegistry()
     ex = GraphExecutor(spec, registry={"m": model}, metrics=metrics,
                        batching=batching_from_annotations(spec))

@@ -14,7 +14,8 @@ start, the gateway's seeded picks, shadow fan-out and auth, a 2-layer
 float32 GENERATE_SERVER deployment giving equal greedy tokens through
 both gateways, disaggregated pools equal to the unified deployment, the
 subprocess runtime launching the port's engine, and the CLI. Sharded
-serving (``seldon.io/mesh``, ``tpuMesh``) still refuses in the port.
+serving (``seldon.io/mesh``, ``tpuMesh``) reconciles onto a placed block
+in both packages and serves the same tokens.
 """
 
 import asyncio
@@ -365,23 +366,56 @@ def test_validate_deployment_agrees(case):
     ({"seldon.io/mesh": "junk"}, None),
     ({}, {"model": 2}),
 ])
-def test_mesh_still_refused(ann, tpu_mesh):
-    """Sharded serving is not ported: the annotation fails validation and
-    a predictor tpuMesh fails the reconcile, each naming the cause, and
-    the placement's mesh_for raises."""
-    spec = m(PORT, "graph.spec")
-    body = {"name": "sh", "predictors": [{"name": "p0", "graph": _gen(), "annotations": ann,
+def test_mesh_still_refused(ann, tpu_mesh, llm_dir):
+    """Sharded serving is ported. The annotation validates as the JAX
+    package validates it (a junk shape fails the apply in both, word for
+    word); a legal annotation or a predictor tpuMesh reconciles Available
+    in both packages over a placed block of 2 of 8 devices (the port's are
+    CPU positions), each member's generate server on a mesh of the
+    block, the same greedy tokens through both gateways; the block is
+    released on delete. The placement's ``mesh_for`` builds the mesh of
+    the JAX placement's shape."""
+    import jax
+    import torch
+
+    graph = _gen(llm_dir, params=GEN_PARAMS)
+    body = {"name": "sh", "predictors": [{"name": "p0", "graph": graph, "annotations": ann,
                                           **({"tpuMesh": tpu_mesh} if tpu_mesh else {})}]}
-    if ann:
-        with pytest.raises(spec.GraphSpecError, match="not ported"):
-            spec.validate_predictor(_pspec(PORT, ann))
-    _store, ctl = controller(PORT)
-    status = run(ctl.reconcile(dep_of(PORT, body)))
-    assert status.state == "Failed" and "not ported" in status.description
-    assert ctl.components == {}
-    pl = m(PORT, "controlplane").DevicePlacement(devices=[object(), object()])
-    with pytest.raises(m(PORT, "controlplane").PlacementError, match="not ported"):
-        pl.mesh_for("k", {"model": 2})
+    verdicts = {pkg: outcome(m(pkg, "graph.spec").validate_predictor, _pspec(pkg, ann, graph))
+                for pkg in PKGS}
+    assert verdicts[PORT] == verdicts[JAX]
+    devices = {JAX: jax.devices(), PORT: [torch.device("cpu") for _ in range(8)]}
+    got = {}
+    for pkg in PKGS:
+        cp = m(pkg, "controlplane")
+        placement = (cp.TpuPlacement if pkg == JAX else cp.DevicePlacement)(devices=devices[pkg])
+        gw = cp.Gateway(seed=0)
+        store, ctl = controller(pkg, gateway=gw, placement=placement)
+        dep, _ = store.apply(dep_of(pkg, body))
+        status = run(ctl.reconcile(dep.clone()))
+        if verdicts[PORT][0] == "raise":
+            got[pkg] = (status.state, "malformed" in status.description)
+            assert ctl.components == {} and placement.capacity()["used"] == 0
+            continue
+        assert status.state == "Available", (pkg, status.description)
+        try:
+            assert placement.capacity()["used"] == 2
+            (app,) = [h.app for h, _ in ctl.components.values() if h.spec.kind == "engine"]
+            server = app.executor.root.client.user_object
+            assert dict(server.batcher.mesh.shape) == (tpu_mesh or {"data": 1, "model": 2})
+            got[pkg] = [_predict_through(pkg, gw, "default/sh", p) for p in PROMPTS]
+            run(ctl.delete(dep))
+            assert placement.capacity()["used"] == 0
+        finally:
+            run(ctl.shutdown())
+    assert got[PORT] == got[JAX]
+    if verdicts[PORT][0] == "raise":
+        assert got[PORT] == ("Failed", True)
+    pl = m(PORT, "controlplane").DevicePlacement(devices=[torch.device("cpu") for _ in range(2)])
+    want = m(JAX, "controlplane").TpuPlacement(devices=jax.devices()[:2]).mesh_for(
+        "k", {"model": 2})
+    mesh = pl.mesh_for("k", {"model": 2})
+    assert mesh.shape == dict(want.shape) and mesh.size == want.devices.size == 2
 
 
 # -- reconcile flows ---------------------------------------------------------

@@ -311,26 +311,27 @@ def test_batcher_deadline_shed_matches_jax_rule(engines, monkeypatch):
     ("seldon.io/tenants", "a=strict"), ("seldon.io/planner", "true"),
 ])
 def test_not_ported_annotations_raise(annotation):
-    """Only sharded serving (``seldon.io/mesh``) is still refused as not
-    ported. The disagg, KV-tier, tenants and planner annotations are
-    validated as the JAX engine validates them: on this SIMPLE_MODEL
-    graph each gives the JAX package's verdict, word for word."""
-    from seldon_core_tpu_torch.graph.spec import GraphSpecError
-
+    """No annotation is refused as not ported any more: the disagg,
+    KV-tier, mesh, tenants and planner annotations are validated as the
+    JAX engine validates them. On this SIMPLE_MODEL graph each gives the
+    JAX package's verdict, word for word (``seldon.io/mesh`` asks for a
+    GENERATE_SERVER unit), and on a generate graph the mesh annotation
+    is accepted by both."""
     graph = {"name": "m", "implementation": "SIMPLE_MODEL"}
+    verdicts = []
+    for pkg in (JAX, PORT):
+        try:
+            build_spec(pkg, graph, dict([annotation]))
+            verdicts.append(None)
+        except Exception as e:  # noqa: BLE001 - the verdict is the datum
+            verdicts.append((type(e).__name__, str(e)))
+    assert verdicts[1] == verdicts[0]
+    assert verdicts[1] is None or "not ported" not in verdicts[1][1]
     if annotation[0] == "seldon.io/mesh":
-        with pytest.raises(GraphSpecError, match="not ported"):
-            build_spec(PORT, graph, dict([annotation]))
-    else:
-        verdicts = []
+        assert verdicts[1] is not None and "GENERATE_SERVER" in verdicts[1][1]
+        gen_graph = {"name": "g", "implementation": "GENERATE_SERVER", "modelUri": "/m"}
         for pkg in (JAX, PORT):
-            try:
-                build_spec(pkg, graph, dict([annotation]))
-                verdicts.append(None)
-            except Exception as e:  # noqa: BLE001 - the verdict is the datum
-                verdicts.append((type(e).__name__, str(e)))
-        assert verdicts[1] == verdicts[0]
-        assert verdicts[1] is None or "not ported" not in verdicts[1][1]
+            build_spec(pkg, gen_graph, dict([annotation]))
     # the off values are accepted
     build_spec(PORT, graph, {"seldon.io/fuse": "false", "seldon.io/planner": "false"})
 
@@ -355,7 +356,10 @@ def test_junk_fuse_annotation_refused():
 
 @pytest.mark.parametrize("kind", ["fuse", "microbatch", "mesh", "server"])
 def test_not_ported_engine_options_raise(kind, monkeypatch):
-    """A device mesh raises "not ported". Graph fusion is ported: alone it
+    """A device mesh is ported: a graph of host units builds beside it as
+    in the JAX engine (the mesh held for mesh-aware units, none here), and
+    only the predict path's TorchServer (a JAX_SERVER unit) refuses it
+    as not ported. Graph fusion is ported: alone it
     builds a plan (a single-unit graph has no segment), and beside
     micro-batching it builds and counts the micro-batched unit's
     ``microbatch`` plan reason. The prepackaged servers are ported: a
@@ -400,9 +404,24 @@ def test_not_ported_engine_options_raise(kind, monkeypatch):
             errors.append(e.value)
         assert type(errors[1]) is type(errors[0]) and "not ported" not in str(errors[1])
         return
-    spec = PredictorSpec.from_dict({"name": "p", "graph": graph, "annotations": ann})
+    from seldon_core_tpu.graph.executor import GraphExecutor as JaxGraphExecutor
+    from seldon_core_tpu.graph.spec import PredictorSpec as JaxPredictorSpec
+    from seldon_core_tpu.parallel.mesh import make_mesh
+    from seldon_core_tpu_torch.parallel.mesh import make_serving_mesh
+
+    mesh = make_serving_mesh({"data": 1, "model": 2}, device="cpu")
+    outs = []
+    for ex_cls, ps, msh in ((JaxGraphExecutor, JaxPredictorSpec, make_mesh({"model": 2})),
+                            (GraphExecutor, PredictorSpec, mesh)):
+        ex = ex_cls(ps.from_dict({"name": "p", "graph": graph, "annotations": ann}), mesh=msh)
+        assert ex._mesh is msh
+        outs.append(asyncio.run(ex.predict({"data": {"ndarray": [[1.0, 2.0]]}}))["data"])
+        asyncio.run(ex.close())
+    assert outs[1] == outs[0]
+    spec = PredictorSpec.from_dict({"name": "p", "graph": {
+        "name": "c", "implementation": "JAX_SERVER", "modelUri": "/x"}})
     with pytest.raises(NotImplementedError, match="not ported"):
-        GraphExecutor(spec, mesh=object())
+        GraphExecutor(spec, mesh=mesh)
 
 
 class _Doubler:
@@ -504,8 +523,10 @@ def test_routes_and_pause(engines):
 
 
 def test_engine_main_loads_spec(tmp_path, model_dir, monkeypatch):
-    """``engine_main`` defaults and validates the spec, and refuses a
-    tpuMesh (sharded serving is not ported)."""
+    """``engine_main`` defaults and validates the spec; a tpuMesh loads
+    and builds the serving mesh over the unit's device (the CPU's
+    positions here), and a malformed one refuses with the JAX
+    ``make_mesh`` message."""
     import base64
 
     from seldon_core_tpu_torch import engine_main
@@ -517,8 +538,19 @@ def test_engine_main_loads_spec(tmp_path, model_dir, monkeypatch):
     blob = base64.b64encode(json.dumps(
         {"name": "p", "graph": gen_unit(model_dir), "tpuMesh": {"model": 2}}).encode())
     monkeypatch.setenv("ENGINE_PREDICTOR", blob.decode())
-    with pytest.raises(NotImplementedError, match="tpuMesh"):
-        engine_main.load_spec(None)
+    spec = engine_main.load_spec(None)
+    assert spec.tpu_mesh == {"model": 2}
+    mesh = engine_main.build_mesh(spec)
+    assert mesh.shape == {"model": 2} and mesh.device == torch.device("cpu")
+    from seldon_core_tpu.parallel.mesh import MeshShapeError as JaxMeshShapeError
+    from seldon_core_tpu.parallel.mesh import make_mesh
+
+    spec.tpu_mesh = {"model": 3}
+    with pytest.raises(JaxMeshShapeError) as want:
+        make_mesh({"model": 3})
+    with pytest.raises(ValueError) as got:
+        engine_main.build_mesh(spec)
+    assert str(got.value) == str(want.value)
 
 
 def test_generate_unit_defaults_to_cuda(model_dir):

@@ -4,10 +4,11 @@ k8s.py) held against the JAX package's on the CPU.
 Counterpart of tests/test_k8s_render.py. For the same SeldonDeployment the
 two packages' manifests differ exactly where the device differs and
 nowhere else: the engine's command and default image, and, for a
-predictor whose engine runs a model on the card, one ``nvidia.com/gpu``
-with its toleration and node selector (``ROADMAP.md``, "Deliberate
-differences"). A mesh (sharded serving) refuses, in the renderer and in
-``sdctl render``; the canary's semantics round-trip through the YAML;
+predictor whose engine runs a model on the card, ``nvidia.com/gpu`` (the
+mesh's product of cards for sharded serving) with its toleration and
+node selector (``ROADMAP.md``, "Deliberate differences"). A multi-host
+mesh and a mesh for TorchServer refuse, in the renderer and in ``sdctl
+render``; the canary's semantics round-trip through the YAML;
 validation and YAML output equal the JAX package's."""
 
 import base64
@@ -204,23 +205,75 @@ def test_canary_vs_and_dr_pair_routably():
             assert key in drs and drs[key]["seldon-predictor"] in pod_labels
 
 
-@pytest.mark.parametrize("where", ["tpuMesh", "predictor-annotation", "deployment-annotation"])
-def test_mesh_refuses_not_ported(where, tmp_path, capsys):
-    d = copy.deepcopy(CANARY)
+GEN_DEP = dep([{"name": "gen", "replicas": 2,
+                "graph": unit("llm", "GENERATE_SERVER", modelUri="/m")}])
+POD = ("spec", "template", "spec")
+
+
+@pytest.mark.parametrize("where", ["tpuMesh", "predictor-annotation", "deployment-annotation",
+                                   "multi-host", "torchserver"])
+def test_mesh_refuses_not_ported(where, tmp_path, capsys, monkeypatch):
+    """Sharded generate serving renders: a generate predictor with a
+    ``tpuMesh`` or a ``seldon.io/mesh`` annotation is one pod per replica
+    asking for the mesh's product of ``nvidia.com/gpu`` (4 here), where
+    the JAX renderer asks for ``google.com/tpu`` (for a tpuMesh; it
+    renders the annotation as no mesh at all). The annotation reaches the
+    engine as the predictor's tpuMesh. A deployment-level annotation is
+    not a predictor's mesh, in either package. Still refused, not ported:
+    a mesh past one host's cards (JAX: a multi-host StatefulSet) and a
+    mesh for TorchServer (a JAX_SERVER unit)."""
+    d = copy.deepcopy(CANARY if where == "torchserver" else GEN_DEP)
     p = d["spec"]["predictors"][0]
-    if where == "tpuMesh":
+    if where in ("tpuMesh", "torchserver"):
         p["tpuMesh"] = {"data": 1, "model": 4}
+    elif where == "multi-host":
+        p["tpuMesh"] = {"data": 2, "model": 8}
+        p["replicas"] = 1  # JAX renders one slice of a multi-host mesh
     elif where == "predictor-annotation":
         p["annotations"] = {"seldon.io/mesh": "data=1,model=4"}
     else:
         d["metadata"]["annotations"] = {"seldon.io/mesh": "model=2"}
-    with pytest.raises(m(PORT, "graph.spec").GraphSpecError, match="not ported"):
-        render(PORT, d)
-    f = tmp_path / "dep.json"
-    f.write_text(json.dumps(d))
-    with pytest.raises(SystemExit, match="sdctl render: .*not ported"):
-        m(PORT, "controlplane.cli").main(["--store-dir", str(tmp_path / "s"), "render",
-                                          "-f", str(f)])
+    if where in ("multi-host", "torchserver"):
+        render(JAX, d)  # the JAX renderer renders it
+        with pytest.raises(m(PORT, "graph.spec").GraphSpecError, match="not ported"):
+            render(PORT, d)
+        f = tmp_path / "dep.json"
+        f.write_text(json.dumps(d))
+        with pytest.raises(SystemExit, match="sdctl render: .*not ported"):
+            m(PORT, "controlplane.cli").main(["--store-dir", str(tmp_path / "s"), "render",
+                                              "-f", str(f)])
+        return
+    want, got = (render(pkg, d) for pkg in PKGS)
+    assert [x["kind"] for x in got] == [x["kind"] for x in want]
+    cards = "1" if where == "deployment-annotation" else "4"
+    (deployment,) = [x for x in got if x["kind"] == "Deployment"]
+    engine = deployment["spec"]["template"]["spec"]["containers"][0]
+    assert engine["resources"]["limits"] == {"nvidia.com/gpu": cards}
+    assert engine["resources"]["requests"]["nvidia.com/gpu"] == cards
+    assert deployment["spec"]["replicas"] == 2
+    env = {e["name"]: e.get("value") for e in engine["env"]}
+    monkeypatch.setenv("ENGINE_PREDICTOR", env["ENGINE_PREDICTOR"])
+    spec = m(PORT, "engine_main").load_spec(None)
+    assert spec.tpu_mesh == (None if cards == "1" else {"data": 1, "model": 4})
+    assert "seldon.io/mesh" not in spec.annotations
+    for w, g in zip(want, got):
+        paths = {d_[0] for d_ in json_diff(w, g)}
+        if g["kind"] != "Deployment":
+            assert paths == set()
+            continue
+        expected = {d_[0] for d_ in ENGINE_DIFFERENCES + gpu_differences()}
+        if where == "predictor-annotation":
+            expected.add(CONTAINER + ("env", 0, "value"))  # tpuMesh injected
+        if where == "tpuMesh":
+            # JAX asks for 4 TPU chips where the port asks for 4 cards
+            assert w["spec"]["template"]["spec"]["containers"][0]["resources"]["limits"] == {
+                "google.com/tpu": "4"}
+            prefixes = [CONTAINER + ("command",), CONTAINER + ("image",),
+                        CONTAINER + ("resources",), POD + ("nodeSelector",),
+                        POD + ("tolerations",)]
+            assert all(any(q[:len(pre)] == pre for pre in prefixes) for q in paths), paths
+            continue
+        assert paths == expected, where
 
 
 def test_to_yaml_equals_jax():

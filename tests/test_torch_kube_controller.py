@@ -161,19 +161,51 @@ def test_cr_create_converges_then_zero_writes():
 
 
 @pytest.mark.parametrize("mesh", [{"tpuMesh": {"model": 4}},
-                                  {"annotations": {"seldon.io/mesh": "model=4"}}])
+                                  {"annotations": {"seldon.io/mesh": "model=4"}},
+                                  {"tpuMesh": {"data": 2, "model": 8}},
+                                  {"jax_server": {"model": 4}}])
 def test_mesh_cr_fails_alone_not_ported(mesh):
-    fake = fake_kube(PORT)
-    put_cr(PORT, fake, CR)
+    """A generate CR with a mesh converges in both packages' controllers:
+    the same ops and object paths, its Deployment asking the port for
+    the mesh's 4 cards (the JAX controller's for 4 TPU chips, or, for
+    the annotation, nothing). Still failing alone, not ported, while
+    the other CR converges: a mesh of 16 cards (more than one host's: the
+    JAX controller's multi-host StatefulSet) and a mesh for TorchServer
+    (a JAX_SERVER unit)."""
     cr = gpu_cr()
-    cr["spec"]["predictors"][0].update(mesh)
-    put_cr(PORT, fake, cr)
-    ops = kube(PORT).KubeController(fake, namespace="prod").reconcile_all()
-    assert ops["failed"] == 1
+    pred = cr["spec"]["predictors"][0]
+    if "jax_server" in mesh:
+        pred["tpuMesh"] = mesh["jax_server"]
+    else:
+        pred["graph"].update(implementation="GENERATE_SERVER", modelUri="/models/llm")
+        pred.update(copy.deepcopy(mesh))
+    refused = "jax_server" in mesh or mesh.get("tpuMesh") == {"data": 2, "model": 8}
+    if refused:
+        pred["replicas"] = 1  # JAX renders one slice of a multi-host mesh
+    ops, paths = {}, {}
+    for pkg in PKGS:
+        fake = fake_kube(pkg)
+        put_cr(pkg, fake, CR)
+        put_cr(pkg, fake, cr)
+        ops[pkg] = kube(pkg).KubeController(fake, namespace="prod").reconcile_all()
+        paths[pkg] = fake
+    fake = paths[PORT]
     status = fake.objects[kube(PORT).object_path("SeldonDeployment", "prod", "mnist")]["status"]
-    assert status["state"] == "Failed" and "not ported" in status["description"]
     assert kube(PORT).object_path("Deployment", "prod", "iris-main") in fake.objects
-    assert kube(PORT).object_path("Deployment", "prod", "mnist-main") not in fake.objects
+    if refused:
+        assert ops[PORT]["failed"] == 1 and ops[JAX]["failed"] == 0
+        assert status["state"] == "Failed" and "not ported" in status["description"]
+        assert kube(PORT).object_path("Deployment", "prod", "mnist-main") not in fake.objects
+        return
+    assert ops[PORT] == ops[JAX] and ops[PORT]["failed"] == 0
+    assert status["state"] == "Available"
+    assert sorted(paths[PORT].objects) == sorted(paths[JAX].objects)
+    dep = fake.objects[kube(PORT).object_path("Deployment", "prod", "mnist-main")]
+    engine = dep["spec"]["template"]["spec"]["containers"][0]
+    assert engine["resources"]["limits"] == {"nvidia.com/gpu": "4"}
+    env = {e["name"]: e.get("value") for e in engine["env"]}
+    spec = m(PORT, "graph.spec").PredictorSpec.from_env_b64(env["ENGINE_PREDICTOR"])
+    assert spec.tpu_mesh == {"model": 4} and "seldon.io/mesh" not in spec.annotations
 
 
 @pytest.mark.parametrize("desired,live", [

@@ -142,9 +142,17 @@ def test_health_routes_and_errors(port_app):
 
 
 def test_unported_parameter_raises(model_dir):
-    with pytest.raises(NotImplementedError, match="shard_cache_seq"):
+    # the mesh parameters are ported: typed strings parse, a malformed
+    # mesh_shape refuses at construction as the JAX server refuses it
+    from seldon_core_tpu_torch.parallel.mesh import MeshShapeError
+
+    srv = microservice.build_user_object(CLS, _typed(
+        model_uri=model_dir, device="cpu", mesh_shape="data=1,seq=2,model=2",
+        shard_cache_seq="true"))
+    assert srv._mesh_shape == {"data": 1, "seq": 2, "model": 2} and srv._shard_cache_seq
+    with pytest.raises(MeshShapeError, match="rows"):
         microservice.build_user_object(CLS, _typed(
-            model_uri=model_dir, device="cpu", shard_cache_seq="true"))
+            model_uri=model_dir, device="cpu", mesh_shape="rows=2"))
     # the telemetry parameters are ported: a JAX config spelling the JAX
     # default flight_recorder 512, the profiler and SLO objectives, as
     # typed strings, is accepted; off values too

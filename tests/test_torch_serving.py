@@ -262,16 +262,30 @@ def test_warm_then_serve_equal(models, reference):
     ("profiler", "device_time", None), ("flight_recorder_capacity", 512, 0),
 ])
 def test_unported_knobs_raise(models, knob, on, off):
-    """The mesh knobs raise at any value but their off value; the flight
-    recorder and the device-time ledger are ported, so their on values
-    are accepted (``profiler`` takes a ledger object, as the JAX
-    batcher's does: the string case passes an enabled one)."""
+    """Every knob is ported now. The flight recorder and the device-time
+    ledger take their on values (``profiler`` takes a ledger object, as
+    the JAX batcher's does: the string case passes an enabled one); the
+    mesh knobs take a ``ServingMesh`` as the JAX batcher takes a JAX
+    mesh (the shape string is the server's ``mesh_shape``), and serve
+    the unmeshed batcher's tokens."""
+    from seldon_core_tpu_torch.parallel.mesh import make_serving_mesh
     from seldon_core_tpu_torch.serving.continuous import NOT_PORTED_KNOBS
     from seldon_core_tpu_torch.serving.profiler import DeviceTimeLedger
 
-    if knob in NOT_PORTED_KNOBS:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            _port(models, **{knob: on})
+    assert NOT_PORTED_KNOBS == {}
+    if knob in ("mesh", "shard_cache_seq"):
+        shape = {"data": 2} if knob == "mesh" else {"data": 1, "seq": 2, "model": 2}
+        mesh = make_serving_mesh(shape, device="cpu")
+        b = _port(models, mesh=mesh, **({knob: on} if knob == "shard_cache_seq" else {}))
+        plain = _port(models)
+        try:
+            assert b.mesh is mesh
+            assert b._kv_seq_shard == (2 if knob == "shard_cache_seq" else 1)
+            p = [3, 1, 4, 1, 5]
+            assert b.generate(p, max_new_tokens=6) == plain.generate(p, max_new_tokens=6)
+        finally:
+            b.close()
+            plain.close()
     else:
         value = DeviceTimeLedger(enabled=True) if knob == "profiler" else on
         b = _port(models, **{knob: value})
