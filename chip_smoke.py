@@ -7,7 +7,8 @@ Drives the port's main path on the card and fails (non-zero exit, no
 result line) if any phase fails. ``--phases`` runs a subset of
 ``kernels, small, serve, engine, small-sched, sched, prefix, pressure,
 spec, spec-pressure, dh256, f32, disagg, kvtier, migration, telemetry,
-fronts, zoo, rag, explain, moe, train, model, controlplane, tools, mesh``
+fronts, zoo, rag, explain, moe, train, model, controlplane, tools, mesh,
+predict-mesh``
 (device and build always run; the
 result lines print only when every phase ran, as with no argument):
 
@@ -234,10 +235,10 @@ result lines print only when every phase ran, as with no argument):
    and ``seldon.io/max-inflight`` 4, every batch shape the batcher can
    produce warmed first, driven over REST with binary SeldonMessages of
    raw uint8 [32, 224, 224, 3] photo-like images at concurrency 16 for
-   4 s (a 429 backs off 20 ms); (b) BERT-base (bf16, 2 classes) the same
+   2.5 s (a 429 backs off 20 ms); (b) BERT-base (bf16, 2 classes) the same
    way over gRPC ``Seldon/Predict`` (REST binary protobuf when grpcio
    does not import; the line says which) with raw int32 [16, 128] token
-   ids, max-batch 256, timeout 25 ms, concurrency 64 for 4 s. Each prints
+   ids, max-batch 256, timeout 25 ms, concurrency 64 for 2.5 s. Each prints
    rows/s, req/s, p50/p99, flushes, rows per flush, padded rows, 429s,
    H2D ms per flush, peak memory and MFU against 989 TFLOP/s, and one
    bf16 forward at the max batch in CUDA-event device time; fails on any
@@ -396,7 +397,7 @@ result lines print only when every phase ran, as with no argument):
    REST, and over gRPC where ``import grpc`` works, answers what a plain
    HTTP call answers; (b) ``python -m seldon_core_tpu_torch.loadtester``
    as a process of its own against ResNet-50 over REST with ``--binary``
-   (2 workers x 4 clients, 5 s): no failure, its table, rows/s and the
+   (2 workers x 4 clients, 3 s): no failure, its table, rows/s and the
    micro-batcher's flushes; (c) the batch scorer over 256 MLP rows with
    ``--batch-rows 8`` and concurrency 16: one output line per row in
    input order, each row equal to the same row scored alone (float32,
@@ -432,7 +433,22 @@ result lines print only when every phase ran, as with no argument):
    sharded against unsharded at attention 128 and 1024, and the
    gathers' and re-slices' own device time. One card cannot show the
    capacity a mesh buys across cards.
-28. The ``kernels`` JSON line (the flash kernel on the main path, its
+28. Predict mesh (sharded predict: ``TorchServer`` and the
+   ``Explainer`` on an explicit ``ServingMesh`` with every position on
+   cuda:0, beside an unsharded twin): (a) BERT-base bf16 [16, 128] on
+   data=1, model=4 answers 3 batches through the engine with the twin's
+   logits bit for bit, its matmul weights and their bf16 copies split
+   in 4; (b) ResNet-50 bf16 224 on data=2, model=4 through a
+   micro-batched engine fuses four concurrent 4-image requests on the
+   compute device into one 16-row forward whose rows equal the twin
+   engine's bit for bit, and refuses a 3-image request (it does not
+   tile data=2); (c) IG with the meshed Explainer on the explain
+   phase's ResNet-50 (8 steps) equals the unmeshed Explainer's
+   attributions bit for bit; the flash kernel launches 0 times. Prints
+   (d) BERT-base's parameter bytes per position against the whole,
+   nvidia-smi's memory.used, and one forward's device time meshed
+   against unmeshed (the difference is the gathers).
+29. The ``kernels`` JSON line (the flash kernel on the main path, its
    Dh 256 instance on the dh256 phase's and its float32 instance on the
    f32 phase's), then the final ``{"ok": true, ...}`` line.
 
@@ -4959,7 +4975,7 @@ ZOO_VIT = {"image_size": 224, "patch_size": 16, "d_model": 768, "n_layers": 12,
            "n_heads": 12, "d_ff": 3072, "num_classes": 1000, "dtype": "bfloat16", "seed": 0}
 ZOO_MLP = {"in_features": 4, "hidden": [64, 64], "num_classes": 3, "dtype": "bfloat16",
            "seed": 0}
-ZOO_WINDOW_S = 4.0
+ZOO_WINDOW_S = 2.5
 ZOO_DEVICE = "cuda"
 ZOO_RESNET_BATCH, ZOO_BERT_BATCH, ZOO_BERT_SEQ = 32, 16, 128
 ZOO_RESNET_ANN = {"seldon.io/microbatch": "true", "seldon.io/microbatch-max-batch": "128",
@@ -4972,7 +4988,7 @@ ZOO_BERT_ANN = {"seldon.io/microbatch": "true", "seldon.io/microbatch-max-batch"
 # the CPU (another library's summation order, over up to 16 blocks;
 # port vs JAX on the CPU agree to 2e-6)
 ZOO_F32_TOL = 1e-4
-ZOO_ROUTER_REQUESTS = 200
+ZOO_ROUTER_REQUESTS = 120
 ZOO_REWARD_P = (0.2, 0.8)
 
 
@@ -5006,7 +5022,7 @@ def _zoo_unit(name, model_dir):
             "parameters": [{"name": "device", "value": ZOO_DEVICE, "type": "STRING"}]}
 
 
-def _zoo_engine(graph, annotations=None, registry=None):
+def _zoo_engine(graph, annotations=None, registry=None, mesh=None):
     from seldon_core_tpu_torch.graph.engine_metrics import MetricsRegistry
     from seldon_core_tpu_torch.graph.service import EngineApp
     from seldon_core_tpu_torch.graph.spec import (
@@ -5018,7 +5034,7 @@ def _zoo_engine(graph, annotations=None, registry=None):
     spec = default_predictor(PredictorSpec.from_dict(
         {"name": "zoo", "graph": graph, "annotations": annotations or {}}))
     validate_predictor(spec)
-    return EngineApp(spec, registry=registry, metrics=MetricsRegistry())
+    return EngineApp(spec, registry=registry, metrics=MetricsRegistry(), mesh=mesh)
 
 
 def _zoo_serve(apps, grpc_app=None):
@@ -5565,10 +5581,10 @@ def phase_zoo(card):
     """The predict path's model zoo at full width (random weights from seed
     0): (a) ResNet-50 bf16 through the engine over REST (binary
     SeldonMessage, raw uint8 [32, 224, 224, 3]; micro-batching max-batch
-    128, timeout 600 ms; max-inflight 4; concurrency 16 for 4 s, a 429
+    128, timeout 600 ms; max-inflight 4; concurrency 16 for 2.5 s, a 429
     backs off); (b) BERT-base bf16 through the engine over gRPC
     Seldon/Predict (REST binary protobuf without grpcio; raw int32 [16,
-    128]; max-batch 256, timeout 25 ms; concurrency 64 for 4 s); the f32
+    128]; max-batch 256, timeout 25 ms; concurrency 64 for 2.5 s); the f32
     gates (micro-batched == alone, card == CPU); (c) ViT-B/16 and the
     iris MLP through the REST microservice; (d) the bandit routers.
     Returns the flash kernel's launches over the phase (no zoo model
@@ -7551,7 +7567,7 @@ def phase_controlplane(card, serve_alone):
 
 
 # the tools phase: the user's tools against engines on the card
-TOOLS_SECONDS = 5.0
+TOOLS_SECONDS = 3.0
 TOOLS_WORKERS, TOOLS_CLIENTS = 2, 4
 # the zoo's micro-batching without its admission cap: the load tester
 # counts a 429 as a failure (it has no backoff)
@@ -7805,7 +7821,7 @@ def phase_tools(card):
 PHASES = ("kernels", "small", "serve", "engine", "small-sched", "sched", "prefix",
           "pressure", "spec", "spec-pressure", "dh256", "f32", "disagg", "kvtier", "migration",
           "telemetry", "fronts", "zoo", "rag", "model", "explain", "moe", "train",
-          "controlplane", "tools", "mesh")
+          "controlplane", "tools", "mesh", "predict-mesh")
 
 
 # the mesh phase: llm-1.26b stored split over a data=1, model=4 serving
@@ -8063,6 +8079,222 @@ def phase_mesh(card, serve_numbers):
 
 
 
+# the predict-mesh phase: the zoo's BERT-base (bf16, seed-0 weights read
+# from a checkpoint on the host) and ResNet-50 (bf16, seed-0 weights) and
+# the explain phase's ResNet-50, each stored split over an
+# explicit ServingMesh whose every position is cuda:0, beside an
+# unsharded twin on the same card
+PREDICT_MESH_BERT_SHAPE = {"data": 1, "model": 4}
+PREDICT_MESH_RESNET_SHAPE = {"data": 2, "model": 4}
+PREDICT_MESH_BERT_BATCHES = 3
+PREDICT_MESH_BERT_CONCURRENT = 8
+# four requests of four images fill one 16-row flush: the fused batch the
+# meshed engine computes is the twin's, whatever order they arrive in
+PREDICT_MESH_RESNET_ANN = {"seldon.io/microbatch": "true",
+                           "seldon.io/microbatch-max-batch": "16",
+                           "seldon.io/microbatch-timeout-ms": "2000"}
+PREDICT_MESH_RESNET_REQUESTS, PREDICT_MESH_RESNET_ROWS = 4, 4
+PREDICT_MESH_IG_STEPS, PREDICT_MESH_IG_IMAGES = 8, 2
+PREDICT_MESH_DEVICE = "cuda:0"
+
+
+def _zoo_checkpoint(model_dir, family, config):
+    """The port's seed-``config["seed"]`` params of ``family`` (made on
+    the card, as a server without a checkpoint makes them) written as
+    ``model_dir``'s ``params.npz``: a meshed server reads them on the
+    host and copies only its blocks to the card."""
+    import torch
+
+    from seldon_core_tpu_torch import models
+    from seldon_core_tpu_torch.convert import save_npz
+
+    seed = int(config.get("seed", 0))
+    params = models.build(family, device=PREDICT_MESH_DEVICE, **config).init_params(
+        seed, device=PREDICT_MESH_DEVICE)
+    save_npz(params, os.path.join(model_dir, "params.npz"))
+    del params
+    torch.cuda.empty_cache()
+    with open(os.path.join(model_dir, "jax_config.json"), "w") as f:
+        json.dump({"family": family, "config": config, "checkpoint": "params.npz"}, f)
+
+
+def _engine_rows(app, bodies):
+    """Concurrent predicts through ``app``: each answer's rows (float32
+    lists, exact) or the exception it raised."""
+    import asyncio
+
+    async def go():
+        return await asyncio.gather(*[app.predict(json.loads(json.dumps(b))) for b in bodies],
+                                    return_exceptions=True)
+
+    return [o if isinstance(o, Exception) else o["data"]["ndarray"] for o in asyncio.run(go())]
+
+
+def _close_engines(apps):
+    import asyncio
+
+    while apps:
+        asyncio.run(apps.pop().executor.close())
+
+
+def phase_predict_mesh(card):
+    """Sharded predict: TorchServer and the Explainer on an explicit
+    ServingMesh with every position on cuda:0 (params stored split,
+    gathered a layer at a time onto the compute device), beside an
+    unsharded twin. Fails unless (a) BERT-base bf16 [16, 128] on data=1,
+    model=4 answers ``PREDICT_MESH_BERT_BATCHES`` batches one at a time
+    and ``PREDICT_MESH_BERT_CONCURRENT`` at once (the engine's thread
+    pool runs them concurrently) through the engine with the twin's
+    logits bit for bit, its matmul weights and
+    their bf16 copies split in 4; (b) ResNet-50 bf16 224 on data=2,
+    model=4 through a micro-batched engine answers four concurrent
+    requests, fused on the compute device into one 16-row forward, with
+    the twin engine's rows bit for bit, and refuses a 3-image request
+    (it does not tile data=2); (c) IG with the meshed Explainer on the
+    explain phase's ResNet-50 (bf16, ``PREDICT_MESH_IG_STEPS`` steps)
+    equals the unmeshed Explainer's attributions bit for bit; the flash
+    kernel does not launch. Reports (d): BERT-base's parameter bytes per
+    position against the whole, nvidia-smi's memory.used, and one
+    forward's device time meshed against unmeshed. Returns the flash
+    launches (0)."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.components.explainer import Explainer
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+    from seldon_core_tpu_torch.parallel.mesh import ServingMesh, ShardedTensor, tree_shard_bytes
+    from seldon_core_tpu_torch.servers.torchserver import TorchServer
+
+    fa.LAUNCHES["flash_attention"] = 0
+    apps = []
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-predict-mesh-") as root:
+        try:
+            # (a) BERT-base through the engine
+            bert_dir = _zoo_dir(root, "bert", ZOO_BERT)
+            _zoo_checkpoint(bert_dir, "bert", ZOO_BERT)
+            mesh = ServingMesh(PREDICT_MESH_BERT_SHAPE, [PREDICT_MESH_DEVICE] * 4)
+            mib0 = _smi_used()
+            meshed = _zoo_engine(_zoo_unit("bert", bert_dir), mesh=mesh)
+            apps.append(meshed)
+            mib_m = _smi_used()
+            twin = _zoo_engine(_zoo_unit("bert", bert_dir))
+            apps.append(twin)
+            mib_t = _smi_used()
+            ms, ts = (a.executor.root.client.user_object for a in (meshed, twin))
+            blocks = ms.params["blocks"]
+            prep = ms._model.prepared(ms.params)["blocks"]
+            for name in ("wq", "wk", "wv", "wo", "w1", "w2"):
+                for leaf in (blocks[name], prep[name]):
+                    if not isinstance(leaf, ShardedTensor) or len(leaf.blocks()) != 4:
+                        raise AssertionError(f"[predict-mesh] (a) BERT {name} is not split in 4")
+            if prep["wq"].dtype != torch.bfloat16:
+                raise AssertionError("[predict-mesh] (a) BERT's prepared wq is not bf16")
+            bodies, wants = [], []
+            for i in range(PREDICT_MESH_BERT_CONCURRENT):
+                toks = _bert_tokens(ZOO_BERT_BATCH, seed=100 + i)
+                toks[1, ZOO_BERT_SEQ // 2:] = 0  # a padded tail
+                bodies.append({"data": {"ndarray": toks.tolist()}})
+                (want,) = _engine_rows(twin, bodies[-1:])
+                if isinstance(want, Exception):
+                    raise AssertionError(f"[predict-mesh] (a) the twin refused batch {i}: {want!r}")
+                wants.append(want)
+            for i in range(PREDICT_MESH_BERT_BATCHES):
+                (got,) = _engine_rows(meshed, bodies[i:i + 1])
+                if isinstance(got, Exception) or got != wants[i]:
+                    raise AssertionError(f"[predict-mesh] (a) BERT batch {i}: meshed != twin")
+            # all at once: the engine's thread pool runs the meshed
+            # forwards concurrently, each gathering into tensors of its own
+            for i, got in enumerate(_engine_rows(meshed, bodies)):
+                if isinstance(got, Exception) or got != wants[i]:
+                    raise AssertionError(
+                        f"[predict-mesh] (a) BERT batch {i} of {len(bodies)} concurrent: "
+                        "meshed != twin")
+            shard, whole = tree_shard_bytes(ms.params), tree_shard_bytes(ts.params)
+            log(f"[predict-mesh] (a) BERT-base bf16 [{ZOO_BERT_BATCH}, {ZOO_BERT_SEQ}] on "
+                f"ServingMesh {mesh.shape} (every position cuda:0): {PREDICT_MESH_BERT_BATCHES} "
+                f"batches one at a time and {PREDICT_MESH_BERT_CONCURRENT} concurrent through "
+                "the engine, logits == the unsharded twin's bit for bit; "
+                "wq wk wv w1 (columns) and wo w2 (rows) split in 4, their bf16 copies too")
+            # (d) the footprint and one forward, meshed against unmeshed
+            x = torch.from_numpy(_bert_tokens(ZOO_BERT_BATCH, seed=7)).to(PREDICT_MESH_DEVICE)
+            with torch.inference_mode():
+                fwd = {name: device_ms(lambda s=s: s._apply(s.params, x), launches=5, reps=5)
+                       for name, s in (("meshed", ms), ("unmeshed", ts))}
+            log(f"[predict-mesh] (d) BERT-base param bytes {shard} per position of {whole} whole "
+                f"({shard / whole:.3f}); nvidia-smi memory.used {mib0} MiB before, {mib_m} MiB "
+                f"with the meshed server (+{mib_m - mib0}), {mib_t} MiB with both "
+                f"(+{mib_t - mib_m}); one forward [{ZOO_BERT_BATCH}, {ZOO_BERT_SEQ}] device "
+                f"{fwd['meshed']:.3f} ms meshed, {fwd['unmeshed']:.3f} ms unmeshed (the gathers "
+                f"{fwd['meshed'] - fwd['unmeshed']:.3f} ms) [{card}]")
+            _close_engines(apps)
+            # (b) ResNet-50 through a micro-batched engine
+            rn_dir = _zoo_dir(root, "resnet50", ZOO_RESNET)
+            mesh = ServingMesh(PREDICT_MESH_RESNET_SHAPE, [PREDICT_MESH_DEVICE] * 8)
+            meshed = _zoo_engine(_zoo_unit("rn", rn_dir), PREDICT_MESH_RESNET_ANN, mesh=mesh)
+            twin = _zoo_engine(_zoo_unit("rn", rn_dir), PREDICT_MESH_RESNET_ANN)
+            apps += [meshed, twin]
+            size = ZOO_RESNET["image_size"]
+            imgs = _synthetic_images(PREDICT_MESH_RESNET_REQUESTS * PREDICT_MESH_RESNET_ROWS,
+                                     size, seed=11)
+            bodies = [{"data": {"ndarray": imgs[i:i + PREDICT_MESH_RESNET_ROWS].tolist()}}
+                      for i in range(0, len(imgs), PREDICT_MESH_RESNET_ROWS)]
+            seen = []
+            mrn = meshed.executor.root.client.inner.user_object
+            forward = mrn._apply
+
+            def spy(params, xb):
+                seen.append((xb.device, tuple(xb.shape)))
+                return forward(params, xb)
+
+            mrn._apply = spy
+            got, want = _engine_rows(meshed, bodies), _engine_rows(twin, bodies)
+            mrn._apply = forward
+            if any(isinstance(o, Exception) for o in got + want) or got != want:
+                raise AssertionError("[predict-mesh] (b) ResNet-50 meshed rows != the twin's")
+            n = PREDICT_MESH_RESNET_REQUESTS * PREDICT_MESH_RESNET_ROWS
+            if seen != [(torch.device(PREDICT_MESH_DEVICE), (n, size, size, 3))]:
+                raise AssertionError(f"[predict-mesh] (b) the meshed forward saw {seen}")
+            (refused,) = _engine_rows(meshed, [{"data": {"ndarray": imgs[:3].tolist()}}])
+            if not isinstance(refused, ValueError) or "does not divide" not in str(refused):
+                raise AssertionError(f"[predict-mesh] (b) a 3-image request gave {refused!r}")
+            log(f"[predict-mesh] (b) ResNet-50 bf16 224 on ServingMesh {mesh.shape}, micro-"
+                f"batched: {PREDICT_MESH_RESNET_REQUESTS} requests of {PREDICT_MESH_RESNET_ROWS} "
+                f"images fused on cuda:0 into one {n}-row forward, rows == the twin engine's "
+                f"bit for bit; a 3-image request refused: {refused}")
+            _close_engines(apps)
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+            # (c) IG through the meshed explainer
+            ig_dir = _zoo_dir(root, "resnet50", dict(EXPLAIN_RESNET, dtype="bfloat16"), "-ig")
+            x = _synthetic_images(PREDICT_MESH_IG_IMAGES, EXPLAIN_RESNET["image_size"],
+                                  seed=5).astype(np.float32)
+            outs = []
+            for m in (mesh, None):
+                e = Explainer(explainer_type="integrated_gradients", model_uri=ig_dir,
+                              n_steps=PREDICT_MESH_IG_STEPS, device=EXPLAIN_DEVICE, mesh=m)
+                outs.append(e.explain(x, []))
+                del e
+            if outs[0] != outs[1]:
+                raise AssertionError("[predict-mesh] (c) meshed IG != unmeshed IG")
+            attr = np.asarray(outs[0]["attributions"])
+            if not np.isfinite(attr).all() or not np.abs(attr).max() > 0:
+                raise AssertionError("[predict-mesh] (c) IG attributions are not finite and nonzero")
+            log(f"[predict-mesh] (c) IG on ResNet-50 bf16 ({PREDICT_MESH_IG_IMAGES} images, "
+                f"{PREDICT_MESH_IG_STEPS} steps) through the Explainer on ServingMesh "
+                f"{mesh.shape}: attributions, prediction and target == the unmeshed "
+                f"Explainer's bit for bit (targets {outs[0]['target']})")
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            launches = fa.LAUNCHES["flash_attention"]
+            if launches:
+                raise AssertionError(f"[predict-mesh] the flash kernel launched {launches} times")
+            log("[predict-mesh] flash launches 0 (BERT, ResNet-50 and IG attend in plain "
+                "PyTorch or not at all)")
+        finally:
+            _close_engines(apps)
+    return launches
+
+
 def _llm_model():
     """llm-1.26b on the card, as the engine phase's generate unit builds
     it (random weights from seed 0, cast to bf16): for a run of
@@ -8132,6 +8364,7 @@ def main(argv=None) -> int:
         disagg_launches = kvtier_launches = migration_launches = telemetry_launches = None
         fronts_launches = zoo_launches = rag_launches = explain_launches = None
         moe_launches = train_launches = controlplane_launches = mesh_launches = None
+        predict_mesh_launches = None
         if "serve" in phases:
             launches, alone, serve_numbers = phase_serve(card)
             free()  # the serve phase's copy of the model goes
@@ -8226,6 +8459,10 @@ def main(argv=None) -> int:
             mesh_launches = phase_mesh(card, serve_numbers)
             free()
             lap("mesh")
+        if "predict-mesh" in phases:
+            predict_mesh_launches = phase_predict_mesh(card)
+            free()
+            lap("predict-mesh")
         # the profiler runs last: once it has traced the card, later
         # launches may carry its overhead
         if "model" in phases:
@@ -8266,6 +8503,7 @@ def main(argv=None) -> int:
             "train_launches": train_launches,
             "controlplane_launches": controlplane_launches,
             "mesh_launches": mesh_launches,
+            "predict_mesh_launches": predict_mesh_launches,
             "dh256_launches": dh256_launches,
             "max_abs_err": worst(lambda r: r["dtype"] == "bfloat16"),
             "wgmma_max_abs_err": worst(lambda r: r["route"] == "wgmma"),

@@ -34,8 +34,12 @@ via ``--predictor_host``).
 
 Explainer type names accepted: ``integrated_gradients``, ``saliency``
 (white-box); ``ablation``, ``anchor_tabular``, ``anchor_text``
-(black-box); ``anchor_images`` aliases ``ablation``. A device ``mesh``
-(sharded explanation) is not ported and raises.
+(black-box); ``anchor_images`` aliases ``ablation``. With a serving
+``mesh`` the white-box model is loaded as the predictor serves it
+(``TorchServer(model_uri, mesh=mesh)``: params stored split under the
+model's ``param_sharding``, compute on the mesh's compute device), and
+the gradients flow through the meshed forward, so the attributions are
+the unmeshed explainer's bit for bit.
 """
 
 from __future__ import annotations
@@ -80,11 +84,6 @@ class Explainer(SeldonComponent):
         device="cuda",
         **_kw,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (sharded explanation) for Explainer is not ported to "
-                "seldon_core_tpu_torch yet"
-            )
         requested = (explainer_type or "integrated_gradients").lower()
         self.explainer_type = ALIAS_TYPES.get(requested, requested)
         self._requested_type = requested
@@ -97,7 +96,8 @@ class Explainer(SeldonComponent):
         if self.explainer_type in WHITE_BOX_TYPES:
             from ..device import resolve_device
 
-            self.device = resolve_device(device)
+            self.device = mesh.device if mesh is not None else resolve_device(device)
+        self._mesh = mesh
         self.model_uri = model_uri or ""
         self.predictor_endpoint = predictor_endpoint or ""
         self.predictor_path = predictor_path
@@ -136,7 +136,10 @@ class Explainer(SeldonComponent):
         # parameters made under inference_mode could not be saved for the
         # backward (a convolution keeps its weight for the input gradient)
         with torch.inference_mode(False):
-            self._apply, self._params = TorchServer(self.model_uri, device=self.device).build()
+            server = TorchServer(self.model_uri, device=self.device, mesh=self._mesh)
+            self._apply, params = server.build()
+            # the predictor's layout (TorchComponent.load), split under a mesh
+            self._params = server.place_params(params)
         if self.device.type == "cuda":
             torch.backends.cudnn.deterministic = True
         logger.info("explainer %s: model %s loaded on %s",

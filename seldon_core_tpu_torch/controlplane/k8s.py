@@ -27,15 +27,15 @@ Design notes (vs the reference's output):
   ``DEFAULT_GPU_ACCELERATOR``). A predictor whose units run on the host
   (builtins, host servers, remote units) gets no accelerator.
 * **A mesh is one pod.** A predictor with a ``tpuMesh`` or a
-  ``seldon.io/mesh`` annotation (sharded generate serving) renders one
-  pod per replica that asks for the mesh's product of ``nvidia.com/gpu``:
-  one engine process drives every card of its mesh. The annotation's
-  shape reaches the engine as the predictor's ``tpuMesh`` (injected into
+  ``seldon.io/mesh`` annotation (sharded generate serving, or sharded
+  predict through a JAX_SERVER unit's TorchServer) renders one pod per
+  replica that asks for the mesh's product of ``nvidia.com/gpu``: one
+  engine process drives every card of its mesh. The annotation's shape
+  reaches the engine as the predictor's ``tpuMesh`` (injected into
   ``ENGINE_PREDICTOR``, the annotation stripped there, as the reconciler
-  does). Refused, not ported yet: a mesh for a JAX_SERVER unit
-  (TorchServer: sharded predict), and a mesh larger than one host's
-  cards (``seldon.io/gpus-per-host``, default ``DEFAULT_GPUS_PER_HOST``),
-  the JAX renderer's multi-host StatefulSet, which one process cannot
+  does). Refused, not ported yet: a mesh larger than one host's cards
+  (``seldon.io/gpus-per-host``, default ``DEFAULT_GPUS_PER_HOST``), the
+  JAX renderer's multi-host StatefulSet, which one process cannot
   drive.
 * **Exact preStop drain**: ``/pause`` then poll ``/inflight`` to zero
   (the engine exposes an exact gauge) instead of the reference's blind
@@ -65,6 +65,9 @@ ENGINE_HTTP_PORT = 8000
 ENGINE_GRPC_PORT = 5001
 
 ANNOTATION_ENGINE_IMAGE = "seldon.io/engine-image"
+# the GPU counterparts of the JAX renderer's seldon.io/tpu-accelerator and
+# seldon.io/tpu-chips-per-host: the docs (the JAX package's) name those
+# seldon-lint: disable=annotation-drift
 ANNOTATION_GPU_ACCELERATOR = "seldon.io/gpu-accelerator"
 ANNOTATION_ENGINE_CPU = "seldon.io/engine-cpu"
 # reference: getEngineEnvAnnotations / ANNOTATION_JAVA_OPTS idiom — any
@@ -77,7 +80,7 @@ ENGINE_COMMAND = "seldon-tpu-torch-engine"
 # GKE's node label value for a node pool of H100 80GB cards
 DEFAULT_GPU_ACCELERATOR = "nvidia-h100-80gb"
 GPU_RESOURCE = "nvidia.com/gpu"
-ANNOTATION_GPUS_PER_HOST = "seldon.io/gpus-per-host"
+ANNOTATION_GPUS_PER_HOST = "seldon.io/gpus-per-host"  # seldon-lint: disable=annotation-drift
 # the cards of one H100 host (an 8-GPU node)
 DEFAULT_GPUS_PER_HOST = 8
 # in-process implementations whose model runs on the card (graph/spec.py
@@ -222,21 +225,15 @@ def _mesh_of(p: PredictorSpec) -> Optional[Dict[str, int]]:
 
 def _check_predictor(dep: SeldonDeployment, p: PredictorSpec) -> None:
     """Refuse what this renderer cannot render: an unported feature's
-    annotation; a mesh for the predict path's TorchServer (a JAX_SERVER
-    unit), whose sharded forward is not ported; and a mesh past one
-    host's cards (the JAX renderer's multi-host StatefulSet: one engine
-    process drives one host's cards)."""
+    annotation, and a mesh past one host's cards (the JAX renderer's
+    multi-host StatefulSet: one engine process drives one host's
+    cards)."""
     merged = PredictorSpec.from_dict(p.to_dict())
     merged.annotations = {**dep.annotations, **p.annotations}
     check_not_ported_annotations(merged)
     mesh = _mesh_of(p)
     if mesh is None:
         return
-    if any(u.implementation == "JAX_SERVER" for u in p.graph.walk()):
-        raise GraphSpecError(
-            f"predictor {p.name!r}: a mesh {mesh} for TorchServer (a JAX_SERVER unit: "
-            "sharded predict) is not ported to seldon_core_tpu_torch yet"
-        )
     cards = _cards(mesh)
     per_host = int(merged.annotations.get(ANNOTATION_GPUS_PER_HOST, DEFAULT_GPUS_PER_HOST))
     if cards > per_host:

@@ -27,6 +27,12 @@ pads there, and the fused tensor reaches the forward under the
 ``__torch__`` message key. A slab whose device put fails stays on the
 host, and a flush holding one fuses on the host (still computed on the
 card); :attr:`MicroBatchingClient.prefetch_failures` counts those puts.
+Under a serving mesh the puts land on the mesh's compute device, and a
+slab that does not tile the mesh's ``data`` axis is refused there, so it
+fuses on the host as in the JAX engine: a flush of such slabs padded to
+a bucket that tiles ``data`` is served, and a flush of ONE such request
+goes to the unit as it came and fails there as it fails in the JAX
+engine (``_to_dev`` refuses it).
 The puts run on the default CUDA stream from pageable memory, so each
 waits behind the forward in flight: :attr:`MicroBatchingClient.h2d_seconds`
 is their host wall time.

@@ -28,8 +28,10 @@ TorchComponents. With ``seldon.io/fuse: "true"`` chains of in-process
 TorchComponents run as one device hop (``graph/fusion.py``); any
 per-unit condition falls back, counted, to this walk. A device mesh
 (``parallel/mesh.py`` ``ServingMesh``, the predictor's ``tpuMesh``) is
-handed to the mesh-aware prepackaged servers (``GenerateServer``); the
-predict path's ``TorchServer`` refuses it as not ported yet.
+handed to the mesh-aware prepackaged servers (``GenerateServer``,
+``TorchServer``, the ``Explainer``), which store their params split over
+it and compute on its compute device; a micro-batched meshed unit gets
+its fused batch there.
 """
 
 from __future__ import annotations

@@ -198,13 +198,28 @@ class EngineApp:
             str(self._ann.get("seldon.io/shed-on-deadline", "true")).lower()
             != "false"
         )
-        # progressive delivery (a rollout's shadow mirror) is not ported:
-        # the mirror stays None, one attribute check on the hot path.
-        # While a mirror is live, fused segments fall back to the per-unit
+        # progressive delivery: a shadow rollout's mirror
+        # (rollout/mirror.py), wired in by the reconciler; None otherwise,
+        # one attribute check on the hot path. While a mirror is live, fused segments fall back to the per-unit
         # walk so a divergence verdict can never implicate the fusion
         # planner (fusion.py's "shadow" fallback reason)
         self.shadow_mirror = None
         self.executor.shadow_active_fn = lambda: self.shadow_mirror is not None
+
+    def _count_stream_cache_hit(self, chunk) -> None:
+        """Roll a streaming response's final-event ``cache_hit_tokens``
+        into the same deployment-level counter the unary path feeds."""
+        if not isinstance(chunk, dict) or "cache_hit_tokens" not in chunk:
+            return
+        try:
+            total = int(chunk["cache_hit_tokens"])
+        except (TypeError, ValueError):
+            return
+        if total:
+            self.metrics.counter_inc(
+                "seldon_engine_prefix_cache_hit_tokens",
+                {"deployment": self.spec.name}, total,
+            )
 
     def _inflight_add(self, n: int) -> None:
         with self._inflight_lock:
@@ -371,6 +386,22 @@ class EngineApp:
             )
         self.metrics.counter_inc("seldon_api_engine_server_requests", labels)
         self.metrics.record_custom((out.get("meta") or {}).get("metrics"), labels)
+        # generate graphs surface per-request prefix-cache hit tokens in
+        # the response body; roll them up at the engine so deployment-level
+        # dashboards see prompt reuse without scraping node metrics
+        jd = out.get("jsonData")
+        if isinstance(jd, dict) and "cache_hit_tokens" in jd:
+            try:
+                hits = jd["cache_hit_tokens"]
+                total = sum(int(h) for h in hits) if isinstance(
+                    hits, (list, tuple)
+                ) else int(hits)
+            except (TypeError, ValueError):
+                total = 0
+            if total:
+                self.metrics.counter_inc(
+                    "seldon_engine_prefix_cache_hit_tokens", labels, total
+                )
         self.request_logger.log((out.get("meta") or {}).get("puid", ""), message, out)
         if self.shadow_mirror is not None:
             self.shadow_mirror.submit(message, out)
@@ -663,6 +694,10 @@ class EngineApp:
             def sse():
                 try:
                     for chunk in handle.chunks:
+                        # the final event carries the request's prefix-cache
+                        # hit count: the unary path's roll-up, or
+                        # stream-only deployments read 0
+                        self._count_stream_cache_hit(chunk)
                         yield b"data: " + json.dumps(chunk).encode() + b"\n\n"
                 finally:
                     self._inflight_add(-1)
@@ -934,6 +969,7 @@ class EngineApp:
                     chunk = await loop.run_in_executor(None, next, it, sentinel)
                     if chunk is sentinel:
                         break
+                    app._count_stream_cache_hit(chunk)
                     yield json_to_proto({"jsonData": chunk})
             finally:
                 app._inflight_add(-1)

@@ -164,8 +164,8 @@ class PredictorSpec:
     labels: Dict[str, str] = field(default_factory=dict)
     annotations: Dict[str, str] = field(default_factory=dict)
     # device mesh this predictor wants, e.g. {"data": 1, "model": 8}
-    # (sharded serving: not ported yet, refused by engine_main and the
-    # control plane)
+    # (sharded serving: engine_main.build_mesh, the reconciler's
+    # placement, k8s.render's one pod of the mesh's cards)
     tpu_mesh: Optional[Dict[str, int]] = None
     # autoscaling (reference CRD HpaSpec, seldon_deployment.proto /
     # seldondeployment_types.go + createHpas controller.go:805): the

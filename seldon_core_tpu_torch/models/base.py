@@ -13,15 +13,25 @@ or dtype (ResNet-50's OIHW convolutions, the encoders' compute-dtype
 copies) derives them once per parameter tree in :meth:`ServedModel.prepare`
 and reads them through :meth:`ServedModel.prepared`; the tree itself,
 what ``convert.save_npz`` writes, keeps the JAX keys and shapes.
-The JAX package's sharding hooks (``input_sharding``/``param_sharding``)
-belong to multi-device serving, which this package has not ported yet.
+
+Sharding rules, as in the JAX package: ``input_sharding(mesh)`` (the
+batch rides ``data``) and ``param_sharding(mesh, params)`` (replicated
+by default; the encoders and the LLM split their matmul weights over
+``model``), as ``parallel/mesh.py`` :class:`ServingSharding`s. Under a
+serving mesh the storage is split and the compute replicated: a forward
+reads layer ``l`` of a stacked, possibly split, leaf through
+:meth:`ServedModel._layer`, which gathers the blocks onto the mesh's
+compute device into a tensor of the unsharded shape, dtype and strides,
+so the numbers are the one-device forward's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
+
+from ..parallel.mesh import ServingSharding
 
 DTYPES = {
     "float32": torch.float32,
@@ -73,6 +83,65 @@ class ServedModel:
         """Analytic forward-pass FLOPs for one input row (a multiply-add
         counts 2); ``None`` means unknown."""
         return None
+
+    # -- sharded serving: sharded storage, replicated compute ---------------
+
+    def input_sharding(self, mesh) -> ServingSharding:
+        """The request batch rides ``data`` when the mesh has it."""
+        return ServingSharding(mesh, ("data",) if "data" in mesh.axis_names else ())
+
+    def param_sharding(self, mesh, params):
+        """The storage layout of ``params``, leaf for leaf: fully
+        replicated by default."""
+        return replicated_sharding(mesh, params)
+
+    def _take(self, tag: str, w, key) -> torch.Tensor:
+        """``w[key]``: from a sharded ``w``, the region gathered onto the
+        compute device into a fresh tensor, so concurrent forwards (the
+        predict path's thread pool) and a backward (the explainer's) each
+        read their own copy."""
+        return w[key]
+
+    def _layer(self, blocks, l: int) -> Dict[str, torch.Tensor]:
+        """Layer ``l`` of every stacked leaf of ``blocks``."""
+        return {name: self._take(name, w, (l,)) for name, w in blocks.items()}
+
+
+def replicated_sharding(mesh, params):
+    """Every leaf of ``params`` (nested dicts and lists) replicated."""
+    repl = ServingSharding(mesh, ())
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [walk(v) for v in tree]
+        return repl
+
+    return walk(params)
+
+
+def encoder_param_sharding(mesh, params):
+    """The encoders' tensor-parallel storage layout (the JAX package's
+    BERT and ViT rule): on the stacked ``[L, ...]`` leaves, ``wq wk wv
+    w1`` split their columns and ``wo w2`` their rows over ``model``;
+    every other leaf, and every leaf on a mesh without ``model``, is
+    replicated."""
+    col = ServingSharding(mesh, (None, None, "model"))
+    row = ServingSharding(mesh, (None, "model", None))
+    repl = ServingSharding(mesh, ())
+    has_model = "model" in mesh.axis_names
+
+    def walk(tree, name):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if has_model and name in ("wq", "wk", "wv", "w1"):
+            return col
+        if has_model and name in ("wo", "w2"):
+            return row
+        return repl
+
+    return walk(params, None)
 
 
 def layer_norm(x, scale, bias, eps: float):

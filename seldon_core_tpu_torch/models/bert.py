@@ -13,6 +13,9 @@ key is masked, gives a uniform softmax and finite logits, where a bf16
 bias would round to -inf and give NaN), everything else in the compute
 dtype. The attention is dense and non-causal: PyTorch ops, as XLA
 lowered it in the JAX package.
+Under a serving mesh (``param_sharding``) each layer's weights are
+gathered onto the compute device as the forward reaches them
+(``ServedModel._layer``).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from .base import ServedModel, layer_norm, torch_dtype
+from .base import ServedModel, encoder_param_sharding, layer_norm, torch_dtype
 
 # BERT's canonical LayerNorm eps
 _BERT_LN_EPS = 1e-12
@@ -100,9 +103,15 @@ class BertClassifier(ServedModel):
             "classifier": {"w": init((D, cfg.num_classes)), "b": zeros(cfg.num_classes)},
         }
 
+    def param_sharding(self, mesh, params):
+        """The JAX package's BERT layout: see
+        :func:`~seldon_core_tpu_torch.models.base.encoder_param_sharding`."""
+        return encoder_param_sharding(mesh, params)
+
     def prepare(self, params) -> Dict[str, Any]:
         """The matmul weights and biases in the compute dtype (the casts
-        the JAX forward makes at each use, made once)."""
+        the JAX forward makes at each use, made once). A split leaf is
+        cast block by block and stays split."""
         dt = self.dtype
         blocks = params["blocks"]
         return {
@@ -133,22 +142,23 @@ class BertClassifier(ServedModel):
         def heads(t):
             return t.reshape(B, T, H, Dh).transpose(1, 2)
 
-        w = p["blocks"]
+        blocks = p["blocks"]
         for i in range(cfg.n_layers):
-            q = heads(x @ w["wq"][i] + w["wq_b"][i])
-            k = heads(x @ w["wk"][i] + w["wk_b"][i])
-            v = heads(x @ w["wv"][i] + w["wv_b"][i])
+            w = self._layer(blocks, i)
+            q = heads(x @ w["wq"] + w["wq_b"])
+            k = heads(x @ w["wk"] + w["wk_b"])
+            v = heads(x @ w["wv"] + w["wv_b"])
             s = q.float() @ k.float().transpose(-1, -2)
             s = s / scale + attn_bias
             a = torch.softmax(s, dim=-1)
             o = (a @ v.float()).to(dt)
             o = o.transpose(1, 2).reshape(B, T, H * Dh)
-            o = o @ w["wo"][i] + w["wo_b"][i]
-            x = layer_norm(x + o, w["ln1_scale"][i], w["ln1_bias"][i], _BERT_LN_EPS)
+            o = o @ w["wo"] + w["wo_b"]
+            x = layer_norm(x + o, w["ln1_scale"], w["ln1_bias"], _BERT_LN_EPS)
             # exact (erf) gelu — original BERT and HF checkpoints use it
-            f = F.gelu(x @ w["w1"][i] + w["w1_b"][i], approximate="none")
-            f = f @ w["w2"][i] + w["w2_b"][i]
-            x = layer_norm(x + f, w["ln2_scale"][i], w["ln2_bias"][i], _BERT_LN_EPS)
+            f = F.gelu(x @ w["w1"] + w["w1_b"], approximate="none")
+            f = f @ w["w2"] + w["w2_b"]
+            x = layer_norm(x + f, w["ln2_scale"], w["ln2_bias"], _BERT_LN_EPS)
         pw, pb = p["pooler"]
         pooled = torch.tanh(x[:, 0] @ pw + pb)
         head = params["classifier"]

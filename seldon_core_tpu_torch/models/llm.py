@@ -326,6 +326,11 @@ class DecoderLM(ServedModel):
     # sharded serving: sharded storage, replicated compute
     # ------------------------------------------------------------------
 
+    def input_sharding(self, mesh) -> ServingSharding:
+        """A token batch ``[B, T]`` rides ``data`` (the JAX package's
+        rule for the LLM under the predict path)."""
+        return ServingSharding(mesh, ("data", None) if "data" in mesh.axis_names else ())
+
     def param_sharding(self, mesh, params) -> Dict[str, Any]:
         """The tensor-parallel storage layout over the ``model`` axis, leaf
         for leaf with ``params``: the JAX package's table (column-split
@@ -408,7 +413,8 @@ class DecoderLM(ServedModel):
         """The buffer a sharded operand of one layer is gathered into,
         one per (tag, shape, dtype, device), kept for the model's life:
         a captured decode burst reads and writes it at a fixed address,
-        so it must exist before the capture (:meth:`reserve_gather_buffers`)."""
+        so it must exist before the capture (:meth:`reserve_gather_buffers`).
+        Only the batcher's scheduler thread runs the forwards that use it."""
         bufs = self.__dict__.setdefault("_gather_bufs", {})
         key = (tag, tuple(shape), dtype, device)
         buf = bufs.get(key)
@@ -423,23 +429,28 @@ class DecoderLM(ServedModel):
     def reserve_gather_buffers(self, params, cache_shape=None, dtype=None) -> None:
         """Allocate every gather buffer a forward over ``params`` (and,
         given ``cache_shape``, a decode over a per-layer cache of that
-        shape) will use, before any CUDA graph captures them."""
-        self._layer(params["blocks"], 0)
+        shape) will use, before any CUDA graph captures them. Until then
+        (and on a model the batcher does not serve: ``TorchServer``'s
+        concurrent predicts) a forward gathers into fresh tensors."""
+        for name, w in params["blocks"].items():
+            if isinstance(w, ShardedTensor):
+                self._gather_buffer(name, w.shape[1:], w.dtype, w.device)
         if cache_shape is not None:
             dev = self._serving_mesh.device
             for tag in ("k", "v"):
                 self._gather_buffer(tag, cache_shape, dtype, dev)
 
     def _take(self, tag: str, w, key) -> torch.Tensor:
-        """``w[key]``; from a sharded ``w``, gathered into its buffer."""
-        if not isinstance(w, ShardedTensor):
-            return w[key]
-        buf = self._gather_buffer(tag, w.shape[len(key):], w.dtype, w.device)
-        w.read_into(buf, key)
-        return buf
-
-    def _layer(self, blocks, l: int) -> Dict[str, torch.Tensor]:
-        return {name: self._take(name, w, (l,)) for name, w in blocks.items()}
+        """``w[key]``; from a sharded ``w`` whose buffer is reserved,
+        gathered into that buffer (a captured burst reads a fixed
+        address), else into a fresh tensor."""
+        if isinstance(w, ShardedTensor):
+            buf = self.__dict__.get("_gather_bufs", {}).get(
+                (tag, tuple(w.shape[len(key):]), w.dtype, w.device))
+            if buf is not None:
+                w.read_into(buf, key)
+                return buf
+        return w[key]
 
     def _kv_in(self, ks, vs, l: int, upto: Optional[int]):
         """Layer ``l`` of a per-layer cache, and its read window

@@ -11,6 +11,9 @@ to float32 (exact) and multiplied there; the softmax is float32 and its
 result goes back to the compute dtype before the product with V, whose
 float32 result is cast to the compute dtype. The attention is dense over
 the fixed patch grid: PyTorch ops, as XLA lowered it.
+Under a serving mesh (``param_sharding``) each layer's weights are
+gathered onto the compute device as the forward reaches them
+(``ServedModel._layer``).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from .base import ServedModel, layer_norm, torch_dtype
+from .base import ServedModel, encoder_param_sharding, layer_norm, torch_dtype
 
 
 @dataclasses.dataclass
@@ -103,9 +106,15 @@ class ViTClassifier(ServedModel):
             "head": {"w": init((D, cfg.num_classes)), "b": zeros(cfg.num_classes)},
         }
 
+    def param_sharding(self, mesh, params):
+        """The JAX package's ViT layout: see
+        :func:`~seldon_core_tpu_torch.models.base.encoder_param_sharding`."""
+        return encoder_param_sharding(mesh, params)
+
     def prepare(self, params) -> Dict[str, Any]:
         """The weights the JAX forward casts to the compute dtype at each
-        use, cast once."""
+        use, cast once. A split leaf is cast block by block and stays
+        split."""
         dt = self.dtype
         blocks = params["blocks"]
         return {
@@ -141,20 +150,21 @@ class ViTClassifier(ServedModel):
         def heads(t):
             return t.reshape(B, T, H, Dh).transpose(1, 2)
 
-        w = p["blocks"]
+        blocks = p["blocks"]
         for i in range(cfg.n_layers):
-            h = layer_norm(x, w["ln1_scale"][i], w["ln1_bias"][i], eps)
-            q = heads(h @ w["wq"][i] + w["wq_b"][i])
-            k = heads(h @ w["wk"][i] + w["wk_b"][i])
-            v = heads(h @ w["wv"][i] + w["wv_b"][i])
+            w = self._layer(blocks, i)
+            h = layer_norm(x, w["ln1_scale"], w["ln1_bias"], eps)
+            q = heads(h @ w["wq"] + w["wq_b"])
+            k = heads(h @ w["wk"] + w["wk_b"])
+            v = heads(h @ w["wv"] + w["wv_b"])
             s = (q.float() @ k.float().transpose(-1, -2)) / scale
             a = torch.softmax(s, dim=-1).to(dt)
             o = (a.float() @ v.float()).to(dt)
             o = o.transpose(1, 2).reshape(B, T, H * Dh)
-            x = x + (o @ w["wo"][i] + w["wo_b"][i])
-            h2 = layer_norm(x, w["ln2_scale"][i], w["ln2_bias"][i], eps)
-            f = F.gelu(h2 @ w["w1"][i] + w["w1_b"][i], approximate="none")
-            x = x + (f @ w["w2"][i] + w["w2_b"][i])
+            x = x + (o @ w["wo"] + w["wo_b"])
+            h2 = layer_norm(x, w["ln2_scale"], w["ln2_bias"], eps)
+            f = F.gelu(h2 @ w["w1"] + w["w1_b"], approximate="none")
+            x = x + (f @ w["w2"] + w["w2_b"])
         # LayerNorm is per row: ln_f of the CLS row alone is ln_f(x)[:, 0]
         ln = params["ln_f"]
         cls_out = layer_norm(x[:, 0], ln["scale"], ln["bias"], eps)

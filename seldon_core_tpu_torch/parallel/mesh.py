@@ -543,6 +543,17 @@ class ServingSharding:
     def is_fully_replicated(self) -> bool:
         return not self.split_dims()
 
+    def check_divides(self, shape: Sequence[int]) -> None:
+        """Raise :class:`MeshShapeError` (a ``ValueError``) unless every
+        split dimension of ``shape`` divides over its axis, as
+        ``jax.device_put`` refuses an array that does not tile its
+        ``NamedSharding``."""
+        for d, ax in self.split_dims().items():
+            if shape[d] % self.mesh.shape[ax]:
+                raise MeshShapeError(
+                    f"dimension {d} of {tuple(shape)} does not divide over "
+                    f"{ax}={self.mesh.shape[ax]}")
+
     def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
         out = list(shape)
         for d, ax in self.split_dims().items():
@@ -606,13 +617,9 @@ class ShardedTensor:
     def _layout(shape, sharding: ServingSharding):
         """``[(index, region, device)]`` of every distinct block, in mesh
         position order, and the split dims."""
+        sharding.check_divides(shape)
         split = sharding.split_dims()
         mesh = sharding.mesh
-        for d, ax in split.items():
-            if shape[d] % mesh.shape[ax]:
-                raise MeshShapeError(
-                    f"dimension {d} of {tuple(shape)} does not divide over "
-                    f"{ax}={mesh.shape[ax]}")
         seen, out = set(), []
         for pos, dev in enumerate(mesh.devices):
             c = mesh.coords(pos)
@@ -679,6 +686,15 @@ class ShardedTensor:
         for s in self.sharding.shard_shape(self.shape):
             n *= s
         return n
+
+    def to(self, dtype) -> "ShardedTensor":
+        """A copy in ``dtype``, cast block by block (the whole tensor never
+        exists in one place); ``self`` when it already has that dtype."""
+        if dtype == self.dtype:
+            return self
+        blocks = [_Block(b.index, b.region, b.device, b.tensor.to(dtype))
+                  for b in self._blocks]
+        return ShardedTensor(self.shape, dtype, self.sharding, blocks, self._split)
 
     def blocks(self) -> List[Tuple[Any, Any]]:
         """``[(device, tensor)]`` of every stored block."""
@@ -861,8 +877,24 @@ def place(t, sharding: Optional[ServingSharding]):
 
 
 def place_tree(tree, shardings):
-    """:func:`place` over nested dicts, leaf for leaf with ``shardings``
-    (the same structure)."""
+    """:func:`place` over nested dicts and lists, leaf for leaf with
+    ``shardings`` (the same structure)."""
     if isinstance(tree, dict):
         return {k: place_tree(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [place_tree(v, s) for v, s in zip(tree, shardings)]
     return place(tree, shardings)
+
+
+def tree_shard_bytes(tree) -> int:
+    """Bytes one mesh position holds of a placed tree (nested dicts and
+    lists; a plain tensor counts whole)."""
+    if isinstance(tree, dict):
+        return sum(tree_shard_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_shard_bytes(v) for v in tree)
+    if isinstance(tree, ShardedTensor):
+        return tree.shard_nbytes
+    if hasattr(tree, "element_size"):
+        return tree.numel() * tree.element_size()
+    return 0

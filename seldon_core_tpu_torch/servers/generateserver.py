@@ -210,6 +210,7 @@ from concurrent.futures import CancelledError
 from concurrent.futures import TimeoutError as FuturesTimeout
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 
+from ..analysis.roles import caller_thread
 from ..device import resolve_device
 from ..metrics import CounterDeltas
 from ..resilience import DeadlineExceeded, FaultInjector, deadline_s_from_meta
@@ -778,6 +779,7 @@ class GenerateServer(SeldonComponent):
         can still serve prefill exports."""
         return self.batcher is not None and self.batcher.health == "serving"
 
+    @caller_thread
     def prefill_export(self, request: Dict[str, Any]):
         """PREFILL-side transport handler: run the prompt forward and
         return ``(meta, slab)`` for the wire codec (the loopback transport
@@ -800,6 +802,7 @@ class GenerateServer(SeldonComponent):
             covered_len=int(request.get("covered_len", 0)),
         )
 
+    @caller_thread
     def _tier_lookup(self, request: Dict[str, Any]):
         """Answer a peer's prefix lookup from the local host tier: the
         stored entry covering the prompt's longest prefix, whole (the
@@ -839,6 +842,7 @@ class GenerateServer(SeldonComponent):
         }
         return out_meta, slab
 
+    @caller_thread
     def _peer_prefix_pull(self, toks, deadline_s) -> int:
         """Decode-role tier sharing: on a local radix miss, ask the
         prefill peers' host tiers for a shared prefix and promote the
@@ -863,6 +867,7 @@ class GenerateServer(SeldonComponent):
         b.promote_peer_prefix(meta, slab)
         return b.remote_covered_len(toks)
 
+    @caller_thread
     def _remote_submit(self, toks, kw, deadline_s, covered=None, on_tokens=None):
         """Decode-role submit: bounds-check and shed BEFORE the handoff,
         find the transfer-dedup base (the local radix cache, then this
@@ -900,6 +905,7 @@ class GenerateServer(SeldonComponent):
             return self._local_prefill_fallback(toks, kw, deadline_s, on_tokens, str(e))
         return b.admit_remote(slab, meta, on_tokens=on_tokens, deadline_s=deadline_s)
 
+    @caller_thread
     def _local_prefill_fallback(self, toks, kw, deadline_s, on_tokens, reason: str):
         """The whole prefill pool is ejected: serve the prompt with a
         local unified prefill instead of failing it, counted in
@@ -913,6 +919,7 @@ class GenerateServer(SeldonComponent):
                        "local unified prefill", reason, len(toks))
         return b.submit(toks, deadline_s=deadline_s, on_tokens=on_tokens, **kw)
 
+    @caller_thread
     def _predict_disagg(self, token_lists, kw, deadline_s, expires_at):
         """Decode-role submit loop: prefill at the peer pool, the slab
         over the KV transport, then the all-or-nothing collection (a
@@ -941,6 +948,7 @@ class GenerateServer(SeldonComponent):
 
     # -- live-lane migration (graceful drain, resume tokens) ------------------
 
+    @caller_thread
     def resume_checkpoint(self, ck, on_tokens=None):
         """Admit one generate checkpoint -- an SGC1 dict, a base64 resume
         token or raw SGC1 bytes -- and continue the generation where it
@@ -968,6 +976,7 @@ class GenerateServer(SeldonComponent):
         except Exception as e:  # noqa: BLE001 - relay the typed failure
             req.future.set_exception(e)
 
+    @caller_thread
     def drain_to(self, peer, timeout_s: float = 60.0) -> Dict[str, Any]:
         """Graceful drain: checkpoint every in-flight generation at a
         poll boundary (``ContinuousBatcher.drain``: this member turns
@@ -1076,6 +1085,7 @@ class GenerateServer(SeldonComponent):
 
     # -- live weight swap ----------------------------------------------------
 
+    @caller_thread
     def hot_swap(self, model_uri: str, wait_s: float = 30.0) -> Dict[str, Any]:
         """Live weight swap: load a checkpoint of the same architecture
         and replace the served weights without a restart or a dropped
@@ -1124,6 +1134,7 @@ class GenerateServer(SeldonComponent):
         if self.batcher is not None:
             self.batcher.close()
 
+    @caller_thread
     def predict(self, X, names, meta=None):
         if self.batcher is None:
             self.load()
@@ -1197,8 +1208,8 @@ class GenerateServer(SeldonComponent):
                 text_mode=bool(ck.get("text_mode")))]
         return out
 
-    @staticmethod
-    def _collect_results(futures, deadline_s, expires_at, retry=None):
+    @caller_thread
+    def _collect_results(self, futures, deadline_s, expires_at, retry=None):
         """Await every request future under the remaining deadline budget
         (600 s without one). All-or-nothing: any failure or budget
         exhaustion cancels the sibling futures, reclaiming queued slots
@@ -1238,6 +1249,7 @@ class GenerateServer(SeldonComponent):
                 f.cancel()
             raise
 
+    @caller_thread
     def stream(self, body: Dict[str, Any]) -> StreamHandle:
         """Streaming generate: validates and SUBMITS eagerly (malformed
         bodies and closed batchers raise HERE, before any response bytes

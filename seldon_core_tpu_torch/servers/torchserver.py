@@ -18,8 +18,13 @@ numbers differ from the JAX package's (same shapes and scales).
 Float requests are cast to the component's ``compute_dtype`` (bfloat16)
 on the way to the device, as the JAX server casts them; integer requests
 (uint8 images, int32 token ids) keep their type. The JAX server's
-``batch_size_hint`` is accepted and, as there, unused; a ``mesh``
-(sharded serving) is not ported and raises.
+``batch_size_hint`` is accepted and, as there, unused. A ``mesh``
+(``parallel/mesh.py`` ``ServingMesh``) serves the model sharded: the
+params are stored under the model's ``param_sharding`` (the encoders
+split their matmul weights over ``model``), a request batch must tile
+its ``input_sharding`` (``data``), and the forward gathers each layer
+onto the mesh's compute device, so its outputs are the unsharded
+server's bit for bit.
 """
 
 from __future__ import annotations
@@ -38,12 +43,7 @@ logger = logging.getLogger(__name__)
 class TorchServer(TorchComponent):
     def __init__(self, model_uri: str, device: str = "cuda", batch_size_hint: int = 8,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (sharded serving) for TorchServer is not ported to "
-                "seldon_core_tpu_torch yet"
-            )
-        super().__init__(device=device)
+        super().__init__(device=device, mesh=mesh)
         self.batch_size_hint = int(batch_size_hint)
         self.model_uri = model_uri
         self._family = None
@@ -76,7 +76,9 @@ class TorchServer(TorchComponent):
                     "checkpoints — convert with convert.save_npz"
                 )
             if os.path.isfile(ckpt):
-                params = load_npz(ckpt, device=self.device)
+                # under a mesh the checkpoint stays on the host until
+                # placement copies each block to its position
+                params = load_npz(ckpt, device="cpu" if self._mesh is not None else self.device)
                 logger.info("torchserver: loaded checkpoint %s", ckpt)
         if params is None:
             seed = int(self._config.get("seed", 0))
@@ -85,6 +87,12 @@ class TorchServer(TorchComponent):
                 "torchserver %s: random-initialised params (seed=%d)", self._family, seed
             )
         return self._model.apply, params
+
+    def input_sharding(self, mesh):
+        return self._model.input_sharding(mesh)
+
+    def param_sharding(self, mesh, params):
+        return self._model.param_sharding(mesh, params)
 
     @property
     def warmup_shape(self):

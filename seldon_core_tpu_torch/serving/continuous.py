@@ -183,7 +183,8 @@ import numpy as np
 import torch
 
 from .. import rng
-from ..parallel.mesh import ShardedTensor, place, place_tree
+from ..analysis.roles import caller_thread, scheduler_only
+from ..parallel.mesh import ShardedTensor, place, place_tree, tree_shard_bytes
 from ..resilience import ShedError
 from ..tracing import device_trace, wall_us
 from .disagg import DisaggError, PrefixGone, WeightVersionMismatch, prompt_hash
@@ -899,7 +900,7 @@ class ContinuousBatcher:
         # the params one mesh position holds (partitioned leaves at their
         # shard's bytes, replicated leaves whole); the global bytes
         # unmeshed
-        self._param_shard_bytes = _tree_shard_bytes(self.params)
+        self._param_shard_bytes = tree_shard_bytes(self.params)
         # the per-shard split factors of the ledger: how many ways the
         # cache's bytes divide (KV heads over model, when they divide it;
         # T over seq under shard_cache_seq); 1 unmeshed
@@ -967,6 +968,7 @@ class ContinuousBatcher:
 
     # -- device state ------------------------------------------------------
 
+    @scheduler_only
     def _alloc_device_state(self) -> None:
         """(Re)allocate everything the loop mutates: the per-layer KV
         cache, the lane registers and burst buffers (the whole batch's,
@@ -1226,6 +1228,7 @@ class ContinuousBatcher:
             r["pos"], attn_len=attn_len, write_pos=r["wpos"],
         )
 
+    @scheduler_only
     @torch.no_grad()
     def _draft_admit_tokens(self, slot: int, tokens: List[int]) -> None:
         """The draft's K/V prefix of ``tokens`` into lane ``slot`` of the
@@ -1519,6 +1522,7 @@ class ContinuousBatcher:
                 "generation budget"
             )
 
+    @caller_thread
     def submit(
         self,
         tokens: Sequence[int],
@@ -1570,6 +1574,7 @@ class ContinuousBatcher:
             return None
         return (len(times) - 1) / span
 
+    @caller_thread
     def _shed_check(self, deadline_s: Optional[float], remote: bool = False) -> None:
         """Admit-queue shedding, BEFORE the request costs any device work:
         the HBM-pressure watermark (while the ledger is latched over its
@@ -1625,11 +1630,13 @@ class ContinuousBatcher:
                 retry_after_s=est_wait,
             )
 
+    @caller_thread
     def _note_shed(self, reason: str, depth: int, rate: Optional[float]) -> None:
         """A shed decision's flight record (on the submitting thread)."""
         self._flight({"type": "shed", "reason": reason, "queue": depth,
                       "rate_per_s": round(rate, 3) if rate else None})
 
+    @caller_thread
     def generate(self, tokens, **kw) -> List[int]:
         """Blocking convenience: submit and wait for the generated ids."""
         return self.submit(tokens, **kw).result()
@@ -1648,6 +1655,7 @@ class ContinuousBatcher:
 
     # -- live-lane migration (graceful drain, checkpoint resume) -------------
 
+    @caller_thread
     def drain(self, timeout_s: float = 30.0) -> List[GenRequest]:
         """Graceful drain: checkpoint every live lane at the next poll
         boundary (emitted tokens and post-split lane key, not the K/V),
@@ -1685,6 +1693,7 @@ class ContinuousBatcher:
                 "— admissions resume on the next poll"
             ) from None
 
+    @caller_thread
     def submit_checkpoint(self, ck: Dict[str, Any], on_tokens=None) -> Future:
         """Admit a wire checkpoint (an SGC1 dict: a drained peer's lane or
         a client resume token) and continue the generation where it
@@ -1758,6 +1767,7 @@ class ContinuousBatcher:
 
     # -- live weight swap ----------------------------------------------------
 
+    @caller_thread
     def request_weight_swap(self, params, version=None) -> Future:
         """Stage a live weight swap; the Future resolves to the new weight
         version once the scheduler flips.
@@ -1847,6 +1857,7 @@ class ContinuousBatcher:
         :meth:`request_weight_swap`)."""
         return self._pending_swap is not None
 
+    @caller_thread
     def cancel_weight_swap(self) -> bool:
         """Abort a staged swap that has not flipped; admissions resume on
         the next poll. True when one was cancelled."""
@@ -1901,6 +1912,7 @@ class ContinuousBatcher:
             "kv_tier_bytes": int(getattr(self._kv_tier, "budget_bytes", 0) or 0),
         }
 
+    @caller_thread
     def retune(self, origin: str = "planner", **knobs) -> Future:
         """Stage a live retune of scheduler knobs; the Future resolves to
         ``{knob: [old, new]}`` for the knobs that changed once the
@@ -2003,6 +2015,7 @@ class ContinuousBatcher:
         self.start()
         return job.future
 
+    @scheduler_only
     def _do_retune(self, job: _RetuneJob) -> None:
         """Apply a staged retune (scheduler thread, top of a poll), under
         ``_retune_lock`` so that :meth:`cancel_retune` lands wholly before
@@ -2056,6 +2069,7 @@ class ContinuousBatcher:
         if not job.future.done():
             job.future.set_result(changed)
 
+    @caller_thread
     def cancel_retune(self) -> bool:
         """Abort a staged retune before its poll boundary. True when one
         was cancelled."""
@@ -2087,6 +2101,7 @@ class ContinuousBatcher:
         out.copy_(t)
         return out
 
+    @caller_thread
     @torch.no_grad()
     def export_prefill(
         self,
@@ -2203,6 +2218,7 @@ class ContinuousBatcher:
         })
         return meta, host
 
+    @caller_thread
     def remote_covered_len(self, tokens: Sequence[int]) -> int:
         """DECODE-side consult before requesting a remote prefill: the
         longest locally cached prefix usable as the transfer-dedup base
@@ -2221,6 +2237,7 @@ class ContinuousBatcher:
             return 0  # donor wider than the prompt bucket: not a win
         return m
 
+    @caller_thread
     def admit_remote(self, slab: Dict[str, Any], meta: Dict[str, Any], on_tokens=None,
                      deadline_s: Optional[float] = None) -> Future:
         """DECODE-side half of disaggregation: validate a shipped slab
@@ -2316,6 +2333,7 @@ class ContinuousBatcher:
         self.start()
         return req.future
 
+    @scheduler_only
     @torch.no_grad()
     def _admit_remote_lane(self, slot: int, req: GenRequest) -> None:
         """Splice a shipped prefill slab into ``slot`` (scheduler thread).
@@ -2375,6 +2393,7 @@ class ContinuousBatcher:
         # returns to the host allocator once its copy has run)
         req.remote = None
 
+    @caller_thread
     def start(self) -> None:
         if self._stop.is_set():
             raise BatcherDead(
@@ -2508,7 +2527,7 @@ class ContinuousBatcher:
                 self._insert(self._extract_prefix(0, w), [0], zero, [w], key0)
             self._warm_tier_widths = widths
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.synchronize(self.device)  # seldon-lint: disable=host-sync-hot-path (warm: intentional sync while the loop is idle)
         if self.mesh is not None:
             # the sharded serving census: a change in partitioned leaves
             # or per-shard bytes between runs means a layout change moved
@@ -2628,6 +2647,7 @@ class ContinuousBatcher:
             elif key not in self._graphs.graphs:
                 self._graphs.capture(key, fn, warm_first=True)
 
+    @caller_thread
     def close(self) -> None:
         if self.health != "dead":
             self.health = "closed"
@@ -2686,6 +2706,7 @@ class ContinuousBatcher:
         ab = self.attn_bucket
         return min(self.max_seq, -(-hi // ab) * ab)
 
+    @scheduler_only
     def _admit_many(self, slots: List[int], reqs: List[GenRequest], bucket: int) -> None:
         """Admit m same-bucket requests with ONE batched prefill + ONE
         insert. Nothing is read back: the first tokens stay on the device
@@ -2732,6 +2753,7 @@ class ContinuousBatcher:
         if self._prefix_index is not None:
             self.stats["prefix_misses"] += m
 
+    @scheduler_only
     def _admit_hit(self, slot: int, req: GenRequest, hit) -> None:
         """Admit one request whose prompt shares a cached prefix ``hit =
         (m, slab)``: splice the donor slab and prefill only the suffix.
@@ -2794,6 +2816,7 @@ class ContinuousBatcher:
             self.stats["prefill_tokens"] += bucket
         self.stats["prefill_steps"] += 1
 
+    @scheduler_only
     def _resolve(self, s: _Slot) -> None:
         # a trailing eos token is kept in the output. `finished` counts
         # completions, `cancelled` abandonments — disjoint
@@ -2840,6 +2863,7 @@ class ContinuousBatcher:
         # admit-queue shed uses for its expected-wait estimate
         self._finish_times.append(now)
 
+    @scheduler_only
     def _finish(self, slot: int) -> None:
         s = self._active.pop(slot)
         # publish while the lane still holds this request's prompt K/V:
@@ -2849,6 +2873,7 @@ class ContinuousBatcher:
         self._masks_dirty = True
         self._resolve(s)
 
+    @scheduler_only
     def _check_done(self) -> None:
         now = time.monotonic()
         for slot in list(self._active):
@@ -2865,6 +2890,7 @@ class ContinuousBatcher:
             ):
                 self._finish(slot)
 
+    @scheduler_only
     def _credit(self, s: _Slot, tokens) -> bool:
         """Append tokens to a request; True once it is done (budget/eos)."""
         req = s.request
@@ -2887,6 +2913,7 @@ class ContinuousBatcher:
                 logger.exception("on_tokens callback failed")
         return done
 
+    @scheduler_only
     def _process_burst(self, burst: _Burst) -> None:
         """Credit one (sub)burst's tokens to the requests that occupied
         each lane AT DISPATCH TIME; the lane may have been pre-freed and
@@ -2898,7 +2925,7 @@ class ContinuousBatcher:
         if burst.spec:
             self._process_spec_burst(burst)
             return
-        host_toks, counts = burst.numpy()  # the burst's one host read
+        host_toks, counts = burst.numpy()  # seldon-lint: disable=host-sync-hot-path (the burst's tokens: the designed read behind the pipelined burst boundary)
         if self._prof.enabled:
             # the stream has passed this burst: fold its measured records
             self._prof.resolve()
@@ -2926,6 +2953,7 @@ class ContinuousBatcher:
             if not self._loop():
                 return
 
+    @scheduler_only
     def _fail_inflight(self, pending, err: Exception) -> None:
         for slot in list(self._active):
             s = self._active.pop(slot)
@@ -2940,6 +2968,7 @@ class ContinuousBatcher:
                 job.request.future.set_exception(err)
         self._chunked.clear()
 
+    @scheduler_only
     def _crash_recover(self, pending) -> bool:
         """Supervise one loop death: fail in-flight work with a typed
         BatcherDead, then rebuild the device state and re-warm (True), or
@@ -3009,6 +3038,7 @@ class ContinuousBatcher:
             )
             return True
 
+    @scheduler_only
     def _admit_wave(self, wave: List[GenRequest]) -> None:
         """Admit queued requests into free lanes. A preempted request
         resumes (:meth:`_admit_resume`). A prompt sharing a cached prefix
@@ -3066,6 +3096,7 @@ class ContinuousBatcher:
         C = self.prefill_chunk
         return bool(C) and (n - hit[0] > C if hit else self._bucket(n) > C)
 
+    @scheduler_only
     def _admit_one(self, admit, slot: int, req: GenRequest, *args) -> None:
         """``admit(slot, req, *args)``; a failure fails the request alone,
         frees the lane it reserved and releases its tier checkpoint."""
@@ -3086,6 +3117,7 @@ class ContinuousBatcher:
 
     # -- chunked prefill -----------------------------------------------------
 
+    @scheduler_only
     def _start_chunked(self, slot: int, req: GenRequest, hit=None,
                        resume=None) -> None:
         """Reserve ``slot`` and queue the prompt for chunked prefill into a
@@ -3121,6 +3153,7 @@ class ContinuousBatcher:
             resume=resume,
         )
 
+    @scheduler_only
     def _advance_chunks(self) -> None:
         """Run ONE prefill chunk for every pending chunked admission (the
         interleave: a chunk per job per poll). A last chunk that would
@@ -3197,6 +3230,7 @@ class ContinuousBatcher:
 
     # -- prefix cache --------------------------------------------------------
 
+    @scheduler_only
     def _prefix_match(self, tokens: List[int]):
         """Longest usable cached prefix of ``tokens``: ``(m, slab)`` or
         None. Capped at n - 1 (the last prompt token is always computed:
@@ -3227,6 +3261,7 @@ class ContinuousBatcher:
             return None
         return m, slab
 
+    @scheduler_only
     def _maybe_publish(self, slot: int, s: _Slot) -> None:
         """Publish a request's prompt K/V into the prefix cache: the
         prompt's positions are written from admission on and decode only
@@ -3283,6 +3318,7 @@ class ContinuousBatcher:
                     for name, t in host.items()}
         return {name: self._to_dev(t) for name, t in host.items()}
 
+    @scheduler_only
     def _demote_prefix_slabs(self, victims) -> None:
         """Demote reclaim-ladder prefix victims to the host tier: pull
         each slab to the host at this poll boundary (the one designed
@@ -3331,6 +3367,7 @@ class ContinuousBatcher:
             return None
         return m, meta, host
 
+    @scheduler_only
     def _promote_tier_prefix(self, tokens):
         """Tier consult on a device radix miss: upload the longest stored
         host prefix, re-insert it into the device radix index under its
@@ -3347,10 +3384,11 @@ class ContinuousBatcher:
             "type": "tier_hit", "kind": "prefix", "source": "local", "tokens": m,
             "phash": prompt_hash(meta.get("tokens") or [])[:8],
         })
-        self.promote_peer_prefix(meta, host, source="local")
+        self._insert_prefix_slab(meta, host, source="local")
         _depth, slab = self._prefix_index.match(tokens)
         return (m, slab) if slab is not None else None
 
+    @caller_thread
     def consult_tier_covered_len(self, tokens) -> int:
         """Decode-role dedup consult of this member's OWN host tier: a
         demoted prefix of the prompt promotes into the device radix index
@@ -3365,13 +3403,21 @@ class ContinuousBatcher:
         self.promote_peer_prefix(meta, host, source="local")
         return self.remote_covered_len(tokens)
 
+    @caller_thread
     def promote_peer_prefix(self, meta: Dict[str, Any], host: Dict[str, Any],
                             source: str = "peer") -> int:
         """Insert a prefix slab pulled from a tier (a peer's, or this
         member's own) into the LOCAL device radix index, so the ordinary
         match/splice machinery and the dedup consult serve it from here
-        on. Returns the entry's token count. Any thread: the upload
-        queues on the device without a host sync."""
+        on. Returns the entry's token count. The caller-thread entry of
+        :meth:`_insert_prefix_slab`."""
+        return self._insert_prefix_slab(meta, host, source)
+
+    def _insert_prefix_slab(self, meta: Dict[str, Any], host: Dict[str, Any],
+                            source: str) -> int:
+        """:meth:`promote_peer_prefix`'s work, on either thread (the
+        scheduler's tier promotion runs it too): the upload queues on the
+        device without a host sync."""
         idx = self._prefix_index
         entry = [int(t) for t in meta.get("tokens") or []]
         if idx is None or not entry:
@@ -3389,6 +3435,7 @@ class ContinuousBatcher:
         })
         return len(entry)
 
+    @scheduler_only
     def _checkpoint_kv_to_tier(self, slot: int, req: GenRequest) -> None:
         """Rung 3's spill half: copy the preempted lane's exact cache
         columns ``[0, _attn_need(pos))`` to the host tier (budget
@@ -3430,6 +3477,7 @@ class ContinuousBatcher:
         if key is not None:
             self._kv_tier.drop_ckpt(key)
 
+    @scheduler_only
     def _resume_from_tier(self, slot: int, req: GenRequest, emitted: List[int],
                           end_pos: int, tier_key) -> bool:
         """Copy-back resume: take the lane's checkpoint (one-shot),
@@ -3487,6 +3535,7 @@ class ContinuousBatcher:
             out["param_shard_bytes"] = self._param_shard_bytes
         return out
 
+    @scheduler_only
     def _ledger_components(self) -> Dict[str, int]:
         """The unified HBM ledger, priced the way the reclaim ladder can
         free it: each live lane at its attention-read bucket times the
@@ -3523,6 +3572,7 @@ class ContinuousBatcher:
             "pager": pager_bytes,
         }
 
+    @scheduler_only
     def _pressure_poll(self, pending) -> None:
         """Per-poll pressure work: apply the chaos hook's re-budget,
         refresh the ledger and, while it is latched over the high
@@ -3565,6 +3615,7 @@ class ContinuousBatcher:
         self.pressure_events.append(dict(entry))
         self._flight(entry)
 
+    @scheduler_only
     def _drain_pending(self, pending) -> None:
         """Read every in-flight burst now, oldest first: a checkpoint must
         see its lane's exact host state (emitted tokens, and the device
@@ -3572,6 +3623,7 @@ class ContinuousBatcher:
         while pending:
             self._process_burst(pending.popleft())
 
+    @scheduler_only
     def _reclaim(self, pending, pc: PressureController) -> None:
         """The reclaim ladder, cheapest rung first, until the ledger is
         back under its low watermark:
@@ -3632,6 +3684,7 @@ class ContinuousBatcher:
                     self._preempt_lane(slot)
                 pc.update(self._ledger_components())
 
+    @scheduler_only
     def _suppress_speculation(self) -> None:
         """Rung 2: free the draft cache and decode with the plain bursts.
         Every spec graph (tagged ``"spec"``, whether warm() or a dispatch
@@ -3651,6 +3704,7 @@ class ContinuousBatcher:
         logger.warning("HBM pressure: speculation cancelled (draft cache freed); "
                        "plain decode bursts until the ledger clears")
 
+    @scheduler_only
     def _resume_speculation(self) -> None:
         """The ledger cleared: reallocate the draft cache and re-derive
         every live lane's draft prefix from its prompt and the tokens the
@@ -3683,6 +3737,7 @@ class ContinuousBatcher:
         self._pressure_event({"type": "pressure_reclaim", "action": "resume_speculation",
                               "lanes": len(self._active)})
 
+    @scheduler_only
     def _admit_cost_bytes(self, req: GenRequest) -> int:
         """Ledger footprint of ``req`` at the end of its generation: the
         attention bucket of its last position times the K/V bytes per
@@ -3703,6 +3758,7 @@ class ContinuousBatcher:
         the draft's while speculation is on (rung 2 frees it)."""
         return self._kv_key_bytes + (self._draft_kv_key_bytes if self._spec_active() else 0)
 
+    @scheduler_only
     def _pick_victim(self):
         """``("chunked", slot)``, ``("lane", slot)`` or None. Chunked
         admissions first (nothing emitted yet: preempting one loses no
@@ -3748,6 +3804,7 @@ class ContinuousBatcher:
 
         return "lane", min(candidates, key=order)
 
+    @scheduler_only
     def _preempt_chunked(self, slot: int) -> None:
         """Preempt a chunked admission: drop its staging slab and requeue
         the request whole (a resume's checkpoint rides along on it)."""
@@ -3757,6 +3814,7 @@ class ContinuousBatcher:
                       "prompt_tokens": len(job.request.tokens), "emitted": 0})
         self._resume_queue.append(job.request)
 
+    @scheduler_only
     def _checkpoint_lane(self, slot: int) -> GenRequest:
         """Checkpoint one decode lane on the host and free it: its emitted
         tokens and its post-split lane key in ``req.resume`` (none when
@@ -3771,9 +3829,10 @@ class ContinuousBatcher:
         self._masks_dirty = True
         if s.emitted:
             req.resume = {"emitted": list(s.emitted),
-                          "key": self._whole.keys[slot].tolist()}
+                          "key": self._whole.keys[slot].tolist()}  # seldon-lint: disable=host-sync-hot-path (preemption checkpoint: one key read at a rare reclaim)
         return req
 
+    @scheduler_only
     def _preempt_lane(self, slot: int) -> None:
         """Preempt one decode lane (rung 3): :meth:`_checkpoint_lane`,
         then requeue the request for resume. With the host tier on, the
@@ -3791,6 +3850,7 @@ class ContinuousBatcher:
                       "remaining": req.max_new_tokens - emitted})
         self._resume_queue.append(req)
 
+    @scheduler_only
     def _admit_resume(self, slot: int, req: GenRequest) -> None:
         """Resume a preempted request into ``slot``. With a tier
         checkpoint, copy its K/V back (:meth:`_resume_from_tier`). Else
@@ -3825,6 +3885,7 @@ class ContinuousBatcher:
         self._prompt_into_lane(slot, req, hit, cont)
         self._activate_resumed(slot, req, emitted)
 
+    @scheduler_only
     def _activate_resumed(self, slot: int, req: GenRequest, emitted: List[int],
                           replay: bool = True) -> None:
         """The resume paths' shared tail: replay the emitted tokens' K/V
@@ -3849,6 +3910,7 @@ class ContinuousBatcher:
                       "copyback": not replay, "emitted": len(emitted),
                       "cache_hit_tokens": req.cache_hit_tokens})
 
+    @scheduler_only
     def _replay_emitted(self, slot: int, start_pos: int, toks: List[int]) -> None:
         """Teacher-forced replay: rebuild positions ``[start_pos,
         start_pos + len(toks))`` of lane ``slot``'s cache from the tokens
@@ -3899,15 +3961,16 @@ class ContinuousBatcher:
 
     # -- swap and drain at the poll boundary ----------------------------------
 
+    @scheduler_only
     @torch.inference_mode()
     def _do_swap(self, swap: _SwapJob) -> None:
         """Flip a drained swap (scheduler thread, nothing in flight): copy
-        the staged leaves into the served tensors on the batcher's stream
-        and wait for the copy (the staged set is freed after it), bump
-        ``weight_version`` and purge the prefix cache and host tier by
-        version. Under ``_swap_lock``, so ``cancel_weight_swap`` lands
+        the staged leaves into the served tensors on the batcher's stream,
+        bump ``weight_version`` and purge the prefix cache and host tier
+        by version, under ``_swap_lock``, so ``cancel_weight_swap`` lands
         wholly before (the job is gone: skipped) or after (nothing to
-        cancel)."""
+        cancel); then, with the lock released, wait for the copy and free
+        the staged set."""
         from ..convert import sorted_leaves
 
         with self._swap_lock:
@@ -3919,9 +3982,7 @@ class ContinuousBatcher:
                 for (_p, dst), (_q, src) in zip(sorted_leaves(self.params),
                                                 sorted_leaves(swap.params)):
                     dst.copy_(src)
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
-            swap.params = None
+            staged, swap.params = swap.params, None
             self.weight_version = swap.version
             if self._prefix_index is not None:
                 # old-weights K/V must never splice into a new prefill
@@ -3936,11 +3997,17 @@ class ContinuousBatcher:
                           "new_version": swap.version, "drained_lanes": swap.drain_lanes or 0,
                           "waited_polls": swap.waited_polls})
             self._pending_swap = None
+        if self.device.type == "cuda":
+            # the staged set is freed once the copy has landed: one wait,
+            # outside _swap_lock so no caller's swap request stalls on it
+            torch.cuda.current_stream(self.device).synchronize()  # seldon-lint: disable=host-sync-hot-path (swap flip: a drained poll boundary waits once for the weight copy)
+        del staged
         logger.info("weight swap %r -> %r (drained %d lanes over %d polls)",
                     old_v, swap.version, swap.drain_lanes or 0, swap.waited_polls)
         if not swap.future.done():
             swap.future.set_result(swap.version)
 
+    @scheduler_only
     def _swap_preempt_stragglers(self, pending) -> None:
         """The swap's straggler bound: the drain outran ``swap_drain_ms``,
         so every in-flight lane and chunked admission is checkpointed
@@ -3969,6 +4036,7 @@ class ContinuousBatcher:
             else:
                 self._resume_queue.append(req)
 
+    @scheduler_only
     def _do_drain(self, job: _DrainJob, pending) -> None:
         """A staged graceful drain at this poll boundary: flush the
         pipeline (checkpoints need exact host state), checkpoint every
@@ -4031,6 +4099,7 @@ class ContinuousBatcher:
 
     # -- decode dispatch -----------------------------------------------------
 
+    @scheduler_only
     def _plan_groups(self, adv: int):
         """Partition live lanes into <= depth_groups sub-bursts by
         attention-read bucket: ``([(lanes, bucket)], need)``, groups
@@ -4089,6 +4158,7 @@ class ContinuousBatcher:
             gb <<= 1
         return sorted(set(gbs))
 
+    @scheduler_only
     def _fused_plan(self, k_max: int):
         """Adaptive K for the stop-aware fused burst: ``(k, reason)``.
         Start from the pow2-floored ``fused_steps_per_dispatch`` and
@@ -4291,13 +4361,14 @@ class ContinuousBatcher:
                     "lanes": len(self._active)}
         return None
 
+    @scheduler_only
     def _process_spec_burst(self, burst: _Burst) -> None:
         """Credit one spec burst: per round a lane emitted ``count`` tokens
         (accepted drafts, then the target's correction or bonus token),
         credited round by round up to its stop; the lane's host position
         bound tightens from the worst case ``k * (gamma + 1)`` to what
         its rounds emitted."""
-        host, _ = burst.numpy()  # the burst's one host read
+        host, _ = burst.numpy()  # seldon-lint: disable=host-sync-hot-path (the spec burst's tokens: the designed read behind the pipelined burst boundary)
         if self._prof.enabled:
             self._prof.resolve()
         k, g = burst.k, self.speculate_tokens
@@ -4355,6 +4426,7 @@ class ContinuousBatcher:
                 entry["device_time"] = rows
         flight.record(entry)
 
+    @scheduler_only
     def _loop(self) -> bool:
         """One supervised run of the poll loop. False on a clean close(),
         else :meth:`_crash_recover`'s verdict after a loop death."""
@@ -4506,17 +4578,6 @@ def _tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in _tree_leaves(v)]
     return [tree]
-
-
-def _tree_shard_bytes(tree) -> int:
-    """Bytes one mesh position holds of a placed tree."""
-    if isinstance(tree, dict):
-        return sum(_tree_shard_bytes(v) for v in tree.values())
-    if isinstance(tree, ShardedTensor):
-        return tree.shard_nbytes
-    if isinstance(tree, torch.Tensor):
-        return tree.numel() * tree.element_size()
-    return 0
 
 
 def _map_tree(tree, fn):

@@ -49,6 +49,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..analysis.roles import caller_thread, scheduler_only
 from ..convert import sorted_leaves
 from .disagg import ChecksumError, DisaggError, _read_exact
 from .prefix_cache import version_namespace
@@ -528,6 +529,7 @@ class TenantScheduler:
                 while q:
                     q.popleft().future.set_exception(RuntimeError("tenant scheduler stopped"))
 
+    @scheduler_only
     def _on_poll(self, poll_count: int) -> None:
         """The batcher's per-poll hook (scheduler thread): publish the
         poll clock and wake the page-in thread when anyone waits. A
@@ -536,6 +538,7 @@ class TenantScheduler:
         if any(self._queues.values()):
             self._wake.set()
 
+    @caller_thread
     def submit(self, tokens, tenant: Optional[str] = None, **kwargs):
         """The tenant-routing front of ``batcher.submit``: its arguments
         plus ``tenant`` (None routes to the first declared tenant).
@@ -560,6 +563,7 @@ class TenantScheduler:
         self._wake.set()
         return outer
 
+    @caller_thread
     def _run(self) -> None:
         while not self._stop.is_set():
             self._wake.wait(timeout=self.tick_s)
@@ -671,7 +675,7 @@ class TenantScheduler:
                 except Exception as e:  # noqa: BLE001 - typed to the caller
                     item.future.set_exception(e)
                     continue
-                self._chain(inner, item.future)
+                self._chain(inner, item.future)  # seldon-lint: disable=blocking-under-lock (registers a done callback; the .result() runs on the resolving thread, never here)
 
     @staticmethod
     def _chain(inner, outer) -> None:

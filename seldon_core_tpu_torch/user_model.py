@@ -235,6 +235,21 @@ def _tree_to(tree, device):
     return tree.to(device) if hasattr(tree, "to") else tree
 
 
+def _place_consuming(tree, shardings):
+    """``parallel.mesh.place_tree`` that replaces each leaf of ``tree`` by
+    its placed form in place, dropping the whole leaf as it goes."""
+    from .parallel.mesh import place
+
+    if isinstance(tree, tuple):
+        tree = list(tree)
+    for k in list(tree.keys() if isinstance(tree, dict) else range(len(tree))):
+        if isinstance(tree[k], (dict, list, tuple)):
+            tree[k] = _place_consuming(tree[k], shardings[k])
+        else:
+            tree[k] = place(tree[k], shardings[k])
+    return tree
+
+
 class TorchComponent(SeldonComponent):
     """A component whose forward pass is a PyTorch function.
 
@@ -246,6 +261,13 @@ class TorchComponent(SeldonComponent):
     serialization. A request that is already a tensor (the micro-batcher's
     fused device batch, under the ``__torch__`` key) goes to the forward
     as it is.
+
+    With a serving ``mesh`` (``parallel/mesh.py`` ``ServingMesh``) the
+    params are stored under :meth:`param_sharding` (split blocks over the
+    mesh's positions), the compute runs on the mesh's compute device, a
+    request batch must tile :meth:`input_sharding` (a ``ValueError``
+    otherwise, as ``jax.device_put`` refuses it) and the warmup batch is
+    the mesh's ``data`` width.
     """
 
     # dtype for float inputs on the device
@@ -254,10 +276,11 @@ class TorchComponent(SeldonComponent):
     warmup_shape: Optional[tuple] = None
     warmup_dtype = "float32"
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", mesh=None):
         from .device import resolve_device
 
-        self.device = resolve_device(device)
+        self._mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self._apply = None
         self.params = None
 
@@ -265,20 +288,46 @@ class TorchComponent(SeldonComponent):
     def build(self):
         raise NotImplementedError
 
+    def input_sharding(self, mesh):
+        """Sharding of the request batch; replicated by default."""
+        from .parallel.mesh import ServingSharding
+
+        return ServingSharding(mesh, ())
+
+    def param_sharding(self, mesh, params):
+        """Shardings of ``params``, leaf for leaf; replicated by default."""
+        from .models.base import replicated_sharding
+
+        return replicated_sharding(mesh, params)
+
     # -- SeldonComponent --
     def load(self) -> None:
         import torch
 
         apply_fn, params = self.build()
-        self.params = _tree_to(params, self.device)
+        self.params = self.place_params(params)
         self._apply = apply_fn
         if self.warmup_shape is not None:
-            x = np.zeros((1, *self.warmup_shape), dtype=self.warmup_dtype)
+            # the batch must tile the mesh's data axis
+            batch = self._mesh.shape.get("data", 1) if self._mesh is not None else 1
+            x = np.zeros((batch, *self.warmup_shape), dtype=self.warmup_dtype)
             with torch.no_grad():
                 self._apply(self.params, self._to_dev(x))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-        logger.info("TorchComponent %s loaded on %s", type(self).__name__, self.device)
+        logger.info("TorchComponent %s loaded on %s%s", type(self).__name__, self.device,
+                    f" over {self._mesh}" if self._mesh is not None else "")
+
+    def place_params(self, params):
+        """``params`` where the forward reads them: on ``device``, or,
+        under a mesh, placed leaf by leaf under :meth:`param_sharding`
+        (a split leaf's blocks copied to their positions, a replicated
+        leaf to the compute device). The tree is consumed: each whole
+        leaf is let go as soon as it is placed, so a tree read on the
+        host never sits whole on the compute device."""
+        if self._mesh is None:
+            return _tree_to(params, self.device)
+        return _place_consuming(params, self.param_sharding(self._mesh, params))
 
     def _to_dev(self, X):
         from . import payload
@@ -288,13 +337,18 @@ class TorchComponent(SeldonComponent):
             if np.issubdtype(np.asarray(X).dtype, np.floating)
             else None
         )
+        if self._mesh is not None:
+            # the whole batch goes to the compute device (replicated
+            # compute), once it tiles the split axes
+            self.input_sharding(self._mesh).check_divides(np.shape(X))
         return payload.to_device(X, self.device, dtype=dtype)
 
     def fused_stage(self):
         """``(fn, params, compute_dtype)`` for the graph-fusion planner
         (``graph/fusion.py``): ``fn(params, x)`` is the SAME forward
-        :meth:`predict` runs, so a fused segment computes exactly what the
-        hop-by-hop path would, the property its byte-identity rests on."""
+        :meth:`predict` runs, over the same (under a mesh, placed) params,
+        so a fused segment computes exactly what the hop-by-hop path
+        would, the property its byte-identity rests on."""
         if self._apply is None:
             self.load()
         return self._apply, self.params, self.compute_dtype

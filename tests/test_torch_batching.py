@@ -128,14 +128,16 @@ def test_batching_from_annotations():
 
 
 @pytest.mark.parametrize("ann", [{"seldon.io/fuse": "true"}, "mesh"])
-def test_fuse_and_mesh_still_refused(ann):
+def test_fuse_and_mesh_still_refused(ann, tmp_path):
     """Micro-batching is ported, and so are a mesh and graph fusion beside
-    it. With a serving mesh the engine builds as the JAX engine builds:
-    the micro-batched registry unit keeps its MicroBatchingClient and
-    fuses requests, the executor holds the mesh for its mesh-aware
-    units, and the predict path's TorchServer (a JAX_SERVER unit) alone
-    still refuses the mesh as not ported. Beside micro-batching, fusion
-    keeps the micro-batched unit on the per-unit path, counted as the
+    it; nothing is refused any more. With a serving mesh the engine
+    builds as the JAX engine builds: the micro-batched registry unit
+    keeps its MicroBatchingClient and fuses requests, the executor holds
+    the mesh for its mesh-aware units, and the predict path's
+    TorchServer (a JAX_SERVER unit) serves on it: its concurrent
+    requests fuse on the mesh's compute device into one forward whose
+    rows are the unmeshed server's. Beside micro-batching, fusion keeps
+    the micro-batched unit on the per-unit path, counted as the
     ``microbatch`` plan reason."""
     from seldon_core_tpu_torch.graph.engine_metrics import MetricsRegistry
     from seldon_core_tpu_torch.graph.executor import GraphExecutor
@@ -171,11 +173,44 @@ def test_fuse_and_mesh_still_refused(ann):
         outs = asyncio.run(burst())
         assert [o["data"]["ndarray"] for o in outs] == [[[2.0 * i]] for i in range(4)]
         asyncio.run(ex.close())
-        torch_unit = _spec({}, {"name": "c", "implementation": "JAX_SERVER",
-                                "modelUri": "/x"})
-        with pytest.raises(NotImplementedError,
-                           match="not ported to seldon_core_tpu_torch yet"):
-            GraphExecutor(torch_unit, mesh=mesh)
+        import json
+
+        from seldon_core_tpu_torch.servers.torchserver import TorchServer
+
+        (tmp_path / "jax_config.json").write_text(json.dumps({"family": "mlp", "config": {
+            "in_features": 4, "hidden": [8], "num_classes": 3, "dtype": "float32"}}))
+        torch_unit = _spec(ann, {"name": "c", "type": "MODEL", "implementation": "JAX_SERVER",
+                                 "modelUri": str(tmp_path), "parameters": [
+                                     {"name": "device", "value": "cpu", "type": "STRING"}]})
+        tex = GraphExecutor(torch_unit, mesh=mesh, batching=batching_from_annotations(torch_unit))
+        mbc = tex.root.client
+        assert isinstance(mbc, MicroBatchingClient)
+        server = mbc.inner.user_object
+        assert server._mesh is mesh and server.device == mesh.device
+        seen = []
+        forward = server._apply
+
+        def spy(params, x):
+            seen.append((x.device, tuple(x.shape)))
+            return forward(params, x)
+
+        server._apply = spy
+        rows = np.random.RandomState(4).randn(4, 2, 4).astype(np.float32)
+
+        async def fused():
+            return await asyncio.gather(*[
+                tex.predict({"data": {"ndarray": r.tolist()}}) for r in rows])
+
+        outs = asyncio.run(fused())
+        assert seen and all(dev == mesh.device for dev, _ in seen)
+        assert max(shape[0] for _, shape in seen) > 2  # requests fused
+        assert mbc.prefetch_failures == 0  # every 2-row slab tiles data=2
+        plain = TorchServer(model_uri=str(tmp_path), device="cpu")
+        plain.load()
+        for r, o in zip(rows, outs):
+            want = payload.json_data_to_array({"ndarray": plain.predict(r, []).tolist()})
+            np.testing.assert_array_equal(payload.json_data_to_array(o["data"]), want)
+        asyncio.run(tex.close())
         return
     spec = _spec({"seldon.io/microbatch": "true", **ann})
     model = CountingBatchModel()

@@ -355,11 +355,11 @@ def test_junk_fuse_annotation_refused():
 
 
 @pytest.mark.parametrize("kind", ["fuse", "microbatch", "mesh", "server"])
-def test_not_ported_engine_options_raise(kind, monkeypatch):
+def test_not_ported_engine_options_raise(kind, monkeypatch, tmp_path):
     """A device mesh is ported: a graph of host units builds beside it as
     in the JAX engine (the mesh held for mesh-aware units, none here), and
-    only the predict path's TorchServer (a JAX_SERVER unit) refuses it
-    as not ported. Graph fusion is ported: alone it
+    the predict path's TorchServer (a JAX_SERVER unit), which once
+    refused it as not ported, serves on it. Graph fusion is ported: alone it
     builds a plan (a single-unit graph has no segment), and beside
     micro-batching it builds and counts the micro-batched unit's
     ``microbatch`` plan reason. The prepackaged servers are ported: a
@@ -418,10 +418,16 @@ def test_not_ported_engine_options_raise(kind, monkeypatch):
         outs.append(asyncio.run(ex.predict({"data": {"ndarray": [[1.0, 2.0]]}}))["data"])
         asyncio.run(ex.close())
     assert outs[1] == outs[0]
+    (tmp_path / "jax_config.json").write_text(json.dumps({"family": "mlp", "config": {
+        "in_features": 2, "hidden": [8], "num_classes": 3, "dtype": "float32"}}))
     spec = PredictorSpec.from_dict({"name": "p", "graph": {
-        "name": "c", "implementation": "JAX_SERVER", "modelUri": "/x"}})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        GraphExecutor(spec, mesh=mesh)
+        "name": "c", "implementation": "JAX_SERVER", "modelUri": str(tmp_path),
+        "parameters": [{"name": "device", "value": "cpu", "type": "STRING"}]}})
+    ex = GraphExecutor(spec, mesh=mesh)
+    assert ex.root.client.user_object._mesh is mesh
+    out = asyncio.run(ex.predict({"data": {"ndarray": [[1.0, 2.0]]}}))["data"]["ndarray"]
+    assert len(out) == 1 and len(out[0]) == 3
+    asyncio.run(ex.close())
 
 
 class _Doubler:

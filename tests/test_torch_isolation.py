@@ -240,3 +240,37 @@ def test_tools_and_operator_side_stand_alone():
     assert out["kinds"] == ["Deployment", "Service"]
     assert out["files"] == ["Dockerfile", "src/M.py"]
     assert out["client"] == "http://x:1" and out["payload"] == {"data": {"ndarray": [[1.0]]}}
+
+
+# the port's seldon-lint, run in a fresh interpreter over the package
+_ANALYSIS_CHILD = r'''
+import json, sys
+from seldon_core_tpu_torch.analysis import core, roles
+from seldon_core_tpu_torch.analysis.__main__ import DEFAULT_BASELINE, ROOT
+res = core.run_lint(["seldon_core_tpu_torch"], root=ROOT,
+                    baseline=core.load_baseline(DEFAULT_BASELINE))
+bad = sorted(x for x in sys.modules
+             if x == "jax" or x.startswith("jax.") or x == "seldon_core_tpu"
+             or x.startswith("seldon_core_tpu.") or x == "torch")
+print(json.dumps({"bad": bad, "findings": len(res.findings), "files": res.files}))
+'''
+
+
+def test_analysis_stands_alone():
+    """``analysis/`` is the port's own copy of seldon-lint: its sources
+    import neither JAX nor the JAX package (nor torch: stdlib ``ast``
+    only), and it lints the package clean in a fresh interpreter."""
+    files = [f for f in os.listdir(os.path.join(PKG, "analysis")) if f.endswith(".py")]
+    assert {"__init__.py", "__main__.py", "core.py", "callgraph.py", "roles.py", "threads.py",
+            "locks.py", "hotpath.py", "contracts.py"} <= set(files)
+    for f in files:
+        text = open(os.path.join(PKG, "analysis", f)).read()
+        assert not _IMPORT_JAX.search(text) and not _IMPORT_REF.search(text), f
+        assert not _RELATIVE_OUT.search(text), f
+        assert not re.search(r"^\s*(import|from)\s+torch\b", text, re.M), f
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _ANALYSIS_CHILD], capture_output=True,
+                          text=True, timeout=300, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == [] and out["findings"] == 0 and out["files"] > 100

@@ -7,8 +7,7 @@ nowhere else: the engine's command and default image, and, for a
 predictor whose engine runs a model on the card, ``nvidia.com/gpu`` (the
 mesh's product of cards for sharded serving) with its toleration and
 node selector (``ROADMAP.md``, "Deliberate differences"). A multi-host
-mesh and a mesh for TorchServer refuse, in the renderer and in ``sdctl
-render``; the canary's semantics round-trip through the YAML;
+mesh refuses, in the renderer and in ``sdctl render``; the canary's semantics round-trip through the YAML;
 validation and YAML output equal the JAX package's."""
 
 import base64
@@ -207,6 +206,8 @@ def test_canary_vs_and_dr_pair_routably():
 
 GEN_DEP = dep([{"name": "gen", "replicas": 2,
                 "graph": unit("llm", "GENERATE_SERVER", modelUri="/m")}])
+TORCH_DEP = dep([{"name": "main", "replicas": 2,
+                  "graph": unit("clf", "JAX_SERVER", modelUri="file:///models/mnist")}])
 POD = ("spec", "template", "spec")
 
 
@@ -219,10 +220,11 @@ def test_mesh_refuses_not_ported(where, tmp_path, capsys, monkeypatch):
     the JAX renderer asks for ``google.com/tpu`` (for a tpuMesh; it
     renders the annotation as no mesh at all). The annotation reaches the
     engine as the predictor's tpuMesh. A deployment-level annotation is
-    not a predictor's mesh, in either package. Still refused, not ported:
-    a mesh past one host's cards (JAX: a multi-host StatefulSet) and a
-    mesh for TorchServer (a JAX_SERVER unit)."""
-    d = copy.deepcopy(CANARY if where == "torchserver" else GEN_DEP)
+    not a predictor's mesh, in either package. A mesh for TorchServer (a
+    JAX_SERVER unit: sharded predict), once refused, renders the same
+    way. Still refused, not ported: a mesh past one host's cards (JAX: a
+    multi-host StatefulSet)."""
+    d = copy.deepcopy(TORCH_DEP if where == "torchserver" else GEN_DEP)
     p = d["spec"]["predictors"][0]
     if where in ("tpuMesh", "torchserver"):
         p["tpuMesh"] = {"data": 1, "model": 4}
@@ -233,7 +235,7 @@ def test_mesh_refuses_not_ported(where, tmp_path, capsys, monkeypatch):
         p["annotations"] = {"seldon.io/mesh": "data=1,model=4"}
     else:
         d["metadata"]["annotations"] = {"seldon.io/mesh": "model=2"}
-    if where in ("multi-host", "torchserver"):
+    if where == "multi-host":
         render(JAX, d)  # the JAX renderer renders it
         with pytest.raises(m(PORT, "graph.spec").GraphSpecError, match="not ported"):
             render(PORT, d)
@@ -264,7 +266,7 @@ def test_mesh_refuses_not_ported(where, tmp_path, capsys, monkeypatch):
         expected = {d_[0] for d_ in ENGINE_DIFFERENCES + gpu_differences()}
         if where == "predictor-annotation":
             expected.add(CONTAINER + ("env", 0, "value"))  # tpuMesh injected
-        if where == "tpuMesh":
+        if where in ("tpuMesh", "torchserver"):
             # JAX asks for 4 TPU chips where the port asks for 4 cards
             assert w["spec"]["template"]["spec"]["containers"][0]["resources"]["limits"] == {
                 "google.com/tpu": "4"}

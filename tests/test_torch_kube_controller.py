@@ -168,10 +168,11 @@ def test_mesh_cr_fails_alone_not_ported(mesh):
     """A generate CR with a mesh converges in both packages' controllers:
     the same ops and object paths, its Deployment asking the port for
     the mesh's 4 cards (the JAX controller's for 4 TPU chips, or, for
-    the annotation, nothing). Still failing alone, not ported, while
-    the other CR converges: a mesh of 16 cards (more than one host's: the
-    JAX controller's multi-host StatefulSet) and a mesh for TorchServer
-    (a JAX_SERVER unit)."""
+    the annotation, nothing). A mesh for TorchServer (a JAX_SERVER unit:
+    sharded predict), once refused, converges the same way. Still failing
+    alone, not ported, while the other CR converges: a mesh of 16 cards
+    (more than one host's: the JAX controller's multi-host
+    StatefulSet)."""
     cr = gpu_cr()
     pred = cr["spec"]["predictors"][0]
     if "jax_server" in mesh:
@@ -179,7 +180,7 @@ def test_mesh_cr_fails_alone_not_ported(mesh):
     else:
         pred["graph"].update(implementation="GENERATE_SERVER", modelUri="/models/llm")
         pred.update(copy.deepcopy(mesh))
-    refused = "jax_server" in mesh or mesh.get("tpuMesh") == {"data": 2, "model": 8}
+    refused = mesh.get("tpuMesh") == {"data": 2, "model": 8}
     if refused:
         pred["replicas"] = 1  # JAX renders one slice of a multi-host mesh
     ops, paths = {}, {}

@@ -8,6 +8,7 @@ alone, at the tiny config of tests/test_torch_serving.py on the CPU
 greedy and seeded, streamed spans included.
 """
 
+import threading
 import time
 
 import numpy as np
@@ -373,12 +374,14 @@ def test_ledger_components_track_live_state(models):
         summary = b.pressure_summary()
         assert summary["budget_bytes"] == 1 << 30
         assert set(summary["components"]) == {"decode", "staging", "prefix", "swap", "pager"}
-        # a live lane at position p costs its attention bucket of K/V
-        b._pos_host[1] = 70
-        assert b._ledger_components()["decode"] == b._attn_need(70) * b._kv_key_bytes
-        del b._pos_host[1]
     finally:
         b.close()
+    # a live lane at position p costs its attention bucket of K/V; read
+    # once the scheduler has stopped (the ledger is scheduler-only: a
+    # direct call beside a live loop would race it over _pos_host)
+    b._pos_host.clear()
+    b._pos_host[1] = 70
+    assert b._ledger_components()["decode"] == b._attn_need(70) * b._kv_key_bytes
 
 
 def test_pressure_off_is_byte_identical_and_unconsulted(models, references):
@@ -638,23 +641,30 @@ def test_greedy_admissions_go_on_while_speculation_is_cancelled(models, spec_kw,
         ref.close()
     b = port(models, slots=4, attn_bucket=16, **ON, **spec_kw)
     try:
+        # priced before the scheduler starts (the pricing is scheduler-only)
+        short_cost = b._admit_cost_bytes(GenRequest(tokens=list(short[0]), max_new_tokens=8))
         futs = [b.submit(p, **r) for p, r in deep]
         assert wait_lanes(b, 3)
         live = sum(b._attn_need(p) for p in b._pos_host.values())
         assert live == 3 * b.max_seq  # every deep lane at the last bucket
         budget = _rung2_budget(b, lanes=3)
         # the short request's whole bucket fits beside them
-        assert live * b._kv_key_bytes + b._admit_cost_bytes(
-            GenRequest(tokens=list(short[0]), max_new_tokens=8)) < 0.9 * budget
+        assert live * b._kv_key_bytes + short_cost < 0.9 * budget
         inner = FaultInjector([], pressure={
             "shrink_to_bytes": budget, "after_polls": b._work_poll_count + 1,
             "restore_after_polls": 1 << 20}).pressure_hook()
         late = {}
 
+        def send():
+            late["fut"] = b.submit(short[0], **short[1])
+
         def hook(poll):
+            # the poll hook runs on the scheduler thread, and submit is a
+            # caller-thread entry point: a caller thread submits in the window
             fut = late.get("fut")
-            if fut is None and b._spec_suppressed:
-                late["fut"] = b.submit(short[0], **short[1])
+            if "sent" not in late and b._spec_suppressed:
+                late["sent"] = True
+                threading.Thread(target=send, daemon=True).start()
             elif fut is not None and "suppressed" not in late and fut.gen_request.admit_t:
                 late["suppressed"] = b._spec_suppressed
             return inner(poll)

@@ -688,8 +688,9 @@ def test_mesh_annotation_round_trips_to_serving_engine(model_dir, jax_ref):
 def test_engine_main_builds_the_mesh_of_tpu_mesh(model_dir, monkeypatch):
     """A standalone engine with a predictor ``tpuMesh`` builds the serving
     mesh over its own devices (the CPU's positions here) and its generate
-    unit serves on it; the predict path's TorchServer still refuses a
-    mesh as not ported."""
+    unit serves on it. The predict path's TorchServer, which once refused
+    a mesh as not ported, serves the same model on it: its params split
+    over ``model`` and its logits the unmeshed server's bit for bit."""
     from seldon_core_tpu_torch import engine_main
     from seldon_core_tpu_torch.graph.executor import GraphExecutor
     from seldon_core_tpu_torch.graph.spec import PredictorSpec
@@ -711,11 +712,24 @@ def test_engine_main_builds_the_mesh_of_tpu_mesh(model_dir, monkeypatch):
     finally:
         server.batcher.close()
         asyncio.run(ex.close())
+    from seldon_core_tpu_torch.parallel.mesh import ShardedTensor
+    from seldon_core_tpu_torch.servers.torchserver import TorchServer
+
     torch_spec = PredictorSpec.from_dict({
         "name": "p", "graph": {"name": "c", "implementation": "JAX_SERVER",
-                               "modelUri": model_dir}})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        GraphExecutor(torch_spec, mesh=mesh)
+                               "modelUri": model_dir, "parameters": [
+                                   {"name": "device", "value": "cpu", "type": "STRING"}]}})
+    ex = GraphExecutor(torch_spec, mesh=mesh)
+    try:
+        meshed = ex.root.client.user_object
+        assert isinstance(meshed.params["blocks"]["wq"], ShardedTensor)
+        plain = TorchServer(model_dir, device="cpu")
+        plain.load()
+        toks = np.asarray([[1, 2, 3, 4]], np.int32)
+        torch.testing.assert_close(meshed.predict(toks, []), plain.predict(toks, []),
+                                   rtol=0, atol=0)
+    finally:
+        asyncio.run(ex.close())
 
 
 # -- per-shard ledger accounting (2x2 mesh) -------------------------------------

@@ -262,10 +262,24 @@ def test_torchserver_rest_equals_jaxserver(tmp_path, family):
 
 
 def test_torchserver_refuses_a_mesh(tmp_path):
+    """Once a refusal (sharded predict was not ported), now the mesh
+    serves: a TorchServer over a data=2, model=4 mesh of CPU positions
+    answers what the unmeshed server answers, bit for bit, and refuses
+    a batch that does not tile ``data`` with a ValueError, as the JAX
+    server's device put does."""
+    from seldon_core_tpu_torch.parallel.mesh import make_serving_mesh
     from seldon_core_tpu_torch.servers.torchserver import TorchServer
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TorchServer(model_uri=str(tmp_path), device="cpu", mesh=object())
+    d = _model_dir(tmp_path, "mlp")
+    mesh = make_serving_mesh({"data": 2, "model": 4}, device="cpu")
+    plain = TorchServer(model_uri=d, device="cpu")
+    meshed = TorchServer(model_uri=d, device="cpu", mesh=mesh)
+    plain.load()
+    meshed.load()
+    x = np.random.RandomState(3).randn(6, 4).astype(np.float32)
+    torch.testing.assert_close(meshed.predict(x, []), plain.predict(x, []), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="does not divide"):
+        meshed.predict(x[:5], [])
 
 
 def test_device_key_is_interior_only(tmp_path):
