@@ -185,11 +185,11 @@ result lines print only when every phase ran, as with no argument):
    the serve phase's typed parameters plus fused K 64 and depth groups
    4): a profiler-off boot gives the decode graph count and the tokens
    alone of the serve probe, greedy_128 and seeded_500; a boot with the device-time ledger (CUDA
-   event pairs, deep every 16th dispatch, 3350 GB/s), the flight
+   event pairs, 3350 GB/s), the flight
    recorder (512) and TTFT/TPOT objectives serves the serve waves,
    after the profiler-off boot (off, on: tokens/s,
    TTFT and TPOT side by side, the SM clock after each). Prints the ledger's device ms and share per kind, the busy and idle
-   share and MBU over the waves, the live gauges, the deep samples, the
+   share and MBU over the waves, the live gauges, the scheduler's phases, the
    dump's records and the burn verdicts. Fails unless each request alone
    equals the profiler-off boot's (and greedy_20 the serve phase's when
    it ran), the graph count equals the profiler-off boot's with none
@@ -4096,7 +4096,7 @@ def phase_migration(card):
 # ledger and SLO objectives on, fused decode and depth groups in its boot
 # census (retuned under traffic)
 TELEMETRY_KNOBS = {"fused_steps_per_dispatch": 64, "depth_groups": 4}
-TELEMETRY_ON = {"profiler": 1, "profiler_deep_every": 16, "profiler_hbm_gb_s": 3350,
+TELEMETRY_ON = {"profiler": 1, "profiler_hbm_gb_s": 3350,
                 "flight_recorder": 512, "slo_objectives": "ttft:1000:0.99,tpot:10:0.99"}
 TELEMETRY_RETUNE = {"fused_steps_per_dispatch": 32, "depth_groups": 2}
 # (c): the ledger's per-dispatch burst time against CUDA events around
@@ -4236,7 +4236,7 @@ def phase_telemetry(card, serve_alone=None):
     """Telemetry and retune at llm-1.26b (bf16, seed-0 weights, the serve
     phase's GenerateServer parameters plus fused K 64 and depth groups
     4): a profiler-off boot gives the graph count and the tokens alone of
-    the probe, greedy_128 and seeded_500; a boot with the ledger (deep every 16, 3350 GB/s), the
+    the probe, greedy_128 and seeded_500; a boot with the ledger (3350 GB/s), the
     recorder (512) and TTFT/TPOT objectives serves the serve waves
     after the profiler-off boot (off, on), then
     checks (a) each request alone against the profiler-off boot's (and
@@ -4328,10 +4328,11 @@ def phase_telemetry(card, serve_alone=None):
             traffic = _ledger_delta(before, on.profiler.summary())
             _ledger_split("the serve waves (the ledger-on run)", traffic, wall, card)
             live = on.profiler.gauges()
-            summ = on.profiler.summary()
+            phases = {k[len("sched_s_"):]: round(v, 3) for k, v in b.stats.items()
+                      if k.startswith("sched_s_")}
             log(f"[telemetry] live gauges over the ledger's 10 s window: device_busy_frac "
                 f"{live.get('device_busy_frac')}, mbu_pct {live.get('mbu_pct')} (3350 GB/s); "
-                f"deep samples {summ['deep_samples']} (every 16th dispatch) [{card}]")
+                f"scheduler thread s by phase {phases} [{card}]")
             _burst_check(on, traffic, card)
             # (e) a retune through the engine while the mixed wave decodes
             graphs0 = b.stats["graphs_captured"]

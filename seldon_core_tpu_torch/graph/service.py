@@ -42,6 +42,7 @@ gRPC front imports ``grpc`` when it is built.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
 import logging
 import sys
@@ -407,6 +408,41 @@ class EngineApp:
             self.shadow_mirror.submit(message, out)
         return out
 
+    def _open_stream(self, target, body: Dict[str, Any], headers):
+        """``target.stream(body)`` inside the engine span ``generate``: the
+        trace root of a streamed request (a child of the caller's context
+        from ``headers``), under which the scheduler records the request's
+        timeline spans. The span ends when the stream does: its chunks run
+        out or it is cancelled."""
+        from ..tracing import get_tracer
+
+        tracer = get_tracer()
+        if not tracer.enabled:
+            return target.stream(body)
+        with tracer.span("generate", tags={"deployment": self.spec.name},
+                         headers=headers, deferred=True) as span:
+            handle = target.stream(body)
+            span.set_tag("prompt_tokens", getattr(handle, "prompt_len", None))
+        once = threading.Lock()
+
+        def end() -> None:
+            if once.acquire(blocking=False):
+                tracer.end_span(span)
+
+        def chunks():
+            try:
+                yield from handle.chunks
+            finally:
+                end()
+
+        def cancel() -> bool:
+            try:
+                return handle.cancel()
+            finally:
+                end()
+
+        return dataclasses.replace(handle, chunks=chunks(), cancel=cancel)
+
     async def send_feedback(self, feedback: Dict[str, Any]) -> Dict[str, Any]:
         self._inflight_add(1)
         try:
@@ -649,7 +685,7 @@ class EngineApp:
             try:
                 # stream() validates AND submits eagerly — malformed bodies
                 # and dead batchers raise here, before any bytes go out
-                handle = target.stream(body)
+                handle = self._open_stream(target, body, req.headers)
             except ShedError as e:
                 # admit-queue shed: same 429 + Retry-After contract as the
                 # unary path, decided before any stream bytes exist
@@ -954,7 +990,8 @@ class EngineApp:
             if "jsonData" in body:
                 body = body["jsonData"]
             try:
-                handle = target.stream(body)
+                handle = app._open_stream(
+                    target, body, dict(context.invocation_metadata() or ()))
             except (ValueError, RuntimeError) as e:
                 if getattr(e, "status", None) == 503:
                     # dead/restarting batcher: transient, retryable

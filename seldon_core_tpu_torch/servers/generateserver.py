@@ -127,8 +127,9 @@ Server parameters (typed, e.g. from ``PREDICTIVE_UNIT_PARAMETERS``)::
                      events and attributed per (kind, variant, tenant),
                      exported as ``gen_device_*`` series
     profiler_deep_every
-                     every N-th measured dispatch synchronises inside a
-                     ``torch.profiler`` range named after it (0 = never)
+                     the JAX package's deep samples: refused above 0 (the
+                     scheduler's ``gen.*`` ranges name every dispatch in a
+                     trace taken through ``tracing.start_device_profile``)
     profiler_hbm_gb_s / profiler_dispatch_floor_us
                      the denominators of the live ``gen_mbu_pct`` and
                      ``gen_dispatch_floor_pct`` gauges (0 = omit the gauge)
@@ -219,12 +220,12 @@ from .torchserver import TorchServer
 
 logger = logging.getLogger(__name__)
 
-# parameters of the JAX GenerateServer whose feature is not ported yet,
-# with their off value (other JAX-server parameters, which only act
+# parameters of the JAX GenerateServer whose feature the port does not
+# have, with their off value (other JAX-server parameters, which only act
 # through one of these, are accepted and ignored, as the JAX server
-# accepts unknown ones). Every one is ported: the table stays for the
-# next feature that is not.
-_NOT_PORTED: Dict[str, Any] = {}
+# accepts unknown ones): the ledger's deep samples, whose ranges the
+# scheduler's own ``gen.*`` ranges replace
+_NOT_PORTED: Dict[str, Any] = {"profiler_deep_every": 0}
 
 
 def _is_off(name: str, value, off) -> bool:
@@ -245,6 +246,8 @@ class StreamHandle:
 
     chunks: Iterable
     cancel: Callable[[], bool]
+    # the prompt's tokens (the engine's span tags it)
+    prompt_len: int = 0
 
 
 class GenerateServer(SeldonComponent):
@@ -305,7 +308,6 @@ class GenerateServer(SeldonComponent):
         tenant_min_resident_ms: int = 50,
         flight_recorder: int = 512,
         profiler: int = 0,
-        profiler_deep_every: int = 0,
         profiler_hbm_gb_s: float = 0.0,
         profiler_dispatch_floor_us: float = 0.0,
         slo_objectives: Optional[str] = None,
@@ -435,7 +437,6 @@ class GenerateServer(SeldonComponent):
 
         self.profiler = DeviceTimeLedger(
             enabled=bool(int(profiler)),
-            deep_every=int(profiler_deep_every),
             hbm_gb_s=float(profiler_hbm_gb_s),
             dispatch_floor_us=float(profiler_dispatch_floor_us),
         )
@@ -1323,7 +1324,7 @@ class GenerateServer(SeldonComponent):
                 final["cache_hit_tokens"] = fut.gen_request.cache_hit_tokens
             yield final
 
-        return StreamHandle(chunks=chunks(), cancel=fut.cancel)
+        return StreamHandle(chunks=chunks(), cancel=fut.cancel, prompt_len=len(toks))
 
     def _build_response(self, futures, results, token_lists, text_mode, kw):
         out: Dict[str, Any] = {"tokens": results}
@@ -1416,7 +1417,8 @@ class GenerateServer(SeldonComponent):
 
     def metrics(self) -> List[Dict]:
         """Cumulative scheduler totals ship as COUNTER deltas, completed
-        requests' queue wait / TTFT / TPOT as TIMER samples (ms)."""
+        requests' queue wait / TTFT / first-token hold / TPOT as TIMER
+        samples (ms)."""
         if self.batcher is None:
             return []
         s = self.batcher.stats
@@ -1553,13 +1555,17 @@ class GenerateServer(SeldonComponent):
         pending = self.batcher.slo_pending
         while pending:
             try:
-                queue_wait, ttft, tpot = pending.popleft()
+                queue_wait, ttft, tpot, hold = pending.popleft()
             except IndexError:  # raced another exporter thread
                 break
             out.append({"type": "TIMER", "key": "gen_queue_wait_ms",
                         "value": round(queue_wait * 1e3, 4)})
             out.append({"type": "TIMER", "key": "gen_ttft_ms",
                         "value": round(ttft * 1e3, 4)})
+            # the part of TTFT from the prefill's enqueue to the host's
+            # first read of its token
+            out.append({"type": "TIMER", "key": "gen_first_token_hold_ms",
+                        "value": round(hold * 1e3, 4)})
             if tpot is not None:
                 out.append({"type": "TIMER", "key": "gen_tpot_ms",
                             "value": round(tpot * 1e3, 4)})
@@ -1644,7 +1650,7 @@ class GenerateServer(SeldonComponent):
             tags = {"tenant": t}
             while pending:
                 try:
-                    queue_wait, ttft, tpot = pending.popleft()
+                    queue_wait, ttft, tpot, _hold = pending.popleft()
                 except IndexError:  # raced another exporter thread
                     break
                 out.append({"type": "TIMER", "key": "gen_tenant_queue_wait_ms",

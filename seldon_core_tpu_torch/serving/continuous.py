@@ -129,10 +129,31 @@ Counterpart of ``seldon_core_tpu/serving/continuous.py``
   first and spares a strict tenant's only lane, the SLO samples split
   per tenant, and the ledger bills the resident tenant's weights as its
   ``pager`` component (a staged swap's as ``swap``).
-* Prefill, chunk and lane insert run inside ``tracing.device_trace``
-  ranges (``gen.prefill``, ``gen.prefill_chunk``, ``gen.lane_insert``),
-  decode bursts inside ``gen.decode_burst``, named in ``torch.profiler``
-  traces.
+* Poll phases (always on): every poll of the scheduler thread is split
+  into admit, prefill, decode, read, credit, idle and other; each adds
+  its monotonic seconds to ``stats["sched_s_<phase>"]`` (the seven sum
+  to the thread's wall time) and runs inside a ``tracing.device_trace``
+  range (``gen.admit``; ``gen.prefill``, ``gen.prefill_chunk``,
+  ``gen.lane_insert``, ``gen.splice``, ``gen.replay``,
+  ``gen.draft_prefill``; ``gen.decode_burst``; ``gen.read``;
+  ``gen.credit``; ``gen.idle``; the whole poll in ``gen.poll``). The
+  ranges reach a ``torch.profiler`` trace taken through
+  ``tracing.start_device_profile``, which this thread starts and stops
+  between two polls (``call_on_scheduler``): a session records the
+  ranges of the thread that started it only.
+* The first token's hold (always on): ``prefill_t`` stamps the return of
+  the host's enqueue of a request's prefill; the completed-request
+  sample is ``(queue_wait, ttft, tpot, hold)`` with ``hold =
+  first_tok_t - prefill_t``, the prefill's device time plus the wait for
+  the pipelined burst that carries the first token to the host. The
+  queue wait ends at the request's last admission, as in the JAX
+  package: a chunked resume stamps it again and a migrated checkpoint
+  never, so ``hold <= ttft - queue_wait`` holds for a request neither
+  migrated nor preempted after its first token.
+* Per-request spans (``TRACING=1``): a request submitted under a sampled
+  span records ``gen.queue_wait``, ``gen.prefill``, ``gen.first_token``,
+  ``gen.decode`` and, where they happen, ``gen.preempt`` and
+  ``gen.shed`` as its children (``Tracer.record_span``).
 * Flight recorder (``flight_recorder_capacity``, default 512, 0 = off,
   ``serving/flightrecorder.py``): one record per working poll (queue,
   lanes, admissions, chunks, the decode plan and the ledger's per-poll
@@ -186,7 +207,8 @@ from .. import rng
 from ..analysis.roles import caller_thread, scheduler_only
 from ..parallel.mesh import ShardedTensor, place, place_tree, tree_shard_bytes
 from ..resilience import ShedError
-from ..tracing import device_trace, wall_us
+from ..tracing import (add_profile_host, device_trace, get_tracer, release_profile_host,
+                       wall_us)
 from .disagg import DisaggError, PrefixGone, WeightVersionMismatch, prompt_hash
 from .flightrecorder import FlightRecorder
 from .kvtier import HostKVTier
@@ -273,9 +295,14 @@ class GenRequest:
     # prompt tokens served from the radix prefix cache at admit (0 = a
     # full prefill); responses report it per request
     cache_hit_tokens: int = 0
-    # lifecycle timeline (monotonic seconds; 0.0 = not reached)
+    # lifecycle timeline (monotonic seconds; 0.0 = not reached):
+    # ``prefill_t`` is when the host's enqueue of the prefill that samples
+    # the first token returned (at the insert for a resume or a remote
+    # admit); the first token's hold runs from there to ``first_tok_t``,
+    # when the host first reads it
     submit_t: float = 0.0
     admit_t: float = 0.0
+    prefill_t: float = 0.0
     first_tok_t: float = 0.0
     # wall-clock anchor of submit_t (epoch microseconds); a migrated
     # request keeps its first member's
@@ -302,6 +329,10 @@ class GenRequest:
     # lane, and the SLO samples split per tenant
     tenant: Optional[str] = None
     slo: str = "standard"
+    # (trace id, parent span id) of the sampled span active at submit: the
+    # scheduler records this request's timeline spans under it (None:
+    # tracing off or the request unsampled, and no span is recorded)
+    trace: Optional[tuple] = None
 
 
 @dataclasses.dataclass
@@ -379,6 +410,37 @@ class _DrainJob:
     list of :class:`GenRequest` (each checkpoint in ``resume``)."""
 
     future: Future = dataclasses.field(default_factory=Future)
+
+
+# the poll's phases and the ``stats`` key each charges: admit (queue pops,
+# deadline and cancel checks, prefix matching, the wave's planning),
+# prefill (the host's enqueue of prefills, chunks, splices, inserts and
+# replays), decode (the whole dispatch of a decode burst), read (blocked
+# on a burst's tokens), credit (crediting, callbacks, finishing and
+# publishing), idle (waiting on an empty admit queue), other (the rest)
+_PHASES = {phase: f"sched_s_{phase}" for phase in
+           ("admit", "prefill", "decode", "read", "credit", "idle", "other")}
+
+
+class _PhaseScope:
+    """One phase of the scheduler's poll inside its ``device_trace``
+    range: entering charges the time since the last switch to the phase
+    that ran and makes this one run; leaving switches back."""
+
+    __slots__ = ("_b", "_phase", "_range", "_prev")
+
+    def __init__(self, batcher, phase: str, name: str):
+        self._b, self._phase, self._range = batcher, phase, device_trace(name)
+
+    def __enter__(self):
+        self._prev = self._b._switch_phase(self._phase)
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._range.__exit__(exc_type, exc, tb)
+        self._b._switch_phase(self._prev)
+        return False
 
 
 class _PinnedPool:
@@ -828,7 +890,7 @@ class ContinuousBatcher:
             "graph_captures_inline": 0, "graph_replays": 0,
             "steps_per_poll_effective": k,
             "slo_samples": 0, "queue_wait_s_sum": 0.0,
-            "ttft_s_sum": 0.0, "tpot_s_sum": 0.0,
+            "ttft_s_sum": 0.0, "tpot_s_sum": 0.0, "hold_s_sum": 0.0,
             # weight swaps flipped; graceful drains done, checkpoints
             # exported and handed to a peer (the server's drain_to),
             # resumes admitted from a wire checkpoint or resume token, and
@@ -838,15 +900,28 @@ class ContinuousBatcher:
             # retunes applied at a poll boundary
             "planner_retunes": 0,
         }
+        # the scheduler thread's wall seconds by poll phase (_PHASES): at
+        # any moment the thread charges exactly one, so over any window
+        # they sum to its wall time
+        self.stats.update({key: 0.0 for key in _PHASES.values()})
+        # the phase clock: the phase being charged and since when (None
+        # while no scheduler thread runs: warm() before start charges
+        # nothing)
+        self._sched_phase: Optional[str] = None
+        self._sched_phase_t = 0.0
+        # calls staged for the scheduler thread (call_on_scheduler): a
+        # deque while the loop runs, None otherwise
+        self._calls: Optional["collections.deque"] = None
+        self._calls_lock = threading.Lock()
         # flight recorder: one record per working poll and one per
         # scheduling event, bounded and drop-oldest (0 = off)
         self.flight: Optional[FlightRecorder] = (
             FlightRecorder(flight_recorder_capacity)
             if int(flight_recorder_capacity) > 0 else None
         )
-        # (queue_wait, ttft, tpot) of completed requests: ``slo_pending``
-        # drains into response metrics, ``slo_recent`` is a reservoir for
-        # percentiles
+        # (queue_wait, ttft, tpot, hold) of completed requests:
+        # ``slo_pending`` drains into response metrics, ``slo_recent`` is a
+        # reservoir for percentiles
         self.slo_pending: "collections.deque" = collections.deque(maxlen=4096)
         self.slo_recent: "collections.deque" = collections.deque(maxlen=2048)
         # the same samples split per tenant, keyed at _resolve time (the
@@ -1251,7 +1326,7 @@ class ContinuousBatcher:
         bucket = self._bucket(n)
         prompt = np.zeros((1, bucket), np.int64)
         prompt[0, :n] = tokens
-        with device_trace("gen.draft_prefill"):
+        with self._timed("prefill", "gen.draft_prefill"):
             _logits, slab = self.draft_model.prefill(
                 self._draft_params, self._to_dev(prompt), bucket,
                 last_index=self._to_dev(np.asarray([n - 1], np.int64)),
@@ -1632,9 +1707,17 @@ class ContinuousBatcher:
 
     @caller_thread
     def _note_shed(self, reason: str, depth: int, rate: Optional[float]) -> None:
-        """A shed decision's flight record (on the submitting thread)."""
+        """A shed decision's flight record and, under a sampled span, its
+        ``gen.shed`` span (on the submitting thread, where the request's
+        span is active)."""
         self._flight({"type": "shed", "reason": reason, "queue": depth,
                       "rate_per_s": round(rate, 3) if rate else None})
+        tracer = get_tracer()
+        if tracer.enabled:
+            parent = tracer.active_span()
+            if parent is not None and parent.trace_id != "0":
+                tracer.record_span("gen.shed", parent.trace_id, parent.span_id, wall_us(), 0,
+                                   tags={"reason": reason, "queue_depth": depth})
 
     @caller_thread
     def generate(self, tokens, **kw) -> List[int]:
@@ -1642,7 +1725,14 @@ class ContinuousBatcher:
         return self.submit(tokens, **kw).result()
 
     def _enqueue(self, req: GenRequest) -> Future:
-        """Queue a built request and make sure the loop serves it."""
+        """Queue a built request and make sure the loop serves it. The
+        submitting thread's sampled span becomes the parent of the
+        request's timeline spans (an unsampled request grows none)."""
+        tracer = get_tracer()
+        if tracer.enabled:
+            parent = tracer.active_span()
+            if parent is not None and parent.trace_id != "0":
+                req.trace = (parent.trace_id, parent.span_id)
         req.future.gen_request = req
         self._queue.put(req)
         if self._stop.is_set():
@@ -2314,6 +2404,7 @@ class ContinuousBatcher:
             on_tokens=on_tokens,
         )
         req.submit_t = time.monotonic()
+        req.submit_wall_us = wall_us(req.submit_t)
         if deadline_s is not None:
             req.deadline_t = req.submit_t + float(deadline_s)
         req.cache_hit_tokens = covered
@@ -2325,13 +2416,7 @@ class ContinuousBatcher:
             "nbytes": k.numel() * k.element_size() + v.numel() * v.element_size(),
             "version": meta.get("weight_version"),
         }
-        req.future.gen_request = req
-        self._queue.put(req)
-        if self._stop.is_set():
-            self._drain_queue(self._dead_error())
-            return req.future
-        self.start()
-        return req.future
+        return self._enqueue(req)
 
     @scheduler_only
     @torch.no_grad()
@@ -2345,6 +2430,8 @@ class ContinuousBatcher:
         r = req.remote
         n = len(req.tokens)
         req.admit_t = time.monotonic()
+        self._emit_span(req, "gen.queue_wait", req.submit_t, req.admit_t,
+                        tags={"remote": True})
         if r["version"] != self.weight_version:
             raise WeightVersionMismatch(
                 f"weights changed mid-handoff: slab is {r['version']!r}, "
@@ -2366,11 +2453,12 @@ class ContinuousBatcher:
         with self._prof.measure("insert", variant=f"px{b}" if covered else f"b{b}",
                                 tenant=req.tenant or "",
                                 bytes_read=self._rb("insert", tokens=b),
-                                tokens=n), device_trace("gen.lane_insert"):
+                                tokens=n), self._timed("prefill", "gen.lane_insert"):
             if covered:
                 self._insert_prefix(donor, dev, slot, covered, first, n, key)
             else:
                 self._insert(dev, [slot], first, [n], key)
+        self._prefilled(req)
         if covered:
             self.stats["prefix_hits"] += 1
             self.stats["prefix_tokens_saved"] += covered
@@ -2412,7 +2500,8 @@ class ContinuousBatcher:
 
     def slo_summary(self) -> Optional[Dict[str, Any]]:
         """Percentile summary (ms) of the recent completed-request SLO
-        reservoir -- queue wait, TTFT, TPOT -- in the JAX package's shape
+        reservoir -- queue wait, TTFT, TPOT, and the first token's hold --
+        in the JAX package's shape plus ``hold_ms``
         (``tools/flight_report.py`` reads it). None until a request
         completes; single-token completions have no TPOT."""
         samples = list(self.slo_recent)
@@ -2434,6 +2523,7 @@ class ContinuousBatcher:
             "queue_wait_ms": pct([r[0] for r in samples]),
             "ttft_ms": pct([r[1] for r in samples]),
             "tpot_ms": pct(tpots) if tpots else None,
+            "hold_ms": pct([r[3] for r in samples]),
         }
 
     def warm(
@@ -2729,13 +2819,17 @@ class ContinuousBatcher:
             pv, iv, ins_tokens = f"m{m}p{bucket}", f"m{m}b{bucket}", m * bucket
         with self._prof.measure("prefill", variant=pv, tenant=tenant,
                                 bytes_read=self._rb("prefill", tokens=m * bucket),
-                                tokens=m * bucket), device_trace("gen.prefill"):
+                                tokens=m * bucket), self._timed("prefill", "gen.prefill"):
             firsts, slab, lane_keys = self._prefill(
                 prompts, last, [r.seed for r in reqs], [r.temperature for r in reqs]
             )
+        for req in reqs:
+            req.admit_t = t_admit
+            self._emit_span(req, "gen.queue_wait", req.submit_t, t_admit)
+            self._prefilled(req)
         with self._prof.measure("insert", variant=iv, tenant=tenant,
                                 bytes_read=self._rb("insert", tokens=m * bucket),
-                                tokens=ins_tokens), device_trace("gen.lane_insert"):
+                                tokens=ins_tokens), self._timed("prefill", "gen.lane_insert"):
             self._insert(slab, slots, firsts, last + 1, lane_keys)
         for slot, req in zip(slots, reqs):
             if self._spec_active():
@@ -2743,7 +2837,6 @@ class ContinuousBatcher:
                 # the real context (a rung-2 suppression skips it: the lane
                 # gets its prefix when speculation comes back)
                 self._draft_admit_tokens(slot, req.tokens)
-            req.admit_t = t_admit
             self._active[slot] = _Slot(request=req)
             self._pos_host[slot] = len(req.tokens)
         self._masks_dirty = True
@@ -2759,6 +2852,8 @@ class ContinuousBatcher:
         (m, slab)``: splice the donor slab and prefill only the suffix.
         Like every admission, nothing is read back."""
         req.admit_t = time.monotonic()
+        self._emit_span(req, "gen.queue_wait", req.submit_t, req.admit_t,
+                        tags={"cache_hit_tokens": hit[0]})
         self._prompt_into_lane(slot, req, hit)
         if self._spec_active():
             # re-derived from the whole prompt: the radix pool holds only
@@ -2785,13 +2880,15 @@ class ContinuousBatcher:
             suffix[0, : n - m] = req.tokens[m:]
             with self._prof.measure("prefill", variant=f"px{wb}", tenant=tenant,
                                     bytes_read=self._rb("prefill", tokens=wb),
-                                    tokens=wb), device_trace("gen.prefill"):
+                                    tokens=wb), self._timed("prefill", "gen.prefill"):
                 first, suffix_slab, key = self._prefix_prefill(
                     slab, suffix, m, n - 1 - m, req.seed, req.temperature)
+            if cont is None:
+                self._prefilled(req)
             first, key, pos = cont or (first, key, n)
             with self._prof.measure("insert", variant=f"px{wb}", tenant=tenant,
                                     bytes_read=self._rb("insert", tokens=m + wb),
-                                    tokens=pos), device_trace("gen.lane_insert"):
+                                    tokens=pos), self._timed("prefill", "gen.lane_insert"):
                 self._insert_prefix(slab, suffix_slab, slot, m, first, pos, key)
             req.cache_hit_tokens = m
             self.stats["prefix_hits"] += 1
@@ -2803,18 +2900,45 @@ class ContinuousBatcher:
             prompt[0, :n] = req.tokens
             with self._prof.measure("prefill", variant=f"p{bucket}", tenant=tenant,
                                     bytes_read=self._rb("prefill", tokens=bucket),
-                                    tokens=bucket), device_trace("gen.prefill"):
+                                    tokens=bucket), self._timed("prefill", "gen.prefill"):
                 first, slab, key = self._prefill(prompt, np.asarray([n - 1], np.int64),
                                                  [req.seed], [req.temperature])
+            if cont is None:
+                self._prefilled(req)
             first, key, pos = cont or (first, key, n)
             with self._prof.measure("insert", variant=f"b{bucket}", tenant=tenant,
                                     bytes_read=self._rb("insert", tokens=bucket),
-                                    tokens=pos), device_trace("gen.lane_insert"):
+                                    tokens=pos), self._timed("prefill", "gen.lane_insert"):
                 self._insert(slab, [slot], first, [pos], key)
             if self._prefix_index is not None:
                 self.stats["prefix_misses"] += 1
             self.stats["prefill_tokens"] += bucket
         self.stats["prefill_steps"] += 1
+
+    @scheduler_only
+    def _emit_span(self, req: GenRequest, operation: str, start_t: float, end_t: float,
+                   tags: Optional[Dict[str, Any]] = None) -> None:
+        """One retroactive span of the request's timeline, a child of the
+        span captured at submit, placed on the wall clock by the request's
+        submit anchor. One attribute check for an untraced request."""
+        if req.trace is None:
+            return
+        get_tracer().record_span(
+            operation, req.trace[0], req.trace[1],
+            req.submit_wall_us + int((start_t - req.submit_t) * 1e6),
+            int((end_t - start_t) * 1e6), tags=tags)
+
+    @scheduler_only
+    def _prefilled(self, req: GenRequest) -> None:
+        """Stamp ``prefill_t``: the host's enqueue of the prefill (or the
+        insert) that gives the request its first token has returned. A
+        resume of a lane that already streamed keeps its first stamp."""
+        if req.first_tok_t:
+            return
+        req.prefill_t = time.monotonic()
+        # a migrated checkpoint is never stamped admitted (as in the JAX
+        # package): its prefill span is empty
+        self._emit_span(req, "gen.prefill", req.admit_t or req.prefill_t, req.prefill_t)
 
     @scheduler_only
     def _resolve(self, s: _Slot) -> None:
@@ -2832,13 +2956,19 @@ class ContinuousBatcher:
             queue_wait = max(0.0, (req.admit_t or now) - req.submit_t)
             ttft = max(0.0, first - req.submit_t)
             tpot = (now - first) / (n_tok - 1) if n_tok > 1 else None
+            # the first token's hold: its prefill's device time and the
+            # wait for the pipelined burst that carries it to the host
+            hold = max(0.0, first - (req.prefill_t or first))
             self.stats["slo_samples"] += 1
             self.stats["queue_wait_s_sum"] += queue_wait
             self.stats["ttft_s_sum"] += ttft
+            self.stats["hold_s_sum"] += hold
             if tpot is not None:
                 self.stats["tpot_s_sum"] += tpot
-            self.slo_pending.append((queue_wait, ttft, tpot))
-            self.slo_recent.append((queue_wait, ttft, tpot))
+            sample = (queue_wait, ttft, tpot, hold)
+            self.slo_pending.append(sample)
+            self.slo_recent.append(sample)
+            self._emit_span(req, "gen.decode", first, now, tags={"tokens": n_tok})
             if req.tenant is not None:
                 # the per-tenant split: the TenantScheduler's TTFT
                 # feedback and the server's tenant-tagged TIMERs
@@ -2853,9 +2983,9 @@ class ContinuousBatcher:
                 if tpot is not None:
                     sums["tpot_s_sum"] += tpot
                 self.tenant_slo_pending.setdefault(
-                    req.tenant, collections.deque(maxlen=1024)).append((queue_wait, ttft, tpot))
+                    req.tenant, collections.deque(maxlen=1024)).append(sample)
                 self.tenant_slo_recent.setdefault(
-                    req.tenant, collections.deque(maxlen=512)).append((queue_wait, ttft, tpot))
+                    req.tenant, collections.deque(maxlen=512)).append(sample)
         if not req.future.done():
             req.future.set_result(req.tokens + s.emitted)
         self.stats["finished"] += 1
@@ -2897,6 +3027,8 @@ class ContinuousBatcher:
         start = len(s.emitted)
         if start == 0 and len(tokens) and req.first_tok_t == 0.0:
             req.first_tok_t = time.monotonic()
+            self._emit_span(req, "gen.first_token", req.prefill_t or req.first_tok_t,
+                            req.first_tok_t)
         done = False
         for t in tokens:
             s.emitted.append(int(t))
@@ -2925,33 +3057,89 @@ class ContinuousBatcher:
         if burst.spec:
             self._process_spec_burst(burst)
             return
-        host_toks, counts = burst.numpy()  # seldon-lint: disable=host-sync-hot-path (the burst's tokens: the designed read behind the pipelined burst boundary)
-        if self._prof.enabled:
-            # the stream has passed this burst: fold its measured records
-            self._prof.resolve()
-        for slot, (s, start, col) in burst.snapshot.items():
-            if burst.fused:
-                n = int(counts[col])
-                if self._active.get(slot) is s and slot in self._pos_host:
-                    self._pos_host[slot] -= burst.k - n
-                span = host_toks[start: 1 + n, col]
-            else:
-                span = host_toks[start:, col]
-            if s.credit_done or not len(span):
-                continue
-            if self._credit(s, span):
-                if self._active.get(slot) is s:
-                    self._finish(slot)
+        with self._timed("read", "gen.read"):
+            host_toks, counts = burst.numpy()  # seldon-lint: disable=host-sync-hot-path (the burst's tokens: the designed read behind the pipelined burst boundary)
+        with self._timed("credit", "gen.credit"):
+            if self._prof.enabled:
+                # the stream has passed this burst: fold its measured records
+                self._prof.resolve()
+            for slot, (s, start, col) in burst.snapshot.items():
+                if burst.fused:
+                    n = int(counts[col])
+                    if self._active.get(slot) is s and slot in self._pos_host:
+                        self._pos_host[slot] -= burst.k - n
+                    span = host_toks[start: 1 + n, col]
                 else:
-                    self._resolve(s)  # the lane was pre-freed at dispatch
-        self._check_done()
+                    span = host_toks[start:, col]
+                if s.credit_done or not len(span):
+                    continue
+                if self._credit(s, span):
+                    if self._active.get(slot) is s:
+                        self._finish(slot)
+                    else:
+                        self._resolve(s)  # the lane was pre-freed at dispatch
+            self._check_done()
 
     def _run(self) -> None:
-        """Scheduler thread: the supervision shell around the poll loop."""
+        """Scheduler thread: the supervision shell around the poll loop.
+        It arms the phase clock and offers its thread for device
+        profiles while it runs."""
+        self._sched_phase, self._sched_phase_t = "other", time.monotonic()
+        with self._calls_lock:
+            self._calls = collections.deque()
+        add_profile_host(self)
         self._started.set()
-        while not self._stop.is_set():
-            if not self._loop():
-                return
+        try:
+            while not self._stop.is_set():
+                if not self._loop():
+                    return
+        finally:
+            with self._calls_lock:
+                calls, self._calls = self._calls, None
+            self._run_calls(calls)
+            release_profile_host(self)
+            self._switch_phase("other")
+            self._sched_phase = None
+
+    @caller_thread
+    def call_on_scheduler(self, fn) -> Future:
+        """Run ``fn()`` on the scheduler thread between two polls, outside
+        every range (or as the loop ends); the Future carries its result.
+        The device profile starts and stops this way
+        (``tracing.start_device_profile``)."""
+        fut: Future = Future()
+        with self._calls_lock:
+            if self._calls is None:
+                fut.set_exception(self._dead_error())
+                return fut
+            self._calls.append((fn, fut))
+        return fut
+
+    def _run_calls(self, calls) -> None:
+        """Run the staged calls (scheduler thread)."""
+        while calls:
+            fn, fut = calls.popleft()
+            try:
+                fut.set_result(fn())
+            except Exception as e:  # noqa: BLE001 - the caller gets it
+                fut.set_exception(e)
+
+    def _switch_phase(self, phase: str) -> str:
+        """Charge the time since the last switch to the running phase and
+        make ``phase`` run; returns the phase that ran."""
+        now = time.monotonic()
+        prev = self._sched_phase
+        self.stats[_PHASES[prev]] += now - self._sched_phase_t
+        self._sched_phase, self._sched_phase_t = phase, now
+        return prev
+
+    def _timed(self, phase: str, name: str):
+        """The scope of one ``phase`` of the poll inside the range
+        ``name``; the range alone while the phase clock is off (warm()
+        before the loop starts)."""
+        if self._sched_phase is None:
+            return device_trace(name)
+        return _PhaseScope(self, phase, name)
 
     @scheduler_only
     def _fail_inflight(self, pending, err: Exception) -> None:
@@ -3128,6 +3316,8 @@ class ContinuousBatcher:
         tokens at the same positions. ``resume``: see :class:`_ChunkJob`."""
         bucket = self._bucket(len(req.tokens))
         req.admit_t = time.monotonic()
+        self._emit_span(req, "gen.queue_wait", req.submit_t, req.admit_t,
+                        tags={"chunked": True})
         slab = self._new_slab(bucket)
         start = 0
         if hit is not None:
@@ -3139,7 +3329,8 @@ class ContinuousBatcher:
                 with self._prof.measure("splice", variant=f"b{bucket}",
                                         tenant=req.tenant or "",
                                         bytes_read=self._rb("splice", tokens=start),
-                                        tokens=start), torch.no_grad():
+                                        tokens=start), torch.no_grad(), \
+                        self._timed("prefill", "gen.splice"):
                     tb = donor["k"].shape[3]
                     for name in ("k", "v"):
                         slab[name][:, :, :, :tb] = donor[name]
@@ -3186,10 +3377,12 @@ class ContinuousBatcher:
                 with self._prof.measure("chunk_prefill", variant=f"b{job.bucket}",
                                         tenant=tenant,
                                         bytes_read=self._rb("chunk_prefill", tokens=C),
-                                        tokens=C), device_trace("gen.prefill_chunk"):
+                                        tokens=C), self._timed("prefill", "gen.prefill_chunk"):
                     first = self._chunk_step(job.slab, buf, start, n - 1 - start,
                                              req.seed, req.temperature, attn_len, is_last)
                 if is_last:
+                    if job.resume is None:
+                        self._prefilled(req)
                     first_tok, lane_key, first_pos = first[0], first[1], n
                     if job.resume is not None:
                         # the checkpointed continuation replaces the
@@ -3201,8 +3394,10 @@ class ContinuousBatcher:
                     with self._prof.measure(
                             "insert", variant=f"b{job.bucket}", tenant=tenant,
                             bytes_read=self._rb("insert", tokens=job.bucket),
-                            tokens=first_pos), device_trace("gen.lane_insert"):
+                            tokens=first_pos), self._timed("prefill", "gen.lane_insert"):
                         self._insert(job.slab, [slot], first_tok, [first_pos], lane_key)
+                    if job.resume is not None:
+                        self._prefilled(req)
             except Exception as e:  # noqa: BLE001 - bad request/device state
                 logger.exception("chunked prefill failed")
                 del self._chunked[slot]
@@ -3504,8 +3699,9 @@ class ContinuousBatcher:
         key = self._to_dev(np.asarray([req.resume["key"]], np.int64))
         with self._prof.measure("insert", variant="tier", tenant=req.tenant or "",
                                 bytes_read=self._rb("insert", tokens=int(meta.get("width", 0))),
-                                tokens=end_pos), device_trace("gen.lane_insert"):
+                                tokens=end_pos), self._timed("prefill", "gen.lane_insert"):
             self._insert(slab, [slot], first, [end_pos], key)
+        self._prefilled(req)
         self.stats["kv_tier_promotions"] += 1
         if self.flight is not None and self.flight.enabled:
             phash = prompt_hash(req.tokens)[:8]
@@ -3812,6 +4008,9 @@ class ContinuousBatcher:
         self.stats["preemptions"] += 1
         self._flight({"type": "preempt", "lane": slot, "kind": "chunked",
                       "prompt_tokens": len(job.request.tokens), "emitted": 0})
+        now = time.monotonic()
+        self._emit_span(job.request, "gen.preempt", now, now,
+                        tags={"lane": slot, "kind": "chunked"})
         self._resume_queue.append(job.request)
 
     @scheduler_only
@@ -3848,6 +4047,9 @@ class ContinuousBatcher:
         self._flight({"type": "preempt", "lane": slot, "kind": "lane",
                       "prompt_tokens": len(req.tokens), "emitted": emitted,
                       "remaining": req.max_new_tokens - emitted})
+        now = time.monotonic()
+        self._emit_span(req, "gen.preempt", now, now,
+                        tags={"lane": slot, "kind": "lane", "emitted": emitted})
         self._resume_queue.append(req)
 
     @scheduler_only
@@ -3883,6 +4085,7 @@ class ContinuousBatcher:
         cont = (self._to_dev(np.asarray([emitted[-1]], np.int64)),
                 self._to_dev(np.asarray([key], np.int64)), n + len(emitted) - 1)
         self._prompt_into_lane(slot, req, hit, cont)
+        self._prefilled(req)
         self._activate_resumed(slot, req, emitted)
 
     @scheduler_only
@@ -3895,7 +4098,8 @@ class ContinuousBatcher:
         ``emitted[-1]`` -- is not credited twice)."""
         n = len(req.tokens)
         if replay:
-            self._replay_emitted(slot, n, emitted[:-1])
+            with self._timed("prefill", "gen.replay"):
+                self._replay_emitted(slot, n, emitted[:-1])
         if self._spec_active():
             self._draft_admit_tokens(slot, req.tokens + emitted[:-1])
         s = _Slot(request=req, emitted=list(emitted), first_pending=False,
@@ -4286,7 +4490,7 @@ class ContinuousBatcher:
                 n_tok = k * len(lanes)
             read = self._rb(kind, rows=rows, k=k, bucket=g_bucket)
             with self._prof.measure(kind, variant=variant, tenant=tenant, bytes_read=read,
-                                    tokens=n_tok), device_trace("gen.decode_burst"):
+                                    tokens=n_tok):
                 if whole:
                     toks, counts = self._whole_burst(k, g_bucket, self._any_stoch, masked)
                 else:
@@ -4320,12 +4524,13 @@ class ContinuousBatcher:
             slot for slot, s in self._active.items()
             if s.request.eos_id is None and s.dispatched >= s.request.max_new_tokens
         ]
-        for slot in freed:
-            # a pre-freed lane never reaches _finish: publish its prompt
-            # now, before its next occupant's insert
-            self._maybe_publish(slot, self._active.pop(slot))
-            self._pos_host.pop(slot, None)
         if freed:
+            with self._timed("credit", "gen.credit"):
+                for slot in freed:
+                    # a pre-freed lane never reaches _finish: publish its
+                    # prompt now, before its next occupant's insert
+                    self._maybe_publish(slot, self._active.pop(slot))
+                    self._pos_host.pop(slot, None)
             self._masks_dirty = True
         return plan
 
@@ -4351,7 +4556,7 @@ class ContinuousBatcher:
                 "spec_burst", variant=f"g{self.speculate_tokens}b{attn_len}",
                 tenant=self._burst_tenant() if self._prof.enabled else "",
                 bytes_read=self._rb("spec_burst", rows=self.slots, k=k, bucket=attn_len),
-                tokens=k * self.slots), device_trace("gen.decode_burst"):
+                tokens=k * self.slots):
             self._phase(("spec", attn_len, stoch), lambda: self._spec_burst(attn_len, stoch))
         pending.append(_Burst(self._spec_out, None, snapshot, k, self._pinned, spec=True))
         self.stats["steps"] += k
@@ -4368,31 +4573,33 @@ class ContinuousBatcher:
         credited round by round up to its stop; the lane's host position
         bound tightens from the worst case ``k * (gamma + 1)`` to what
         its rounds emitted."""
-        host, _ = burst.numpy()  # seldon-lint: disable=host-sync-hot-path (the spec burst's tokens: the designed read behind the pipelined burst boundary)
-        if self._prof.enabled:
-            self._prof.resolve()
-        k, g = burst.k, self.speculate_tokens
-        start_tok = host[0]
-        toks = host[1: 1 + k * (g + 1)].reshape(k, g + 1, -1)
-        counts = host[1 + k * (g + 1):]  # [k, slots]
-        # acceptance over every lane that ran rounds, whatever the host
-        # credits of them
-        self.stats["spec_rounds"] += int((counts > 0).sum())
-        self.stats["spec_emitted"] += int(counts.sum())
-        worst = k * (g + 1)
-        for slot, (s, start, _col) in burst.snapshot.items():
-            if self._active.get(slot) is not s:
-                continue
-            if slot in self._pos_host:
-                self._pos_host[slot] -= worst - int(counts[:, slot].sum())
-            done = False
-            if start == 0:
-                done = self._credit(s, [int(start_tok[slot])])
-            for r in range(k):
-                if done:
-                    break
-                done = self._credit(s, toks[r, : int(counts[r, slot]), slot])
-        self._check_done()
+        with self._timed("read", "gen.read"):
+            host, _ = burst.numpy()  # seldon-lint: disable=host-sync-hot-path (the spec burst's tokens: the designed read behind the pipelined burst boundary)
+        with self._timed("credit", "gen.credit"):
+            if self._prof.enabled:
+                self._prof.resolve()
+            k, g = burst.k, self.speculate_tokens
+            start_tok = host[0]
+            toks = host[1: 1 + k * (g + 1)].reshape(k, g + 1, -1)
+            counts = host[1 + k * (g + 1):]  # [k, slots]
+            # acceptance over every lane that ran rounds, whatever the host
+            # credits of them
+            self.stats["spec_rounds"] += int((counts > 0).sum())
+            self.stats["spec_emitted"] += int(counts.sum())
+            worst = k * (g + 1)
+            for slot, (s, start, _col) in burst.snapshot.items():
+                if self._active.get(slot) is not s:
+                    continue
+                if slot in self._pos_host:
+                    self._pos_host[slot] -= worst - int(counts[:, slot].sum())
+                done = False
+                if start == 0:
+                    done = self._credit(s, [int(start_tok[slot])])
+                for r in range(k):
+                    if done:
+                        break
+                    done = self._credit(s, toks[r, : int(counts[r, slot]), slot])
+            self._check_done()
 
     def _flight(self, entry: Dict[str, Any]) -> None:
         """One typed event record, when the recorder is on."""
@@ -4433,131 +4640,150 @@ class ContinuousBatcher:
         pending: "collections.deque" = collections.deque()
         try:
             while not self._stop.is_set():
-                self._poll_count += 1
-                if self.fault_hook is not None:
-                    self.fault_hook(self._poll_count)
-                if self.tenant_hook is not None:
-                    # the TenantScheduler's poll clock (its starvation
-                    # bound counts scheduler polls)
-                    self.tenant_hook(self._poll_count)
-                if (self._active or self._chunked or pending or self._resume_queue
-                        or not self._queue.empty()):
-                    self._work_poll_count += 1
-                if self.pressure_hook is not None or self._pressure.budget_bytes > 0:
-                    # refresh the ledger; over the high watermark, run the
-                    # reclaim ladder at this poll boundary
-                    self._pressure_poll(pending)
-                # flight recorder: counters at the poll's start, so that
-                # the poll record carries what this poll did
-                flight = self.flight if self.flight is not None and self.flight.enabled else None
-                if flight is not None:
-                    f0 = (self.stats["admitted"], self.stats["prefill_chunks"],
-                          self.stats["prefix_hits"], self.stats["prefix_evicted"])
-                plan = None
-                # graceful drain: checkpoint everything at this boundary
-                # and hand it to the caller; admissions are refused since
-                # drain() latched "draining"
-                drain = self._pending_drain
-                if drain is not None:
-                    self._do_drain(drain, pending)
-                    continue
-                # live retune: applied here, before this poll reads any
-                # knob, so one poll never sees a half-applied configuration
-                # (an unlocked read: _do_retune re-checks under the lock)
-                retune = self._pending_retune
-                if retune is not None:
-                    self._do_retune(retune)
-                # live weight swap: admissions hold while in-flight lanes,
-                # chunked admissions and bursts finish on the old weights;
-                # the flip comes when all three are empty, so no burst mixes
-                # versions (an unlocked read: _do_swap re-checks the job
-                # under the lock)
-                swap = self._pending_swap
-                if swap is not None:
-                    if swap.drain_lanes is None:
-                        swap.drain_lanes = len(self._active) + len(self._chunked)
-                    if self._active or self._chunked or pending:
-                        swap.waited_polls += 1
-                        if (self.swap_drain_ms
-                                and time.monotonic() - swap.staged_t >= self.swap_drain_ms / 1e3):
-                            self._swap_preempt_stragglers(pending)
-                    if not self._active and not self._chunked and not pending:
-                        self._do_swap(swap)
-                        swap = None
-                # admissions wait while the ledger is latched
-                hold = self._pressure.budget_bytes > 0 and self._pressure.active
-                wave: List[GenRequest] = []
-                busy = len(self._active) + len(self._chunked)
-                wave_cost = 0
-                while swap is None and not hold and busy + len(wave) < self.slots:
-                    # preempted requests resume ahead of newer work
-                    if self._resume_queue:
-                        req = self._resume_queue.popleft()
-                    else:
-                        try:
-                            req = self._queue.get_nowait()
-                        except queue.Empty:
-                            break
-                    if req.deadline_t is not None and time.monotonic() >= req.deadline_t:
-                        req.future.cancel()  # its budget ran out in the queue
-                    if req.future.cancelled():
-                        self.stats["cancelled"] += 1
-                        # a preempted-then-cancelled request must not leave
-                        # its K/V checkpoint pinning tier budget
-                        self._release_tier_ckpt(req)
-                        continue  # the caller gave up while queued
-                    if self._spec_suppressed and req.temperature != 0.0:
-                        # while rung 2 keeps speculation off, a sampled
-                        # request waits at the head of the line: admitted
-                        # now it would switch to speculation mid-stream,
-                        # and its stream depends on that (a greedy one
-                        # does not)
-                        self._resume_queue.appendleft(req)
-                        break
-                    if self._pressure.budget_bytes > 0:
-                        # watermark-aware admission: a request whose end of
-                        # generation would trip the high watermark waits at
-                        # the head of the line (admitted now it would only
-                        # be preempted); alone it always admits
-                        cost = self._admit_cost_bytes(req)
-                        if (busy + len(wave)) and (
-                            self._pressure.used + wave_cost + cost
-                            >= self._pressure.high_bytes
-                        ):
-                            self._resume_queue.appendleft(req)
-                            break
-                        wave_cost += cost
-                    wave.append(req)
-                if wave:
-                    self._admit_wave(wave)
-                if not self._active and not pending and not self._chunked and not (
-                        self._resume_queue and not hold):
-                    try:
-                        req = self._queue.get(timeout=0.05)
-                    except queue.Empty:
-                        continue
-                    self._queue.put(req)
-                    continue
-                if self._chunked:
-                    # the interleave: one prefill chunk per long admission,
-                    # then the decode burst, so decode lanes keep their pace
-                    self._advance_chunks()
-                if self._active:
-                    plan = self._dispatch(pending)
-                if flight is not None:
-                    self._record_poll(flight, f0, plan, pending)
-                # read bursts oldest-first: always when the pipeline is
-                # full (or nothing is left to dispatch), and early when a
-                # burst's copy has already landed
-                while pending:
-                    if not (len(pending) >= self.pipeline_depth or not self._active):
-                        if not pending[0].ready():
-                            break
-                    self._process_burst(pending.popleft())
+                if self._calls:
+                    self._run_calls(self._calls)
+                with device_trace("gen.poll"):
+                    self._poll(pending)
         except Exception:  # noqa: BLE001 - every loop death is supervised
             logger.exception("continuous batcher loop died")
             return self._crash_recover(pending)
         return False  # clean stop via close()
+
+    @scheduler_only
+    def _poll(self, pending) -> None:
+        """One poll: the boundary's jobs (pressure, drain, retune, swap),
+        admissions, the chunk interleave, the decode dispatch and the
+        reads of landed bursts, each phase on the phase clock."""
+        self._poll_count += 1
+        if self.fault_hook is not None:
+            self.fault_hook(self._poll_count)
+        if self.tenant_hook is not None:
+            # the TenantScheduler's poll clock (its starvation bound counts
+            # scheduler polls)
+            self.tenant_hook(self._poll_count)
+        if (self._active or self._chunked or pending or self._resume_queue
+                or not self._queue.empty()):
+            self._work_poll_count += 1
+        if self.pressure_hook is not None or self._pressure.budget_bytes > 0:
+            # refresh the ledger; over the high watermark, run the reclaim
+            # ladder at this poll boundary
+            self._pressure_poll(pending)
+        # flight recorder: counters at the poll's start, so that the poll
+        # record carries what this poll did
+        flight = self.flight if self.flight is not None and self.flight.enabled else None
+        if flight is not None:
+            f0 = (self.stats["admitted"], self.stats["prefill_chunks"],
+                  self.stats["prefix_hits"], self.stats["prefix_evicted"])
+        plan = None
+        # graceful drain: checkpoint everything at this boundary and hand
+        # it to the caller; admissions are refused since drain() latched
+        # "draining"
+        drain = self._pending_drain
+        if drain is not None:
+            self._do_drain(drain, pending)
+            return
+        # live retune: applied here, before this poll reads any knob, so
+        # one poll never sees a half-applied configuration (an unlocked
+        # read: _do_retune re-checks under the lock)
+        retune = self._pending_retune
+        if retune is not None:
+            self._do_retune(retune)
+        # live weight swap: admissions hold while in-flight lanes, chunked
+        # admissions and bursts finish on the old weights; the flip comes
+        # when all three are empty, so no burst mixes versions (an
+        # unlocked read: _do_swap re-checks the job under the lock)
+        swap = self._pending_swap
+        if swap is not None:
+            if swap.drain_lanes is None:
+                swap.drain_lanes = len(self._active) + len(self._chunked)
+            if self._active or self._chunked or pending:
+                swap.waited_polls += 1
+                if (self.swap_drain_ms
+                        and time.monotonic() - swap.staged_t >= self.swap_drain_ms / 1e3):
+                    self._swap_preempt_stragglers(pending)
+            if not self._active and not self._chunked and not pending:
+                self._do_swap(swap)
+                swap = None
+        # admissions wait while the ledger is latched
+        hold = self._pressure.budget_bytes > 0 and self._pressure.active
+        if swap is None and not hold and (self._resume_queue or not self._queue.empty()):
+            with self._timed("admit", "gen.admit"):
+                self._admit_queued()
+        if not self._active and not pending and not self._chunked and not (
+                self._resume_queue and not hold):
+            with self._timed("idle", "gen.idle"):
+                try:
+                    req = self._queue.get(timeout=0.05)
+                except queue.Empty:
+                    return
+            self._queue.put(req)
+            return
+        if self._chunked:
+            # the interleave: one prefill chunk per long admission, then
+            # the decode burst, so decode lanes keep their pace
+            with self._timed("admit", "gen.admit"):
+                self._advance_chunks()
+        if self._active:
+            with self._timed("decode", "gen.decode_burst"):
+                plan = self._dispatch(pending)
+        if flight is not None:
+            self._record_poll(flight, f0, plan, pending)
+        # read bursts oldest-first: always when the pipeline is full (or
+        # nothing is left to dispatch), and early when a burst's copy has
+        # already landed
+        while pending:
+            if not (len(pending) >= self.pipeline_depth or not self._active):
+                if not pending[0].ready():
+                    break
+            self._process_burst(pending.popleft())
+
+    @scheduler_only
+    def _admit_queued(self) -> None:
+        """Pop a wave off the resume queue (first) and the admit queue,
+        up to the free lanes, and admit it. Requests past their deadline
+        or cancelled while queued are dropped here."""
+        wave: List[GenRequest] = []
+        busy = len(self._active) + len(self._chunked)
+        wave_cost = 0
+        while busy + len(wave) < self.slots:
+            # preempted requests resume ahead of newer work
+            if self._resume_queue:
+                req = self._resume_queue.popleft()
+            else:
+                try:
+                    req = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+            if req.deadline_t is not None and time.monotonic() >= req.deadline_t:
+                req.future.cancel()  # its budget ran out in the queue
+            if req.future.cancelled():
+                self.stats["cancelled"] += 1
+                # a preempted-then-cancelled request must not leave its K/V
+                # checkpoint pinning tier budget
+                self._release_tier_ckpt(req)
+                continue  # the caller gave up while queued
+            if self._spec_suppressed and req.temperature != 0.0:
+                # while rung 2 keeps speculation off, a sampled request
+                # waits at the head of the line: admitted now it would
+                # switch to speculation mid-stream, and its stream depends
+                # on that (a greedy one does not)
+                self._resume_queue.appendleft(req)
+                break
+            if self._pressure.budget_bytes > 0:
+                # watermark-aware admission: a request whose end of
+                # generation would trip the high watermark waits at the
+                # head of the line (admitted now it would only be
+                # preempted); alone it always admits
+                cost = self._admit_cost_bytes(req)
+                if (busy + len(wave)) and (
+                    self._pressure.used + wave_cost + cost >= self._pressure.high_bytes
+                ):
+                    self._resume_queue.appendleft(req)
+                    break
+                wave_cost += cost
+            wave.append(req)
+        if wave:
+            self._admit_wave(wave)
 
 
 def _pow2_floor(n: int) -> int:

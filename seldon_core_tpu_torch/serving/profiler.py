@@ -36,12 +36,10 @@ What a measurement is:
   waits on a burst only when it reads its tokens, pipeline_depth bursts
   later. A host clock around the dispatch would time the enqueue, tens
   of microseconds against milliseconds of device time.
-* **Deep mode** (every ``deep_every``-th measured dispatch) runs the
-  dispatch inside ``torch.profiler.record_function("ledger.<kind>
-  [<variant>]")`` and synchronises the end event inside it, so a
-  ``torch.profiler`` trace taken meanwhile names the device work with
-  the ledger's vocabulary. A deep sample drains the stream: a
-  deliberate, bounded perturbation.
+* **No deep mode**, unlike the JAX package: the scheduler's own
+  ``gen.*`` ranges name the same dispatches in a ``torch.profiler``
+  trace (``tracing.start_device_profile``), and no sample drains the
+  stream.
 * **During a CUDA-graph capture** nothing is measured: an event recorded
   inside a capture would become part of the graph.
 * **On the CPU**, ``measure`` times the call with ``time.perf_counter``,
@@ -91,26 +89,20 @@ class _Measurement:
     """One measured dispatch, as a context manager."""
 
     __slots__ = ("_ledger", "kind", "variant", "tenant", "bytes_read",
-                 "tokens", "_deep", "_annot", "_t0", "_events", "_mono")
+                 "tokens", "_t0", "_events", "_mono")
 
-    def __init__(self, ledger, kind, variant, tenant, bytes_read, tokens, deep):
+    def __init__(self, ledger, kind, variant, tenant, bytes_read, tokens):
         self._ledger = ledger
         self.kind = kind
         self.variant = variant
         self.tenant = tenant
         self.bytes_read = bytes_read
         self.tokens = tokens
-        self._deep = deep
-        self._annot = None
         self._t0 = 0.0
         self._events = None
         self._mono = 0.0
 
     def __enter__(self):
-        if self._deep:
-            self._annot = torch.profiler.record_function(
-                f"ledger.{self.kind}[{self.variant}]")
-            self._annot.__enter__()
         self._mono = time.monotonic()
         dev = self._ledger.device
         if dev is not None and dev.type == "cuda":
@@ -122,25 +114,17 @@ class _Measurement:
 
     def __exit__(self, exc_type, exc, tb):
         led = self._ledger
-        try:
-            if self._events is not None:
-                start, end = self._events
-                end.record(torch.cuda.current_stream(led.device))
-                if self._deep:
-                    end.synchronize()
-                if exc_type is None:
-                    led._enqueue(self, start, end)
-                else:
-                    led._give_events(self._events)
-            elif exc_type is None:
-                led._record(self.kind, self.variant, self.tenant,
-                            time.perf_counter() - self._t0, self.bytes_read,
-                            self.tokens, self._deep, self._mono)
-        finally:
-            if self._annot is not None:
-                self._annot.__exit__(exc_type, exc, tb)
-        if self._deep and self._events is not None:
-            led.resolve()
+        if self._events is not None:
+            start, end = self._events
+            end.record(torch.cuda.current_stream(led.device))
+            if exc_type is None:
+                led._enqueue(self, start, end)
+            else:
+                led._give_events(self._events)
+        elif exc_type is None:
+            led._record(self.kind, self.variant, self.tenant,
+                        time.perf_counter() - self._t0, self.bytes_read,
+                        self.tokens, self._mono)
         return False
 
 
@@ -173,13 +157,11 @@ class DeviceTimeLedger:
     def __init__(
         self,
         enabled: bool = False,
-        deep_every: int = 0,
         hbm_gb_s: float = 0.0,
         dispatch_floor_us: float = 0.0,
         device: Optional[torch.device] = None,
     ):
         self.enabled = bool(enabled)
-        self.deep_every = max(0, int(deep_every))
         # MBU / dispatch-floor denominators (0 = unknown: the gauges are
         # omitted rather than published as lies)
         self.hbm_gb_s = float(hbm_gb_s)
@@ -189,8 +171,6 @@ class DeviceTimeLedger:
         # (kind, variant, tenant) -> [seconds, dispatches, bytes, tokens]
         self._cum: Dict[Tuple[str, str, str], List[float]] = {}
         self._poll: Dict[Tuple[str, str, str], List[float]] = {}
-        self._seq = 0          # measured dispatches (deep-mode sampler)
-        self._deep_count = 0
         # (mono_t, seconds, bytes, dispatches, tokens) per record
         self._window: "collections.deque" = collections.deque(maxlen=8192)
         # CUDA: measured dispatches whose end event the stream has not
@@ -220,11 +200,7 @@ class DeviceTimeLedger:
         if (self.device is not None and self.device.type == "cuda"
                 and torch.cuda.is_current_stream_capturing()):
             return _NOOP
-        deep = False
-        if self.deep_every > 0:
-            self._seq += 1
-            deep = (self._seq % self.deep_every) == 0
-        return _Measurement(self, kind, variant, tenant, bytes_read, tokens, deep)
+        return _Measurement(self, kind, variant, tenant, bytes_read, tokens)
 
     def _take_events(self):
         with self._lock:
@@ -254,19 +230,17 @@ class DeviceTimeLedger:
                 self._pending.popleft()
                 secs = start.elapsed_time(end) * 1e-3
                 self._record_locked(m.kind, m.variant, m.tenant, secs,
-                                    m.bytes_read, m.tokens, m._deep, m._mono)
+                                    m.bytes_read, m.tokens, m._mono)
                 self._free.append((start, end))
                 n += 1
         return n
 
-    def _record(self, kind, variant, tenant, seconds, bytes_read, tokens,
-                deep, mono) -> None:
+    def _record(self, kind, variant, tenant, seconds, bytes_read, tokens, mono) -> None:
         with self._lock:
-            self._record_locked(kind, variant, tenant, seconds, bytes_read,
-                                tokens, deep, mono)
+            self._record_locked(kind, variant, tenant, seconds, bytes_read, tokens, mono)
 
-    def _record_locked(self, kind, variant, tenant, seconds, bytes_read,
-                       tokens, deep, mono) -> None:
+    def _record_locked(self, kind, variant, tenant, seconds, bytes_read, tokens,
+                       mono) -> None:
         key = (kind, variant, tenant)
         for m in (self._cum, self._poll):
             row = m.get(key)
@@ -277,8 +251,6 @@ class DeviceTimeLedger:
             row[1] += 1.0
             row[2] += bytes_read
             row[3] += tokens
-        if deep:
-            self._deep_count += 1
         self._window.append((mono, seconds, bytes_read, 1.0, tokens))
 
     # -- flush / export -----------------------------------------------------
@@ -360,7 +332,6 @@ class DeviceTimeLedger:
         self.resolve()
         with self._lock:
             rows = self._rows(self._cum)
-            deep = self._deep_count
         total_s = sum(r["s"] for r in rows)
         by_kind: Dict[str, float] = {}
         for r in rows:
@@ -370,7 +341,6 @@ class DeviceTimeLedger:
             "device_time_s": round(total_s, 6),
             "by_kind": by_kind,
             "buckets": rows,
-            "deep_samples": deep,
         }
         out.update(self.gauges())
         return out

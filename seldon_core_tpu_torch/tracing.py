@@ -16,10 +16,14 @@ in-process and served in Jaeger HTTP-API JSON shape at the engine's
 so traces stitch across engine → microservice process hops.
 
 Device hooks: ``device_trace`` opens a ``torch.profiler.record_function``
-range, so the enclosed device work is named inside a ``torch.profiler``
-trace; ``start_device_profile``/``stop_device_profile`` run
-``torch.profiler`` (CPU and CUDA activity) into a TensorBoard-loadable
-trace directory.
+range while a profiler session runs, so the enclosed device work is
+named inside a ``torch.profiler`` trace (a shared no-op otherwise);
+``start_device_profile``/``stop_device_profile`` run ``torch.profiler``
+(CPU and CUDA activity) into a TensorBoard-loadable trace directory, on
+the serving batcher's scheduler thread where one runs (a session records
+the ranges of the thread that started it only). ``wall_us`` stamps
+spans on the profiler's clock (epoch microseconds), so a span and the
+range of the same interval line up.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import contextlib
 import contextvars
 import os
 import random
+import sys
 import threading
 import time
 from collections import deque
@@ -124,9 +129,12 @@ class Tracer:
 
     @contextlib.contextmanager
     def span(self, operation: str, tags: Optional[Dict[str, Any]] = None,
-             headers: Optional[Dict[str, str]] = None):
+             headers: Optional[Dict[str, str]] = None, deferred: bool = False):
         """Open a span as a child of (priority order) the extracted header
-        context or the currently active span; activate it for the body."""
+        context or the currently active span; activate it for the body.
+        ``deferred``: the span outlives the body (a stream's root, whose
+        children end as its last chunk goes out) and is recorded by
+        :meth:`end_span`; a body that raises records it at once."""
         if not self.enabled:
             yield _NOOP_SPAN
             return
@@ -172,17 +180,31 @@ class Tracer:
         except Exception as e:
             s.set_tag("error", True)
             s.log(event="error", message=str(e))
+            deferred = False
             raise
         finally:
-            s.duration_us = int((time.perf_counter() - t0) * 1e6)
             _current_span.reset(token)
-            with self._lock:
-                self._spans.append(s)
-                if self.exporter is not None:
-                    self._pending.append(s)
-                    do_flush = len(self._pending) >= 64
-            if self.exporter is not None and do_flush:
-                self.flush()
+            if not deferred:
+                s.duration_us = int((time.perf_counter() - t0) * 1e6)
+                self._record(s)
+
+    def end_span(self, s: Span) -> None:
+        """Record a span opened with ``deferred=True``, ending now (a no-op
+        for a span tracing left unrecorded)."""
+        if isinstance(s, _NoopSpan):
+            return
+        s.duration_us = max(0, wall_us() - s.start_us)
+        self._record(s)
+
+    def _record(self, s: Span) -> None:
+        with self._lock:
+            self._spans.append(s)
+            do_flush = False
+            if self.exporter is not None:
+                self._pending.append(s)
+                do_flush = len(self._pending) >= 64
+        if do_flush:
+            self.flush()
 
     def flush(self) -> int:
         """Push pending spans to the agent now; returns spans exported."""
@@ -244,14 +266,7 @@ class Tracer:
             duration_us=max(0, int(duration_us)),
             tags=dict(tags or {}),
         )
-        with self._lock:
-            self._spans.append(s)
-            do_flush = False
-            if self.exporter is not None:
-                self._pending.append(s)
-                do_flush = len(self._pending) >= 64
-        if do_flush:
-            self.flush()
+        self._record(s)
         return s
 
     # -- propagation --------------------------------------------------------
@@ -565,39 +580,146 @@ def get_tracer() -> Tracer:
 
 # -- device tracing -----------------------------------------------------
 
-_PROFILER = None
+_NULL_RANGE = contextlib.nullcontext()
 
 
-@contextlib.contextmanager
 def device_trace(name: str):
-    """Name the enclosed device work inside ``torch.profiler`` traces (the
-    counterpart of the reference's span around the model call)."""
+    """A context manager naming the enclosed work inside ``torch.profiler``
+    traces (the counterpart of the reference's span around the model
+    call): a ``record_function`` range while a profiler session runs in
+    the process, else a shared no-op, one attribute check. A session
+    records the ranges of the thread that started it only: the batcher's
+    ranges reach a trace through :func:`start_device_profile`."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not getattr(prof, "_is_profiler_enabled", True):
+        return _NULL_RANGE
     import torch
 
-    with torch.profiler.record_function(name):
-        yield
+    return torch.profiler.record_function(name)
+
+
+class _DeviceProfile:
+    """The session :func:`start_device_profile` runs: a ``torch.profiler``
+    profile, the directory its trace goes to, and the scheduler whose
+    thread started it (None: the caller's thread). The session stops on
+    the thread that started it; its trace is written by whoever ends it
+    (:func:`stop_device_profile`'s caller), off the scheduler's thread:
+    writing takes seconds."""
+
+    def __init__(self, prof, logdir: str, host):
+        self.prof = prof
+        self.logdir = logdir
+        self.host = host
+        self.running = False
+        self.written = False
+        self._lock = threading.Lock()
+
+    def start(self) -> None:
+        self.prof.start()
+        self.running = True
+
+    def stop(self) -> None:
+        if self.running:
+            self.running = False
+            self.prof.stop()
+
+    def write(self) -> None:
+        from torch.profiler import tensorboard_trace_handler
+
+        with self._lock:
+            if self.written or self.running:
+                return
+            self.written = True
+        tensorboard_trace_handler(self.logdir)(self.prof)
+
+
+_PROFILE: Optional[_DeviceProfile] = None
+_PROFILE_LOCK = threading.Lock()
+# schedulers whose own thread can host the session, newest last: a
+# ContinuousBatcher is one while its poll loop runs
+_PROFILE_HOSTS: List[Any] = []
+
+
+def add_profile_host(host) -> None:
+    """Offer ``host``'s thread for device profiles. ``host`` has a
+    ``call_on_scheduler(fn) -> Future`` that runs ``fn`` on that thread
+    between two polls."""
+    with _PROFILE_LOCK:
+        _PROFILE_HOSTS.append(host)
+
+
+def release_profile_host(host) -> None:
+    """Withdraw ``host`` (on its own thread, as its loop ends): a session
+    it started is stopped there, and its trace written."""
+    with _PROFILE_LOCK:
+        if host in _PROFILE_HOSTS:
+            _PROFILE_HOSTS.remove(host)
+        sess = _PROFILE if _PROFILE is not None and _PROFILE.host is host else None
+    if sess is not None:
+        sess.stop()
+        sess.write()
 
 
 def start_device_profile(logdir: str) -> None:
-    """Start a ``torch.profiler`` run whose trace lands in ``logdir``
-    (TensorBoard-loadable) when :func:`stop_device_profile` ends it."""
-    global _PROFILER
+    """Start a ``torch.profiler`` run (CPU and CUDA activity) whose trace
+    lands in ``logdir`` (TensorBoard-loadable) when
+    :func:`stop_device_profile` ends it.
+
+    With a batcher serving in the process, its scheduler thread starts
+    the session between two polls (the batcher started last, where there
+    are several: a session records one thread's ranges), so that its
+    ``gen.*`` ranges and the device's activity land in one trace on the
+    profiler's clock, which :func:`wall_us` agrees with; without one,
+    this thread does."""
+    global _PROFILE
     import torch
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+    from torch.profiler import ProfilerActivity, profile
 
-    if _PROFILER is not None:
-        raise RuntimeError("a device profile is already running")
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    _PROFILER = profile(activities=activities,
-                        on_trace_ready=tensorboard_trace_handler(logdir))
-    _PROFILER.start()
+    with _PROFILE_LOCK:
+        if _PROFILE is not None:
+            raise RuntimeError("a device profile is already running")
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        sess = _DeviceProfile(
+            profile(activities=activities), logdir,
+            _PROFILE_HOSTS[-1] if _PROFILE_HOSTS else None)
+        _PROFILE = sess
+    try:
+        if sess.host is None:
+            sess.start()
+        else:
+            sess.host.call_on_scheduler(sess.start).result()
+    except BaseException:
+        with _PROFILE_LOCK:
+            _PROFILE = None
+        raise
 
 
-def stop_device_profile() -> None:
-    global _PROFILER
-    prof, _PROFILER = _PROFILER, None
-    if prof is None:
+def stop_device_profile() -> Dict[str, float]:
+    """End the running session on the thread that started it (a stop
+    from another thread while the scheduler replays CUDA graphs can hang
+    the process), then write its trace on this thread. Returns the
+    seconds of each: ``stop_s`` (what a scheduler's thread spent
+    stopping, a pause of its serving that grows with the events traced:
+    on an H100 serving a 7B model, 17 s for a 4 s session) and
+    ``write_s``."""
+    global _PROFILE
+    with _PROFILE_LOCK:
+        sess, _PROFILE = _PROFILE, None
+    if sess is None:
         raise RuntimeError("no device profile is running")
-    prof.stop()
+    t0 = time.monotonic()
+    if sess.host is None:
+        sess.stop()
+    else:
+        try:
+            sess.host.call_on_scheduler(sess.stop).result()
+        except Exception:
+            # the host's loop ended meanwhile, and stopped the session as
+            # it did
+            if sess.running:
+                raise
+    t1 = time.monotonic()
+    sess.write()
+    return {"stop_s": t1 - t0, "write_s": time.monotonic() - t1}

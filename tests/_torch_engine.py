@@ -150,13 +150,13 @@ class Served:
         finally:
             conn.close()
 
-    def sse(self, body, timeout=120):
+    def sse(self, body, timeout=120, headers=None):
         """POST /api/v0.1/generate; (status, content type, [events])."""
         status, raw = None, b""
         conn = http.client.HTTPConnection("127.0.0.1", self.http_port, timeout=timeout)
         try:
             conn.request("POST", "/api/v0.1/generate", json.dumps(body).encode(),
-                         {"Content-Type": "application/json"})
+                         {"Content-Type": "application/json", **(headers or {})})
             resp = conn.getresponse()
             status, ctype, raw = resp.status, resp.getheader("Content-Type"), resp.read()
         finally:

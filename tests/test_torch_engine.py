@@ -152,7 +152,8 @@ def test_prometheus_series_equal_jax_builtin():
 def test_prometheus_series_generate_graph(engines):
     """The engine's own series and the generate SLO histograms are the
     JAX engine's; of the generate server's custom series the port ships
-    a subset, the modelled burst reads and read bytes among them."""
+    a subset, the modelled burst reads and read bytes among them, plus
+    the first token's hold (a TIMER the JAX server has not)."""
     names = {}
     for app in engines:
         rest = app.rest_app()
@@ -161,8 +162,10 @@ def test_prometheus_series_generate_graph(engines):
     jax_names, port_names = names[engines[0]], names[engines[1]]
     def own(ns):
         return {n for n in ns if not n.startswith("seldon_custom_")}
+    hold = {f"seldon_custom_gen_first_token_hold_ms_{x}" for x in ("bucket", "count", "sum")}
     assert own(port_names) == own(jax_names)
-    assert port_names - own(port_names) <= jax_names - own(jax_names)
+    assert hold <= port_names and not hold & jax_names
+    assert port_names - own(port_names) - hold <= jax_names - own(jax_names)
     assert "seldon_engine_generate_ttft_seconds_bucket" in port_names
     assert {"seldon_custom_gen_burst_reads", "seldon_custom_gen_burst_read_bytes"} \
         <= port_names & jax_names
